@@ -10,20 +10,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build the CUDA kernels from ``framedipt_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 (tolerance 1e-4) and bf16 (5e-2), at B=1 N=256, B=2 N=200 (ragged)
-   and B=2 N=128 and 256 (the serving shapes), with random non-zero weights;
-   time the kernel, the plain version and compute the bound; and the
-   pair MLP without its residual terms and the edge embedder without
-   distance bins;
-4. one full-width forward (default config, N=128) through the kernels
-   against the recorded reference activations in
-   ``tests/parity/fixtures/recorded_full_parity.npz``;
+   and B=2 N=128 and 256 (the serving shapes), and the IPA attention also at
+   B=1 N=768 (a bucket past the JAX kernel's N <= 640 gate) with a fully
+   masked row, with random non-zero weights; time the kernel, the plain
+   version and compute the bound; the pair MLP without its residual terms
+   and the edge embedder without distance bins; and the IPA module's kernel
+   branch against its einsum branch at B=2 N=256, both timed (CUDA events,
+   and their summed device time under torch.profiler);
+4. one full-width forward (default config, N=128) against the recorded
+   reference activations in ``tests/parity/fixtures/recorded_full_parity.npz``,
+   with the IPA attention as einsums and again through its kernel
+   (``model.ipa.use_pallas_ipa``);
 5. start the inpainting HTTP service in-process on 127.0.0.1 at the full
    default width with seeded random weights, send three /inpaint requests
    (buckets 256 and 128, two samples each, num_t=100 for two of them), and
    check residue count, finite coordinates, the fixed residues' CA against the
-   input, and the kernels' launch counts per request; then time one model
-   forward at the serving shape through the kernels and through their plain
-   versions, and profile a short sampler run (device busy share, the
+   input, and the kernels' launch counts per request (no IPA launch); then a
+   second service with ``model.ipa.use_pallas_ipa=true`` and two requests
+   (bucket 256 num_t=100, bucket 128 num_t=25), 4 (num_t + 1) IPA launches
+   each, and the first request once more on the default service (request
+   times in the order default, IPA, default); then time one model forward
+   at the serving shape with the IPA
+   kernel off, on, and on with every kernel's plain version, and profile a
+   short sampler run with the IPA kernel off and on (device busy share, the
    kernels that take the device's time).
 
 The last two lines are a JSON object with one entry per kernel and the
@@ -153,31 +162,97 @@ def edge_embedder_cost(B, N, dtype):
     return flops, nbytes
 
 
+IPA_H, IPA_C, IPA_PQ, IPA_PV, IPA_CZ, IPA_DZ = 8, 256, 8, 12, 128, 32
+
+
+def ipa_attention_inputs(B, N, dtype, gen):
+    """The wrapper's arguments at the default widths: q pre-scaled as the
+    module scales it, points spread as frames place them, a padded tail and
+    one fully masked row (N // 3) inside the chain."""
+    from framedipt_tpu_torch.model.kernels.ipa_attention import build_point_inputs
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    H, C, Pq, Pv = IPA_H, IPA_C, IPA_PQ, IPA_PV
+    mask = torch.ones(B, N, device="cuda")
+    mask[:, N - N // 10 :] = 0.0
+    mask[0, N // 3] = 0.0
+    w = torch.nn.functional.softplus(r(H)) * (3 * Pq * 9.0 / 2) ** -0.5
+    qhat, khat, vpt = build_point_inputs(
+        r(B, N, H, Pq, 3, scale=3.0), r(B, N, H, Pq, 3, scale=3.0), r(B, N, H, Pv, 3, scale=3.0), w
+    )
+    return [
+        r(B, N, H * C, scale=(3 * C) ** -0.5).to(dtype), r(B, N, H * C).to(dtype),
+        r(B, N, H * C).to(dtype), qhat, khat, vpt, r(B, N, N, IPA_CZ).to(dtype), mask,
+        r(IPA_CZ, H, scale=(3 * IPA_CZ) ** -0.5).to(dtype),
+        r(IPA_CZ, IPA_DZ, scale=IPA_CZ**-0.5).to(dtype),
+    ]
+
+
+def ipa_attention_cost(B, N, dtype):
+    """Operations and bytes of one launch: the scalar and point logits and
+    the p.v, p.v_pts products on the useful lanes (3 Pq + 2 = 26, 3 Pv =
+    36), the single pair projection onto H + dz lanes, and o_pair; each
+    input read once and each output written once."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    H, C = IPA_H, IPA_C
+    pairs = B * N * N
+    flops = 2 * pairs * (H * (2 * C + 3 * IPA_PQ + 2 + 3 * IPA_PV)
+                         + IPA_CZ * (H + IPA_DZ) + H * IPA_DZ)
+    nbytes = (
+        es * (3 * B * N * H * C + pairs * IPA_CZ + IPA_CZ * (H + IPA_DZ))
+        + 4 * (B * N * H * (2 * 28 + 36) + B * N)
+        + 4 * B * N * H * (C + 3 * IPA_PV + IPA_DZ)
+    )
+    return flops, nbytes
+
+
+def compare(got, ref, tol: float) -> tuple[float, float]:
+    """max_violation over one output or a tuple of outputs."""
+    pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+    errs = [max_violation(g, r, tol) for g, r in pairs]
+    return max(e for e, _ in errs), max(x for _, x in errs)
+
+
 def check_kernels() -> dict[str, dict]:
     from framedipt_tpu_torch.model.kernels.edge_embedder import (
         edge_embedder,
         edge_embedder_plain,
     )
+    from framedipt_tpu_torch.model.kernels.ipa_attention import (
+        ipa_attention,
+        ipa_attention_plain,
+    )
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp, pair_mlp_plain
 
+    ipa_kw = {"no_heads": IPA_H, "no_v_points": IPA_PV}
+    serving_shapes = ((1, 256), (2, 200), (2, 128), (2, 256))
     kernels = {
         "edge_embedder": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
-                          edge_embedder_cost),
-        "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost),
+                          edge_embedder_cost, serving_shapes),
+        "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, serving_shapes),
+        "ipa_attention": (lambda *a: ipa_attention(*a, **ipa_kw),
+                          lambda *a: ipa_attention_plain(*a, **ipa_kw),
+                          ipa_attention_inputs, ipa_attention_cost,
+                          serving_shapes + ((1, 768),)),
     }
     serving = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, (kernel, plain, make, cost) in kernels.items():
+    for name, (kernel, plain, make, cost, shapes) in kernels.items():
         for dtype in (torch.float32, torch.bfloat16):
             # (2, 128) and (2, 256) are the serving shapes of phase 5.
-            for B, N in ((1, 256), (2, 200), (2, 128), (2, 256)):
+            for B, N in shapes:
                 args = make(B, N, dtype, gen)
                 got = kernel(*args)
                 ref = plain(*args)
                 torch.cuda.synchronize()
-                err, excess = max_violation(got, ref, TOL[dtype])
-                if not torch.isfinite(got.float()).all():
+                err, excess = compare(got, ref, TOL[dtype])
+                outs = got if isinstance(got, tuple) else (got,)
+                if not all(torch.isfinite(g.float()).all() for g in outs):
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: non-finite output")
+                if name == "ipa_attention" and any((g[0, N // 3] != 0).any() for g in outs):
+                    raise AssertionError(f"{name} {dtype} B={B} N={N}: masked row not zero")
                 ms = cuda_time_ms(lambda: kernel(*args), 20)
                 plain_ms = cuda_time_ms(lambda: plain(*args), 5)
                 flops, nbytes = cost(B, N, dtype)
@@ -213,10 +288,70 @@ def check_kernels() -> dict[str, dict]:
     return serving
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: the summed time of the kernels it
+    launches under torch.profiler, over ``iters`` calls (idle gaps left
+    out, unlike cuda_time_ms); 0.0 if the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters
+
+
+def compare_ipa_branches(B: int = 2, N: int = 256) -> None:
+    """The IPA module's two attention branches on the same call at the
+    default widths (random weights, random frames, padded tail): the kernel
+    branch (point augmentation, weight preparation, the kernel) against the
+    einsum branch (linear_b and down_z over z, logits, softmax, products) on
+    the unmasked rows, float32 tolerance; both timed with CUDA events (idle
+    gaps included) and by their summed device time."""
+    from framedipt_tpu_torch.geometry.rigid import Rigid
+    from framedipt_tpu_torch.model.ipa import InvariantPointAttention
+    from framedipt_tpu_torch.tools.config import IPAConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    torch.manual_seed(3)
+    ipa = InvariantPointAttention(IPAConfig(), torch.float32).to("cuda").eval()
+    qs = torch.randn(B, N, 4, generator=gen, device="cuda")
+    rigids = Rigid(qs / qs.norm(dim=-1, keepdim=True),
+                   torch.randn(B, N, 3, generator=gen, device="cuda") * 2.0)
+    s = torch.randn(B, N, 256, generator=gen, device="cuda")
+    z = torch.randn(B, N, N, 128, generator=gen, device="cuda")
+    mask = torch.ones(B, N, device="cuda")
+    mask[:, 230:] = 0.0
+    with torch.inference_mode():
+        heads = ipa.project(s, rigids.rot_mats(), rigids.trans)
+        got = ipa.attend_kernel(*heads, z, mask)
+        ref = ipa.attend_einsum(*heads, z, mask)
+        rows = mask[..., None]
+        err, excess = compare(tuple(g * (rows if g.dim() == 3 else rows[..., None]) for g in got),
+                              tuple(r * (rows if r.dim() == 3 else rows[..., None]) for r in ref),
+                              TOL[torch.float32])
+        times, dev = {}, {}
+        for label in ("einsum", "kernel", "kernel", "einsum"):
+            fn = ipa.attend_kernel if label == "kernel" else ipa.attend_einsum
+            times.setdefault(label, []).append(cuda_time_ms(lambda: fn(*heads, z, mask), 10))
+            dev.setdefault(label, []).append(device_ms(lambda: fn(*heads, z, mask)))
+    log(f"IPA module branches float32 B={B} N={N}: max_abs_err={err:.3e} on unmasked rows; "
+        f"kernel branch {min(times['kernel']):.4f} ms, einsum branch {min(times['einsum']):.4f} ms "
+        f"(best of 2 interleaved runs of 10: {times}); device time per call: kernel branch "
+        f"{min(dev['kernel']):.4f} ms, einsum branch {min(dev['einsum']):.4f} ms ({dev})")
+    if excess > 0:
+        raise AssertionError(f"IPA kernel branch against einsum branch: error {err} over tolerance")
+
+
 # -- phase 4: full-width forward against the recorded reference ------------
 
 
-def check_recorded_forward() -> None:
+def check_recorded_forward(use_pallas_ipa: bool) -> None:
     from framedipt_tpu_torch.diffusion import SE3Diffuser
     from framedipt_tpu_torch.model import ScoreNetwork
     from framedipt_tpu_torch.model.weights import synth_value
@@ -225,6 +360,7 @@ def check_recorded_forward() -> None:
     z = np.load(REPO / "tests" / "parity" / "fixtures" / "recorded_full_parity.npz")
     manifest = json.loads(str(z["param_manifest"]))
     cfg = Config()
+    cfg.model.ipa.use_pallas_ipa = use_pallas_ipa
     resolve_kernel_flags(cfg, torch.device("cuda"))
     diffuser = SE3Diffuser(cfg.diffuser, device="cuda")
     net = ScoreNetwork(cfg.model, diffuser, inpainting=True)
@@ -240,7 +376,8 @@ def check_recorded_forward() -> None:
         ref = z[f"out::{key}"]
         got = out[key].float().cpu().numpy()
         rel = float(np.abs(got - ref).max() / max(1.0, float(np.abs(ref).max())))
-        log(f"recorded forward N=128 {key}: rel err {rel:.3e} (tol {tol})")
+        log(f"recorded forward N=128 use_pallas_ipa={use_pallas_ipa} {key}: "
+            f"rel err {rel:.3e} (tol {tol})")
         if not rel < tol:
             raise AssertionError(f"recorded forward {key}: rel err {rel} >= {tol}")
 
@@ -299,38 +436,42 @@ def helix_pdb(n_res: int, seed: int) -> str:
     ))
 
 
-def drive_service() -> tuple[int, int, list[float]]:
+KERNEL_NAMES = ("edge_embedder", "pair_mlp", "ipa_attention")
+
+
+def kernel_wrappers() -> dict:
+    from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder
+    from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention
+    from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp
+
+    return {"edge_embedder": edge_embedder, "pair_mlp": pair_mlp, "ipa_attention": ipa_attention}
+
+
+def serve_requests(service, requests) -> dict[str, int]:
+    """Serve ``requests`` ((length, loop window, num_t), two samples each)
+    from ``service`` over HTTP and check every reply and every request's
+    launches. The launch counts are set to 0 just before the first request
+    and read just after the last; returns them."""
     from http.server import ThreadingHTTPServer
 
     from framedipt_tpu_torch.data.protein import from_pdb_string
-    from framedipt_tpu_torch.experiments.serve import InpaintingService, make_handler
-    from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder
-    from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp
-    from framedipt_tpu_torch.tools.config import Config
+    from framedipt_tpu_torch.experiments.serve import make_handler
 
-    cfg = Config()  # full default width: 4 blocks, c_s 256, edge width 128
-    cfg.inference.weights_path = ""  # seeded random weights, final layers damped
-    t0 = time.perf_counter()
-    service = InpaintingService(cfg, device="cuda")
-    log(f"service up in {time.perf_counter() - t0:.2f} s "
-        f"(kernels: embedder={service.cfg.model.ipa.use_pallas_embedder}, "
-        f"edge transition={service.cfg.model.ipa.use_pallas_kernel})")
+    wrappers = kernel_wrappers()
+    ipa_on = bool(service.cfg.model.ipa.use_pallas_ipa)
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
-    # (length, loop window, num_t): lengths land in buckets 256 and 128.
-    requests = [(230, (100, 112), 100), (100, (40, 51), 100), (120, (60, 70), 25)]
-    seconds = []
     try:
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
             assert json.load(r)["status"] == "ok"
         torch.cuda.synchronize()
-        edge_embedder.launches = 0
-        pair_mlp.launches = 0
+        for fn in wrappers.values():
+            fn.launches = 0
         for k, (n_res, (start, end), num_t) in enumerate(requests):
             pdb = helix_pdb(n_res, seed=k)
-            emb0, pair0 = edge_embedder.launches, pair_mlp.launches
+            before = {name: fn.launches for name, fn in wrappers.items()}
             body = json.dumps({
                 "pdb": pdb, "chain": "A", "start": start, "end": end,
                 "samples": 2, "num_t": num_t,
@@ -342,16 +483,16 @@ def drive_service() -> tuple[int, int, list[float]]:
             with urllib.request.urlopen(req, timeout=900) as r:
                 reply = json.load(r)
             took = time.perf_counter() - t0
-            seconds.append(took)
             if "samples" not in reply:
                 raise AssertionError(f"request {k} failed: {reply}")
-            d_emb = edge_embedder.launches - emb0
-            d_pair = pair_mlp.launches - pair0
-            if (d_emb, d_pair) != (num_t + 1, (NUM_BLOCKS - 1) * (num_t + 1)):
-                raise AssertionError(
-                    f"request {k}: launches embedder={d_emb} pair_mlp={d_pair}, expected "
-                    f"{num_t + 1} and {(NUM_BLOCKS - 1) * (num_t + 1)}"
-                )
+            got_launches = {name: fn.launches - before[name] for name, fn in wrappers.items()}
+            want = {
+                "edge_embedder": num_t + 1,
+                "pair_mlp": (NUM_BLOCKS - 1) * (num_t + 1),
+                "ipa_attention": NUM_BLOCKS * (num_t + 1) if ipa_on else 0,
+            }
+            if got_launches != want:
+                raise AssertionError(f"request {k}: launches {got_launches}, expected {want}")
             ref = from_pdb_string(pdb)
             fixed = np.ones(n_res, bool)
             fixed[start : end + 1] = False
@@ -367,19 +508,74 @@ def drive_service() -> tuple[int, int, list[float]]:
                 if not ca_err <= 1e-3 + 1e-9:
                     raise AssertionError(f"request {k} sample {s}: fixed CA moved {ca_err} A")
             log(
-                f"request {k}: N={n_res} (bucket {256 if n_res > 128 else 128}), samples=2, "
-                f"num_t={num_t}: {took:.3f} s (server {reply['seconds']:.3f} s), "
-                f"launches embedder={d_emb} pair_mlp={d_pair}, fixed CA max dev {worst:.1e} A"
+                f"request {k} (use_pallas_ipa={ipa_on}): N={n_res} "
+                f"(bucket {256 if n_res > 128 else 128}), samples=2, num_t={num_t}: "
+                f"{took:.3f} s (server {reply['seconds']:.3f} s), launches "
+                + " ".join(f"{name}={n}" for name, n in got_launches.items())
+                + f", fixed CA max dev {worst:.1e} A"
             )
         torch.cuda.synchronize()
-        launches = edge_embedder.launches, pair_mlp.launches
-        time_forward(service.model)
-        profile_sampler(service.model, service.diffuser)
-        return launches[0], launches[1], seconds
+        return {name: fn.launches for name, fn in wrappers.items()}
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
+
+
+def drive_service() -> dict[str, int]:
+    """Phase 5: the default service, then one with the IPA attention kernel
+    on. Returns each kernel's launches on the path that runs it (the edge
+    kernels' from the default service, the IPA kernel's from the second)."""
+    from framedipt_tpu_torch.experiments.serve import InpaintingService
+    from framedipt_tpu_torch.tools.config import Config, load_config
+
+    cfg = Config()  # full default width: 4 blocks, c_s 256, edge width 128
+    cfg.inference.weights_path = ""  # seeded random weights, final layers damped
+    t0 = time.perf_counter()
+    service = InpaintingService(cfg, device="cuda")
+    log(f"service up in {time.perf_counter() - t0:.2f} s")
+    # (length, loop window, num_t): lengths land in buckets 256 and 128.
+    default = serve_requests(
+        service, [(230, (100, 112), 100), (100, (40, 51), 100), (120, (60, 70), 25)]
+    )
+    log(f"default service launches: {default}")
+
+    cfg_ipa = load_config(["model.ipa.use_pallas_ipa=true"])
+    cfg_ipa.inference.weights_path = ""
+    t0 = time.perf_counter()
+    service_ipa = InpaintingService(cfg_ipa, device="cuda")
+    log(f"service (model.ipa.use_pallas_ipa=true) up in {time.perf_counter() - t0:.2f} s")
+    with_ipa = serve_requests(service_ipa, [(230, (100, 112), 100), (120, (60, 70), 25)])
+    log(f"use_pallas_ipa service launches: {with_ipa}")
+    del service_ipa
+    torch.cuda.empty_cache()
+    # The first request once more on the default service, so the two
+    # configurations' request times come in the order default, IPA, default.
+    serve_requests(service, [(230, (100, 112), 100)])
+
+    time_forward(service.model)
+    for on in (False, True):
+        with ipa_kernel(service.model, on):
+            profile_sampler(service.model, service.diffuser)
+    return {"edge_embedder": default["edge_embedder"], "pair_mlp": default["pair_mlp"],
+            "ipa_attention": with_ipa["ipa_attention"]}
+
+
+@contextlib.contextmanager
+def ipa_kernel(model: torch.nn.Module, on: bool):
+    """For a timing only: every IPA block of ``model`` takes its kernel
+    branch (``on``) or its einsum branch, as ``use_pallas_ipa`` would set."""
+    from framedipt_tpu_torch.model.ipa import InvariantPointAttention
+
+    blocks = [m for m in model.modules() if isinstance(m, InvariantPointAttention)]
+    saved = [m.use_kernel for m in blocks]
+    for m in blocks:
+        m.use_kernel = on
+    try:
+        yield
+    finally:
+        for m, was in zip(blocks, saved):
+            m.use_kernel = was
 
 
 def serving_feats(B: int = 2, N: int = 256) -> dict[str, torch.Tensor]:
@@ -409,29 +605,35 @@ def plain_versions_in_model():
     versions in place of the wrappers (the library has no such path)."""
     from framedipt_tpu_torch.model import embed, ipa
     from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder_plain
+    from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention_plain
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp_plain
 
-    wrappers = embed.edge_embedder, ipa.pair_mlp
-    embed.edge_embedder, ipa.pair_mlp = edge_embedder_plain, pair_mlp_plain
+    wrappers = embed.edge_embedder, ipa.pair_mlp, ipa.ipa_attention
+    embed.edge_embedder, ipa.pair_mlp, ipa.ipa_attention = (
+        edge_embedder_plain, pair_mlp_plain, ipa_attention_plain
+    )
     try:
         yield
     finally:
-        embed.edge_embedder, ipa.pair_mlp = wrappers
+        embed.edge_embedder, ipa.pair_mlp, ipa.ipa_attention = wrappers
 
 
 def time_forward(model: torch.nn.Module) -> None:
-    """One ScoreNetwork forward at the serving shape, through the kernels
-    and through their plain versions (same weights, same inputs)."""
+    """One ScoreNetwork forward at the serving shape with the IPA attention
+    as einsums ("ipa off"), through its kernel ("ipa on"), and with the IPA
+    kernel on and every kernel swapped for its plain version ("plain"); same
+    weights, same inputs, interleaved."""
     feats = serving_feats()
     times = {}
     with torch.inference_mode():
-        for label in ("kernels", "plain", "plain", "kernels"):
-            with plain_versions_in_model() if label == "plain" else contextlib.nullcontext():
+        for label in ("ipa off", "ipa on", "plain", "plain", "ipa on", "ipa off"):
+            plain = plain_versions_in_model() if label == "plain" else contextlib.nullcontext()
+            with ipa_kernel(model, label != "ipa off"), plain:
                 times.setdefault(label, []).append(cuda_time_ms(lambda: model(feats), 10))
     log(
-        f"forward B=2 N=256 float32: kernels {min(times['kernels']):.3f} ms, "
-        f"plain versions {min(times['plain']):.3f} ms (best of 2 interleaved runs "
-        f"of 10 forwards each: {times})"
+        "forward B=2 N=256 float32: "
+        + ", ".join(f"{label} {min(t):.3f} ms" for label, t in times.items())
+        + f" (best of 2 interleaved runs of 10 forwards each: {times})"
     )
 
 
@@ -442,8 +644,10 @@ def profile_sampler(model: torch.nn.Module, diffuser, num_t: int = 10) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from framedipt_tpu_torch.model.ipa import InvariantPointAttention
     from framedipt_tpu_torch.sampling import sample
 
+    ipa_on = any(m.use_kernel for m in model.modules() if isinstance(m, InvariantPointAttention))
     feats = serving_feats()
 
     def run() -> None:
@@ -465,7 +669,8 @@ def profile_sampler(model: torch.nn.Module, diffuser, num_t: int = 10) -> None:
         log("sampler profile: torch.profiler recorded no device time (busy share not measured)")
         return
     busy = sum(device_ms.values())
-    log(f"sampler B=2 N=256 num_t={num_t} ({num_t + 1} forwards): {wall_ms:.1f} ms wall, "
+    log(f"sampler B=2 N=256 num_t={num_t} ({num_t + 1} forwards, use_pallas_ipa={ipa_on}): "
+        f"{wall_ms:.1f} ms wall, "
         f"{busy:.1f} ms of device time, busy share {busy / wall_ms:.3f}")
     for name, ms in sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {ms:9.3f} ms  {name[:100]}")
@@ -495,16 +700,18 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     serving = check_kernels()
+    compare_ipa_branches()
     log("phase 4: full-width forward against the recorded reference")
-    check_recorded_forward()
+    check_recorded_forward(use_pallas_ipa=False)
+    check_recorded_forward(use_pallas_ipa=True)
     log("phase 5: inpainting service")
-    emb_launches, pair_launches, _ = drive_service()
+    launches = drive_service()
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
         "pair_mlp": "framedipt_tpu/model/pallas/pair_mlp.py:78",
+        "ipa_attention": "framedipt_tpu/model/pallas/ipa_attention.py:65",
     }
-    launches = {"edge_embedder": emb_launches, "pair_mlp": pair_launches}
     kernels = [
         {
             "name": name, "route": "cuda",
@@ -512,7 +719,7 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             **serving[name],
         }
-        for name in ("edge_embedder", "pair_mlp")
+        for name in KERNEL_NAMES
     ]
     log(card_line())  # name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))

@@ -14,6 +14,9 @@ Usage:
     python -m framedipt_tpu_torch.experiments.serve --port=8900 \
         [--weights=weights/inpainting.pth] [--device=cuda] [config overrides...]
 
+``model.ipa.use_pallas_ipa=true`` runs the IPA attention through its fused
+CUDA kernel (off by default); the start-up line names the kernels in use.
+
 Float32 products run in full float32: TF32 is switched off for matmuls and
 cuDNN when the service starts.
 """
@@ -65,6 +68,12 @@ class InpaintingService:
                 cfg = merge_checkpoint_config(cfg, ckpt_conf)
         resolve_kernel_flags(cfg, self.device)
         self.cfg = cfg
+        ipa = cfg.model.ipa
+        print(
+            f"kernels: edge embedder={ipa.use_pallas_embedder}, "
+            f"edge transition={ipa.use_pallas_kernel}, IPA attention={ipa.use_pallas_ipa}",
+            flush=True,
+        )
         if self.device.type == "cuda":
             build_all()
         self.diffuser = SE3Diffuser(cfg.diffuser, device=self.device)

@@ -8,7 +8,10 @@ The squared point distance is expanded as |q|^2 + |k|^2 - 2 q.k, so the
 in float32; frame algebra is always float32. The EdgeTransition is
 concat-free (kernel rows sliced into O(N) node terms) and runs its pair MLP
 through the pair-MLP wrapper (``kernels/pair_mlp.py``): the CUDA kernel on
-the card, its plain PyTorch version on CPU tensors.
+the card, its plain PyTorch version on CPU tensors. With
+``model.ipa.use_pallas_ipa`` the IPA attention runs through the fused
+attention wrapper (``kernels/ipa_attention.py``) in the same way; without
+it, as einsums.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from framedipt_tpu_torch.geometry.rigid import Rigid
+from framedipt_tpu_torch.model.kernels.ipa_attention import build_point_inputs, ipa_attention
 from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp
 from framedipt_tpu_torch.model.layers import Linear, LayerNorm
 from framedipt_tpu_torch.tools.config import IPAConfig, ModelConfig
@@ -43,10 +47,13 @@ def _points_from_linear(x: torch.Tensor) -> torch.Tensor:
 
 class InvariantPointAttention(nn.Module):
     def __init__(self, conf: IPAConfig, dtype: torch.dtype, inf: float = 1e5,
-                 eps: float = 1e-8) -> None:
+                 eps: float = 1e-8, use_kernel: bool = False) -> None:
         super().__init__()
         c = conf
         self.conf, self.dtype, self.inf, self.eps = conf, dtype, inf, eps
+        # Attention through the fused kernel (model.ipa.use_pallas_ipa) or
+        # as einsums; both compute the same function on unmasked rows.
+        self.use_kernel = use_kernel
         H, C, Pq, Pv = c.no_heads, c.c_hidden, c.no_qk_points, c.no_v_points
         self.linear_q = Linear(c.c_s, H * C, dtype=dtype)
         self.linear_kv = Linear(c.c_s, 2 * H * C, dtype=dtype)
@@ -63,11 +70,27 @@ class InvariantPointAttention(nn.Module):
 
     def forward(self, s: torch.Tensor, z: torch.Tensor, rigids: Rigid,
                 mask: torch.Tensor) -> torch.Tensor:
+        mats, trans = rigids.rot_mats(), rigids.trans
+        heads = self.project(s, mats, trans)
+        if self.use_kernel:
+            o, o_pt_global, o_pair = self.attend_kernel(*heads, z, mask)
+        else:
+            o, o_pt_global, o_pair = self.attend_einsum(*heads, z, mask)
+
+        o_pt = _invert_apply_frames(mats, trans, o_pt_global)
+        o_pt_norm = torch.sqrt(torch.sum(o_pt**2, dim=-1) + self.eps)
+        o_feats = torch.cat(
+            [o, o_pt[..., 0], o_pt[..., 1], o_pt[..., 2], o_pt_norm, o_pair], dim=-1
+        )
+        return self.linear_out(o_feats)
+
+    def project(self, s: torch.Tensor, mats: torch.Tensor, trans: torch.Tensor):
+        """Scalar q, k, v [B,N,H,C] in the compute dtype, global-frame points
+        q_pts, k_pts [B,N,H,Pq,3] and v_pts [B,N,H,Pv,3] in float32, and the
+        point-logit head weights pt_scale [H]."""
         c = self.conf
         H, C, Pq, Pv = c.no_heads, c.c_hidden, c.no_qk_points, c.no_v_points
         B, N, _ = s.shape
-        mats, trans = rigids.rot_mats(), rigids.trans
-
         q = self.linear_q(s).reshape(B, N, H, C)
         k, v = torch.split(self.linear_kv(s).reshape(B, N, H, 2 * C), C, dim=-1)
 
@@ -79,7 +102,14 @@ class InvariantPointAttention(nn.Module):
         k_pts, v_pts = torch.split(kv_pts, [Pq, Pv], dim=-2)
 
         pt_scale = F.softplus(self.head_weights) * np.sqrt(1.0 / (3 * (Pq * 9.0 / 2)))
+        return q, k, v, q_pts, k_pts, v_pts, pt_scale
 
+    def attend_einsum(self, q, k, v, q_pts, k_pts, v_pts, pt_scale, z, mask):
+        """Attention as einsums (the JAX package's XLA formulation): returns
+        o [B,N,H*C], o_pt_global [B,N,H*Pv,3] and o_pair [B,N,H*dz], float32.
+        Fully masked rows get uniform-softmax values (node-masked downstream)."""
+        B, N, H, C = q.shape
+        Pq, Pv = q_pts.shape[3], v_pts.shape[3]
         b = self.linear_b(z)  # [B, N, N, H]
         a = torch.einsum("bihc,bjhc->bhij", q.to(F32), k.to(F32))
         a = a * np.sqrt(1.0 / (3 * C))
@@ -110,13 +140,29 @@ class InvariantPointAttention(nn.Module):
         o_pair = torch.einsum(
             "bhij,bijd->bihd", a.to(self.dtype).to(F32), pair_z.to(F32)
         ).reshape(B, N, -1)
+        return o, o_pt_global, o_pair
 
-        o_pt = _invert_apply_frames(mats, trans, o_pt_global)
-        o_pt_norm = torch.sqrt(torch.sum(o_pt**2, dim=-1) + self.eps)
-        o_feats = torch.cat(
-            [o, o_pt[..., 0], o_pt[..., 1], o_pt[..., 2], o_pt_norm, o_pair], dim=-1
+    def attend_kernel(self, q, k, v, q_pts, k_pts, v_pts, pt_scale, z, mask):
+        """The same attention through the fused kernel's wrapper
+        (``kernels/ipa_attention.py``), as the JAX package's Pallas branch
+        feeds it: q pre-scaled by sqrt(1/(3C)), linear_b's weight by
+        sqrt(1/3) without its bias (which cancels in the softmax), down_z's
+        weight with its bias added to o_pair after (rows of p sum to 1), and
+        the augmented points. Fully masked rows get exactly 0."""
+        B, N, H, C = q.shape
+        dt = self.dtype
+        qhat, khat, vpt = build_point_inputs(q_pts, k_pts, v_pts, pt_scale)
+        o, o_pt_global, o_pair = ipa_attention(
+            (q * np.sqrt(1.0 / (3 * C))).reshape(B, N, H * C),
+            k.contiguous().reshape(B, N, H * C),
+            v.contiguous().reshape(B, N, H * C),
+            qhat, khat, vpt, z.to(dt).contiguous(), mask.to(F32).contiguous(),
+            (self.linear_b.weight.t() * np.sqrt(1.0 / 3)).to(dt).contiguous(),
+            self.down_z.weight.t().to(dt).contiguous(),
+            no_heads=H, no_v_points=v_pts.shape[3], inf=self.inf,
         )
-        return self.linear_out(o_feats)
+        o_pair = (o_pair.reshape(B, N, H, -1) + self.down_z.bias.to(F32)).reshape(B, N, -1)
+        return o, o_pt_global, o_pair
 
 
 class StructureModuleTransition(nn.Module):
@@ -269,7 +315,9 @@ class IpaScore(nn.Module):
         self.conf, self.dtype = conf, dtype
         trunk = {}
         for b in range(ipa.num_blocks):
-            trunk[f"ipa_{b}"] = InvariantPointAttention(ipa, dtype)
+            trunk[f"ipa_{b}"] = InvariantPointAttention(
+                ipa, dtype, use_kernel=bool(ipa.use_pallas_ipa)
+            )
             trunk[f"ipa_ln_{b}"] = LayerNorm(ipa.c_s, dtype=dtype)
             trunk[f"skip_embed_{b}"] = Linear(conf.node_embed_size, ipa.c_skip, dtype=dtype)
             trunk[f"seq_tfmr_{b}"] = SeqTransformer(

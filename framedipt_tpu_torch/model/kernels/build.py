@@ -20,7 +20,11 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent.parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"edge_embedder": "edge_embedder.cu", "pair_mlp": "pair_mlp.cu"}
+SOURCES = {
+    "edge_embedder": "edge_embedder.cu",
+    "ipa_attention": "ipa_attention.cu",
+    "pair_mlp": "pair_mlp.cu",
+}
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

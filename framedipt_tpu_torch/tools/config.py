@@ -1,12 +1,16 @@
 """Typed configuration: the dataclasses the inpainting service needs, with
 the JAX package's defaults and its dotted-override loader.
 
-``use_pallas_kernel`` / ``use_pallas_embedder`` keep their names so configs
-carry over; here they mean "run the hand-written CUDA kernel". ``None``
-resolves to True on a CUDA device and False on the CPU
-(:func:`resolve_kernel_flags`). The model always calls the kernel wrappers,
-which take the plain PyTorch versions only for CPU tensors, so on the card
-the kernels are the only path and an explicit False there is refused.
+``use_pallas_kernel`` / ``use_pallas_embedder`` / ``use_pallas_ipa`` keep
+their names so configs carry over; here they mean "run the hand-written CUDA
+kernel". For the first two ``None`` resolves to True on a CUDA device and
+False on the CPU (:func:`resolve_kernel_flags`): the model always calls
+their wrappers, which take the plain PyTorch versions only for CPU tensors,
+so on the card those kernels are the only path and an explicit False there
+is refused. ``use_pallas_ipa`` chooses between two formulations of the IPA
+attention, the fused kernel and einsums; ``None`` resolves to False on
+every device, as in the JAX package. True runs the kernel on the card (or
+raises) and its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -72,6 +76,9 @@ class IPAConfig:
     # Embedder edge branch through the edge-embedder CUDA kernel
     # (csrc/edge_embedder.cu).
     use_pallas_embedder: bool | None = None
+    # IPA attention through the fused attention CUDA kernel
+    # (csrc/ipa_attention.cu) instead of einsums. Off unless asked for.
+    use_pallas_ipa: bool | None = None
 
 
 @dataclass
@@ -153,7 +160,10 @@ def load_config(overrides: list[str] | None = None) -> Config:
     return cfg
 
 
-KERNEL_FLAGS = ("use_pallas_kernel", "use_pallas_embedder")
+# The flags whose kernels are the only path on the card.
+ALWAYS_ON_FLAGS = ("use_pallas_kernel", "use_pallas_embedder")
+# Run settings, not the model's: a checkpoint's config does not set them.
+KERNEL_FLAGS = ALWAYS_ON_FLAGS + ("use_pallas_ipa",)
 
 
 def merge_checkpoint_config(cfg: Config, ckpt_conf: dict[str, Any]) -> Config:
@@ -186,12 +196,15 @@ def _known_only(obj: Any, updates: dict[str, Any]) -> dict[str, Any]:
 
 
 def resolve_kernel_flags(cfg: Config, device) -> None:
-    """Resolve auto (None) kernel flags in place: the CUDA kernels run iff
-    the model runs on a CUDA device. An explicit False on a CUDA device
-    raises: the port has no plain path on the card."""
+    """Resolve auto (None) kernel flags in place: the edge-stack kernels run
+    iff the model runs on a CUDA device, and an explicit False for them on a
+    CUDA device raises (the port has no plain path on the card). The IPA
+    attention kernel runs only when asked for."""
     on_cuda = getattr(device, "type", str(device)).startswith("cuda")
     ipa = cfg.model.ipa
-    for flag in KERNEL_FLAGS:
+    if ipa.use_pallas_ipa is None:
+        ipa.use_pallas_ipa = False
+    for flag in ALWAYS_ON_FLAGS:
         if getattr(ipa, flag) is None:
             setattr(ipa, flag, on_cuda)
         elif on_cuda and not getattr(ipa, flag):

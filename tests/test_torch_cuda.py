@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+from framedipt_tpu_torch.model.kernels import ipa_attention as t_ipa
 from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 
 
@@ -76,6 +77,53 @@ def emb_to_torch(args, dtype):
     # Coordinates and LayerNorm params stay float32.
     return [torch.as_tensor(x) if i in (2, 3, 15, 16) else torch.as_tensor(x).to(dtype)
             for i, x in enumerate(args)]
+
+
+def ipa_args(rng, B, N, H, C, Pq, Pv, c_z, zero_rows=3, masked_row=1):
+    """numpy inputs of the IPA attention before the point augmentation:
+    (q pre-scaled, k, v [B,N,H*C], q_pts, k_pts [B,N,H,Pq,3], v_pts
+    [B,N,H,Pv,3], point weights [H], z [B,N,N,c_z], mask [B,N], wb [c_z,H]
+    pre-scaled, wdz [c_z,c_z//4]), with a padded tail and one fully masked
+    row inside the valid range."""
+    def a(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    mask = np.ones((B, N), np.float32)
+    mask[:, N - zero_rows:] = 0.0
+    mask[0, masked_row] = 0.0
+    pt_w = np.log1p(np.exp(a(H))) * np.sqrt(1.0 / (3 * (Pq * 9.0 / 2)))
+    return [a(B, N, H * C, scale=(3 * C) ** -0.5), a(B, N, H * C), a(B, N, H * C),
+            a(B, N, H, Pq, 3, scale=3.0), a(B, N, H, Pq, 3, scale=3.0), a(B, N, H, Pv, 3, scale=3.0),
+            pt_w.astype(np.float32), a(B, N, N, c_z), mask,
+            a(c_z, H, scale=(3 * c_z) ** -0.5), a(c_z, c_z // 4, scale=c_z**-0.5)]
+
+
+def ipa_to_torch(args, dtype, device="cpu"):
+    """The wrapper's arguments (before the keywords) from :func:`ipa_args`."""
+    q, k, v, qp, kp, vp, w, z, mask, wb, wdz = (torch.as_tensor(x, device=device) for x in args)
+    qhat, khat, vpt = t_ipa.build_point_inputs(qp, kp, vp, w)
+    return [q.to(dtype), k.to(dtype), v.to(dtype), qhat, khat, vpt, z.to(dtype), mask,
+            wb.to(dtype), wdz.to(dtype)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ipa_attention_matches_plain_version(dtype):
+    """On the card: the IPA attention kernel against its plain version at
+    the default widths, ragged N=200 (several key tiles) with a padded tail
+    and a fully masked row, B=2; the launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    args = ipa_to_torch(ipa_args(np.random.default_rng(1), 2, 200, 8, 256, 8, 12, 128),
+                        dtype, "cuda")
+    before = t_ipa.ipa_attention.launches
+    got = t_ipa.ipa_attention(*args, no_heads=8, no_v_points=12)
+    want = t_ipa.ipa_attention_plain(*args, no_heads=8, no_v_points=12)
+    assert t_ipa.ipa_attention.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+        assert (g[0, 1] == 0).all()  # the fully masked row
 
 
 @pytest.mark.gpu

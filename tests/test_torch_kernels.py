@@ -1,7 +1,8 @@
 """The kernels' plain versions against the JAX package: the XLA twins and the
 Pallas kernels in interpret mode (small tiles), with ragged N, zeroed masks
 and the d = 0 diagonal; and the dispatch, read from the wrappers' code and
-from the model's calls to them.
+from the model's calls to them. (The IPA attention's plain version is held
+against JAX in tests/test_torch_ipa_attention.py.)
 
 Tolerances: float32 atol/rtol 1e-4, bf16 5e-2 (tests/unit/test_pallas_kernels.py).
 The CUDA kernels themselves are checked on the card (tests/test_torch_cuda.py
@@ -23,9 +24,17 @@ from framedipt_tpu.model.pallas import pair_mlp as j_pair
 from framedipt_tpu_torch.model import embed as t_embed_mod
 from framedipt_tpu_torch.model import ipa as t_ipa_mod
 from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+from framedipt_tpu_torch.model.kernels import ipa_attention as t_ipa
 from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 
-from tests.test_torch_cuda import emb_args, emb_to_torch, pair_args, pair_to_torch
+from tests.test_torch_cuda import (
+    emb_args,
+    emb_to_torch,
+    ipa_args,
+    ipa_to_torch,
+    pair_args,
+    pair_to_torch,
+)
 
 
 def _to_jax(args, dtype):
@@ -150,6 +159,7 @@ def _wrapper_ast(fn):
 @pytest.mark.parametrize("wrapper,plain", [
     (t_pair.pair_mlp, "pair_mlp_plain"),
     (t_emb.edge_embedder, "edge_embedder_plain"),
+    (t_ipa.ipa_attention, "ipa_attention_plain"),
 ])
 def test_cuda_tensors_never_reach_the_plain_version(wrapper, plain):
     """Read from the dispatch code: the plain version is called in exactly
@@ -193,11 +203,42 @@ def test_model_reaches_the_kernels_only_through_the_wrappers(module, wrapper, cl
     assert not conditional
 
 
+def _calls(tree, name):
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and ((isinstance(n.func, ast.Name) and n.func.id == name)
+                 or (isinstance(n.func, ast.Attribute) and n.func.attr == name))]
+
+
+def test_ipa_reaches_the_kernel_only_through_its_wrapper():
+    """Read from the model's code: ``ipa_attention`` is called once, in
+    ``InvariantPointAttention.attend_kernel`` under no condition, and
+    ``forward`` calls ``attend_kernel`` exactly when ``self.use_kernel``
+    holds; so with the flag on a CUDA tensor reaches the kernel or raises,
+    and no ``try`` gives way to the einsum branch."""
+    tree = ast.parse(inspect.getsource(t_ipa_mod))
+    cls = next(c for c in tree.body if isinstance(c, ast.ClassDef)
+               and c.name == "InvariantPointAttention")
+    methods = {f.name: f for f in cls.body if isinstance(f, ast.FunctionDef)}
+    calls = _calls(tree, "ipa_attention")
+    assert len(calls) == 1
+    attend = methods["attend_kernel"]
+    assert any(n is calls[0] for n in ast.walk(attend))
+    assert not any(isinstance(n, (ast.If, ast.IfExp, ast.Try)) for n in ast.walk(attend))
+    forward = methods["forward"]
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(forward))
+    branch = [n for n in ast.walk(forward) if isinstance(n, ast.If)]
+    assert len(branch) == 1 and ast.unparse(branch[0].test) == "self.use_kernel"
+    assert [ast.unparse(c.func) for c in _calls(ast.Module(branch[0].body, []), "attend_kernel")] \
+        == ["self.attend_kernel"]
+    assert len(_calls(tree, "attend_kernel")) == 1
+    assert not _calls(ast.Module(branch[0].orelse, []), "attend_kernel")
+
+
 def test_no_port_module_outside_the_wrappers_names_a_plain_version():
     """The plain versions are reached only from their wrappers' CPU branch:
     no other module of the port imports or names them."""
     root = pathlib.Path(t_emb.__file__).resolve().parents[2]
-    kernels = {pathlib.Path(t_emb.__file__).resolve(), pathlib.Path(t_pair.__file__).resolve()}
+    kernels = {pathlib.Path(m.__file__).resolve() for m in (t_emb, t_pair, t_ipa)}
     for path in sorted(root.rglob("*.py")):
         if path.resolve() in kernels:
             continue
@@ -205,13 +246,18 @@ def test_no_port_module_outside_the_wrappers_names_a_plain_version():
         names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
         names |= {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
         names |= {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) for a in n.names}
-        assert not {"pair_mlp_plain", "edge_embedder_plain"} & names, path
+        assert not {"pair_mlp_plain", "edge_embedder_plain", "ipa_attention_plain"} & names, path
 
 
-@pytest.mark.parametrize("wrapper", ["pair", "emb"])
+@pytest.mark.parametrize("wrapper", ["pair", "emb", "ipa"])
 def test_other_devices_raise(wrapper):
     """A tensor on a device that is neither the CPU nor CUDA is refused."""
-    if wrapper == "pair":
+    if wrapper == "ipa":
+        args = ipa_to_torch(ipa_args(np.random.default_rng(0), 1, 6, 2, 8, 4, 4, 16), torch.float32)
+        args = [a.to("meta") for a in args]
+        with pytest.raises(ValueError, match="unsupported device"):
+            t_ipa.ipa_attention(*args, no_heads=2, no_v_points=4)
+    elif wrapper == "pair":
         args = pair_to_torch(pair_args(np.random.default_rng(0), 1, 4, 8, 8, 8, True), torch.float32)
         args = [None if a is None else a.to("meta") for a in args]
         with pytest.raises(ValueError, match="unsupported device"):
