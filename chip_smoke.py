@@ -33,7 +33,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    at the serving shape with the IPA
    kernel off, on, and on with every kernel's plain version, and profile a
    short sampler run with the IPA kernel off and on (device busy share, the
-   kernels that take the device's time).
+   kernels that take the device's time);
+6. the train step at the full default width (float32, inpainting,
+   ``model.ipa.pallas_emb_bwd_impl=xla``), B=2 N=256 on helix frames with a
+   15-residue diffused loop: the first step against the same step with
+   every kernel's plain version (loss and every gradient), then 10 steps at
+   lr 1e-4 (finite loss and grad norm, parameters moved, 3 pair-MLP
+   backward launches a step), the step time, examples/s, peak memory and
+   the device's busy share over 5 steps; and on the card the refusals: a
+   pair-MLP backward other than its kernel, the embedder backward kernel
+   (not ported yet), the IPA attention kernel under autograd.
+
+Phase 3 also holds the pair-MLP backward kernel against its plain version
+(every gradient, float32 and bf16, B=1 N=256, B=2 N=200 ragged with masked
+rows, B=2 N=256, residual and not), checks that two launches give the same
+bits, and times it at B=2 N=256.
 
 The last two lines are a JSON object with one entry per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
@@ -288,6 +302,71 @@ def check_kernels() -> dict[str, dict]:
     return serving
 
 
+def pair_mlp_bwd_cost(B, N, dtype):
+    """Operations and bytes of one backward launch: the forward recompute
+    and two products per forward product (d-input, d-weight); pair,
+    cotangent and d_pair, the O(N) inputs once, the float32 gradients."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    mlp = 128 * 384 + 384 * 384 + 384 * 128 + 128 * 128
+    flops = B * N * N * 3 * 2 * mlp
+    nbytes = (es * (3 * B * N * N * 128 + B * N * (2 * 384 + 2 * 128 + 2) + 2 * mlp + 2 * 384 + 128)
+              + 4 * (B * N * (2 * 384 + 2 * 128 + 2) + mlp + 2 * 384 + 3 * 128))
+    return flops, nbytes
+
+
+def check_pair_mlp_bwd() -> dict:
+    """The pair-MLP backward kernel against its plain version on the card:
+    every gradient within tol of its own max-abs (float32 1e-4, bf16 5e-2),
+    residual and not; two launches bit-identical; times at B=2 N=256."""
+    from framedipt_tpu_torch.model.kernels.pair_mlp import (
+        bwd_workspace_floats,
+        pair_mlp_bwd,
+        pair_mlp_bwd_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, N, residual in ((1, 256, True), (2, 200, True), (2, 256, True), (2, 200, False)):
+            args = pair_mlp_inputs(B, N, dtype, gen, residual=residual)
+            g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
+            got = pair_mlp_bwd(g, *args)
+            again = pair_mlp_bwd(g, *args)
+            ref = pair_mlp_bwd_plain(g, *args)
+            torch.cuda.synchronize()
+            same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+            worst_rel, worst_abs = 0.0, 0.0
+            for i, (a, r) in enumerate(zip(got, ref)):
+                if r is None:
+                    continue
+                if not torch.isfinite(a.float()).all():
+                    raise AssertionError(f"pair_mlp_bwd {dtype} B={B} N={N}: gradient {i} not finite")
+                err = float((a.float() - r.float()).abs().max())
+                rel = err / max(float(r.float().abs().max()), 1e-30)
+                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            label = f"pair_mlp_bwd {str(dtype)[6:]} B={B} N={N} residual={residual}"
+            line = (f"{label}: max err {worst_abs:.3e} abs, {worst_rel:.3e} of the gradient's "
+                    f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}")
+            if (B, N, residual) == (2, 256, True):
+                ms = cuda_time_ms(lambda: pair_mlp_bwd(g, *args), 20)
+                plain_ms = cuda_time_ms(lambda: pair_mlp_bwd_plain(g, *args), 5)
+                flops, nbytes = pair_mlp_bwd_cost(B, N, dtype)
+                bound_ms = 1e3 * max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES)
+                bound_by = ("operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES
+                            else "bytes")
+                blocks = torch.cuda.get_device_properties(0).multi_processor_count
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by}), {flops / ms / 1e9:.2f} TFLOP/s, workspace "
+                         f"{4 * bwd_workspace_floats(B, N, N, blocks)} bytes ({blocks} blocks)")
+                if dtype == torch.float32:
+                    out = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            log(line)
+            if worst_rel > TOL[dtype] or not same:
+                raise AssertionError(f"{label}: error {worst_rel} over tolerance or not deterministic")
+    return out
+
+
 def device_ms(fn, iters: int = 10) -> float:
     """Device time of one call of ``fn``: the summed time of the kernels it
     launches under torch.profiler, over ``iters`` calls (idle gaps left
@@ -436,15 +515,16 @@ def helix_pdb(n_res: int, seed: int) -> str:
     ))
 
 
-KERNEL_NAMES = ("edge_embedder", "pair_mlp", "ipa_attention")
+KERNEL_NAMES = ("edge_embedder", "pair_mlp", "ipa_attention", "pair_mlp_bwd")
 
 
 def kernel_wrappers() -> dict:
     from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder
     from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention
-    from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp
+    from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp, pair_mlp_bwd
 
-    return {"edge_embedder": edge_embedder, "pair_mlp": pair_mlp, "ipa_attention": ipa_attention}
+    return {"edge_embedder": edge_embedder, "pair_mlp": pair_mlp,
+            "ipa_attention": ipa_attention, "pair_mlp_bwd": pair_mlp_bwd}
 
 
 def serve_requests(service, requests) -> dict[str, int]:
@@ -490,6 +570,7 @@ def serve_requests(service, requests) -> dict[str, int]:
                 "edge_embedder": num_t + 1,
                 "pair_mlp": (NUM_BLOCKS - 1) * (num_t + 1),
                 "ipa_attention": NUM_BLOCKS * (num_t + 1) if ipa_on else 0,
+                "pair_mlp_bwd": 0,
             }
             if got_launches != want:
                 raise AssertionError(f"request {k}: launches {got_launches}, expected {want}")
@@ -601,21 +682,25 @@ def serving_feats(B: int = 2, N: int = 256) -> dict[str, torch.Tensor]:
 
 @contextlib.contextmanager
 def plain_versions_in_model():
-    """For a timing only: the model's modules call the kernels' plain
-    versions in place of the wrappers (the library has no such path)."""
-    from framedipt_tpu_torch.model import embed, ipa
-    from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder_plain
+    """For a timing or a reference only: the model (and the autograd
+    Functions it calls) call the kernels' plain versions in place of the
+    wrappers (the library has no such path)."""
+    from framedipt_tpu_torch.model import ipa
+    from framedipt_tpu_torch.model.kernels import edge_embedder as emb
+    from framedipt_tpu_torch.model.kernels import pair_mlp as pm
     from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention_plain
-    from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp_plain
 
-    wrappers = embed.edge_embedder, ipa.pair_mlp, ipa.ipa_attention
-    embed.edge_embedder, ipa.pair_mlp, ipa.ipa_attention = (
-        edge_embedder_plain, pair_mlp_plain, ipa_attention_plain
-    )
+    swaps = [(emb, "edge_embedder", emb.edge_embedder_plain),
+             (pm, "pair_mlp", pm.pair_mlp_plain), (pm, "pair_mlp_bwd", pm.pair_mlp_bwd_plain),
+             (ipa, "ipa_attention", ipa_attention_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        embed.edge_embedder, ipa.pair_mlp, ipa.ipa_attention = wrappers
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def time_forward(model: torch.nn.Module) -> None:
@@ -676,6 +761,218 @@ def profile_sampler(model: torch.nn.Module, diffuser, num_t: int = 10) -> None:
         log(f"  {ms:9.3f} ms  {name[:100]}")
 
 
+# -- phase 6: the train step -------------------------------------------------
+
+
+# Kernel step against plain-version step, per gradient on the scale of
+# max(its own max-abs, 1e-3 x the largest): the kernels sum in other orders
+# than cuBLAS (measured worst 3.7e-6 at full width).
+TRAIN_TOL = 1e-4
+
+
+def train_batch(B: int = 2, N: int = 256) -> dict[str, torch.Tensor]:
+    """A synthetic training batch: ideal-helix frames centred on the CA
+    centroid, torsions from the port's transforms, random residue types, a
+    15-residue diffused loop (a different window per sample), the rest
+    fixed."""
+    from framedipt_tpu_torch.data import transforms
+
+    atom37, mask = helix_atom37(N)
+    atom37 = atom37 - atom37[:, 1].mean(axis=0)
+    rng = np.random.default_rng(6)
+    aatype = rng.integers(0, 20, size=(B, N))
+    rigids = np.stack([transforms.backbone_rigid_tensor7(a, atom37, mask) for a in aatype])
+    tors = np.stack([transforms.atom37_to_torsion_angles(a, atom37, mask)["torsion_angles_sin_cos"]
+                     for a in aatype])
+    fixed = np.ones((B, N), np.float32)
+    for b in range(B):
+        start = 100 + 30 * b
+        fixed[b, start : start + 15] = 0.0
+    batch = {
+        "rigids_0": rigids, "res_mask": np.ones((B, N), np.float32), "fixed_mask": fixed,
+        "seq_idx": np.tile(np.arange(N), (B, 1)), "torsion_angles_sin_cos": tors,
+        "aatype": aatype,
+    }
+    return {k: torch.as_tensor(np.asarray(v), device="cuda") for k, v in batch.items()}
+
+
+def train_config():
+    from framedipt_tpu_torch.tools.config import load_config
+
+    cfg = load_config(["model.ipa.pallas_emb_bwd_impl=xla"])  # full default width, float32
+    cfg.experiment.inpainting = True
+    return cfg
+
+
+def step_launches(trainer, batch, seed: int) -> tuple[dict, dict[str, int]]:
+    """One train step; the launch counts set to 0 just before it and read
+    just after."""
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    metrics = trainer.step(batch, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    return metrics, {name: fn.launches for name, fn in wrappers.items()}
+
+
+def expected_launches(self_conditioned: bool) -> dict[str, int]:
+    forwards = 2 if self_conditioned else 1  # the coin's forward runs without gradients
+    return {"edge_embedder": forwards, "pair_mlp": (NUM_BLOCKS - 1) * forwards,
+            "ipa_attention": 0, "pair_mlp_bwd": NUM_BLOCKS - 1}
+
+
+def check_training_refusals() -> None:
+    """On the card: a pair-MLP backward other than its kernel cannot be
+    asked for (the override is refused), a trainer with the embedder
+    backward kernel ("pallas") raises NotImplementedError until it is
+    ported, and the IPA attention kernel refuses to run where autograd
+    records."""
+    from framedipt_tpu_torch.geometry.rigid import Rigid
+    from framedipt_tpu_torch.model.ipa import InvariantPointAttention
+    from framedipt_tpu_torch.tools.config import IPAConfig, load_config
+    from framedipt_tpu_torch.train.loop import make_trainer
+
+    with expect_raise(KeyError, "pallas_bwd_impl"):
+        load_config(["model.ipa.pallas_bwd_impl=xla"])
+    cfg = train_config()
+    cfg.model.ipa.pallas_emb_bwd_impl = "pallas"
+    with expect_raise(NotImplementedError, "ROADMAP queue 2 item 2"):
+        make_trainer(cfg, device="cuda")
+    ipa = InvariantPointAttention(IPAConfig(), torch.float32).to("cuda")
+    B, N = 1, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qs = torch.randn(B, N, 4, generator=gen, device="cuda")
+    rigids = Rigid(qs / qs.norm(dim=-1, keepdim=True), torch.randn(B, N, 3, generator=gen, device="cuda"))
+    heads = ipa.project(torch.randn(B, N, 256, generator=gen, device="cuda"), rigids.rot_mats(),
+                        rigids.trans)
+    with expect_raise(RuntimeError, "forward-only"):
+        ipa.attend_kernel(*heads, torch.randn(B, N, N, 128, generator=gen, device="cuda"),
+                          torch.ones(B, N, device="cuda"))
+    log("training refusals on the card: a pallas_bwd_impl override is refused, "
+        "pallas_emb_bwd_impl=pallas raises NotImplementedError, the IPA kernel branch "
+        "raises under autograd")
+
+
+@contextlib.contextmanager
+def expect_raise(kind: type, text: str):
+    try:
+        yield
+    except kind as e:
+        if text not in str(e):
+            raise AssertionError(f"{kind.__name__} without {text!r}: {e}") from e
+    else:
+        raise AssertionError(f"expected {kind.__name__} ({text})")
+
+
+def check_train_step() -> int:
+    """Phase 6. Returns the pair-MLP backward kernel's launches over the 10
+    timed-for-correctness steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from framedipt_tpu_torch.train.loop import make_trainer
+
+    B, N = 2, 256
+    batch = train_batch(B, N)
+    kern = make_trainer(train_config(), device="cuda")
+    plain = make_trainer(train_config(), device="cuda")  # the same seeded weights
+    m_k, launches = step_launches(kern, batch, seed=0)
+    if launches != expected_launches(m_k["self_conditioned"]):
+        raise AssertionError(f"first train step: launches {launches}")
+    with plain_versions_in_model():
+        m_p = plain.step(batch, torch.Generator(device="cuda").manual_seed(0))
+    if m_p["self_conditioned"] != m_k["self_conditioned"]:
+        raise AssertionError("the plain step drew another self-conditioning coin")
+    grads_k = {n: p.grad for n, p in kern.model.named_parameters() if p.grad is not None}
+    grads_p = {n: p.grad for n, p in plain.model.named_parameters() if p.grad is not None}
+    if grads_k.keys() != grads_p.keys():
+        raise AssertionError("kernel and plain steps give gradients to different parameters")
+    largest = max(float(g.abs().max()) for g in grads_p.values())
+    worst, worst_name = 0.0, ""
+    for name, g in grads_k.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"first train step: gradient of {name} not finite")
+        ref = grads_p[name]
+        scale = max(float(ref.abs().max()), 1e-3 * largest)
+        rel = float((g - ref).abs().max()) / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"]))
+    log(f"train step B={B} N={N} float32, first step (self_conditioned="
+        f"{m_k['self_conditioned']}): loss {float(m_k['loss']):.6f} kernels / "
+        f"{float(m_p['loss']):.6f} plain versions (rel {loss_rel:.2e}); grad norm "
+        f"{float(m_k['grad_norm']):.4f} / {float(m_p['grad_norm']):.4f}; {len(grads_k)} gradients, "
+        f"worst {worst:.2e} of max(own max-abs, 1e-3 x largest) ({worst_name}; tol {TRAIN_TOL}); "
+        f"launches {launches}")
+    if loss_rel > TRAIN_TOL or worst > TRAIN_TOL:
+        raise AssertionError("first train step: kernels and plain versions disagree")
+    del plain
+    torch.cuda.empty_cache()
+
+    # 10 steps at lr 1e-4: finite, parameters move, 3 backward launches each.
+    start = {n: p.detach().clone() for n, p in kern.model.named_parameters()}
+    bwd_launches = 0
+    for i in range(10):
+        m, launches = step_launches(kern, batch, seed=100 + i)
+        if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
+            raise AssertionError(f"train step {i}: loss {m['loss']} grad norm {m['grad_norm']}")
+        if launches != expected_launches(m["self_conditioned"]):
+            raise AssertionError(f"train step {i}: launches {launches}")
+        bwd_launches += launches["pair_mlp_bwd"]
+        log(f"  step {i}: loss {float(m['loss']):.4f}, grad norm {float(m['grad_norm']):.4f}, "
+            f"t {[round(float(x), 3) for x in m['t']]}, self_conditioned {m['self_conditioned']}")
+    # Every parameter the forward reads moves (linear_rbf and linear_3 are
+    # kept for checkpoint loading and get no gradient).
+    trained = [n for n, p in kern.model.named_parameters() if p.grad is not None]
+    still = [n for n, p in kern.model.named_parameters() if n in trained and torch.equal(p, start[n])]
+    log(f"  after 10 steps: {len(trained) - len(still)} of {len(trained)} trained parameters "
+        f"moved ({len(start) - len(trained)} never read by the forward)")
+    if still:
+        raise AssertionError(f"parameters did not move: {still}")
+
+    # Step time (CUDA events, after 3 warm steps), peak memory, busy share.
+    gen = torch.Generator(device="cuda").manual_seed(200)
+    for _ in range(3):
+        kern.step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    coins = []
+    start_ev.record()
+    for _ in range(5):
+        coins.append(kern.step(batch, gen)["self_conditioned"])
+    end_ev.record()
+    torch.cuda.synchronize()
+    step_ms = start_ev.elapsed_time(end_ev) / 5
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    for _ in range(5):
+        kern.step(batch, gen)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kern.step(batch, gen)
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        # Kernels and copies only: the optimizer's record_function range
+        # also lands on the device timeline.
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    log(f"train step B={B} N={N} float32 (pallas_emb_bwd_impl=xla): {step_ms:.3f} ms a step "
+        f"(CUDA events over 5 steps after 3 warm; self-conditioned {sum(coins)} of 5), "
+        f"{1e3 * B / step_ms:.2f} examples/s, peak memory {peak_gb:.3f} GB; 5 more steps "
+        f"{wall_ms:.1f} ms wall, " + (f"{busy:.1f} ms of device time, busy share "
+                                       f"{busy / wall_ms:.3f}" if by_name else
+                                       "torch.profiler recorded no device time (busy share not measured)"))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {ms:9.3f} ms  {name[:100]}")
+    return bwd_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -700,17 +997,22 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     serving = check_kernels()
+    serving["pair_mlp_bwd"] = check_pair_mlp_bwd()
     compare_ipa_branches()
     log("phase 4: full-width forward against the recorded reference")
     check_recorded_forward(use_pallas_ipa=False)
     check_recorded_forward(use_pallas_ipa=True)
     log("phase 5: inpainting service")
     launches = drive_service()
+    log("phase 6: train step")
+    check_training_refusals()
+    launches["pair_mlp_bwd"] = check_train_step()
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
         "pair_mlp": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "ipa_attention": "framedipt_tpu/model/pallas/ipa_attention.py:65",
+        "pair_mlp_bwd": "framedipt_tpu/model/pallas/pair_mlp.py:349",
     }
     kernels = [
         {

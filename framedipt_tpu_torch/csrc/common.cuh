@@ -1,6 +1,7 @@
 // Shared pieces of the edge-stack kernels: element-type conversion, a
 // shared-memory-tiled float32 product for 64-row tiles with a double-buffered
-// weight stream, and the fused LayerNorm + edge-mask epilogue.
+// weight stream, the pair MLP's epilogues, and the fused LayerNorm +
+// edge-mask epilogue.
 //
 // Thread layout (256 threads): tx = tid % 16 picks columns, ty = tid / 16
 // picks rows; each thread owns a 4-row x (NC/16)-column micro-tile of the
@@ -73,7 +74,8 @@ __device__ __forceinline__ void stash_slice(float* __restrict__ Ws,
   for (int m = 0; m < kKc * NC / kThreads; ++m) Ws[threadIdx.x + m * kThreads] = r[m];
 }
 
-// acc[4][NC/16] += A[64 x K] @ W[K x NC]: A is float in shared memory with
+// acc[TM][NC/16] += A[16 TM x K] @ W[K x NC] (TM = 4: a 64-row tile, TM = 2:
+// a 32-row one; thread ty owns rows ty * TM ..): A is float in shared memory with
 // row stride lda (a multiple of 4, K a multiple of kKc); W is row-major T in
 // global memory with row stride ldw, read from column col0. Ws is a shared
 // staging buffer of 2 * kKc * NC floats: while the block multiplies one
@@ -81,11 +83,11 @@ __device__ __forceinline__ void stash_slice(float* __restrict__ Ws,
 // latency of the weight stream hides behind the products. A is read as
 // float4 along k (four k steps per load). The sum over k runs in order.
 // Every thread of the block must call it (it synchronizes, first and last).
-template <typename T, int NC>
+template <typename T, int NC, int TM = 4>
 __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, int K,
                                           const T* __restrict__ W, int ldw, int col0,
                                           float* __restrict__ Ws,
-                                          float (&acc)[4][NC / 16]) {
+                                          float (&acc)[TM][NC / 16]) {
   constexpr int TN = NC / 16;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int slices = K / kKc;
@@ -96,12 +98,12 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, 
   for (int s = 0; s < slices; ++s) {
     const float* Wc = Ws + (s & 1) * (kKc * NC);
     if (s + 1 < slices) fetch_slice<T, NC>(W, ldw, col0, (s + 1) * kKc, next);
-    const float* Ar = A + ty * 4 * lda + s * kKc;
+    const float* Ar = A + ty * TM * lda + s * kKc;
 #pragma unroll 2
     for (int kk = 0; kk < kKc; kk += 4) {
-      float4 a4[4];
+      float4 a4[TM];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a4[i] = *reinterpret_cast<const float4*>(Ar + i * lda + kk);
+      for (int i = 0; i < TM; ++i) a4[i] = *reinterpret_cast<const float4*>(Ar + i * lda + kk);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         float w[TN];
@@ -115,7 +117,7 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, 
           w[q * 4 + 3] = v.w;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < TM; ++i) {
           const float a = lane4(a4[i], u);
 #pragma unroll
           for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
@@ -129,12 +131,48 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, 
   }
 }
 
-template <int TN>
-__device__ __forceinline__ void zero(float (&acc)[4][TN]) {
+template <int TM, int TN>
+__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+}
+
+// The pair MLP's epilogues, in the one addition order that its forward
+// kernel (pair_mlp.cu), its backward kernel's recompute (pair_mlp_bwd.cu)
+// and the plain version share: b0 and bf are not folded, and each sum rounds
+// to T, so in bf16 another order could flip a relu mask. acc is the float32
+// accumulator of the epilogue's product.
+// y0 = relu(pair @ W0 + i_term + j_term + b0)
+template <typename T>
+__device__ __forceinline__ float pair_y0(float acc, float i_term, float j_term, float b0) {
+  float v = rnd<T>(acc);
+  v = rnd<T>(v + i_term);
+  v = rnd<T>(v + j_term);
+  v = rnd<T>(v + b0);
+  return fmaxf(v, 0.f);
+}
+
+// y1 = relu(y0 @ W1 + b1)
+template <typename T>
+__device__ __forceinline__ float pair_y1(float acc, float b1) {
+  return fmaxf(rnd<T>(rnd<T>(acc) + b1), 0.f);
+}
+
+// Pre-norm output: y1 @ Wf (+ pair @ Wfe, whose accumulator is res, + fi + fj)
+// + bf, for output channel c of row prow and column pcol (fi, fj: [.., 128]).
+template <typename T, bool RESIDUAL>
+__device__ __forceinline__ float pair_out(float acc, float res, const T* __restrict__ fi,
+                                          const T* __restrict__ fj, int prow, int pcol, int c,
+                                          float bf) {
+  float v = rnd<T>(acc);
+  if (RESIDUAL) {
+    v = rnd<T>(v + rnd<T>(res));
+    v = rnd<T>(v + ld<T>(fi + (size_t)prow * 128 + c));
+    v = rnd<T>(v + ld<T>(fj + (size_t)pcol * 128 + c));
+  }
+  return rnd<T>(v + bf);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -85,11 +85,8 @@ pair_mlp_kernel(const T* __restrict__ pair, const T* __restrict__ i_term,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = cb * 128 + tile_col(j, tx);
-        float v = rnd<T>(acc[i][j]);
-        v = rnd<T>(v + ld<T>(i_term + (size_t)prow * HID + c));
-        v = rnd<T>(v + ld<T>(j_term + (size_t)pcol * HID + c));
-        v = rnd<T>(v + ld<T>(b0 + c));
-        Y0[r * LDY0 + c] = fmaxf(v, 0.f);
+        Y0[r * LDY0 + c] = pair_y0<T>(acc[i][j], ld<T>(i_term + (size_t)prow * HID + c),
+                                      ld<T>(j_term + (size_t)pcol * HID + c), ld<T>(b0 + c));
       }
     }
   }
@@ -108,18 +105,15 @@ pair_mlp_kernel(const T* __restrict__ pair, const T* __restrict__ i_term,
 #pragma unroll
       for (int j = 0; j < HC / 16; ++j) {
         const int c = tile_col(j, tx);
-        const float v = rnd<T>(rnd<T>(acc1[i][j]) + ld<T>(b1 + hc * HC + c));
-        Y1[(ty * 4 + i) * LDY1 + c] = fmaxf(v, 0.f);
+        Y1[(ty * 4 + i) * LDY1 + c] = pair_y1<T>(acc1[i][j], ld<T>(b1 + hc * HC + c));
       }
     __syncthreads();
     tile_gemm<T, 128>(Y1, LDY1, HC, wf + (size_t)hc * HC * C_OUT, C_OUT, 0, Ws, acc_out);
   }
 
   float res[4][8];
-  if (RESIDUAL) {
-    zero(res);
-    tile_gemm<T, 128>(X, LDX, C_IN, wfe, C_OUT, 0, Ws, res);
-  }
+  zero(res);
+  if (RESIDUAL) tile_gemm<T, 128>(X, LDX, C_IN, wfe, C_OUT, 0, Ws, res);
   // Every thread has finished reading X: reuse it for the pre-norm output.
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -128,13 +122,8 @@ pair_mlp_kernel(const T* __restrict__ pair, const T* __restrict__ i_term,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = tile_col(j, tx);
-      float v = rnd<T>(acc_out[i][j]);
-      if (RESIDUAL) {
-        v = rnd<T>(v + rnd<T>(res[i][j]));
-        v = rnd<T>(v + ld<T>(fi + (size_t)prow * C_OUT + c));
-        v = rnd<T>(v + ld<T>(fj + (size_t)pcol * C_OUT + c));
-      }
-      X[r * LDX + c] = rnd<T>(v + ld<T>(bf + c));
+      X[r * LDX + c] =
+          pair_out<T, RESIDUAL>(acc_out[i][j], res[i][j], fi, fj, prow, pcol, c, ld<T>(bf + c));
     }
   }
   __syncthreads();

@@ -1,6 +1,6 @@
 """VP-SDE translation diffusion on torch tensors: linear beta(t), coordinate
-scaling, score / score scaling, NaN-safe stationary sampling, and the
-Euler-Maruyama reverse step with the reference's centering convention (the
+scaling, score / score scaling, the closed-form forward marginal, NaN-safe
+stationary sampling, and the Euler-Maruyama reverse step with the reference's centering convention (the
 COM sums all residues but divides by the diffused count)."""
 from __future__ import annotations
 
@@ -72,6 +72,42 @@ class R3Diffuser:
         beta_t = self.marginal_b_t(tb)
         cond_var = 1.0 - torch.exp(-beta_t)
         return (score_t * cond_var + x_t) / torch.exp(-0.5 * beta_t)
+
+    def forward_marginal(
+        self,
+        generator: torch.Generator,
+        x_0: torch.Tensor,
+        t,
+        diffuse_mask: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Sample x_t ~ p(x_t | x_0) in closed form; returns (x_t, score_t).
+        x_0 in Angstroms; t a scalar or one time per leading batch entry."""
+        z = torch.randn(x_0.shape, generator=generator, device=x_0.device, dtype=x_0.dtype)
+        return self.marginal_from_noise(x_0, t, z, diffuse_mask)
+
+    def marginal_from_noise(
+        self,
+        x_0: torch.Tensor,
+        t,
+        z: torch.Tensor,
+        diffuse_mask: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The forward marginal given its standard-normal noise ``z``: the
+        score is in scaled coordinates; masked residues keep x_0 and get a
+        zero score."""
+        t = torch.as_tensor(t, dtype=x_0.dtype, device=x_0.device)
+        x_0_scaled = self.scale(x_0)
+        tb = _expand(t, x_0)
+        loc = torch.exp(-0.5 * self.marginal_b_t(tb)) * x_0_scaled
+        std = torch.sqrt(1.0 - torch.exp(-self.marginal_b_t(tb)))
+        x_t_scaled = loc + std * z
+        score_t = self.score(x_t_scaled, x_0_scaled, t, scale=False)
+        x_t = self.unscale(x_t_scaled)
+        if diffuse_mask is not None:
+            m = diffuse_mask[..., None]
+            x_t = m * x_t + (1.0 - m) * x_0
+            score_t = m * score_t
+        return x_t, score_t
 
     def sample_stationary(
         self,

@@ -1,7 +1,10 @@
 """SE(3) diffusion over rigid frames: IGSO(3) rotations + VP-SDE
-translations, with inpainting masks (reference sampling with imputation,
-scores from predicted frames, one reverse step)."""
+translations, with inpainting masks (the forward marginal that noises a
+training batch, reference sampling with imputation, scores from predicted
+frames, one reverse step)."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +27,14 @@ def extract_trans_rotvec(r: Rigid) -> tuple[torch.Tensor, torch.Tensor]:
 
 def assemble_rigid(rotvec: torch.Tensor, trans: torch.Tensor) -> Rigid:
     return Rigid(quat_ops.from_rotvec(rotvec), trans)
+
+
+class MarginalSample(NamedTuple):
+    rigids_t: Rigid
+    trans_score: torch.Tensor
+    rot_score: torch.Tensor
+    trans_score_scaling: torch.Tensor
+    rot_score_scaling: torch.Tensor
 
 
 class SE3Diffuser:
@@ -54,6 +65,63 @@ class SE3Diffuser:
         q_{0->t} = q_0^{-1} q_t."""
         quats_0t = quat_ops.multiply(quat_ops.invert(rots_0_quats), rots_t_quats)
         return self.so3.score(quat_ops.to_rotvec(quats_0t), t)
+
+    def forward_marginal(
+        self,
+        generator: torch.Generator,
+        rigids_0: Rigid,
+        t,
+        diffuse_mask: torch.Tensor | None = None,
+    ) -> MarginalSample:
+        """Noise clean frames [B, N] to times t [B] (or one scalar t): the
+        rotation draws first (per sample, in batch order), then the
+        translation noise."""
+        trans_0, rot_0 = extract_trans_rotvec(rigids_0)
+        t = self.so3._t(t)
+        rot = self.so3.forward_marginal(generator, rot_0, t) if self.diffuse_rot else None
+        trans = (self.r3.forward_marginal(generator, trans_0, t, diffuse_mask)
+                 if self.diffuse_trans else None)
+        return self._marginal(rigids_0, t, rot, trans, diffuse_mask)
+
+    def marginal_from_noise(
+        self,
+        rigids_0: Rigid,
+        t,
+        rot_sample: torch.Tensor | None,
+        trans_noise: torch.Tensor | None,
+        diffuse_mask: torch.Tensor | None = None,
+    ) -> MarginalSample:
+        """The forward marginal given its randomness: IGSO3(t) rotation
+        vectors ``rot_sample`` and standard-normal ``trans_noise``, both
+        shaped [..., 3] like the frames (None for a part not diffused)."""
+        trans_0, rot_0 = extract_trans_rotvec(rigids_0)
+        t = self.so3._t(t)
+        rot = self.so3.marginal_from_sample(rot_0, t, rot_sample) if self.diffuse_rot else None
+        trans = (self.r3.marginal_from_noise(trans_0, t, trans_noise, diffuse_mask)
+                 if self.diffuse_trans else None)
+        return self._marginal(rigids_0, t, rot, trans, diffuse_mask)
+
+    def _marginal(self, rigids_0, t, rot, trans, diffuse_mask) -> MarginalSample:
+        """The sample from the parts' (x_t, score) pairs, None for a part not
+        diffused. Masked residues keep their frames and get zero scores."""
+        trans_0, rot_0 = extract_trans_rotvec(rigids_0)
+        ones = torch.ones_like(t)
+        if rot is not None:
+            (rot_t, rot_score), rot_score_scaling = rot, self.so3.score_scaling(t)
+        else:
+            rot_t, rot_score, rot_score_scaling = rot_0, torch.zeros_like(rot_0), ones
+        if trans is not None:
+            (trans_t, trans_score), trans_score_scaling = trans, self.r3.score_scaling(t)
+        else:
+            trans_t, trans_score, trans_score_scaling = trans_0, torch.zeros_like(trans_0), ones
+        if diffuse_mask is not None:
+            m = diffuse_mask[..., None]
+            rot_t = _apply_mask(rot_t, rot_0, m)
+            rot_score = _apply_mask(rot_score, torch.zeros_like(rot_score), m)
+        return MarginalSample(
+            assemble_rigid(rot_t, trans_t), trans_score, rot_score,
+            trans_score_scaling, rot_score_scaling,
+        )
 
     def reverse(
         self,

@@ -1,6 +1,6 @@
 """IGSO(3) rotation diffusion on torch tensors: logarithmic sigma schedule,
 diffusion coefficient, inverse-CDF sampling, truncated-series score, score
-scaling, and the geodesic-random-walk reverse step (right-multiplication
+scaling, the forward marginal, and the geodesic-random-walk reverse step (right-multiplication
 composition). Lookup tables live on the diffuser's device; every random draw
 takes an explicit ``torch.Generator``."""
 from __future__ import annotations
@@ -113,6 +113,30 @@ class SO3Diffuser:
     def score_scaling(self, t) -> torch.Tensor:
         """sqrt(E ||score||^2 / 3) at time t (LUT gather)."""
         return self._score_scaling[self.t_to_idx(t)]
+
+    def forward_marginal(
+        self, generator: torch.Generator, rot_0: torch.Tensor, t
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Sample rot_t ~ p(rot_t | rot_0) and its score."""
+        return self.marginal_from_sample(rot_0, t, self.sample_like(generator, t, rot_0))
+
+    def sample_like(self, generator: torch.Generator, t, rot_0: torch.Tensor) -> torch.Tensor:
+        """IGSO3(t) rotation vectors shaped like rot_0: [..., 3] with a
+        scalar t, or [B, ..., 3] with t [B], each sample then drawn at its
+        own t, in batch order (axes, then angles)."""
+        t = self._t(t)
+        if t.ndim == 0:
+            return self.sample(generator, t, rot_0[..., 0].numel()).reshape(rot_0.shape)
+        n = rot_0[0, ..., 0].numel()
+        return torch.stack([self.sample(generator, t_b, n) for t_b in t]).reshape(rot_0.shape)
+
+    def marginal_from_sample(
+        self, rot_0: torch.Tensor, t, sampled: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The forward marginal given the IGSO3(t) rotation vectors
+        ``sampled`` (shaped like rot_0): (rot_0 composed with sampled, the
+        score of sampled)."""
+        return so3.compose_rotvec(rot_0, sampled), self.score(sampled, t)
 
     def reverse(
         self,

@@ -6,8 +6,10 @@ concat([node_i, node_j, rel_offset_embedding, distogram]) to one Linear;
 here its kernel rows are sliced so the node terms become O(N) products
 broadcast over rows and columns, and the pairwise terms come from O(N)
 factors (``kernels/edge_embedder.py``). The whole edge branch (first layer,
-2 Linears, LayerNorm, edge mask) is one call of the edge-embedder wrapper:
-the CUDA kernel on the card, its plain PyTorch version on CPU tensors.
+2 Linears, LayerNorm, edge mask) is one call of the edge-embedder wrapper,
+through its autograd Function: the CUDA kernel on the card, its plain
+PyTorch version on CPU tensors; its backward follows
+``model.ipa.pallas_emb_bwd_impl``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from framedipt_tpu_torch.model.kernels.edge_embedder import (
-    edge_embedder,
+    EdgeEmbedderFunction,
     expand_w_rel,
     rel_cp_factors,
 )
@@ -130,12 +132,13 @@ class Embedder(nn.Module):
             lower = upper = np.zeros(0)  # no distogram: no pair gets a bin
         mask = node_mask.to(dtype).contiguous()
         ca = self_conditioning_ca.to(F32).contiguous()
-        edge_embed = edge_embedder(
+        edge_embed = EdgeEmbedderFunction.apply(
+            self.conf.ipa.pallas_emb_bwd_impl,
+            tuple(float(x) for x in lower), tuple(float(x) for x in upper),
             g.to(dtype).contiguous(), h.to(dtype).contiguous(), ca, ca,
             i_term.contiguous(), j_term.contiguous(), mask, mask,
             expand_w_rel(w0[2 * c_t : 2 * c_t + n_rel]).contiguous(),
             w0[2 * c_t + n_rel :].contiguous(),
             b0, w1, b1, w2, b2, ln.weight, ln.bias,
-            tuple(float(x) for x in lower), tuple(float(x) for x in upper),
         )
         return node_embed, edge_embed

@@ -7,11 +7,12 @@ The squared point distance is expanded as |q|^2 + |k|^2 - 2 q.k, so the
 [B, N, N, H, P, 3] displacement tensor never exists. Contractions accumulate
 in float32; frame algebra is always float32. The EdgeTransition is
 concat-free (kernel rows sliced into O(N) node terms) and runs its pair MLP
-through the pair-MLP wrapper (``kernels/pair_mlp.py``): the CUDA kernel on
-the card, its plain PyTorch version on CPU tensors. With
-``model.ipa.use_pallas_ipa`` the IPA attention runs through the fused
-attention wrapper (``kernels/ipa_attention.py``) in the same way; without
-it, as einsums.
+through the pair-MLP wrapper's autograd Function (``kernels/pair_mlp.py``):
+the CUDA kernels (forward and backward) on the card, their plain PyTorch
+versions on CPU tensors. With ``model.ipa.use_pallas_ipa`` the IPA attention
+runs through the fused attention wrapper (``kernels/ipa_attention.py``) in
+the same way, forward only (it refuses to run where autograd records);
+without it, as einsums.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from torch import nn
 
 from framedipt_tpu_torch.geometry.rigid import Rigid
 from framedipt_tpu_torch.model.kernels.ipa_attention import build_point_inputs, ipa_attention
-from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp
+from framedipt_tpu_torch.model.kernels.pair_mlp import PairMLPFunction
 from framedipt_tpu_torch.model.layers import Linear, LayerNorm
 from framedipt_tpu_torch.tools.config import IPAConfig, ModelConfig
 
@@ -38,6 +39,20 @@ def _invert_apply_frames(mats: torch.Tensor, trans: torch.Tensor, pts: torch.Ten
     """Apply inverse frames to points [B,N,P,3] (R^T (x - t))."""
     rel = pts - trans[:, :, None, :]
     return (mats[:, :, None] * rel[..., :, None]).sum(-2)
+
+
+def _refuse_grad(module: nn.Module, *tensors: torch.Tensor) -> None:
+    """The IPA attention kernel is forward-only (so is the JAX package's):
+    its output has no autograd history, so a gradient would stop there
+    silently. Raise where autograd records and anything requires grad."""
+    if torch.is_grad_enabled() and (
+        any(p.requires_grad for p in module.parameters())
+        or any(t.requires_grad for t in tensors)
+    ):
+        raise RuntimeError(
+            "the IPA attention kernel (model.ipa.use_pallas_ipa) is forward-only: "
+            "train with use_pallas_ipa=False or run under torch.no_grad()"
+        )
 
 
 def _points_from_linear(x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +163,9 @@ class InvariantPointAttention(nn.Module):
         feeds it: q pre-scaled by sqrt(1/(3C)), linear_b's weight by
         sqrt(1/3) without its bias (which cancels in the softmax), down_z's
         weight with its bias added to o_pair after (rows of p sum to 1), and
-        the augmented points. Fully masked rows get exactly 0."""
+        the augmented points. Fully masked rows get exactly 0. Refuses to
+        run where autograd records a gradient (the kernel is forward-only)."""
+        _refuse_grad(self, q, k, v, q_pts, k_pts, v_pts, pt_scale, z)
         B, N, H, C = q.shape
         dt = self.dtype
         qhat, khat, vpt = build_point_inputs(q_pts, k_pts, v_pts, pt_scale)
@@ -213,7 +230,7 @@ class EdgeTransition(nn.Module):
         fi = torch.matmul(node_bias, wf[c_e : c_e + b])
         fj = torch.matmul(node_bias, wf[c_e + b :])
         mask = node_mask.to(dtype).contiguous()
-        return pair_mlp(
+        return PairMLPFunction.apply(
             edge_embed.contiguous(), i_term.contiguous(), j_term.contiguous(), mask, mask,
             w0[:c_e].contiguous(), b0, w1, b1, wf.contiguous(), bf,
             self.layer_norm.weight, self.layer_norm.bias,

@@ -24,6 +24,7 @@ SOURCES = {
     "edge_embedder": "edge_embedder.cu",
     "ipa_attention": "ipa_attention.cu",
     "pair_mlp": "pair_mlp.cu",
+    "pair_mlp_bwd": "pair_mlp_bwd.cu",
 }
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (

@@ -17,6 +17,10 @@ dtype; LayerNorm statistics are float32 (eps 1e-6).
 
 :func:`edge_embedder` takes the kernel (``csrc/edge_embedder.cu``) for CUDA
 tensors and :func:`edge_embedder_plain` for CPU tensors.
+:class:`EdgeEmbedderFunction` makes it differentiable: its backward is the
+VJP of the plain formulation recomputed from the saved O(N) inputs (the JAX
+package's ``pallas_emb_bwd_impl="xla"``); the backward kernel is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -195,3 +199,39 @@ def edge_embedder(
 
 
 edge_embedder.launches = 0
+
+
+class EdgeEmbedderFunction(torch.autograd.Function):
+    """:func:`edge_embedder` for autograd. Arguments: the backward setting
+    (``model.ipa.pallas_emb_bwd_impl``), then :func:`edge_embedder`'s
+    arguments with the bin edges first: ``(bwd_impl, bins_lower,
+    bins_upper, g, h, pos_rows, ..., ln_bias)``.
+
+    Saves only the O(N) inputs. With "xla" the backward recomputes
+    :func:`edge_embedder_plain` from them under autograd and returns its
+    VJP, the JAX package's own formulation of this backward (not a stand-in
+    for a missing kernel); "pallas", the backward kernel, is not ported yet
+    and raises. The coordinates get no gradient (None): in the JAX package
+    theirs is exactly 0, and the self-conditioning CA never requires one."""
+
+    @staticmethod
+    def forward(ctx, bwd_impl, bins_lower, bins_upper, *args):
+        ctx.bwd_impl, ctx.bins = bwd_impl, (bins_lower, bins_upper)
+        ctx.save_for_backward(*args)
+        return edge_embedder(*args, bins_lower, bins_upper)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.bwd_impl != "xla":
+            raise NotImplementedError(
+                f"edge embedder backward {ctx.bwd_impl!r}: the backward kernel is not "
+                "ported yet (ROADMAP queue 2 item 2); use model.ipa.pallas_emb_bwd_impl=xla"
+            )
+        needs = list(ctx.needs_input_grad[3:])
+        needs[2] = needs[3] = False  # pos_rows, pos_cols
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+            out = edge_embedder_plain(*inputs, *ctx.bins)
+            wanted = [t for t, need in zip(inputs, needs) if need]
+            got = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
+        return (None, None, None) + tuple(next(got) if need else None for need in needs)

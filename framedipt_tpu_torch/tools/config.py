@@ -1,5 +1,5 @@
-"""Typed configuration: the dataclasses the inpainting service needs, with
-the JAX package's defaults and its dotted-override loader.
+"""Typed configuration: the dataclasses the inpainting service and the train
+step need, with the JAX package's defaults and its dotted-override loader.
 
 ``use_pallas_kernel`` / ``use_pallas_embedder`` / ``use_pallas_ipa`` keep
 their names so configs carry over; here they mean "run the hand-written CUDA
@@ -79,6 +79,10 @@ class IPAConfig:
     # IPA attention through the fused attention CUDA kernel
     # (csrc/ipa_attention.cu) instead of einsums. Off unless asked for.
     use_pallas_ipa: bool | None = None
+    # Backward of the embedder edge branch: "xla" recomputes its plain
+    # formulation and takes its VJP; "pallas" (the backward kernel) is not
+    # ported yet.
+    pallas_emb_bwd_impl: str = "pallas"
 
 
 @dataclass
@@ -110,10 +114,47 @@ class InferenceConfig:
 
 
 @dataclass
+class DataConfig:
+    """The fields of the JAX DataConfig that the train step reads."""
+
+    min_t: float = 0.01
+    num_t: int = 100
+
+
+@dataclass
+class RecycleConfig:
+    enabled: bool = False
+    mode: str = "max"  # "max" or "next"
+
+
+@dataclass
+class ExperimentConfig:
+    """The fields of the JAX ExperimentConfig that the train step reads:
+    learning rate, recycling, loss weights and thresholds."""
+
+    inpainting: bool = False
+    learning_rate: float = 1e-4
+    recycle: RecycleConfig = field(default_factory=RecycleConfig)
+    trans_loss_weight: float = 1.0
+    separate_rot_loss: bool = True
+    rot_loss_weight: float = 0.5
+    rot_loss_t_threshold: float = 0.2
+    trans_x0_threshold: float = 1.0
+    coordinate_scaling: float = 0.1
+    bb_atom_loss_weight: float = 1.0
+    bb_atom_loss_t_filter: float = 0.25
+    dist_mat_loss_weight: float = 1.0
+    dist_mat_loss_t_filter: float = 0.25
+    aux_loss_weight: float = 0.25
+
+
+@dataclass
 class Config:
     diffuser: DiffuserConfig = field(default_factory=DiffuserConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     inference: InferenceConfig = field(default_factory=InferenceConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    experiment: ExperimentConfig = field(default_factory=ExperimentConfig)
 
 
 def _apply_dict(obj: Any, updates: dict[str, Any], path: str = "") -> None:
@@ -163,7 +204,7 @@ def load_config(overrides: list[str] | None = None) -> Config:
 # The flags whose kernels are the only path on the card.
 ALWAYS_ON_FLAGS = ("use_pallas_kernel", "use_pallas_embedder")
 # Run settings, not the model's: a checkpoint's config does not set them.
-KERNEL_FLAGS = ALWAYS_ON_FLAGS + ("use_pallas_ipa",)
+KERNEL_FLAGS = ALWAYS_ON_FLAGS + ("use_pallas_ipa", "pallas_emb_bwd_impl")
 
 
 def merge_checkpoint_config(cfg: Config, ckpt_conf: dict[str, Any]) -> Config:
@@ -212,3 +253,18 @@ def resolve_kernel_flags(cfg: Config, device) -> None:
                 f"model.ipa.{flag}=False on {device}: on a CUDA device the model "
                 "runs its CUDA kernels; the plain versions take CPU tensors only"
             )
+
+
+def check_emb_bwd_impl(cfg: Config) -> None:
+    """Check the embedder's backward setting for a train step, on every
+    device: it must be "xla" (its backward kernel is not ported yet). The
+    pair MLP's backward has no setting: it is its kernel on CUDA tensors and
+    its plain version on CPU tensors, as the forward is."""
+    impl = cfg.model.ipa.pallas_emb_bwd_impl
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"model.ipa.pallas_emb_bwd_impl must be 'xla' or 'pallas', got {impl!r}")
+    if impl == "pallas":
+        raise NotImplementedError(
+            "model.ipa.pallas_emb_bwd_impl='pallas': the edge-embedder backward kernel "
+            "is not ported yet (ROADMAP queue 2 item 2); set it to 'xla'"
+        )

@@ -148,3 +148,61 @@ def test_cuda_kernels_match_plain_versions(dtype):
         torch.testing.assert_close(t_emb.edge_embedder(*args, *bins),
                                    t_emb.edge_embedder_plain(*args, *bins), atol=tol, rtol=tol)
         assert t_emb.edge_embedder.launches == before + 1
+
+
+def assert_grads_close(got, want, tol, names=None):
+    """Each gradient (a tensor or an array) within tol of its reference on
+    the scale max(1, its own max-abs): a gradient summed over the pair grid
+    grows with N^2. A None reference wants a None gradient."""
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        name = names[i] if names else f"gradient {i}"
+        assert (a is None) == (b is None), name
+        if b is None:
+            continue
+        a = np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32)
+        b = np.asarray(b.float() if isinstance(b, torch.Tensor) else b, np.float32)
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        scale = max(1.0, float(np.abs(b).max(initial=0.0)))
+        err = float(np.abs(a - b).max(initial=0.0))
+        assert err <= tol * scale, f"{name}: max err {err} > {tol} * {scale}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,residual", [(2, 200, True), (1, 256, True), (2, 130, False)])
+def test_cuda_pair_mlp_bwd_matches_plain_version(dtype, B, N, residual):
+    """On the card: the backward kernel against its plain version at a
+    ragged shape with masked rows and at a serving shape, all 16 gradients;
+    two launches give the same bits; one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    rng = np.random.default_rng(N)
+    args = pair_to_torch(pair_args(rng, B, N, 128, 384, 128, residual, zero_rows=N // 10), dtype)
+    args = [None if a is None else a.cuda() for a in args]
+    g = torch.as_tensor(rng.normal(size=(B, N, N, 128)).astype(np.float32)).to(dtype).cuda()
+    before = t_pair.pair_mlp_bwd.launches
+    got = t_pair.pair_mlp_bwd(g, *args)
+    again = t_pair.pair_mlp_bwd(g, *args)
+    assert t_pair.pair_mlp_bwd.launches == before + 2
+    assert_grads_close([None if a is None else a.cpu() for a in got],
+                       [None if b is None else b.cpu() for b in t_pair.pair_mlp_bwd_plain(g, *args)], tol)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_pair_mlp_function_matches_autograd_of_plain_version():
+    """On the card: ``PairMLPFunction``'s gradients (forward and backward
+    kernels) against autograd through ``pair_mlp_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3)
+    args = pair_to_torch(pair_args(rng, 2, 96, 128, 384, 128, True), torch.float32)
+    args = [a.cuda().requires_grad_(i not in (3, 4)) for i, a in enumerate(args)]
+    g = torch.as_tensor(rng.normal(size=(2, 96, 96, 128)).astype(np.float32)).cuda()
+    ins = [a for a in args if a.requires_grad]
+    got = torch.autograd.grad(t_pair.PairMLPFunction.apply(*args), ins, g)
+    want = torch.autograd.grad(t_pair.pair_mlp_plain(*args), ins, g)
+    assert_grads_close([a.cpu() for a in got], [b.cpu() for b in want], 1e-4)

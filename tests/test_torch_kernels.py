@@ -183,24 +183,34 @@ def test_cuda_tensors_never_reach_the_plain_version(wrapper, plain):
     assert src.index("if err != 0") < src.index(".launches += 1")
 
 
-@pytest.mark.parametrize("module,wrapper,cls", [
-    (t_embed_mod, "edge_embedder", "Embedder"),
-    (t_ipa_mod, "pair_mlp", "EdgeTransition"),
+@pytest.mark.parametrize("module,kernel_mod,function,wrapper,cls", [
+    (t_embed_mod, t_emb, "EdgeEmbedderFunction", "edge_embedder", "Embedder"),
+    (t_ipa_mod, t_pair, "PairMLPFunction", "pair_mlp", "EdgeTransition"),
 ])
-def test_model_reaches_the_kernels_only_through_the_wrappers(module, wrapper, cls):
-    """Read from the model's code: the module calls the wrapper, by its own
-    name, once, in the forward of ``cls`` and under no condition; so a CUDA
-    tensor there goes to the kernel or raises."""
+def test_model_reaches_the_kernels_only_through_the_wrappers(module, kernel_mod, function,
+                                                             wrapper, cls):
+    """Read from the model's code: the module calls the wrapper's autograd
+    Function (``<Function>.apply``), once, in the forward of ``cls`` and
+    under no condition, and names the wrapper nowhere else; the Function's
+    forward calls the wrapper under no condition. So a CUDA tensor there
+    goes to the kernel or raises, with or without gradients."""
     tree = ast.parse(inspect.getsource(module))
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
-             and isinstance(n.func, ast.Name) and n.func.id == wrapper]
+             and ast.unparse(n.func) == f"{function}.apply"]
     assert len(calls) == 1
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Name) and n.id == wrapper]
     forward = next(f for c in tree.body if isinstance(c, ast.ClassDef) and c.name == cls
                    for f in c.body if isinstance(f, ast.FunctionDef) and f.name == "forward")
     assert any(n is calls[0] for n in ast.walk(forward))
     conditional = [n for n in ast.walk(forward) if isinstance(n, (ast.If, ast.IfExp, ast.Try))
                    and any(m is calls[0] for m in ast.walk(n))]
     assert not conditional
+    fn_cls = next(c for c in ast.parse(inspect.getsource(kernel_mod)).body
+                  if isinstance(c, ast.ClassDef) and c.name == function)
+    fwd = next(f for f in fn_cls.body if isinstance(f, ast.FunctionDef) and f.name == "forward")
+    assert [ast.unparse(c.func) for c in ast.walk(fwd) if isinstance(c, ast.Call)
+            and isinstance(c.func, ast.Name)] == [wrapper]
+    assert not any(isinstance(n, (ast.If, ast.IfExp, ast.Try)) for n in ast.walk(fwd))
 
 
 def _calls(tree, name):
