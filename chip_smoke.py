@@ -34,20 +34,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernel off, on, and on with every kernel's plain version, and profile a
    short sampler run with the IPA kernel off and on (device busy share, the
    kernels that take the device's time);
-6. the train step at the full default width (float32, inpainting,
-   ``model.ipa.pallas_emb_bwd_impl=xla``), B=2 N=256 on helix frames with a
-   15-residue diffused loop: the first step against the same step with
-   every kernel's plain version (loss and every gradient), then 10 steps at
-   lr 1e-4 (finite loss and grad norm, parameters moved, 3 pair-MLP
-   backward launches a step), the step time, examples/s, peak memory and
+6. the train step at the full default width (float32, inpainting, the
+   default ``model.ipa.pallas_emb_bwd_impl=pallas``: the embedder's
+   backward kernel), B=2 N=256 on helix frames with a 15-residue diffused
+   loop: the first step against the same step with every kernel's plain
+   version and against the step with the ``xla`` embedder backward (loss
+   and every gradient), then 10 steps at lr 1e-4 (finite loss and grad
+   norm, parameters moved, 3 pair-MLP and 1 embedder backward launches a
+   step), the step time, examples/s and peak memory of both settings and
    the device's busy share over 5 steps; and on the card the refusals: a
-   pair-MLP backward other than its kernel, the embedder backward kernel
-   (not ported yet), the IPA attention kernel under autograd.
+   pair-MLP backward other than its kernel, the IPA attention kernel under
+   autograd;
+7. the training CLI at the full default width (float32, inpainting): the
+   fixture mmCIF files preprocessed by the port's pipeline into a temporary
+   directory (single chains of 11-242 residues, buckets 64-256), ``train()``
+   for 14-21 steps with checkpoints (the early one included) and one eval
+   inside the run, a resumed run of three more epochs (timed with the input
+   pipeline), the same number of steps timed on batches already on the card
+   and profiled for the device's busy share, and the last checkpoint
+   loaded into the inpainting service for one /inpaint request: finite
+   losses, one embedder backward launch a step, the checkpoint files, the
+   resumed step count, the reply's residue count and fixed CA.
 
-Phase 3 also holds the pair-MLP backward kernel against its plain version
+Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=256, B=2 N=200 ragged with masked
-rows, B=2 N=256, residual and not), checks that two launches give the same
-bits, and times it at B=2 N=256.
+rows, B=2 N=256; the pair MLP residual and not, the embedder with 22 and 0
+distance bins), checks that two launches give the same bits, and times them
+at B=2 N=256 (the embedder's also against the ``xla`` setting's backward,
+the VJP of its plain forward).
 
 The last two lines are a JSON object with one entry per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
@@ -367,22 +381,103 @@ def check_pair_mlp_bwd() -> dict:
     return out
 
 
+EMB_BWD_FLOP_PER_PAIR = 2 * (64 * 128 + 128 * 128 + 128 * 128) + 2 * (
+    4 * 128 * 128 + 2 * 64 * 128)  # recompute + dW2, dy1, dW1, dy0, dW_rel, dm: 245,760
+
+
+def edge_embedder_bwd_cost(B, N, dtype, n_bins=22):
+    """Operations and bytes of one embedder backward launch: the forward
+    recompute and the backward products (the distogram row gather and the
+    LayerNorm not counted); the cotangent, the O(N) inputs and weights once,
+    the float32 gradients once."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    weights = 64 * 128 + n_bins * 128 + 2 * 128 * 128 + 3 * 128
+    flops = B * N * N * EMB_BWD_FLOP_PER_PAIR
+    nbytes = (es * (B * N * N * 128 + B * N * (2 * 64 + 2 * 128 + 2) + weights)
+              + 4 * (B * N * 3 * 2 + 2 * n_bins + 2 * 128)
+              + 4 * (B * N * (2 * 64 + 2 * 128 + 2) + weights + 2 * 128))
+    return flops, nbytes
+
+
+def xla_emb_backward(g, args):
+    """The ``xla`` setting's embedder backward: the VJP of the plain forward
+    recomputed under autograd (EdgeEmbedderFunction's "xla" branch)."""
+    from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder_plain
+
+    *tensors, lower, upper = args
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(i not in (2, 3)) for i, t in enumerate(tensors)]
+        out = edge_embedder_plain(*ins, lower, upper)
+        return torch.autograd.grad(out, [t for t in ins if t.requires_grad], g)
+
+
+def check_edge_embedder_bwd() -> dict:
+    """The embedder backward kernel against its plain version on the card:
+    every gradient within tol of its own max-abs (float32 1e-4, bf16 5e-2),
+    with 22 and 0 distance bins; two launches bit-identical; at B=2 N=256
+    the kernel, its plain version and the ``xla`` backward timed."""
+    from framedipt_tpu_torch.model.kernels.edge_embedder import (
+        bwd_workspace_floats,
+        edge_embedder_bwd,
+        edge_embedder_bwd_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, N in ((1, 256), (2, 200), (2, 256)):
+            for n_bins in (22, 0):
+                args = edge_embedder_inputs(B, N, dtype, gen, n_bins=n_bins)
+                *tensors, lower, upper = args
+                kw = {"bins_lower": lower, "bins_upper": upper}
+                g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
+                got = edge_embedder_bwd(g, *tensors, **kw)
+                again = edge_embedder_bwd(g, *tensors, **kw)
+                ref = edge_embedder_bwd_plain(g, *tensors, **kw)
+                torch.cuda.synchronize()
+                same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+                worst_rel, worst_abs = 0.0, 0.0
+                for i, (a, r) in enumerate(zip(got, ref)):
+                    if r is None or r.numel() == 0:
+                        continue
+                    if not torch.isfinite(a.float()).all():
+                        raise AssertionError(f"edge_embedder_bwd {dtype} B={B} N={N}: "
+                                             f"gradient {i} not finite")
+                    err = float((a.float() - r.float()).abs().max())
+                    rel = err / max(float(r.float().abs().max()), 1e-30)
+                    worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+                label = f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins}"
+                line = (f"{label}: max err {worst_abs:.3e} abs, {worst_rel:.3e} of the gradient's "
+                        f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}")
+                if (B, N, n_bins) == (2, 256, 22):
+                    ms = cuda_time_ms(lambda: edge_embedder_bwd(g, *tensors, **kw), 20)
+                    plain_ms = cuda_time_ms(lambda: edge_embedder_bwd_plain(g, *tensors, **kw), 5)
+                    xla_ms = cuda_time_ms(lambda: xla_emb_backward(g, args), 5)
+                    flops, nbytes = edge_embedder_bwd_cost(B, N, dtype, n_bins)
+                    bound_ms = 1e3 * max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES)
+                    bound_by = ("operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES
+                                else "bytes")
+                    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+                    line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, xla backward "
+                             f"{xla_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                             f"{flops / ms / 1e9:.2f} TFLOP/s, workspace "
+                             f"{4 * bwd_workspace_floats(B, N, N, blocks)} bytes ({blocks} blocks)")
+                    if dtype == torch.float32:
+                        out = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                log(line)
+                if worst_rel > TOL[dtype] or not same:
+                    raise AssertionError(f"{label}: error {worst_rel} over tolerance or "
+                                         "not deterministic")
+    return out
+
+
 def device_ms(fn, iters: int = 10) -> float:
     """Device time of one call of ``fn``: the summed time of the kernels it
     launches under torch.profiler, over ``iters`` calls (idle gaps left
     out, unlike cuda_time_ms); 0.0 if the profiler records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / iters
+    return device_time(lambda: [fn() for _ in range(iters)])[0] / iters
 
 
 def compare_ipa_branches(B: int = 2, N: int = 256) -> None:
@@ -515,16 +610,17 @@ def helix_pdb(n_res: int, seed: int) -> str:
     ))
 
 
-KERNEL_NAMES = ("edge_embedder", "pair_mlp", "ipa_attention", "pair_mlp_bwd")
+KERNEL_NAMES = ("edge_embedder", "pair_mlp", "ipa_attention", "pair_mlp_bwd", "edge_embedder_bwd")
 
 
 def kernel_wrappers() -> dict:
-    from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder
+    from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder, edge_embedder_bwd
     from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp, pair_mlp_bwd
 
     return {"edge_embedder": edge_embedder, "pair_mlp": pair_mlp,
-            "ipa_attention": ipa_attention, "pair_mlp_bwd": pair_mlp_bwd}
+            "ipa_attention": ipa_attention, "pair_mlp_bwd": pair_mlp_bwd,
+            "edge_embedder_bwd": edge_embedder_bwd}
 
 
 def serve_requests(service, requests) -> dict[str, int]:
@@ -571,6 +667,7 @@ def serve_requests(service, requests) -> dict[str, int]:
                 "pair_mlp": (NUM_BLOCKS - 1) * (num_t + 1),
                 "ipa_attention": NUM_BLOCKS * (num_t + 1) if ipa_on else 0,
                 "pair_mlp_bwd": 0,
+                "edge_embedder_bwd": 0,
             }
             if got_launches != want:
                 raise AssertionError(f"request {k}: launches {got_launches}, expected {want}")
@@ -691,6 +788,7 @@ def plain_versions_in_model():
     from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention_plain
 
     swaps = [(emb, "edge_embedder", emb.edge_embedder_plain),
+             (emb, "edge_embedder_bwd", emb.edge_embedder_bwd_plain),
              (pm, "pair_mlp", pm.pair_mlp_plain), (pm, "pair_mlp_bwd", pm.pair_mlp_bwd_plain),
              (ipa, "ipa_attention", ipa_attention_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
@@ -726,9 +824,6 @@ def profile_sampler(model: torch.nn.Module, diffuser, num_t: int = 10) -> None:
     """A short sampler run at the serving shape: its wall time, the device
     time of every kernel in a second run under torch.profiler, and the
     device's busy share (summed device time / unprofiled wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from framedipt_tpu_torch.model.ipa import InvariantPointAttention
     from framedipt_tpu_torch.sampling import sample
 
@@ -741,23 +836,15 @@ def profile_sampler(model: torch.nn.Module, diffuser, num_t: int = 10) -> None:
         torch.cuda.synchronize()
 
     run()
-    t0 = time.perf_counter()
-    run()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-    device_ms: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    if not device_ms:
+    wall = wall_ms(run)
+    busy, by_name = device_time(run)
+    if not by_name:
         log("sampler profile: torch.profiler recorded no device time (busy share not measured)")
         return
-    busy = sum(device_ms.values())
     log(f"sampler B=2 N=256 num_t={num_t} ({num_t + 1} forwards, use_pallas_ipa={ipa_on}): "
-        f"{wall_ms:.1f} ms wall, "
-        f"{busy:.1f} ms of device time, busy share {busy / wall_ms:.3f}")
-    for name, ms in sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]:
+        f"{wall:.1f} ms wall, "
+        f"{busy:.1f} ms of device time, busy share {busy / wall:.3f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {ms:9.3f} ms  {name[:100]}")
 
 
@@ -796,10 +883,11 @@ def train_batch(B: int = 2, N: int = 256) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v), device="cuda") for k, v in batch.items()}
 
 
-def train_config():
+def train_config(emb_bwd_impl: str = "pallas"):
     from framedipt_tpu_torch.tools.config import load_config
 
-    cfg = load_config(["model.ipa.pallas_emb_bwd_impl=xla"])  # full default width, float32
+    # Full default width, float32; "pallas" is the default embedder backward.
+    cfg = load_config([f"model.ipa.pallas_emb_bwd_impl={emb_bwd_impl}"])
     cfg.experiment.inpainting = True
     return cfg
 
@@ -816,17 +904,17 @@ def step_launches(trainer, batch, seed: int) -> tuple[dict, dict[str, int]]:
     return metrics, {name: fn.launches for name, fn in wrappers.items()}
 
 
-def expected_launches(self_conditioned: bool) -> dict[str, int]:
+def expected_launches(self_conditioned: bool, emb_bwd_impl: str = "pallas") -> dict[str, int]:
     forwards = 2 if self_conditioned else 1  # the coin's forward runs without gradients
     return {"edge_embedder": forwards, "pair_mlp": (NUM_BLOCKS - 1) * forwards,
-            "ipa_attention": 0, "pair_mlp_bwd": NUM_BLOCKS - 1}
+            "ipa_attention": 0, "pair_mlp_bwd": NUM_BLOCKS - 1,
+            "edge_embedder_bwd": int(emb_bwd_impl == "pallas")}
 
 
 def check_training_refusals() -> None:
     """On the card: a pair-MLP backward other than its kernel cannot be
-    asked for (the override is refused), a trainer with the embedder
-    backward kernel ("pallas") raises NotImplementedError until it is
-    ported, and the IPA attention kernel refuses to run where autograd
+    asked for (the override is refused), an unknown embedder backward
+    raises, and the IPA attention kernel refuses to run where autograd
     records."""
     from framedipt_tpu_torch.geometry.rigid import Rigid
     from framedipt_tpu_torch.model.ipa import InvariantPointAttention
@@ -835,10 +923,8 @@ def check_training_refusals() -> None:
 
     with expect_raise(KeyError, "pallas_bwd_impl"):
         load_config(["model.ipa.pallas_bwd_impl=xla"])
-    cfg = train_config()
-    cfg.model.ipa.pallas_emb_bwd_impl = "pallas"
-    with expect_raise(NotImplementedError, "ROADMAP queue 2 item 2"):
-        make_trainer(cfg, device="cuda")
+    with expect_raise(ValueError, "must be 'xla' or 'pallas'"):
+        make_trainer(train_config("typo"), device="cuda")
     ipa = InvariantPointAttention(IPAConfig(), torch.float32).to("cuda")
     B, N = 1, 64
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -850,8 +936,7 @@ def check_training_refusals() -> None:
         ipa.attend_kernel(*heads, torch.randn(B, N, N, 128, generator=gen, device="cuda"),
                           torch.ones(B, N, device="cuda"))
     log("training refusals on the card: a pallas_bwd_impl override is refused, "
-        "pallas_emb_bwd_impl=pallas raises NotImplementedError, the IPA kernel branch "
-        "raises under autograd")
+        "pallas_emb_bwd_impl=typo raises ValueError, the IPA kernel branch raises under autograd")
 
 
 @contextlib.contextmanager
@@ -865,52 +950,104 @@ def expect_raise(kind: type, text: str):
         raise AssertionError(f"expected {kind.__name__} ({text})")
 
 
-def check_train_step() -> int:
-    """Phase 6. Returns the pair-MLP backward kernel's launches over the 10
-    timed-for-correctness steps."""
+def compare_steps(kern, other, m_k, m_o, label: str) -> None:
+    """Loss and every gradient of two trainers' first steps, each gradient
+    on the scale of max(its own max-abs, 1e-3 x the largest)."""
+    if m_o["self_conditioned"] != m_k["self_conditioned"]:
+        raise AssertionError(f"the {label} step drew another self-conditioning coin")
+    grads_k = {n: p.grad for n, p in kern.model.named_parameters() if p.grad is not None}
+    grads_o = {n: p.grad for n, p in other.model.named_parameters() if p.grad is not None}
+    if grads_k.keys() != grads_o.keys():
+        raise AssertionError(f"kernel and {label} steps give gradients to different parameters")
+    largest = max(float(g.abs().max()) for g in grads_o.values())
+    worst, worst_name = 0.0, ""
+    for name, g in grads_k.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"first train step: gradient of {name} not finite")
+        ref = grads_o[name]
+        scale = max(float(ref.abs().max()), 1e-3 * largest)
+        rel = float((g - ref).abs().max()) / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(float(m_k["loss"]) - float(m_o["loss"])) / abs(float(m_o["loss"]))
+    log(f"  against the {label} step: loss {float(m_k['loss']):.6f} / {float(m_o['loss']):.6f} "
+        f"(rel {loss_rel:.2e}); grad norm {float(m_k['grad_norm']):.4f} / "
+        f"{float(m_o['grad_norm']):.4f}; {len(grads_k)} gradients, worst {worst:.2e} of "
+        f"max(own max-abs, 1e-3 x largest) ({worst_name}; tol {TRAIN_TOL})")
+    if loss_rel > TRAIN_TOL or worst > TRAIN_TOL:
+        raise AssertionError(f"first train step: kernels and the {label} step disagree")
+
+
+def time_steps(trainer, batch, gen, steps: int = 5) -> tuple[float, float, list]:
+    """(ms a step by CUDA events over ``steps`` steps after 3 warm ones, peak
+    memory allocated in GB, the self-conditioning coins)."""
+    for _ in range(3):
+        trainer.step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    coins = []
+    start_ev.record()
+    for _ in range(steps):
+        coins.append(trainer.step(batch, gen)["self_conditioned"])
+    end_ev.record()
+    torch.cuda.synchronize()
+    return start_ev.elapsed_time(end_ev) / steps, torch.cuda.max_memory_allocated() / 1e9, coins
+
+
+def wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def device_time(fn) -> tuple[float, dict[str, float]]:
+    """(device ms, device ms by kernel name) of one call of ``fn`` under
+    torch.profiler; 0 and {} if the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        # Kernels and copies only: the optimizer's record_function range
+        # also lands on the device timeline.
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return sum(by_name.values()), by_name
+
+
+def check_train_step() -> int:
+    """Phase 6. Returns the pair-MLP backward kernel's launches over the 10
+    steps checked for correctness."""
     from framedipt_tpu_torch.train.loop import make_trainer
 
     B, N = 2, 256
     batch = train_batch(B, N)
     kern = make_trainer(train_config(), device="cuda")
     plain = make_trainer(train_config(), device="cuda")  # the same seeded weights
+    xla = make_trainer(train_config("xla"), device="cuda")
     m_k, launches = step_launches(kern, batch, seed=0)
     if launches != expected_launches(m_k["self_conditioned"]):
         raise AssertionError(f"first train step: launches {launches}")
     with plain_versions_in_model():
         m_p = plain.step(batch, torch.Generator(device="cuda").manual_seed(0))
-    if m_p["self_conditioned"] != m_k["self_conditioned"]:
-        raise AssertionError("the plain step drew another self-conditioning coin")
-    grads_k = {n: p.grad for n, p in kern.model.named_parameters() if p.grad is not None}
-    grads_p = {n: p.grad for n, p in plain.model.named_parameters() if p.grad is not None}
-    if grads_k.keys() != grads_p.keys():
-        raise AssertionError("kernel and plain steps give gradients to different parameters")
-    largest = max(float(g.abs().max()) for g in grads_p.values())
-    worst, worst_name = 0.0, ""
-    for name, g in grads_k.items():
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"first train step: gradient of {name} not finite")
-        ref = grads_p[name]
-        scale = max(float(ref.abs().max()), 1e-3 * largest)
-        rel = float((g - ref).abs().max()) / scale
-        if rel > worst:
-            worst, worst_name = rel, name
-    loss_rel = abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"]))
-    log(f"train step B={B} N={N} float32, first step (self_conditioned="
-        f"{m_k['self_conditioned']}): loss {float(m_k['loss']):.6f} kernels / "
-        f"{float(m_p['loss']):.6f} plain versions (rel {loss_rel:.2e}); grad norm "
-        f"{float(m_k['grad_norm']):.4f} / {float(m_p['grad_norm']):.4f}; {len(grads_k)} gradients, "
-        f"worst {worst:.2e} of max(own max-abs, 1e-3 x largest) ({worst_name}; tol {TRAIN_TOL}); "
+    m_x, launches_x = step_launches(xla, batch, seed=0)
+    if launches_x != expected_launches(m_x["self_conditioned"], "xla"):
+        raise AssertionError(f"first train step with the xla embedder backward: launches {launches_x}")
+    log(f"train step B={B} N={N} float32, first step (self_conditioned={m_k['self_conditioned']}), "
         f"launches {launches}")
-    if loss_rel > TRAIN_TOL or worst > TRAIN_TOL:
-        raise AssertionError("first train step: kernels and plain versions disagree")
+    compare_steps(kern, plain, m_k, m_p, "plain-version")
+    compare_steps(kern, xla, m_k, m_x, '"xla" embedder backward')
     del plain
     torch.cuda.empty_cache()
 
-    # 10 steps at lr 1e-4: finite, parameters move, 3 backward launches each.
+    # 10 steps at lr 1e-4: finite, parameters move, 3 + 1 backward launches each.
     start = {n: p.detach().clone() for n, p in kern.model.named_parameters()}
     bwd_launches = 0
     for i in range(10):
@@ -931,46 +1068,140 @@ def check_train_step() -> int:
     if still:
         raise AssertionError(f"parameters did not move: {still}")
 
-    # Step time (CUDA events, after 3 warm steps), peak memory, busy share.
+    # Step time (CUDA events), peak memory, both settings in turn; busy share.
     gen = torch.Generator(device="cuda").manual_seed(200)
-    for _ in range(3):
-        kern.step(batch, gen)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    coins = []
-    start_ev.record()
-    for _ in range(5):
-        coins.append(kern.step(batch, gen)["self_conditioned"])
-    end_ev.record()
-    torch.cuda.synchronize()
-    step_ms = start_ev.elapsed_time(end_ev) / 5
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    t0 = time.perf_counter()
-    for _ in range(5):
-        kern.step(batch, gen)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            kern.step(batch, gen)
-        torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        # Kernels and copies only: the optimizer's record_function range
-        # also lands on the device timeline.
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    log(f"train step B={B} N={N} float32 (pallas_emb_bwd_impl=xla): {step_ms:.3f} ms a step "
-        f"(CUDA events over 5 steps after 3 warm; self-conditioned {sum(coins)} of 5), "
-        f"{1e3 * B / step_ms:.2f} examples/s, peak memory {peak_gb:.3f} GB; 5 more steps "
-        f"{wall_ms:.1f} ms wall, " + (f"{busy:.1f} ms of device time, busy share "
-                                       f"{busy / wall_ms:.3f}" if by_name else
-                                       "torch.profiler recorded no device time (busy share not measured)"))
+    for label, trainer in (("pallas", kern), ("xla", xla), ("pallas", kern), ("xla", xla)):
+        step_ms, peak_gb, coins = time_steps(trainer, batch, gen)
+        log(f"train step B={B} N={N} float32 (pallas_emb_bwd_impl={label}): {step_ms:.3f} ms a "
+            f"step (CUDA events over 5 steps after 3 warm; self-conditioned {sum(coins)} of 5), "
+            f"{1e3 * B / step_ms:.2f} examples/s, peak memory {peak_gb:.3f} GB (both trainers "
+            "resident)")
+    wall = wall_ms(lambda: [kern.step(batch, gen) for _ in range(5)])
+    busy, by_name = device_time(lambda: [kern.step(batch, gen) for _ in range(5)])
+    log(f"train step B={B} N={N} float32 (pallas): 5 steps {wall:.1f} ms wall, "
+        + (f"{busy:.1f} ms of device time over 5 more under torch.profiler, busy share "
+           f"{busy / wall:.3f}" if by_name else
+           "torch.profiler recorded no device time (busy share not measured)"))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {ms:9.3f} ms  {name[:100]}")
     return bwd_launches
+
+
+# -- phase 7: the training CLI -----------------------------------------------
+
+
+def cli_overrides(data_dir: pathlib.Path, root: pathlib.Path) -> list[str]:
+    """The CLI's settings for phase 7: the default model and diffuser, the
+    fixtures' single chains of 11-242 residues uncropped, 14-21 steps with
+    checkpoints at 3 (early) and every 5, one eval at step 12."""
+    return [
+        f"data.csv_path={data_dir / 'metadata.csv'}", "data.single_chain=true",
+        "data.filtering.min_len=10", "data.filtering.max_len=2000",
+        "data.filtering.chain_max_len=256", "data.num_eval_lengths=1",
+        "data.samples_per_eval_length=2", "data.num_t=10",
+        "experiment.inpainting=true", "experiment.batch_size=2", "experiment.num_epoch=7",
+        "experiment.log_freq=5", "experiment.ckpt_freq=5", "experiment.early_ckpt_step=3",
+        "experiment.eval_freq=12", "experiment.name=chip_smoke",
+        f"experiment.ckpt_dir={root / 'ckpt'}", f"experiment.eval_dir={root / 'eval'}",
+    ]
+
+
+def check_training_cli() -> int:
+    """Phase 7: preprocess, train, checkpoint, eval, resume, serve. Returns
+    the embedder backward kernel's launches over the first run."""
+    import tempfile
+
+    from framedipt_tpu_torch.data.pipeline import ProcessOptions, process_serially, write_metadata
+    from framedipt_tpu_torch.experiments.serve import InpaintingService
+    from framedipt_tpu_torch.experiments.train import TrainDataset, train
+    from framedipt_tpu_torch.tools.config import Config, FilteringConfig, load_config
+    from framedipt_tpu_torch.train.checkpoints import CKPT_FILE, latest_checkpoint
+    from framedipt_tpu_torch.train.loop import make_trainer
+
+    wrappers = kernel_wrappers()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        cifs = sorted((REPO / "tests" / "data" / "cifs").glob("*.cif"))
+        rows = process_serially(cifs, ProcessOptions(
+            output_dir=root / "data",
+            filtering=FilteringConfig(min_len=10, max_len=2000, chain_max_len=256)))
+        if len(rows) != len(cifs):
+            raise AssertionError(f"preprocessing kept {len(rows)} of {len(cifs)} structures")
+        write_metadata(rows, root / "data" / "metadata.csv")
+        log(f"preprocessed {len(rows)} mmCIF files in {time.perf_counter() - t0:.2f} s "
+            f"({[(r['pdb_name'], r['seq_len']) for r in rows]})")
+
+        cfg = load_config(cli_overrides(root / "data", root))
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        first = train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        rows = [json.loads(x) for x in (first.ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = {r["step"]: r["loss"] for r in rows if "loss" in r}
+        evals = [r for r in rows if "eval_ca_ca_deviation" in r]
+        log(f"train run: {first.steps_run} steps in {run_s:.2f} s (loop {first.loop_seconds:.2f} s, "
+            f"{first.input_wait_seconds:.2f} s of it waiting for batches); losses "
+            f"{ {k: round(v, 4) for k, v in losses.items()} }; launches {launches}")
+        if not 14 <= first.steps_run <= 21 or not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"train run: {first.steps_run} steps, losses {losses}")
+        if launches["edge_embedder_bwd"] != first.steps_run or launches["pair_mlp_bwd"] != (
+                NUM_BLOCKS - 1) * first.steps_run:
+            raise AssertionError(f"train run: launches {launches} for {first.steps_run} steps")
+        pdbs = sorted((root / "eval" / "chip_smoke" / "step_12").rglob("*.pdb"))
+        if len(evals) != 1 or evals[0]["step"] != 12 or len(pdbs) != 2:
+            raise AssertionError(f"eval: rows {evals}, PDBs {pdbs}")
+        log(f"eval at step 12: {len(pdbs)} PDBs ({pdbs[0].parent.name}), "
+            f"{ {k: round(v, 4) for k, v in evals[0].items() if k.startswith('eval_')} }")
+        ckpts = sorted(p.name for p in first.ckpt_dir.glob("step_*"))
+        if ckpts != [f"step_{first.step}"] or not (first.ckpt_dir / ckpts[0] / CKPT_FILE).exists():
+            raise AssertionError(f"checkpoints: {ckpts}")
+        log(f"checkpoints: {ckpts} ({(first.ckpt_dir / ckpts[0] / CKPT_FILE).stat().st_size} bytes)")
+
+        # Resume from the run's own directory for three more epochs.
+        cfg = load_config(cli_overrides(root / "data", root) + [
+            "experiment.num_epoch=3", "experiment.ckpt_freq=1000", "experiment.early_ckpt=false",
+            "experiment.eval_freq=1000"])
+        resumed = train(cfg, device="cuda")
+        if resumed.step != first.step + resumed.steps_run or resumed.steps_run < 1 or (
+                latest_checkpoint(resumed.ckpt_dir).name != f"step_{resumed.step}"):
+            raise AssertionError(f"resume: step {resumed.step} after {first.step}, "
+                                 f"{resumed.steps_run} run")
+        with_pipeline = resumed.steps_run / resumed.loop_seconds
+        # The same number of steps on batches already on the card (no input
+        # pipeline), timed, then again under the profiler for device time.
+        trainer = make_trainer(cfg, device="cuda", state_dict=resumed.model.state_dict())
+        epoch = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+                 for b in TrainDataset(cfg, np.random.default_rng(cfg.experiment.seed)).batches(
+                     cfg.experiment.batch_size)]
+        batches = [epoch[i % len(epoch)] for i in range(resumed.steps_run)]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        trainer.step(batches[0], gen)
+        in_memory_ms = wall_ms(lambda: [trainer.step(b, gen) for b in batches])
+        busy, _ = device_time(lambda: [trainer.step(b, gen) for b in batches])
+        log(f"resumed run: steps {first.step} -> {resumed.step}; {with_pipeline:.3f} steps/s with "
+            f"the input pipeline (loop {resumed.loop_seconds:.3f} s, "
+            f"{resumed.input_wait_seconds:.3f} s waiting for batches), "
+            f"{1e3 * len(batches) / in_memory_ms:.3f} steps/s on the same number of batches "
+            "already on the card; "
+            + (f"{busy:.1f} ms of device time for them (torch.profiler): busy share "
+               f"{busy / in_memory_ms:.3f} without the pipeline, "
+               f"{busy / (1e3 * resumed.loop_seconds):.3f} of the resumed loop"
+               if busy else "busy share not measured (no device time recorded)"))
+        del trainer
+
+        # Serve the checkpoint: one /inpaint request.
+        scfg = Config()
+        scfg.inference.weights_path = str(latest_checkpoint(resumed.ckpt_dir) / CKPT_FILE)
+        service = InpaintingService(scfg, device="cuda")
+        serve_requests(service, [(230, (100, 112), 25)])
+        del service
+    torch.cuda.empty_cache()
+    return launches["edge_embedder_bwd"]
 
 
 def main() -> int:
@@ -998,6 +1229,7 @@ def main() -> int:
     log("phase 3: kernels against their plain versions")
     serving = check_kernels()
     serving["pair_mlp_bwd"] = check_pair_mlp_bwd()
+    serving["edge_embedder_bwd"] = check_edge_embedder_bwd()
     compare_ipa_branches()
     log("phase 4: full-width forward against the recorded reference")
     check_recorded_forward(use_pallas_ipa=False)
@@ -1007,12 +1239,15 @@ def main() -> int:
     log("phase 6: train step")
     check_training_refusals()
     launches["pair_mlp_bwd"] = check_train_step()
+    log("phase 7: the training CLI")
+    launches["edge_embedder_bwd"] = check_training_cli()
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
         "pair_mlp": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "ipa_attention": "framedipt_tpu/model/pallas/ipa_attention.py:65",
         "pair_mlp_bwd": "framedipt_tpu/model/pallas/pair_mlp.py:349",
+        "edge_embedder_bwd": "framedipt_tpu/model/pallas/edge_embedder.py:366",
     }
     kernels = [
         {

@@ -1,7 +1,8 @@
 // Shared pieces of the edge-stack kernels: element-type conversion, a
 // shared-memory-tiled float32 product for 64-row tiles with a double-buffered
-// weight stream, the pair MLP's epilogues, and the fused LayerNorm +
-// edge-mask epilogue.
+// weight stream, the pair MLP's and the edge embedder's epilogues, the fused
+// LayerNorm + edge-mask epilogue, and the backward kernels' weight-gradient
+// product and ordered partial sums.
 //
 // Thread layout (256 threads): tx = tid % 16 picks columns, ty = tid / 16
 // picks rows; each thread owns a 4-row x (NC/16)-column micro-tile of the
@@ -175,6 +176,42 @@ __device__ __forceinline__ float pair_out(float acc, float res, const T* __restr
   return rnd<T>(v + bf);
 }
 
+// The edge embedder's epilogues, shared by its forward kernel
+// (edge_embedder.cu) and its backward kernel's recompute
+// (edge_embedder_bwd.cu), in the plain version's addition order.
+// y0 = relu(m @ W_rel + W_dist[bin] + i_term + j_term + b0), bin < 0: no row;
+// W_dist rows are 128 wide (the edge width both kernels are built for).
+template <typename T>
+__device__ __forceinline__ float emb_y0(float acc, int bin, const T* __restrict__ w_dist, int c,
+                                        float i_term, float j_term, float b0) {
+  float v = rnd<T>(acc);
+  if (bin >= 0) v = rnd<T>(v + ld<T>(w_dist + (size_t)bin * 128 + c));
+  v = rnd<T>(v + i_term);
+  v = rnd<T>(v + j_term);
+  v = rnd<T>(v + b0);
+  return fmaxf(v, 0.f);
+}
+
+// Pre-norm output of the last layer: y1 @ W2 + b2.
+template <typename T>
+__device__ __forceinline__ float emb_out(float acc, float b2) {
+  return rnd<T>(rnd<T>(acc) + b2);
+}
+
+// Distance bin of one pair: the n with lower[n] < d < upper[n] (open
+// intervals), or -1. Products and sums unfused, so d is the correctly rounded
+// sqrt((dx^2 + dy^2) + dz^2) of the plain version.
+__device__ __forceinline__ int pair_bin(const float* __restrict__ a, const float* __restrict__ c,
+                                        const float* lo, const float* hi, int n_bins) {
+  const float dx = __fsub_rn(a[0], c[0]), dy = __fsub_rn(a[1], c[1]), dz = __fsub_rn(a[2], c[2]);
+  const float d = __fsqrt_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)));
+  int bin = -1;
+  for (int n = 0; n < n_bins; ++n)
+    if (d > lo[n] && d < hi[n]) bin = n;
+  return bin;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -251,5 +288,103 @@ __device__ __forceinline__ void layer_norm_store(const float* __restrict__ O, in
     }
   }
 }
+
+// ---- pieces of the backward kernels ----------------------------------------
+//
+// A backward kernel's blocks are persistent: each owns one float32 partial
+// set of the grid-summed gradients in global memory and adds each tile's
+// contribution to it; per-tile row and column partials go to buffers that a
+// second kernel (reduce_partials) sums in a fixed order. No float atomics, so
+// two launches give the same bits.
+
+// G[K x N] (+)= A^T Bm over the P rows of a tile. A and Bm are float in
+// shared memory (row strides lda, ldb, multiples of 4); G is row-major
+// (stride N) in global memory, the block's own. K is a multiple of 16 RK and N
+// of 128. Each thread owns an RK x 8 block of every (16 RK) x 128 output tile
+// (rows ty * RK + i, columns tile_col(j, tx)) and adds the rows p = 0 .. P-1
+// to it in order; on the block's first tile it writes instead of adding.
+template <int RK, int P>
+__device__ __forceinline__ void wgrad(const float* __restrict__ A, int lda, int K,
+                                      const float* __restrict__ Bm, int ldb, int N,
+                                      float* __restrict__ G, bool first) {
+  static_assert(RK % 4 == 0, "A is read as float4");
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int kb = 0; kb < K; kb += 16 * RK) {
+    for (int nb = 0; nb < N; nb += 128) {
+      float acc[RK][8];
+      float* Gt = G + (size_t)(kb + ty * RK) * N + nb + tx * 4;
+#pragma unroll
+      for (int i = 0; i < RK; ++i)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float4 v = first ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                 : *reinterpret_cast<const float4*>(Gt + (size_t)i * N + q * 64);
+          acc[i][q * 4 + 0] = v.x;
+          acc[i][q * 4 + 1] = v.y;
+          acc[i][q * 4 + 2] = v.z;
+          acc[i][q * 4 + 3] = v.w;
+        }
+#pragma unroll 4
+      for (int p = 0; p < P; ++p) {
+        const float* ap = A + p * lda + kb + ty * RK;
+        const float* bp = Bm + p * ldb + nb + tx * 4;
+        float a[RK];
+#pragma unroll
+        for (int u = 0; u < RK / 4; ++u) {
+          const float4 v = *reinterpret_cast<const float4*>(ap + 4 * u);
+          a[4 * u + 0] = v.x;
+          a[4 * u + 1] = v.y;
+          a[4 * u + 2] = v.z;
+          a[4 * u + 3] = v.w;
+        }
+        const float4 b0 = *reinterpret_cast<const float4*>(bp);
+        const float4 b1 = *reinterpret_cast<const float4*>(bp + 64);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < RK; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < RK; ++i)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          *reinterpret_cast<float4*>(Gt + (size_t)i * N + q * 64) =
+              make_float4(acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2], acc[i][q * 4 + 3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void add_part(float* __restrict__ dst, float v, bool first) {
+  *dst = first ? v : *dst + v;
+}
+
+namespace {
+
+// out[m, c] = sum over s = 0 .. S-1, in order, of part[(m * S + s) * ld + c],
+// for c < C <= ld.
+__global__ void sum_partials(const float* __restrict__ part, float* __restrict__ out,
+                             long long M, int S, int C, int ld) {
+  const long long total = M * C;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (long long)gridDim.x * blockDim.x) {
+    const long long m = idx / C, c = idx - m * C;
+    const float* p = part + (size_t)m * S * ld + c;
+    float s = 0.f;
+    for (int k = 0; k < S; ++k) s += p[(size_t)k * ld];
+    out[m * ld + c] = s;
+  }
+}
+
+cudaError_t reduce_partials(const float* part, float* out, long long M, int S, int C, int ld,
+                            cudaStream_t stream) {
+  const long long total = M * C;
+  const long long want = (total + 255) / 256;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  if (blocks > 0) sum_partials<<<blocks, 256, 0, stream>>>(part, out, M, S, C, ld);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace fdk

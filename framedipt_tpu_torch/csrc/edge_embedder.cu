@@ -13,7 +13,9 @@
 // the d = 0 diagonal and a distance exactly on an edge add nothing: a row
 // gather instead of the TPU kernel's one-hot product, with the same result.
 // Each product accumulates in float32 and is rounded to T; every elementwise
-// add rounds to T as the plain version does; LayerNorm statistics float32.
+// add rounds to T as the plain version does (the epilogues and the distance
+// bin live in common.cuh, shared with the backward kernel's recompute);
+// LayerNorm statistics float32.
 //
 // Bound on an H100 SXM at N=256, B=1: 2*(64*128 + 128*128 + 128*128) =
 // 81,920 FLOP per pair (5.4 GFLOP per launch; 5.7 counting the TPU kernel's
@@ -82,22 +84,12 @@ edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
                               : rnd<T>(ld<T>(g + (size_t)prow * CP + k) *
                                        ld<T>(h + (size_t)pt.col[r] * CP + k));
   }
-  // Distance bin per pair; products and sums unfused so the distance is the
-  // correctly rounded ((dx^2 + dy^2) + dz^2) of the plain version.
+  // Distance bin per pair (common.cuh pair_bin).
   if (tid < kRows) {
-    int b_ = -1;
     const int prow = pt.row[tid];
-    if (prow >= 0) {
-      const float* a = pos_r + (size_t)prow * 3;
-      const float* c = pos_c + (size_t)pt.col[tid] * 3;
-      const float dx = __fsub_rn(a[0], c[0]), dy = __fsub_rn(a[1], c[1]),
-                  dz = __fsub_rn(a[2], c[2]);
-      const float d = __fsqrt_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)));
-      for (int n = 0; n < n_bins; ++n)
-        if (d > lo[n] && d < hi[n]) b_ = n;
-    }
-    bin[tid] = b_;
+    bin[tid] = prow < 0 ? -1
+                        : pair_bin(pos_r + (size_t)prow * 3, pos_c + (size_t)pt.col[tid] * 3, lo,
+                                   hi, n_bins);
   }
   __syncthreads();
 
@@ -113,12 +105,8 @@ edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tile_col(j, tx);
-        float v = rnd<T>(acc[i][j]);
-        if (bn >= 0) v = rnd<T>(v + ld<T>(w_dist + (size_t)bn * C + c));
-        v = rnd<T>(v + ld<T>(i_term + (size_t)prow * C + c));
-        v = rnd<T>(v + ld<T>(j_term + (size_t)pcol * C + c));
-        v = rnd<T>(v + ld<T>(b0 + c));
-        X[r * LDX + c] = fmaxf(v, 0.f);
+        X[r * LDX + c] = emb_y0<T>(acc[i][j], bn, w_dist, c, ld<T>(i_term + (size_t)prow * C + c),
+                                   ld<T>(j_term + (size_t)pcol * C + c), ld<T>(b0 + c));
       }
     }
   }
@@ -133,7 +121,7 @@ edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tile_col(j, tx);
-        Hd[(ty * 4 + i) * LDX + c] = fmaxf(rnd<T>(rnd<T>(acc[i][j]) + ld<T>(b1 + c)), 0.f);
+        Hd[(ty * 4 + i) * LDX + c] = pair_y1<T>(acc[i][j], ld<T>(b1 + c));
       }
   }
   __syncthreads();
@@ -147,7 +135,7 @@ edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tile_col(j, tx);
-        X[(ty * 4 + i) * LDX + c] = rnd<T>(rnd<T>(acc[i][j]) + ld<T>(b2 + c));
+        X[(ty * 4 + i) * LDX + c] = emb_out<T>(acc[i][j], ld<T>(b2 + c));
       }
   }
   __syncthreads();

@@ -73,60 +73,6 @@ constexpr size_t kSmemFloats = (size_t)kP * (3 * LDX + 2 * LDH) + 2 * (size_t)kK
                                (size_t)kWarps * 3 * C_OUT;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float) + sizeof(BwdTile);
 
-// G[K x N] (+)= A^T Bm over the kP rows of the tile. A and Bm are float in
-// shared memory (row strides lda, ldb); G is row-major (stride N) in global
-// memory, this block's own. Each thread owns an 8 x 8 block of every
-// 128 x 128 output tile (rows ty * 8 + i, columns tile_col(j, tx)) and adds
-// the rows p = 0 .. kP-1 to it in order; on the block's first tile it
-// writes instead of adding.
-__device__ __forceinline__ void wgrad(const float* __restrict__ A, int lda, int K,
-                                      const float* __restrict__ Bm, int ldb, int N,
-                                      float* __restrict__ G, bool first) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int kb = 0; kb < K; kb += 128) {
-    for (int nb = 0; nb < N; nb += 128) {
-      float acc[8][8];
-      float* Gt = G + (size_t)(kb + ty * 8) * N + nb + tx * 4;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const float4 v = first ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                 : *reinterpret_cast<const float4*>(Gt + (size_t)i * N + q * 64);
-          acc[i][q * 4 + 0] = v.x;
-          acc[i][q * 4 + 1] = v.y;
-          acc[i][q * 4 + 2] = v.z;
-          acc[i][q * 4 + 3] = v.w;
-        }
-#pragma unroll 4
-      for (int p = 0; p < kP; ++p) {
-        const float* ap = A + p * lda + kb + ty * 8;
-        const float* bp = Bm + p * ldb + nb + tx * 4;
-        const float4 a0 = *reinterpret_cast<const float4*>(ap);
-        const float4 a1 = *reinterpret_cast<const float4*>(ap + 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(bp);
-        const float4 b1 = *reinterpret_cast<const float4*>(bp + 64);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-          *reinterpret_cast<float4*>(Gt + (size_t)i * N + q * 64) =
-              make_float4(acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2], acc[i][q * 4 + 3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void add_part(float* __restrict__ dst, float v, bool first) {
-  *dst = first ? v : *dst + v;
-}
-
 template <typename T, bool RESIDUAL>
 __global__ void __launch_bounds__(kThreads, 1)
 pair_mlp_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pair,
@@ -333,8 +279,8 @@ pair_mlp_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pair,
     }
 
     // ---- final projection: d_wf, d_wfe; dy1 = (dx @ Wf^T) * relu'(y1) ----
-    wgrad(Y1, LDH, HID, DX, LDX, C_OUT, wp + OFF_WF, first);
-    if (RESIDUAL) wgrad(X, LDX, C_IN, DX, LDX, C_OUT, wp + OFF_WFE, first);
+    wgrad<8, kP>(Y1, LDH, HID, DX, LDX, C_OUT, wp + OFF_WF, first);
+    if (RESIDUAL) wgrad<8, kP>(X, LDX, C_IN, DX, LDX, C_OUT, wp + OFF_WFE, first);
     for (int hc = 0; hc < HID / 128; ++hc) {
       float acc[2][8];
       zero(acc);
@@ -357,7 +303,7 @@ pair_mlp_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pair,
       for (int r = 0; r < kP; ++r) s += Y1[r * LDH + c];
       add_part(wp + OFF_B1 + c, s, first);
     }
-    wgrad(Y0, LDH, HID, Y1, LDH, HID, wp + OFF_W1, first);
+    wgrad<8, kP>(Y0, LDH, HID, Y1, LDH, HID, wp + OFF_W1, first);
     for (int hc = 0; hc < HID / 128; ++hc) {
       float acc[2][8];
       zero(acc);
@@ -387,7 +333,7 @@ pair_mlp_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pair,
       for (int ri = 0; ri < kTI; ++ri) s += Y0[(ri * kTJ + rj) * LDH + h];
       colpart[((size_t)(b * Nc + j) * n_ti + ti) * kRowPart + h] = s;
     }
-    wgrad(X, LDX, C_IN, Y0, LDH, HID, wp + OFF_W0, first);
+    wgrad<8, kP>(X, LDX, C_IN, Y0, LDH, HID, wp + OFF_W0, first);
     {
       float acc[2][8], res[2][8];
       zero(acc);
@@ -413,30 +359,6 @@ pair_mlp_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pair,
   }
 }
 
-// out[m, c] = sum over s = 0 .. S-1, in order, of part[(m * S + s) * ld + c],
-// for c < C <= ld.
-__global__ void sum_partials(const float* __restrict__ part, float* __restrict__ out,
-                             long long M, int S, int C, int ld) {
-  const long long total = M * C;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const long long m = idx / C, c = idx - m * C;
-    const float* p = part + (size_t)m * S * ld + c;
-    float s = 0.f;
-    for (int k = 0; k < S; ++k) s += p[(size_t)k * ld];
-    out[m * ld + c] = s;
-  }
-}
-
-cudaError_t reduce(const float* part, float* out, long long M, int S, int C, int ld,
-                   cudaStream_t stream) {
-  const long long total = M * C;
-  const long long want = (total + 255) / 256;
-  const int blocks = (int)(want < 4096 ? want : 4096);
-  if (blocks > 0) sum_partials<<<blocks, 256, 0, stream>>>(part, out, M, S, C, ld);
-  return cudaGetLastError();
-}
-
 template <typename T, bool RESIDUAL>
 cudaError_t launch(const void* g, const void* pair, const void* i_term, const void* j_term,
                    const void* fi, const void* fj, const void* row_mask, const void* col_mask,
@@ -460,11 +382,11 @@ cudaError_t launch(const void* g, const void* pair, const void* i_term, const vo
       colpart, B, Nr, Nc, n_ti, n_tj);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // Without the residual terms the d_wfe partials are never written: not summed.
-  err = reduce(wpart, wred, 1, blocks, RESIDUAL ? kWParts : OFF_WFE, kWParts, stream);
+  err = reduce_partials(wpart, wred, 1, blocks, RESIDUAL ? kWParts : OFF_WFE, kWParts, stream);
   if (err != cudaSuccess) return err;
-  err = reduce(rowpart, rowred, (long long)B * Nr, n_tj, kRowPart, kRowPart, stream);
+  err = reduce_partials(rowpart, rowred, (long long)B * Nr, n_tj, kRowPart, kRowPart, stream);
   if (err != cudaSuccess) return err;
-  return reduce(colpart, colred, (long long)B * Nc, n_ti, kRowPart, kRowPart, stream);
+  return reduce_partials(colpart, colred, (long long)B * Nc, n_ti, kRowPart, kRowPart, stream);
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
-"""Host-side featurization (numpy): atom37 -> backbone frames and torsion
-angles, as the JAX package's ``data/transforms.py`` computes them.
+"""Host-side featurization (numpy): atom37 -> rigid-group frames, backbone
+frames, torsion angles and atom14 gathers, as the JAX package's
+``data/transforms.py`` computes them.
 
 Conventions: backbone frame = Gram-Schmidt on (C, CA, N) composed with
 diag(-1, 1, -1); psi sin/cos sign-flipped (AF2).
@@ -24,6 +25,76 @@ def _gram_schmidt_frames(p_neg_x, origin, p_xy, eps=1e-8):
     e2 = np.cross(e0, e1)
     rots = np.stack([e0, e1, e2], axis=-1)
     return rots, origin
+
+
+def _build_rigidgroup_base_atom_idx() -> tuple[np.ndarray, np.ndarray]:
+    """[21, 8, 3] atom37 indices of each rigid group's 3 base atoms and the
+    [21, 8] group-exists mask. Groups: 0 backbone, 3 psi, 4-7 chi1-4 (1 and
+    2, pre-omega and phi, carry no frame)."""
+    chi_mask = np.asarray(rc.chi_angles_mask, np.float32)
+    a = rc.atom_order
+    base_idx = np.zeros((21, 8, 3), np.int64)
+    group_exists = np.zeros((21, 8), np.float32)
+    for r_i, r1 in enumerate(rc.restypes):
+        resname = rc.restype_1to3[r1]
+        base_idx[r_i, 0] = [a["C"], a["CA"], a["N"]]
+        base_idx[r_i, 3] = [a["CA"], a["C"], a["O"]]
+        group_exists[r_i, [0, 3]] = 1.0
+        for chi_i in range(4):
+            if chi_mask[r_i][chi_i]:
+                atoms = rc.chi_angles_atoms[resname][chi_i]
+                base_idx[r_i, 4 + chi_i] = [a[x] for x in atoms[1:]]
+                group_exists[r_i, 4 + chi_i] = 1.0
+    return base_idx, group_exists
+
+
+_BASE_ATOM_IDX, _GROUP_EXISTS = _build_rigidgroup_base_atom_idx()
+
+
+def atom37_to_frames(
+    aatype: np.ndarray, atom37: np.ndarray, atom37_mask: np.ndarray
+) -> dict[str, np.ndarray]:
+    """Ground-truth rigid-group frames [N, 8, 4, 4] and their exists mask
+    [N, 8] from atom37 coordinates (the ambiguous chi-swap frames are left
+    out: backbone diffusion never reads them). Unknown residues have only
+    the zero frame."""
+    aatype = np.clip(np.asarray(aatype, np.int64), 0, 20)
+    base_idx = _BASE_ATOM_IDX[aatype]  # [N, 8, 3]
+    n = aatype.shape[0]
+    gather = atom37[np.arange(n)[:, None, None], base_idx]  # [N, 8, 3, 3]
+    gt_atoms_exist = np.prod(atom37_mask[np.arange(n)[:, None, None], base_idx], axis=-1)
+    rots, trans = _gram_schmidt_frames(gather[..., 0, :], gather[..., 1, :], gather[..., 2, :])
+    flip = np.eye(3, dtype=rots.dtype)  # backbone group: compose with diag(-1, 1, -1)
+    flip[0, 0] = -1.0
+    flip[2, 2] = -1.0
+    rots[:, 0] = rots[:, 0] @ flip
+    frames = np.zeros((n, 8, 4, 4), np.float32)
+    frames[..., :3, :3] = rots
+    frames[..., :3, 3] = trans
+    frames[..., 3, 3] = 1.0
+    exists = _GROUP_EXISTS[aatype] * gt_atoms_exist
+    return {
+        "rigidgroups_gt_frames": (frames * exists[..., None, None]).astype(np.float32),
+        "rigidgroups_gt_exists": exists.astype(np.float32),
+    }
+
+
+def make_atom14_positions(
+    aatype: np.ndarray, atom37: np.ndarray, atom37_mask: np.ndarray
+) -> dict[str, np.ndarray]:
+    """Gather atom37 -> atom14 positions, their exists mask and the index
+    map (the ambiguous-atom alternative is left out)."""
+    aatype = np.clip(np.asarray(aatype, np.int64), 0, 20)
+    n = aatype.shape[0]
+    a14_to_a37 = np.asarray(rc.restype_atom14_to_atom37)[aatype]  # [N, 14]
+    a14_exists = np.asarray(rc.restype_atom14_exists)[aatype]
+    gather = atom37[np.arange(n)[:, None], a14_to_a37]
+    gather_mask = atom37_mask[np.arange(n)[:, None], a14_to_a37] * a14_exists
+    return {
+        "atom14_gt_positions": (gather * gather_mask[..., None]).astype(np.float32),
+        "atom14_gt_exists": gather_mask.astype(np.float32),
+        "residx_atom14_to_atom37": a14_to_a37.astype(np.int64),
+    }
 
 
 def backbone_rigid_tensor7(

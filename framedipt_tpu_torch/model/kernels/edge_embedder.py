@@ -16,11 +16,14 @@ give no bin. Products accumulate in float32 and are rounded to the compute
 dtype; LayerNorm statistics are float32 (eps 1e-6).
 
 :func:`edge_embedder` takes the kernel (``csrc/edge_embedder.cu``) for CUDA
-tensors and :func:`edge_embedder_plain` for CPU tensors.
-:class:`EdgeEmbedderFunction` makes it differentiable: its backward is the
-VJP of the plain formulation recomputed from the saved O(N) inputs (the JAX
-package's ``pallas_emb_bwd_impl="xla"``); the backward kernel is not ported
-yet.
+tensors and :func:`edge_embedder_plain` for CPU tensors. The backward:
+:func:`edge_embedder_bwd` takes the backward kernel
+(``csrc/edge_embedder_bwd.cu``) for CUDA tensors and
+:func:`edge_embedder_bwd_plain` for CPU tensors; both recompute the forward
+from the O(N) inputs and return every input gradient but the coordinates'.
+:class:`EdgeEmbedderFunction` binds them for autograd; with
+``pallas_emb_bwd_impl="xla"`` its backward is instead the VJP of the plain
+formulation (the JAX package's remat twin).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from framedipt_tpu_torch.model.kernels.build import library
-from framedipt_tpu_torch.model.layers import layer_norm_f32
+from framedipt_tpu_torch.model.layers import layer_norm_f32, matmul_f32
 
 F32 = torch.float32
 CP, C = 64, 128  # CP-factor and edge widths the kernel is built for
@@ -62,32 +65,105 @@ def expand_w_rel(w_rel: torch.Tensor) -> torch.Tensor:
     return torch.cat([ws, ws, wc, wc], dim=0)
 
 
+def _pre_norm(g, h, pos_rows, pos_cols, i_term, j_term, w_rel, w_dist, b0, w1, b1, w2, b2,
+              bins_lower, bins_upper):
+    """(m, onehot, y0, y1, pre-norm output), added in the kernels' order
+    (b0 after the node terms), which decides every relu mask; the forward
+    kernel and the backward kernel's recompute follow it (``common.cuh``)."""
+    m = g[:, :, None, :] * h[:, None, :, :]
+    diff = pos_rows.to(F32)[:, :, None, :] - pos_cols.to(F32)[:, None, :, :]
+    d = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    lower = torch.as_tensor(bins_lower, dtype=F32, device=g.device)
+    upper = torch.as_tensor(bins_upper, dtype=F32, device=g.device)
+    onehot = ((d[..., None] > lower) & (d[..., None] < upper)).to(g.dtype)
+    x = matmul_f32(m, w_rel) + matmul_f32(onehot, w_dist)
+    y0 = torch.relu(x + i_term[:, :, None, :] + j_term[:, None, :, :] + b0)
+    y1 = torch.relu(matmul_f32(y0, w1) + b1)
+    return m, onehot, y0, y1, matmul_f32(y1, w2) + b2
+
+
 def edge_embedder_plain(
     g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
     w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
     bins_lower, bins_upper,
 ):
     """Plain PyTorch version of the kernel (the XLA twin's formulation)."""
-    dtype = g.dtype
-
-    def mm(x, w):
-        return torch.matmul(x.to(F32), w.to(F32)).to(dtype)
-
-    m = g[:, :, None, :] * h[:, None, :, :]
-    x = mm(m, w_rel)
-    diff = pos_rows.to(F32)[:, :, None, :] - pos_cols.to(F32)[:, None, :, :]
-    d = torch.sqrt(torch.sum(diff * diff, dim=-1))
-    lower = torch.as_tensor(bins_lower, dtype=F32, device=g.device)
-    upper = torch.as_tensor(bins_upper, dtype=F32, device=g.device)
-    onehot = ((d[..., None] > lower) & (d[..., None] < upper)).to(dtype)
-    x = x + mm(onehot, w_dist)
-    x = x + i_term[:, :, None, :] + j_term[:, None, :, :]
-    x = torch.relu(x + b0)
-    x = torch.relu(mm(x, w1) + b1)
-    x = mm(x, w2) + b2
+    *_, x = _pre_norm(g, h, pos_rows, pos_cols, i_term, j_term, w_rel, w_dist, b0, w1, b1,
+                      w2, b2, bins_lower, bins_upper)
     normed = layer_norm_f32(x, ln_scale, ln_bias)
     emask = row_mask[:, :, None] * col_mask[:, None, :]
-    return (normed * emask[..., None].to(F32)).to(dtype)
+    return (normed * emask[..., None].to(F32)).to(g.dtype)
+
+
+def edge_embedder_bwd_plain(
+    grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
+    w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
+    *, bins_lower, bins_upper,
+):
+    """Plain PyTorch version of the backward kernel: recompute the forward
+    in :func:`edge_embedder_plain`'s order, then back-propagate step by step
+    as the JAX package's backward kernel does, for any widths. Returns the
+    gradients in the forward's argument order: (d_g, d_h, None, None,
+    d_i_term, d_j_term, d_row_mask, d_col_mask, d_w_rel, d_w_dist, d_b0,
+    d_w1, d_b1, d_w2, d_b2, d_ln_scale, d_ln_bias), summed in float32 and
+    cast to each input's dtype. The coordinates get None: the distogram is a
+    step function of them (the JAX kernel returns zeros)."""
+    dtype = g.dtype
+
+    def t_dot(a, b):  # sum over every pair of a^T b, float32
+        return torch.einsum("bijp,bijq->pq", a.to(F32), b.to(F32))
+
+    m, onehot, y0, y1, out = _pre_norm(g, h, pos_rows, pos_cols, i_term, j_term, w_rel, w_dist,
+                                       b0, w1, b1, w2, b2, bins_lower, bins_upper)
+    x = out.to(F32)
+    mean = x.mean(dim=-1, keepdim=True)
+    centered = x - mean
+    var = (centered * centered).mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + 1e-6)
+    xhat = centered * inv
+    yln = xhat * ln_scale.to(F32) + ln_bias.to(F32)
+    rmask, cmask = row_mask.to(F32), col_mask.to(F32)
+    emask = (row_mask[:, :, None] * col_mask[:, None, :]).to(F32)
+
+    gf = grad.to(F32)
+    gm = gf * emask[..., None]
+    # Mask gradients (through out = yln * emask): nonzero where a mask is 0.
+    dem = torch.sum(yln * gf, dim=-1)
+    d_rm = torch.sum(dem * cmask[:, None, :], dim=2)
+    d_cm = torch.sum(dem * rmask[:, :, None], dim=1)
+    # LayerNorm backward (biased variance, eps inside the rsqrt).
+    d_lns = torch.sum(gm * xhat, dim=(0, 1, 2))
+    d_lnb = torch.sum(gm, dim=(0, 1, 2))
+    dxhat = gm * ln_scale.to(F32)
+    mu1 = dxhat.mean(dim=-1, keepdim=True)
+    mu2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (dxhat - mu1 - xhat * mu2) * inv
+    dxd = dx.to(dtype)
+    # Third layer; relu'(0) = 0.
+    d_w2 = t_dot(y1, dxd)
+    d_b2 = torch.sum(dx, dim=(0, 1, 2))
+    dy1 = matmul_f32(dxd, w2.t()) * (y1 > 0).to(dtype)
+    # Second layer.
+    d_w1 = t_dot(y0, dy1)
+    d_b1 = torch.sum(dy1.to(F32), dim=(0, 1, 2))
+    dy0 = matmul_f32(dy1, w1.t()) * (y0 > 0).to(dtype)
+    # First layer: the node terms, the distogram rows, the CP product.
+    d_i_term = torch.sum(dy0.to(F32), dim=2)
+    d_j_term = torch.sum(dy0.to(F32), dim=1)
+    d_w_rel = t_dot(m, dy0)
+    d_w_dist = t_dot(onehot, dy0)
+    dm = torch.matmul(dy0.to(F32), w_rel.to(F32).t())
+    d_g = torch.sum(dm * h.to(F32)[:, None, :, :], dim=2)
+    d_h = torch.sum(dm * g.to(F32)[:, :, None, :], dim=1)
+    d_b0 = torch.sum(d_i_term, dim=(0, 1))
+    return (
+        d_g.to(g.dtype), d_h.to(h.dtype), None, None,
+        d_i_term.to(i_term.dtype), d_j_term.to(j_term.dtype),
+        d_rm.to(row_mask.dtype), d_cm.to(col_mask.dtype),
+        d_w_rel.to(w_rel.dtype), d_w_dist.to(w_dist.dtype), d_b0.to(b0.dtype),
+        d_w1.to(w1.dtype), d_b1.to(b1.dtype), d_w2.to(w2.dtype), d_b2.to(b2.dtype),
+        d_lns.to(ln_scale.dtype), d_lnb.to(ln_bias.dtype),
+    )
 
 
 @functools.lru_cache(maxsize=16)
@@ -123,39 +199,23 @@ def _kernel():
     return fn
 
 
-def edge_embedder(
-    g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
-    w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
-    bins_lower, bins_upper,
-):
-    """Masked-LayerNorm embedder edge output, [B, Nr, Nc, C] in g's dtype.
-
-    CPU tensors take :func:`edge_embedder_plain`; CUDA tensors launch the
-    kernel (or raise). Coordinates and ln_scale/ln_bias are float32, every
-    other tensor in the compute dtype; bins_lower/upper are tuples of
-    floats, empty when the model embeds no self-conditioning distogram.
-    Adds one to ``edge_embedder.launches`` per launch."""
-    if g.device.type == "cpu":
-        return edge_embedder_plain(
-            g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
-            w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
-            bins_lower, bins_upper,
-        )
-    if g.device.type != "cuda":
-        raise ValueError(f"edge_embedder: unsupported device {g.device}")
+def _check_inputs(fn_name, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
+                  w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias, bins_lower, bins_upper):
+    """Shapes, dtypes, device and contiguity the kernels take; returns
+    (B, Nr, Nc, n_bins)."""
     dtype, dev = g.dtype, g.device
     if dtype not in _DTYPE_CODE:
-        raise ValueError(f"edge_embedder: unsupported dtype {dtype}")
+        raise ValueError(f"{fn_name}: unsupported dtype {dtype}")
     B, Nr, cp = g.shape
     Nc = h.shape[1]
     n_bins = len(bins_lower)
     if (cp, w1.shape[0]) != (CP, C) or not 0 <= n_bins <= MAX_BINS:
         raise ValueError(
-            f"edge_embedder: kernel is built for CP {CP}, width {C}, <= {MAX_BINS} "
+            f"{fn_name}: kernel is built for CP {CP}, width {C}, <= {MAX_BINS} "
             f"bins; got {cp}, {w1.shape[0]}, {n_bins}"
         )
     if len(bins_upper) != n_bins:
-        raise ValueError("edge_embedder: bins_lower and bins_upper differ in length")
+        raise ValueError(f"{fn_name}: bins_lower and bins_upper differ in length")
     for name, t, shape, dt in [
         ("g", g, (B, Nr, CP), dtype),
         ("h", h, (B, Nc, CP), dtype),
@@ -176,9 +236,41 @@ def edge_embedder(
         ("ln_bias", ln_bias, (C,), F32),
     ]:
         _check(name, t, shape, dt, dev)
-    edges = _bin_edges(
+    return B, Nr, Nc, n_bins
+
+
+def _edges(bins_lower, bins_upper, dev) -> torch.Tensor:
+    return _bin_edges(
         tuple(float(x) for x in bins_lower), tuple(float(x) for x in bins_upper), dev
     )
+
+
+def edge_embedder(
+    g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
+    w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
+    bins_lower, bins_upper,
+):
+    """Masked-LayerNorm embedder edge output, [B, Nr, Nc, C] in g's dtype.
+
+    CPU tensors take :func:`edge_embedder_plain`; CUDA tensors launch the
+    kernel (or raise). Coordinates and ln_scale/ln_bias are float32, every
+    other tensor in the compute dtype; bins_lower/upper are tuples of
+    floats, empty when the model embeds no self-conditioning distogram.
+    Adds one to ``edge_embedder.launches`` per launch."""
+    if g.device.type == "cpu":
+        return edge_embedder_plain(
+            g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
+            w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
+            bins_lower, bins_upper,
+        )
+    if g.device.type != "cuda":
+        raise ValueError(f"edge_embedder: unsupported device {g.device}")
+    B, Nr, Nc, n_bins = _check_inputs(
+        "edge_embedder", g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
+        w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias, bins_lower, bins_upper,
+    )
+    dtype, dev = g.dtype, g.device
+    edges = _edges(bins_lower, bins_upper, dev)
 
     out = torch.empty((B, Nr, Nc, C), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
@@ -201,18 +293,133 @@ def edge_embedder(
 edge_embedder.launches = 0
 
 
+# Per-block float32 partials of the grid-summed gradients of the backward
+# kernel, in this order (d_w_dist has MAX_BINS rows, the first n_bins used).
+# Mirrors the offsets in csrc/edge_embedder_bwd.cu.
+_W_PARTS = (
+    ("w_rel", (CP, C)), ("w_dist", (MAX_BINS, C)), ("w1", (C, C)), ("w2", (C, C)),
+    ("b1", (C,)), ("b2", (C,)), ("ln_scale", (C,)), ("ln_bias", (C,)),
+)
+W_PART_FLOATS = sum(int(np.prod(shape)) for _, shape in _W_PARTS)
+ROW_PART = CP + C + 1  # d_g | d_i_term | d_row_mask per row partial (columns alike)
+TILE_I, TILE_J = 4, 8  # pairs of one backward tile
+
+
+@functools.cache
+def _bwd_kernel():
+    """The C entry point of csrc/edge_embedder_bwd.cu, built and bound at
+    first use."""
+    fn = library("edge_embedder_bwd").fdk_edge_embedder_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 29 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p
+    ]
+    return fn
+
+
+def bwd_workspace_floats(B: int, Nr: int, Nc: int, blocks: int) -> int:
+    """Float32 scratch of one backward launch: ``blocks`` per-block weight
+    partial sets, the per-tile row and column partials, and their sums."""
+    n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
+    return ((blocks + 1) * W_PART_FLOATS
+            + ROW_PART * (B * Nr * (n_tj + 1) + B * Nc * (n_ti + 1)))
+
+
+def edge_embedder_bwd(
+    grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
+    w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
+    *, bins_lower, bins_upper,
+):
+    """Every input gradient of :func:`edge_embedder` for the cotangent
+    ``grad`` but the coordinates' (None), in :func:`edge_embedder_bwd_plain`'s
+    order and dtypes.
+
+    CPU tensors take :func:`edge_embedder_bwd_plain`; CUDA tensors launch
+    the backward kernel (or raise). The grid-summed gradients are summed in
+    float32 from per-block partials in a fixed order (no atomics), so two
+    launches on the same inputs give the same bits. Adds one to
+    ``edge_embedder_bwd.launches`` per launch."""
+    if g.device.type == "cpu":
+        return edge_embedder_bwd_plain(
+            grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
+            w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
+            bins_lower=bins_lower, bins_upper=bins_upper,
+        )
+    args = (g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
+            w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias)
+    if g.device.type != "cuda":
+        raise ValueError(f"edge_embedder_bwd: unsupported device {g.device}")
+    B, Nr, Nc, n_bins = _check_inputs("edge_embedder_bwd", *args, bins_lower, bins_upper)
+    dtype, dev = g.dtype, g.device
+    _check("grad", grad, (B, Nr, Nc, C), dtype, dev)
+    edges = _edges(bins_lower, bins_upper, dev)
+    n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
+    # Persistent blocks, one per SM: each owns one weight partial set.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(B * n_ti * n_tj, sms))
+    # The kernel's transposed-weight products read W^T row-major.
+    w_relt, w1t, w2t = (w.t().contiguous() for w in (w_rel, w1, w2))
+    ws = torch.empty(bwd_workspace_floats(B, Nr, Nc, blocks), dtype=F32, device=dev)
+    sizes = [blocks * W_PART_FLOATS, B * Nr * n_tj * ROW_PART, B * Nc * n_ti * ROW_PART,
+             W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART]
+    wpart, rowpart, colpart, wred, rowred, colred = torch.split(ws, sizes)
+    if B * Nr * Nc:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = _bwd_kernel()(
+                _DTYPE_CODE[dtype], grad.data_ptr(),
+                *(t.data_ptr() for t in args[:10]), edges[0].data_ptr(), edges[1].data_ptr(),
+                *(t.data_ptr() for t in args[10:]),
+                w_relt.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
+                wpart.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(),
+                wred.data_ptr(), rowred.data_ptr(), colred.data_ptr(),
+                n_bins, B, Nr, Nc, blocks, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"edge_embedder_bwd kernel launch failed: cudaError_t {err}")
+        edge_embedder_bwd.launches += 1
+    else:
+        wred.zero_()
+        rowred.zero_()
+        colred.zero_()
+
+    parts, off = {}, 0
+    for name, shape in _W_PARTS:
+        n = int(np.prod(shape))
+        parts[name] = wred[off : off + n].view(shape)
+        off += n
+    rows = rowred.view(B, Nr, ROW_PART)
+    cols = colred.view(B, Nc, ROW_PART)
+    d_i_term, d_j_term = rows[..., CP:-1], cols[..., CP:-1]
+    # The relu input is base + i_term + j_term + b0: d_b0 sums d_i_term.
+    d_b0 = torch.sum(d_i_term, dim=(0, 1))
+    return (
+        rows[..., :CP].to(g.dtype), cols[..., :CP].to(h.dtype), None, None,
+        d_i_term.to(i_term.dtype), d_j_term.to(j_term.dtype),
+        rows[..., -1].to(row_mask.dtype), cols[..., -1].to(col_mask.dtype),
+        parts["w_rel"].to(w_rel.dtype), parts["w_dist"][:n_bins].to(w_dist.dtype),
+        d_b0.to(b0.dtype), parts["w1"].to(w1.dtype), parts["b1"].to(b1.dtype),
+        parts["w2"].to(w2.dtype), parts["b2"].to(b2.dtype),
+        parts["ln_scale"].to(ln_scale.dtype), parts["ln_bias"].to(ln_bias.dtype),
+    )
+
+
+edge_embedder_bwd.launches = 0
+
+
 class EdgeEmbedderFunction(torch.autograd.Function):
     """:func:`edge_embedder` for autograd. Arguments: the backward setting
     (``model.ipa.pallas_emb_bwd_impl``), then :func:`edge_embedder`'s
     arguments with the bin edges first: ``(bwd_impl, bins_lower,
     bins_upper, g, h, pos_rows, ..., ln_bias)``.
 
-    Saves only the O(N) inputs. With "xla" the backward recomputes
-    :func:`edge_embedder_plain` from them under autograd and returns its
-    VJP, the JAX package's own formulation of this backward (not a stand-in
-    for a missing kernel); "pallas", the backward kernel, is not ported yet
-    and raises. The coordinates get no gradient (None): in the JAX package
-    theirs is exactly 0, and the self-conditioning CA never requires one."""
+    Saves only the O(N) inputs. "pallas" runs :func:`edge_embedder_bwd`
+    (the backward kernel on CUDA tensors, its plain version on CPU tensors);
+    "xla" recomputes :func:`edge_embedder_plain` from the inputs under
+    autograd and returns its VJP, the JAX package's remat formulation of
+    this backward. The coordinates get no gradient (None): in the JAX
+    package theirs is exactly 0, and the self-conditioning CA never
+    requires one."""
 
     @staticmethod
     def forward(ctx, bwd_impl, bins_lower, bins_upper, *args):
@@ -222,13 +429,16 @@ class EdgeEmbedderFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        if ctx.bwd_impl != "xla":
-            raise NotImplementedError(
-                f"edge embedder backward {ctx.bwd_impl!r}: the backward kernel is not "
-                "ported yet (ROADMAP queue 2 item 2); use model.ipa.pallas_emb_bwd_impl=xla"
-            )
         needs = list(ctx.needs_input_grad[3:])
         needs[2] = needs[3] = False  # pos_rows, pos_cols
+        if ctx.bwd_impl == "pallas":
+            grads = edge_embedder_bwd(grad.contiguous(), *ctx.saved_tensors,
+                                      bins_lower=ctx.bins[0], bins_upper=ctx.bins[1])
+            return (None, None, None) + tuple(d if need else None for d, need in zip(grads, needs))
+        if ctx.bwd_impl != "xla":
+            raise ValueError(
+                f"pallas_emb_bwd_impl must be 'xla' or 'pallas', got {ctx.bwd_impl!r}"
+            )
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
             out = edge_embedder_plain(*inputs, *ctx.bins)

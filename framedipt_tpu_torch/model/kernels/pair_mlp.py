@@ -30,26 +30,21 @@ import numpy as np
 import torch
 
 from framedipt_tpu_torch.model.kernels.build import library
-from framedipt_tpu_torch.model.layers import layer_norm_f32
+from framedipt_tpu_torch.model.layers import layer_norm_f32, matmul_f32
 
 F32 = torch.float32
 C_IN, HIDDEN, C_OUT = 128, 384, 128  # widths the kernel is built for
-
-
-def _mm(x, w):
-    """x @ w accumulated in float32, rounded to x's dtype."""
-    return torch.matmul(x.to(F32), w.to(F32)).to(x.dtype)
 
 
 def _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe):
     """(y0, y1, pre-norm output), added in the kernels' order (b0 and bf
     not folded), which decides every relu mask; the forward kernel and the
     backward kernel's recompute follow it too (``common.cuh``)."""
-    y0 = torch.relu(_mm(pair, w0) + i_term[:, :, None, :] + j_term[:, None, :, :] + b0)
-    y1 = torch.relu(_mm(y0, w1) + b1)
-    out = _mm(y1, wf)
+    y0 = torch.relu(matmul_f32(pair, w0) + i_term[:, :, None, :] + j_term[:, None, :, :] + b0)
+    y1 = torch.relu(matmul_f32(y0, w1) + b1)
+    out = matmul_f32(y1, wf)
     if wfe is not None:
-        out = out + _mm(pair, wfe)
+        out = out + matmul_f32(pair, wfe)
         out = out + fi[:, :, None, :] + fj[:, None, :, :]
     return y0, y1, out + bf
 
@@ -118,17 +113,17 @@ def pair_mlp_bwd_plain(
         d_fi = torch.sum(dx, dim=2)
         d_fj = torch.sum(dx, dim=1)
     # Second layer; relu'(0) = 0.
-    dy1 = _mm(dxd, wf.t()) * (y1 > 0).to(dtype)
+    dy1 = matmul_f32(dxd, wf.t()) * (y1 > 0).to(dtype)
     d_b1 = torch.sum(dy1.to(F32), dim=(0, 1, 2))
     d_w1 = t_dot(y0, dy1)
     # First layer.
-    dy0 = _mm(dy1, w1.t()) * (y0 > 0).to(dtype)
+    dy0 = matmul_f32(dy1, w1.t()) * (y0 > 0).to(dtype)
     d_w0 = t_dot(pair, dy0)
     d_i_term = torch.sum(dy0.to(F32), dim=2)
     d_j_term = torch.sum(dy0.to(F32), dim=1)
-    d_pair = _mm(dy0, w0.t())
+    d_pair = matmul_f32(dy0, w0.t())
     if residual:
-        d_pair = d_pair + _mm(dxd, wfe.t())
+        d_pair = d_pair + matmul_f32(dxd, wfe.t())
     d_b0 = torch.sum(d_i_term, dim=(0, 1))
 
     def cast(v, ref):

@@ -43,6 +43,11 @@ class LayerNorm(nn.LayerNorm):
         ).to(self.compute_dtype)
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w accumulated in float32, rounded to x's dtype."""
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+
+
 def layer_norm_f32(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:

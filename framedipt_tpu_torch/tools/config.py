@@ -1,5 +1,7 @@
-"""Typed configuration: the dataclasses the inpainting service and the train
-step need, with the JAX package's defaults and its dotted-override loader.
+"""Typed configuration: the dataclasses the inpainting service, the train
+step and the train CLI need, with the JAX package's defaults and its
+dotted-override loader. Configs are read and written as JSON (or as the
+plain dict a checkpoint carries); there is no YAML.
 
 ``use_pallas_kernel`` / ``use_pallas_embedder`` / ``use_pallas_ipa`` keep
 their names so configs carry over; here they mean "run the hand-written CUDA
@@ -79,9 +81,9 @@ class IPAConfig:
     # IPA attention through the fused attention CUDA kernel
     # (csrc/ipa_attention.cu) instead of einsums. Off unless asked for.
     use_pallas_ipa: bool | None = None
-    # Backward of the embedder edge branch: "xla" recomputes its plain
-    # formulation and takes its VJP; "pallas" (the backward kernel) is not
-    # ported yet.
+    # Backward of the embedder edge branch: "pallas" runs the backward kernel
+    # (csrc/edge_embedder_bwd.cu) on a CUDA device and its plain version on
+    # the CPU; "xla" recomputes the plain forward and takes its VJP.
     pallas_emb_bwd_impl: str = "pallas"
 
 
@@ -114,11 +116,36 @@ class InferenceConfig:
 
 
 @dataclass
-class DataConfig:
-    """The fields of the JAX DataConfig that the train step reads."""
+class FilteringConfig:
+    max_len: int = 512
+    min_len: int = 60
+    chain_max_len: int = 512
+    subset: int | None = None
+    allowed_oligomer: list[str] = field(default_factory=list)
+    max_helix_percent: float = 1.0
+    max_loop_percent: float = 0.5
+    min_beta_percent: float = -1.0
+    rog_quantile: float = 0.96
 
+
+@dataclass
+class RedactionConfig:
+    redact_min_len: int = 8
+    redact_max_len: int = 50
+
+
+@dataclass
+class DataConfig:
+    csv_path: str | None = None
+    cluster_file: str | None = None
+    num_clusters: int | None = None
+    single_chain: bool = False
+    filtering: FilteringConfig = field(default_factory=FilteringConfig)
     min_t: float = 0.01
+    samples_per_eval_length: int = 4
+    num_eval_lengths: int = 10
     num_t: int = 100
+    redaction: RedactionConfig = field(default_factory=RedactionConfig)
 
 
 @dataclass
@@ -129,12 +156,27 @@ class RecycleConfig:
 
 @dataclass
 class ExperimentConfig:
-    """The fields of the JAX ExperimentConfig that the train step reads:
-    learning rate, recycling, loss weights and thresholds."""
+    """The JAX ExperimentConfig's fields that the train step and the train
+    CLI read, with its defaults. One card: ``dp_size`` -1 or 1 and
+    ``fsdp_size`` 1 (:func:`check_single_device`)."""
 
+    name: str = "baseline"
     inpainting: bool = False
+    seed: int = 0
+    log_freq: int = 1000
+    batch_size: int = 128
+    eval_batch_size: int = 4
+    num_epoch: int = 95
     learning_rate: float = 1e-4
+    max_squared_res: int = 1_000_000
     recycle: RecycleConfig = field(default_factory=RecycleConfig)
+    ckpt_freq: int = 10_000
+    early_ckpt: bool = True
+    early_ckpt_step: int = 100
+    eval_freq: int = 50_000
+    resume_ckpt_dir: str | None = None
+    use_ckpt_conf: bool = False
+    ckpt_dir: str = "./ckpt/"
     trans_loss_weight: float = 1.0
     separate_rot_loss: bool = True
     rot_loss_weight: float = 0.5
@@ -146,6 +188,14 @@ class ExperimentConfig:
     dist_mat_loss_weight: float = 1.0
     dist_mat_loss_t_filter: float = 0.25
     aux_loss_weight: float = 0.25
+    use_importance_sampling: bool = False
+    num_bins: int = 100
+    history_per_term: int = 10
+    eval_dir: str = "./eval_outputs"
+    num_parameters: int | None = None
+    dp_size: int = -1
+    fsdp_size: int = 1
+    prefetch_buffer: int = 4
 
 
 @dataclass
@@ -186,9 +236,14 @@ def parse_value(raw: str) -> Any:
     return raw
 
 
-def load_config(overrides: list[str] | None = None) -> Config:
-    """Defaults plus CLI-style dotted overrides (``model.ipa.num_blocks=2``)."""
+def load_config(overrides: list[str] | None = None, json_path: str | None = None) -> Config:
+    """Defaults, then the JSON file ``json_path`` if given (a config as
+    :func:`save_config` writes it; every key must be known), then CLI-style
+    dotted overrides (``model.ipa.num_blocks=2``)."""
     cfg = Config()
+    if json_path is not None:
+        with open(json_path, encoding="utf-8") as f:
+            _apply_dict(cfg, json.load(f))
     for ov in overrides or []:
         key, _, raw = ov.partition("=")
         node = cfg
@@ -256,15 +311,32 @@ def resolve_kernel_flags(cfg: Config, device) -> None:
 
 
 def check_emb_bwd_impl(cfg: Config) -> None:
-    """Check the embedder's backward setting for a train step, on every
-    device: it must be "xla" (its backward kernel is not ported yet). The
-    pair MLP's backward has no setting: it is its kernel on CUDA tensors and
-    its plain version on CPU tensors, as the forward is."""
+    """Check the embedder's backward setting for a train step: "pallas" (the
+    backward kernel on CUDA tensors, its plain version on CPU tensors) or
+    "xla" (the VJP of the plain forward). The pair MLP's backward has no
+    setting: it is its kernel on CUDA tensors and its plain version on CPU
+    tensors, as the forward is."""
     impl = cfg.model.ipa.pallas_emb_bwd_impl
     if impl not in ("xla", "pallas"):
         raise ValueError(f"model.ipa.pallas_emb_bwd_impl must be 'xla' or 'pallas', got {impl!r}")
-    if impl == "pallas":
-        raise NotImplementedError(
-            "model.ipa.pallas_emb_bwd_impl='pallas': the edge-embedder backward kernel "
-            "is not ported yet (ROADMAP queue 2 item 2); set it to 'xla'"
+
+
+def check_single_device(cfg: Config) -> None:
+    """The port trains on one card: ``experiment.dp_size`` -1 (all devices,
+    here one) or 1, and ``experiment.fsdp_size`` 1."""
+    exp = cfg.experiment
+    if exp.dp_size not in (-1, 1) or exp.fsdp_size != 1:
+        raise ValueError(
+            f"experiment.dp_size={exp.dp_size}, fsdp_size={exp.fsdp_size}: the port trains "
+            "on one card (dp_size -1 or 1, fsdp_size 1); multi-GPU is ROADMAP queue 1 item 6"
         )
+
+
+def to_dict(cfg: Any) -> dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def save_config(cfg: Config, path) -> None:
+    """The config as JSON."""
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(to_dict(cfg), f, indent=1)

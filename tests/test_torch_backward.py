@@ -3,7 +3,7 @@ backward against the Pallas backward kernel (interpret mode, small tiles)
 and against ``jax.vjp`` of the XLA twin; ``PairMLPFunction`` against its
 plain backward and against autograd of the plain forward; and
 ``EdgeEmbedderFunction`` ("xla") against ``jax.vjp`` of the embedder's XLA
-twin.
+twin (its "pallas" backward: tests/test_torch_edge_embedder_bwd.py).
 
 Tolerances: float32 1e-4, bf16 5e-2, as the forward tests; a gradient that
 is a sum over the pair grid is measured against its own max-abs (every
@@ -142,12 +142,17 @@ def test_edge_embedder_function_xla_matches_jax_vjp(n_bins):
 
 
 def test_edge_embedder_function_pallas_backward_raises():
-    """The embedder's backward kernel is not ported: "pallas" runs the
-    forward and raises NotImplementedError, naming the ROADMAP item, when
-    a gradient is taken."""
+    """"pallas" runs on the CPU: the backward kernel's plain version, equal
+    to the "xla" branch within 1e-4; an unknown setting raises when a
+    gradient is taken."""
     args, bins = emb_args(np.random.default_rng(25), 1, 6, 8, 4)
     targs = [a.requires_grad_(i not in (2, 3)) for i, a in
              enumerate(emb_to_torch(args, torch.float32))]
-    out = t_emb.EdgeEmbedderFunction.apply("pallas", *bins, *targs)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 2"):
+    ins = [a for a in targs if a.requires_grad]
+    g = torch.as_tensor(np.random.default_rng(26).normal(size=(1, 6, 6, 8)).astype(np.float32))
+    got = torch.autograd.grad(t_emb.EdgeEmbedderFunction.apply("pallas", *bins, *targs), ins, g)
+    want = torch.autograd.grad(t_emb.EdgeEmbedderFunction.apply("xla", *bins, *targs), ins, g)
+    assert_grads_close(got, want, 1e-4)
+    out = t_emb.EdgeEmbedderFunction.apply("typo", *bins, *targs)
+    with pytest.raises(ValueError, match="must be 'xla' or 'pallas'"):
         out.sum().backward()

@@ -206,3 +206,49 @@ def test_cuda_pair_mlp_function_matches_autograd_of_plain_version():
     got = torch.autograd.grad(t_pair.PairMLPFunction.apply(*args), ins, g)
     want = torch.autograd.grad(t_pair.pair_mlp_plain(*args), ins, g)
     assert_grads_close([a.cpu() for a in got], [b.cpu() for b in want], 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,n_bins", [(2, 200, 22), (1, 256, 22), (2, 130, 0)])
+def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins):
+    """On the card: the embedder's backward kernel against its plain version
+    at a ragged shape with masked rows and at a serving shape, with and
+    without distance bins, every gradient; two launches give the same bits;
+    one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    rng = np.random.default_rng(N + n_bins)
+    args, bins = emb_args(rng, B, N, 128, n_bins)
+    args = [a.cuda() for a in emb_to_torch(args, dtype)]
+    g = torch.as_tensor(rng.normal(size=(B, N, N, 128)).astype(np.float32)).to(dtype).cuda()
+    kw = {"bins_lower": bins[0], "bins_upper": bins[1]}
+    before = t_emb.edge_embedder_bwd.launches
+    got = t_emb.edge_embedder_bwd(g, *args, **kw)
+    again = t_emb.edge_embedder_bwd(g, *args, **kw)
+    assert t_emb.edge_embedder_bwd.launches == before + 2
+    want = t_emb.edge_embedder_bwd_plain(g, *args, **kw)
+    assert_grads_close([None if a is None else a.cpu() for a in got],
+                       [None if b is None else b.cpu() for b in want], tol)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_edge_embedder_function_pallas_matches_autograd_of_plain_version():
+    """On the card: ``EdgeEmbedderFunction`` with "pallas" (forward and
+    backward kernels) against autograd through ``edge_embedder_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(5)
+    args, bins = emb_args(rng, 2, 96, 128, 22)
+    args = [a.cuda().requires_grad_(i not in (2, 3)) for i, a in
+            enumerate(emb_to_torch(args, torch.float32))]
+    g = torch.as_tensor(rng.normal(size=(2, 96, 96, 128)).astype(np.float32)).cuda()
+    ins = [a for a in args if a.requires_grad]
+    before = t_emb.edge_embedder_bwd.launches
+    got = torch.autograd.grad(t_emb.EdgeEmbedderFunction.apply("pallas", *bins, *args), ins, g)
+    assert t_emb.edge_embedder_bwd.launches == before + 1
+    want = torch.autograd.grad(t_emb.edge_embedder_plain(*args, *bins), ins, g)
+    assert_grads_close([a.cpu() for a in got], [b.cpu() for b in want], 1e-4)

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``framedipt_tpu_torch`` and not
-``chip_smoke.py`` imports jax, flax or the JAX package, at runtime or in
-its source."""
+``chip_smoke.py`` imports jax, flax or the JAX package, nor pandas, PyYAML or
+orbax (which the card's machine lacks), at runtime or in its source."""
 import ast
 import pathlib
 import subprocess
@@ -10,7 +10,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "framedipt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "framedipt_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "framedipt_tpu", "pandas", "yaml")
 
 
 def _imports(path: pathlib.Path) -> list[str]:
@@ -37,6 +37,23 @@ def test_serving_entry_point_loads_without_jax():
         "import sys\n"
         "import framedipt_tpu_torch.experiments.serve\n"
         "import framedipt_tpu_torch.sampling, framedipt_tpu_torch.model.weights\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_training_entry_points_load_without_jax_pandas_yaml_orbax():
+    """The preprocessing and training CLIs import in a fresh interpreter
+    with none of jax, pandas, yaml or orbax loaded."""
+    code = (
+        "import sys\n"
+        "import framedipt_tpu_torch.data.pipeline, framedipt_tpu_torch.experiments.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -160,6 +160,8 @@ def _wrapper_ast(fn):
     (t_pair.pair_mlp, "pair_mlp_plain"),
     (t_emb.edge_embedder, "edge_embedder_plain"),
     (t_ipa.ipa_attention, "ipa_attention_plain"),
+    (t_pair.pair_mlp_bwd, "pair_mlp_bwd_plain"),
+    (t_emb.edge_embedder_bwd, "edge_embedder_bwd_plain"),
 ])
 def test_cuda_tensors_never_reach_the_plain_version(wrapper, plain):
     """Read from the dispatch code: the plain version is called in exactly

@@ -3,9 +3,11 @@ behaviour on the CPU.
 
 The JAX step runs as tests/unit/test_train.py's kernel test runs it: the
 pair MLP through its Pallas kernels (backward ``pallas_bwd_impl="pallas"``)
-in interpret mode, the embedder through its Pallas forward with the XLA-twin
-backward (``pallas_emb_bwd_impl="xla"``), two IPA blocks (one edge
-transition), ``make_batch()``'s batch with fixed t, op by op (not under jit).
+in interpret mode, the embedder through its Pallas forward with, as the
+port's step, either backward: its Pallas backward kernel in interpret mode
+(``pallas_emb_bwd_impl="pallas"``, the default) or the XLA twin's VJP
+("xla"); two IPA blocks (one edge transition), ``make_batch()``'s batch with
+fixed t, op by op (not under jit).
 Its parameters are flax-initialized and perturbed (every leaf non-zero) and
 carried to the port with ``params_from_jax``, which maps JAX's gradients
 onto the port's parameter names too. The randomness is JAX's: the test
@@ -45,20 +47,20 @@ from tests.unit.test_train import make_batch, tiny_cfg
 T_FIXED = np.asarray([0.15, 0.6], np.float32)  # one sample under the aux-loss filters
 
 
-def jax_config():
+def jax_config(emb_bwd_impl="xla"):
     cfg = tiny_cfg()
     ipa = cfg.model.ipa
     ipa.num_blocks = 2
     ipa.use_pallas_kernel, ipa.pallas_bwd_impl, ipa.pallas_interpret = True, "pallas", True
     ipa.pallas_tile_i, ipa.pallas_tile_j = 8, 128
-    ipa.use_pallas_embedder, ipa.pallas_emb_bwd_impl = True, "xla"
+    ipa.use_pallas_embedder, ipa.pallas_emb_bwd_impl = True, emb_bwd_impl
     ipa.use_pallas_ipa = False
     return cfg
 
 
-def port_config():
+def port_config(emb_bwd_impl="xla"):
     _, tc = tiny_configs()
-    tc.model.ipa.pallas_emb_bwd_impl = "xla"
+    tc.model.ipa.pallas_emb_bwd_impl = emb_bwd_impl
     tc.experiment.learning_rate = 1e-3
     tc.experiment.inpainting = True
     return tc
@@ -98,12 +100,13 @@ def adam_step(grads, params):
     return clipped, optax.apply_updates(params, updates)
 
 
-@pytest.fixture(scope="module")
-def jax_reference():
-    """Perturbed JAX params, the batch, and for each coin the JAX key, the
-    noise of its draw, the loss, grad norm, gradients and the parameters
-    after one make_optimizer step."""
-    cfg = jax_config()
+@pytest.fixture(scope="module", params=["xla", "pallas"], ids=lambda p: f"emb_bwd_{p}")
+def jax_reference(request):
+    """The embedder's backward setting, perturbed JAX params, the batch, and
+    for each coin the JAX key, the noise of its draw, the loss, grad norm,
+    gradients and the parameters after one make_optimizer step."""
+    impl = request.param
+    cfg = jax_config(impl)
     diffuser = JSE3(cfg.diffuser)
     model = JNet(cfg.model, diffuser, inpainting=True)
     batch = dict(make_batch())
@@ -123,17 +126,17 @@ def jax_reference():
             clipped, new_params = adam_step(grads, params)
             runs[coin] = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
                               grads=grads, clipped=clipped, new_params=new_params, noise=noise)
-    return params, {k: np.array(v) for k, v in batch.items()}, runs
+    return impl, params, {k: np.array(v) for k, v in batch.items()}, runs
 
 
 def port_batch(batch):
     return {k: torch.as_tensor(v) for k, v in batch.items()}
 
 
-def port_step(params, batch, noise, coin):
-    """One port train step from JAX's params on JAX's noise; returns the
-    trainer and the metrics."""
-    tr = make_trainer(port_config(), device="cpu",
+def port_step(impl, params, batch, noise, coin):
+    """One port train step from JAX's params on JAX's noise, with the
+    embedder backward ``impl``; returns the trainer and the metrics."""
+    tr = make_trainer(port_config(impl), device="cpu",
                       state_dict=params_from_jax(params, num_blocks=2, seq_tfmr_layers=1))
     rot, trans = (torch.as_tensor(x) for x in noise)
     diffuser = tr.diffuser
@@ -155,10 +158,11 @@ def _close(got, want, tol, name, floor=0.0):
 def test_train_step_matches_jax(jax_reference, coin):
     """Loss, gradient norm, every parameter gradient (after clipping, which
     the optimizer applies to .grad) and every parameter after one Adam
-    step, with self-conditioning off and on."""
-    params, batch, runs = jax_reference
+    step, with self-conditioning off and on, for each embedder backward
+    (on the CPU "pallas" is the backward kernel's plain version)."""
+    impl, params, batch, runs = jax_reference
     ref = runs[coin]
-    tr, metrics = port_step(params, batch, ref["noise"], coin)
+    tr, metrics = port_step(impl, params, batch, ref["noise"], coin)
     np.testing.assert_allclose(float(metrics["loss"]), ref["loss"], rtol=1e-5)
     np.testing.assert_allclose(float(metrics["grad_norm"]), ref["grad_norm"], rtol=1e-5)
     want_grads = params_from_jax(ref["clipped"], num_blocks=2, seq_tfmr_layers=1)
@@ -195,8 +199,8 @@ def test_every_parameter_jax_trains_gets_a_gradient(jax_reference):
     """Guard: after one port step, every parameter whose JAX gradient is
     non-zero has a non-zero .grad, so no gradient stops silently at a
     kernel's output."""
-    params, batch, runs = jax_reference
-    tr, _ = port_step(params, batch, runs[True]["noise"], True)
+    impl, params, batch, runs = jax_reference
+    tr, _ = port_step(impl, params, batch, runs[True]["noise"], True)
     want = params_from_jax(runs[True]["grads"], num_blocks=2, seq_tfmr_layers=1)
     for name, p in tr.model.named_parameters():
         if want[name].abs().max() > 0:
@@ -243,19 +247,22 @@ def test_backward_settings_are_checked():
     """The pair MLP's backward has no setting (its kernel on CUDA tensors,
     its plain version on CPU tensors): an override that names one, such as
     the JAX package's "xla" backward, is refused on every device. The
-    embedder's backward kernel is not ported: "pallas" raises
-    NotImplementedError naming the ROADMAP item, on every device."""
+    embedder's backward takes "pallas" (the default: its kernel on CUDA
+    tensors, the kernel's plain version on CPU tensors) or "xla"; anything
+    else raises."""
     with pytest.raises(KeyError, match="pallas_bwd_impl"):
         load_config(["model.ipa.pallas_bwd_impl=xla"])
-    cfg = port_config()
-    cfg.model.ipa.pallas_emb_bwd_impl = "pallas"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 2"):
-        check_emb_bwd_impl(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 2"):
-        make_trainer(cfg, device="cpu")
+    assert load_config().model.ipa.pallas_emb_bwd_impl == "pallas"
+    cfg = port_config("pallas")
+    check_emb_bwd_impl(cfg)
+    tr = make_trainer(cfg, device="cpu")
+    batch = port_batch({k: np.array(v) for k, v in make_batch().items()})
+    assert np.isfinite(float(tr.step(batch, torch.Generator().manual_seed(3))["loss"]))
     cfg.model.ipa.pallas_emb_bwd_impl = "typo"
     with pytest.raises(ValueError, match="must be 'xla' or 'pallas'"):
         check_emb_bwd_impl(cfg)
+    with pytest.raises(ValueError, match="must be 'xla' or 'pallas'"):
+        make_trainer(cfg, device="cpu")
     # A run setting, not the model's: a checkpoint's config does not set it,
     # and a JAX checkpoint's pair-MLP backward setting is ignored.
     merged = merge_checkpoint_config(port_config(), {"model": {"ipa": {
