@@ -10,11 +10,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build the CUDA kernels from ``framedipt_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 (tolerance 1e-4) and bf16 (5e-2), at B=1 N=256, B=2 N=200 (ragged)
-   and B=2 N=128 and 256 (the serving shapes), and the IPA attention also at
+   and B=2 N=128 and 256 (the serving shapes), the pair MLP also at B=1 N=1
+   and B=1 N=17 (one partial tile) and without its residual terms, with two
+   launches giving the same bits, and the IPA attention also at
    B=1 N=768 (a bucket past the JAX kernel's N <= 640 gate) with a fully
    masked row, with random non-zero weights; time the kernel, the plain
-   version and compute the bound; the pair MLP without its residual terms
-   and the edge embedder without distance bins; and the IPA module's kernel
+   version and compute the bound (the pair MLP's on the tensor cores, 3xTF32
+   in float32, with its CUDA-core bound beside it); the edge embedder
+   without distance bins; and the IPA module's kernel
    branch against its einsum branch at B=2 N=256, both timed (CUDA events,
    and their summed device time under torch.profiler);
 4. one full-width forward (default config, N=128) against the recorded
@@ -22,7 +25,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    with the IPA attention as einsums and again through its kernel
    (``model.ipa.use_pallas_ipa``);
 5. start the inpainting HTTP service in-process on 127.0.0.1 at the full
-   default width with seeded random weights, send three /inpaint requests
+   default width with random weights (the JAX package's initialization,
+   seeded), send three /inpaint requests
    (buckets 256 and 128, two samples each, num_t=100 for two of them), and
    check residue count, finite coordinates, the fixed residues' CA against the
    input, and the kernels' launch counts per request (no IPA launch); then a
@@ -36,7 +40,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernels that take the device's time);
 6. the train step at the full default width (float32, inpainting, the
    default ``model.ipa.pallas_emb_bwd_impl=pallas``: the embedder's
-   backward kernel), B=2 N=256 on helix frames with a 15-residue diffused
+   backward kernel; the test fixtures' weights, whose final layers are
+   not 0, so every gradient is checked), B=2 N=256 on helix frames with a 15-residue diffused
    loop: the first step against the same step with every kernel's plain
    version and against the step with the ``xla`` embedder backward (loss
    and every gradient), then 10 steps at lr 1e-4 (finite loss and grad
@@ -48,7 +53,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 7. the training CLI at the full default width (float32, inpainting): the
    fixture mmCIF files preprocessed by the port's pipeline into a temporary
    directory (single chains of 11-242 residues, buckets 64-256), ``train()``
-   for 14-21 steps with checkpoints (the early one included) and one eval
+   from the JAX package's initialization for 14-21 steps with checkpoints (the early one included) and one eval
    inside the run, a resumed run of three more epochs (timed with the input
    pipeline), the same number of steps timed on batches already on the card
    and profiled for the device's busy share, and the last checkpoint
@@ -86,6 +91,13 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # cores, HBM3 bandwidth.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
+# A kernel whose float32 products run on the tensor cores as 3xTF32 does
+# three TF32 products (495 TFLOP/s) for each float32 one.
+TENSOR_CORE_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+TENSOR_CORE_KERNELS = ("pair_mlp",)
+# The pair-MLP forward's earlier CUDA-core kernel at B=2 N=256 (PERF.md
+# section 6; NVIDIA H100 80GB HBM3, 700 W), printed for reference.
+PAIR_MLP_CUDA_CORE_MS = {torch.float32: 2.4049, torch.bfloat16: 2.5462}
 NUM_BLOCKS = 4  # ModelConfig default: edge transitions run num_blocks - 1 times
 
 
@@ -236,6 +248,13 @@ def ipa_attention_cost(B, N, dtype):
     return flops, nbytes
 
 
+def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
+    """(least ms the card could take, "operations" or "bytes"): the larger of
+    the operations over ``peak_flops`` and the bytes over the HBM rate."""
+    ops_ms, bytes_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / PEAK_BYTES
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
 def compare(got, ref, tol: float) -> tuple[float, float]:
     """max_violation over one output or a tuple of outputs."""
     pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
@@ -259,7 +278,9 @@ def check_kernels() -> dict[str, dict]:
     kernels = {
         "edge_embedder": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
                           edge_embedder_cost, serving_shapes),
-        "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, serving_shapes),
+        # Tiny and ragged shapes too: one pair, one partial tile.
+        "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost,
+                     serving_shapes + ((1, 1), (1, 17))),
         "ipa_attention": (lambda *a: ipa_attention(*a, **ipa_kw),
                           lambda *a: ipa_attention_plain(*a, **ipa_kw),
                           ipa_attention_inputs, ipa_attention_cost,
@@ -281,17 +302,26 @@ def check_kernels() -> dict[str, dict]:
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: non-finite output")
                 if name == "ipa_attention" and any((g[0, N // 3] != 0).any() for g in outs):
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: masked row not zero")
+                if name == "pair_mlp" and not torch.equal(got, kernel(*args)):
+                    raise AssertionError(f"{name} {dtype} B={B} N={N}: two launches differ")
                 ms = cuda_time_ms(lambda: kernel(*args), 20)
                 plain_ms = cuda_time_ms(lambda: plain(*args), 5)
                 flops, nbytes = cost(B, N, dtype)
-                bound_ms = 1e3 * max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES)
-                bound_by = "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES else "bytes"
-                log(
-                    f"{name} {str(dtype)[6:]} B={B} N={N}: max_abs_err={err:.3e} "
-                    f"(tol {TOL[dtype]} abs+rel) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms ({bound_by}), "
-                    f"{flops / ms / 1e9:.2f} TFLOP/s"
-                )
+                tensor_cores = name in TENSOR_CORE_KERNELS
+                bound_ms, bound_by = bound(
+                    flops, nbytes, (TENSOR_CORE_FLOPS if tensor_cores else PEAK_FLOPS)[dtype])
+                line = (f"{name} {str(dtype)[6:]} B={B} N={N}: max_abs_err={err:.3e} "
+                        f"(tol {TOL[dtype]} abs+rel) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"bound {bound_ms:.4f} ms ({bound_by}), "
+                        f"{flops / ms / 1e9:.2f} TFLOP/s")
+                if tensor_cores and dtype == torch.float32:
+                    line += (f"; 3xTF32 bound, CUDA-core bound "
+                             f"{bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms")
+                if tensor_cores and (B, N) == (2, 256):
+                    line += f"; CUDA-core kernel (PERF.md) {PAIR_MLP_CUDA_CORE_MS[dtype]} ms"
+                if name == "pair_mlp":
+                    line += "; two launches bit-identical"
+                log(line)
                 if excess > 0:
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: error {err} over tolerance")
                 if dtype == torch.float32 and (B, N) == (2, 256):
@@ -302,16 +332,19 @@ def check_kernels() -> dict[str, dict]:
     # The plain-MLP variant (no residual terms) of the pair-MLP kernel, and
     # the edge embedder with no distance bins (a model without the
     # self-conditioning distogram).
-    for label, kernel, plain, args in (
-        ("pair_mlp residual=False", pair_mlp, pair_mlp_plain,
-         pair_mlp_inputs(2, 200, torch.float32, gen, residual=False)),
-        ("edge_embedder n_bins=0", edge_embedder, edge_embedder_plain,
-         edge_embedder_inputs(2, 200, torch.float32, gen, n_bins=0)),
-    ):
-        err, excess = max_violation(kernel(*args), plain(*args), TOL[torch.float32])
-        log(f"{label} float32 B=2 N=200: max_abs_err={err:.3e}")
+    checks = [(f"pair_mlp residual=False {str(dtype)[6:]} B={B} N={N}", pair_mlp, pair_mlp_plain,
+               pair_mlp_inputs(B, N, dtype, gen, residual=False), TOL[dtype])
+              for dtype in (torch.float32, torch.bfloat16) for B, N in ((1, 17), (2, 200))]
+    checks.append(("edge_embedder n_bins=0 float32 B=2 N=200", edge_embedder, edge_embedder_plain,
+                   edge_embedder_inputs(2, 200, torch.float32, gen, n_bins=0), TOL[torch.float32]))
+    for label, kernel, plain, args, tol in checks:
+        got = kernel(*args)
+        err, excess = max_violation(got, plain(*args), tol)
+        log(f"{label}: max_abs_err={err:.3e} (tol {tol} abs+rel)")
         if excess > 0:
             raise AssertionError(f"{label}: error {err} over tolerance")
+        if kernel is pair_mlp and not torch.equal(got, kernel(*args)):
+            raise AssertionError(f"{label}: two launches differ")
     torch.cuda.synchronize()
     return serving
 
@@ -892,6 +925,20 @@ def train_config(emb_bwd_impl: str = "pallas"):
     return cfg
 
 
+def fixture_trainer(cfg):
+    """make_trainer on the card with the test fixtures' weights
+    (``synth_state_dict``: every layer non-zero, the final ones damped), so
+    the first step's comparison reaches every gradient; make_trainer's own
+    default, the JAX package's initialization, zeroes the final layers and
+    with them most first-step gradients."""
+    from framedipt_tpu_torch.model.weights import synth_state_dict
+    from framedipt_tpu_torch.train.loop import make_trainer
+
+    trainer = make_trainer(cfg, device="cuda")
+    trainer.model.load_state_dict(synth_state_dict(trainer.model), strict=True)
+    return trainer
+
+
 def step_launches(trainer, batch, seed: int) -> tuple[dict, dict[str, int]]:
     """One train step; the launch counts set to 0 just before it and read
     just after."""
@@ -1025,13 +1072,11 @@ def device_time(fn) -> tuple[float, dict[str, float]]:
 def check_train_step() -> int:
     """Phase 6. Returns the pair-MLP backward kernel's launches over the 10
     steps checked for correctness."""
-    from framedipt_tpu_torch.train.loop import make_trainer
-
     B, N = 2, 256
     batch = train_batch(B, N)
-    kern = make_trainer(train_config(), device="cuda")
-    plain = make_trainer(train_config(), device="cuda")  # the same seeded weights
-    xla = make_trainer(train_config("xla"), device="cuda")
+    kern = fixture_trainer(train_config())
+    plain = fixture_trainer(train_config())  # the same weights
+    xla = fixture_trainer(train_config("xla"))
     m_k, launches = step_launches(kern, batch, seed=0)
     if launches != expected_launches(m_k["self_conditioned"]):
         raise AssertionError(f"first train step: launches {launches}")

@@ -1,6 +1,7 @@
-// Fused pair MLP of the edge transition, for Hopper (sm_90a).
+// Fused pair MLP of the edge transition, for Hopper (sm_90a), on the tensor
+// cores.
 //
-// Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/pair_mlp.py
+// Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/pair_mlp.py:78
 // (_pair_mlp_kernel, reached through fused_pair_mlp). Per pair (i, j):
 //
 //   y0  = relu(pair @ W0 + i_term_i + j_term_j + b0)          [384]
@@ -13,40 +14,298 @@
 // (float or bf16); every elementwise add rounds to T as the plain version
 // does; LayerNorm statistics are float32.
 //
-// Bound on an H100 SXM at N=256, B=1: 2*(128*384 + 384*384 + 384*128 +
-// 128*128) = 524,288 FLOP per pair, 34.4 GFLOP per launch, against 33.5 MB of
-// bf16 traffic (pair in, out). In bf16 that is compute bound on the tensor
-// cores (~35 us at 989 TFLOP/s); in float32 on the CUDA cores (~0.51 ms at
-// 67 TFLOP/s).
+// Bounds on an H100 SXM at B=2 N=256: 2 * (128*384 + 384*384 + 384*128 +
+// 128*128) = 524,288 FLOP a pair, 68.7 GFLOP a launch, against 67 MB of
+// float32 pair in and out (bytes: 0.02 ms).
+// - float32: float32-accurate products on the tensor cores take three TF32
+//   products each (3xTF32): 3 x 68.7 GFLOP / 495 TFLOP/s = 0.416 ms. That is
+//   the bound this kernel is held against. On the CUDA cores the same work
+//   takes 68.7 GFLOP / 67 TFLOP/s = 1.026 ms (the bound of the earlier,
+//   CUDA-core kernel).
+// - bf16: one bf16 product each, 68.7 GFLOP / 989 TFLOP/s = 0.069 ms.
 //
-// Design: the [B*Nr*Nc] pair grid is cut into 64-pair tiles, one block of
-// 256 threads each. The weights (W1 alone is 576 KB in float32) do not fit in
-// shared memory, so they stream through L2 in 32-row slices, double-buffered
-// (the next slice is in flight while the block multiplies the current one).
-// The block keeps the pair tile (64x128) and y0 (64x384) in shared memory,
-// walks the hidden dimension of y1 in 128-column chunks --
-// y1_c = relu(y0 @ W1[:, c] + b1[c]), acc += y1_c @ Wf[c, :] -- so y1 never
-// exists whole, then adds the residual terms, and runs LayerNorm and the mask
-// from shared memory (196 KB of it: one block per SM). Nothing but the pair
-// input and the output touches device memory per pair. Each thread owns a
-// 4x8 micro-tile and reads its four activation rows as float4 along k, so a
-// step of 32 FMAs costs five shared-memory wavefronts. The products run on
-// the CUDA cores in float32 (fmaf), for both element types: this is the
-// simple first kernel, not yet the tensor-core (wgmma) one.
+// Design.
+// - The [B*Nr*Nc] pair grid is cut into 64-pair tiles, one block of 8 warps
+//   each. The block keeps the pair tile X (64 x 128), y0 (64 x 384) and one
+//   128-column chunk of y1 in shared memory as float32 values of T. It walks
+//   the hidden dimension of y1 in 128-column chunks --
+//   y1_c = relu(y0 @ W1[:, c] + b1[c]), acc += y1_c @ Wf[c, :] -- so y1 never
+//   exists whole, then adds the residual terms, and runs LayerNorm and the
+//   mask from shared memory. Nothing but the pair input and the output
+//   touches device memory per pair.
+// - Products: mma.sync on fragments loaded from those tiles (mma.cuh). Warp w
+//   owns rows 32 (w % 2) .. and columns 32 (w / 2) .. of each 64 x 128 output
+//   chunk, 2 x 4 MMA tiles of 16 x 8. Tile rows are padded so a warp's
+//   fragment loads hit 32 distinct banks. (16 warps of 32 x 16 each were
+//   slower in float32 on the H100: the products are bound by the rate of
+//   mma.sync, not by the warps in flight.)
+//   float32 (3xTF32, m16n8k8): A comes by ldmatrix (its 8 x 4 blocks of
+//   32-bit values are the A fragment), B by 32-bit loads; each operand is
+//   split in registers into TF32 hi + lo, and each k step adds a_lo b_hi,
+//   then a_hi b_lo, then a_hi b_hi; a_lo b_lo (~2^-22 relative) is left out.
+//   The tensor cores round their float32 sums toward zero, so each 32-deep
+//   slice sums into a zeroed fragment that is then added to the running sum
+//   with round-to-nearest: summed in place (144 truncations at K = 384) the
+//   error after the LayerNorm was 1.3e-5, this way 3e-6 (H100, B=2 N=200).
+//   So the products keep float32 accuracy. The weights are split in the
+//   kernel, not once per call by the wrapper: a split copy would double the
+//   L2 weight stream below and add a launch and 2 MB of workspace per call.
+//   bf16 (m16n8k16): the tiles hold values already rounded to bf16, so
+//   packing them is exact and one MMA gives the product up to the order of
+//   summation.
+// - Weight stream: W1 alone is 576 KB in float32, so the weights stream
+//   through L2 in slices of 32 rows x 128 columns, by cp.async (16 bytes a
+//   thread) into a ring of three shared-memory stages: two slices are in
+//   flight while the block multiplies the third. The stream runs across
+//   product boundaries (60 slices a tile, 64 with the residual, in a fixed
+//   order), so the next product's first slices load during an epilogue.
+//   Stage rows are padded by 8 elements, so the B fragments (32-bit loads in
+//   float32, ldmatrix.trans in bf16) do not conflict in banks. The slices
+//   arrive before they are waited for; starting the copies is what costs
+//   (each thread's 16-byte copies queue behind the fragment loads), so bf16,
+//   whose products are short, spreads them over the k steps.
+// - L2 weight reads: every tile reads every weight once, 262,144 values, 1.05
+//   MB in float32; at B=2 N=256 a launch has 2,048 tiles, so 2.15 GB of L2
+//   reads a launch (1.07 GB in bf16), in as many 16-byte copies.
+//   That traffic falls with the tile's pair count. The tile stays at 64
+//   pairs for both element types: with float32 tiles it fills 215 KB of the
+//   227 KB of shared memory, and bf16 keeps the float32 tiles so both types
+//   share one layout. A larger tile (bf16 tiles, or wgmma with the
+//   activations in registers and TMA for the stream) is the next step.
+// - One block per SM and no overlap between a tile's phases: the products,
+//   the copies, the epilogues (the first layer's i/j terms load as pairs)
+//   and the LayerNorm run one after the other.
+// - Epilogues and LayerNorm are common.cuh's, applied to the accumulator
+//   fragments, in the plain version's addition order; only the order of the
+//   k-sum differs from the plain version.
+// - The backward kernel (pair_mlp_bwd.cu) recomputes this forward on the
+//   CUDA cores in its own k order, so its recompute and this kernel differ by
+//   float32 rounding (in bf16, where a sum rounds to the other side, by one
+//   bf16 step). The backward is consistent with its own recompute: it gives
+//   the gradient of a forward equal to this one within that rounding.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace fdk {
 namespace {
 
 constexpr int C_IN = 128, HID = 384, C_OUT = 128;
-constexpr int HC = 128;  // columns of y1 per chunk
-constexpr int LDX = C_IN + 4, LDY0 = HID + 4, LDY1 = HC + 4;
-constexpr size_t kSmemFloats = (size_t)kRows * LDX + (size_t)kRows * LDY0 +
-                               (size_t)kRows * LDY1 + 2 * (size_t)kKc * 128;
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float) + sizeof(PairTile);
+constexpr int NC = 128;     // columns of every product's output chunk (a y1 chunk too)
+constexpr int kStages = 3;  // weight slices in the ring
+// Warp layout: two warps down the 64 rows of a tile, kColWarps across the
+// NC columns of an output chunk; a warp owns 32 x kWarpCols of it, 2 x kNi
+// MMA tiles of 16 x 8.
+constexpr int kColWarps = 4;
+constexpr int kBlock = 2 * kColWarps * 32;  // threads
+constexpr int kWarpCols = NC / kColWarps, kNi = kWarpCols / 8;
+static_assert(kNi % 2 == 0, "bf16 B fragments come two n-tiles at a time");
+static_assert(C_IN == NC && C_OUT == NC && HID % NC == 0 && NC % kKc == 0, "tile widths");
+
+// The weight slices of a tile (kKc rows x NC columns each), in the order the
+// products read them: W0 by output chunk (12), then for each y1 chunk W1's
+// column chunk (12) and Wf's row chunk (4), then Wfe (4, RESIDUAL only).
+constexpr int kKSlices = C_IN / kKc;                // slices of a K = 128 product
+constexpr int kW0Slices = (HID / NC) * kKSlices;    // 12
+constexpr int kChunkSlices = HID / kKc + kKSlices;  // 16
+constexpr int kResSlice = kW0Slices + (HID / NC) * kChunkSlices;  // 60
+
+template <typename T>
+struct Smem {
+  // Tile row strides in floats: 4 (mod 32) for ldmatrix's eight 16-byte rows
+  // (TF32 A), 8 (mod 32) for the bf16 A fragments' 64-bit loads.
+  static constexpr int PAD = sizeof(T) == 4 ? 4 : 8;
+  static constexpr int LDX = C_IN + PAD, LDY0 = HID + PAD, LDY1 = NC + PAD;
+  static constexpr int LDW = NC + 8;  // staged weight row, in elements of T
+  static constexpr int kStage = kKc * LDW;
+  static constexpr size_t kBytes = sizeof(float) * kRows * (LDX + LDY0 + LDY1) +
+                                   sizeof(T) * kStages * kStage + sizeof(PairTile);
+};
+static_assert(Smem<float>::kBytes <= 232448, "shared memory of one block");
+
+template <typename T>
+struct WeightStream {
+  const T* w0;
+  const T* w1;
+  const T* wf;
+  const T* wfe;
+  T* stages;
+  int total;  // slices of the tile
+
+  // First element of slice s, and its row stride.
+  __device__ __forceinline__ const T* slice(int s, int& ldw) const {
+    if (s < kW0Slices) {
+      ldw = HID;
+      return w0 + (size_t)(s % kKSlices) * kKc * HID + (s / kKSlices) * NC;
+    }
+    if (s < kResSlice) {
+      const int hc = (s - kW0Slices) / kChunkSlices, v = (s - kW0Slices) % kChunkSlices;
+      if (v < HID / kKc) {
+        ldw = HID;
+        return w1 + (size_t)v * kKc * HID + hc * NC;
+      }
+      ldw = C_OUT;
+      return wf + (size_t)(hc * NC + (v - HID / kKc) * kKc) * C_OUT;
+    }
+    ldw = C_OUT;
+    return wfe + (size_t)(s - kResSlice) * kKc * C_OUT;
+  }
+
+  static constexpr int kVec = 16 / sizeof(T), kPerRow = NC / kVec;
+  static constexpr int kCopies = kKc * kPerRow / kBlock;  // 16-byte copies a thread
+
+  // This thread's copy `part` (< kCopies) of slice s into its stage; nothing
+  // past the last slice.
+  __device__ __forceinline__ void copy(int s, int part) const {
+    if (s >= total) return;
+    int ldw;
+    const T* src = slice(s, ldw);
+    const int idx = threadIdx.x + part * kBlock, r = idx / kPerRow, c = (idx - r * kPerRow) * kVec;
+    cp_async16(stages + (s % kStages) * Smem<T>::kStage + r * Smem<T>::LDW + c,
+               src + (size_t)r * ldw + c);
+  }
+
+  // All of this thread's copies of slice s, then one commit group (empty
+  // past the last slice), so every thread's group count is the slice index.
+  __device__ __forceinline__ void start(int s) const {
+#pragma unroll
+    for (int part = 0; part < kCopies; ++part) copy(s, part);
+    cp_async_commit();
+  }
+
+  // Slice s in shared memory, visible to the whole block. Every thread calls
+  // it for s = 0, 1, 2, ... in order. Past the barrier every thread has also
+  // finished with slice s - 1, so its stage may take slice s + 2: the caller
+  // starts that next, at once (acquire) or spread over slice s's k steps.
+  __device__ __forceinline__ const T* wait(int s) const {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    return stages + (s % kStages) * Smem<T>::kStage;
+  }
+
+  __device__ __forceinline__ const T* acquire(int s) const {
+    const T* stage = wait(s);
+    start(s + kStages - 1);
+    return stage;
+  }
+};
+
+// acc += A[64 x K] @ (the stream's next K / kKc slices, slices s ..), where A
+// is float in shared memory with row stride lda. 3xTF32.
+__device__ __forceinline__ void product(const float* __restrict__ A, int lda, int K,
+                                        const WeightStream<float>& ws, int& s,
+                                        float (&acc)[2][kNi][4]) {
+  constexpr int LDW = Smem<float>::LDW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  // A by ldmatrix: lanes 0-15 give rows 0-15 at k, lanes 16-31 the same rows
+  // at k + 4, so r[0..3] are a0..a3.
+  const float* Al = A + ((warp & 1) * 32 + (lane & 15)) * lda + (lane >> 4) * 4;
+  const int boff = t * LDW + (warp >> 1) * kWarpCols + g;
+  for (int k0 = 0; k0 < K; k0 += kKc, ++s) {
+    const float* W = ws.acquire(s) + boff;
+    float part[2][kNi][4] = {};  // this slice's sum
+#pragma unroll
+    for (int kk = 0; kk < kKc; kk += 8) {
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        uint32_t r[4];
+        ldmatrix_x4(r, Al + mi * 16 * lda + k0 + kk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), ahi[mi][i], alo[mi][i]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < kNi; ++ni) {
+        const float* b = W + kk * LDW + ni * 8;
+        uint32_t bhi[2], blo[2];
+        split_tf32(b[0], bhi[0], blo[0]);
+        split_tf32(b[4 * LDW], bhi[1], blo[1]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_tf32(part[mi][ni], alo[mi], bhi);
+          mma_tf32(part[mi][ni], ahi[mi], blo);
+          mma_tf32(part[mi][ni], ahi[mi], bhi);
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNi; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += part[mi][ni][q];
+  }
+}
+
+// The same in bf16: A's values are bf16 already; B comes by ldmatrix.trans.
+// The products are short here, so the next slice's copies go out one a k
+// step, between the MMAs, rather than all at the barrier (faster in bf16,
+// slower in float32, on the H100).
+__device__ __forceinline__ void product(const float* __restrict__ A, int lda, int K,
+                                        const WeightStream<__nv_bfloat16>& ws, int& s,
+                                        float (&acc)[2][kNi][4]) {
+  constexpr int LDW = Smem<__nv_bfloat16>::LDW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const float* Aw = A + ((warp & 1) * 32 + g) * lda + 2 * t;
+  // This lane's ldmatrix row: k row lane % 16; lanes 16-31 the next 8 columns.
+  const int boff = (lane & 15) * LDW + (warp >> 1) * kWarpCols + (lane >> 4) * 8;
+  static_assert(WeightStream<__nv_bfloat16>::kCopies == kKc / 16, "one copy a k step");
+  for (int k0 = 0; k0 < K; k0 += kKc, ++s) {
+    const __nv_bfloat16* W = ws.wait(s) + boff;
+#pragma unroll
+    for (int kk = 0; kk < kKc; kk += 16) {
+      ws.copy(s + kStages - 1, kk / 16);
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* p = Aw + mi * 16 * lda + k0 + kk;
+        const float2 v0 = *reinterpret_cast<const float2*>(p);
+        const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * lda);
+        const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+        const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * lda + 8);
+        a[mi][0] = pack_bf16(v0.x, v0.y);
+        a[mi][1] = pack_bf16(v1.x, v1.y);
+        a[mi][2] = pack_bf16(v2.x, v2.y);
+        a[mi][3] = pack_bf16(v3.x, v3.y);
+      }
+#pragma unroll
+      for (int np = 0; np < kNi / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, W + kk * LDW + np * 16);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+    cp_async_commit();
+  }
+}
+
+// f(r, c, mi, ni, q) for each accumulator element of this warp: tile row r,
+// column c of the 128-column chunk, and the element's index in acc.
+template <typename F>
+__device__ __forceinline__ void for_each_elem(F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (warp & 1) * 32 + (lane >> 2), c0 = (warp >> 1) * kWarpCols + 2 * (lane & 3);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNi; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f(r0 + mi * 16 + (q >> 1) * 8, c0 + ni * 8 + (q & 1), mi, ni, q);
+}
+
+// Two neighbouring elements (p 4- or 8-byte aligned) as floats.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
 
 template <typename T, bool RESIDUAL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock, 1)
 pair_mlp_kernel(const T* __restrict__ pair, const T* __restrict__ i_term,
                 const T* __restrict__ j_term, const T* __restrict__ fi,
                 const T* __restrict__ fj, const T* __restrict__ row_mask,
@@ -56,78 +315,69 @@ pair_mlp_kernel(const T* __restrict__ pair, const T* __restrict__ i_term,
                 const T* __restrict__ bf, const T* __restrict__ wfe,
                 const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
                 T* __restrict__ out, int Nr, int Nc, long long total) {
+  using L = Smem<T>;
   extern __shared__ __align__(16) float smem[];
-  float* X = smem;                       // [64][LDX]   pair tile, later the output
-  float* Y0 = X + kRows * LDX;           // [64][LDY0]  first hidden layer
-  float* Y1 = Y0 + kRows * LDY0;         // [64][LDY1]  HC-column chunk of y1
-  float* Ws = Y1 + kRows * LDY1;         // [2][kKc][128] weight staging
-  PairTile& pt = *reinterpret_cast<PairTile*>(Ws + 2 * kKc * 128);
+  float* X = smem;                     // [64][LDX]   pair tile, later the output
+  float* Y0 = X + kRows * L::LDX;      // [64][LDY0]  first hidden layer
+  float* Y1 = Y0 + kRows * L::LDY0;    // [64][LDY1]  NC-column chunk of y1
+  T* stages = reinterpret_cast<T*>(Y1 + kRows * L::LDY1);  // [kStages][kKc][LDW]
+  PairTile& pt = *reinterpret_cast<PairTile*>(stages + kStages * L::kStage);
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const WeightStream<T> ws{w0, w1, wf, wfe, stages, RESIDUAL ? kResSlice + kKSlices : kResSlice};
+  for (int s = 0; s < kStages - 1; ++s) ws.start(s);
+
   const long long p0 = (long long)blockIdx.x * kRows;
   load_pair_tile<T>(pt, p0, total, Nr, Nc, row_mask, col_mask);
-  for (int idx = tid; idx < kRows * C_IN; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kRows * C_IN; idx += kBlock) {
     const int r = idx / C_IN, c = idx - r * C_IN;
     const long long p = p0 + r;
-    X[r * LDX + c] = p < total ? ld<T>(pair + (size_t)p * C_IN + c) : 0.f;
+    X[r * L::LDX + c] = p < total ? ld<T>(pair + (size_t)p * C_IN + c) : 0.f;
   }
-  __syncthreads();
+  // The first acquire() synchronizes the block before any product reads X.
 
+  int s = 0;
   // y0 = relu(pair @ W0 + i_term + j_term + b0), in three 128-column chunks.
-  for (int cb = 0; cb < HID / 128; ++cb) {
-    float acc[4][8];
-    zero(acc);
-    tile_gemm<T, 128>(X, LDX, C_IN, w0, HID, cb * 128, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+  for (int cb = 0; cb < HID / NC; ++cb) {
+    float acc[2][kNi][4] = {};
+    product(X, L::LDX, C_IN, ws, s, acc);
+    // Elements q and q + 1 are neighbours in a row: their terms load as pairs.
+    for_each_elem([&](int r, int c, int mi, int ni, int q) {
+      if (q & 1) return;
       const int prow = max(pt.row[r], 0), pcol = pt.col[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = cb * 128 + tile_col(j, tx);
-        Y0[r * LDY0 + c] = pair_y0<T>(acc[i][j], ld<T>(i_term + (size_t)prow * HID + c),
-                                      ld<T>(j_term + (size_t)pcol * HID + c), ld<T>(b0 + c));
-      }
-    }
-  }
-  __syncthreads();
-
-  // Walk the hidden dimension of y1 in HC-column chunks:
-  // y1_c = relu(y0 @ W1[:, c] + b1[c]); acc_out += y1_c @ Wf[c, :].
-  float acc_out[4][8];
-  zero(acc_out);
-  for (int hc = 0; hc < HID / HC; ++hc) {
-    float acc1[4][HC / 16];
-    zero(acc1);
-    tile_gemm<T, HC>(Y0, LDY0, HID, w1, HID, hc * HC, Ws, acc1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < HC / 16; ++j) {
-        const int c = tile_col(j, tx);
-        Y1[(ty * 4 + i) * LDY1 + c] = pair_y1<T>(acc1[i][j], ld<T>(b1 + hc * HC + c));
-      }
-    __syncthreads();
-    tile_gemm<T, 128>(Y1, LDY1, HC, wf + (size_t)hc * HC * C_OUT, C_OUT, 0, Ws, acc_out);
+      c += cb * NC;
+      const float2 it = ld2(i_term + (size_t)prow * HID + c);
+      const float2 jt = ld2(j_term + (size_t)pcol * HID + c);
+      const float2 bb = ld2(b0 + c);
+      Y0[r * L::LDY0 + c] = pair_y0<T>(acc[mi][ni][q], it.x, jt.x, bb.x);
+      Y0[r * L::LDY0 + c + 1] = pair_y0<T>(acc[mi][ni][q + 1], it.y, jt.y, bb.y);
+    });
   }
 
-  float res[4][8];
-  zero(res);
-  if (RESIDUAL) tile_gemm<T, 128>(X, LDX, C_IN, wfe, C_OUT, 0, Ws, res);
-  // Every thread has finished reading X: reuse it for the pre-norm output.
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
+  // y1_c = relu(y0 @ W1[:, c] + b1[c]); acc_out += y1_c @ Wf[c, :]. Y0 and
+  // Y1 are written before the next product's first acquire(), whose barrier
+  // makes them visible; Y1 is rewritten only after the first barrier of the
+  // next W1 product, which every warp reaches after the last Wf product.
+  float acc_out[2][kNi][4] = {};
+  for (int hc = 0; hc < HID / NC; ++hc) {
+    float acc1[2][kNi][4] = {};
+    product(Y0, L::LDY0, HID, ws, s, acc1);
+    for_each_elem([&](int r, int c, int mi, int ni, int q) {
+      Y1[r * L::LDY1 + c] = pair_y1<T>(acc1[mi][ni][q], ld<T>(b1 + hc * NC + c));
+    });
+    product(Y1, L::LDY1, NC, ws, s, acc_out);
+  }
+
+  float res[2][kNi][4] = {};
+  if (RESIDUAL) product(X, L::LDX, C_IN, ws, s, res);
+  __syncthreads();  // every warp has finished reading X: it takes the pre-norm output
+  for_each_elem([&](int r, int c, int mi, int ni, int q) {
     const int prow = max(pt.row[r], 0), pcol = pt.col[r];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tile_col(j, tx);
-      X[r * LDX + c] =
-          pair_out<T, RESIDUAL>(acc_out[i][j], res[i][j], fi, fj, prow, pcol, c, ld<T>(bf + c));
-    }
-  }
+    X[r * L::LDX + c] = pair_out<T, RESIDUAL>(acc_out[mi][ni][q], res[mi][ni][q], fi, fj, prow,
+                                              pcol, c, ld<T>(bf + c));
+  });
   __syncthreads();
-  layer_norm_store<T>(X, LDX, pt, p0, ln_scale, ln_bias, out);
+  // common.cuh's LayerNorm takes 8 warps, 8 rows each.
+  if (threadIdx.x < kThreads) layer_norm_store<T>(X, L::LDX, pt, p0, ln_scale, ln_bias, out);
 }
 
 template <typename T, bool RESIDUAL>
@@ -137,14 +387,15 @@ cudaError_t launch(const void* pair, const void* i_term, const void* j_term, con
                    const void* wf, const void* bf, const void* wfe, const float* ln_scale,
                    const float* ln_bias, void* out, int B, int Nr, int Nc,
                    cudaStream_t stream) {
+  constexpr size_t kBytes = Smem<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(pair_mlp_kernel<T, RESIDUAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
+                                         (int)kBytes);
   if (err != cudaSuccess) return err;
   const long long total = (long long)B * Nr * Nc;
   if (total == 0) return cudaSuccess;
   const long long blocks = (total + kRows - 1) / kRows;
-  pair_mlp_kernel<T, RESIDUAL><<<(unsigned)blocks, kThreads, kSmemBytes, stream>>>(
+  pair_mlp_kernel<T, RESIDUAL><<<(unsigned)blocks, kBlock, kBytes, stream>>>(
       (const T*)pair, (const T*)i_term, (const T*)j_term, (const T*)fi, (const T*)fj,
       (const T*)row_mask, (const T*)col_mask, (const T*)w0, (const T*)b0, (const T*)w1,
       (const T*)b1, (const T*)wf, (const T*)bf, (const T*)wfe, ln_scale, ln_bias, (T*)out,
@@ -157,7 +408,8 @@ cudaError_t launch(const void* pair, const void* i_term, const void* j_term, con
 
 // C interface. dtype: 0 = float32, 1 = bfloat16. residual: 1 for the edge
 // transition (fi, fj, wfe given), 0 for the plain MLP (they are ignored).
-// Weights are row-major [in, out]. Returns a cudaError_t (0 on success).
+// Weights are row-major [in, out], 16-byte aligned. Returns a cudaError_t (0
+// on success).
 extern "C" int fdk_pair_mlp(int dtype, int residual, const void* pair, const void* i_term,
                             const void* j_term, const void* fi, const void* fj,
                             const void* row_mask, const void* col_mask, const void* w0,

@@ -4,8 +4,8 @@
 // (_pair_mlp_bwd_kernel, reached through fused_pair_mlp_bwd). For a
 // [B, Nr, Nc, 128] pair tensor and its cotangent g it recomputes the forward
 // of csrc/pair_mlp.cu per pair, through that kernel's epilogues (common.cuh,
-// so every relu takes the same side), and back-propagates through the edge mask, the LayerNorm,
-// the three products and the relus (relu'(0) = 0):
+// the same addition order), and back-propagates through the edge mask, the
+// LayerNorm, the three products and the relus (relu'(0) = 0):
 //
 //   d_pair [B,Nr,Nc,128] (element type T), and in float32
 //   d_i_term, d_fi, d_row_mask: sums over a row's pairs;
@@ -39,9 +39,13 @@
 //   T: 196 KB, one block per SM. dy1 overwrites y1 and dy0 overwrites y0
 //   once the weight gradients that read them are taken. Products run on the
 //   CUDA cores in float32 (fmaf), for both element types; the transposed
-//   products read W^T, which the wrapper lays out row-major. The forward's
-//   k order is kept, so in float32 the recompute equals the forward bit for
-//   bit.
+//   products read W^T, which the wrapper lays out row-major. The forward
+//   kernel (pair_mlp.cu) runs its products on the tensor cores (3xTF32 in
+//   float32) in another order, so this recompute and that forward differ by
+//   float32 rounding (in bf16 a sum can round to the other side, one bf16
+//   step). The gradients are those of this recompute, which matches the
+//   plain version to float32 rounding; the train step's gradients stay
+//   within 1e-4 of the plain-version step (chip_smoke.py phase 6).
 // - Padded pairs (past Nr or Nc) take a zero cotangent: every gradient
 //   contribution from them is exactly zero. Masked pairs keep theirs: the
 //   mask gradients read yln . g there.
@@ -129,7 +133,7 @@ pair_mlp_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pair,
     }
     __syncthreads();
 
-    // ---- forward recompute, in csrc/pair_mlp.cu's order ----------------
+    // ---- forward recompute, through csrc/pair_mlp.cu's epilogues -------
     for (int cb = 0; cb < HID / 128; ++cb) {
       float acc[2][8];
       zero(acc);

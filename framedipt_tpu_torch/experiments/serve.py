@@ -41,7 +41,7 @@ from framedipt_tpu_torch.diffusion import SE3Diffuser
 from framedipt_tpu_torch.geometry.rigid import Rigid
 from framedipt_tpu_torch.model import ScoreNetwork
 from framedipt_tpu_torch.model.kernels.build import build_all
-from framedipt_tpu_torch.model.weights import load_reference_checkpoint, synth_state_dict
+from framedipt_tpu_torch.model.weights import init_state_dict, load_reference_checkpoint
 from framedipt_tpu_torch.sampling import sample
 from framedipt_tpu_torch.tools.config import (
     Config,
@@ -80,7 +80,8 @@ class InpaintingService:
         self.model = ScoreNetwork(cfg.model, self.diffuser, inpainting=True)
         if state_dict is None:
             print("serving with RANDOM weights (no checkpoint given)", flush=True)
-            state_dict = synth_state_dict(self.model, seed=cfg.inference.seed)
+            state_dict = init_state_dict(
+                self.model, torch.Generator().manual_seed(cfg.inference.seed))
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
         self._req_count = 0
@@ -101,6 +102,13 @@ class InpaintingService:
         if not chain_sel.any():
             raise ValueError(f"chain {chain!r} not found")
         region_rows = np.where(chain_sel)[0][start : end + 1]
+        if region_rows.size == 0:
+            # The reverse step centres on the diffused residues: with none,
+            # every translation would be NaN (the JAX service answers so).
+            raise ValueError(
+                f"window [{start}, {end}] selects no residue of chain {chain!r} "
+                f"({int(chain_sel.sum())} residues)"
+            )
         diffused = np.zeros(n, np.float32)
         diffused[region_rows] = 1.0
 

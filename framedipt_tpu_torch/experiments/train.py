@@ -32,7 +32,7 @@ from framedipt_tpu_torch.data import features as feature_lib
 from framedipt_tpu_torch.diffusion import SE3Diffuser
 from framedipt_tpu_torch.model import ScoreNetwork
 from framedipt_tpu_torch.model.kernels.build import build_all
-from framedipt_tpu_torch.model.weights import synth_state_dict
+from framedipt_tpu_torch.model.weights import init_state_dict
 from framedipt_tpu_torch.tools.config import (
     Config,
     check_emb_bwd_impl,
@@ -219,7 +219,9 @@ def train(cfg: Config, device: str | torch.device | None = None) -> SimpleNamesp
     # The JAX package initializes its parameters on one batch of two: the
     # same draw keeps the host Generator's stream the same.
     next(iter(dataset.batches(2)))
-    model.load_state_dict(synth_state_dict(model, seed), strict=True)
+    if restored is None:  # the JAX package's model.init: the AF2 initializer zoo
+        model.load_state_dict(init_state_dict(model, torch.Generator().manual_seed(seed)),
+                              strict=True)
     model.to(dev)
     optimizer = make_optimizer(model.parameters(), cfg.experiment.learning_rate)
     step = 0

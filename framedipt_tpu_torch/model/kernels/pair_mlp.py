@@ -11,8 +11,9 @@ Each product accumulates in float32 and is rounded to the compute dtype;
 LayerNorm statistics are float32 (eps 1e-6). ``residual=False`` (no
 fi/fj/wfe) is the plain MLP variant.
 
-:func:`pair_mlp` takes the kernel (``csrc/pair_mlp.cu``) for CUDA tensors
-and :func:`pair_mlp_plain` for CPU tensors, which exist for the tests.
+:func:`pair_mlp` takes the kernel (``csrc/pair_mlp.cu``: tensor-core
+products, 3xTF32 in float32 and bf16 MMA in bf16) for CUDA tensors and
+:func:`pair_mlp_plain` for CPU tensors, which exist for the tests.
 
 The backward: :func:`pair_mlp_bwd` takes the backward kernel
 (``csrc/pair_mlp_bwd.cu``) for CUDA tensors and :func:`pair_mlp_bwd_plain`
@@ -253,6 +254,12 @@ def pair_mlp(
         "pair_mlp", pair, i_term, j_term, row_mask, col_mask,
         w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj, wfe,
     )
+    # The kernel streams the weights into shared memory 16 bytes at a time
+    # and reads the first layer's terms two elements at a time.
+    for name, t, align in (("w0", w0, 16), ("w1", w1, 16), ("wf", wf, 16), ("wfe", wfe, 16),
+                           ("i_term", i_term, 8), ("j_term", j_term, 8), ("b0", b0, 8)):
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"pair_mlp: {name} is not {align}-byte aligned")
     dev = pair.device
     out = torch.empty((B, Nr, Nc, C_OUT), dtype=pair.dtype, device=dev)
     with torch.cuda.device(dev):

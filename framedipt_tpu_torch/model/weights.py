@@ -6,12 +6,17 @@ torch names.
   package's ``convert_state_dict``).
 - :func:`load_reference_checkpoint`: a reference ``.pth`` ({model, conf, ...}
   pickle or a bare state_dict; DDP ``module.`` prefixes stripped).
-- :func:`synth_state_dict`: deterministic random weights, a pure function of
+- :func:`init_state_dict`: the JAX package's initialization (the AF2
+  initializer zoo), for training a new model and serving without a
+  checkpoint.
+- :func:`synth_state_dict`: the test fixtures' weights, a pure function of
   each parameter's (name, shape), with the zero-initialized final layers
   damped so the trunk stays contractive.
 """
 from __future__ import annotations
 
+import math
+import re
 import zlib
 from typing import Any, Mapping
 
@@ -125,6 +130,85 @@ def load_reference_checkpoint(path: str) -> tuple[dict[str, torch.Tensor], dict 
             conf = None
     sd = {k.removeprefix("module."): v for k, v in state_dict.items()}
     return sd, conf
+
+
+# The AF2 initializer zoo of the JAX package's layers
+# (framedipt_tpu/model/layers.py): "default" and "relu" are truncated
+# normals (to +-2 std) of variance 1 / fan_in and 2 / fan_in, "glorot" is
+# uniform of variance 2 / (fan_in + fan_out), "normal" N(0, 1 / fan_in);
+# "gating" and "final" weights are 0, a "gating" bias 1, every other bias 0.
+IPA_POINT_WEIGHTS_INIT = 0.541324854612918  # softplus^{-1}(1)
+# std of N(0, 1) truncated to [-2, 2]
+_TRUNC_STD = math.sqrt(1.0 - 4.0 * math.exp(-2.0) / math.sqrt(2.0 * math.pi) / math.erf(math.sqrt(2.0)))
+
+# The w_init of each weight matrix the JAX modules name (model/ipa.py; the
+# edge transition's raw trunk and final kernels as their initializers);
+# every other matrix takes "default".
+_W_INIT = (
+    (r"\.ipa_\d+\.linear_out\.weight$", "final"),
+    (r"\.skip_embed_\d+\.weight$", "final"),
+    (r"\.post_tfmr_\d+\.weight$", "final"),
+    (r"\.bb_update_\d+\.linear\.weight$", "final"),
+    (r"\.node_transition_\d+\.linear_[12]\.weight$", "relu"),
+    (r"\.node_transition_\d+\.linear_3\.weight$", "final"),
+    (r"\.edge_transition_\d+\.(initial_embed|trunk\.[02])\.weight$", "relu"),
+    (r"\.edge_transition_\d+\.final_layer\.weight$", "final"),
+    (r"\.self_attn\.in_proj_weight$", "glorot"),
+    (r"torsion_pred\.linear_[12]\.weight$", "relu"),
+    (r"torsion_pred\.linear_final\.weight$", "final"),
+)
+# Tensors the forward never reads (no JAX counterpart): 0, as the importer
+# gives them.
+_UNREAD = ("linear_rbf", "torsion_pred.linear_3")
+
+
+def _w_init_of(name: str) -> str:
+    """The zoo initializer of weight matrix ``name`` (a state_dict name)."""
+    return next((kind for pat, kind in _W_INIT if re.search(pat, name)), "default")
+
+
+def _zoo_matrix(kind: str, shape: tuple[int, int], gen: torch.Generator) -> torch.Tensor:
+    fan_out, fan_in = shape  # torch layout [out, in]
+    if kind in ("final", "gating"):
+        return torch.zeros(shape)
+    if kind in ("default", "relu"):
+        x = torch.randn(shape, generator=gen)
+        while True:  # redraw outside +-2
+            out = x.abs() > 2.0
+            if not out.any():
+                break
+            x[out] = torch.randn(int(out.sum()), generator=gen)
+        scale = 1.0 if kind == "default" else 2.0
+        return x * (math.sqrt(scale / max(1, fan_in)) / _TRUNC_STD)
+    if kind == "glorot":
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
+    if kind == "normal":
+        return torch.randn(shape, generator=gen) / math.sqrt(fan_in)
+    raise ValueError(f"unknown w_init {kind!r}")
+
+
+def init_state_dict(model: torch.nn.Module, generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """The JAX package's initialization of ``model`` (``model.init``): each
+    weight matrix from the zoo by its layer's w_init, LayerNorm scales 1,
+    biases 0 (1 after a "gating" matrix), the IPA point weights
+    softplus^{-1}(1). Drawn from ``generator`` (a CPU Generator) in
+    state_dict order."""
+    sd = {}
+    for name, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if any(u in name for u in _UNREAD):
+            sd[name] = torch.zeros(shape)
+        elif name.endswith("head_weights"):
+            sd[name] = torch.full(shape, IPA_POINT_WEIGHTS_INIT)
+        elif name.endswith("bias"):
+            gating = _w_init_of(name.removesuffix("bias") + "weight") == "gating"
+            sd[name] = torch.full(shape, 1.0 if gating else 0.0)
+        elif len(shape) == 1:  # LayerNorm scale
+            sd[name] = torch.ones(shape)
+        else:
+            sd[name] = _zoo_matrix(_w_init_of(name), shape, generator)
+    return sd
 
 
 # Layers the reference zero-initializes: with them at full scale the

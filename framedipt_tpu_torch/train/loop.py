@@ -20,7 +20,7 @@ from framedipt_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
 from framedipt_tpu_torch.geometry import frames
 from framedipt_tpu_torch.geometry.rigid import Rigid
 from framedipt_tpu_torch.model.score_network import ScoreNetwork
-from framedipt_tpu_torch.model.weights import synth_state_dict
+from framedipt_tpu_torch.model.weights import init_state_dict
 from framedipt_tpu_torch.tools.config import Config, check_emb_bwd_impl, resolve_kernel_flags
 from framedipt_tpu_torch.tools.device import resolve_device
 from framedipt_tpu_torch.train.losses import score_matching_losses
@@ -200,15 +200,17 @@ def build_train_step(
 def make_trainer(cfg: Config, device: str | torch.device | None = None,
                  state_dict: dict | None = None, seed: int = 0) -> SimpleNamespace:
     """A model, diffuser, optimizer and train step for ``cfg`` on ``device``
-    (CUDA unless asked otherwise), with ``state_dict`` or seeded random
-    weights (``synth_state_dict``). Resolves the kernel flags as training
-    does (``use_pallas_ipa=None`` -> False)."""
+    (CUDA unless asked otherwise), with ``state_dict`` or the JAX package's
+    initialization drawn from ``seed`` (``init_state_dict``, as
+    ``init_train_state`` runs ``model.init``). Resolves the kernel flags as
+    training does (``use_pallas_ipa=None`` -> False)."""
     dev = resolve_device(device)
     resolve_kernel_flags(cfg, dev)
     diffuser = SE3Diffuser(cfg.diffuser, device=dev)
     model = ScoreNetwork(cfg.model, diffuser, inpainting=cfg.experiment.inpainting)
     model.load_state_dict(state_dict if state_dict is not None
-                          else synth_state_dict(model, seed), strict=True)
+                          else init_state_dict(model, torch.Generator().manual_seed(seed)),
+                          strict=True)
     model.to(dev)
     optimizer = make_optimizer(model.parameters(), cfg.experiment.learning_rate)
     step = build_train_step(model, diffuser, cfg, optimizer)

@@ -130,17 +130,22 @@ def test_cuda_ipa_attention_matches_plain_version(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernels_match_plain_versions(dtype):
     """On the card: both kernels against their plain versions at the
-    serving widths, ragged N=200, B=2, and each launch counted."""
+    serving widths, ragged N=200, B=2, and each launch counted; the pair MLP
+    also at tiny and ragged shapes (B=1 N=1, B=1 N=17: one partial tile)
+    and without its residual terms, two launches giving the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     rng = np.random.default_rng(0)
-    args = pair_args(rng, 2, 200, 128, 384, 128, True)
-    args = [None if a is None else a.cuda() for a in pair_to_torch(args, dtype)]
-    before = t_pair.pair_mlp.launches
-    torch.testing.assert_close(t_pair.pair_mlp(*args), t_pair.pair_mlp_plain(*args),
-                               atol=tol, rtol=tol)
-    assert t_pair.pair_mlp.launches == before + 1
+    for B, N, residual in ((2, 200, True), (1, 1, True), (1, 17, True), (1, 17, False),
+                           (2, 200, False)):
+        args = pair_args(rng, B, N, 128, 384, 128, residual, zero_rows=min(3, N - 1))
+        args = [None if a is None else a.cuda() for a in pair_to_torch(args, dtype)]
+        before = t_pair.pair_mlp.launches
+        got = t_pair.pair_mlp(*args)
+        torch.testing.assert_close(got, t_pair.pair_mlp_plain(*args), atol=tol, rtol=tol)
+        assert torch.equal(got, t_pair.pair_mlp(*args)), (B, N, residual)
+        assert t_pair.pair_mlp.launches == before + 2
     for n_bins in (22, 0):  # with and without the self-conditioning distogram
         args, bins = emb_args(rng, 2, 200, 128, n_bins)
         args = [a.cuda() for a in emb_to_torch(args, dtype)]

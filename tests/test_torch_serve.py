@@ -44,7 +44,10 @@ def _helix_pdb(n_res: int) -> tuple[str, np.ndarray]:
     return text, from_pdb_string(text).atom_positions
 
 
-def test_inpaint_over_http_on_cpu():
+@pytest.fixture(scope="module")
+def http_service():
+    """The CPU service at the tiny width (random weights: the JAX package's
+    initialization) behind an HTTP server; yields (service, base URL)."""
     cfg = load_config(TINY_OVERRIDES)
     cfg.inference.weights_path = ""
     service = InpaintingService(cfg, device="cpu")
@@ -55,38 +58,62 @@ def test_inpaint_over_http_on_cpu():
     )
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
     try:
-        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
-            assert json.load(r) == {"status": "ok", "device": "cpu"}
-        pdb, ref_pos = _helix_pdb(24)
-        body = json.dumps({"pdb": pdb, "chain": "A", "start": 8, "end": 15,
-                           "samples": 2, "num_t": 3}).encode()
-        req = urllib.request.Request(base + "/inpaint", data=body,
-                                     headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=300) as r:
-            reply = json.load(r)
-        assert len(reply["samples"]) == 2
-        fixed = np.ones(24, bool)
-        fixed[8:16] = False
-        for text in reply["samples"]:
-            got = from_pdb_string(text)
-            assert len(got.aatype) == 24
-            assert np.isfinite(got.atom_positions).all()
-            # Fixed residues come back in the input frame, CA unchanged.
-            np.testing.assert_allclose(got.atom_positions[fixed, 1], ref_pos[fixed, 1], atol=1e-3)
-            # The resampled loop stays near its neighbours, not at the origin.
-            ca = got.atom_positions[:, 1]
-            assert np.linalg.norm(ca[~fixed] - ca[fixed].mean(0), axis=-1).max() < 60.0
-        bad = json.dumps({"pdb": pdb, "chain": "Q", "start": 0, "end": 3}).encode()
-        req = urllib.request.Request(base + "/inpaint", data=bad)
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(req, timeout=60)
-        assert err.value.code == 400
+        yield service, f"http://127.0.0.1:{server.server_address[1]}"
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+
+
+def _post(base, payload, timeout=300):
+    req = urllib.request.Request(base + "/inpaint", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.load(r)
+
+
+def test_inpaint_over_http_on_cpu(http_service):
+    _, base = http_service
+    with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+        assert json.load(r) == {"status": "ok", "device": "cpu"}
+    pdb, ref_pos = _helix_pdb(24)
+    reply = _post(base, {"pdb": pdb, "chain": "A", "start": 8, "end": 15,
+                         "samples": 2, "num_t": 3})
+    assert len(reply["samples"]) == 2
+    in_mask = from_pdb_string(pdb).atom_mask
+    fixed = np.ones(24, bool)
+    fixed[8:16] = False
+    for text in reply["samples"]:
+        got = from_pdb_string(text)
+        assert len(got.aatype) == 24
+        assert (got.atom_mask >= in_mask).all()  # every atom of the input comes back
+        assert np.isfinite(got.atom_positions).all()
+        # Fixed residues come back in the input frame, CA unchanged.
+        np.testing.assert_allclose(got.atom_positions[fixed, 1], ref_pos[fixed, 1], atol=1e-3)
+        # The resampled loop stays near its neighbours, not at the origin.
+        ca = got.atom_positions[:, 1]
+        assert np.linalg.norm(ca[~fixed] - ca[fixed].mean(0), axis=-1).max() < 60.0
+    with pytest.raises(urllib.error.HTTPError) as err:
+        _post(base, {"pdb": pdb, "chain": "Q", "start": 0, "end": 3}, timeout=60)
+    assert err.value.code == 400
+
+
+@pytest.mark.parametrize("start,end", [(30, 35), (10, 5)], ids=["past_the_end", "start_after_end"])
+def test_empty_window_is_refused(http_service, start, end):
+    """A window that selects no residue of the chain is a client error (HTTP
+    400, before sampling), not an empty PDB: the reverse step would divide
+    by a diffused count of 0 (a deliberate divergence from the JAX
+    service)."""
+    service, base = http_service
+    pdb, _ = _helix_pdb(24)
+    with pytest.raises(urllib.error.HTTPError) as err:
+        _post(base, {"pdb": pdb, "chain": "A", "start": start, "end": end, "num_t": 3},
+              timeout=60)
+    assert err.value.code == 400
+    assert "selects no residue" in json.load(err.value)["error"]
+    with pytest.raises(ValueError, match="selects no residue"):
+        service.inpaint(pdb, chain="A", start=start, end=end, samples=1, num_t=3)
 
 
 def test_entry_points_run_on_cuda_unless_asked_for_cpu():

@@ -29,7 +29,7 @@ from framedipt_tpu_torch.experiments.serve import InpaintingService
 from framedipt_tpu_torch.experiments.train import TrainDataset as TDataset
 from framedipt_tpu_torch.experiments.train import main, train
 from framedipt_tpu_torch.model import ScoreNetwork as TNet
-from framedipt_tpu_torch.model.weights import load_reference_checkpoint
+from framedipt_tpu_torch.model.weights import init_state_dict, load_reference_checkpoint
 from framedipt_tpu_torch.tools.config import Config as TConfig
 from framedipt_tpu_torch.tools.config import FilteringConfig, SO3Config
 from framedipt_tpu_torch.train import eval_sampling as t_eval
@@ -237,6 +237,20 @@ def test_tiny_run_writes_metrics_checkpoint_and_eval(tiny_run):
     assert [p.name for p in (out.ckpt_dir).glob("step_*")] == ["step_4"]
     assert (out.ckpt_dir / "train_conf.json").exists()
     assert json.loads((out.ckpt_dir / "train_conf.json").read_text())["experiment"]["seed"] == 3
+
+
+def test_train_without_a_resume_starts_from_the_zoo(data_dir, tmp_path):
+    """A run with nothing to resume starts from the JAX package's
+    initialization (the AF2 zoo drawn from experiment.seed), not from the
+    test fixtures' weights: zero epochs return the initial model."""
+    cfg = _tiny_train_cfg(data_dir, tmp_path, name="zoo")
+    cfg.experiment.num_epoch = 0
+    out = train(cfg, device="cpu")
+    assert out.steps_run == 0
+    want = init_state_dict(out.model, torch.Generator().manual_seed(cfg.experiment.seed))
+    got = out.model.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert not got["score_model.trunk.bb_update_0.linear.weight"].any()
 
 
 def test_resume_continues_past_the_saved_step(tiny_run, data_dir):
