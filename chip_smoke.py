@@ -63,10 +63,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=256, B=2 N=200 ragged with masked
-rows, B=2 N=256; the pair MLP residual and not, the embedder with 22 and 0
-distance bins), checks that two launches give the same bits, and times them
-at B=2 N=256 (the embedder's also against the ``xla`` setting's backward,
-the VJP of its plain forward).
+rows, B=2 N=256; the pair MLP residual and not, at B=1 N=1 and N=17, and in
+float32 at B=2 N=200 run in 10 chunks under a small workspace cap; the
+embedder with 22 and 0 distance bins), checks that two launches give the
+same bits, and times them at B=2 N=256 (the pair MLP's float32 call also by
+part: kernel A, kernel B, the row/column sums, the ordered reductions,
+under torch.profiler, with its workspace bytes and each kernel's bound; the
+embedder's also against the ``xla`` setting's backward, the VJP of its
+plain forward). The float32 pair-MLP backward's recompute must equal the
+forward kernel's output bit for bit, and its gradients are held against the
+plain backward through the recompute's relu decisions, after every relu
+site where the plain forward decides otherwise is shown to hold an
+activation within 1e-4 of 0.
 
 The last two lines are a JSON object with one entry per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
@@ -349,65 +357,171 @@ def check_kernels() -> dict[str, dict]:
     return serving
 
 
+# The float32 pair-MLP backward: kernel A (recompute and input-gradient
+# chain) and kernel B (weight gradients) both run their products on the
+# tensor cores as 3xTF32.
+PAIR_MLP_BWD_PEAKS = {"A": TENSOR_CORE_FLOPS[torch.float32], "B": TENSOR_CORE_FLOPS[torch.float32]}
+# The persistent CUDA-core kernel it replaces, float32 B=2 N=256 (PERF.md
+# section 6; NVIDIA H100 80GB HBM3, 700 W), printed for reference.
+PAIR_MLP_BWD_CUDA_CORE_MS = 9.966
+BWD_PARTS = (("A", "split_tile_kernel"), ("B", "wgrad_kernel"), ("row/col sums", "_sums"),
+             ("ordered reductions", "sum_partials"))
+
+
 def pair_mlp_bwd_cost(B, N, dtype):
-    """Operations and bytes of one backward launch: the forward recompute
-    and two products per forward product (d-input, d-weight); pair,
+    """(kernel A's operations, kernel B's operations, bytes) of one call:
+    the forward recompute and the input-gradient chain (two products per
+    forward product), the weight gradients (one per forward product); pair,
     cotangent and d_pair, the O(N) inputs once, the float32 gradients."""
     es = torch.tensor([], dtype=dtype).element_size()
     mlp = 128 * 384 + 384 * 384 + 384 * 128 + 128 * 128
-    flops = B * N * N * 3 * 2 * mlp
-    nbytes = (es * (3 * B * N * N * 128 + B * N * (2 * 384 + 2 * 128 + 2) + 2 * mlp + 2 * 384 + 128)
+    pairs = B * N * N
+    nbytes = (es * (3 * pairs * 128 + B * N * (2 * 384 + 2 * 128 + 2) + 2 * mlp + 2 * 384 + 128)
               + 4 * (B * N * (2 * 384 + 2 * 128 + 2) + mlp + 2 * 384 + 3 * 128))
-    return flops, nbytes
+    return pairs * 2 * 2 * mlp, pairs * 2 * mlp, nbytes
+
+
+def pair_mlp_bwd_bound(B, N, dtype) -> tuple[float, str]:
+    """Least ms of one call: each part's operations over the peak rate of
+    the units it runs on (float32; bf16 all on the CUDA cores), summed,
+    or the bytes over the HBM rate, the larger."""
+    a_flops, b_flops, nbytes = pair_mlp_bwd_cost(B, N, dtype)
+    if dtype == torch.float32:
+        ops_ms = 1e3 * (a_flops / PAIR_MLP_BWD_PEAKS["A"] + b_flops / PAIR_MLP_BWD_PEAKS["B"])
+    else:
+        ops_ms = 1e3 * (a_flops + b_flops) / PEAK_FLOPS[dtype]
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def bwd_parts_ms(fn) -> dict[str, float]:
+    """Device ms of one call of ``fn`` by part of the float32 backward
+    (torch.profiler; {} if it records no device time)."""
+    _, by_name = device_time(fn)
+    parts = {label: 0.0 for label, _ in BWD_PARTS}
+    parts["wrapper (transposes, zeroing, d_b0)"] = 0.0
+    for name, ms in by_name.items():
+        label = next((lab for lab, key in BWD_PARTS if key in name),
+                     "wrapper (transposes, zeroing, d_b0)")
+        parts[label] += ms
+    return parts if by_name else {}
+
+
+def grad_errors(got, ref, label: str) -> tuple[float, float]:
+    """(worst |got - ref| over each gradient's own max-abs, worst |got - ref|)
+    over the gradients that ref gives; raises on a non-finite gradient."""
+    worst_rel, worst_abs = 0.0, 0.0
+    for i, (a, r) in enumerate(zip(got, ref)):
+        if r is None:
+            continue
+        if not torch.isfinite(a.float()).all():
+            raise AssertionError(f"{label}: gradient {i} not finite")
+        err = float((a.float() - r.float()).abs().max())
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / max(float(r.float().abs().max()), 1e-30))
+    return worst_rel, worst_abs
+
+
+def relu_flips(args, rec) -> tuple[int, float]:
+    """(relu sites where the plain forward and the kernels' recompute fall on
+    different sides of 0, the largest |activation| at those sites)."""
+    from framedipt_tpu_torch.model.kernels.pair_mlp import _pre_norm
+
+    pair, i_term, j_term, _, _, w0, b0, w1, b1, wf, bf, _, _, fi, fj, wfe = args
+    y0, y1, _ = _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe)
+    n, worst = 0, 0.0
+    for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
+        flip = (plain_y > 0) != (kern_y > 0)
+        n += int(flip.sum())
+        if flip.any():
+            worst = max(worst, float(torch.maximum(plain_y[flip], kern_y[flip]).max()))
+    return n, worst
 
 
 def check_pair_mlp_bwd() -> dict:
-    """The pair-MLP backward kernel against its plain version on the card:
-    every gradient within tol of its own max-abs (float32 1e-4, bf16 5e-2),
-    residual and not; two launches bit-identical; times at B=2 N=256."""
+    """The pair-MLP backward against its plain version on the card: every
+    gradient within tol of its own max-abs (float32 1e-4, bf16 5e-2),
+    residual and not, one pair, one partial tile, and in float32 a grid the
+    wrapper runs in several chunks (a small workspace cap); two launches
+    bit-identical; times at B=2 N=256 (the whole call, and by kernel).
+
+    The float32 kernels take their relu decisions from their recompute,
+    which runs the forward kernel's code (3xTF32): the recompute's output is
+    checked to equal the forward kernel's bit for bit, every site where the
+    plain forward's relu falls on the other side of 0 must hold an
+    activation within float32 rounding of 0 (<= 1e-4), and the gradients are
+    held against the plain backward through the recompute's relu decisions
+    (the gradient jumps at such a site; without them the error is printed
+    too)."""
     from framedipt_tpu_torch.model.kernels.pair_mlp import (
+        BWD_WORKSPACE_CAP,
         bwd_workspace_floats,
+        pair_mlp,
         pair_mlp_bwd,
         pair_mlp_bwd_plain,
+        plan_bwd_chunks,
+        split_workspace_floats,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = {}
+    small_cap = 4 * split_workspace_floats(40 * 200)  # 40 grid rows a chunk: 10 chunks
+    shapes = ((1, 256, True, None), (2, 200, True, None), (2, 256, True, None),
+              (2, 200, False, None), (1, 1, True, None), (1, 17, True, None),
+              (2, 200, True, small_cap))
     for dtype in (torch.float32, torch.bfloat16):
-        for B, N, residual in ((1, 256, True), (2, 200, True), (2, 256, True), (2, 200, False)):
+        for B, N, residual, cap in shapes:
+            if cap is not None and dtype != torch.float32:
+                continue  # the bf16 kernel keeps no chunked workspace
+            kw = {} if cap is None else {"workspace_cap": cap}
             args = pair_mlp_inputs(B, N, dtype, gen, residual=residual)
             g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
-            got = pair_mlp_bwd(g, *args)
-            again = pair_mlp_bwd(g, *args)
-            ref = pair_mlp_bwd_plain(g, *args)
+            rec = {} if dtype == torch.float32 else None
+            got = pair_mlp_bwd(g, *args, recompute=rec, **kw)
+            again = pair_mlp_bwd(g, *args, **kw)
+            masks = None if rec is None else (rec["y0"] > 0, rec["y1"] > 0)
+            ref = pair_mlp_bwd_plain(g, *args, relu_masks=masks)
             torch.cuda.synchronize()
             same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
-            worst_rel, worst_abs = 0.0, 0.0
-            for i, (a, r) in enumerate(zip(got, ref)):
-                if r is None:
-                    continue
-                if not torch.isfinite(a.float()).all():
-                    raise AssertionError(f"pair_mlp_bwd {dtype} B={B} N={N}: gradient {i} not finite")
-                err = float((a.float() - r.float()).abs().max())
-                rel = err / max(float(r.float().abs().max()), 1e-30)
-                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
             label = f"pair_mlp_bwd {str(dtype)[6:]} B={B} N={N} residual={residual}"
+            worst_rel, worst_abs = grad_errors(got, ref, label)
+            if dtype == torch.float32:
+                chunks = plan_bwd_chunks(B, N, N, cap or BWD_WORKSPACE_CAP)
+                label += (f" chunks={len(chunks)} (workspace "
+                          f"{4 * split_workspace_floats(max(b - a for a, b in chunks) * N)} bytes)")
             line = (f"{label}: max err {worst_abs:.3e} abs, {worst_rel:.3e} of the gradient's "
                     f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}")
-            if (B, N, residual) == (2, 256, True):
+            if rec is not None:
+                fwd_diff = float((rec["out"] - pair_mlp(*args)).abs().max())
+                n_flips, flip_max = relu_flips(args, rec)
+                own_rel = grad_errors(got, pair_mlp_bwd_plain(g, *args), label)[0]
+                line += (f"; recompute vs forward kernel output: max diff {fwd_diff:.3e}; relu "
+                         f"sites on the other side of 0 from the plain forward: {n_flips} (largest "
+                         f"|activation| there {flip_max:.3e}); against the plain backward through "
+                         f"its own relu decisions {own_rel:.3e}")
+                if fwd_diff != 0 or flip_max > TOL[torch.float32]:
+                    log(line)
+                    raise AssertionError(f"{label}: the recompute is not the forward kernel's")
+            if (B, N, residual, cap) == (2, 256, True, None):
                 ms = cuda_time_ms(lambda: pair_mlp_bwd(g, *args), 20)
                 plain_ms = cuda_time_ms(lambda: pair_mlp_bwd_plain(g, *args), 5)
-                flops, nbytes = pair_mlp_bwd_cost(B, N, dtype)
-                bound_ms = 1e3 * max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES)
-                bound_by = ("operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES
-                            else "bytes")
-                blocks = torch.cuda.get_device_properties(0).multi_processor_count
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by}), {flops / ms / 1e9:.2f} TFLOP/s, workspace "
-                         f"{4 * bwd_workspace_floats(B, N, N, blocks)} bytes ({blocks} blocks)")
+                a_flops, b_flops, _ = pair_mlp_bwd_cost(B, N, dtype)
+                bound_ms, bound_by = pair_mlp_bwd_bound(B, N, dtype)
+                line += (f"; call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by}), {(a_flops + b_flops) / ms / 1e9:.2f} TFLOP/s")
                 if dtype == torch.float32:
+                    parts = bwd_parts_ms(lambda: pair_mlp_bwd(g, *args))
+                    line += (f"; CUDA-core kernel (PERF.md) {PAIR_MLP_BWD_CUDA_CORE_MS} ms; device ms "
+                             "by part (profiler, one call): "
+                             + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
+                             + f"; kernel A bound {1e3 * a_flops / PAIR_MLP_BWD_PEAKS['A']:.4f} ms, "
+                             f"kernel B bound {1e3 * b_flops / PAIR_MLP_BWD_PEAKS['B']:.4f} ms")
                     out = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                else:
+                    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+                    line += (f"; workspace {4 * bwd_workspace_floats(B, N, N, blocks)} bytes "
+                             f"({blocks} blocks)")
             log(line)
             if worst_rel > TOL[dtype] or not same:
                 raise AssertionError(f"{label}: error {worst_rel} over tolerance or not deterministic")
@@ -890,6 +1004,12 @@ def profile_sampler(model: torch.nn.Module, diffuser, num_t: int = 10) -> None:
 TRAIN_TOL = 1e-4
 
 
+# Phase 6's peak memory with the earlier persistent float32 pair-MLP
+# backward kernel (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W), printed
+# for reference.
+STEP_PEAK_GB_PERSISTENT_BWD = {"pallas": 2.477, "xla": 3.063}
+
+
 def train_batch(B: int = 2, N: int = 256) -> dict[str, torch.Tensor]:
     """A synthetic training batch: ideal-helix frames centred on the CA
     centroid, torsions from the port's transforms, random residue types, a
@@ -1120,14 +1240,15 @@ def check_train_step() -> int:
         log(f"train step B={B} N={N} float32 (pallas_emb_bwd_impl={label}): {step_ms:.3f} ms a "
             f"step (CUDA events over 5 steps after 3 warm; self-conditioned {sum(coins)} of 5), "
             f"{1e3 * B / step_ms:.2f} examples/s, peak memory {peak_gb:.3f} GB (both trainers "
-            "resident)")
+            f"resident; with the persistent backward kernel "
+            f"{STEP_PEAK_GB_PERSISTENT_BWD[label]} GB)")
     wall = wall_ms(lambda: [kern.step(batch, gen) for _ in range(5)])
     busy, by_name = device_time(lambda: [kern.step(batch, gen) for _ in range(5)])
     log(f"train step B={B} N={N} float32 (pallas): 5 steps {wall:.1f} ms wall, "
         + (f"{busy:.1f} ms of device time over 5 more under torch.profiler, busy share "
            f"{busy / wall:.3f}" if by_name else
            "torch.profiler recorded no device time (busy share not measured)"))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  {ms:9.3f} ms  {name[:100]}")
     return bwd_launches
 
@@ -1249,6 +1370,19 @@ def check_training_cli() -> int:
     return launches["edge_embedder_bwd"]
 
 
+def kernel_sources(name: str) -> list[str]:
+    """The files under csrc/ that kernel ``name``'s source includes, itself first."""
+    csrc = REPO / "framedipt_tpu_torch" / "csrc"
+    found, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f not in found:
+            found.append(f)
+            todo += [line.split('"')[1] for line in (csrc / f).read_text().splitlines()
+                     if line.startswith('#include "')]
+    return found
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -1298,6 +1432,7 @@ def main() -> int:
         {
             "name": name, "route": "cuda",
             "source": f"framedipt_tpu_torch/csrc/{name}.cu",
+            "sources": [f"framedipt_tpu_torch/csrc/{f}" for f in kernel_sources(name)],
             "replaces": replaces[name], "launches": launches[name],
             **serving[name],
         }

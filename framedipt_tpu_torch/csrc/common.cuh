@@ -362,9 +362,9 @@ __device__ __forceinline__ void add_part(float* __restrict__ dst, float v, bool 
 namespace {
 
 // out[m, c] = sum over s = 0 .. S-1, in order, of part[(m * S + s) * ld + c],
-// for c < C <= ld.
+// for c < C <= ld; with accumulate, out[m, c] + that sum.
 __global__ void sum_partials(const float* __restrict__ part, float* __restrict__ out,
-                             long long M, int S, int C, int ld) {
+                             long long M, int S, int C, int ld, bool accumulate) {
   const long long total = M * C;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
        idx += (long long)gridDim.x * blockDim.x) {
@@ -372,16 +372,16 @@ __global__ void sum_partials(const float* __restrict__ part, float* __restrict__
     const float* p = part + (size_t)m * S * ld + c;
     float s = 0.f;
     for (int k = 0; k < S; ++k) s += p[(size_t)k * ld];
-    out[m * ld + c] = s;
+    out[m * ld + c] = accumulate ? out[m * ld + c] + s : s;
   }
 }
 
 cudaError_t reduce_partials(const float* part, float* out, long long M, int S, int C, int ld,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, bool accumulate = false) {
   const long long total = M * C;
   const long long want = (total + 255) / 256;
   const int blocks = (int)(want < 4096 ? want : 4096);
-  if (blocks > 0) sum_partials<<<blocks, 256, 0, stream>>>(part, out, M, S, C, ld);
+  if (blocks > 0) sum_partials<<<blocks, 256, 0, stream>>>(part, out, M, S, C, ld, accumulate);
   return cudaGetLastError();
 }
 

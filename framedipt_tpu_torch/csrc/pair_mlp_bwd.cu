@@ -1,10 +1,9 @@
 // Backward of the fused pair MLP of the edge transition, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/pair_mlp.py
+// Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/pair_mlp.py:349
 // (_pair_mlp_bwd_kernel, reached through fused_pair_mlp_bwd). For a
 // [B, Nr, Nc, 128] pair tensor and its cotangent g it recomputes the forward
-// of csrc/pair_mlp.cu per pair, through that kernel's epilogues (common.cuh,
-// the same addition order), and back-propagates through the edge mask, the
+// of csrc/pair_mlp.cu per pair and back-propagates through the edge mask, the
 // LayerNorm, the three products and the relus (relu'(0) = 0):
 //
 //   d_pair [B,Nr,Nc,128] (element type T), and in float32
@@ -13,16 +12,55 @@
 //   d_w0, d_w1, d_b1, d_wf, d_bf, d_wfe, d_ln_scale, d_ln_bias: sums over
 //   the whole grid.
 //
-// Bound on an H100 SXM at B=2 N=256: the recompute (524,288 FLOP a pair)
-// plus two products per forward product (the d-input and the d-weight
-// ones), 1,572,864 FLOP a pair, 206 GFLOP a launch: 3.08 ms in float32 on
-// the CUDA cores (67 TFLOP/s), against 201 MB of float32 pair, cotangent and
-// d_pair. Set by operations.
+// Work at B=2 N=256 (131,072 pairs): the recompute and the input-gradient
+// chain (dx Wf^T, dy1 W1^T, dy0 W0^T + dx Wfe^T) are 1,048,576 FLOP a pair,
+// 137 GFLOP; the weight gradients (pair^T dy0, y0^T dy1, y1^T dx, pair^T dx)
+// are 524,288 FLOP a pair, 68.7 GFLOP; against 201 MB of pair, cotangent and
+// d_pair. No gradient is summed across blocks
+// in place and no float atomic is used: two launches give the same bits.
 //
-// Design. The TPU kernel accumulates the grid-reduced gradients in output
-// blocks that stay in VMEM across a sequential grid; here blocks run in
-// parallel, so nothing is summed across blocks in place and no float atomic
-// is used: two launches give the same bits.
+// float32: two kernels and fixed-order sums, per chunk of grid rows (the
+// wrapper plans the chunks so that the workspace stays under its cap).
+// - Kernel A (split_tile_kernel), one block per 64-pair tile of the chunk's
+//   flat pairs, in the forward kernel's shared-memory layout (215 KB, and
+//   6 KB of relu decisions). It
+//   recomputes the forward through the forward kernel's own code
+//   (pair_mlp_tc.cuh: forward_tile, 3xTF32 mma.sync, the weight ring,
+//   common.cuh's epilogues), so the recompute equals pair_mlp.cu's output
+//   bit for bit and the relu masks are the forward's. Then the mask and
+//   LayerNorm backward (one warp per 8 pairs), and the input-gradient chain
+//   through the same products (mlp_products) on the transposed weights the
+//   wrapper lays out, which have the forward weights' shapes:
+//   dy1 = (dx Wf^T) . [y1 > 0], dy0 = (dy1 W1^T) . [y0 > 0] by 128-column
+//   chunk, d_pair = dy0 W0^T (+ dx Wfe^T). It writes y0, y1, dy1, dy0 and dx
+//   ([pairs, 384] / [pairs, 128]) and dem (the mask gradients' yln . g) to
+//   the workspace, keeps the recompute's relu decisions as ballot words in
+//   shared memory (the chain's epilogues walk the same fragments), and
+//   writes one partial of d_b1 | d_bf | d_ln_scale | d_ln_bias per tile.
+//   Bound:
+//   3 x 137 GFLOP / 495 TFLOP/s = 0.83 ms (3xTF32).
+// - Row and column sums (row_sums, col_sums): d_i_term | d_fi | d_row_mask
+//   and the column ones, summed from the workspace in index order.
+// - Kernel B (wgrad_kernel): the four weight gradients as one split-K GEMM
+//   on the tensor cores. The outputs are cut into 128 x 128 tiles (3 of
+//   d_w0, 9 of d_w1, 3 of d_wf, 1 of d_wfe) and the chunk's pairs into
+//   kSlices contiguous slices: 16 x 8 = 128 blocks, one wave on 132 SMs.
+//   Each block sums its slice with 3xTF32 mma.sync (mma.cuh: operands split
+//   into TF32 hi + lo in registers, each 32-deep step summed into a zeroed
+//   fragment and added with round-to-nearest, since the tensor cores
+//   truncate), its operands staged by cp.async through a four-stage ring in
+//   shared memory ([pairs, 128] row blocks; A enters transposed, read as
+//   scalars, conflict-free), and writes its partial. Bound: 3 x 68.7 GFLOP /
+//   495 TFLOP/s = 0.42 ms.
+// - A second pass (common.cuh's sum_partials) adds the slices' partials in
+//   slice order, and the tiles' vector partials in tile order (32 at a
+//   time, then the groups), to the outputs, chunk after chunk.
+// The whole float32 call: 206 GFLOP, 1.25 ms at the 3xTF32 rate; the
+// workspace traffic (~1.9 GB written and read back) takes 0.57 ms at the
+// HBM rate.
+//
+// bf16: the persistent kernel below (pair_mlp_bwd_kernel), products on the
+// CUDA cores in float32.
 // - Persistent blocks, one per SM (gridDim.x, chosen by the wrapper), walk
 //   the tiles of 4 rows x 8 columns of pairs in a fixed order. Each block
 //   owns one float32 partial set of the weight, bias and LayerNorm
@@ -37,24 +75,19 @@
 // - Per tile, shared memory holds the pair tile X, y0 and y1 (each
 //   32 x 384), the pre-norm output (later dx in float32) and dx rounded to
 //   T: 196 KB, one block per SM. dy1 overwrites y1 and dy0 overwrites y0
-//   once the weight gradients that read them are taken. Products run on the
-//   CUDA cores in float32 (fmaf), for both element types; the transposed
-//   products read W^T, which the wrapper lays out row-major. The forward
-//   kernel (pair_mlp.cu) runs its products on the tensor cores (3xTF32 in
-//   float32) in another order, so this recompute and that forward differ by
-//   float32 rounding (in bf16 a sum can round to the other side, one bf16
-//   step). The gradients are those of this recompute, which matches the
-//   plain version to float32 rounding; the train step's gradients stay
-//   within 1e-4 of the plain-version step (chip_smoke.py phase 6).
-// - Padded pairs (past Nr or Nc) take a zero cotangent: every gradient
-//   contribution from them is exactly zero. Masked pairs keep theirs: the
-//   mask gradients read yln . g there.
-#include "common.cuh"
+//   once the weight gradients that read them are taken.
+// - It recomputes the forward on the CUDA cores in its own k order, so the
+//   recompute and the forward kernel differ by rounding (a bf16 sum can
+//   round to the other side, one bf16 step). The gradients are those of the
+//   recompute.
+//
+// Padded pairs (past the grid) contribute nothing. Masked pairs keep their
+// contribution: the mask gradients read yln . g there.
+#include "pair_mlp_tc.cuh"
 
 namespace fdk {
 namespace {
 
-constexpr int C_IN = 128, HID = 384, C_OUT = 128;
 constexpr int kTI = 4, kTJ = 8, kP = kTI * kTJ;  // pairs of a tile
 constexpr int LDX = C_IN + 4, LDH = HID + 4;
 constexpr int kWarps = kThreads / 32;
@@ -393,17 +426,481 @@ cudaError_t launch(const void* g, const void* pair, const void* i_term, const vo
   return reduce_partials(colpart, colred, (long long)B * Nc, n_ti, kRowPart, kRowPart, stream);
 }
 
+
+// ---- float32: kernel A, the row and column sums, kernel B ----------------
+
+constexpr int kVec = HID + 3 * C_OUT;     // d_b1 | d_bf | d_ln_scale | d_ln_bias
+constexpr int kGroup = 32;                // tile partials summed 32 at a time
+constexpr int kSlices = 8;                // K slices of kernel B
+constexpr int kMaxJobs = 16;              // 128 x 128 output tiles of kernel B
+static_assert(OFF_B1 + kVec == OFF_WFE, "the vector sums sit between d_wf and d_wfe");
+static_assert(kBlock == kThreads, "kernel A runs common.cuh's LayerNorm with its block");
+
+// A chunk's workspace (float32), in this order: y0, y1, dy1, dy0 [P, 384],
+// dx [P, 128], kernel B's partials [kSlices, kWParts], the tiles' vector
+// partials [groups * kGroup, kVec], their group sums [groups, kVec], dem [P].
+// Mirrored in model/kernels/pair_mlp.py (split_workspace_floats).
+struct SplitWs {
+  float *y0, *y1, *dy1, *dy0, *dx, *wpart, *vpart, *vmid, *dem;
+};
+
+inline long long split_tiles(long long P) { return (P + kRows - 1) / kRows; }
+inline long long split_groups(long long P) { return (split_tiles(P) + kGroup - 1) / kGroup; }
+
+inline long long split_ws_floats(long long P) {
+  return P * (4 * HID + C_OUT + 1) + (long long)kSlices * kWParts +
+         (split_groups(P) * kGroup + split_groups(P)) * kVec;
+}
+
+inline SplitWs split_ws(float* ws, long long P) {
+  SplitWs w;
+  w.y0 = ws;
+  w.y1 = w.y0 + P * HID;
+  w.dy1 = w.y1 + P * HID;
+  w.dy0 = w.dy1 + P * HID;
+  w.dx = w.dy0 + P * HID;
+  w.wpart = w.dx + P * C_OUT;
+  w.vpart = w.wpart + (long long)kSlices * kWParts;
+  w.vmid = w.vpart + split_groups(P) * kGroup * kVec;
+  w.dem = w.vmid + split_groups(P) * kVec;
+  return w;
+}
+
+// (a0, a1) where this lane's bits of the mask words of elements q and q + 1
+// are set, else 0.
+__device__ __forceinline__ float2 relu_grad(const uint32_t* m, int chunk, int mi, int ni, int q,
+                                            float a0, float a1) {
+  const int lane = threadIdx.x & 31;
+  return make_float2((m[mask_word(chunk, mi, ni, q)] >> lane) & 1u ? a0 : 0.f,
+                     (m[mask_word(chunk, mi, ni, q + 1)] >> lane) & 1u ? a1 : 0.f);
+}
+
+constexpr size_t kASmemBytes = Smem<float>::kBytes + sizeof(uint32_t) * 2 * (HID / NC) * kMaskWords;
+static_assert(kASmemBytes <= 232448, "shared memory of one block");
+
+// Kernel A over pairs q0 .. q0 + P - 1 of the flat [B * Nr * Nc] grid, one
+// 64-pair tile a block, in the forward kernel's shared-memory layout. With
+// fwd_out, also the recompute's LayerNorm output, as the forward writes it.
+template <bool RESIDUAL>
+__global__ void __launch_bounds__(kBlock, 1)
+split_tile_kernel(const float* __restrict__ g, const float* __restrict__ pair,
+                  const float* __restrict__ i_term, const float* __restrict__ j_term,
+                  const float* __restrict__ fi, const float* __restrict__ fj,
+                  const float* __restrict__ row_mask, const float* __restrict__ col_mask,
+                  const float* __restrict__ w0, const float* __restrict__ b0,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ wf, const float* __restrict__ bf,
+                  const float* __restrict__ wfe, const float* __restrict__ ln_scale,
+                  const float* __restrict__ ln_bias, const float* __restrict__ w0t,
+                  const float* __restrict__ w1t, const float* __restrict__ wft,
+                  const float* __restrict__ wfet, float* __restrict__ d_pair, SplitWs ws,
+                  long long q0, long long P, int Nr, int Nc, float* __restrict__ fwd_out) {
+  using L = Smem<float>;
+  extern __shared__ __align__(16) float smem[];
+  float* X = smem;                   // [64][LDX]  pair tile, then the pre-norm output, then dx
+  float* Y0 = X + kRows * L::LDX;    // [64][LDY0] y0, then dy1
+  float* Y1 = Y0 + kRows * L::LDY0;  // [64][LDY1] a chunk of y1, then of dy0
+  float* stages = Y1 + kRows * L::LDY1;  // [kStages][kKc][LDW] weight ring
+  PairTile& pt = *reinterpret_cast<PairTile*>(stages + kStages * L::kStage);
+  uint32_t* M0 = reinterpret_cast<uint32_t*>(&pt + 1);  // relu decisions of y0 (mask_word)
+  uint32_t* M1 = M0 + (HID / NC) * kMaskWords;           // and of y1
+  constexpr int kTileSlices = RESIDUAL ? kResSlice + kKSlices : kResSlice;
+
+  const WeightStream<float> fwd{w0, w1, wf, wfe, stages, kTileSlices};
+  for (int s = 0; s < kStages - 1; ++s) fwd.start(s);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long lp0 = (long long)blockIdx.x * kRows, p0 = q0 + lp0, end = q0 + P;
+  load_pair_tile<float>(pt, p0, end, Nr, Nc, row_mask, col_mask);
+  for (int idx = tid; idx < kRows * C_IN; idx += kBlock) {
+    const int r = idx / C_IN, c = idx - r * C_IN;
+    X[r * L::LDX + c] = p0 + r < end ? __ldg(pair + (size_t)(p0 + r) * C_IN + c) : 0.f;
+  }
+
+  // ---- the forward kernel's recompute; y0 and y1 to the workspace -------
+  forward_tile<float, RESIDUAL, true>(X, Y0, Y1, pt, fwd, i_term, j_term, fi, fj, b0, b1, bf,
+                                      ws.y0 + lp0 * HID, ws.y1 + lp0 * HID, M0, M1);
+  __syncthreads();
+  if (fwd_out) {
+    layer_norm_store<float>(X, L::LDX, pt, p0, ln_scale, ln_bias, fwd_out);
+    __syncthreads();
+  }
+
+  // ---- mask and LayerNorm backward, one warp per 8 pairs: X becomes dx ---
+  // The channel sums go to the weight ring's memory: the first stream has
+  // ended and the second has not started.
+  float* Red = stages;  // [kWarps][3][C_OUT]
+  {
+    float sl[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+    float sf[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int rr = 0; rr < kRows / kWarps; ++rr) {
+      const int r = warp * (kRows / kWarps) + rr;
+      if (pt.row[r] < 0) {  // warp-uniform: a pair past the chunk contributes 0
+#pragma unroll
+        for (int q = 0; q < 4; ++q) X[r * L::LDX + lane + 32 * q] = 0.f;
+        continue;
+      }
+      const float* gp = g + (size_t)(p0 + r) * C_OUT;
+      float xc[4], s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        xc[q] = X[r * L::LDX + lane + 32 * q];
+        s += xc[q];
+      }
+      const float mean = warp_sum(s) / C_OUT;
+      float var = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        xc[q] -= mean;
+        var += xc[q] * xc[q];
+      }
+      const float inv = 1.f / sqrtf(warp_sum(var) / C_OUT + 1e-6f);
+      const float em = pt.mask[r];
+      float xh[4], dxh[4], dem = 0.f, m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = lane + 32 * q;
+        const float sc = __ldg(ln_scale + c);
+        xh[q] = xc[q] * inv;
+        const float gq = __ldg(gp + c);
+        dem += (xh[q] * sc + __ldg(ln_bias + c)) * gq;
+        const float gm = gq * em;
+        sl[q] += gm * xh[q];
+        sb[q] += gm;
+        dxh[q] = gm * sc;
+        m1 += dxh[q];
+        m2 += dxh[q] * xh[q];
+      }
+      dem = warp_sum(dem);
+      m1 = warp_sum(m1) / C_OUT;
+      m2 = warp_sum(m2) / C_OUT;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float dx = (dxh[q] - m1 - xh[q] * m2) * inv;
+        sf[q] += dx;
+        X[r * L::LDX + lane + 32 * q] = dx;
+      }
+      if (lane == 0) ws.dem[lp0 + r] = dem;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      Red[(warp * 3 + 0) * C_OUT + lane + 32 * q] = sl[q];
+      Red[(warp * 3 + 1) * C_OUT + lane + 32 * q] = sb[q];
+      Red[(warp * 3 + 2) * C_OUT + lane + 32 * q] = sf[q];
+    }
+  }
+  __syncthreads();
+
+  // The tile's d_bf, d_ln_scale, d_ln_bias; dx to the workspace.
+  float* vp = ws.vpart + (size_t)blockIdx.x * kVec;
+  if (tid < C_OUT) {
+    const int from[3] = {2, 0, 1};  // d_bf, d_ln_scale, d_ln_bias
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float s = 0.f;
+      for (int w = 0; w < kWarps; ++w) s += Red[(w * 3 + from[k]) * C_OUT + tid];
+      vp[HID + k * C_OUT + tid] = s;
+    }
+  }
+  store_rows(X, L::LDX, C_OUT, pt, ws.dx + lp0 * C_OUT, C_OUT);
+  __syncthreads();  // the channel sums are read: the ring takes the second stream
+
+  // ---- the input-gradient chain, through the same products on W^T ------
+  // dy1 = (dx @ Wf^T) * relu'(y1) into Y0, dy0 = (dy1 @ W1^T) * relu'(y0)
+  // by chunk into Y1, d_pair = dy0 @ W0^T (+ dx @ Wfe^T); each epilogue
+  // walks the fragments the recompute's did, so a lane's relu decision is
+  // its bit of the same mask word.
+  const WeightStream<float> bwd{wft, w1t, w0t, wfet, stages, kTileSlices};
+  for (int s = 0; s < kStages - 1; ++s) bwd.start(s);
+  float acc_dp[2][kNi][4] = {}, res[2][kNi][4] = {};
+  mlp_products<float, RESIDUAL>(
+      X, Y0, Y1, bwd,
+      [&](int cb, float (&acc)[2][kNi][4]) {
+        for_each_elem([&](int r, int c, int mi, int ni, int q) {
+          if (q & 1) return;
+          c += cb * NC;
+          const float2 d = relu_grad(M1, cb, mi, ni, q, acc[mi][ni][q], acc[mi][ni][q + 1]);
+          Y0[r * L::LDY0 + c] = d.x;
+          Y0[r * L::LDY0 + c + 1] = d.y;
+        });
+      },
+      [&](int hc, float (&acc1)[2][kNi][4]) {
+        for_each_elem([&](int r, int c, int mi, int ni, int q) {
+          if (q & 1) return;
+          const float2 d = relu_grad(M0, hc, mi, ni, q, acc1[mi][ni][q], acc1[mi][ni][q + 1]);
+          Y1[r * L::LDY1 + c] = d.x;
+          Y1[r * L::LDY1 + c + 1] = d.y;
+        });
+      },
+      [&](int hc) { store_rows(Y1, L::LDY1, NC, pt, ws.dy0 + lp0 * HID + hc * NC, HID); },
+      acc_dp, res);
+  for_each_elem([&](int r, int c, int mi, int ni, int q) {
+    if ((q & 1) || pt.row[r] < 0) return;
+    const float v0 = RESIDUAL ? acc_dp[mi][ni][q] + res[mi][ni][q] : acc_dp[mi][ni][q];
+    const float v1 = RESIDUAL ? acc_dp[mi][ni][q + 1] + res[mi][ni][q + 1] : acc_dp[mi][ni][q + 1];
+    *reinterpret_cast<float2*>(d_pair + (size_t)(p0 + r) * C_IN + c) = make_float2(v0, v1);
+  });
+  // dy1 has been whole in Y0 since the first barrier of the first W1^T
+  // product: to the workspace, and the tile's d_b1.
+  store_rows(Y0, L::LDY0, HID, pt, ws.dy1 + lp0 * HID, HID);
+  for (int c = tid; c < HID; c += kBlock) {
+    float s = 0.f;
+    for (int r = 0; r < kRows; ++r) s += Y0[r * L::LDY0 + c];
+    vp[c] = s;
+  }
+}
+
+// d_i_term | d_fi | d_row_mask of the chunk's rows m0 .. m0 + rows - 1 (a
+// row lies in one chunk), each a sum over j in order.
+__global__ void row_sums(const float* __restrict__ dy0, const float* __restrict__ dx,
+                         const float* __restrict__ dem, const float* __restrict__ col_mask,
+                         float* __restrict__ rowred, int m0, int rows, int Nr, int Nc) {
+  const long long total = (long long)rows * kRowPart;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (long long)gridDim.x * blockDim.x) {
+    const int lr = (int)(idx / kRowPart), c = (int)(idx - (long long)lr * kRowPart);
+    const int m = m0 + lr, b = m / Nr;
+    const size_t base = (size_t)lr * Nc;
+    // Unrolled so that several loads are in flight; the adds stay in order.
+    float s = 0.f;
+    if (c < HID) {
+#pragma unroll 8
+      for (int j = 0; j < Nc; ++j) s += dy0[(base + j) * HID + c];
+    } else if (c < HID + C_OUT) {
+#pragma unroll 8
+      for (int j = 0; j < Nc; ++j) s += dx[(base + j) * C_OUT + c - HID];
+    } else {
+      for (int j = 0; j < Nc; ++j) s += dem[base + j] * __ldg(col_mask + (size_t)b * Nc + j);
+    }
+    rowred[(size_t)m * kRowPart + c] = s;
+  }
+}
+
+// d_j_term | d_fj | d_col_mask over the chunk's rows m0 .. m1 - 1 of the
+// batches b_lo .. b_lo + nb - 1, each a sum over i in order, added to
+// colred (the chunks run in order).
+__global__ void col_sums(const float* __restrict__ dy0, const float* __restrict__ dx,
+                         const float* __restrict__ dem, const float* __restrict__ row_mask,
+                         float* __restrict__ colred, int m0, int m1, int b_lo, int nb, int Nr,
+                         int Nc) {
+  const long long total = (long long)nb * Nc * kRowPart;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (long long)gridDim.x * blockDim.x) {
+    const int bj = (int)(idx / kRowPart), c = (int)(idx - (long long)bj * kRowPart);
+    const int b = b_lo + bj / Nc, j = bj % Nc;
+    const int lo = max(m0, b * Nr), hi = min(m1, (b + 1) * Nr);
+    float s = 0.f;
+    const size_t p0 = (size_t)(lo - m0) * Nc + j;
+    if (c < HID) {
+#pragma unroll 8
+      for (int m = lo; m < hi; ++m) s += dy0[(p0 + (size_t)(m - lo) * Nc) * HID + c];
+    } else if (c < HID + C_OUT) {
+#pragma unroll 8
+      for (int m = lo; m < hi; ++m) s += dx[(p0 + (size_t)(m - lo) * Nc) * C_OUT + c - HID];
+    } else {
+      for (int m = lo; m < hi; ++m) s += dem[p0 + (size_t)(m - lo) * Nc] * __ldg(row_mask + m);
+    }
+    float* dst = colred + ((size_t)b * Nc + j) * kRowPart + c;
+    *dst += s;
+  }
+}
+
+// Kernel B: one 128 x 128 tile of a weight gradient, G = A^T Bm over a K
+// slice of the chunk's pairs, where A and Bm are [pairs, .] row-major
+// (row strides lda, ldb) from their first column a, b.
+struct WJob {
+  const float* a;
+  const float* b;
+  int lda, ldb, out_off, out_ld;
+};
+struct WJobs {
+  WJob job[kMaxJobs];
+};
+
+constexpr int kBK = kKc;          // pairs of one staged step
+constexpr int kBStages = 4;       // steps in the ring
+constexpr int LDB = 128 + 8;      // staged row stride: 8 (mod 32), conflict-free fragments
+constexpr int kBStage = 2 * kBK * LDB;  // A block then B block
+constexpr size_t kBSmemBytes = sizeof(float) * kBStages * kBStage;
+
+__global__ void __launch_bounds__(kThreads, 1)
+wgrad_kernel(const WJobs jobs, float* __restrict__ wpart, long long P, long long k_slice) {
+  extern __shared__ __align__(16) float smem[];
+  const WJob jb = jobs.job[blockIdx.x];
+  const long long k_begin = (long long)blockIdx.y * k_slice;
+  const long long k_end = min(P, k_begin + k_slice);
+  const int n_steps = k_end > k_begin ? (int)((k_end - k_begin + kBK - 1) / kBK) : 0;
+
+  // Step `it`'s rows of A and Bm into its stage (16 bytes a copy, 8 a
+  // thread; rows past the slice zero), then one commit group (empty past
+  // the last step), so every thread's group count is the step index.
+  auto start = [&](int it) {
+    if (it < n_steps) {
+      float* stage = smem + (it % kBStages) * kBStage;
+#pragma unroll
+      for (int part = 0; part < 2 * kBK * 32 / kThreads; ++part) {
+        const int idx = threadIdx.x + part * kThreads;
+        const int op = idx / (kBK * 32), r = (idx / 32) % kBK, c4 = (idx % 32) * 4;
+        const long long k = k_begin + (long long)it * kBK + r;
+        const bool v = k < k_end;
+        const long long kr = v ? k : k_begin;
+        const float* src = op ? jb.b + kr * jb.ldb + c4 : jb.a + kr * jb.lda + c4;
+        cp_async16_zfill(stage + (op * kBK + r) * LDB + c4, src, v);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int it = 0; it < kBStages - 1; ++it) start(it);
+
+  // Warp w owns rows 64 (w % 2) .. and columns 32 (w / 2) .. of the tile:
+  // 4 x 4 MMA tiles of 16 x 8.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 64 + g, n0 = (warp >> 1) * 32 + g;
+  float acc[4][4][4] = {};
+  for (int it = 0; it < n_steps; ++it) {
+    cp_async_wait<kBStages - 2>();
+    __syncthreads();  // step it landed; every warp has left step it - 1
+    start(it + kBStages - 1);
+    const float* As = smem + (it % kBStages) * kBStage;
+    const float* Bs = As + kBK * LDB;
+    float part[4][4][4] = {};  // this step's sum
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        split_tf32(Bs[(kk + t) * LDB + n0 + ni * 8], bhi[ni][0], blo[ni][0]);
+        split_tf32(Bs[(kk + t + 4) * LDB + n0 + ni * 8], bhi[ni][1], blo[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        // A (m, k) = As[k][m]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+        const float* a = As + (kk + t) * LDB + m0 + mi * 16;
+        uint32_t ahi[4], alo[4];
+        split_tf32(a[0], ahi[0], alo[0]);
+        split_tf32(a[8], ahi[1], alo[1]);
+        split_tf32(a[4 * LDB], ahi[2], alo[2]);
+        split_tf32(a[4 * LDB + 8], ahi[3], alo[3]);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          mma_tf32(part[mi][ni], alo, bhi[ni]);
+          mma_tf32(part[mi][ni], ahi, blo[ni]);
+          mma_tf32(part[mi][ni], ahi, bhi[ni]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += part[mi][ni][q];
+  }
+  cp_async_wait<0>();
+
+  float* out = wpart + (size_t)blockIdx.y * kWParts + jb.out_off;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int r = m0 + mi * 16, c = n0 - g + ni * 8 + 2 * t;
+      *reinterpret_cast<float2*>(out + (size_t)r * jb.out_ld + c) =
+          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(out + (size_t)(r + 8) * jb.out_ld + c) =
+          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+}
+
+int grid_of(long long total) {
+  const long long want = (total + kThreads - 1) / kThreads;
+  return (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
+}
+
+// One chunk, rows m0 .. m1 - 1 of the flat [B * Nr] grid.
+template <bool RESIDUAL>
+cudaError_t launch_split(const float* g, const float* pair, const float* i_term,
+                         const float* j_term, const float* fi, const float* fj,
+                         const float* row_mask, const float* col_mask, const float* w0,
+                         const float* b0, const float* w1, const float* b1, const float* wf,
+                         const float* bf, const float* wfe, const float* ln_scale,
+                         const float* ln_bias, const float* w0t, const float* w1t,
+                         const float* wft, const float* wfet, float* d_pair, float* wsp,
+                         long long ws_floats, float* wred, float* rowred, float* colred, int B,
+                         int Nr, int Nc, int m0, int m1, float* fwd_out, cudaStream_t stream) {
+  if (m0 < 0 || m1 <= m0 || m1 > B * Nr || Nc <= 0) return cudaErrorInvalidValue;
+  const long long q0 = (long long)m0 * Nc, P = (long long)(m1 - m0) * Nc;
+  if (split_ws_floats(P) > ws_floats) return cudaErrorInvalidValue;
+  const SplitWs ws = split_ws(wsp, P);
+  const long long tiles = split_tiles(P), groups = split_groups(P);
+  cudaError_t err;
+
+  // Kernel A; the tile partials past the last tile are zero.
+  if ((err = cudaFuncSetAttribute(split_tile_kernel<RESIDUAL>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kASmemBytes)) != cudaSuccess)
+    return err;
+  if ((err = cudaMemsetAsync(ws.vpart + tiles * kVec, 0,
+                             sizeof(float) * (groups * kGroup - tiles) * kVec, stream)) !=
+      cudaSuccess)
+    return err;
+  split_tile_kernel<RESIDUAL><<<(unsigned)tiles, kBlock, kASmemBytes, stream>>>(
+      g, pair, i_term, j_term, fi, fj, row_mask, col_mask, w0, b0, w1, b1, wf, bf, wfe,
+      ln_scale, ln_bias, w0t, w1t, wft, wfet, d_pair, ws, q0, P, Nr, Nc, fwd_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // Row and column sums.
+  row_sums<<<grid_of((long long)(m1 - m0) * kRowPart), kThreads, 0, stream>>>(
+      ws.dy0, ws.dx, ws.dem, col_mask, rowred, m0, m1 - m0, Nr, Nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int b_lo = m0 / Nr, nb = (m1 - 1) / Nr - b_lo + 1;
+  col_sums<<<grid_of((long long)nb * Nc * kRowPart), kThreads, 0, stream>>>(
+      ws.dy0, ws.dx, ws.dem, row_mask, colred, m0, m1, b_lo, nb, Nr, Nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // Kernel B.
+  WJobs jobs;
+  int n = 0;
+  const float* pc = pair + q0 * C_IN;
+  for (int c = 0; c < HID / 128; ++c)  // d_w0 = pair^T dy0
+    jobs.job[n++] = {pc, ws.dy0 + c * 128, C_IN, HID, OFF_W0 + c * 128, HID};
+  for (int r = 0; r < HID / 128; ++r)  // d_w1 = y0^T dy1
+    for (int c = 0; c < HID / 128; ++c)
+      jobs.job[n++] = {ws.y0 + r * 128, ws.dy1 + c * 128, HID, HID,
+                       OFF_W1 + r * 128 * HID + c * 128, HID};
+  for (int r = 0; r < HID / 128; ++r)  // d_wf = y1^T dx
+    jobs.job[n++] = {ws.y1 + r * 128, ws.dx, HID, C_OUT, OFF_WF + r * 128 * C_OUT, C_OUT};
+  if (RESIDUAL) jobs.job[n++] = {pc, ws.dx, C_IN, C_OUT, OFF_WFE, C_OUT};  // d_wfe = pair^T dx
+  if ((err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kBSmemBytes)) != cudaSuccess)
+    return err;
+  const long long k_slice = ((P + kSlices - 1) / kSlices + kBK - 1) / kBK * kBK;
+  wgrad_kernel<<<dim3(n, kSlices), kThreads, kBSmemBytes, stream>>>(jobs, ws.wpart, P, k_slice);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // Fixed-order sums into the outputs.
+  if ((err = reduce_partials(ws.wpart, wred, 1, kSlices, OFF_B1, kWParts, stream, true)) !=
+      cudaSuccess)
+    return err;
+  if (RESIDUAL &&
+      (err = reduce_partials(ws.wpart + OFF_WFE, wred + OFF_WFE, 1, kSlices, C_IN * C_OUT,
+                             kWParts, stream, true)) != cudaSuccess)
+    return err;
+  if ((err = reduce_partials(ws.vpart, ws.vmid, groups, kGroup, kVec, kVec, stream)) !=
+      cudaSuccess)
+    return err;
+  return reduce_partials(ws.vmid, wred + OFF_B1, 1, (int)groups, kVec, kVec, stream, true);
+}
+
 }  // namespace
 }  // namespace fdk
 
-// C interface. dtype: 0 = float32, 1 = bfloat16. residual: 1 for the edge
-// transition (fi, fj, wfe, wfet given), 0 for the plain MLP. Weights are
-// row-major [in, out], w0t/w1t/wft/wfet their transposes. Scratch (float32,
-// from the wrapper): wpart [blocks, 262912], rowpart [B, Nr, ceil(Nc/8), 513],
-// colpart [B, Nc, ceil(Nr/4), 513]; outputs wred [262912], rowred [B, Nr, 513],
-// colred [B, Nc, 513], d_pair [B, Nr, Nc, 128]. blocks: persistent blocks
-// (one per SM). Returns a cudaError_t (0 on success).
-extern "C" int fdk_pair_mlp_bwd(int dtype, int residual, const void* g, const void* pair,
+// C interface of the bf16 kernel. residual: 1 for the edge transition (fi,
+// fj, wfe, wfet given), 0 for the plain MLP. Weights are row-major [in, out],
+// w0t/w1t/wft/wfet their transposes. Scratch (float32, from the wrapper):
+// wpart [blocks, 262912], rowpart [B, Nr, ceil(Nc/8), 513], colpart [B, Nc,
+// ceil(Nr/4), 513]; outputs wred [262912], rowred [B, Nr, 513], colred [B,
+// Nc, 513], d_pair [B, Nr, Nc, 128]. blocks: persistent blocks (one per SM).
+// Returns a cudaError_t (0 on success).
+extern "C" int fdk_pair_mlp_bwd(int residual, const void* g, const void* pair,
                                 const void* i_term, const void* j_term, const void* fi,
                                 const void* fj, const void* row_mask, const void* col_mask,
                                 const void* w0, const void* b0, const void* w1, const void* b1,
@@ -418,11 +915,38 @@ extern "C" int fdk_pair_mlp_bwd(int dtype, int residual, const void* g, const vo
   g, pair, i_term, j_term, fi, fj, row_mask, col_mask, w0, b0, w1, b1, wf, bf, wfe,         \
       ln_scale, ln_bias, w0t, w1t, wft, wfet, d_pair, wpart, rowpart, colpart, wred, rowred, \
       colred, B, Nr, Nc, blocks, s
-  if (dtype == 0)
-    return residual ? fdk::launch<float, true>(FDK_ARGS) : fdk::launch<float, false>(FDK_ARGS);
-  if (dtype == 1)
-    return residual ? fdk::launch<__nv_bfloat16, true>(FDK_ARGS)
-                    : fdk::launch<__nv_bfloat16, false>(FDK_ARGS);
+  return residual ? fdk::launch<__nv_bfloat16, true>(FDK_ARGS)
+                  : fdk::launch<__nv_bfloat16, false>(FDK_ARGS);
 #undef FDK_ARGS
-  return (int)cudaErrorInvalidValue;
+}
+
+// C interface of the float32 path, for one chunk: rows m0 .. m1 - 1 of the
+// flat [B * Nr] grid (pairs m0 * Nc ..). Pointers as above, all float32;
+// ws: the chunk's workspace of ws_floats floats (split_ws_floats of its
+// pairs at least). Adds the chunk's weight, bias and LayerNorm gradients to
+// wred [262912] and its column sums to colred [B, Nc, 513] (both zeroed
+// before the first chunk), writes its rows of rowred [B, Nr, 513] and of
+// d_pair. fwd_out (or null): [B, Nr, Nc, 128] float32, receives the
+// recompute's LayerNorm output of the chunk's pairs, as pair_mlp.cu writes
+// it. Returns a cudaError_t (0 on success).
+extern "C" int fdk_pair_mlp_bwd_split(int residual, const float* g, const float* pair,
+                                      const float* i_term, const float* j_term,
+                                      const float* fi, const float* fj,
+                                      const float* row_mask, const float* col_mask,
+                                      const float* w0, const float* b0, const float* w1,
+                                      const float* b1, const float* wf, const float* bf,
+                                      const float* wfe, const float* ln_scale,
+                                      const float* ln_bias, const float* w0t,
+                                      const float* w1t, const float* wft, const float* wfet,
+                                      float* d_pair, float* ws, long long ws_floats,
+                                      float* wred, float* rowred, float* colred, int B,
+                                      int Nr, int Nc, int m0, int m1, float* fwd_out,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FDK_ARGS                                                                          \
+  g, pair, i_term, j_term, fi, fj, row_mask, col_mask, w0, b0, w1, b1, wf, bf, wfe,       \
+      ln_scale, ln_bias, w0t, w1t, wft, wfet, d_pair, ws, ws_floats, wred, rowred, colred, \
+      B, Nr, Nc, m0, m1, fwd_out, s
+  return residual ? fdk::launch_split<true>(FDK_ARGS) : fdk::launch_split<false>(FDK_ARGS);
+#undef FDK_ARGS
 }

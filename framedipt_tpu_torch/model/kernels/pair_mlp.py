@@ -15,12 +15,14 @@ fi/fj/wfe) is the plain MLP variant.
 products, 3xTF32 in float32 and bf16 MMA in bf16) for CUDA tensors and
 :func:`pair_mlp_plain` for CPU tensors, which exist for the tests.
 
-The backward: :func:`pair_mlp_bwd` takes the backward kernel
+The backward: :func:`pair_mlp_bwd` takes the backward kernels
 (``csrc/pair_mlp_bwd.cu``) for CUDA tensors and :func:`pair_mlp_bwd_plain`
 for CPU tensors. Both recompute the forward from the inputs and return every
 input gradient; :class:`PairMLPFunction` binds forward and backward for
 autograd and saves only the inputs, never the [B, N, N, hidden]
-activations.
+activations. In float32 the kernels run per chunk of grid rows
+(:func:`plan_bwd_chunks`) with a transient workspace of the chunk's
+activations and their gradients (:func:`split_workspace_floats`).
 """
 from __future__ import annotations
 
@@ -37,12 +39,20 @@ F32 = torch.float32
 C_IN, HIDDEN, C_OUT = 128, 384, 128  # widths the kernel is built for
 
 
-def _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe):
+def _relu(x, mask):
+    """relu(x), or, given the relu's decisions (bool, True where x counts as
+    positive), x where they hold and 0 elsewhere."""
+    return torch.relu(x) if mask is None else x * mask.to(x.dtype)
+
+
+def _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe, relu_masks=None):
     """(y0, y1, pre-norm output), added in the kernels' order (b0 and bf
     not folded), which decides every relu mask; the forward kernel and the
-    backward kernel's recompute follow it too (``common.cuh``)."""
-    y0 = torch.relu(matmul_f32(pair, w0) + i_term[:, :, None, :] + j_term[:, None, :, :] + b0)
-    y1 = torch.relu(matmul_f32(y0, w1) + b1)
+    backward kernel's recompute follow it too (``common.cuh``).
+    ``relu_masks``: the two relus' decisions, or None (their own)."""
+    m0, m1 = (None, None) if relu_masks is None else relu_masks
+    y0 = _relu(matmul_f32(pair, w0) + i_term[:, :, None, :] + j_term[:, None, :, :] + b0, m0)
+    y1 = _relu(matmul_f32(y0, w1) + b1, m1)
     out = matmul_f32(y1, wf)
     if wfe is not None:
         out = out + matmul_f32(pair, wfe)
@@ -53,10 +63,11 @@ def _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe):
 def pair_mlp_plain(
     pair, i_term, j_term, row_mask, col_mask,
     w0, b0, w1, b1, wf, bf, ln_scale, ln_bias,
-    fi=None, fj=None, wfe=None,
+    fi=None, fj=None, wfe=None, relu_masks=None,
 ):
-    """Plain PyTorch version of the kernel (the XLA twin's formulation)."""
-    _, _, out = _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe)
+    """Plain PyTorch version of the kernel (the XLA twin's formulation).
+    ``relu_masks``: see :func:`pair_mlp_bwd_plain`."""
+    _, _, out = _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe, relu_masks)
     normed = layer_norm_f32(out, ln_scale, ln_bias)
     emask = row_mask[:, :, None] * col_mask[:, None, :]
     return (normed * emask[..., None].to(F32)).to(pair.dtype)
@@ -65,7 +76,7 @@ def pair_mlp_plain(
 def pair_mlp_bwd_plain(
     g, pair, i_term, j_term, row_mask, col_mask,
     w0, b0, w1, b1, wf, bf, ln_scale, ln_bias,
-    fi=None, fj=None, wfe=None,
+    fi=None, fj=None, wfe=None, relu_masks=None,
 ):
     """Plain PyTorch version of the backward kernel: recompute the forward
     in :func:`pair_mlp_plain`'s order (b0 and bf not folded), then
@@ -73,14 +84,21 @@ def pair_mlp_bwd_plain(
     Returns (d_pair, d_i_term, d_j_term, d_row_mask, d_col_mask, d_w0, d_b0,
     d_w1, d_b1, d_wf, d_bf, d_ln_scale, d_ln_bias, d_fi, d_fj, d_wfe), summed
     in float32 and cast to each input's dtype (the last three None without
-    the residual terms)."""
+    the residual terms).
+
+    ``relu_masks`` (bool [B, Nr, Nc, hidden] each, or None): the two relus'
+    decisions (y0 > 0, y1 > 0) to take in place of this recompute's, for
+    holding a kernel whose forward rounds otherwise against this arithmetic
+    (the gradient jumps where a pre-activation rounds to the other side of
+    0)."""
     dtype = pair.dtype
     residual = wfe is not None
 
     def t_dot(a, b):  # sum over every pair of a^T b, float32
         return torch.einsum("bijp,bijq->pq", a.to(F32), b.to(F32))
 
-    y0, y1, out = _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe)
+    y0, y1, out = _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe,
+                            relu_masks)
     x = out.to(F32)
     mean = x.mean(dim=-1, keepdim=True)
     centered = x - mean
@@ -114,11 +132,12 @@ def pair_mlp_bwd_plain(
         d_fi = torch.sum(dx, dim=2)
         d_fj = torch.sum(dx, dim=1)
     # Second layer; relu'(0) = 0.
-    dy1 = matmul_f32(dxd, wf.t()) * (y1 > 0).to(dtype)
+    m0, m1 = (y0 > 0, y1 > 0) if relu_masks is None else relu_masks
+    dy1 = matmul_f32(dxd, wf.t()) * m1.to(dtype)
     d_b1 = torch.sum(dy1.to(F32), dim=(0, 1, 2))
     d_w1 = t_dot(y0, dy1)
     # First layer.
-    dy0 = matmul_f32(dy1, w1.t()) * (y0 > 0).to(dtype)
+    dy0 = matmul_f32(dy1, w1.t()) * m0.to(dtype)
     d_w0 = t_dot(pair, dy0)
     d_i_term = torch.sum(dy0.to(F32), dim=2)
     d_j_term = torch.sum(dy0.to(F32), dim=1)
@@ -161,7 +180,19 @@ _W_PARTS = (
 )
 W_PART_FLOATS = sum(int(np.prod(shape)) for _, shape in _W_PARTS)
 ROW_PART = HIDDEN + C_OUT + 1  # d_i_term | d_fi | d_row_mask per row partial
-TILE_I, TILE_J = 4, 8  # pairs of one backward tile
+TILE_I, TILE_J = 4, 8  # pairs of one bf16 backward tile
+
+# The float32 backward (csrc/pair_mlp_bwd.cu, fdk_pair_mlp_bwd_split):
+# kernel A's tile of flat pairs; per pair y0, y1, dy1, dy0 (HIDDEN each), dx
+# (C_OUT) and dem (1) in the workspace; kernel B's K slices, each a partial
+# set of W_PART_FLOATS; one vector partial (d_b1 | d_bf | d_ln_scale |
+# d_ln_bias) per tile, summed SPLIT_GROUP at a time, then the groups.
+SPLIT_TILE = 64
+SPLIT_PAIR_FLOATS = 4 * HIDDEN + C_OUT + 1
+SPLIT_SLICES = 8
+SPLIT_GROUP = 32
+SPLIT_VEC = HIDDEN + 3 * C_OUT
+BWD_WORKSPACE_CAP = 1 << 30  # bytes of one chunk's workspace
 
 
 @functools.cache
@@ -177,13 +208,24 @@ def _kernel():
 
 @functools.cache
 def _bwd_kernel():
-    """The C entry point of csrc/pair_mlp_bwd.cu, built and bound at first
-    use."""
+    """The bf16 C entry point of csrc/pair_mlp_bwd.cu, built and bound at
+    first use."""
     fn = library("pair_mlp_bwd").fdk_pair_mlp_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 28 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 28 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
+    return fn
+
+
+@functools.cache
+def _split_kernel():
+    """The float32 C entry point of csrc/pair_mlp_bwd.cu (one chunk), built
+    and bound at first use."""
+    fn = library("pair_mlp_bwd").fdk_pair_mlp_bwd_split
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 23 + [ctypes.c_longlong] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     return fn
 
 
@@ -289,19 +331,53 @@ def bwd_workspace_floats(B: int, Nr: int, Nc: int, blocks: int) -> int:
             + ROW_PART * (B * Nr * (n_tj + 1) + B * Nc * (n_ti + 1)))
 
 
+def split_workspace_floats(pairs: int) -> int:
+    """Float32 workspace of the float32 backward for a chunk of ``pairs``
+    pairs: the per-pair activations and gradients, kernel B's slice
+    partials and the tiles' vector partials (mirrors ``split_ws_floats`` in
+    csrc/pair_mlp_bwd.cu)."""
+    groups = -(-(-(-pairs // SPLIT_TILE)) // SPLIT_GROUP)
+    return (pairs * SPLIT_PAIR_FLOATS + SPLIT_SLICES * W_PART_FLOATS
+            + (groups * SPLIT_GROUP + groups) * SPLIT_VEC)
+
+
+def plan_bwd_chunks(B: int, Nr: int, Nc: int,
+                    cap_bytes: int = BWD_WORKSPACE_CAP) -> list[tuple[int, int]]:
+    """Chunks (m0, m1) of the flat [B * Nr] grid rows, in order, that tile
+    the rows exactly, of near-equal size, each with a workspace of at most
+    ``cap_bytes`` (one row a chunk where even one row exceeds it)."""
+    rows = B * Nr
+    if rows == 0 or Nc == 0:
+        return []
+    per = max(1, min(rows, (cap_bytes // 4 - split_workspace_floats(0))
+                     // (Nc * SPLIT_PAIR_FLOATS + 1)))
+    while per > 1 and 4 * split_workspace_floats(per * Nc) > cap_bytes:
+        per -= 1
+    n = -(-rows // per)
+    per = -(-rows // n)
+    return [(m, min(rows, m + per)) for m in range(0, rows, per)]
+
+
 def pair_mlp_bwd(
     g, pair, i_term, j_term, row_mask, col_mask,
     w0, b0, w1, b1, wf, bf, ln_scale, ln_bias,
-    fi=None, fj=None, wfe=None,
+    fi=None, fj=None, wfe=None, *, workspace_cap: int = BWD_WORKSPACE_CAP,
+    recompute=None,
 ):
     """Every input gradient of :func:`pair_mlp` for the cotangent ``g``, in
     :func:`pair_mlp_bwd_plain`'s order and dtypes.
 
     CPU tensors take :func:`pair_mlp_bwd_plain`; CUDA tensors launch the
-    backward kernel (or raise). The grid-reduced gradients are summed in
-    float32 from per-block partials in a fixed order (no atomics), so two
-    launches on the same inputs give the same bits. Adds one to
-    ``pair_mlp_bwd.launches`` per launch."""
+    backward kernels (or raise). The grid-reduced gradients are summed in
+    float32 from partials in a fixed order (no atomics), so two launches on
+    the same inputs give the same bits. In float32 the grid runs in the
+    chunks of :func:`plan_bwd_chunks` (each workspace at most
+    ``workspace_cap`` bytes; the chunks' sums are added in chunk order).
+    ``recompute``, a dict, if given (float32), receives the kernels'
+    recompute, which runs the forward kernel's code: "out" (the same bits as
+    :func:`pair_mlp`), "y0" and "y1" ([B, Nr, Nc, hidden], the activations
+    whose relu decisions the gradients take). Adds one to
+    ``pair_mlp_bwd.launches`` per call."""
     if pair.device.type == "cpu":
         return pair_mlp_bwd_plain(
             g, pair, i_term, j_term, row_mask, col_mask,
@@ -315,38 +391,70 @@ def pair_mlp_bwd(
     )
     dtype, dev = pair.dtype, pair.device
     _check("g", g, (B, Nr, Nc, C_OUT), dtype, dev)
-    n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
-    # Persistent blocks, one per SM: each owns one weight partial set.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(B * n_ti * n_tj, sms))
-    # The kernel's transposed-weight products read W^T row-major.
+    # The kernels' transposed-weight products read W^T row-major.
     w0t, w1t, wft = (w.t().contiguous() for w in (w0, w1, wf))
     wfet = wfe.t().contiguous() if residual else None
     d_pair = torch.empty_like(pair)
-    ws = torch.empty(bwd_workspace_floats(B, Nr, Nc, blocks), dtype=F32, device=dev)
-    sizes = [blocks * W_PART_FLOATS, B * Nr * n_tj * ROW_PART, B * Nc * n_ti * ROW_PART,
-             W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART]
-    wpart, rowpart, colpart, wred, rowred, colred = torch.split(ws, sizes)
-    if B * Nr * Nc:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _bwd_kernel()(
-                _DTYPE_CODE[dtype], int(residual),
-                _ptr(g), _ptr(pair), _ptr(i_term), _ptr(j_term), _ptr(fi), _ptr(fj),
-                _ptr(row_mask), _ptr(col_mask),
-                _ptr(w0), _ptr(b0), _ptr(w1), _ptr(b1), _ptr(wf), _ptr(bf), _ptr(wfe),
-                _ptr(ln_scale), _ptr(ln_bias), _ptr(w0t), _ptr(w1t), _ptr(wft), _ptr(wfet),
-                _ptr(d_pair), _ptr(wpart), _ptr(rowpart), _ptr(colpart),
-                _ptr(wred), _ptr(rowred), _ptr(colred),
-                B, Nr, Nc, blocks, stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"pair_mlp_bwd kernel launch failed: cudaError_t {err}")
-        pair_mlp_bwd.launches += 1
+    inputs = [_ptr(g), _ptr(pair), _ptr(i_term), _ptr(j_term), _ptr(fi), _ptr(fj),
+              _ptr(row_mask), _ptr(col_mask),
+              _ptr(w0), _ptr(b0), _ptr(w1), _ptr(b1), _ptr(wf), _ptr(bf), _ptr(wfe),
+              _ptr(ln_scale), _ptr(ln_bias), _ptr(w0t), _ptr(w1t), _ptr(wft), _ptr(wfet),
+              _ptr(d_pair)]
+    fwd_out = None
+    if recompute is not None:
+        if dtype != F32:
+            raise ValueError("pair_mlp_bwd: recompute is for float32 inputs")
+        recompute.update({k: torch.empty(B, Nr, Nc, c, dtype=F32, device=dev)
+                          for k, c in (("out", C_OUT), ("y0", HIDDEN), ("y1", HIDDEN))})
+        fwd_out = _ptr(recompute["out"])
+    if dtype == F32:
+        # Outputs zeroed: the chunks add to them in order.
+        out = torch.zeros(W_PART_FLOATS + (B * Nr + B * Nc) * ROW_PART, dtype=F32, device=dev)
+        wred, rowred, colred = torch.split(out, [W_PART_FLOATS, B * Nr * ROW_PART,
+                                                 B * Nc * ROW_PART])
+        chunks = plan_bwd_chunks(B, Nr, Nc, workspace_cap)
+        if chunks:
+            n_ws = split_workspace_floats(max(m1 - m0 for m0, m1 in chunks) * Nc)
+            ws = torch.empty(n_ws, dtype=F32, device=dev)
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                for m0, m1 in chunks:
+                    err = _split_kernel()(
+                        int(residual), *inputs, _ptr(ws), n_ws, _ptr(wred), _ptr(rowred),
+                        _ptr(colred), B, Nr, Nc, m0, m1, fwd_out, stream,
+                    )
+                    if err != 0:
+                        raise RuntimeError(
+                            f"pair_mlp_bwd kernel launch failed: cudaError_t {err}")
+                    if recompute is not None:  # the workspace starts with y0, then y1
+                        n = (m1 - m0) * Nc * HIDDEN
+                        for k, part in (("y0", ws[:n]), ("y1", ws[n:2 * n])):
+                            recompute[k].view(-1, HIDDEN)[m0 * Nc:m1 * Nc] = part.view(-1, HIDDEN)
+            del ws
+            pair_mlp_bwd.launches += 1
     else:
-        wred.zero_()
-        rowred.zero_()
-        colred.zero_()
+        n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
+        # Persistent blocks, one per SM: each owns one weight partial set.
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = max(1, min(B * n_ti * n_tj, sms))
+        ws = torch.empty(bwd_workspace_floats(B, Nr, Nc, blocks), dtype=F32, device=dev)
+        sizes = [blocks * W_PART_FLOATS, B * Nr * n_tj * ROW_PART, B * Nc * n_ti * ROW_PART,
+                 W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART]
+        wpart, rowpart, colpart, wred, rowred, colred = torch.split(ws, sizes)
+        if B * Nr * Nc:
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = _bwd_kernel()(
+                    int(residual), *inputs, _ptr(wpart), _ptr(rowpart), _ptr(colpart),
+                    _ptr(wred), _ptr(rowred), _ptr(colred), B, Nr, Nc, blocks, stream,
+                )
+            if err != 0:
+                raise RuntimeError(f"pair_mlp_bwd kernel launch failed: cudaError_t {err}")
+            pair_mlp_bwd.launches += 1
+        else:
+            wred.zero_()
+            rowred.zero_()
+            colred.zero_()
 
     parts, off = {}, 0
     for name, shape in _W_PARTS:

@@ -173,26 +173,58 @@ def assert_grads_close(got, want, tol, names=None):
         assert err <= tol * scale, f"{name}: max err {err} > {tol} * {scale}"
 
 
+def kernel_relu_masks(g, args, tol, **kw):
+    """The float32 backward kernels' relu decisions (y0 > 0, y1 > 0), after
+    checking that their recompute equals the forward kernel's output and that
+    every relu site where the plain forward decides otherwise holds an
+    activation within tol of 0 (the two forwards round differently)."""
+    rec = {}
+    t_pair.pair_mlp_bwd(g, *args, recompute=rec, **kw)
+    assert torch.equal(rec["out"], t_pair.pair_mlp(*args))
+    y0, y1, _ = t_pair._pre_norm(*args[:3], *args[5:11], *args[13:])
+    for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
+        flip = (plain_y > 0) != (kern_y > 0)
+        if flip.any():
+            assert float(torch.maximum(plain_y[flip], kern_y[flip]).max()) <= tol
+    return rec["y0"] > 0, rec["y1"] > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,residual", [(2, 200, True), (1, 256, True), (2, 130, False)])
-def test_cuda_pair_mlp_bwd_matches_plain_version(dtype, B, N, residual):
-    """On the card: the backward kernel against its plain version at a
-    ragged shape with masked rows and at a serving shape, all 16 gradients;
-    two launches give the same bits; one launch counted per call."""
+@pytest.mark.parametrize("B,N,residual,chunk_rows", [
+    (2, 200, True, None), (1, 256, True, None), (2, 130, False, None),
+    (1, 1, True, None), (1, 17, True, None), (2, 130, True, 60)])
+def test_cuda_pair_mlp_bwd_matches_plain_version(dtype, B, N, residual, chunk_rows):
+    """On the card: the backward kernels against their plain version at a
+    ragged shape with masked rows, at a serving shape, at one pair and one
+    partial tile, and with a workspace cap that makes the float32 wrapper run
+    in several chunks (chunk_rows grid rows each; bf16 ignores the cap), all
+    16 gradients; two launches give the same bits; one launch counted per
+    call. In float32 the kernels' recompute runs the forward kernel's code:
+    its output equals the forward kernel's, every relu site where the plain
+    forward falls on the other side of 0 holds an activation within rounding
+    of 0, and the gradients are held against the plain backward through the
+    recompute's relu decisions (the gradient jumps at such a site)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     rng = np.random.default_rng(N)
-    args = pair_to_torch(pair_args(rng, B, N, 128, 384, 128, residual, zero_rows=N // 10), dtype)
+    args = pair_to_torch(pair_args(rng, B, N, 128, 384, 128, residual, zero_rows=max(1, N // 10)),
+                         dtype)
     args = [None if a is None else a.cuda() for a in args]
     g = torch.as_tensor(rng.normal(size=(B, N, N, 128)).astype(np.float32)).to(dtype).cuda()
+    kw = {}
+    if chunk_rows:
+        kw["workspace_cap"] = 4 * t_pair.split_workspace_floats(chunk_rows * N)
+        assert len(t_pair.plan_bwd_chunks(B, N, N, kw["workspace_cap"])) == -(-B * N // chunk_rows)
     before = t_pair.pair_mlp_bwd.launches
-    got = t_pair.pair_mlp_bwd(g, *args)
-    again = t_pair.pair_mlp_bwd(g, *args)
+    got = t_pair.pair_mlp_bwd(g, *args, **kw)
+    again = t_pair.pair_mlp_bwd(g, *args, **kw)
     assert t_pair.pair_mlp_bwd.launches == before + 2
+    masks = kernel_relu_masks(g, args, tol, **kw) if dtype == torch.float32 else None
+    want = t_pair.pair_mlp_bwd_plain(g, *args, relu_masks=masks)
     assert_grads_close([None if a is None else a.cpu() for a in got],
-                       [None if b is None else b.cpu() for b in t_pair.pair_mlp_bwd_plain(g, *args)], tol)
+                       [None if b is None else b.cpu() for b in want], tol)
     for a, b in zip(got, again):
         assert (a is None and b is None) or torch.equal(a, b)
 
@@ -200,7 +232,8 @@ def test_cuda_pair_mlp_bwd_matches_plain_version(dtype, B, N, residual):
 @pytest.mark.gpu
 def test_cuda_pair_mlp_function_matches_autograd_of_plain_version():
     """On the card: ``PairMLPFunction``'s gradients (forward and backward
-    kernels) against autograd through ``pair_mlp_plain``."""
+    kernels) against autograd through ``pair_mlp_plain``, taken through the
+    kernels' relu decisions (``kernel_relu_masks``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(3)
@@ -209,7 +242,9 @@ def test_cuda_pair_mlp_function_matches_autograd_of_plain_version():
     g = torch.as_tensor(rng.normal(size=(2, 96, 96, 128)).astype(np.float32)).cuda()
     ins = [a for a in args if a.requires_grad]
     got = torch.autograd.grad(t_pair.PairMLPFunction.apply(*args), ins, g)
-    want = torch.autograd.grad(t_pair.pair_mlp_plain(*args), ins, g)
+    with torch.no_grad():
+        masks = kernel_relu_masks(g, [a.detach() for a in args], 1e-4)
+    want = torch.autograd.grad(t_pair.pair_mlp_plain(*args, relu_masks=masks), ins, g)
     assert_grads_close([a.cpu() for a in got], [b.cpu() for b in want], 1e-4)
 
 
