@@ -12,11 +12,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    float32 (tolerance 1e-4) and bf16 (5e-2), at B=1 N=256, B=2 N=200 (ragged)
    and B=2 N=128 and 256 (the serving shapes), the pair MLP also at B=1 N=1
    and B=1 N=17 (one partial tile) and without its residual terms, with two
-   launches giving the same bits, and the IPA attention also at
-   B=1 N=768 (a bucket past the JAX kernel's N <= 640 gate) with a fully
-   masked row, with random non-zero weights; time the kernel, the plain
-   version and compute the bound (the pair MLP's on the tensor cores, 3xTF32
-   in float32, with its CUDA-core bound beside it); the edge embedder
+   launches giving the same bits, and the IPA attention also at B=1 N=1,
+   N=17, N=512 and N=768 (a bucket past the JAX kernel's N <= 640 gate) with
+   a fully masked row and two launches giving the same bits, with random
+   non-zero weights; time the kernel, the plain version and compute the
+   bound (the pair MLP's and the IPA attention's on the tensor cores, 3xTF32
+   in float32, with the CUDA-core bound beside it; the IPA attention's
+   device ms also by CUDA kernel: pair projection, attention, the splits
+   merged with o_pair); the edge embedder
    without distance bins; and the IPA module's kernel
    branch against its einsum branch at B=2 N=256, both timed (CUDA events,
    and their summed device time under torch.profiler);
@@ -102,10 +105,14 @@ PEAK_BYTES = 3.35e12
 # A kernel whose float32 products run on the tensor cores as 3xTF32 does
 # three TF32 products (495 TFLOP/s) for each float32 one.
 TENSOR_CORE_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-TENSOR_CORE_KERNELS = ("pair_mlp",)
-# The pair-MLP forward's earlier CUDA-core kernel at B=2 N=256 (PERF.md
-# section 6; NVIDIA H100 80GB HBM3, 700 W), printed for reference.
-PAIR_MLP_CUDA_CORE_MS = {torch.float32: 2.4049, torch.bfloat16: 2.5462}
+TENSOR_CORE_KERNELS = ("pair_mlp", "ipa_attention")
+# The earlier CUDA-core kernels at B=2 N=256 (PERF.md section 6; NVIDIA H100
+# 80GB HBM3, 700 W), printed for reference.
+CUDA_CORE_MS = {"pair_mlp": {torch.float32: 2.4049, torch.bfloat16: 2.5462},
+                "ipa_attention": {torch.float32: 0.2918, torch.bfloat16: 0.3040}}
+# The IPA attention's CUDA kernels by name: kernel P (pair projection),
+# kernel S (attention), kernel F (the key splits merged, o_pair).
+IPA_PARTS = (("P", "pair_proj_kernel"), ("S", "attend_kernel"), ("F", "finish_kernel"))
 NUM_BLOCKS = 4  # ModelConfig default: edge transitions run num_blocks - 1 times
 
 
@@ -270,6 +277,18 @@ def compare(got, ref, tol: float) -> tuple[float, float]:
     return max(e for e, _ in errs), max(x for _, x in errs)
 
 
+def ipa_parts_line(kernel, args, B: int, N: int) -> str:
+    """The IPA attention call's device ms (torch.profiler), whole and by
+    CUDA kernel, with the key-split plan."""
+    from framedipt_tpu_torch.model.kernels.ipa_attention import plan_ipa_splits
+
+    total, by_name = device_time(lambda: kernel(*args))
+    parts = {label: sum(ms for n, ms in by_name.items() if key in n) for label, key in IPA_PARTS}
+    splits, per = plan_ipa_splits(B, N, torch.cuda.get_device_properties(0).multi_processor_count)
+    return (f"; device {total:.4f} ms: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f" ({splits} key splits of {per} tiles)")
+
+
 def check_kernels() -> dict[str, dict]:
     from framedipt_tpu_torch.model.kernels.edge_embedder import (
         edge_embedder,
@@ -292,7 +311,7 @@ def check_kernels() -> dict[str, dict]:
         "ipa_attention": (lambda *a: ipa_attention(*a, **ipa_kw),
                           lambda *a: ipa_attention_plain(*a, **ipa_kw),
                           ipa_attention_inputs, ipa_attention_cost,
-                          serving_shapes + ((1, 768),)),
+                          serving_shapes + ((1, 1), (1, 17), (1, 512), (1, 768))),
     }
     serving = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -310,8 +329,11 @@ def check_kernels() -> dict[str, dict]:
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: non-finite output")
                 if name == "ipa_attention" and any((g[0, N // 3] != 0).any() for g in outs):
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: masked row not zero")
-                if name == "pair_mlp" and not torch.equal(got, kernel(*args)):
-                    raise AssertionError(f"{name} {dtype} B={B} N={N}: two launches differ")
+                if name in ("pair_mlp", "ipa_attention"):
+                    again = kernel(*args)
+                    again = again if isinstance(again, tuple) else (again,)
+                    if not all(torch.equal(x, y) for x, y in zip(outs, again)):
+                        raise AssertionError(f"{name} {dtype} B={B} N={N}: two launches differ")
                 ms = cuda_time_ms(lambda: kernel(*args), 20)
                 plain_ms = cuda_time_ms(lambda: plain(*args), 5)
                 flops, nbytes = cost(B, N, dtype)
@@ -325,10 +347,12 @@ def check_kernels() -> dict[str, dict]:
                 if tensor_cores and dtype == torch.float32:
                     line += (f"; 3xTF32 bound, CUDA-core bound "
                              f"{bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms")
-                if tensor_cores and (B, N) == (2, 256):
-                    line += f"; CUDA-core kernel (PERF.md) {PAIR_MLP_CUDA_CORE_MS[dtype]} ms"
-                if name == "pair_mlp":
+                if tensor_cores and (B, N) == (2, 256) and dtype in CUDA_CORE_MS[name]:
+                    line += f"; CUDA-core kernel (PERF.md) {CUDA_CORE_MS[name][dtype]} ms"
+                if name in ("pair_mlp", "ipa_attention"):
                     line += "; two launches bit-identical"
+                if name == "ipa_attention":
+                    line += ipa_parts_line(kernel, args, B, N)
                 log(line)
                 if excess > 0:
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: error {err} over tolerance")

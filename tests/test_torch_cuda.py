@@ -107,22 +107,27 @@ def ipa_to_torch(args, dtype, device="cpu"):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N", [200, 768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_ipa_attention_matches_plain_version(dtype):
-    """On the card: the IPA attention kernel against its plain version at
-    the default widths, ragged N=200 (several key tiles) with a padded tail
-    and a fully masked row, B=2; the launch counted."""
+def test_cuda_ipa_attention_matches_plain_version(dtype, N):
+    """On the card: the IPA attention kernels against their plain version at
+    the default widths, B=2, ragged N=200 (several key tiles, split keys)
+    and N=768 (past the JAX kernel's N <= 640 gate), with a padded tail and
+    a fully masked row, which gives exactly 0; two launches give the same
+    bits; each call counted once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tol = 1e-4 if dtype == torch.float32 else 5e-2
-    args = ipa_to_torch(ipa_args(np.random.default_rng(1), 2, 200, 8, 256, 8, 12, 128),
+    args = ipa_to_torch(ipa_args(np.random.default_rng(N), 2, N, 8, 256, 8, 12, 128),
                         dtype, "cuda")
     before = t_ipa.ipa_attention.launches
     got = t_ipa.ipa_attention(*args, no_heads=8, no_v_points=12)
     want = t_ipa.ipa_attention_plain(*args, no_heads=8, no_v_points=12)
-    assert t_ipa.ipa_attention.launches == before + 1
-    for g, w in zip(got, want):
+    again = t_ipa.ipa_attention(*args, no_heads=8, no_v_points=12)
+    assert t_ipa.ipa_attention.launches == before + 2
+    for g, w, a in zip(got, want, again):
         torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+        assert torch.equal(g, a)  # two launches, the same bits
         assert (g[0, 1] == 0).all()  # the fully masked row
 
 
