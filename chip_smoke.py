@@ -10,17 +10,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build the CUDA kernels from ``framedipt_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 (tolerance 1e-4) and bf16 (5e-2), at B=1 N=256, B=2 N=200 (ragged)
-   and B=2 N=128 and 256 (the serving shapes), the pair MLP also at B=1 N=1
-   and B=1 N=17 (one partial tile) and without its residual terms, with two
-   launches giving the same bits, and the IPA attention also at B=1 N=1,
+   and B=2 N=128 and 256 (the serving shapes), the pair MLP and the edge
+   embedder also at B=1 N=1 and B=1 N=17 (one partial tile), the pair MLP
+   also without its residual terms, and the IPA attention also at B=1 N=1,
    N=17, N=512 and N=768 (a bucket past the JAX kernel's N <= 640 gate) with
-   a fully masked row and two launches giving the same bits, with random
-   non-zero weights; time the kernel, the plain version and compute the
-   bound (the pair MLP's and the IPA attention's on the tensor cores, 3xTF32
-   in float32, with the CUDA-core bound beside it; the IPA attention's
-   device ms also by CUDA kernel: pair projection, attention, the splits
-   merged with o_pair); the edge embedder
-   without distance bins; and the IPA module's kernel
+   a fully masked row, every kernel with two launches giving the same bits,
+   with random non-zero weights; time the kernel, the plain version and
+   compute the bound (on the tensor cores, 3xTF32 in float32, with the
+   CUDA-core bound beside it, and the earlier CUDA-core kernel's time; the
+   pair MLP's also beside its time before its product code was shared with
+   the edge embedder; the IPA attention's device ms also by CUDA kernel:
+   pair projection, attention, the splits merged with o_pair); the edge
+   embedder without distance bins, in both dtypes; and the IPA module's kernel
    branch against its einsum branch at B=2 N=256, both timed (CUDA events,
    and their summed device time under torch.profiler);
 4. one full-width forward (default config, N=128) against the recorded
@@ -105,11 +106,16 @@ PEAK_BYTES = 3.35e12
 # A kernel whose float32 products run on the tensor cores as 3xTF32 does
 # three TF32 products (495 TFLOP/s) for each float32 one.
 TENSOR_CORE_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-TENSOR_CORE_KERNELS = ("pair_mlp", "ipa_attention")
+TENSOR_CORE_KERNELS = ("pair_mlp", "ipa_attention", "edge_embedder")
 # The earlier CUDA-core kernels at B=2 N=256 (PERF.md section 6; NVIDIA H100
 # 80GB HBM3, 700 W), printed for reference.
 CUDA_CORE_MS = {"pair_mlp": {torch.float32: 2.4049, torch.bfloat16: 2.5462},
-                "ipa_attention": {torch.float32: 0.2918, torch.bfloat16: 0.3040}}
+                "ipa_attention": {torch.float32: 0.2918, torch.bfloat16: 0.3040},
+                "edge_embedder": {torch.float32: 0.4104, torch.bfloat16: 0.4029}}
+# The pair-MLP forward's times at B=2 N=256 before its product code was
+# shared with the edge embedder (PERF.md section 6; NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's: the shared code computes the same bits.
+PAIR_MLP_EARLIER_MS = {torch.float32: 1.9287, torch.bfloat16: 0.8782}
 # The IPA attention's CUDA kernels by name: kernel P (pair projection),
 # kernel S (attention), kernel F (the key splits merged, o_pair).
 IPA_PARTS = (("P", "pair_proj_kernel"), ("S", "attend_kernel"), ("F", "finish_kernel"))
@@ -188,7 +194,8 @@ def edge_embedder_inputs(B, N, dtype, gen, n_bins=22):
     seq_idx[:, N // 2 :] += 40  # a chain break
     g, h = rel_cp_factors(seq_idx, 32)
     ca = (torch.randn(B, N, 3, generator=gen, device="cuda") * 8.0).float()
-    ca[:, 5] = ca[:, 4]  # a d=0 pair off the diagonal
+    if N > 5:
+        ca[:, 5] = ca[:, 4]  # a d=0 pair off the diagonal
     mask = torch.ones(B, N, device="cuda")
     mask[:, N - N // 10 :] = 0.0
     mask = mask.to(dtype)
@@ -303,9 +310,9 @@ def check_kernels() -> dict[str, dict]:
     ipa_kw = {"no_heads": IPA_H, "no_v_points": IPA_PV}
     serving_shapes = ((1, 256), (2, 200), (2, 128), (2, 256))
     kernels = {
-        "edge_embedder": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
-                          edge_embedder_cost, serving_shapes),
         # Tiny and ragged shapes too: one pair, one partial tile.
+        "edge_embedder": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
+                          edge_embedder_cost, serving_shapes + ((1, 1), (1, 17))),
         "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost,
                      serving_shapes + ((1, 1), (1, 17))),
         "ipa_attention": (lambda *a: ipa_attention(*a, **ipa_kw),
@@ -329,11 +336,10 @@ def check_kernels() -> dict[str, dict]:
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: non-finite output")
                 if name == "ipa_attention" and any((g[0, N // 3] != 0).any() for g in outs):
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: masked row not zero")
-                if name in ("pair_mlp", "ipa_attention"):
-                    again = kernel(*args)
-                    again = again if isinstance(again, tuple) else (again,)
-                    if not all(torch.equal(x, y) for x, y in zip(outs, again)):
-                        raise AssertionError(f"{name} {dtype} B={B} N={N}: two launches differ")
+                again = kernel(*args)
+                again = again if isinstance(again, tuple) else (again,)
+                if not all(torch.equal(x, y) for x, y in zip(outs, again)):
+                    raise AssertionError(f"{name} {dtype} B={B} N={N}: two launches differ")
                 ms = cuda_time_ms(lambda: kernel(*args), 20)
                 plain_ms = cuda_time_ms(lambda: plain(*args), 5)
                 flops, nbytes = cost(B, N, dtype)
@@ -349,8 +355,9 @@ def check_kernels() -> dict[str, dict]:
                              f"{bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms")
                 if tensor_cores and (B, N) == (2, 256) and dtype in CUDA_CORE_MS[name]:
                     line += f"; CUDA-core kernel (PERF.md) {CUDA_CORE_MS[name][dtype]} ms"
-                if name in ("pair_mlp", "ipa_attention"):
-                    line += "; two launches bit-identical"
+                if name == "pair_mlp" and (B, N) == (2, 256):
+                    line += f"; before the shared product code (PERF.md) {PAIR_MLP_EARLIER_MS[dtype]} ms"
+                line += "; two launches bit-identical"
                 if name == "ipa_attention":
                     line += ipa_parts_line(kernel, args, B, N)
                 log(line)
@@ -367,15 +374,16 @@ def check_kernels() -> dict[str, dict]:
     checks = [(f"pair_mlp residual=False {str(dtype)[6:]} B={B} N={N}", pair_mlp, pair_mlp_plain,
                pair_mlp_inputs(B, N, dtype, gen, residual=False), TOL[dtype])
               for dtype in (torch.float32, torch.bfloat16) for B, N in ((1, 17), (2, 200))]
-    checks.append(("edge_embedder n_bins=0 float32 B=2 N=200", edge_embedder, edge_embedder_plain,
-                   edge_embedder_inputs(2, 200, torch.float32, gen, n_bins=0), TOL[torch.float32]))
+    checks += [(f"edge_embedder n_bins=0 {str(dtype)[6:]} B=2 N=200", edge_embedder,
+                edge_embedder_plain, edge_embedder_inputs(2, 200, dtype, gen, n_bins=0), TOL[dtype])
+               for dtype in (torch.float32, torch.bfloat16)]
     for label, kernel, plain, args, tol in checks:
         got = kernel(*args)
         err, excess = max_violation(got, plain(*args), tol)
-        log(f"{label}: max_abs_err={err:.3e} (tol {tol} abs+rel)")
+        log(f"{label}: max_abs_err={err:.3e} (tol {tol} abs+rel); two launches bit-identical")
         if excess > 0:
             raise AssertionError(f"{label}: error {err} over tolerance")
-        if kernel is pair_mlp and not torch.equal(got, kernel(*args)):
+        if not torch.equal(got, kernel(*args)):
             raise AssertionError(f"{label}: two launches differ")
     torch.cuda.synchronize()
     return serving

@@ -1,0 +1,278 @@
+#!/usr/bin/env python3
+"""Time the edge-embedder forward kernel beside variants of its source, on
+one CUDA card.
+
+    python3 chip_variants.py [--parent DIR] [--out FILE]
+
+Each variant is this checkout's ``framedipt_tpu_torch/csrc`` with text
+patches applied to a copy, built by nvcc (one process per variant, all
+started together) and loaded in place of the library the wrapper
+``edge_embedder`` calls. Variants that change how the kernel works are held
+against the plain version (float32 1e-4, bf16 5e-2) at B=1 N=1, B=1 N=17,
+B=2 N=200 and B=2 N=256; variants that remove a part of the work give wrong
+outputs and are only timed, to show what that part costs. With ``--parent``
+(a tree unpacked from an earlier commit: ``git archive <rev> | tar -x -C
+DIR``), that tree's ``edge_embedder.cu`` is timed too, and its
+``pair_mlp.cu`` and ``pair_mlp_bwd.cu`` must give the same bits as this
+checkout's (the pair MLP's product code is shared with the embedder).
+
+Times: CUDA events over 20 launches at B=2 N=256 in float32 and bf16, every
+variant once a round, three rounds in alternating order. Prints one line per
+check and per timing, then the card's name and power limit; writes the
+times as JSON to ``--out``. Exits non-zero if a variant fails to build or a
+checked one disagrees with the plain version.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent
+
+EMB = "edge_embedder.cu"
+TC = "tc_product.cuh"
+# The layer-1 epilogue's and the CP product's loads as the kernel issues
+# them, and as a plain loop that uses each value as it arrives.
+BATCHED_FILL = """    float gv[kFill], hv[kFill];
+#pragma unroll
+    for (int u = 0; u < kFill; ++u) {
+      const int idx = tid + u * kBlock, r = idx / CP, k = idx - r * CP;
+      gv[u] = ld<T>(g + (size_t)max(pt.row[r], 0) * CP + k);
+      hv[u] = ld<T>(h + (size_t)pt.col[r] * CP + k);
+    }
+#pragma unroll
+    for (int u = 0; u < kFill; ++u) {
+      const int idx = tid + u * kBlock, r = idx / CP, k = idx - r * CP;
+      M[r * L::LDM + k] = pt.row[r] < 0 ? 0.f : rnd<T>(gv[u] * hv[u]);
+    }"""
+PLAIN_FILL = """    for (int idx = tid; idx < kRows * CP; idx += kBlock) {
+      const int r = idx / CP, k = idx - r * CP;
+      M[r * L::LDM + k] = pt.row[r] < 0 ? 0.f
+                                        : rnd<T>(ld<T>(g + (size_t)pt.row[r] * CP + k) *
+                                                 ld<T>(h + (size_t)pt.col[r] * CP + k));
+    }"""
+EPI1_LOADS = """        it[ni][q >> 1] = ld2(i_term + (size_t)prow * C + c);
+        jt[ni][q >> 1] = ld2(j_term + (size_t)pt.col[r] * C + c);
+        wd[ni][q >> 1] = bn >= 0 ? ld2(w_dist + (size_t)bn * C + c) : make_float2(0.f, 0.f);"""
+BATCHED_EPI1 = """#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float2 it[kNi][2], jt[kNi][2], wd[kNi][2];
+      for_each_elem([&](int r, int c, int mi, int ni, int q) {
+        if (mi != half || (q & 1)) return;
+        const int prow = max(pt.row[r], 0), bn = bin[r];
+        it[ni][q >> 1] = ld2(i_term + (size_t)prow * C + c);
+        jt[ni][q >> 1] = ld2(j_term + (size_t)pt.col[r] * C + c);
+        wd[ni][q >> 1] = bn >= 0 ? ld2(w_dist + (size_t)bn * C + c) : make_float2(0.f, 0.f);
+      });
+      for_each_elem([&](int r, int c, int mi, int ni, int q) {
+        if (mi != half || (q & 1)) return;
+        const bool has_bin = bin[r] >= 0;
+        const float2 a = it[ni][q >> 1], b = jt[ni][q >> 1], w = wd[ni][q >> 1], bb = ld2(b0 + c);
+        X[r * L::LDX + c] = emb_y0<T>(acc[mi][ni][q], has_bin, w.x, a.x, b.x, bb.x);
+        X[r * L::LDX + c + 1] = emb_y0<T>(acc[mi][ni][q + 1], has_bin, w.y, a.y, b.y, bb.y);
+      });
+    }
+"""
+PLAIN_EPI1 = """    for_each_elem([&](int r, int c, int mi, int ni, int q) {
+      if (q & 1) return;
+      const int prow = max(pt.row[r], 0), pcol = pt.col[r], bn = bin[r];
+      const float2 it = ld2(i_term + (size_t)prow * C + c);
+      const float2 jt = ld2(j_term + (size_t)pcol * C + c);
+      const float2 bb = ld2(b0 + c);
+      X[r * L::LDX + c] = emb_y0<T>(acc[mi][ni][q], bn, w_dist, c, it.x, jt.x, bb.x);
+      X[r * L::LDX + c + 1] = emb_y0<T>(acc[mi][ni][q + 1], bn, w_dist, c + 1, it.y, jt.y, bb.y);
+    });
+"""
+MMA3 = """          mma_tf32(part[mi][ni], alo[mi], bhi);
+          mma_tf32(part[mi][ni], ahi[mi], blo);
+          mma_tf32(part[mi][ni], ahi[mi], bhi);
+"""
+MMA_BF16 = """          mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+"""
+# 128-pair tiles: 16 warps, four down the rows.
+TILE128 = {
+    "common.cuh": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;"),
+                   ("constexpr int kRows = 64;", "constexpr int kRows = 128;")],
+    TC: [
+        ("constexpr int kBlock = 2 * kColWarps * 32;", "constexpr int kBlock = 4 * kColWarps * 32;"),
+        ("((warp & 1) * 32 + (lane & 15)) * lda", "((warp & 3) * 32 + (lane & 15)) * lda"),
+        ("t * kLdw + (warp >> 1) * kWarpCols + g;", "t * kLdw + (warp >> 2) * kWarpCols + g;"),
+        ("A + ((warp & 1) * 32 + g) * lda", "A + ((warp & 3) * 32 + g) * lda"),
+        ("kLdw + (warp >> 1) * kWarpCols + (lane >> 4) * 8;",
+         "kLdw + (warp >> 2) * kWarpCols + (lane >> 4) * 8;"),
+        ("  static_assert(WeightStream<__nv_bfloat16, Map, STAGES>::kCopies == kKc / 16,\n"
+         "                \"one copy a k step\");\n", ""),
+        ("      ws.copy(s + STAGES - 1, kk / 16);",
+         "      if (kk / 16 < WeightStream<__nv_bfloat16, Map, STAGES>::kCopies)\n"
+         "        ws.copy(s + STAGES - 1, kk / 16);"),
+        ("r0 = (warp & 1) * 32 + (lane >> 2), c0 = (warp >> 1) * kWarpCols",
+         "r0 = (warp & 3) * 32 + (lane >> 2), c0 = (warp >> 2) * kWarpCols"),
+    ],
+}
+STAGES = "template <typename T> constexpr int kEmbStages = sizeof(T) == 4 ? 2 : 3;"
+# name: (patches {file: [(old, new)]}, checked against the plain version)
+VARIANTS = {
+    "f32_three_stages_one_block": ({EMB: [(STAGES, STAGES.replace("? 2 : 3", "? 3 : 3"))]}, True),
+    "bf16_two_stages": ({EMB: [(STAGES, STAGES.replace("? 2 : 3", "? 2 : 2"))]}, True),
+    "tile128": (TILE128, True),
+    "unbatched_loads": ({EMB: [(BATCHED_FILL, PLAIN_FILL), (BATCHED_EPI1, PLAIN_EPI1)]}, True),
+    "no_products": ({TC: [(MMA3, ""), (MMA_BF16, "")]}, False),
+    "one_tf32_product": ({TC: [(MMA3, MMA3.split("\n", 2)[2])]}, False),
+    "no_layernorm_store": ({EMB: [
+        ("  layer_norm_store<T>(X, L::LDX, pt, p0, ln_scale, ln_bias, out);",
+         "  if (n_bins == 12345) layer_norm_store<T>(X, L::LDX, pt, p0, ln_scale, ln_bias, out);")]},
+        False),
+    "no_weight_stream": ({TC: [("    if (s >= total) return;",
+                                "    if (s >= total || s >= STAGES - 1) return;")]}, False),
+    "no_cp_fill": ({EMB: [(BATCHED_FILL, "    const float gv = 0.5f;\n    for (int idx = tid; "
+                           "idx < kRows * CP; idx += kBlock)\n      M[(idx / CP) * L::LDM + idx % CP] = gv;")]},
+                   False),
+    "no_layer1_terms": ({EMB: [(EPI1_LOADS, "        it[ni][q >> 1] = make_float2(0.1f, 0.2f);\n"
+                                "        jt[ni][q >> 1] = it[ni][q >> 1];\n"
+                                "        wd[ni][q >> 1] = bn >= 0 ? it[ni][q >> 1] : make_float2(0.f, prow);")]},
+                        False),
+    "no_bins": ({EMB: [("    bin[tid] = prow < 0 ? -1\n", "    bin[tid] = prow < 0 || n_bins > 0 ? -1\n")]},
+                False),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def patched_copy(root: pathlib.Path, name: str, patches: dict) -> pathlib.Path:
+    from framedipt_tpu_torch.model.kernels import build
+
+    d = root / name
+    shutil.copytree(build.CSRC, d)
+    for fname, pairs in patches.items():
+        src = (d / fname).read_text()
+        for old, new in pairs:
+            if old not in src:
+                raise RuntimeError(f"variant {name}: patch does not apply to {fname}: {old[:60]!r}")
+            src = src.replace(old, new)
+        (d / fname).write_text(src)
+    return d / EMB
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=pathlib.Path, default=None)
+    ap.add_argument("--out", type=pathlib.Path, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        log("chip_variants: no CUDA device")
+        return 2
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from framedipt_tpu_torch.model.kernels import build
+    from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+    from framedipt_tpu_torch.tools.device import set_full_precision_matmul
+
+    set_full_precision_matmul()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_variants_"))
+    try:
+        sources = {name: patched_copy(work, name, patches)
+                   for name, (patches, _) in VARIANTS.items()}
+        parent = None if args.parent is None else args.parent / "framedipt_tpu_torch" / "csrc"
+        if parent is not None:
+            sources.update({"parent": parent / EMB, "parent_pair_mlp": parent / "pair_mlp.cu",
+                            "parent_pair_mlp_bwd": parent / "pair_mlp_bwd.cu"})
+        procs = {name: subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(work / f"{name}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, src in sources.items()}
+        build.build_all()
+        libs, fails = {"new": build.library("edge_embedder")}, 0
+        for name, proc in procs.items():
+            out = proc.communicate()[0]
+            if proc.returncode:
+                log(f"{name}: nvcc failed\n{out}")
+                fails += 1
+                continue
+            libs[name] = ctypes.CDLL(str(work / f"{name}.so"))
+            for line in out.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {name}: {line.strip()}")
+        new_pair = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd")}
+
+        def use(kind: str, lib) -> None:
+            build._libs[kind] = lib
+            t_emb._kernel.cache_clear()
+            t_pair._kernel.cache_clear()
+            t_pair._split_kernel.cache_clear()
+            t_pair._bwd_kernel.cache_clear()
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        checked = ["new"] + [n for n, (_, ok) in VARIANTS.items() if ok and n in libs]
+        for name in checked:
+            use("edge_embedder", libs[name])
+            for dtype in (torch.float32, torch.bfloat16):
+                for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
+                    a = cs.edge_embedder_inputs(B, N, dtype, gen)
+                    got = t_emb.edge_embedder(*a)
+                    err, excess = cs.max_violation(got, t_emb.edge_embedder_plain(*a), cs.TOL[dtype])
+                    same = torch.equal(got, t_emb.edge_embedder(*a))
+                    log(f"{name} {str(dtype)[6:]} B={B} N={N}: max_abs_err={err:.3e} "
+                        f"(tol {cs.TOL[dtype]} abs+rel), two launches bit-identical: {same}")
+                    fails += excess > 0 or not same
+        if "parent_pair_mlp" in libs and "parent_pair_mlp_bwd" in libs:
+            for dtype in (torch.float32, torch.bfloat16):
+                for residual in (True, False):
+                    a = cs.pair_mlp_inputs(2, 200, dtype, gen, residual=residual)
+                    outs = []
+                    for lib in (new_pair["pair_mlp"], libs["parent_pair_mlp"]):
+                        use("pair_mlp", lib)
+                        outs.append(t_pair.pair_mlp(*a))
+                    same = torch.equal(*outs)
+                    line = f"pair_mlp {str(dtype)[6:]} residual={residual}: the parent's bits {same}"
+                    if dtype == torch.float32:
+                        g = torch.randn(2, 200, 200, 128, generator=gen, device="cuda")
+                        grads = []
+                        for lib in (new_pair["pair_mlp_bwd"], libs["parent_pair_mlp_bwd"]):
+                            use("pair_mlp_bwd", lib)
+                            grads.append(t_pair.pair_mlp_bwd(g, *a))
+                        bwd_same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
+                        line += f"; float32 backward (kernel A's recompute inside) {bwd_same}"
+                        same = same and bwd_same
+                    log(line)
+                    fails += not same
+            use("pair_mlp", new_pair["pair_mlp"])
+            use("pair_mlp_bwd", new_pair["pair_mlp_bwd"])
+        times = {}
+        order = ["new"] + [n for n in libs if n not in ("new", "parent_pair_mlp",
+                                                         "parent_pair_mlp_bwd")]
+        for dtype in (torch.float32, torch.bfloat16):
+            a = cs.edge_embedder_inputs(2, 256, dtype, gen)
+            t = {n: [] for n in order}
+            for rnd in range(3):
+                for name in (order if rnd % 2 == 0 else order[::-1]):
+                    use("edge_embedder", libs[name])
+                    t[name].append(cs.cuda_time_ms(lambda: t_emb.edge_embedder(*a), 20))
+            for name in order:
+                log(f"{name} {str(dtype)[6:]} B=2 N=256: " + ", ".join(f"{x:.4f}" for x in t[name])
+                    + " ms")
+            times[str(dtype)[6:]] = t
+        use("edge_embedder", libs["new"])
+        card = cs.card_line()
+        log(card)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps({"card": card, "ms": times}, indent=1))
+        return 1 if fails else 0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -179,17 +179,26 @@ __device__ __forceinline__ float pair_out(float acc, float res, const T* __restr
 // The edge embedder's epilogues, shared by its forward kernel
 // (edge_embedder.cu) and its backward kernel's recompute
 // (edge_embedder_bwd.cu), in the plain version's addition order.
-// y0 = relu(m @ W_rel + W_dist[bin] + i_term + j_term + b0), bin < 0: no row;
-// W_dist rows are 128 wide (the edge width both kernels are built for).
+// y0 = relu(m @ W_rel + W_dist[bin] + i_term + j_term + b0): w_dist is the
+// pair's W_dist element, added only if the pair has a bin.
 template <typename T>
-__device__ __forceinline__ float emb_y0(float acc, int bin, const T* __restrict__ w_dist, int c,
-                                        float i_term, float j_term, float b0) {
+__device__ __forceinline__ float emb_y0(float acc, bool has_bin, float w_dist, float i_term,
+                                        float j_term, float b0) {
   float v = rnd<T>(acc);
-  if (bin >= 0) v = rnd<T>(v + ld<T>(w_dist + (size_t)bin * 128 + c));
+  if (has_bin) v = rnd<T>(v + w_dist);
   v = rnd<T>(v + i_term);
   v = rnd<T>(v + j_term);
   v = rnd<T>(v + b0);
   return fmaxf(v, 0.f);
+}
+
+// The same with the W_dist row gathered here, bin < 0: no row; W_dist rows
+// are 128 wide (the edge width both kernels are built for).
+template <typename T>
+__device__ __forceinline__ float emb_y0(float acc, int bin, const T* __restrict__ w_dist, int c,
+                                        float i_term, float j_term, float b0) {
+  return emb_y0<T>(acc, bin >= 0, bin >= 0 ? ld<T>(w_dist + (size_t)bin * 128 + c) : 0.f,
+                   i_term, j_term, b0);
 }
 
 // Pre-norm output of the last layer: y1 @ W2 + b2.

@@ -1,6 +1,6 @@
-// Fused embedder edge branch, for Hopper (sm_90a).
+// Fused embedder edge branch, for Hopper (sm_90a), on the tensor cores.
 //
-// Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/edge_embedder.py
+// Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/edge_embedder.py:76
 // (_edge_embedder_kernel, reached through fused_edge_embedder). Per pair
 // (i, j), from O(N) inputs only:
 //
@@ -17,35 +17,92 @@
 // bin live in common.cuh, shared with the backward kernel's recompute);
 // LayerNorm statistics float32.
 //
-// Bound on an H100 SXM at N=256, B=1: 2*(64*128 + 128*128 + 128*128) =
-// 81,920 FLOP per pair (5.4 GFLOP per launch; 5.7 counting the TPU kernel's
-// 22-bin one-hot product, which the gather replaces), against 16.8 MB of bf16
-// output: compute bound (~5.4 us at 989 TFLOP/s bf16, ~80 us at 67 TFLOP/s
-// float32), with the output write (~5 us at 3.35 TB/s) close behind.
+// Bounds on an H100 SXM at B=2 N=256: 2 * (64*128 + 128*128 + 128*128) =
+// 81,920 FLOP a pair, 10.74 GFLOP a launch (the TPU kernel's 22-bin one-hot
+// product is a row gather here), against 67.1 MB of float32 output (0.020 ms
+// at 3.35 TB/s; bf16 33.6 MB, 0.010 ms).
+// - float32: float32-accurate products on the tensor cores take three TF32
+//   products each (3xTF32): 3 x 10.74 GFLOP / 495 TFLOP/s = 0.065 ms, the
+//   bound this kernel is held against. On the CUDA cores the same work takes
+//   10.74 GFLOP / 67 TFLOP/s = 0.160 ms (the bound of the earlier kernel,
+//   which ran every product there with fmaf, in both element types).
+// - bf16: one bf16 product each, 10.74 GFLOP / 989 TFLOP/s = 0.011 ms.
 //
-// Design: 64-pair tiles of the flat [B*Nr*Nc] grid, one 256-thread block
+// Design: 64-pair tiles of the flat [B*Nr*Nc] grid, one block of 8 warps
 // each. No [N, N, .] feature exists in device memory: the block forms the CP
-// product and the distance bin per pair in shared memory, runs the three
-// products with weights streamed through L2 in double-buffered 32-row
-// slices (common.cuh tile_gemm), and fuses LayerNorm and the mask; the only
-// N^2 traffic is the output write. The layer-2 output reuses the CP
-// product's space, which keeps a block at 100 KB of shared memory: two
-// blocks (16 warps) per SM. Products run on the CUDA cores in float32
-// (fmaf), for both element types.
-#include "common.cuh"
+// product and the distance bin per pair in shared memory and fuses LayerNorm
+// and the mask; the only N^2 traffic is the output write. What the earlier
+// CUDA-core kernel lost time to, and what this one does instead:
+// - Products on the CUDA cores (39% of their float32 peak, bf16 no faster).
+//   The three products (m @ W_rel, K = 64; y0 @ W1 and y1 @ W2, K = 128) run
+//   on mma.sync through tc_product.cuh, the pair MLP's product code: 3xTF32
+//   in float32, each 32-deep slice summed into a zeroed fragment and added
+//   with round-to-nearest; bf16 MMA in bf16. The epilogues take the
+//   accumulator fragments in place.
+// - Weights through registers (each thread held its share of the next slice,
+//   which cost occupancy). The weights stream by cp.async, 16 bytes a
+//   thread, into a shared-memory ring that runs across product boundaries:
+//   10 slices of 32 rows a tile (W_rel 2, W1 4, W2 4), so W1's first slices
+//   load during layer 1's epilogue.
+// - Block barriers idle the block while a slice is staged: with the ring,
+//   one barrier a slice and the copies already in flight. Shared memory
+//   decides the blocks an SM holds: the layer-2 output reuses the CP
+//   product's space (layer 1's input is consumed before layer 2's epilogue
+//   writes) and the pre-norm output reuses y0's, so a float32 block is two
+//   64 x 132 float tiles and the ring: 104 KB with two stages (two blocks an
+//   SM), 121 KB with three (one). bf16 keeps float tiles (values rounded to
+//   bf16) and a bf16 ring of three stages: 96 KB, two blocks an SM.
+// - The per-pair gathers (G_i and H_j for the CP product; i_term, j_term and
+//   the W_dist row in layer 1's epilogue) are loads from L2 whose latency
+//   the block waits out: each thread issues all of its loads before it uses
+//   any (in the epilogue, half of its elements at a time, for registers).
+// No atomics: two launches give the same bits. chip_variants.py times this
+// kernel beside variants of it (stages, 128-pair tiles, parts removed).
+#include "tc_product.cuh"
 
 namespace fdk {
 namespace {
 
 constexpr int CP = 64, C = 128, MAX_BINS = 64;
-constexpr int LDM = CP + 4, LDX = C + 4;
-static_assert(LDM <= LDX, "the CP product lives in a layer-output buffer");
-constexpr size_t kSmemFloats = 2 * (size_t)kRows * LDX + 2 * (size_t)kKc * C + 2 * MAX_BINS;
-constexpr size_t kSmemBytes =
-    kSmemFloats * sizeof(float) + sizeof(PairTile) + kRows * sizeof(int);
+static_assert(C == NC && CP % kKc == 0, "the products' widths");
+
+// Weight slices of a tile, in the order the products read them.
+template <typename T>
+struct EmbSlices {
+  static constexpr int kRel = CP / kKc, kLayer = C / kKc;
+  static constexpr int kTile = kRel + 2 * kLayer;  // 10
+  const T* w_rel;
+  const T* w1;
+  const T* w2;
+
+  __device__ __forceinline__ const T* slice(int s, int& ldw) const {
+    ldw = C;
+    if (s < kRel) return w_rel + (size_t)s * kKc * C;
+    if (s < kRel + kLayer) return w1 + (size_t)(s - kRel) * kKc * C;
+    return w2 + (size_t)(s - kRel - kLayer) * kKc * C;
+  }
+};
+
+// Weight stages of the ring: float32 two (two blocks an SM), bf16 three.
+template <typename T> constexpr int kEmbStages = sizeof(T) == 4 ? 2 : 3;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+struct EmbSmem {
+  static constexpr int STAGES = kEmbStages<T>;
+  // Tile row strides in floats: 4 (mod 32) for ldmatrix (TF32 A), 8 (mod
+  // 32) for the bf16 A fragments' 64-bit loads.
+  static constexpr int PAD = sizeof(T) == 4 ? 4 : 8;
+  static constexpr int LDX = C + PAD, LDM = CP + PAD;
+  static constexpr size_t kBytes = sizeof(float) * (2 * kRows * LDX + 2 * MAX_BINS) +
+                                   sizeof(T) * STAGES * kStageElems + sizeof(PairTile) +
+                                   sizeof(int) * kRows;
+  // An SM's 228 KB of shared memory, 1 KB of it reserved per block.
+  static constexpr int kBlocksPerSm = 2 * (kBytes + 1024) <= 233472 ? 2 : 1;
+};
+static_assert(EmbSmem<float>::LDM <= EmbSmem<float>::LDX, "M lives in y1's space");
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock, EmbSmem<T>::kBlocksPerSm)
 edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
                      const float* __restrict__ pos_r, const float* __restrict__ pos_c,
                      const T* __restrict__ i_term, const T* __restrict__ j_term,
@@ -57,17 +114,22 @@ edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
                      const T* __restrict__ b2, const float* __restrict__ ln_scale,
                      const float* __restrict__ ln_bias, T* __restrict__ out, int n_bins,
                      int Nr, int Nc, long long total) {
+  using L = EmbSmem<T>;
   extern __shared__ __align__(16) float smem[];
-  float* X = smem;                       // [64][LDX]  layer-1 output, later layer-3 output
-  float* M = X + kRows * LDX;            // [64][LDM]  CP product G_i * H_j (layer-1 input)
-  float* Hd = M;                         // [64][LDX]  layer-2 output, once M is consumed
-  float* Ws = Hd + kRows * LDX;          // [2][kKc][C] weight staging
-  float* lo = Ws + 2 * kKc * C;          // [MAX_BINS] bin edges
+  float* X = smem;                   // [64][LDX]  y0, later the pre-norm output
+  float* Y1 = X + kRows * L::LDX;    // [64][LDX]  y1
+  float* M = Y1;                     // [64][LDM]  CP product G_i * H_j, until layer 1 is done
+  float* lo = Y1 + kRows * L::LDX;   // [MAX_BINS] bin edges
   float* hi = lo + MAX_BINS;
-  PairTile& pt = *reinterpret_cast<PairTile*>(hi + MAX_BINS);
+  T* stages = reinterpret_cast<T*>(hi + MAX_BINS);  // [STAGES][kKc][kLdw] weight ring
+  PairTile& pt = *reinterpret_cast<PairTile*>(stages + L::STAGES * kStageElems);
   int* bin = reinterpret_cast<int*>(&pt + 1);  // [64] distance bin or -1
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const WeightStream<T, EmbSlices<T>, L::STAGES> ws{
+      {w_rel, w1, w2}, stages, EmbSlices<T>::kTile};
+  for (int s = 0; s < L::STAGES - 1; ++s) ws.start(s);
+
+  const int tid = threadIdx.x;
   const long long p0 = (long long)blockIdx.x * kRows;
   load_pair_tile<T>(pt, p0, total, Nr, Nc, row_mask, col_mask);
   if (tid < n_bins) {
@@ -76,13 +138,23 @@ edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
   }
   __syncthreads();
 
-  // CP product of the rel-offset factors, rounded to T as a T multiply.
-  for (int idx = tid; idx < kRows * CP; idx += kThreads) {
-    const int r = idx / CP, k = idx - r * CP;
-    const int prow = pt.row[r];
-    M[r * LDM + k] = prow < 0 ? 0.f
-                              : rnd<T>(ld<T>(g + (size_t)prow * CP + k) *
-                                       ld<T>(h + (size_t)pt.col[r] * CP + k));
+  // CP product of the rel-offset factors, rounded to T as a T multiply. All
+  // of a thread's loads go out before the first product, so their latencies
+  // overlap.
+  {
+    constexpr int kFill = kRows * CP / kBlock;
+    float gv[kFill], hv[kFill];
+#pragma unroll
+    for (int u = 0; u < kFill; ++u) {
+      const int idx = tid + u * kBlock, r = idx / CP, k = idx - r * CP;
+      gv[u] = ld<T>(g + (size_t)max(pt.row[r], 0) * CP + k);
+      hv[u] = ld<T>(h + (size_t)pt.col[r] * CP + k);
+    }
+#pragma unroll
+    for (int u = 0; u < kFill; ++u) {
+      const int idx = tid + u * kBlock, r = idx / CP, k = idx - r * CP;
+      M[r * L::LDM + k] = pt.row[r] < 0 ? 0.f : rnd<T>(gv[u] * hv[u]);
+    }
   }
   // Distance bin per pair (common.cuh pair_bin).
   if (tid < kRows) {
@@ -91,55 +163,62 @@ edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
                         : pair_bin(pos_r + (size_t)prow * 3, pos_c + (size_t)pt.col[tid] * 3, lo,
                                    hi, n_bins);
   }
-  __syncthreads();
-
-  // Layer 1: x = relu(m @ W_rel + W_dist[bin] + i_term + j_term + b0).
+  // The first product's first wait() synchronizes the block before any
+  // warp reads M or bin. Each later product's first wait() comes after
+  // every warp has finished the product before it, so an epilogue may
+  // overwrite that product's input: layer 2's y1 goes over M, layer 3's
+  // output over y0.
+  int s = 0;
+  // Layer 1: y0 = relu(m @ W_rel + W_dist[bin] + i_term + j_term + b0).
+  // The terms of half of a lane's elements load before any is added, so
+  // their latencies overlap (elements q and q + 1 are neighbours in a row:
+  // the terms load as pairs).
   {
-    float acc[4][8];
-    zero(acc);
-    tile_gemm<T, C>(M, LDM, CP, w_rel, C, 0, Ws, acc);
+    float acc[2][kNi][4] = {};
+    product(M, L::LDM, CP, ws, s, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int prow = max(pt.row[r], 0), pcol = pt.col[r], bn = bin[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tile_col(j, tx);
-        X[r * LDX + c] = emb_y0<T>(acc[i][j], bn, w_dist, c, ld<T>(i_term + (size_t)prow * C + c),
-                                   ld<T>(j_term + (size_t)pcol * C + c), ld<T>(b0 + c));
-      }
+    for (int half = 0; half < 2; ++half) {
+      float2 it[kNi][2], jt[kNi][2], wd[kNi][2];
+      for_each_elem([&](int r, int c, int mi, int ni, int q) {
+        if (mi != half || (q & 1)) return;
+        const int prow = max(pt.row[r], 0), bn = bin[r];
+        it[ni][q >> 1] = ld2(i_term + (size_t)prow * C + c);
+        jt[ni][q >> 1] = ld2(j_term + (size_t)pt.col[r] * C + c);
+        wd[ni][q >> 1] = bn >= 0 ? ld2(w_dist + (size_t)bn * C + c) : make_float2(0.f, 0.f);
+      });
+      for_each_elem([&](int r, int c, int mi, int ni, int q) {
+        if (mi != half || (q & 1)) return;
+        const bool has_bin = bin[r] >= 0;
+        const float2 a = it[ni][q >> 1], b = jt[ni][q >> 1], w = wd[ni][q >> 1], bb = ld2(b0 + c);
+        X[r * L::LDX + c] = emb_y0<T>(acc[mi][ni][q], has_bin, w.x, a.x, b.x, bb.x);
+        X[r * L::LDX + c + 1] = emb_y0<T>(acc[mi][ni][q + 1], has_bin, w.y, a.y, b.y, bb.y);
+      });
     }
   }
-  __syncthreads();
-  // Layer 2: relu(x @ W1 + b1).
+  // Layer 2: y1 = relu(y0 @ W1 + b1).
   {
-    float acc[4][8];
-    zero(acc);
-    tile_gemm<T, C>(X, LDX, C, w1, C, 0, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tile_col(j, tx);
-        Hd[(ty * 4 + i) * LDX + c] = pair_y1<T>(acc[i][j], ld<T>(b1 + c));
-      }
+    float acc[2][kNi][4] = {};
+    product(X, L::LDX, C, ws, s, acc);
+    for_each_elem([&](int r, int c, int mi, int ni, int q) {
+      if (q & 1) return;
+      const float2 bb = ld2(b1 + c);
+      Y1[r * L::LDX + c] = pair_y1<T>(acc[mi][ni][q], bb.x);
+      Y1[r * L::LDX + c + 1] = pair_y1<T>(acc[mi][ni][q + 1], bb.y);
+    });
+  }
+  // Layer 3: y1 @ W2 + b2, into X.
+  {
+    float acc[2][kNi][4] = {};
+    product(Y1, L::LDX, C, ws, s, acc);
+    for_each_elem([&](int r, int c, int mi, int ni, int q) {
+      if (q & 1) return;
+      const float2 bb = ld2(b2 + c);
+      X[r * L::LDX + c] = emb_out<T>(acc[mi][ni][q], bb.x);
+      X[r * L::LDX + c + 1] = emb_out<T>(acc[mi][ni][q + 1], bb.y);
+    });
   }
   __syncthreads();
-  // Layer 3: x @ W2 + b2, into X (every thread is done reading X).
-  {
-    float acc[4][8];
-    zero(acc);
-    tile_gemm<T, C>(Hd, LDX, C, w2, C, 0, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tile_col(j, tx);
-        X[(ty * 4 + i) * LDX + c] = emb_out<T>(acc[i][j], ld<T>(b2 + c));
-      }
-  }
-  __syncthreads();
-  layer_norm_store<T>(X, LDX, pt, p0, ln_scale, ln_bias, out);
+  layer_norm_store<T>(X, L::LDX, pt, p0, ln_scale, ln_bias, out);
 }
 
 template <typename T>
@@ -152,14 +231,15 @@ cudaError_t launch(const void* g, const void* h, const float* pos_r, const float
                    cudaStream_t stream) {
   // n_bins == 0: no distogram (every pair gets bin -1).
   if (n_bins < 0 || n_bins > MAX_BINS) return cudaErrorInvalidValue;
+  constexpr size_t kBytes = EmbSmem<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(edge_embedder_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
+                                         (int)kBytes);
   if (err != cudaSuccess) return err;
   const long long total = (long long)B * Nr * Nc;
   if (total == 0) return cudaSuccess;
   const long long blocks = (total + kRows - 1) / kRows;
-  edge_embedder_kernel<T><<<(unsigned)blocks, kThreads, kSmemBytes, stream>>>(
+  edge_embedder_kernel<T><<<(unsigned)blocks, kBlock, kBytes, stream>>>(
       (const T*)g, (const T*)h, pos_r, pos_c, (const T*)i_term, (const T*)j_term,
       (const T*)row_mask, (const T*)col_mask, (const T*)w_rel, (const T*)w_dist, lower,
       upper, (const T*)b0, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, ln_scale,
@@ -171,8 +251,8 @@ cudaError_t launch(const void* g, const void* h, const float* pos_r, const float
 }  // namespace fdk
 
 // C interface. dtype: 0 = float32, 1 = bfloat16. Coordinates, bin edges and
-// LayerNorm parameters are float32; weights are row-major [in, out].
-// Returns a cudaError_t (0 on success).
+// LayerNorm parameters are float32; weights are row-major [in, out], 16-byte
+// aligned. Returns a cudaError_t (0 on success).
 extern "C" int fdk_edge_embedder(int dtype, const void* g, const void* h, const float* pos_r,
                                  const float* pos_c, const void* i_term, const void* j_term,
                                  const void* row_mask, const void* col_mask, const void* w_rel,

@@ -33,9 +33,9 @@
 //   exists whole, then adds the residual terms, and runs LayerNorm and the
 //   mask from shared memory. Nothing but the pair input and the output
 //   touches device memory per pair.
-// - Products and weight stream: pair_mlp_tc.cuh (mma.sync, 3xTF32 in
-//   float32, bf16 MMA in bf16; weight slices by cp.async through a ring of
-//   three stages in shared memory).
+// - Products and weight stream: tc_product.cuh, with pair_mlp_tc.cuh's slice
+//   map (mma.sync, 3xTF32 in float32, bf16 MMA in bf16; weight slices by
+//   cp.async through a ring of three stages in shared memory).
 // - L2 weight reads: every tile reads every weight once, 262,144 values, 1.05
 //   MB in float32; at B=2 N=256 a launch has 2,048 tiles, so 2.15 GB of L2
 //   reads a launch (1.07 GB in bf16), in as many 16-byte copies.
@@ -75,10 +75,10 @@ pair_mlp_kernel(const T* __restrict__ pair, const T* __restrict__ i_term,
   float* X = smem;                     // [64][LDX]   pair tile, later the output
   float* Y0 = X + kRows * L::LDX;      // [64][LDY0]  first hidden layer
   float* Y1 = Y0 + kRows * L::LDY0;    // [64][LDY1]  NC-column chunk of y1
-  T* stages = reinterpret_cast<T*>(Y1 + kRows * L::LDY1);  // [kStages][kKc][LDW]
+  T* stages = reinterpret_cast<T*>(Y1 + kRows * L::LDY1);  // [kStages][kKc][kLdw]
   PairTile& pt = *reinterpret_cast<PairTile*>(stages + kStages * L::kStage);
 
-  const WeightStream<T> ws{w0, w1, wf, wfe, stages, RESIDUAL ? kResSlice + kKSlices : kResSlice};
+  const MlpStream<T> ws{{w0, w1, wf, wfe}, stages, RESIDUAL ? kResSlice + kKSlices : kResSlice};
   for (int s = 0; s < kStages - 1; ++s) ws.start(s);
 
   const long long p0 = (long long)blockIdx.x * kRows;

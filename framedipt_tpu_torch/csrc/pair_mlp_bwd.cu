@@ -23,10 +23,9 @@
 // wrapper plans the chunks so that the workspace stays under its cap).
 // - Kernel A (split_tile_kernel), one block per 64-pair tile of the chunk's
 //   flat pairs, in the forward kernel's shared-memory layout (215 KB, and
-//   6 KB of relu decisions). It
-//   recomputes the forward through the forward kernel's own code
-//   (pair_mlp_tc.cuh: forward_tile, 3xTF32 mma.sync, the weight ring,
-//   common.cuh's epilogues), so the recompute equals pair_mlp.cu's output
+//   6 KB of relu decisions). It recomputes the forward through the forward
+//   kernel's own code (pair_mlp_tc.cuh: forward_tile; tc_product.cuh: 3xTF32
+//   mma.sync, the weight ring; common.cuh's epilogues), so the recompute equals pair_mlp.cu's output
 //   bit for bit and the relu masks are the forward's. Then the mask and
 //   LayerNorm backward (one warp per 8 pairs), and the input-gradient chain
 //   through the same products (mlp_products) on the transposed weights the
@@ -500,13 +499,13 @@ split_tile_kernel(const float* __restrict__ g, const float* __restrict__ pair,
   float* X = smem;                   // [64][LDX]  pair tile, then the pre-norm output, then dx
   float* Y0 = X + kRows * L::LDX;    // [64][LDY0] y0, then dy1
   float* Y1 = Y0 + kRows * L::LDY0;  // [64][LDY1] a chunk of y1, then of dy0
-  float* stages = Y1 + kRows * L::LDY1;  // [kStages][kKc][LDW] weight ring
+  float* stages = Y1 + kRows * L::LDY1;  // [kStages][kKc][kLdw] weight ring
   PairTile& pt = *reinterpret_cast<PairTile*>(stages + kStages * L::kStage);
   uint32_t* M0 = reinterpret_cast<uint32_t*>(&pt + 1);  // relu decisions of y0 (mask_word)
   uint32_t* M1 = M0 + (HID / NC) * kMaskWords;           // and of y1
   constexpr int kTileSlices = RESIDUAL ? kResSlice + kKSlices : kResSlice;
 
-  const WeightStream<float> fwd{w0, w1, wf, wfe, stages, kTileSlices};
+  const MlpStream<float> fwd{{w0, w1, wf, wfe}, stages, kTileSlices};
   for (int s = 0; s < kStages - 1; ++s) fwd.start(s);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long lp0 = (long long)blockIdx.x * kRows, p0 = q0 + lp0, end = q0 + P;
@@ -609,7 +608,7 @@ split_tile_kernel(const float* __restrict__ g, const float* __restrict__ pair,
   // by chunk into Y1, d_pair = dy0 @ W0^T (+ dx @ Wfe^T); each epilogue
   // walks the fragments the recompute's did, so a lane's relu decision is
   // its bit of the same mask word.
-  const WeightStream<float> bwd{wft, w1t, w0t, wfet, stages, kTileSlices};
+  const MlpStream<float> bwd{{wft, w1t, w0t, wfet}, stages, kTileSlices};
   for (int s = 0; s < kStages - 1; ++s) bwd.start(s);
   float acc_dp[2][kNi][4] = {}, res[2][kNi][4] = {};
   mlp_products<float, RESIDUAL>(

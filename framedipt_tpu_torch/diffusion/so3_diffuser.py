@@ -1,5 +1,5 @@
 """IGSO(3) rotation diffusion on torch tensors: logarithmic sigma schedule,
-diffusion coefficient, inverse-CDF sampling, truncated-series score, score
+diffusion coefficient, inverse-CDF sampling, the score (truncated series or table), score
 scaling, the forward marginal, and the geodesic-random-walk reverse step (right-multiplication
 composition). Lookup tables live on the diffuser's device; every random draw
 takes an explicit ``torch.Generator``."""
@@ -39,6 +39,7 @@ class SO3Diffuser:
         self.max_sigma = float(conf.max_sigma)
         self.num_sigma = int(conf.num_sigma)
         self.num_omega = int(conf.num_omega)
+        self.use_cached_score = bool(conf.use_cached_score)
         if conf.schedule != "logarithmic":
             raise ValueError(f"Unrecognized schedule {conf.schedule}")
 
@@ -52,6 +53,7 @@ class SO3Diffuser:
         self.discrete_omega = put(disc_omega)
         self.discrete_sigma = put(disc_sigma)
         self._cdf = put(tables["cdf"])
+        self._score_norms = put(tables["score_norms"])
         self._score_scaling = put(tables["score_scaling"])
         # exp(max/min sigma) evaluated in float32, as the reference does
         # (held as Python floats so no step copies a scalar to the device).
@@ -100,8 +102,22 @@ class SO3Diffuser:
 
     def score(self, vec: torch.Tensor, t, eps: float = 1e-6) -> torch.Tensor:
         """Score of the IGSO3 density as a rotation vector [..., 3]; ``t`` is
-        a scalar or broadcasts over the leading batch dims."""
+        a scalar or broadcasts over the leading batch dims. The truncated
+        series by default; with ``use_cached_score`` the score-norm table's
+        entry for sigma(t) and the omega bucket (searchsorted-left over the
+        grid without its last edge)."""
         omega = safe_norm(vec) + eps
+        if self.use_cached_score:
+            norms = self._score_norms[self.t_to_idx(t)]  # [..., num_omega]
+            idx = torch.clamp(
+                torch.searchsorted(self.discrete_omega[:-1], omega),
+                0, self.num_omega - 1,
+            )
+            if norms.ndim == 1:
+                omega_score = norms[idx]
+            else:
+                omega_score = torch.take_along_dim(norms, idx, dim=-1)
+            return omega_score[..., None] * vec / omega[..., None]
         sigma = self.discrete_sigma[self.t_to_idx(t)]
         while sigma.ndim < omega.ndim:
             sigma = sigma[..., None]

@@ -269,6 +269,13 @@ def edge_embedder(
         "edge_embedder", g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
         w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias, bins_lower, bins_upper,
     )
+    # The kernel streams the weights into shared memory 16 bytes at a time
+    # and reads the per-channel terms two elements at a time.
+    for name, t, align in (("w_rel", w_rel, 16), ("w1", w1, 16), ("w2", w2, 16),
+                           ("i_term", i_term, 8), ("j_term", j_term, 8), ("b0", b0, 8),
+                           ("b1", b1, 8), ("b2", b2, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"edge_embedder: {name} is not {align}-byte aligned")
     dtype, dev = g.dtype, g.device
     edges = _edges(bins_lower, bins_upper, dev)
 

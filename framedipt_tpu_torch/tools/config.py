@@ -21,6 +21,8 @@ import json
 from dataclasses import dataclass, field
 from typing import Any
 
+from framedipt_tpu_torch.tools.log import get_logger
+
 
 @dataclass
 class R3Config:
@@ -41,6 +43,9 @@ class SO3Config:
     max_sigma: float = 1.5
     schedule: str = "logarithmic"
     cache_dir: str | None = ".cache/"
+    # Gather the score from the score-norm table instead of evaluating the
+    # truncated series (SO3Diffuser.score).
+    use_cached_score: bool = False
 
 
 @dataclass
@@ -264,13 +269,15 @@ KERNEL_FLAGS = ALWAYS_ON_FLAGS + ("use_pallas_ipa", "pallas_emb_bwd_impl")
 
 def merge_checkpoint_config(cfg: Config, ckpt_conf: dict[str, Any]) -> Config:
     """A checkpoint's saved model/diffuser sections win over the runtime
-    config; keys this port does not know are ignored, and so are the kernel
-    flags, which choose how this run computes, not the model."""
+    config. The kernel flags are skipped: they choose how this run computes,
+    not the model. A key this port does not know is dropped with a warning
+    that names its dotted path (published checkpoints carry keys the port
+    has no use for, so it is not an error)."""
     new = Config()
     _apply_dict(new, dataclasses.asdict(cfg))
     for section in ("model", "diffuser"):
         if section in ckpt_conf:
-            known = _known_only(getattr(new, section), dict(ckpt_conf[section]))
+            known = _known_only(getattr(new, section), dict(ckpt_conf[section]), f"{section}.")
             if section == "model" and isinstance(known.get("ipa"), dict):
                 for flag in KERNEL_FLAGS:
                     known["ipa"].pop(flag, None)
@@ -278,14 +285,16 @@ def merge_checkpoint_config(cfg: Config, ckpt_conf: dict[str, Any]) -> Config:
     return new
 
 
-def _known_only(obj: Any, updates: dict[str, Any]) -> dict[str, Any]:
+def _known_only(obj: Any, updates: dict[str, Any], path: str) -> dict[str, Any]:
     out = {}
     for key, value in updates.items():
         if not hasattr(obj, key):
+            get_logger().warning("checkpoint config key %s%s is not used by this port; dropped",
+                                 path, key)
             continue
         current = getattr(obj, key)
         if dataclasses.is_dataclass(current) and hasattr(value, "items"):
-            out[key] = _known_only(current, dict(value))
+            out[key] = _known_only(current, dict(value), f"{path}{key}.")
         else:
             out[key] = value
     return out
@@ -328,7 +337,7 @@ def check_single_device(cfg: Config) -> None:
     if exp.dp_size not in (-1, 1) or exp.fsdp_size != 1:
         raise ValueError(
             f"experiment.dp_size={exp.dp_size}, fsdp_size={exp.fsdp_size}: the port trains "
-            "on one card (dp_size -1 or 1, fsdp_size 1); multi-GPU is ROADMAP queue 1 item 6"
+            "on one card (dp_size -1 or 1, fsdp_size 1); multi-GPU is ROADMAP queue 1 item 8"
         )
 
 

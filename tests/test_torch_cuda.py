@@ -58,12 +58,13 @@ def emb_args(rng, B, N, c, n_bins, same_pos=True):
     seq_idx = np.sort(rng.integers(0, 3 * N, size=(B, N)), axis=-1)
     g, h = t_emb.rel_cp_factors(torch.as_tensor(seq_idx), 32)
     pos = a(B, N, 3, scale=6.0)
-    pos[:, 1] = pos[:, 0]  # a d=0 pair off the diagonal
+    if N > 1:
+        pos[:, 1] = pos[:, 0]  # a d=0 pair off the diagonal
     mask = np.ones((B, N), np.float32)
-    mask[:, N - 3:] = 0.0
+    mask[:, max(N - 3, 1):] = 0.0
     lower = np.linspace(1e-5, 20.0, n_bins)
     upper = np.concatenate([lower[1:], [1e8]]) if n_bins else lower
-    if n_bins:
+    if n_bins and N > 3:
         pos[:, 2] = pos[:, 3] + np.asarray([lower[-1], 0.0, 0.0], np.float32)  # near a bin edge
     args = [g.numpy(), h.numpy(), pos, pos if same_pos else a(B, N, 3, scale=6.0),
             a(B, N, c, scale=0.5), a(B, N, c, scale=0.5), mask, mask,
@@ -251,6 +252,27 @@ def test_cuda_pair_mlp_function_matches_autograd_of_plain_version():
         masks = kernel_relu_masks(g, [a.detach() for a in args], 1e-4)
     want = torch.autograd.grad(t_pair.pair_mlp_plain(*args, relu_masks=masks), ins, g)
     assert_grads_close([a.cpu() for a in got], [b.cpu() for b in want], 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,n_bins", [(1, 1, 22), (1, 17, 22), (3, 75, 22), (3, 75, 0)])
+def test_cuda_edge_embedder_matches_plain_version(dtype, B, N, n_bins):
+    """On the card: the edge-embedder forward kernel (tensor cores) against
+    its plain version at one pair, one partial tile and a ragged grid, with
+    and without distance bins; two launches give the same bits; one launch
+    counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    args, bins = emb_args(np.random.default_rng(N + n_bins), B, N, 128, n_bins)
+    args = [a.cuda() for a in emb_to_torch(args, dtype)]
+    before = t_emb.edge_embedder.launches
+    got = t_emb.edge_embedder(*args, *bins)
+    again = t_emb.edge_embedder(*args, *bins)
+    assert t_emb.edge_embedder.launches == before + 2
+    torch.testing.assert_close(got, t_emb.edge_embedder_plain(*args, *bins), atol=tol, rtol=tol)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
