@@ -66,19 +66,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    resumed step count, the reply's residue count and fixed CA.
 
 Phase 3 also holds the two backward kernels against their plain versions
-(every gradient, float32 and bf16, B=1 N=256, B=2 N=200 ragged with masked
-rows, B=2 N=256; the pair MLP residual and not, at B=1 N=1 and N=17, and in
-float32 at B=2 N=200 run in 10 chunks under a small workspace cap; the
-embedder with 22 and 0 distance bins), checks that two launches give the
-same bits, and times them at B=2 N=256 (the pair MLP's float32 call also by
-part: kernel A, kernel B, the row/column sums, the ordered reductions,
-under torch.profiler, with its workspace bytes and each kernel's bound; the
-embedder's also against the ``xla`` setting's backward, the VJP of its
-plain forward). The float32 pair-MLP backward's recompute must equal the
-forward kernel's output bit for bit, and its gradients are held against the
-plain backward through the recompute's relu decisions, after every relu
-site where the plain forward decides otherwise is shown to hold an
-activation within 1e-4 of 0.
+(every gradient, float32 and bf16, B=1 N=1, N=17 and 256, B=2 N=200 ragged
+with masked rows, B=2 N=256; the pair MLP residual and not, the embedder
+with 22 and 0 distance bins; in float32 both at B=2 N=200 run in 10 chunks
+under a small workspace cap), checks that two launches give the same bits,
+and times them at B=2 N=256 (each float32 call also by part: kernel A,
+kernel B, the row/column sums, the ordered reductions, under
+torch.profiler, with its chunk count, workspace bytes and each kernel's
+bound on the tensor cores; the embedder's beside its CUDA-core bound, the
+earlier CUDA-core kernel's time and the ``xla`` setting's backward, the VJP
+of its plain forward). The float32 backwards' recompute must equal the forward
+kernel's output bit for bit, and their gradients are held against the plain
+backward through the recompute's relu decisions, after every relu site
+where the plain forward decides otherwise is shown to hold an activation
+within 1e-4 of 0 (the count of such sites and the largest there are
+printed).
 
 The last two lines are a JSON object with one entry per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
@@ -426,14 +428,15 @@ def pair_mlp_bwd_bound(B, N, dtype) -> tuple[float, str]:
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def bwd_parts_ms(fn) -> dict[str, float]:
-    """Device ms of one call of ``fn`` by part of the float32 backward
-    (torch.profiler; {} if it records no device time)."""
+def bwd_parts_ms(fn, kinds=BWD_PARTS) -> dict[str, float]:
+    """Device ms of one call of ``fn`` by part of a float32 backward (its
+    CUDA kernels by name: ``kinds``; torch.profiler; {} if it records no
+    device time)."""
     _, by_name = device_time(fn)
-    parts = {label: 0.0 for label, _ in BWD_PARTS}
+    parts = {label: 0.0 for label, _ in kinds}
     parts["wrapper (transposes, zeroing, d_b0)"] = 0.0
     for name, ms in by_name.items():
-        label = next((lab for lab, key in BWD_PARTS if key in name),
+        label = next((lab for lab, key in kinds if key in name),
                      "wrapper (transposes, zeroing, d_b0)")
         parts[label] += ms
     return parts if by_name else {}
@@ -444,7 +447,7 @@ def grad_errors(got, ref, label: str) -> tuple[float, float]:
     over the gradients that ref gives; raises on a non-finite gradient."""
     worst_rel, worst_abs = 0.0, 0.0
     for i, (a, r) in enumerate(zip(got, ref)):
-        if r is None:
+        if r is None or r.numel() == 0:
             continue
         if not torch.isfinite(a.float()).all():
             raise AssertionError(f"{label}: gradient {i} not finite")
@@ -454,13 +457,10 @@ def grad_errors(got, ref, label: str) -> tuple[float, float]:
     return worst_rel, worst_abs
 
 
-def relu_flips(args, rec) -> tuple[int, float]:
-    """(relu sites where the plain forward and the kernels' recompute fall on
-    different sides of 0, the largest |activation| at those sites)."""
-    from framedipt_tpu_torch.model.kernels.pair_mlp import _pre_norm
-
-    pair, i_term, j_term, _, _, w0, b0, w1, b1, wf, bf, _, _, fi, fj, wfe = args
-    y0, y1, _ = _pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe)
+def relu_flips(y0, y1, rec) -> tuple[int, float]:
+    """(relu sites where the plain forward's activations y0, y1 and the
+    kernels' recompute fall on different sides of 0, the largest activation
+    at those sites)."""
     n, worst = 0, 0.0
     for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
         flip = (plain_y > 0) != (kern_y > 0)
@@ -487,6 +487,7 @@ def check_pair_mlp_bwd() -> dict:
     too)."""
     from framedipt_tpu_torch.model.kernels.pair_mlp import (
         BWD_WORKSPACE_CAP,
+        _pre_norm,
         bwd_workspace_floats,
         pair_mlp,
         pair_mlp_bwd,
@@ -525,7 +526,8 @@ def check_pair_mlp_bwd() -> dict:
                     f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}")
             if rec is not None:
                 fwd_diff = float((rec["out"] - pair_mlp(*args)).abs().max())
-                n_flips, flip_max = relu_flips(args, rec)
+                n_flips, flip_max = relu_flips(
+                    *_pre_norm(*args[:3], *args[5:11], *args[13:])[:2], rec)
                 own_rel = grad_errors(got, pair_mlp_bwd_plain(g, *args), label)[0]
                 line += (f"; recompute vs forward kernel output: max diff {fwd_diff:.3e}; relu "
                          f"sites on the other side of 0 from the plain forward: {n_flips} (largest "
@@ -560,22 +562,31 @@ def check_pair_mlp_bwd() -> dict:
     return out
 
 
-EMB_BWD_FLOP_PER_PAIR = 2 * (64 * 128 + 128 * 128 + 128 * 128) + 2 * (
-    4 * 128 * 128 + 2 * 64 * 128)  # recompute + dW2, dy1, dW1, dy0, dW_rel, dm: 245,760
+# The embedder backward's products a pair: kernel A's recompute (81,920) and
+# input-gradient chain (dy1, dy0: 2 x 128 x 128 each; dm: 2 x 64 x 128), and
+# kernel B's weight gradients (dW2, dW1: 2 x 128 x 128 each; dW_rel: 2 x 64 x
+# 128); 245,760 in all.
+EMB_BWD_A_FLOP_PER_PAIR = 2 * (64 * 128 + 128 * 128 + 128 * 128) + 2 * (2 * 128 * 128 + 64 * 128)
+EMB_BWD_B_FLOP_PER_PAIR = 2 * (2 * 128 * 128 + 64 * 128)
+# The persistent CUDA-core kernel, float32 B=2 N=256 (PERF.md section 6; NVIDIA H100
+# 80GB HBM3, 700 W), printed for reference: bf16 still runs it.
+EMB_BWD_CUDA_CORE_MS = 1.8980
+EMB_BWD_PARTS = (("A", "emb_split_tile_kernel"), ("B", "wgrad_kernel"), ("row/col sums", "_sums"),
+                 ("ordered reductions", "sum_partials"))
 
 
 def edge_embedder_bwd_cost(B, N, dtype, n_bins=22):
-    """Operations and bytes of one embedder backward launch: the forward
-    recompute and the backward products (the distogram row gather and the
-    LayerNorm not counted); the cotangent, the O(N) inputs and weights once,
-    the float32 gradients once."""
+    """(kernel A's operations, kernel B's operations, bytes) of one embedder
+    backward call: the forward recompute and the backward products (the
+    distogram row gather and the LayerNorm not counted); the cotangent, the
+    O(N) inputs and weights once, the float32 gradients once."""
     es = torch.tensor([], dtype=dtype).element_size()
     weights = 64 * 128 + n_bins * 128 + 2 * 128 * 128 + 3 * 128
-    flops = B * N * N * EMB_BWD_FLOP_PER_PAIR
-    nbytes = (es * (B * N * N * 128 + B * N * (2 * 64 + 2 * 128 + 2) + weights)
+    pairs = B * N * N
+    nbytes = (es * (pairs * 128 + B * N * (2 * 64 + 2 * 128 + 2) + weights)
               + 4 * (B * N * 3 * 2 + 2 * n_bins + 2 * 128)
               + 4 * (B * N * (2 * 64 + 2 * 128 + 2) + weights + 2 * 128))
-    return flops, nbytes
+    return pairs * EMB_BWD_A_FLOP_PER_PAIR, pairs * EMB_BWD_B_FLOP_PER_PAIR, nbytes
 
 
 def xla_emb_backward(g, args):
@@ -591,63 +602,104 @@ def xla_emb_backward(g, args):
 
 
 def check_edge_embedder_bwd() -> dict:
-    """The embedder backward kernel against its plain version on the card:
-    every gradient within tol of its own max-abs (float32 1e-4, bf16 5e-2),
-    with 22 and 0 distance bins; two launches bit-identical; at B=2 N=256
-    the kernel, its plain version and the ``xla`` backward timed."""
+    """The embedder backward against its plain version on the card: every
+    gradient within tol of its own max-abs (float32 1e-4, bf16 5e-2), with
+    22 and 0 distance bins, at one pair, one partial tile, a ragged grid with
+    masked rows and the training shape, and in float32 a grid the wrapper
+    runs in several chunks (a small workspace cap); two launches
+    bit-identical; at B=2 N=256 the call, its plain version and the ``xla``
+    backward timed (float32 also by kernel).
+
+    The float32 kernels take their relu decisions from their recompute,
+    which runs the forward kernel's code (3xTF32): the recompute's output
+    must equal the forward kernel's bit for bit, every site where the plain
+    forward's relu falls on the other side of 0 must hold an activation
+    within float32 rounding of 0 (<= 1e-4), and the gradients are held
+    against the plain backward through the recompute's relu decisions."""
     from framedipt_tpu_torch.model.kernels.edge_embedder import (
+        BWD_WORKSPACE_CAP,
+        _pre_norm,
         bwd_workspace_floats,
+        edge_embedder,
         edge_embedder_bwd,
         edge_embedder_bwd_plain,
+        plan_bwd_chunks,
+        split_workspace_floats,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
+    small_cap = 4 * split_workspace_floats(40 * 200, 22)  # 40 grid rows a chunk: 10 chunks
+    shapes = [(B, N, n_bins, None) for B, N in ((1, 1), (1, 17), (1, 256), (2, 200), (2, 256))
+              for n_bins in (22, 0)] + [(2, 200, 22, small_cap)]
     for dtype in (torch.float32, torch.bfloat16):
-        for B, N in ((1, 256), (2, 200), (2, 256)):
-            for n_bins in (22, 0):
-                args = edge_embedder_inputs(B, N, dtype, gen, n_bins=n_bins)
-                *tensors, lower, upper = args
-                kw = {"bins_lower": lower, "bins_upper": upper}
-                g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
-                got = edge_embedder_bwd(g, *tensors, **kw)
-                again = edge_embedder_bwd(g, *tensors, **kw)
-                ref = edge_embedder_bwd_plain(g, *tensors, **kw)
-                torch.cuda.synchronize()
-                same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
-                worst_rel, worst_abs = 0.0, 0.0
-                for i, (a, r) in enumerate(zip(got, ref)):
-                    if r is None or r.numel() == 0:
-                        continue
-                    if not torch.isfinite(a.float()).all():
-                        raise AssertionError(f"edge_embedder_bwd {dtype} B={B} N={N}: "
-                                             f"gradient {i} not finite")
-                    err = float((a.float() - r.float()).abs().max())
-                    rel = err / max(float(r.float().abs().max()), 1e-30)
-                    worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-                label = f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins}"
-                line = (f"{label}: max err {worst_abs:.3e} abs, {worst_rel:.3e} of the gradient's "
-                        f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}")
-                if (B, N, n_bins) == (2, 256, 22):
-                    ms = cuda_time_ms(lambda: edge_embedder_bwd(g, *tensors, **kw), 20)
-                    plain_ms = cuda_time_ms(lambda: edge_embedder_bwd_plain(g, *tensors, **kw), 5)
-                    xla_ms = cuda_time_ms(lambda: xla_emb_backward(g, args), 5)
-                    flops, nbytes = edge_embedder_bwd_cost(B, N, dtype, n_bins)
-                    bound_ms = 1e3 * max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES)
-                    bound_by = ("operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES
-                                else "bytes")
+        for B, N, n_bins, cap in shapes:
+            if cap is not None and dtype != torch.float32:
+                continue  # the bf16 kernel keeps no chunked workspace
+            kw_cap = {} if cap is None else {"workspace_cap": cap}
+            args = edge_embedder_inputs(B, N, dtype, gen, n_bins=n_bins)
+            *tensors, lower, upper = args
+            kw = {"bins_lower": lower, "bins_upper": upper}
+            g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
+            rec = {} if dtype == torch.float32 else None
+            got = edge_embedder_bwd(g, *tensors, recompute=rec, **kw, **kw_cap)
+            again = edge_embedder_bwd(g, *tensors, **kw, **kw_cap)
+            masks = None if rec is None else (rec["y0"] > 0, rec["y1"] > 0)
+            ref = edge_embedder_bwd_plain(g, *tensors, **kw, relu_masks=masks)
+            torch.cuda.synchronize()
+            same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+            label = f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins}"
+            worst_rel, worst_abs = grad_errors(got, ref, label)
+            if dtype == torch.float32:
+                chunks = plan_bwd_chunks(B, N, N, n_bins, cap or BWD_WORKSPACE_CAP)
+                label += (f" chunks={len(chunks)} (workspace "
+                          f"{4 * split_workspace_floats(max(b - a for a, b in chunks) * N, n_bins)}"
+                          " bytes)")
+            line = (f"{label}: max err {worst_abs:.3e} abs, {worst_rel:.3e} of the gradient's "
+                    f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}")
+            if rec is not None:
+                fwd_diff = float((rec["out"] - edge_embedder(*args)).abs().max())
+                n_flips, flip_max = relu_flips(
+                    *_pre_norm(*tensors[:6], *tensors[8:15], lower, upper)[2:4], rec)
+                own_rel = grad_errors(got, edge_embedder_bwd_plain(g, *tensors, **kw), label)[0]
+                line += (f"; recompute vs forward kernel output: max diff {fwd_diff:.3e}; relu "
+                         f"sites on the other side of 0 from the plain forward: {n_flips} (largest "
+                         f"|activation| there {flip_max:.3e}); against the plain backward through "
+                         f"its own relu decisions {own_rel:.3e}")
+                if fwd_diff != 0 or flip_max > TOL[torch.float32]:
+                    log(line)
+                    raise AssertionError(f"{label}: the recompute is not the forward kernel's")
+            if (B, N, n_bins, cap) == (2, 256, 22, None):
+                ms = cuda_time_ms(lambda: edge_embedder_bwd(g, *tensors, **kw), 20)
+                plain_ms = cuda_time_ms(lambda: edge_embedder_bwd_plain(g, *tensors, **kw), 5)
+                xla_ms = cuda_time_ms(lambda: xla_emb_backward(g, args), 5)
+                a_flops, b_flops, nbytes = edge_embedder_bwd_cost(B, N, dtype, n_bins)
+                flops = a_flops + b_flops
+                cuda_core_ms = bound(flops, nbytes, PEAK_FLOPS[dtype])[0]
+                line += (f"; call {ms:.4f} ms, plain {plain_ms:.4f} ms, xla backward "
+                         f"{xla_ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s")
+                if dtype == torch.float32:
+                    bound_ms, bound_by = bound(flops, nbytes, TENSOR_CORE_FLOPS[dtype])
+                    parts = bwd_parts_ms(lambda: edge_embedder_bwd(g, *tensors, **kw),
+                                         EMB_BWD_PARTS)
+                    line += (f"; bound {bound_ms:.4f} ms ({bound_by}, 3xTF32; CUDA cores "
+                             f"{cuda_core_ms:.4f} ms); the persistent CUDA-core kernel (PERF.md) "
+                             f"{EMB_BWD_CUDA_CORE_MS} ms; device ms by part (profiler, one call): "
+                             + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
+                             + f"; kernel A bound {1e3 * a_flops / TENSOR_CORE_FLOPS[dtype]:.4f} ms, "
+                             f"kernel B bound {1e3 * b_flops / TENSOR_CORE_FLOPS[dtype]:.4f} ms; "
+                             f"{card_line()}")
+                    out = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                else:
                     blocks = torch.cuda.get_device_properties(0).multi_processor_count
-                    line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, xla backward "
-                             f"{xla_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                             f"{flops / ms / 1e9:.2f} TFLOP/s, workspace "
+                    bound_ms, bound_by = bound(flops, nbytes, PEAK_FLOPS[dtype])
+                    line += (f", bound {bound_ms:.4f} ms ({bound_by}), workspace "
                              f"{4 * bwd_workspace_floats(B, N, N, blocks)} bytes ({blocks} blocks)")
-                    if dtype == torch.float32:
-                        out = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-                log(line)
-                if worst_rel > TOL[dtype] or not same:
-                    raise AssertionError(f"{label}: error {worst_rel} over tolerance or "
-                                         "not deterministic")
+            log(line)
+            if worst_rel > TOL[dtype] or not same:
+                raise AssertionError(f"{label}: error {worst_rel} over tolerance or "
+                                     "not deterministic")
     return out
 
 
@@ -1040,6 +1092,9 @@ TRAIN_TOL = 1e-4
 # backward kernel (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W), printed
 # for reference.
 STEP_PEAK_GB_PERSISTENT_BWD = {"pallas": 2.477, "xla": 3.063}
+# The same with the persistent float32 embedder backward kernel (PERF.md
+# section 5; NVIDIA H100 80GB HBM3, 700 W).
+STEP_PEAK_GB_PERSISTENT_EMB_BWD = {"pallas": 2.179, "xla": 2.245}
 
 
 def train_batch(B: int = 2, N: int = 256) -> dict[str, torch.Tensor]:
@@ -1272,8 +1327,9 @@ def check_train_step() -> int:
         log(f"train step B={B} N={N} float32 (pallas_emb_bwd_impl={label}): {step_ms:.3f} ms a "
             f"step (CUDA events over 5 steps after 3 warm; self-conditioned {sum(coins)} of 5), "
             f"{1e3 * B / step_ms:.2f} examples/s, peak memory {peak_gb:.3f} GB (both trainers "
-            f"resident; with the persistent backward kernel "
-            f"{STEP_PEAK_GB_PERSISTENT_BWD[label]} GB)")
+            f"resident; with the persistent pair-MLP backward kernel "
+            f"{STEP_PEAK_GB_PERSISTENT_BWD[label]} GB, with the persistent float32 embedder "
+            f"backward kernel {STEP_PEAK_GB_PERSISTENT_EMB_BWD[label]} GB)")
     wall = wall_ms(lambda: [kern.step(batch, gen) for _ in range(5)])
     busy, by_name = device_time(lambda: [kern.step(batch, gen) for _ in range(5)])
     log(f"train step B={B} N={N} float32 (pallas): 5 steps {wall:.1f} ms wall, "

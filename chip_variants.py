@@ -12,9 +12,12 @@ against the plain version (float32 1e-4, bf16 5e-2) at B=1 N=1, B=1 N=17,
 B=2 N=200 and B=2 N=256; variants that remove a part of the work give wrong
 outputs and are only timed, to show what that part costs. With ``--parent``
 (a tree unpacked from an earlier commit: ``git archive <rev> | tar -x -C
-DIR``), that tree's ``edge_embedder.cu`` is timed too, and its
-``pair_mlp.cu`` and ``pair_mlp_bwd.cu`` must give the same bits as this
-checkout's (the pair MLP's product code is shared with the embedder).
+DIR``), that tree's ``edge_embedder.cu`` is timed too and must give the
+same bits as this checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256
+with and without distance bins (the forward's tile is shared with the
+embedder backward's recompute), and its ``pair_mlp.cu`` and
+``pair_mlp_bwd.cu`` must give the same bits as this checkout's (the pair
+MLP's product code and kernel B are shared with the embedder).
 
 Times: CUDA events over 20 launches at B=2 N=256 in float32 and bf16, every
 variant once a round, three rounds in alternating order. Prints one line per
@@ -38,6 +41,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parent
 
 EMB = "edge_embedder.cu"
+EMB_TC = "edge_embedder_tc.cuh"
 TC = "tc_product.cuh"
 # The layer-1 epilogue's and the CP product's loads as the kernel issues
 # them, and as a plain loop that uses each value as it arrives.
@@ -76,8 +80,11 @@ BATCHED_EPI1 = """#pragma unroll
         if (mi != half || (q & 1)) return;
         const bool has_bin = bin[r] >= 0;
         const float2 a = it[ni][q >> 1], b = jt[ni][q >> 1], w = wd[ni][q >> 1], bb = ld2(b0 + c);
-        X[r * L::LDX + c] = emb_y0<T>(acc[mi][ni][q], has_bin, w.x, a.x, b.x, bb.x);
-        X[r * L::LDX + c + 1] = emb_y0<T>(acc[mi][ni][q + 1], has_bin, w.y, a.y, b.y, bb.y);
+        const float v0 = emb_y0<T>(acc[mi][ni][q], has_bin, w.x, a.x, b.x, bb.x);
+        const float v1 = emb_y0<T>(acc[mi][ni][q + 1], has_bin, w.y, a.y, b.y, bb.y);
+        X[r * L::LDX + c] = v0;
+        X[r * L::LDX + c + 1] = v1;
+        if (STORE) store_relu_bits(keep.m0, 0, mi, ni, q, v0, v1);
       });
     }
 """
@@ -87,8 +94,11 @@ PLAIN_EPI1 = """    for_each_elem([&](int r, int c, int mi, int ni, int q) {
       const float2 it = ld2(i_term + (size_t)prow * C + c);
       const float2 jt = ld2(j_term + (size_t)pcol * C + c);
       const float2 bb = ld2(b0 + c);
-      X[r * L::LDX + c] = emb_y0<T>(acc[mi][ni][q], bn, w_dist, c, it.x, jt.x, bb.x);
-      X[r * L::LDX + c + 1] = emb_y0<T>(acc[mi][ni][q + 1], bn, w_dist, c + 1, it.y, jt.y, bb.y);
+      const float v0 = emb_y0<T>(acc[mi][ni][q], bn, w_dist, c, it.x, jt.x, bb.x);
+      const float v1 = emb_y0<T>(acc[mi][ni][q + 1], bn, w_dist, c + 1, it.y, jt.y, bb.y);
+      X[r * L::LDX + c] = v0;
+      X[r * L::LDX + c + 1] = v1;
+      if (STORE) store_relu_bits(keep.m0, 0, mi, ni, q, v0, v1);
     });
 """
 MMA3 = """          mma_tf32(part[mi][ni], alo[mi], bhi);
@@ -121,26 +131,27 @@ TILE128 = {
 STAGES = "template <typename T> constexpr int kEmbStages = sizeof(T) == 4 ? 2 : 3;"
 # name: (patches {file: [(old, new)]}, checked against the plain version)
 VARIANTS = {
-    "f32_three_stages_one_block": ({EMB: [(STAGES, STAGES.replace("? 2 : 3", "? 3 : 3"))]}, True),
-    "bf16_two_stages": ({EMB: [(STAGES, STAGES.replace("? 2 : 3", "? 2 : 2"))]}, True),
+    "f32_three_stages_one_block": ({EMB_TC: [(STAGES, STAGES.replace("? 2 : 3", "? 3 : 3"))]},
+                                   True),
+    "bf16_two_stages": ({EMB_TC: [(STAGES, STAGES.replace("? 2 : 3", "? 2 : 2"))]}, True),
     "tile128": (TILE128, True),
-    "unbatched_loads": ({EMB: [(BATCHED_FILL, PLAIN_FILL), (BATCHED_EPI1, PLAIN_EPI1)]}, True),
+    "unbatched_loads": ({EMB_TC: [(BATCHED_FILL, PLAIN_FILL), (BATCHED_EPI1, PLAIN_EPI1)]}, True),
     "no_products": ({TC: [(MMA3, ""), (MMA_BF16, "")]}, False),
     "one_tf32_product": ({TC: [(MMA3, MMA3.split("\n", 2)[2])]}, False),
     "no_layernorm_store": ({EMB: [
-        ("  layer_norm_store<T>(X, L::LDX, pt, p0, ln_scale, ln_bias, out);",
-         "  if (n_bins == 12345) layer_norm_store<T>(X, L::LDX, pt, p0, ln_scale, ln_bias, out);")]},
+        ("  layer_norm_store<T>(et.X, L::LDX, *et.pt, p0, ln_scale, ln_bias, out);",
+         "  if (n_bins == 12345) layer_norm_store<T>(et.X, L::LDX, *et.pt, p0, ln_scale, ln_bias, out);")]},
         False),
     "no_weight_stream": ({TC: [("    if (s >= total) return;",
                                 "    if (s >= total || s >= STAGES - 1) return;")]}, False),
-    "no_cp_fill": ({EMB: [(BATCHED_FILL, "    const float gv = 0.5f;\n    for (int idx = tid; "
+    "no_cp_fill": ({EMB_TC: [(BATCHED_FILL, "    const float gv = 0.5f;\n    for (int idx = tid; "
                            "idx < kRows * CP; idx += kBlock)\n      M[(idx / CP) * L::LDM + idx % CP] = gv;")]},
                    False),
-    "no_layer1_terms": ({EMB: [(EPI1_LOADS, "        it[ni][q >> 1] = make_float2(0.1f, 0.2f);\n"
+    "no_layer1_terms": ({EMB_TC: [(EPI1_LOADS, "        it[ni][q >> 1] = make_float2(0.1f, 0.2f);\n"
                                 "        jt[ni][q >> 1] = it[ni][q >> 1];\n"
                                 "        wd[ni][q >> 1] = bn >= 0 ? it[ni][q >> 1] : make_float2(0.f, prow);")]},
                         False),
-    "no_bins": ({EMB: [("    bin[tid] = prow < 0 ? -1\n", "    bin[tid] = prow < 0 || n_bins > 0 ? -1\n")]},
+    "no_bins": ({EMB_TC: [("    bin[tid] = prow < 0 ? -1\n", "    bin[tid] = prow < 0 || n_bins > 0 ? -1\n")]},
                 False),
 }
 
@@ -226,6 +237,20 @@ def main() -> int:
                     log(f"{name} {str(dtype)[6:]} B={B} N={N}: max_abs_err={err:.3e} "
                         f"(tol {cs.TOL[dtype]} abs+rel), two launches bit-identical: {same}")
                     fails += excess > 0 or not same
+        if "parent" in libs:
+            for dtype in (torch.float32, torch.bfloat16):
+                for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
+                    for n_bins in (22, 0):
+                        a = cs.edge_embedder_inputs(B, N, dtype, gen, n_bins=n_bins)
+                        outs = []
+                        for name in ("new", "parent"):
+                            use("edge_embedder", libs[name])
+                            outs.append(t_emb.edge_embedder(*a))
+                        same = torch.equal(*outs)
+                        log(f"edge_embedder {str(dtype)[6:]} B={B} N={N} n_bins={n_bins}: the "
+                            f"parent's bits {same}")
+                        fails += not same
+            use("edge_embedder", libs["new"])
         if "parent_pair_mlp" in libs and "parent_pair_mlp_bwd" in libs:
             for dtype in (torch.float32, torch.bfloat16):
                 for residual in (True, False):

@@ -29,7 +29,8 @@
 // - bf16: one bf16 product each, 10.74 GFLOP / 989 TFLOP/s = 0.011 ms.
 //
 // Design: 64-pair tiles of the flat [B*Nr*Nc] grid, one block of 8 warps
-// each. No [N, N, .] feature exists in device memory: the block forms the CP
+// each; the tile's forward is edge_embedder_tc.cuh's emb_forward_tile, which
+// the float32 backward's recompute runs too. No [N, N, .] feature exists in device memory: the block forms the CP
 // product and the distance bin per pair in shared memory and fuses LayerNorm
 // and the mask; the only N^2 traffic is the output write. What the earlier
 // CUDA-core kernel lost time to, and what this one does instead:
@@ -58,48 +59,10 @@
 //   any (in the epilogue, half of its elements at a time, for registers).
 // No atomics: two launches give the same bits. chip_variants.py times this
 // kernel beside variants of it (stages, 128-pair tiles, parts removed).
-#include "tc_product.cuh"
+#include "edge_embedder_tc.cuh"
 
 namespace fdk {
 namespace {
-
-constexpr int CP = 64, C = 128, MAX_BINS = 64;
-static_assert(C == NC && CP % kKc == 0, "the products' widths");
-
-// Weight slices of a tile, in the order the products read them.
-template <typename T>
-struct EmbSlices {
-  static constexpr int kRel = CP / kKc, kLayer = C / kKc;
-  static constexpr int kTile = kRel + 2 * kLayer;  // 10
-  const T* w_rel;
-  const T* w1;
-  const T* w2;
-
-  __device__ __forceinline__ const T* slice(int s, int& ldw) const {
-    ldw = C;
-    if (s < kRel) return w_rel + (size_t)s * kKc * C;
-    if (s < kRel + kLayer) return w1 + (size_t)(s - kRel) * kKc * C;
-    return w2 + (size_t)(s - kRel - kLayer) * kKc * C;
-  }
-};
-
-// Weight stages of the ring: float32 two (two blocks an SM), bf16 three.
-template <typename T> constexpr int kEmbStages = sizeof(T) == 4 ? 2 : 3;
-
-template <typename T>
-struct EmbSmem {
-  static constexpr int STAGES = kEmbStages<T>;
-  // Tile row strides in floats: 4 (mod 32) for ldmatrix (TF32 A), 8 (mod
-  // 32) for the bf16 A fragments' 64-bit loads.
-  static constexpr int PAD = sizeof(T) == 4 ? 4 : 8;
-  static constexpr int LDX = C + PAD, LDM = CP + PAD;
-  static constexpr size_t kBytes = sizeof(float) * (2 * kRows * LDX + 2 * MAX_BINS) +
-                                   sizeof(T) * STAGES * kStageElems + sizeof(PairTile) +
-                                   sizeof(int) * kRows;
-  // An SM's 228 KB of shared memory, 1 KB of it reserved per block.
-  static constexpr int kBlocksPerSm = 2 * (kBytes + 1024) <= 233472 ? 2 : 1;
-};
-static_assert(EmbSmem<float>::LDM <= EmbSmem<float>::LDX, "M lives in y1's space");
 
 template <typename T>
 __global__ void __launch_bounds__(kBlock, EmbSmem<T>::kBlocksPerSm)
@@ -116,109 +79,22 @@ edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
                      int Nr, int Nc, long long total) {
   using L = EmbSmem<T>;
   extern __shared__ __align__(16) float smem[];
-  float* X = smem;                   // [64][LDX]  y0, later the pre-norm output
-  float* Y1 = X + kRows * L::LDX;    // [64][LDX]  y1
-  float* M = Y1;                     // [64][LDM]  CP product G_i * H_j, until layer 1 is done
-  float* lo = Y1 + kRows * L::LDX;   // [MAX_BINS] bin edges
-  float* hi = lo + MAX_BINS;
-  T* stages = reinterpret_cast<T*>(hi + MAX_BINS);  // [STAGES][kKc][kLdw] weight ring
-  PairTile& pt = *reinterpret_cast<PairTile*>(stages + L::STAGES * kStageElems);
-  int* bin = reinterpret_cast<int*>(&pt + 1);  // [64] distance bin or -1
-
-  const WeightStream<T, EmbSlices<T>, L::STAGES> ws{
-      {w_rel, w1, w2}, stages, EmbSlices<T>::kTile};
+  const EmbTile<T> et(smem);
+  const EmbStream<T> ws{{w_rel, w1, w2}, et.stages, EmbSlices<T>::kTile};
   for (int s = 0; s < L::STAGES - 1; ++s) ws.start(s);
 
   const int tid = threadIdx.x;
   const long long p0 = (long long)blockIdx.x * kRows;
-  load_pair_tile<T>(pt, p0, total, Nr, Nc, row_mask, col_mask);
+  load_pair_tile<T>(*et.pt, p0, total, Nr, Nc, row_mask, col_mask);
   if (tid < n_bins) {
-    lo[tid] = lower[tid];
-    hi[tid] = upper[tid];
+    et.lo[tid] = lower[tid];
+    et.hi[tid] = upper[tid];
   }
   __syncthreads();
-
-  // CP product of the rel-offset factors, rounded to T as a T multiply. All
-  // of a thread's loads go out before the first product, so their latencies
-  // overlap.
-  {
-    constexpr int kFill = kRows * CP / kBlock;
-    float gv[kFill], hv[kFill];
-#pragma unroll
-    for (int u = 0; u < kFill; ++u) {
-      const int idx = tid + u * kBlock, r = idx / CP, k = idx - r * CP;
-      gv[u] = ld<T>(g + (size_t)max(pt.row[r], 0) * CP + k);
-      hv[u] = ld<T>(h + (size_t)pt.col[r] * CP + k);
-    }
-#pragma unroll
-    for (int u = 0; u < kFill; ++u) {
-      const int idx = tid + u * kBlock, r = idx / CP, k = idx - r * CP;
-      M[r * L::LDM + k] = pt.row[r] < 0 ? 0.f : rnd<T>(gv[u] * hv[u]);
-    }
-  }
-  // Distance bin per pair (common.cuh pair_bin).
-  if (tid < kRows) {
-    const int prow = pt.row[tid];
-    bin[tid] = prow < 0 ? -1
-                        : pair_bin(pos_r + (size_t)prow * 3, pos_c + (size_t)pt.col[tid] * 3, lo,
-                                   hi, n_bins);
-  }
-  // The first product's first wait() synchronizes the block before any
-  // warp reads M or bin. Each later product's first wait() comes after
-  // every warp has finished the product before it, so an epilogue may
-  // overwrite that product's input: layer 2's y1 goes over M, layer 3's
-  // output over y0.
-  int s = 0;
-  // Layer 1: y0 = relu(m @ W_rel + W_dist[bin] + i_term + j_term + b0).
-  // The terms of half of a lane's elements load before any is added, so
-  // their latencies overlap (elements q and q + 1 are neighbours in a row:
-  // the terms load as pairs).
-  {
-    float acc[2][kNi][4] = {};
-    product(M, L::LDM, CP, ws, s, acc);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float2 it[kNi][2], jt[kNi][2], wd[kNi][2];
-      for_each_elem([&](int r, int c, int mi, int ni, int q) {
-        if (mi != half || (q & 1)) return;
-        const int prow = max(pt.row[r], 0), bn = bin[r];
-        it[ni][q >> 1] = ld2(i_term + (size_t)prow * C + c);
-        jt[ni][q >> 1] = ld2(j_term + (size_t)pt.col[r] * C + c);
-        wd[ni][q >> 1] = bn >= 0 ? ld2(w_dist + (size_t)bn * C + c) : make_float2(0.f, 0.f);
-      });
-      for_each_elem([&](int r, int c, int mi, int ni, int q) {
-        if (mi != half || (q & 1)) return;
-        const bool has_bin = bin[r] >= 0;
-        const float2 a = it[ni][q >> 1], b = jt[ni][q >> 1], w = wd[ni][q >> 1], bb = ld2(b0 + c);
-        X[r * L::LDX + c] = emb_y0<T>(acc[mi][ni][q], has_bin, w.x, a.x, b.x, bb.x);
-        X[r * L::LDX + c + 1] = emb_y0<T>(acc[mi][ni][q + 1], has_bin, w.y, a.y, b.y, bb.y);
-      });
-    }
-  }
-  // Layer 2: y1 = relu(y0 @ W1 + b1).
-  {
-    float acc[2][kNi][4] = {};
-    product(X, L::LDX, C, ws, s, acc);
-    for_each_elem([&](int r, int c, int mi, int ni, int q) {
-      if (q & 1) return;
-      const float2 bb = ld2(b1 + c);
-      Y1[r * L::LDX + c] = pair_y1<T>(acc[mi][ni][q], bb.x);
-      Y1[r * L::LDX + c + 1] = pair_y1<T>(acc[mi][ni][q + 1], bb.y);
-    });
-  }
-  // Layer 3: y1 @ W2 + b2, into X.
-  {
-    float acc[2][kNi][4] = {};
-    product(Y1, L::LDX, C, ws, s, acc);
-    for_each_elem([&](int r, int c, int mi, int ni, int q) {
-      if (q & 1) return;
-      const float2 bb = ld2(b2 + c);
-      X[r * L::LDX + c] = emb_out<T>(acc[mi][ni][q], bb.x);
-      X[r * L::LDX + c + 1] = emb_out<T>(acc[mi][ni][q + 1], bb.y);
-    });
-  }
+  emb_forward_tile<T, false>(et, ws, g, h, pos_r, pos_c, i_term, j_term, w_dist, b0, b1, b2,
+                             n_bins, EmbKeep{});
   __syncthreads();
-  layer_norm_store<T>(X, L::LDX, pt, p0, ln_scale, ln_bias, out);
+  layer_norm_store<T>(et.X, L::LDX, *et.pt, p0, ln_scale, ln_bias, out);
 }
 
 template <typename T>

@@ -40,8 +40,9 @@
 //   3 x 137 GFLOP / 495 TFLOP/s = 0.83 ms (3xTF32).
 // - Row and column sums (row_sums, col_sums): d_i_term | d_fi | d_row_mask
 //   and the column ones, summed from the workspace in index order.
-// - Kernel B (wgrad_kernel): the four weight gradients as one split-K GEMM
-//   on the tensor cores. The outputs are cut into 128 x 128 tiles (3 of
+// - Kernel B (wgrad_tc.cuh's wgrad_kernel, shared with the embedder's
+//   backward): the four weight gradients as one split-K GEMM on the tensor
+//   cores. The outputs are cut into 128 x 128 tiles (3 of
 //   d_w0, 9 of d_w1, 3 of d_wf, 1 of d_wfe) and the chunk's pairs into
 //   kSlices contiguous slices: 16 x 8 = 128 blocks, one wave on 132 SMs.
 //   Each block sums its slice with 3xTF32 mma.sync (mma.cuh: operands split
@@ -83,6 +84,7 @@
 // Padded pairs (past the grid) contribute nothing. Masked pairs keep their
 // contribution: the mask gradients read yln . g there.
 #include "pair_mlp_tc.cuh"
+#include "wgrad_tc.cuh"
 
 namespace fdk {
 namespace {
@@ -431,7 +433,6 @@ cudaError_t launch(const void* g, const void* pair, const void* i_term, const vo
 constexpr int kVec = HID + 3 * C_OUT;     // d_b1 | d_bf | d_ln_scale | d_ln_bias
 constexpr int kGroup = 32;                // tile partials summed 32 at a time
 constexpr int kSlices = 8;                // K slices of kernel B
-constexpr int kMaxJobs = 16;              // 128 x 128 output tiles of kernel B
 static_assert(OFF_B1 + kVec == OFF_WFE, "the vector sums sit between d_wf and d_wfe");
 static_assert(kBlock == kThreads, "kernel A runs common.cuh's LayerNorm with its block");
 
@@ -463,15 +464,6 @@ inline SplitWs split_ws(float* ws, long long P) {
   w.vmid = w.vpart + split_groups(P) * kGroup * kVec;
   w.dem = w.vmid + split_groups(P) * kVec;
   return w;
-}
-
-// (a0, a1) where this lane's bits of the mask words of elements q and q + 1
-// are set, else 0.
-__device__ __forceinline__ float2 relu_grad(const uint32_t* m, int chunk, int mi, int ni, int q,
-                                            float a0, float a1) {
-  const int lane = threadIdx.x & 31;
-  return make_float2((m[mask_word(chunk, mi, ni, q)] >> lane) & 1u ? a0 : 0.f,
-                     (m[mask_word(chunk, mi, ni, q + 1)] >> lane) & 1u ? a1 : 0.f);
 }
 
 constexpr size_t kASmemBytes = Smem<float>::kBytes + sizeof(uint32_t) * 2 * (HID / NC) * kMaskWords;
@@ -703,117 +695,6 @@ __global__ void col_sums(const float* __restrict__ dy0, const float* __restrict_
   }
 }
 
-// Kernel B: one 128 x 128 tile of a weight gradient, G = A^T Bm over a K
-// slice of the chunk's pairs, where A and Bm are [pairs, .] row-major
-// (row strides lda, ldb) from their first column a, b.
-struct WJob {
-  const float* a;
-  const float* b;
-  int lda, ldb, out_off, out_ld;
-};
-struct WJobs {
-  WJob job[kMaxJobs];
-};
-
-constexpr int kBK = kKc;          // pairs of one staged step
-constexpr int kBStages = 4;       // steps in the ring
-constexpr int LDB = 128 + 8;      // staged row stride: 8 (mod 32), conflict-free fragments
-constexpr int kBStage = 2 * kBK * LDB;  // A block then B block
-constexpr size_t kBSmemBytes = sizeof(float) * kBStages * kBStage;
-
-__global__ void __launch_bounds__(kThreads, 1)
-wgrad_kernel(const WJobs jobs, float* __restrict__ wpart, long long P, long long k_slice) {
-  extern __shared__ __align__(16) float smem[];
-  const WJob jb = jobs.job[blockIdx.x];
-  const long long k_begin = (long long)blockIdx.y * k_slice;
-  const long long k_end = min(P, k_begin + k_slice);
-  const int n_steps = k_end > k_begin ? (int)((k_end - k_begin + kBK - 1) / kBK) : 0;
-
-  // Step `it`'s rows of A and Bm into its stage (16 bytes a copy, 8 a
-  // thread; rows past the slice zero), then one commit group (empty past
-  // the last step), so every thread's group count is the step index.
-  auto start = [&](int it) {
-    if (it < n_steps) {
-      float* stage = smem + (it % kBStages) * kBStage;
-#pragma unroll
-      for (int part = 0; part < 2 * kBK * 32 / kThreads; ++part) {
-        const int idx = threadIdx.x + part * kThreads;
-        const int op = idx / (kBK * 32), r = (idx / 32) % kBK, c4 = (idx % 32) * 4;
-        const long long k = k_begin + (long long)it * kBK + r;
-        const bool v = k < k_end;
-        const long long kr = v ? k : k_begin;
-        const float* src = op ? jb.b + kr * jb.ldb + c4 : jb.a + kr * jb.lda + c4;
-        cp_async16_zfill(stage + (op * kBK + r) * LDB + c4, src, v);
-      }
-    }
-    cp_async_commit();
-  };
-  for (int it = 0; it < kBStages - 1; ++it) start(it);
-
-  // Warp w owns rows 64 (w % 2) .. and columns 32 (w / 2) .. of the tile:
-  // 4 x 4 MMA tiles of 16 x 8.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 64 + g, n0 = (warp >> 1) * 32 + g;
-  float acc[4][4][4] = {};
-  for (int it = 0; it < n_steps; ++it) {
-    cp_async_wait<kBStages - 2>();
-    __syncthreads();  // step it landed; every warp has left step it - 1
-    start(it + kBStages - 1);
-    const float* As = smem + (it % kBStages) * kBStage;
-    const float* Bs = As + kBK * LDB;
-    float part[4][4][4] = {};  // this step's sum
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 8) {
-      uint32_t bhi[4][2], blo[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        split_tf32(Bs[(kk + t) * LDB + n0 + ni * 8], bhi[ni][0], blo[ni][0]);
-        split_tf32(Bs[(kk + t + 4) * LDB + n0 + ni * 8], bhi[ni][1], blo[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        // A (m, k) = As[k][m]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
-        const float* a = As + (kk + t) * LDB + m0 + mi * 16;
-        uint32_t ahi[4], alo[4];
-        split_tf32(a[0], ahi[0], alo[0]);
-        split_tf32(a[8], ahi[1], alo[1]);
-        split_tf32(a[4 * LDB], ahi[2], alo[2]);
-        split_tf32(a[4 * LDB + 8], ahi[3], alo[3]);
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          mma_tf32(part[mi][ni], alo, bhi[ni]);
-          mma_tf32(part[mi][ni], ahi, blo[ni]);
-          mma_tf32(part[mi][ni], ahi, bhi[ni]);
-        }
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += part[mi][ni][q];
-  }
-  cp_async_wait<0>();
-
-  float* out = wpart + (size_t)blockIdx.y * kWParts + jb.out_off;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int r = m0 + mi * 16, c = n0 - g + ni * 8 + 2 * t;
-      *reinterpret_cast<float2*>(out + (size_t)r * jb.out_ld + c) =
-          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      *reinterpret_cast<float2*>(out + (size_t)(r + 8) * jb.out_ld + c) =
-          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
-    }
-}
-
-int grid_of(long long total) {
-  const long long want = (total + kThreads - 1) / kThreads;
-  return (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
-}
-
 // One chunk, rows m0 .. m1 - 1 of the flat [B * Nr] grid.
 template <bool RESIDUAL>
 cudaError_t launch_split(const float* g, const float* pair, const float* i_term,
@@ -868,12 +749,8 @@ cudaError_t launch_split(const float* g, const float* pair, const float* i_term,
   for (int r = 0; r < HID / 128; ++r)  // d_wf = y1^T dx
     jobs.job[n++] = {ws.y1 + r * 128, ws.dx, HID, C_OUT, OFF_WF + r * 128 * C_OUT, C_OUT};
   if (RESIDUAL) jobs.job[n++] = {pc, ws.dx, C_IN, C_OUT, OFF_WFE, C_OUT};  // d_wfe = pair^T dx
-  if ((err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kBSmemBytes)) != cudaSuccess)
+  if ((err = launch_wgrad(jobs, n, kSlices, ws.wpart, kWParts, P, stream)) != cudaSuccess)
     return err;
-  const long long k_slice = ((P + kSlices - 1) / kSlices + kBK - 1) / kBK * kBK;
-  wgrad_kernel<<<dim3(n, kSlices), kThreads, kBSmemBytes, stream>>>(jobs, ws.wpart, P, k_slice);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // Fixed-order sums into the outputs.
   if ((err = reduce_partials(ws.wpart, wred, 1, kSlices, OFF_B1, kWParts, stream, true)) !=

@@ -1,7 +1,9 @@
 // Tensor-core products of a 64-row tile for Hopper (sm_90a), fed by a
 // stream of weight slices, shared by the edge-stack kernels that run on the
 // tensor cores: the pair MLP's forward and its float32 backward's kernel A
-// (pair_mlp_tc.cuh) and the edge embedder's forward (edge_embedder.cu).
+// (pair_mlp_tc.cuh), and the edge embedder's forward and its float32
+// backward's kernel A (edge_embedder_tc.cuh); with the backward kernels'
+// row stores and relu decisions (store_rows, store_relu_bits, relu_grad).
 //
 // - Products: mma.sync on fragments loaded from shared-memory tiles
 //   (mma.cuh). A block has 8 warps; warp w owns rows 32 (w % 2) .. and
@@ -219,6 +221,53 @@ __device__ __forceinline__ float2 ld2(const float* p) {
 }
 __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+// Rows r < kRows with pt.row[r] >= 0 of a shared-memory tile (row stride
+// lds, `cols` columns, a multiple of 4) to dst + r * ldd, 16 bytes a thread,
+// a row's copies side by side. Evict-first stores (st.global.cs): the pair
+// MLP's float32 backward streams 0.87 GB of activations through L2 this
+// way, and with plain stores they pushed out the weights every tile streams
+// from L2 (kernel A 4.47-4.49 ms, 4.11-4.17 with these, H100 at B=2 N=256).
+__device__ __forceinline__ void store_rows(const float* S, int lds, int cols, const PairTile& pt,
+                                           float* dst, int ldd) {
+  const int per_row = cols / 4;
+  for (int idx = threadIdx.x; idx < kRows * per_row; idx += kBlock) {
+    const int r = idx / per_row, c = (idx - r * per_row) * 4;
+    if (pt.row[r] >= 0)
+      __stcs(reinterpret_cast<float4*>(dst + (size_t)r * ldd + c),
+             *reinterpret_cast<const float4*>(S + r * lds + c));
+  }
+}
+
+// Relu decisions of a tile's 128-column chunk in fragment order: one 32-bit
+// ballot (bit = lane) per warp, MMA tile (mi, ni) and accumulator element q,
+// 256 words a chunk. A product's epilogue that walks the same fragments
+// (for_each_elem) reads its lane's bit back.
+constexpr int kMaskWords = (kBlock / 32) * 2 * kNi * 4;
+__device__ __forceinline__ int mask_word(int chunk, int mi, int ni, int q) {
+  return chunk * kMaskWords + (((threadIdx.x >> 5) * 2 + mi) * kNi + ni) * 4 + q;
+}
+
+// Elements q and q + 1 of a chunk's fragments: their relu decisions. Every
+// lane of the warp calls it.
+__device__ __forceinline__ void store_relu_bits(uint32_t* m, int chunk, int mi, int ni, int q,
+                                                float v0, float v1) {
+  const uint32_t b0 = __ballot_sync(0xffffffffu, v0 > 0.f);
+  const uint32_t b1 = __ballot_sync(0xffffffffu, v1 > 0.f);
+  if ((threadIdx.x & 31) == 0) {
+    m[mask_word(chunk, mi, ni, q)] = b0;
+    m[mask_word(chunk, mi, ni, q + 1)] = b1;
+  }
+}
+
+// (a0, a1) where this lane's bits of the mask words of elements q and q + 1
+// are set, else 0.
+__device__ __forceinline__ float2 relu_grad(const uint32_t* m, int chunk, int mi, int ni, int q,
+                                            float a0, float a1) {
+  const int lane = threadIdx.x & 31;
+  return make_float2((m[mask_word(chunk, mi, ni, q)] >> lane) & 1u ? a0 : 0.f,
+                     (m[mask_word(chunk, mi, ni, q + 1)] >> lane) & 1u ? a1 : 0.f);
 }
 
 }  // namespace

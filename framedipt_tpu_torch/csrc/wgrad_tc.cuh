@@ -1,0 +1,163 @@
+// Kernel B of the float32 backward kernels, for Hopper (sm_90a): weight
+// gradients G = A^T Bm summed over the pairs of a chunk, as one split-K GEMM
+// on the tensor cores. Shared by the pair MLP's backward (pair_mlp_bwd.cu)
+// and the edge embedder's (edge_embedder_bwd.cu).
+//
+// - Jobs: each job is one output tile of at most 128 x 128 (WJob.rows rows
+//   of A's columns, 128 of Bm's) of one gradient; A and Bm are [pairs, .]
+//   row-major in the workspace. The chunk's pairs are cut into `slices`
+//   contiguous K slices of whole 32-pair steps; block (job, slice) sums its
+//   slice and writes its partial to wpart[slice * part_ld + out_off ..]. The
+//   caller adds the slices' partials in slice order (common.cuh's
+//   reduce_partials): no float atomics, two launches give the same bits.
+// - Products: 3xTF32 mma.sync (mma.cuh: operands split into TF32 hi + lo in
+//   registers, each 32-deep step summed into a zeroed fragment and added with
+//   round-to-nearest, since the tensor cores truncate). Operands staged by
+//   cp.async through a four-stage ring in shared memory ([pairs, 128] row
+//   blocks; A enters transposed, read as scalars, conflict-free).
+// - A job of 64 rows (the embedder's d_w_rel = m^T dy0, [64, 128]) runs the
+//   whole 128-row tile and stores rows 0-63 only: A's row stride is 64, so
+//   its staged columns 64-127 are the next pair's m (the caller keeps
+//   readable memory past A's last row). A skip of those products in the
+//   upper warps cost the pair MLP's kernel B registers (255 with spills,
+//   against 230) and 0.3 ms at B=2 N=256 (H100), while the 64-row job's
+//   blocks wait for the 128-row jobs' in any case.
+#pragma once
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace fdk {
+namespace {
+
+constexpr int kMaxJobs = 16;  // output tiles of one launch
+
+// One output tile: G[rows, 128] = A^T Bm, A and Bm from their first column
+// a, b with row strides lda, ldb; written at out_off with row stride out_ld.
+struct WJob {
+  const float* a;
+  const float* b;
+  int lda, ldb, out_off, out_ld;
+  int rows = 128;  // rows stored: 128 or 64
+};
+struct WJobs {
+  WJob job[kMaxJobs];
+};
+
+constexpr int kBK = kKc;          // pairs of one staged step
+constexpr int kBStages = 4;       // steps in the ring
+constexpr int LDB = 128 + 8;      // staged row stride: 8 (mod 32), conflict-free fragments
+constexpr int kBStage = 2 * kBK * LDB;  // A block then B block
+constexpr size_t kBSmemBytes = sizeof(float) * kBStages * kBStage;
+
+__global__ void __launch_bounds__(kThreads, 1)
+wgrad_kernel(const WJobs jobs, float* __restrict__ wpart, long long part_ld, long long P,
+             long long k_slice) {
+  extern __shared__ __align__(16) float smem[];
+  const WJob jb = jobs.job[blockIdx.x];
+  const long long k_begin = (long long)blockIdx.y * k_slice;
+  const long long k_end = min(P, k_begin + k_slice);
+  const int n_steps = k_end > k_begin ? (int)((k_end - k_begin + kBK - 1) / kBK) : 0;
+
+  // Step `it`'s rows of A and Bm into its stage (16 bytes a copy, 8 a
+  // thread; rows past the slice zero), then one commit group (empty past the
+  // last step), so every thread's group count is the step index.
+  auto start = [&](int it) {
+    if (it < n_steps) {
+      float* stage = smem + (it % kBStages) * kBStage;
+#pragma unroll
+      for (int part = 0; part < 2 * kBK * 32 / kThreads; ++part) {
+        const int idx = threadIdx.x + part * kThreads;
+        const int op = idx / (kBK * 32), r = (idx / 32) % kBK, c4 = (idx % 32) * 4;
+        const long long k = k_begin + (long long)it * kBK + r;
+        const bool v = k < k_end;
+        const long long kr = v ? k : k_begin;
+        const float* src = op ? jb.b + kr * jb.ldb + c4 : jb.a + kr * jb.lda + c4;
+        cp_async16_zfill(stage + (op * kBK + r) * LDB + c4, src, v);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int it = 0; it < kBStages - 1; ++it) start(it);
+
+  // Warp w owns rows 64 (w % 2) .. and columns 32 (w / 2) .. of the tile:
+  // 4 x 4 MMA tiles of 16 x 8.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 64 + g, n0 = (warp >> 1) * 32 + g;
+  float acc[4][4][4] = {};
+  for (int it = 0; it < n_steps; ++it) {
+    cp_async_wait<kBStages - 2>();
+    __syncthreads();  // step it landed; every warp has left step it - 1
+    start(it + kBStages - 1);
+    const float* As = smem + (it % kBStages) * kBStage;
+    const float* Bs = As + kBK * LDB;
+    float part[4][4][4] = {};  // this step's sum
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        split_tf32(Bs[(kk + t) * LDB + n0 + ni * 8], bhi[ni][0], blo[ni][0]);
+        split_tf32(Bs[(kk + t + 4) * LDB + n0 + ni * 8], bhi[ni][1], blo[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        // A (m, k) = As[k][m]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+        const float* a = As + (kk + t) * LDB + m0 + mi * 16;
+        uint32_t ahi[4], alo[4];
+        split_tf32(a[0], ahi[0], alo[0]);
+        split_tf32(a[8], ahi[1], alo[1]);
+        split_tf32(a[4 * LDB], ahi[2], alo[2]);
+        split_tf32(a[4 * LDB + 8], ahi[3], alo[3]);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          mma_tf32(part[mi][ni], alo, bhi[ni]);
+          mma_tf32(part[mi][ni], ahi, blo[ni]);
+          mma_tf32(part[mi][ni], ahi, bhi[ni]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += part[mi][ni][q];
+  }
+  cp_async_wait<0>();
+  if ((warp & 1) * 64 >= jb.rows) return;  // warp-uniform
+
+  float* out = wpart + (size_t)blockIdx.y * part_ld + jb.out_off;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int r = m0 + mi * 16, c = n0 - g + ni * 8 + 2 * t;
+      *reinterpret_cast<float2*>(out + (size_t)r * jb.out_ld + c) =
+          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(out + (size_t)(r + 8) * jb.out_ld + c) =
+          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+}
+
+// Jobs 0 .. n - 1 over P pairs in `slices` K slices of whole steps; partial
+// sets of part_ld floats at wpart. Returns a cudaError_t.
+cudaError_t launch_wgrad(const WJobs& jobs, int n, int slices, float* wpart, long long part_ld,
+                         long long P, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kBSmemBytes);
+  if (err != cudaSuccess) return err;
+  const long long k_slice = ((P + slices - 1) / slices + kBK - 1) / kBK * kBK;
+  wgrad_kernel<<<dim3(n, slices), kThreads, kBSmemBytes, stream>>>(jobs, wpart, part_ld, P,
+                                                                     k_slice);
+  return cudaGetLastError();
+}
+
+// Blocks of kThreads for a grid-stride loop over `total` items (at most 4096).
+int grid_of(long long total) {
+  const long long want = (total + kThreads - 1) / kThreads;
+  return (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
+}
+
+}  // namespace
+}  // namespace fdk

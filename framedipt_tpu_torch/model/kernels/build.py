@@ -27,7 +27,8 @@ SOURCES = {
     "pair_mlp": "pair_mlp.cu",
     "pair_mlp_bwd": "pair_mlp_bwd.cu",
 }
-HEADERS = ("common.cuh", "mma.cuh", "tc_product.cuh", "pair_mlp_tc.cuh")
+HEADERS = ("common.cuh", "mma.cuh", "tc_product.cuh", "pair_mlp_tc.cuh", "edge_embedder_tc.cuh",
+           "wgrad_tc.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -17,10 +17,13 @@ dtype; LayerNorm statistics are float32 (eps 1e-6).
 
 :func:`edge_embedder` takes the kernel (``csrc/edge_embedder.cu``) for CUDA
 tensors and :func:`edge_embedder_plain` for CPU tensors. The backward:
-:func:`edge_embedder_bwd` takes the backward kernel
+:func:`edge_embedder_bwd` takes the backward kernels
 (``csrc/edge_embedder_bwd.cu``) for CUDA tensors and
 :func:`edge_embedder_bwd_plain` for CPU tensors; both recompute the forward
 from the O(N) inputs and return every input gradient but the coordinates'.
+In float32 the kernels run per chunk of grid rows (:func:`plan_bwd_chunks`)
+with a transient workspace of the chunk's activations and their gradients
+(:func:`split_workspace_floats`); bf16 takes one persistent kernel.
 :class:`EdgeEmbedderFunction` binds them for autograd; with
 ``pallas_emb_bwd_impl="xla"`` its backward is instead the VJP of the plain
 formulation (the JAX package's remat twin).
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from framedipt_tpu_torch.model.kernels.build import library
+from framedipt_tpu_torch.model.kernels.pair_mlp import _relu, plan_row_chunks
 from framedipt_tpu_torch.model.layers import layer_norm_f32, matmul_f32
 
 F32 = torch.float32
@@ -66,30 +70,33 @@ def expand_w_rel(w_rel: torch.Tensor) -> torch.Tensor:
 
 
 def _pre_norm(g, h, pos_rows, pos_cols, i_term, j_term, w_rel, w_dist, b0, w1, b1, w2, b2,
-              bins_lower, bins_upper):
+              bins_lower, bins_upper, relu_masks=None):
     """(m, onehot, y0, y1, pre-norm output), added in the kernels' order
     (b0 after the node terms), which decides every relu mask; the forward
-    kernel and the backward kernel's recompute follow it (``common.cuh``)."""
+    kernel and the backward kernels' recompute follow it (``common.cuh``).
+    ``relu_masks``: the two relus' decisions, or None (their own)."""
     m = g[:, :, None, :] * h[:, None, :, :]
     diff = pos_rows.to(F32)[:, :, None, :] - pos_cols.to(F32)[:, None, :, :]
     d = torch.sqrt(torch.sum(diff * diff, dim=-1))
     lower = torch.as_tensor(bins_lower, dtype=F32, device=g.device)
     upper = torch.as_tensor(bins_upper, dtype=F32, device=g.device)
     onehot = ((d[..., None] > lower) & (d[..., None] < upper)).to(g.dtype)
+    m0, m1 = (None, None) if relu_masks is None else relu_masks
     x = matmul_f32(m, w_rel) + matmul_f32(onehot, w_dist)
-    y0 = torch.relu(x + i_term[:, :, None, :] + j_term[:, None, :, :] + b0)
-    y1 = torch.relu(matmul_f32(y0, w1) + b1)
+    y0 = _relu(x + i_term[:, :, None, :] + j_term[:, None, :, :] + b0, m0)
+    y1 = _relu(matmul_f32(y0, w1) + b1, m1)
     return m, onehot, y0, y1, matmul_f32(y1, w2) + b2
 
 
 def edge_embedder_plain(
     g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
     w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
-    bins_lower, bins_upper,
+    bins_lower, bins_upper, relu_masks=None,
 ):
-    """Plain PyTorch version of the kernel (the XLA twin's formulation)."""
+    """Plain PyTorch version of the kernel (the XLA twin's formulation).
+    ``relu_masks``: see :func:`edge_embedder_bwd_plain`."""
     *_, x = _pre_norm(g, h, pos_rows, pos_cols, i_term, j_term, w_rel, w_dist, b0, w1, b1,
-                      w2, b2, bins_lower, bins_upper)
+                      w2, b2, bins_lower, bins_upper, relu_masks)
     normed = layer_norm_f32(x, ln_scale, ln_bias)
     emask = row_mask[:, :, None] * col_mask[:, None, :]
     return (normed * emask[..., None].to(F32)).to(g.dtype)
@@ -98,23 +105,30 @@ def edge_embedder_plain(
 def edge_embedder_bwd_plain(
     grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
     w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
-    *, bins_lower, bins_upper,
+    *, bins_lower, bins_upper, relu_masks=None,
 ):
-    """Plain PyTorch version of the backward kernel: recompute the forward
+    """Plain PyTorch version of the backward kernels: recompute the forward
     in :func:`edge_embedder_plain`'s order, then back-propagate step by step
     as the JAX package's backward kernel does, for any widths. Returns the
     gradients in the forward's argument order: (d_g, d_h, None, None,
     d_i_term, d_j_term, d_row_mask, d_col_mask, d_w_rel, d_w_dist, d_b0,
     d_w1, d_b1, d_w2, d_b2, d_ln_scale, d_ln_bias), summed in float32 and
     cast to each input's dtype. The coordinates get None: the distogram is a
-    step function of them (the JAX kernel returns zeros)."""
+    step function of them (the JAX kernel returns zeros).
+
+    ``relu_masks`` (bool [B, Nr, Nc, 128] each, or None): the two relus'
+    decisions (y0 > 0, y1 > 0) to take in place of this recompute's, for
+    holding a kernel whose forward rounds otherwise against this arithmetic
+    (the gradient jumps where a pre-activation rounds to the other side of
+    0)."""
     dtype = g.dtype
 
     def t_dot(a, b):  # sum over every pair of a^T b, float32
         return torch.einsum("bijp,bijq->pq", a.to(F32), b.to(F32))
 
     m, onehot, y0, y1, out = _pre_norm(g, h, pos_rows, pos_cols, i_term, j_term, w_rel, w_dist,
-                                       b0, w1, b1, w2, b2, bins_lower, bins_upper)
+                                       b0, w1, b1, w2, b2, bins_lower, bins_upper, relu_masks)
+    m0, m1 = (y0 > 0, y1 > 0) if relu_masks is None else relu_masks
     x = out.to(F32)
     mean = x.mean(dim=-1, keepdim=True)
     centered = x - mean
@@ -142,11 +156,11 @@ def edge_embedder_bwd_plain(
     # Third layer; relu'(0) = 0.
     d_w2 = t_dot(y1, dxd)
     d_b2 = torch.sum(dx, dim=(0, 1, 2))
-    dy1 = matmul_f32(dxd, w2.t()) * (y1 > 0).to(dtype)
+    dy1 = matmul_f32(dxd, w2.t()) * m1.to(dtype)
     # Second layer.
     d_w1 = t_dot(y0, dy1)
     d_b1 = torch.sum(dy1.to(F32), dim=(0, 1, 2))
-    dy0 = matmul_f32(dy1, w1.t()) * (y0 > 0).to(dtype)
+    dy0 = matmul_f32(dy1, w1.t()) * m0.to(dtype)
     # First layer: the node terms, the distogram rows, the CP product.
     d_i_term = torch.sum(dy0.to(F32), dim=2)
     d_j_term = torch.sum(dy0.to(F32), dim=1)
@@ -239,6 +253,16 @@ def _check_inputs(fn_name, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, c
     return B, Nr, Nc, n_bins
 
 
+def _check_aligned(fn_name, w_rel, w1, w2, i_term, j_term, b0, b1, b2):
+    """The tensor-core kernels stream the weights into shared memory 16 bytes
+    at a time and read the per-channel terms two elements at a time."""
+    for name, t, align in (("w_rel", w_rel, 16), ("w1", w1, 16), ("w2", w2, 16),
+                           ("i_term", i_term, 8), ("j_term", j_term, 8), ("b0", b0, 8),
+                           ("b1", b1, 8), ("b2", b2, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{fn_name}: {name} is not {align}-byte aligned")
+
+
 def _edges(bins_lower, bins_upper, dev) -> torch.Tensor:
     return _bin_edges(
         tuple(float(x) for x in bins_lower), tuple(float(x) for x in bins_upper), dev
@@ -269,13 +293,7 @@ def edge_embedder(
         "edge_embedder", g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
         w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias, bins_lower, bins_upper,
     )
-    # The kernel streams the weights into shared memory 16 bytes at a time
-    # and reads the per-channel terms two elements at a time.
-    for name, t, align in (("w_rel", w_rel, 16), ("w1", w1, 16), ("w2", w2, 16),
-                           ("i_term", i_term, 8), ("j_term", j_term, 8), ("b0", b0, 8),
-                           ("b1", b1, 8), ("b2", b2, 8)):
-        if t.data_ptr() % align:
-            raise ValueError(f"edge_embedder: {name} is not {align}-byte aligned")
+    _check_aligned("edge_embedder", w_rel, w1, w2, i_term, j_term, b0, b1, b2)
     dtype, dev = g.dtype, g.device
     edges = _edges(bins_lower, bins_upper, dev)
 
@@ -300,33 +318,80 @@ def edge_embedder(
 edge_embedder.launches = 0
 
 
-# Per-block float32 partials of the grid-summed gradients of the backward
-# kernel, in this order (d_w_dist has MAX_BINS rows, the first n_bins used).
-# Mirrors the offsets in csrc/edge_embedder_bwd.cu.
+# The grid-summed gradients in float32, in this order (d_w_dist has MAX_BINS
+# rows, the first n_bins used): the bf16 kernel's per-block partial sets and
+# both paths' sums. Mirrors the offsets in csrc/edge_embedder_bwd.cu.
 _W_PARTS = (
     ("w_rel", (CP, C)), ("w_dist", (MAX_BINS, C)), ("w1", (C, C)), ("w2", (C, C)),
     ("b1", (C,)), ("b2", (C,)), ("ln_scale", (C,)), ("ln_bias", (C,)),
 )
 W_PART_FLOATS = sum(int(np.prod(shape)) for _, shape in _W_PARTS)
-ROW_PART = CP + C + 1  # d_g | d_i_term | d_row_mask per row partial (columns alike)
-TILE_I, TILE_J = 4, 8  # pairs of one backward tile
+ROW_PART = CP + C + 1  # d_g | d_i_term | d_row_mask per row sum (columns alike)
+TILE_I, TILE_J = 4, 8  # pairs of one bf16 backward tile
+
+# The float32 backward (csrc/edge_embedder_bwd.cu, fdk_edge_embedder_bwd_split):
+# kernel A's tile of flat pairs; per pair y0, y1, dx, dy1, dy0 (C each), m,
+# dm (CP each) and dem (1) in the workspace; kernel B's K slices, each a
+# partial set of d_w_rel | d_w1 | d_w2; one vector partial (d_b1 | d_b2 |
+# d_ln_scale | d_ln_bias | d_w_dist) per tile, summed SPLIT_GROUP at a time,
+# then the groups.
+SPLIT_TILE = 64
+SPLIT_PAIR_FLOATS = 5 * C + 2 * CP + 1
+SPLIT_SLICES = 44
+SPLIT_B_PARTS = CP * C + 2 * C * C
+SPLIT_GROUP = 32
+BWD_WORKSPACE_CAP = 1 << 30  # bytes of one chunk's workspace
+
+
+def split_vec_floats(n_bins: int) -> int:
+    """Floats of one tile's vector partial."""
+    return (4 + n_bins) * C
+
+
+def split_workspace_floats(pairs: int, n_bins: int) -> int:
+    """Float32 workspace of the float32 backward for a chunk of ``pairs``
+    pairs: the per-pair activations and gradients, kernel B's slice
+    partials and the tiles' vector partials (mirrors ``split_ws_floats`` in
+    csrc/edge_embedder_bwd.cu)."""
+    groups = -(-(-(-pairs // SPLIT_TILE)) // SPLIT_GROUP)
+    return (pairs * SPLIT_PAIR_FLOATS + SPLIT_SLICES * SPLIT_B_PARTS
+            + (groups * SPLIT_GROUP + groups) * split_vec_floats(n_bins))
+
+
+def plan_bwd_chunks(B: int, Nr: int, Nc: int, n_bins: int,
+                    cap_bytes: int = BWD_WORKSPACE_CAP) -> list[tuple[int, int]]:
+    """Chunks (m0, m1) of the flat [B * Nr] grid rows, in order, that tile
+    the rows exactly, of near-equal size, each with a workspace of at most
+    ``cap_bytes`` (one row a chunk where even one row exceeds it)."""
+    return plan_row_chunks(B * Nr, Nc, cap_bytes,
+                           lambda pairs: split_workspace_floats(pairs, n_bins), SPLIT_PAIR_FLOATS)
 
 
 @functools.cache
 def _bwd_kernel():
-    """The C entry point of csrc/edge_embedder_bwd.cu, built and bound at
-    first use."""
+    """The C entry point of the bf16 kernel in csrc/edge_embedder_bwd.cu,
+    built and bound at first use."""
     fn = library("edge_embedder_bwd").fdk_edge_embedder_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 29 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p
-    ]
+    fn.argtypes = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return fn
+
+
+@functools.cache
+def _split_kernel():
+    """The C entry point of the float32 kernels in csrc/edge_embedder_bwd.cu
+    (one chunk a call), built and bound at first use."""
+    fn = library("edge_embedder_bwd").fdk_edge_embedder_bwd_split
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
     return fn
 
 
 def bwd_workspace_floats(B: int, Nr: int, Nc: int, blocks: int) -> int:
-    """Float32 scratch of one backward launch: ``blocks`` per-block weight
-    partial sets, the per-tile row and column partials, and their sums."""
+    """Float32 scratch of one bf16 backward launch: ``blocks`` per-block
+    weight partial sets, the per-tile row and column partials, and their
+    sums."""
     n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
     return ((blocks + 1) * W_PART_FLOATS
             + ROW_PART * (B * Nr * (n_tj + 1) + B * Nc * (n_ti + 1)))
@@ -335,17 +400,23 @@ def bwd_workspace_floats(B: int, Nr: int, Nc: int, blocks: int) -> int:
 def edge_embedder_bwd(
     grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
     w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
-    *, bins_lower, bins_upper,
+    *, bins_lower, bins_upper, workspace_cap: int = BWD_WORKSPACE_CAP, recompute=None,
 ):
     """Every input gradient of :func:`edge_embedder` for the cotangent
     ``grad`` but the coordinates' (None), in :func:`edge_embedder_bwd_plain`'s
     order and dtypes.
 
     CPU tensors take :func:`edge_embedder_bwd_plain`; CUDA tensors launch
-    the backward kernel (or raise). The grid-summed gradients are summed in
-    float32 from per-block partials in a fixed order (no atomics), so two
-    launches on the same inputs give the same bits. Adds one to
-    ``edge_embedder_bwd.launches`` per launch."""
+    the backward kernels (or raise). The grid-summed gradients are summed in
+    float32 from partials in a fixed order (no atomics), so two launches on
+    the same inputs give the same bits. In float32 the grid runs in the
+    chunks of :func:`plan_bwd_chunks` (each workspace at most
+    ``workspace_cap`` bytes; the chunks' sums are added in chunk order).
+    ``recompute``, a dict, if given (float32), receives the kernels'
+    recompute, which runs the forward kernel's code: "out" (the same bits as
+    :func:`edge_embedder`), "y0" and "y1" ([B, Nr, Nc, 128], the activations
+    whose relu decisions the gradients take). Adds one to
+    ``edge_embedder_bwd.launches`` per call."""
     if g.device.type == "cpu":
         return edge_embedder_bwd_plain(
             grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
@@ -360,35 +431,74 @@ def edge_embedder_bwd(
     dtype, dev = g.dtype, g.device
     _check("grad", grad, (B, Nr, Nc, C), dtype, dev)
     edges = _edges(bins_lower, bins_upper, dev)
-    n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
-    # Persistent blocks, one per SM: each owns one weight partial set.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(B * n_ti * n_tj, sms))
-    # The kernel's transposed-weight products read W^T row-major.
-    w_relt, w1t, w2t = (w.t().contiguous() for w in (w_rel, w1, w2))
-    ws = torch.empty(bwd_workspace_floats(B, Nr, Nc, blocks), dtype=F32, device=dev)
-    sizes = [blocks * W_PART_FLOATS, B * Nr * n_tj * ROW_PART, B * Nc * n_ti * ROW_PART,
-             W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART]
-    wpart, rowpart, colpart, wred, rowred, colred = torch.split(ws, sizes)
-    if B * Nr * Nc:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _bwd_kernel()(
-                _DTYPE_CODE[dtype], grad.data_ptr(),
-                *(t.data_ptr() for t in args[:10]), edges[0].data_ptr(), edges[1].data_ptr(),
-                *(t.data_ptr() for t in args[10:]),
-                w_relt.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
-                wpart.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(),
-                wred.data_ptr(), rowred.data_ptr(), colred.data_ptr(),
-                n_bins, B, Nr, Nc, blocks, stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"edge_embedder_bwd kernel launch failed: cudaError_t {err}")
-        edge_embedder_bwd.launches += 1
+    ptrs = [grad.data_ptr(), *(t.data_ptr() for t in args[:10]), edges[0].data_ptr(),
+            edges[1].data_ptr(), *(t.data_ptr() for t in args[10:])]
+    if dtype == F32:
+        _check_aligned("edge_embedder_bwd", w_rel, w1, w2, i_term, j_term, b0, b1, b2)
+        # The input-gradient chain reads W^T row-major; W_rel^T [C, CP] padded
+        # with zero columns to [C, C], the width of every product.
+        w_relt = torch.zeros(C, C, dtype=F32, device=dev)
+        w_relt[:, :CP] = w_rel.t()
+        w1t, w2t = (w.t().contiguous() for w in (w1, w2))
+        # Outputs zeroed: the chunks add to them in order.
+        sums = torch.zeros(W_PART_FLOATS + (B * Nr + B * Nc) * ROW_PART, dtype=F32, device=dev)
+        wred, rowred, colred = torch.split(sums, [W_PART_FLOATS, B * Nr * ROW_PART,
+                                                  B * Nc * ROW_PART])
+        fwd_out = None
+        if recompute is not None:
+            recompute.update({k: torch.empty(B, Nr, Nc, C, dtype=F32, device=dev)
+                              for k in ("out", "y0", "y1")})
+            fwd_out = recompute["out"].data_ptr()
+        chunks = plan_bwd_chunks(B, Nr, Nc, n_bins, workspace_cap)
+        if chunks:
+            n_ws = split_workspace_floats(max(m1 - m0 for m0, m1 in chunks) * Nc, n_bins)
+            ws = torch.empty(n_ws, dtype=F32, device=dev)
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                for m0, m1 in chunks:
+                    err = _split_kernel()(
+                        *ptrs, w_relt.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
+                        ws.data_ptr(), n_ws, wred.data_ptr(), rowred.data_ptr(),
+                        colred.data_ptr(), n_bins, B, Nr, Nc, m0, m1, fwd_out, stream,
+                    )
+                    if err != 0:
+                        raise RuntimeError(
+                            f"edge_embedder_bwd kernel launch failed: cudaError_t {err}")
+                    if recompute is not None:  # the workspace starts with y0, then y1
+                        n = (m1 - m0) * Nc * C
+                        for k, part in (("y0", ws[:n]), ("y1", ws[n:2 * n])):
+                            recompute[k].view(-1, C)[m0 * Nc:m1 * Nc] = part.view(-1, C)
+            del ws
+            edge_embedder_bwd.launches += 1
     else:
-        wred.zero_()
-        rowred.zero_()
-        colred.zero_()
+        if recompute is not None:
+            raise ValueError("edge_embedder_bwd: recompute is for float32 inputs")
+        n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
+        # Persistent blocks, one per SM: each owns one weight partial set.
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = max(1, min(B * n_ti * n_tj, sms))
+        # The kernel's transposed-weight products read W^T row-major.
+        w_relt, w1t, w2t = (w.t().contiguous() for w in (w_rel, w1, w2))
+        ws = torch.empty(bwd_workspace_floats(B, Nr, Nc, blocks), dtype=F32, device=dev)
+        sizes = [blocks * W_PART_FLOATS, B * Nr * n_tj * ROW_PART, B * Nc * n_ti * ROW_PART,
+                 W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART]
+        wpart, rowpart, colpart, wred, rowred, colred = torch.split(ws, sizes)
+        if B * Nr * Nc:
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = _bwd_kernel()(
+                    *ptrs, w_relt.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
+                    wpart.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(),
+                    wred.data_ptr(), rowred.data_ptr(), colred.data_ptr(),
+                    n_bins, B, Nr, Nc, blocks, stream,
+                )
+            if err != 0:
+                raise RuntimeError(f"edge_embedder_bwd kernel launch failed: cudaError_t {err}")
+            edge_embedder_bwd.launches += 1
+        else:
+            wred.zero_()
+            rowred.zero_()
+            colred.zero_()
 
     parts, off = {}, 0
     for name, shape in _W_PARTS:

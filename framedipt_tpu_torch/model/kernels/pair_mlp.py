@@ -341,21 +341,29 @@ def split_workspace_floats(pairs: int) -> int:
             + (groups * SPLIT_GROUP + groups) * SPLIT_VEC)
 
 
+def plan_row_chunks(rows: int, Nc: int, cap_bytes: int, ws_floats,
+                    pair_floats: int) -> list[tuple[int, int]]:
+    """Chunks (m0, m1) of ``rows`` grid rows of Nc pairs, in order, that
+    tile the rows exactly, of near-equal size, each with a workspace of
+    ``ws_floats(pairs)`` floats of at most ``cap_bytes`` (one row a chunk
+    where even one row exceeds it); ``pair_floats``, the workspace's floats
+    a pair, gives the first guess."""
+    if rows == 0 or Nc == 0:
+        return []
+    per = max(1, min(rows, (cap_bytes // 4 - ws_floats(0)) // (Nc * pair_floats + 1)))
+    while per > 1 and 4 * ws_floats(per * Nc) > cap_bytes:
+        per -= 1
+    n = -(-rows // per)
+    per = -(-rows // n)
+    return [(m, min(rows, m + per)) for m in range(0, rows, per)]
+
+
 def plan_bwd_chunks(B: int, Nr: int, Nc: int,
                     cap_bytes: int = BWD_WORKSPACE_CAP) -> list[tuple[int, int]]:
     """Chunks (m0, m1) of the flat [B * Nr] grid rows, in order, that tile
     the rows exactly, of near-equal size, each with a workspace of at most
     ``cap_bytes`` (one row a chunk where even one row exceeds it)."""
-    rows = B * Nr
-    if rows == 0 or Nc == 0:
-        return []
-    per = max(1, min(rows, (cap_bytes // 4 - split_workspace_floats(0))
-                     // (Nc * SPLIT_PAIR_FLOATS + 1)))
-    while per > 1 and 4 * split_workspace_floats(per * Nc) > cap_bytes:
-        per -= 1
-    n = -(-rows // per)
-    per = -(-rows // n)
-    return [(m, min(rows, m + per)) for m in range(0, rows, per)]
+    return plan_row_chunks(B * Nr, Nc, cap_bytes, split_workspace_floats, SPLIT_PAIR_FLOATS)
 
 
 def pair_mlp_bwd(

@@ -8,6 +8,8 @@ machine without them:
 
 Tolerances: float32 atol/rtol 1e-4, bf16 5e-2 (as the CPU tests). Without a
 card the tests skip."""
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -275,14 +277,61 @@ def test_cuda_edge_embedder_matches_plain_version(dtype, B, N, n_bins):
     assert torch.equal(got, again)
 
 
+# sha256 of edge_embedder's output bytes for emb_args(default_rng(97), 3, 75,
+# 128, 22), as the build before the forward's tile became the backward's
+# recompute (edge_embedder_tc.cuh) gave them on an NVIDIA H100 80GB HBM3.
+EMB_FORWARD_SHA256 = {
+    torch.float32: "ffda01f5b1ae2b84e2a15f92f13ab42887f2567ad12ddc83232a6d5741671866",
+    torch.bfloat16: "d769df20453f7180def773a2a14e523e391f22a71d4e50b699bc69ddeec3caa8",
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,n_bins", [(2, 200, 22), (1, 256, 22), (2, 130, 0)])
-def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins):
-    """On the card: the embedder's backward kernel against its plain version
-    at a ragged shape with masked rows and at a serving shape, with and
-    without distance bins, every gradient; two launches give the same bits;
-    one launch counted per call."""
+def test_cuda_edge_embedder_output_unchanged(dtype):
+    """On the card: the forward kernel gives the same bits as before its
+    tile's code was shared with the backward's recompute."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, bins = emb_args(np.random.default_rng(97), 3, 75, 128, 22)
+    out = t_emb.edge_embedder(*[a.cuda() for a in emb_to_torch(args, dtype)], *bins)
+    as_int = out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    assert hashlib.sha256(as_int.cpu().numpy().tobytes()).hexdigest() == EMB_FORWARD_SHA256[dtype]
+
+
+def emb_kernel_relu_masks(g, args, bins, tol, **kw):
+    """The float32 embedder backward kernels' relu decisions (y0 > 0,
+    y1 > 0), after checking that their recompute equals the forward
+    kernel's output and that every relu site where the plain forward
+    decides otherwise holds an activation within tol of 0."""
+    rec = {}
+    t_emb.edge_embedder_bwd(g, *args, bins_lower=bins[0], bins_upper=bins[1], recompute=rec, **kw)
+    assert torch.equal(rec["out"], t_emb.edge_embedder(*args, *bins))
+    _, _, y0, y1, _ = t_emb._pre_norm(*args[:6], *args[8:15], *bins)
+    for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
+        flip = (plain_y > 0) != (kern_y > 0)
+        if flip.any():
+            assert float(torch.maximum(plain_y[flip], kern_y[flip]).max()) <= tol
+    return rec["y0"] > 0, rec["y1"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,n_bins,chunk_rows", [
+    (2, 200, 22, None), (1, 256, 22, None), (2, 130, 0, None), (1, 1, 22, None),
+    (1, 17, 22, None), (1, 17, 0, None), (2, 130, 22, 60)])
+def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins, chunk_rows):
+    """On the card: the embedder's backward kernels against their plain
+    version at a ragged shape with masked rows, at a serving shape, at one
+    pair and one partial tile, with and without distance bins, and with a
+    workspace cap that makes the float32 wrapper run in several chunks
+    (chunk_rows grid rows each; bf16 ignores the cap), every gradient; two
+    launches give the same bits; one launch counted per call. In float32 the
+    kernels' recompute runs the forward kernel's code: its output equals the
+    forward kernel's, every relu site where the plain forward falls on the
+    other side of 0 holds an activation within rounding of 0, and the
+    gradients are held against the plain backward through the recompute's
+    relu decisions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tol = 1e-4 if dtype == torch.float32 else 5e-2
@@ -291,11 +340,17 @@ def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins):
     args = [a.cuda() for a in emb_to_torch(args, dtype)]
     g = torch.as_tensor(rng.normal(size=(B, N, N, 128)).astype(np.float32)).to(dtype).cuda()
     kw = {"bins_lower": bins[0], "bins_upper": bins[1]}
+    cap = {}
+    if chunk_rows:
+        cap["workspace_cap"] = 4 * t_emb.split_workspace_floats(chunk_rows * N, n_bins)
+        assert len(t_emb.plan_bwd_chunks(B, N, N, n_bins, cap["workspace_cap"])) == -(
+            -B * N // chunk_rows)
     before = t_emb.edge_embedder_bwd.launches
-    got = t_emb.edge_embedder_bwd(g, *args, **kw)
-    again = t_emb.edge_embedder_bwd(g, *args, **kw)
+    got = t_emb.edge_embedder_bwd(g, *args, **kw, **cap)
+    again = t_emb.edge_embedder_bwd(g, *args, **kw, **cap)
     assert t_emb.edge_embedder_bwd.launches == before + 2
-    want = t_emb.edge_embedder_bwd_plain(g, *args, **kw)
+    masks = emb_kernel_relu_masks(g, args, bins, tol, **cap) if dtype == torch.float32 else None
+    want = t_emb.edge_embedder_bwd_plain(g, *args, **kw, relu_masks=masks)
     assert_grads_close([None if a is None else a.cpu() for a in got],
                        [None if b is None else b.cpu() for b in want], tol)
     for a, b in zip(got, again):
@@ -303,9 +358,30 @@ def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins):
 
 
 @pytest.mark.gpu
+def test_cuda_edge_embedder_bwd_chunks_agree():
+    """On the card: the float32 backward in 13 chunks of 20 grid rows gives
+    the one-chunk gradients up to float32 reordering of the sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    args, bins = emb_args(rng, 2, 130, 128, 22)
+    args = [a.cuda() for a in emb_to_torch(args, torch.float32)]
+    g = torch.as_tensor(rng.normal(size=(2, 130, 130, 128)).astype(np.float32)).cuda()
+    kw = {"bins_lower": bins[0], "bins_upper": bins[1]}
+    cap = 4 * t_emb.split_workspace_floats(20 * 130, 22)
+    assert len(t_emb.plan_bwd_chunks(2, 130, 130, 22, cap)) == 13
+    one = t_emb.edge_embedder_bwd(g, *args, **kw)
+    many = t_emb.edge_embedder_bwd(g, *args, **kw, workspace_cap=cap)
+    assert_grads_close([None if a is None else a.cpu() for a in many],
+                       [None if b is None else b.cpu() for b in one], 1e-5)
+
+
+@pytest.mark.gpu
 def test_cuda_edge_embedder_function_pallas_matches_autograd_of_plain_version():
     """On the card: ``EdgeEmbedderFunction`` with "pallas" (forward and
-    backward kernels) against autograd through ``edge_embedder_plain``."""
+    backward kernels) against autograd through ``edge_embedder_plain``,
+    taken through the backward kernels' relu decisions
+    (``emb_kernel_relu_masks``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(5)
@@ -317,5 +393,7 @@ def test_cuda_edge_embedder_function_pallas_matches_autograd_of_plain_version():
     before = t_emb.edge_embedder_bwd.launches
     got = torch.autograd.grad(t_emb.EdgeEmbedderFunction.apply("pallas", *bins, *args), ins, g)
     assert t_emb.edge_embedder_bwd.launches == before + 1
-    want = torch.autograd.grad(t_emb.edge_embedder_plain(*args, *bins), ins, g)
+    with torch.no_grad():
+        masks = emb_kernel_relu_masks(g, [a.detach() for a in args], bins, 1e-4)
+    want = torch.autograd.grad(t_emb.edge_embedder_plain(*args, *bins, relu_masks=masks), ins, g)
     assert_grads_close([a.cpu() for a in got], [b.cpu() for b in want], 1e-4)

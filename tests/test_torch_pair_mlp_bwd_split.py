@@ -53,17 +53,17 @@ def mma_k8(acc, a, b):
     return (acc.double() + a.double() @ b.double()).float()
 
 
-def split_k(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a^T b over the rows of a chunk, as kernel B sums it: SPLIT_SLICES
+def split_k(a: torch.Tensor, b: torch.Tensor, slices: int = t_pair.SPLIT_SLICES) -> torch.Tensor:
+    """a^T b over the rows of a chunk, as kernel B sums it: ``slices``
     slices of whole 32-row steps (zero rows past the chunk), 3xTF32 per 8
     rows into a zeroed step sum, the step sums added in order; then the
     slices added in order."""
     P = a.shape[0]
-    k_slice = -(-(-(-P // t_pair.SPLIT_SLICES)) // 32) * 32
-    pad = t_pair.SPLIT_SLICES * k_slice - P
-    a = torch.cat([a, a.new_zeros(pad, a.shape[1])]).view(t_pair.SPLIT_SLICES, -1, 32, a.shape[1])
-    b = torch.cat([b, b.new_zeros(pad, b.shape[1])]).view(t_pair.SPLIT_SLICES, -1, 32, b.shape[1])
-    acc = a.new_zeros(t_pair.SPLIT_SLICES, a.shape[-1], b.shape[-1])
+    k_slice = -(-(-(-P // slices)) // 32) * 32
+    pad = slices * k_slice - P
+    a = torch.cat([a, a.new_zeros(pad, a.shape[1])]).view(slices, -1, 32, a.shape[1])
+    b = torch.cat([b, b.new_zeros(pad, b.shape[1])]).view(slices, -1, 32, b.shape[1])
+    acc = a.new_zeros(slices, a.shape[-1], b.shape[-1])
     for step in range(a.shape[1]):
         part = torch.zeros_like(acc)
         for k in range(0, 32, 8):

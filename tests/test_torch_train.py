@@ -7,7 +7,7 @@ in interpret mode, the embedder through its Pallas forward with, as the
 port's step, either backward: its Pallas backward kernel in interpret mode
 (``pallas_emb_bwd_impl="pallas"``, the default) or the XLA twin's VJP
 ("xla"); two IPA blocks (one edge transition), ``make_batch()``'s batch with
-fixed t, op by op (not under jit).
+fixed t, op by op (not under jit), in a child process (``jax_reference``).
 Its parameters are flax-initialized and perturbed (every leaf non-zero) and
 carried to the port with ``params_from_jax``, which maps JAX's gradients
 onto the port's parameter names too. The randomness is JAX's: the test
@@ -21,6 +21,10 @@ operation orders into every gradient; measured worst ~2e-5), the loss and
 the gradient norm 1e-5 relative, and the parameters after one Adam step
 within 1e-5 absolute (Adam's first step moves each parameter by ~lr = 1e-3
 whatever the gradient's size)."""
+import pathlib
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +48,7 @@ from tests.test_torch_losses import jax_noise
 from tests.test_torch_model import perturbed, tiny_configs
 from tests.unit.test_train import make_batch, tiny_cfg
 
+REPO = pathlib.Path(__file__).resolve().parent.parent
 T_FIXED = np.asarray([0.15, 0.6], np.float32)  # one sample under the aux-loss filters
 
 
@@ -100,23 +105,43 @@ def adam_step(grads, params):
     return clipped, optax.apply_updates(params, updates)
 
 
-@pytest.fixture(scope="module", params=["xla", "pallas"], ids=lambda p: f"emb_bwd_{p}")
-def jax_reference(request):
-    """The embedder's backward setting, perturbed JAX params, the batch, and
-    for each coin the JAX key, the noise of its draw, the loss, grad norm,
+def _flat(tree, prefix: str) -> dict[str, np.ndarray]:
+    """A nested dict of arrays as {prefix/key/...: array}."""
+    return {prefix + "/" + "/".join(str(k.key) for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _nested(flat: dict[str, np.ndarray], prefix: str) -> dict:
+    """The inverse of :func:`_flat` for the keys under ``prefix``."""
+    out: dict = {}
+    for name, value in flat.items():
+        if not name.startswith(prefix + "/"):
+            continue
+        *keys, last = name[len(prefix) + 1:].split("/")
+        node = out
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = value
+    return out
+
+
+def write_jax_reference(impl: str, path: str) -> None:
+    """The JAX side of the train-step comparison for the embedder backward
+    ``impl``, written to the .npz ``path``: perturbed JAX params, the batch,
+    and for each coin the noise of the JAX key's draw, the loss, grad norm,
     gradients and the parameters after one make_optimizer step."""
-    impl = request.param
     cfg = jax_config(impl)
     diffuser = JSE3(cfg.diffuser)
     model = JNet(cfg.model, diffuser, inpainting=True)
     batch = dict(make_batch())
     batch["t"] = jnp.asarray(T_FIXED)
+    out = {f"batch/{k}": np.asarray(v) for k, v in batch.items()}
     with pltpu.force_tpu_interpret_mode():
         state = jloop.init_train_state(model, _grab_grads(), batch, jax.random.PRNGKey(0))
         params = jax.tree_util.tree_map(jnp.asarray, perturbed(state.params, 1))
         state = state._replace(params=params, opt_state=_grab_grads().init(params))
         step = jloop.build_train_step(model, diffuser, cfg, _grab_grads())
-        runs = {}
+        out.update(_flat(params, "params"))
         for coin in (False, True):
             key = _key_with_coin(coin)
             new, metrics = step(state, batch, key)
@@ -124,9 +149,64 @@ def jax_reference(request):
             k_marg = jax.random.split(jax.random.split(key, 3)[0])[1]  # loss_fn, noise_batch
             noise = jax_noise(diffuser, k_marg, np.asarray(batch["rigids_0"]), T_FIXED)
             clipped, new_params = adam_step(grads, params)
-            runs[coin] = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
-                              grads=grads, clipped=clipped, new_params=new_params, noise=noise)
-    return impl, params, {k: np.array(v) for k, v in batch.items()}, runs
+            run = f"run{int(coin)}"
+            out.update({f"{run}/loss": np.asarray(metrics["loss"]),
+                        f"{run}/grad_norm": np.asarray(metrics["grad_norm"]),
+                        f"{run}/noise/rot": noise[0], f"{run}/noise/trans": noise[1]})
+            for name, tree in (("grads", grads), ("clipped", clipped), ("new_params", new_params)):
+                out.update(_flat(tree, f"{run}/{name}"))
+    np.savez(path, **out)
+
+
+# The JAX reference runs op by op with the Pallas kernels in interpret mode,
+# whose callbacks dispatch JAX operations from another thread; with the CPU
+# client's asynchronous dispatch on, that can deadlock with the main thread.
+# So it runs in a child process that turns jax_cpu_enable_async_dispatch off
+# before its CPU client is made (JAX reads the flag then; its environment
+# variable is not read), pinned to the CPU as tests/conftest.py pins this
+# process, under a time limit of its own. One child computes both settings
+# (the second reuses the first's compiled operations).
+EMB_BWD_IMPLS = ("xla", "pallas")
+_CHILD = """
+import sys
+import jax
+jax.config.update("jax_cpu_enable_async_dispatch", False)
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_default_device", jax.devices("cpu")[0])
+from tests.test_torch_train import write_jax_reference
+for impl in sys.argv[2:]:
+    write_jax_reference(impl, f"{sys.argv[1]}/{impl}.npz")
+"""
+REFERENCE_TIMEOUT_S = 600
+
+
+@pytest.fixture(scope="module", params=EMB_BWD_IMPLS, ids=lambda p: f"emb_bwd_{p}")
+def jax_reference(request, tmp_path_factory):
+    """The embedder's backward setting, perturbed JAX params, the batch, and
+    for each coin the noise of the JAX key's draw, the loss, grad norm,
+    gradients and the parameters after one make_optimizer step, computed by
+    :func:`write_jax_reference` in a child process (once for both settings;
+    a child that failed or ran out of time is not started again)."""
+    impl = request.param
+    out_dir = tmp_path_factory.getbasetemp() / "jax_reference"
+    if not out_dir.exists():
+        out_dir.mkdir()
+        proc = subprocess.run([sys.executable, "-c", _CHILD, str(out_dir), *EMB_BWD_IMPLS],
+                              cwd=REPO, capture_output=True, text=True,
+                              timeout=REFERENCE_TIMEOUT_S)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+    path = out_dir / f"{impl}.npz"
+    assert path.exists(), "the JAX reference's child process failed"
+    with np.load(path) as f:
+        flat = dict(f)
+    runs = {coin: dict(loss=float(flat[f"run{int(coin)}/loss"]),
+                       grad_norm=float(flat[f"run{int(coin)}/grad_norm"]),
+                       noise=(flat[f"run{int(coin)}/noise/rot"],
+                              flat[f"run{int(coin)}/noise/trans"]),
+                       **{name: _nested(flat, f"run{int(coin)}/{name}")
+                          for name in ("grads", "clipped", "new_params")})
+            for coin in (False, True)}
+    return impl, _nested(flat, "params"), _nested(flat, "batch"), runs
 
 
 def port_batch(batch):
