@@ -50,8 +50,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    version and against the step with the ``xla`` embedder backward (loss
    and every gradient), then 10 steps at lr 1e-4 (finite loss and grad
    norm, parameters moved, 3 pair-MLP and 1 embedder backward launches a
-   step), the step time, examples/s and peak memory of both settings and
-   the device's busy share over 5 steps; and on the card the refusals: a
+   step); the same step in bf16 (``model.compute_dtype=bfloat16``): its
+   first step's loss within 5e-2 of the plain-version bf16 step's, each
+   gradient's error against its max-abs printed, then 3 steps (finite, the
+   same launches); the step time, examples/s and peak memory of the three
+   settings and the device's busy share and device time by kernel over 5
+   float32 and 5 bf16 steps; and on the card the refusals: a
    pair-MLP backward other than its kernel, the IPA attention kernel under
    autograd;
 7. the training CLI at the full default width (float32, inpainting): the
@@ -68,18 +72,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=1, N=17 and 256, B=2 N=200 ragged
 with masked rows, B=2 N=256; the pair MLP residual and not, the embedder
-with 22 and 0 distance bins; in float32 both at B=2 N=200 run in 10 chunks
-under a small workspace cap), checks that two launches give the same bits,
-and times them at B=2 N=256 (each float32 call also by part: kernel A,
-kernel B, the row/column sums, the ordered reductions, under
-torch.profiler, with its chunk count, workspace bytes and each kernel's
-bound on the tensor cores; the embedder's beside its CUDA-core bound, the
-earlier CUDA-core kernel's time and the ``xla`` setting's backward, the VJP
-of its plain forward). The float32 backwards' recompute must equal the forward
-kernel's output bit for bit, and their gradients are held against the plain
-backward through the recompute's relu decisions, after every relu site
-where the plain forward decides otherwise is shown to hold an activation
-within 1e-4 of 0 (the count of such sites and the largest there are
+with 22 and 0 distance bins; B=2 N=200 also in 10 chunks under a small
+workspace cap: the pair MLP in both dtypes, residual and not, the embedder
+in float32), checks that two launches give the same bits, and times them at
+B=2 N=256 (the pair MLP's in both dtypes and the embedder's float32 call
+also by part: kernel A, kernel B, the row/column sums, the ordered
+reductions, under torch.profiler, with the chunk count, workspace bytes and
+each kernel's bound on the tensor cores; the earlier CUDA-core kernel's
+time beside; the embedder's also beside its CUDA-core bound and the
+``xla`` setting's backward, the VJP of its plain forward). The split
+backwards' recompute (the pair MLP's in both dtypes, the embedder's in
+float32) must equal the forward kernel's output bit for bit, and their
+gradients are held against the plain backward through the recompute's relu
+decisions, after every relu site where the plain forward decides otherwise
+is shown to hold an activation within the dtype's tolerance of 0 (float32
+1e-4, bf16 5e-2; the count of such sites and the largest there are
 printed).
 
 The last two lines are a JSON object with one entry per kernel and the
@@ -391,13 +398,12 @@ def check_kernels() -> dict[str, dict]:
     return serving
 
 
-# The float32 pair-MLP backward: kernel A (recompute and input-gradient
-# chain) and kernel B (weight gradients) both run their products on the
-# tensor cores as 3xTF32.
-PAIR_MLP_BWD_PEAKS = {"A": TENSOR_CORE_FLOPS[torch.float32], "B": TENSOR_CORE_FLOPS[torch.float32]}
-# The persistent CUDA-core kernel it replaces, float32 B=2 N=256 (PERF.md
-# section 6; NVIDIA H100 80GB HBM3, 700 W), printed for reference.
-PAIR_MLP_BWD_CUDA_CORE_MS = 9.966
+# The pair-MLP backward: kernel A (recompute and input-gradient chain) and
+# kernel B (weight gradients) run their products on the tensor cores, as
+# 3xTF32 in float32 and bf16 MMA in bf16.
+# The persistent CUDA-core kernels they replace, B=2 N=256 (PERF.md section
+# 6; NVIDIA H100 80GB HBM3, 700 W), printed for reference.
+PAIR_MLP_BWD_CUDA_CORE_MS = {torch.float32: 9.966, torch.bfloat16: 12.0084}
 BWD_PARTS = (("A", "split_tile_kernel"), ("B", "wgrad_kernel"), ("row/col sums", "_sums"),
              ("ordered reductions", "sum_partials"))
 
@@ -416,20 +422,15 @@ def pair_mlp_bwd_cost(B, N, dtype):
 
 
 def pair_mlp_bwd_bound(B, N, dtype) -> tuple[float, str]:
-    """Least ms of one call: each part's operations over the peak rate of
-    the units it runs on (float32; bf16 all on the CUDA cores), summed,
-    or the bytes over the HBM rate, the larger."""
+    """Least ms of one call: the operations over the tensor cores' rate for
+    the dtype (3xTF32 in float32), or the bytes over the HBM rate, the
+    larger."""
     a_flops, b_flops, nbytes = pair_mlp_bwd_cost(B, N, dtype)
-    if dtype == torch.float32:
-        ops_ms = 1e3 * (a_flops / PAIR_MLP_BWD_PEAKS["A"] + b_flops / PAIR_MLP_BWD_PEAKS["B"])
-    else:
-        ops_ms = 1e3 * (a_flops + b_flops) / PEAK_FLOPS[dtype]
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    return bound(a_flops + b_flops, nbytes, TENSOR_CORE_FLOPS[dtype])
 
 
 def bwd_parts_ms(fn, kinds=BWD_PARTS) -> dict[str, float]:
-    """Device ms of one call of ``fn`` by part of a float32 backward (its
+    """Device ms of one call of ``fn`` by part of a split backward (its
     CUDA kernels by name: ``kinds``; torch.profiler; {} if it records no
     device time)."""
     _, by_name = device_time(fn)
@@ -466,29 +467,31 @@ def relu_flips(y0, y1, rec) -> tuple[int, float]:
         flip = (plain_y > 0) != (kern_y > 0)
         n += int(flip.sum())
         if flip.any():
-            worst = max(worst, float(torch.maximum(plain_y[flip], kern_y[flip]).max()))
+            worst = max(worst, float(torch.maximum(plain_y[flip].float(),
+                                                   kern_y[flip].float()).max()))
     return n, worst
 
 
 def check_pair_mlp_bwd() -> dict:
-    """The pair-MLP backward against its plain version on the card: every
-    gradient within tol of its own max-abs (float32 1e-4, bf16 5e-2),
-    residual and not, one pair, one partial tile, and in float32 a grid the
-    wrapper runs in several chunks (a small workspace cap); two launches
-    bit-identical; times at B=2 N=256 (the whole call, and by kernel).
+    """The pair-MLP backward against its plain version on the card, in
+    float32 and bf16: every gradient within tol of its own max-abs (float32
+    1e-4, bf16 5e-2), residual and not, one pair, one partial tile, and a
+    grid the wrapper runs in several chunks (a small workspace cap); two
+    launches bit-identical; times at B=2 N=256 (the whole call, and by
+    kernel).
 
-    The float32 kernels take their relu decisions from their recompute,
-    which runs the forward kernel's code (3xTF32): the recompute's output is
-    checked to equal the forward kernel's bit for bit, every site where the
-    plain forward's relu falls on the other side of 0 must hold an
-    activation within float32 rounding of 0 (<= 1e-4), and the gradients are
-    held against the plain backward through the recompute's relu decisions
-    (the gradient jumps at such a site; without them the error is printed
-    too)."""
+    The kernels take their relu decisions from their recompute, which runs
+    the forward kernel's code: the recompute's output is checked to equal
+    the forward kernel's bit for bit, every site where the plain forward's
+    relu falls on the other side of 0 must hold an activation within the
+    dtype's rounding of 0 (tol: float32 1e-4, bf16 5e-2), and the gradients
+    are held against the plain backward through the recompute's relu
+    decisions (the gradient jumps at such a site; without them the error is
+    printed too). Returns the float32 numbers at B=2 N=256 and the bf16 ones
+    under "bf16"."""
     from framedipt_tpu_torch.model.kernels.pair_mlp import (
         BWD_WORKSPACE_CAP,
         _pre_norm,
-        bwd_workspace_floats,
         pair_mlp,
         pair_mlp_bwd,
         pair_mlp_bwd_plain,
@@ -498,64 +501,59 @@ def check_pair_mlp_bwd() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = {}
-    small_cap = 4 * split_workspace_floats(40 * 200)  # 40 grid rows a chunk: 10 chunks
-    shapes = ((1, 256, True, None), (2, 200, True, None), (2, 256, True, None),
-              (2, 200, False, None), (1, 1, True, None), (1, 17, True, None),
-              (2, 200, True, small_cap))
     for dtype in (torch.float32, torch.bfloat16):
+        small_cap = 4 * split_workspace_floats(40 * 200, dtype)  # 40 grid rows a chunk: 10 chunks
+        shapes = ((1, 256, True, None), (2, 200, True, None), (2, 256, True, None),
+                  (2, 200, False, None), (1, 1, True, None), (1, 17, True, None),
+                  (2, 200, True, small_cap), (2, 200, False, small_cap))
         for B, N, residual, cap in shapes:
-            if cap is not None and dtype != torch.float32:
-                continue  # the bf16 kernel keeps no chunked workspace
             kw = {} if cap is None else {"workspace_cap": cap}
             args = pair_mlp_inputs(B, N, dtype, gen, residual=residual)
             g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
-            rec = {} if dtype == torch.float32 else None
+            rec = {}
             got = pair_mlp_bwd(g, *args, recompute=rec, **kw)
             again = pair_mlp_bwd(g, *args, **kw)
-            masks = None if rec is None else (rec["y0"] > 0, rec["y1"] > 0)
-            ref = pair_mlp_bwd_plain(g, *args, relu_masks=masks)
+            ref = pair_mlp_bwd_plain(g, *args, relu_masks=(rec["y0"] > 0, rec["y1"] > 0))
             torch.cuda.synchronize()
             same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
-            label = f"pair_mlp_bwd {str(dtype)[6:]} B={B} N={N} residual={residual}"
+            chunks = plan_bwd_chunks(B, N, N, cap or BWD_WORKSPACE_CAP, dtype)
+            label = (f"pair_mlp_bwd {str(dtype)[6:]} B={B} N={N} residual={residual} "
+                     f"chunks={len(chunks)} (workspace "
+                     f"{4 * split_workspace_floats(max(b - a for a, b in chunks) * N, dtype)} bytes)")
             worst_rel, worst_abs = grad_errors(got, ref, label)
-            if dtype == torch.float32:
-                chunks = plan_bwd_chunks(B, N, N, cap or BWD_WORKSPACE_CAP)
-                label += (f" chunks={len(chunks)} (workspace "
-                          f"{4 * split_workspace_floats(max(b - a for a, b in chunks) * N)} bytes)")
+            fwd_diff = float((rec["out"].float() - pair_mlp(*args).float()).abs().max())
+            n_flips, flip_max = relu_flips(*_pre_norm(*args[:3], *args[5:11], *args[13:])[:2], rec)
+            own_rel = grad_errors(got, pair_mlp_bwd_plain(g, *args), label)[0]
             line = (f"{label}: max err {worst_abs:.3e} abs, {worst_rel:.3e} of the gradient's "
-                    f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}")
-            if rec is not None:
-                fwd_diff = float((rec["out"] - pair_mlp(*args)).abs().max())
-                n_flips, flip_max = relu_flips(
-                    *_pre_norm(*args[:3], *args[5:11], *args[13:])[:2], rec)
-                own_rel = grad_errors(got, pair_mlp_bwd_plain(g, *args), label)[0]
-                line += (f"; recompute vs forward kernel output: max diff {fwd_diff:.3e}; relu "
-                         f"sites on the other side of 0 from the plain forward: {n_flips} (largest "
-                         f"|activation| there {flip_max:.3e}); against the plain backward through "
-                         f"its own relu decisions {own_rel:.3e}")
-                if fwd_diff != 0 or flip_max > TOL[torch.float32]:
-                    log(line)
-                    raise AssertionError(f"{label}: the recompute is not the forward kernel's")
+                    f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}; recompute vs "
+                    f"forward kernel output: max diff {fwd_diff:.3e}; relu sites on the other side "
+                    f"of 0 from the plain forward: {n_flips} (largest |activation| there "
+                    f"{flip_max:.3e}); against the plain backward through its own relu decisions "
+                    f"{own_rel:.3e}")
+            if fwd_diff != 0 or flip_max > TOL[dtype]:
+                log(line)
+                raise AssertionError(f"{label}: the recompute is not the forward kernel's")
             if (B, N, residual, cap) == (2, 256, True, None):
                 ms = cuda_time_ms(lambda: pair_mlp_bwd(g, *args), 20)
                 plain_ms = cuda_time_ms(lambda: pair_mlp_bwd_plain(g, *args), 5)
                 a_flops, b_flops, _ = pair_mlp_bwd_cost(B, N, dtype)
                 bound_ms, bound_by = pair_mlp_bwd_bound(B, N, dtype)
+                parts = bwd_parts_ms(lambda: pair_mlp_bwd(g, *args))
+                peak = TENSOR_CORE_FLOPS[dtype]
                 line += (f"; call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by}), {(a_flops + b_flops) / ms / 1e9:.2f} TFLOP/s")
-                if dtype == torch.float32:
-                    parts = bwd_parts_ms(lambda: pair_mlp_bwd(g, *args))
-                    line += (f"; CUDA-core kernel (PERF.md) {PAIR_MLP_BWD_CUDA_CORE_MS} ms; device ms "
-                             "by part (profiler, one call): "
-                             + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
-                             + f"; kernel A bound {1e3 * a_flops / PAIR_MLP_BWD_PEAKS['A']:.4f} ms, "
-                             f"kernel B bound {1e3 * b_flops / PAIR_MLP_BWD_PEAKS['B']:.4f} ms")
-                    out = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                         f"({bound_by}), {(a_flops + b_flops) / ms / 1e9:.2f} TFLOP/s; the "
+                         f"persistent CUDA-core kernel (PERF.md) "
+                         f"{PAIR_MLP_BWD_CUDA_CORE_MS[dtype]} ms; device ms by part (profiler, "
+                         "one call): "
+                         + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
+                         + f"; kernel A bound {1e3 * a_flops / peak:.4f} ms, kernel B bound "
+                         f"{1e3 * b_flops / peak:.4f} ms; {card_line()}")
+                numbers = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                if dtype == torch.float32:
+                    out.update(numbers)
                 else:
-                    blocks = torch.cuda.get_device_properties(0).multi_processor_count
-                    line += (f"; workspace {4 * bwd_workspace_floats(B, N, N, blocks)} bytes "
-                             f"({blocks} blocks)")
+                    out["bf16"] = numbers
             log(line)
             if worst_rel > TOL[dtype] or not same:
                 raise AssertionError(f"{label}: error {worst_rel} over tolerance or not deterministic")
@@ -1123,11 +1121,12 @@ def train_batch(B: int = 2, N: int = 256) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v), device="cuda") for k, v in batch.items()}
 
 
-def train_config(emb_bwd_impl: str = "pallas"):
+def train_config(emb_bwd_impl: str = "pallas", dtype: str = "float32"):
     from framedipt_tpu_torch.tools.config import load_config
 
-    # Full default width, float32; "pallas" is the default embedder backward.
-    cfg = load_config([f"model.ipa.pallas_emb_bwd_impl={emb_bwd_impl}"])
+    # Full default width; "pallas" is the default embedder backward.
+    cfg = load_config([f"model.ipa.pallas_emb_bwd_impl={emb_bwd_impl}",
+                       f"model.compute_dtype={dtype}"])
     cfg.experiment.inpainting = True
     return cfg
 
@@ -1276,9 +1275,66 @@ def device_time(fn) -> tuple[float, dict[str, float]]:
     return sum(by_name.values()), by_name
 
 
+# bf16 step against the same step through every kernel's plain version:
+# the loss, relative (the two sum in other orders and round to bf16 at the
+# same points).
+BF16_TRAIN_TOL = 5e-2
+
+
+def check_bf16_step(batch) -> tuple[object, int]:
+    """The bf16 train step (``model.compute_dtype=bfloat16``: both edge
+    kernels and both backwards in bf16) at full width on ``batch``: the
+    first step's loss within BF16_TRAIN_TOL of the plain-version step's,
+    each gradient's error against its own max-abs printed; then 3 steps,
+    finite, 3 pair-MLP and 1 embedder backward launches each. Returns the
+    trainer and the pair-MLP backward's launches over those 3 steps."""
+    kern = fixture_trainer(train_config(dtype="bfloat16"))
+    plain = fixture_trainer(train_config(dtype="bfloat16"))
+    m_k, launches = step_launches(kern, batch, seed=0)
+    if launches != expected_launches(m_k["self_conditioned"]):
+        raise AssertionError(f"first bf16 train step: launches {launches}")
+    with plain_versions_in_model():
+        m_p = plain.step(batch, torch.Generator(device="cuda").manual_seed(0))
+    if m_p["self_conditioned"] != m_k["self_conditioned"]:
+        raise AssertionError("the plain-version bf16 step drew another self-conditioning coin")
+    grads_p = {n: p.grad for n, p in plain.model.named_parameters() if p.grad is not None}
+    errs = {}
+    for n, p in kern.model.named_parameters():
+        if p.grad is None:
+            continue
+        if not torch.isfinite(p.grad).all():
+            raise AssertionError(f"first bf16 train step: gradient of {n} not finite")
+        errs[n] = float((p.grad - grads_p[n]).abs().max()) / max(
+            float(grads_p[n].abs().max()), 1e-30)
+    loss_rel = abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"]))
+    log(f"train step B={batch['aatype'].shape[0]} N={batch['aatype'].shape[1]} bf16, first step "
+        f"(self_conditioned={m_k['self_conditioned']}), launches {launches}; against the "
+        f"plain-version step: loss {float(m_k['loss']):.6f} / {float(m_p['loss']):.6f} (rel "
+        f"{loss_rel:.2e}, tol {BF16_TRAIN_TOL}); grad norm {float(m_k['grad_norm']):.4f} / "
+        f"{float(m_p['grad_norm']):.4f}; {len(errs)} gradients, error over own max-abs, largest "
+        "first: " + ", ".join(f"{n} {e:.2e}" for n, e in sorted(errs.items(), key=lambda kv: -kv[1])))
+    if grads_p.keys() != errs.keys():
+        raise AssertionError("kernel and plain-version bf16 steps train different parameters")
+    if not loss_rel <= BF16_TRAIN_TOL:
+        raise AssertionError(f"first bf16 train step: loss rel err {loss_rel} over {BF16_TRAIN_TOL}")
+    del plain
+    torch.cuda.empty_cache()
+    bwd_launches = 0
+    for i in range(3):
+        m, launches = step_launches(kern, batch, seed=300 + i)
+        if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
+            raise AssertionError(f"bf16 train step {i}: loss {m['loss']} grad norm {m['grad_norm']}")
+        if launches != expected_launches(m["self_conditioned"]):
+            raise AssertionError(f"bf16 train step {i}: launches {launches}")
+        bwd_launches += launches["pair_mlp_bwd"]
+        log(f"  bf16 step {i}: loss {float(m['loss']):.4f}, grad norm "
+            f"{float(m['grad_norm']):.4f}, launches {launches}")
+    return kern, bwd_launches
+
+
 def check_train_step() -> int:
     """Phase 6. Returns the pair-MLP backward kernel's launches over the 10
-    steps checked for correctness."""
+    float32 and 3 bf16 steps checked for correctness."""
     B, N = 2, 256
     batch = train_batch(B, N)
     kern = fixture_trainer(train_config())
@@ -1320,24 +1376,35 @@ def check_train_step() -> int:
     if still:
         raise AssertionError(f"parameters did not move: {still}")
 
-    # Step time (CUDA events), peak memory, both settings in turn; busy share.
+    kern16, bf16_launches = check_bf16_step(batch)
+    bwd_launches += bf16_launches
+
+    # Step time (CUDA events), peak memory, the settings in turn; busy share.
     gen = torch.Generator(device="cuda").manual_seed(200)
-    for label, trainer in (("pallas", kern), ("xla", xla), ("pallas", kern), ("xla", xla)):
-        step_ms, peak_gb, coins = time_steps(trainer, batch, gen)
-        log(f"train step B={B} N={N} float32 (pallas_emb_bwd_impl={label}): {step_ms:.3f} ms a "
-            f"step (CUDA events over 5 steps after 3 warm; self-conditioned {sum(coins)} of 5), "
-            f"{1e3 * B / step_ms:.2f} examples/s, peak memory {peak_gb:.3f} GB (both trainers "
-            f"resident; with the persistent pair-MLP backward kernel "
-            f"{STEP_PEAK_GB_PERSISTENT_BWD[label]} GB, with the persistent float32 embedder "
-            f"backward kernel {STEP_PEAK_GB_PERSISTENT_EMB_BWD[label]} GB)")
-    wall = wall_ms(lambda: [kern.step(batch, gen) for _ in range(5)])
-    busy, by_name = device_time(lambda: [kern.step(batch, gen) for _ in range(5)])
-    log(f"train step B={B} N={N} float32 (pallas): 5 steps {wall:.1f} ms wall, "
-        + (f"{busy:.1f} ms of device time over 5 more under torch.profiler, busy share "
-           f"{busy / wall:.3f}" if by_name else
-           "torch.profiler recorded no device time (busy share not measured)"))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"  {ms:9.3f} ms  {name[:100]}")
+    trainers = {"float32 (pallas_emb_bwd_impl=pallas)": kern,
+                "float32 (pallas_emb_bwd_impl=xla)": xla, "bf16 (pallas)": kern16}
+    for label in list(trainers) + list(trainers)[::-1]:
+        step_ms, peak_gb, coins = time_steps(trainers[label], batch, gen)
+        line = (f"train step B={B} N={N} {label}: {step_ms:.3f} ms a step (CUDA events over 5 "
+                f"steps after 3 warm; self-conditioned {sum(coins)} of 5), "
+                f"{1e3 * B / step_ms:.2f} examples/s, peak memory {peak_gb:.3f} GB (three "
+                "trainers resident")
+        impl = label.split("=")[-1].rstrip(")")
+        if label.startswith("float32"):
+            line += (f"; with the persistent pair-MLP backward kernel "
+                     f"{STEP_PEAK_GB_PERSISTENT_BWD[impl]} GB, with the persistent float32 "
+                     f"embedder backward kernel {STEP_PEAK_GB_PERSISTENT_EMB_BWD[impl]} GB")
+        log(line + ")")
+    for label in ("float32 (pallas_emb_bwd_impl=pallas)", "bf16 (pallas)"):
+        trainer = trainers[label]
+        wall = wall_ms(lambda: [trainer.step(batch, gen) for _ in range(5)])
+        busy, by_name = device_time(lambda: [trainer.step(batch, gen) for _ in range(5)])
+        log(f"train step B={B} N={N} {label}: 5 steps {wall:.1f} ms wall, "
+            + (f"{busy:.1f} ms of device time over 5 more under torch.profiler, busy share "
+               f"{busy / wall:.3f}" if by_name else
+               "torch.profiler recorded no device time (busy share not measured)"))
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"  {ms:9.3f} ms  {name[:100]}")
     return bwd_launches
 
 
@@ -1458,6 +1525,18 @@ def check_training_cli() -> int:
     return launches["edge_embedder_bwd"]
 
 
+def kernel_label(mangled: str) -> str:
+    """A CUDA kernel's name and the start of its template arguments from its
+    mangled name (``..._cu_<hash><len><name>I13__nv_bfloat16Lb1E...``)."""
+    import re
+
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if m is None:
+        return mangled[:60]
+    end = m.end() + int(m.group(1))
+    return f"{mangled[m.end():end]}<{mangled[end:end + 24]}>"
+
+
 def kernel_sources(name: str) -> list[str]:
     """The files under csrc/ that kernel ``name``'s source includes, itself first."""
     csrc = REPO / "framedipt_tpu_torch" / "csrc"
@@ -1488,9 +1567,12 @@ def main() -> int:
     info = build_all()
     log(f"phase 2: kernels built in {time.perf_counter() - t0:.2f} s")
     for name, entry in info.items():
+        fn = ""
         for line in entry["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = kernel_label(line.split()[-1])
+            elif "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  {name} {fn}: {line.strip()}")
     torch.cuda.synchronize()
 
     log("phase 3: kernels against their plain versions")

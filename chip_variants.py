@@ -15,15 +15,19 @@ outputs and are only timed, to show what that part costs. With ``--parent``
 DIR``), that tree's ``edge_embedder.cu`` is timed too and must give the
 same bits as this checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256
 with and without distance bins (the forward's tile is shared with the
-embedder backward's recompute), and its ``pair_mlp.cu`` and
-``pair_mlp_bwd.cu`` must give the same bits as this checkout's (the pair
-MLP's product code and kernel B are shared with the embedder).
+embedder backward's recompute); its ``pair_mlp.cu`` (both dtypes),
+``pair_mlp_bwd.cu`` (float32) and ``edge_embedder_bwd.cu`` (float32) must
+give the same bits as this checkout's (the product code, the forward tiles
+and kernel B are shared), and the four are timed beside this checkout's
+(a parent's float32-only C entry of the pair-MLP backward, without the
+dtype argument, is called through an adapter).
 
 Times: CUDA events over 20 launches at B=2 N=256 in float32 and bf16, every
-variant once a round, three rounds in alternating order. Prints one line per
-check and per timing, then the card's name and power limit; writes the
-times as JSON to ``--out``. Exits non-zero if a variant fails to build or a
-checked one disagrees with the plain version.
+variant once a round, three rounds in alternating order; this checkout's
+and the parent's other kernels likewise. Prints one line per check and per
+timing, then the card's name and power limit; writes the times as JSON to
+``--out``. Exits non-zero if a variant fails to build or a checked one
+disagrees with the plain version or the parent.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import types
 
 import torch
 
@@ -175,6 +180,55 @@ def patched_copy(root: pathlib.Path, name: str, patches: dict) -> pathlib.Path:
     return d / EMB
 
 
+def parent_pair_mlp_bwd(lib: ctypes.CDLL) -> types.SimpleNamespace:
+    """A parent's pair-MLP backward library as the wrapper binds it, where
+    its C entry was float32 only and took no dtype argument (before the bf16
+    backward took the same route)."""
+    fn = lib.fdk_pair_mlp_bwd_split
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 23 + [ctypes.c_longlong] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+
+    def entry(dtype, *args):
+        if dtype != 0:
+            raise ValueError("the parent's split backward is float32 only")
+        return fn(*args)
+
+    return types.SimpleNamespace(fdk_pair_mlp_bwd_split=entry)
+
+
+def time_beside_parent(cs, libs, new_libs, use, gen) -> dict:
+    """This checkout's pair-MLP forward (float32, bf16), float32 pair-MLP
+    backward and float32 embedder backward beside the parent's, B=2 N=256,
+    CUDA events over 20 calls, three rounds in alternating order."""
+    from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        a = cs.pair_mlp_inputs(2, 256, dtype, gen)
+        cases[f"pair_mlp {str(dtype)[6:]}"] = ("pair_mlp", lambda a=a: t_pair.pair_mlp(*a))
+    a = cs.pair_mlp_inputs(2, 256, torch.float32, gen)
+    g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda")
+    cases["pair_mlp_bwd float32"] = ("pair_mlp_bwd", lambda: t_pair.pair_mlp_bwd(g, *a))
+    *e, lower, upper = cs.edge_embedder_inputs(2, 256, torch.float32, gen)
+    cases["edge_embedder_bwd float32"] = (
+        "edge_embedder_bwd",
+        lambda: t_emb.edge_embedder_bwd(g, *e, bins_lower=lower, bins_upper=upper))
+    times = {}
+    for label, (kind, fn) in cases.items():
+        t = {"new": [], "parent": []}
+        for rnd in range(3):
+            for who in (("new", "parent") if rnd % 2 == 0 else ("parent", "new")):
+                use(kind, new_libs[kind] if who == "new" else libs[f"parent_{kind}"])
+                t[who].append(cs.cuda_time_ms(fn, 20))
+        use(kind, new_libs[kind])
+        log(f"{label} B=2 N=256: this checkout " + ", ".join(f"{x:.4f}" for x in t["new"])
+            + " ms; the parent " + ", ".join(f"{x:.4f}" for x in t["parent"]) + " ms")
+        times[label] = t
+    return times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=pathlib.Path, default=None)
@@ -198,7 +252,8 @@ def main() -> int:
         parent = None if args.parent is None else args.parent / "framedipt_tpu_torch" / "csrc"
         if parent is not None:
             sources.update({"parent": parent / EMB, "parent_pair_mlp": parent / "pair_mlp.cu",
-                            "parent_pair_mlp_bwd": parent / "pair_mlp_bwd.cu"})
+                            "parent_pair_mlp_bwd": parent / "pair_mlp_bwd.cu",
+                            "parent_edge_embedder_bwd": parent / "edge_embedder_bwd.cu"})
         procs = {name: subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(work / f"{name}.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -215,14 +270,17 @@ def main() -> int:
             for line in out.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")
-        new_pair = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd")}
+        new_libs = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd", "edge_embedder_bwd")}
+        if "parent_pair_mlp_bwd" in libs and "fdk_pair_mlp_bwd_split(int dtype" not in (
+                parent / "pair_mlp_bwd.cu").read_text():
+            libs["parent_pair_mlp_bwd"] = parent_pair_mlp_bwd(libs["parent_pair_mlp_bwd"])
 
         def use(kind: str, lib) -> None:
             build._libs[kind] = lib
             t_emb._kernel.cache_clear()
+            t_emb._split_kernel.cache_clear()
             t_pair._kernel.cache_clear()
             t_pair._split_kernel.cache_clear()
-            t_pair._bwd_kernel.cache_clear()
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         checked = ["new"] + [n for n, (_, ok) in VARIANTS.items() if ok and n in libs]
@@ -256,7 +314,7 @@ def main() -> int:
                 for residual in (True, False):
                     a = cs.pair_mlp_inputs(2, 200, dtype, gen, residual=residual)
                     outs = []
-                    for lib in (new_pair["pair_mlp"], libs["parent_pair_mlp"]):
+                    for lib in (new_libs["pair_mlp"], libs["parent_pair_mlp"]):
                         use("pair_mlp", lib)
                         outs.append(t_pair.pair_mlp(*a))
                     same = torch.equal(*outs)
@@ -264,7 +322,7 @@ def main() -> int:
                     if dtype == torch.float32:
                         g = torch.randn(2, 200, 200, 128, generator=gen, device="cuda")
                         grads = []
-                        for lib in (new_pair["pair_mlp_bwd"], libs["parent_pair_mlp_bwd"]):
+                        for lib in (new_libs["pair_mlp_bwd"], libs["parent_pair_mlp_bwd"]):
                             use("pair_mlp_bwd", lib)
                             grads.append(t_pair.pair_mlp_bwd(g, *a))
                         bwd_same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
@@ -272,11 +330,30 @@ def main() -> int:
                         same = same and bwd_same
                     log(line)
                     fails += not same
-            use("pair_mlp", new_pair["pair_mlp"])
-            use("pair_mlp_bwd", new_pair["pair_mlp_bwd"])
+            use("pair_mlp", new_libs["pair_mlp"])
+            use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
+        if "parent_edge_embedder_bwd" in libs:
+            for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
+                for n_bins in (22, 0):
+                    *tensors, lower, upper = cs.edge_embedder_inputs(B, N, torch.float32, gen,
+                                                                     n_bins=n_bins)
+                    g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
+                    grads = []
+                    for lib in (new_libs["edge_embedder_bwd"], libs["parent_edge_embedder_bwd"]):
+                        use("edge_embedder_bwd", lib)
+                        grads.append(t_emb.edge_embedder_bwd(g, *tensors, bins_lower=lower,
+                                                             bins_upper=upper))
+                    same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
+                    log(f"edge_embedder_bwd float32 B={B} N={N} n_bins={n_bins}: the parent's "
+                        f"bits {same}")
+                    fails += not same
+            use("edge_embedder_bwd", new_libs["edge_embedder_bwd"])
         times = {}
+        if parent is not None:
+            times["parent"] = time_beside_parent(cs, libs, new_libs, use, gen)
         order = ["new"] + [n for n in libs if n not in ("new", "parent_pair_mlp",
-                                                         "parent_pair_mlp_bwd")]
+                                                         "parent_pair_mlp_bwd",
+                                                         "parent_edge_embedder_bwd")]
         for dtype in (torch.float32, torch.bfloat16):
             a = cs.edge_embedder_inputs(2, 256, dtype, gen)
             t = {n: [] for n in order}

@@ -300,11 +300,12 @@ __device__ __forceinline__ void layer_norm_store(const float* __restrict__ O, in
 
 // ---- pieces of the backward kernels ----------------------------------------
 //
-// A backward kernel's blocks are persistent: each owns one float32 partial
-// set of the grid-summed gradients in global memory and adds each tile's
-// contribution to it; per-tile row and column partials go to buffers that a
-// second kernel (reduce_partials) sums in a fixed order. No float atomics, so
-// two launches give the same bits.
+// The edge embedder's bf16 backward kernel (edge_embedder_bwd.cu) has
+// persistent blocks: each owns one float32 partial set of the grid-summed
+// gradients in global memory and adds each tile's contribution to it;
+// per-tile row and column partials go to buffers that a second kernel
+// (reduce_partials, which every backward uses) sums in a fixed order. No
+// float atomics, so two launches give the same bits.
 
 // G[K x N] (+)= A^T Bm over the P rows of a tile. A and Bm are float in
 // shared memory (row strides lda, ldb, multiples of 4); G is row-major

@@ -805,7 +805,7 @@ cudaError_t launch_split(const float* grad, const float* g, const float* h, cons
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // Kernel B: d_w_rel = m^T dy0 (64 rows), d_w1 = y0^T dy1, d_w2 = y1^T dx.
-  WJobs jobs;
+  WJobs<float> jobs;
   jobs.job[0] = {ws.m, ws.dy0, CP, C, 0, C, CP};
   jobs.job[1] = {ws.y0, ws.dy1, C, C, CP * C, C};
   jobs.job[2] = {ws.y1, ws.dx, C, C, CP * C + C * C, C};

@@ -50,10 +50,9 @@
 // - Epilogues and LayerNorm are common.cuh's, applied to the accumulator
 //   fragments, in the plain version's addition order; only the order of the
 //   k-sum differs from the plain version.
-// - The float32 backward (pair_mlp_bwd.cu, kernel A) recomputes this forward
-//   through the same code (forward_tile), so its recompute equals this
-//   kernel's output bit for bit. The bf16 backward recomputes it on the CUDA
-//   cores in its own k order, within one bf16 step of this kernel.
+// - The backward's kernel A (pair_mlp_bwd.cu), in both element types,
+//   recomputes this forward through the same code (forward_tile), so its
+//   recompute equals this kernel's output bit for bit.
 #include "pair_mlp_tc.cuh"
 
 namespace fdk {
@@ -89,7 +88,7 @@ pair_mlp_kernel(const T* __restrict__ pair, const T* __restrict__ i_term,
     X[r * L::LDX + c] = p < total ? ld<T>(pair + (size_t)p * C_IN + c) : 0.f;
   }
   // The first acquire() synchronizes the block before any product reads X.
-  forward_tile<T, RESIDUAL, false>(X, Y0, Y1, pt, ws, i_term, j_term, fi, fj, b0, b1, bf,
+  forward_tile<T, RESIDUAL, false, float>(X, Y0, Y1, pt, ws, i_term, j_term, fi, fj, b0, b1, bf,
                                    nullptr, nullptr, nullptr, nullptr);
   __syncthreads();
   // common.cuh's LayerNorm takes 8 warps, 8 rows each.

@@ -1,5 +1,5 @@
 // The pair MLP's tensor-core pieces for Hopper (sm_90a), shared by the
-// forward kernel (pair_mlp.cu) and the float32 backward's kernel A
+// forward kernel (pair_mlp.cu) and the backward's kernel A in both dtypes
 // (pair_mlp_bwd.cu): the 64-pair tile's shared-memory layout, the weight
 // stream's slice map, the walk of one tile through the MLP's five products (mlp_products) and the
 // forward of a tile up to its pre-norm output (forward_tile). Both kernels
@@ -107,18 +107,19 @@ __device__ __forceinline__ void mlp_products(const float* __restrict__ A0, const
 
 // The forward of a 64-pair tile, pair tile in X, up to the pre-norm output,
 // which it leaves in X (every row; rows past the grid hold no pair). With
-// STORE (float32 only), each valid row's y0 and y1 also go to y0s and y1s
-// (row r at r * HID, whole rows from shared memory once a tile or chunk is
-// complete), and their relu decisions (y > 0) to m0s and m1s (mask_word
-// order, HID / NC chunks each).
-template <typename T, bool RESIDUAL, bool STORE>
+// STORE (a backward's recompute), each valid row's y0 and y1 also go to y0s
+// and y1s as A (float, or bf16: the values are T's already; row r at
+// r * HID, whole rows from shared memory once a tile or chunk is complete),
+// and their relu decisions (y > 0) to m0s and m1s (mask_word order, HID / NC
+// chunks each).
+template <typename T, bool RESIDUAL, bool STORE, typename A>
 __device__ __forceinline__ void forward_tile(float* X, float* Y0, float* Y1, const PairTile& pt,
                                              const MlpStream<T>& ws,
                                              const T* __restrict__ i_term,
                                              const T* __restrict__ j_term,
                                              const T* __restrict__ fi, const T* __restrict__ fj,
                                              const T* __restrict__ b0, const T* __restrict__ b1,
-                                             const T* __restrict__ bf, float* y0s, float* y1s,
+                                             const T* __restrict__ bf, A* y0s, A* y1s,
                                              uint32_t* m0s, uint32_t* m1s) {
   using L = Smem<T>;
   float acc_out[2][kNi][4] = {}, res[2][kNi][4] = {};

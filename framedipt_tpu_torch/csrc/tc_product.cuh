@@ -1,6 +1,6 @@
 // Tensor-core products of a 64-row tile for Hopper (sm_90a), fed by a
 // stream of weight slices, shared by the edge-stack kernels that run on the
-// tensor cores: the pair MLP's forward and its float32 backward's kernel A
+// tensor cores: the pair MLP's forward and its backward's kernel A
 // (pair_mlp_tc.cuh), and the edge embedder's forward and its float32
 // backward's kernel A (edge_embedder_tc.cuh); with the backward kernels'
 // row stores and relu decisions (store_rows, store_relu_bits, relu_grad).
@@ -237,6 +237,23 @@ __device__ __forceinline__ void store_rows(const float* S, int lds, int cols, co
     if (pt.row[r] >= 0)
       __stcs(reinterpret_cast<float4*>(dst + (size_t)r * ldd + c),
              *reinterpret_cast<const float4*>(S + r * lds + c));
+  }
+}
+
+// The same into bf16 rows (cols a multiple of 8), each value rounded to
+// nearest even (exact for values that are bf16 already).
+__device__ __forceinline__ void store_rows(const float* S, int lds, int cols, const PairTile& pt,
+                                           __nv_bfloat16* dst, int ldd) {
+  const int per_row = cols / 8;
+  for (int idx = threadIdx.x; idx < kRows * per_row; idx += kBlock) {
+    const int r = idx / per_row, c = (idx - r * per_row) * 8;
+    if (pt.row[r] >= 0) {
+      const float4 a = *reinterpret_cast<const float4*>(S + r * lds + c);
+      const float4 b = *reinterpret_cast<const float4*>(S + r * lds + c + 4);
+      __stcs(reinterpret_cast<uint4*>(dst + (size_t)r * ldd + c),
+             make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                        pack_bf16(b.z, b.w)));
+    }
   }
 }
 

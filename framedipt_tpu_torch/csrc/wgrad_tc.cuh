@@ -1,7 +1,7 @@
-// Kernel B of the float32 backward kernels, for Hopper (sm_90a): weight
+// Kernel B of the split backward kernels, for Hopper (sm_90a): weight
 // gradients G = A^T Bm summed over the pairs of a chunk, as one split-K GEMM
-// on the tensor cores. Shared by the pair MLP's backward (pair_mlp_bwd.cu)
-// and the edge embedder's (edge_embedder_bwd.cu).
+// on the tensor cores. Shared by the pair MLP's backward (pair_mlp_bwd.cu,
+// float32 and bf16) and the edge embedder's (edge_embedder_bwd.cu, float32).
 //
 // - Jobs: each job is one output tile of at most 128 x 128 (WJob.rows rows
 //   of A's columns, 128 of Bm's) of one gradient; A and Bm are [pairs, .]
@@ -10,11 +10,20 @@
 //   slice and writes its partial to wpart[slice * part_ld + out_off ..]. The
 //   caller adds the slices' partials in slice order (common.cuh's
 //   reduce_partials): no float atomics, two launches give the same bits.
-// - Products: 3xTF32 mma.sync (mma.cuh: operands split into TF32 hi + lo in
-//   registers, each 32-deep step summed into a zeroed fragment and added with
-//   round-to-nearest, since the tensor cores truncate). Operands staged by
-//   cp.async through a four-stage ring in shared memory ([pairs, 128] row
-//   blocks; A enters transposed, read as scalars, conflict-free).
+// - Operands, T: float32 or bf16, staged by cp.async through a four-stage
+//   ring in shared memory ([32 pairs, 128] row blocks of A then of Bm, rows
+//   padded by 8 elements). Each 32-pair step sums into a zeroed fragment
+//   that is then added to the running sum with round-to-nearest, since the
+//   tensor cores round their sums toward zero.
+// - float32: 3xTF32 mma.sync (m16n8k8; mma.cuh: operands split into TF32
+//   hi + lo in registers). A enters transposed, read as scalars,
+//   conflict-free (row stride 8 (mod 32) floats).
+// - bf16: one bf16 mma.sync (m16n8k16) where float32 runs three TF32 ones,
+//   the products exact in float32. Both operands need pairs of k-neighbours
+//   in a register, and k runs down the staged rows: ldmatrix.trans gives
+//   them, for B as tc_product.cuh's bf16 product takes its weights, and for
+//   A^T the same four 8 x 8 matrices in another order. Row stride 272
+//   bytes: the eight rows of an 8 x 8 matrix fall in distinct banks.
 // - A job of 64 rows (the embedder's d_w_rel = m^T dy0, [64, 128]) runs the
 //   whole 128-row tile and stores rows 0-63 only: A's row stride is 64, so
 //   its staged columns 64-127 are the next pair's m (the caller keeps
@@ -33,47 +42,56 @@ namespace {
 constexpr int kMaxJobs = 16;  // output tiles of one launch
 
 // One output tile: G[rows, 128] = A^T Bm, A and Bm from their first column
-// a, b with row strides lda, ldb; written at out_off with row stride out_ld.
+// a, b with row strides lda, ldb (elements); written at out_off with row
+// stride out_ld.
+template <typename T>
 struct WJob {
-  const float* a;
-  const float* b;
+  const T* a;
+  const T* b;
   int lda, ldb, out_off, out_ld;
   int rows = 128;  // rows stored: 128 or 64
 };
+template <typename T>
 struct WJobs {
-  WJob job[kMaxJobs];
+  WJob<T> job[kMaxJobs];
 };
 
 constexpr int kBK = kKc;          // pairs of one staged step
 constexpr int kBStages = 4;       // steps in the ring
-constexpr int LDB = 128 + 8;      // staged row stride: 8 (mod 32), conflict-free fragments
+constexpr int LDB = 128 + 8;      // staged row stride (elements)
 constexpr int kBStage = 2 * kBK * LDB;  // A block then B block
-constexpr size_t kBSmemBytes = sizeof(float) * kBStages * kBStage;
+template <typename T>
+constexpr size_t kBSmemBytes = sizeof(T) * kBStages * kBStage;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-wgrad_kernel(const WJobs jobs, float* __restrict__ wpart, long long part_ld, long long P,
+wgrad_kernel(const WJobs<T> jobs, float* __restrict__ wpart, long long part_ld, long long P,
              long long k_slice) {
-  extern __shared__ __align__(16) float smem[];
-  const WJob jb = jobs.job[blockIdx.x];
+  extern __shared__ __align__(16) float smem_f[];
+  T* smem = reinterpret_cast<T*>(smem_f);
+  const WJob<T> jb = jobs.job[blockIdx.x];
   const long long k_begin = (long long)blockIdx.y * k_slice;
   const long long k_end = min(P, k_begin + k_slice);
   const int n_steps = k_end > k_begin ? (int)((k_end - k_begin + kBK - 1) / kBK) : 0;
 
-  // Step `it`'s rows of A and Bm into its stage (16 bytes a copy, 8 a
-  // thread; rows past the slice zero), then one commit group (empty past the
-  // last step), so every thread's group count is the step index.
+  // Step `it`'s rows of A and Bm into its stage (16 bytes a copy; 8 a
+  // thread in float32, 4 in bf16; rows past the slice zero), then one commit
+  // group (empty past the last step), so every thread's group count is the
+  // step index.
+  constexpr int kVec = 16 / sizeof(T), kPerRow = 128 / kVec;
   auto start = [&](int it) {
     if (it < n_steps) {
-      float* stage = smem + (it % kBStages) * kBStage;
+      T* stage = smem + (it % kBStages) * kBStage;
 #pragma unroll
-      for (int part = 0; part < 2 * kBK * 32 / kThreads; ++part) {
+      for (int part = 0; part < 2 * kBK * kPerRow / kThreads; ++part) {
         const int idx = threadIdx.x + part * kThreads;
-        const int op = idx / (kBK * 32), r = (idx / 32) % kBK, c4 = (idx % 32) * 4;
+        const int op = idx / (kBK * kPerRow), r = (idx / kPerRow) % kBK;
+        const int c = (idx % kPerRow) * kVec;
         const long long k = k_begin + (long long)it * kBK + r;
         const bool v = k < k_end;
         const long long kr = v ? k : k_begin;
-        const float* src = op ? jb.b + kr * jb.ldb + c4 : jb.a + kr * jb.lda + c4;
-        cp_async16_zfill(stage + (op * kBK + r) * LDB + c4, src, v);
+        const T* src = op ? jb.b + kr * jb.ldb + c : jb.a + kr * jb.lda + c;
+        cp_async16_zfill(stage + (op * kBK + r) * LDB + c, src, v);
       }
     }
     cp_async_commit();
@@ -89,31 +107,56 @@ wgrad_kernel(const WJobs jobs, float* __restrict__ wpart, long long part_ld, lon
     cp_async_wait<kBStages - 2>();
     __syncthreads();  // step it landed; every warp has left step it - 1
     start(it + kBStages - 1);
-    const float* As = smem + (it % kBStages) * kBStage;
-    const float* Bs = As + kBK * LDB;
+    const T* As = smem + (it % kBStages) * kBStage;
+    const T* Bs = As + kBK * LDB;
     float part[4][4][4] = {};  // this step's sum
+    if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 8) {
-      uint32_t bhi[4][2], blo[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        split_tf32(Bs[(kk + t) * LDB + n0 + ni * 8], bhi[ni][0], blo[ni][0]);
-        split_tf32(Bs[(kk + t + 4) * LDB + n0 + ni * 8], bhi[ni][1], blo[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        // A (m, k) = As[k][m]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
-        const float* a = As + (kk + t) * LDB + m0 + mi * 16;
-        uint32_t ahi[4], alo[4];
-        split_tf32(a[0], ahi[0], alo[0]);
-        split_tf32(a[8], ahi[1], alo[1]);
-        split_tf32(a[4 * LDB], ahi[2], alo[2]);
-        split_tf32(a[4 * LDB + 8], ahi[3], alo[3]);
+      for (int kk = 0; kk < kBK; kk += 8) {
+        uint32_t bhi[4][2], blo[4][2];
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
-          mma_tf32(part[mi][ni], alo, bhi[ni]);
-          mma_tf32(part[mi][ni], ahi, blo[ni]);
-          mma_tf32(part[mi][ni], ahi, bhi[ni]);
+          split_tf32(Bs[(kk + t) * LDB + n0 + ni * 8], bhi[ni][0], blo[ni][0]);
+          split_tf32(Bs[(kk + t + 4) * LDB + n0 + ni * 8], bhi[ni][1], blo[ni][1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          // A (m, k) = As[k][m]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+          const float* a = As + (kk + t) * LDB + m0 + mi * 16;
+          uint32_t ahi[4], alo[4];
+          split_tf32(a[0], ahi[0], alo[0]);
+          split_tf32(a[8], ahi[1], alo[1]);
+          split_tf32(a[4 * LDB], ahi[2], alo[2]);
+          split_tf32(a[4 * LDB + 8], ahi[3], alo[3]);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            mma_tf32(part[mi][ni], alo, bhi[ni]);
+            mma_tf32(part[mi][ni], ahi, blo[ni]);
+            mma_tf32(part[mi][ni], ahi, bhi[ni]);
+          }
+        }
+      }
+    } else {
+      // This lane's ldmatrix row: k row lane % 16; lanes 16-31 the next 8
+      // columns. B's matrices are b0, b1 of two n-tiles; A^T's (As[k][m])
+      // are a0, a2, a1, a3.
+      const int off = (lane & 15) * LDB + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 16) {
+        uint32_t b[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          ldmatrix_x4_trans(b[np], Bs + kk * LDB + off + n0 - g + np * 16);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, As + kk * LDB + off + m0 - g + mi * 16);
+          const uint32_t a[4] = {r[0], r[2], r[1], r[3]};
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            mma_bf16(part[mi][2 * np], a, b[np][0], b[np][1]);
+            mma_bf16(part[mi][2 * np + 1], a, b[np][2], b[np][3]);
+          }
         }
       }
     }
@@ -142,14 +185,15 @@ wgrad_kernel(const WJobs jobs, float* __restrict__ wpart, long long part_ld, lon
 
 // Jobs 0 .. n - 1 over P pairs in `slices` K slices of whole steps; partial
 // sets of part_ld floats at wpart. Returns a cudaError_t.
-cudaError_t launch_wgrad(const WJobs& jobs, int n, int slices, float* wpart, long long part_ld,
-                         long long P, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kBSmemBytes);
+template <typename T>
+cudaError_t launch_wgrad(const WJobs<T>& jobs, int n, int slices, float* wpart,
+                         long long part_ld, long long P, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBSmemBytes<T>);
   if (err != cudaSuccess) return err;
   const long long k_slice = ((P + slices - 1) / slices + kBK - 1) / kBK * kBK;
-  wgrad_kernel<<<dim3(n, slices), kThreads, kBSmemBytes, stream>>>(jobs, wpart, part_ld, P,
-                                                                     k_slice);
+  wgrad_kernel<T><<<dim3(n, slices), kThreads, kBSmemBytes<T>, stream>>>(jobs, wpart, part_ld,
+                                                                           P, k_slice);
   return cudaGetLastError();
 }
 

@@ -20,7 +20,7 @@ The backward: :func:`pair_mlp_bwd` takes the backward kernels
 for CPU tensors. Both recompute the forward from the inputs and return every
 input gradient; :class:`PairMLPFunction` binds forward and backward for
 autograd and saves only the inputs, never the [B, N, N, hidden]
-activations. In float32 the kernels run per chunk of grid rows
+activations. In both dtypes the kernels run per chunk of grid rows
 (:func:`plan_bwd_chunks`) with a transient workspace of the chunk's
 activations and their gradients (:func:`split_workspace_floats`).
 """
@@ -170,25 +170,26 @@ def _check(name, t, shape, dtype, device):
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# Per-block float32 partials of the grid-reduced gradients, in this order:
-# d_w0, d_w1, d_wf, d_b1, d_bf, d_ln_scale, d_ln_bias, then d_wfe (residual
-# only). Mirrors the offsets in csrc/pair_mlp_bwd.cu.
+# The grid-reduced gradients (float32), in this order: d_w0, d_w1, d_wf,
+# d_b1, d_bf, d_ln_scale, d_ln_bias, then d_wfe (residual only). Mirrors the
+# offsets in csrc/pair_mlp_bwd.cu.
 _W_PARTS = (
     ("w0", (C_IN, HIDDEN)), ("w1", (HIDDEN, HIDDEN)), ("wf", (HIDDEN, C_OUT)),
     ("b1", (HIDDEN,)), ("bf", (C_OUT,)), ("ln_scale", (C_OUT,)), ("ln_bias", (C_OUT,)),
     ("wfe", (C_IN, C_OUT)),
 )
 W_PART_FLOATS = sum(int(np.prod(shape)) for _, shape in _W_PARTS)
-ROW_PART = HIDDEN + C_OUT + 1  # d_i_term | d_fi | d_row_mask per row partial
-TILE_I, TILE_J = 4, 8  # pairs of one bf16 backward tile
+ROW_PART = HIDDEN + C_OUT + 1  # d_i_term | d_fi | d_row_mask per row
 
-# The float32 backward (csrc/pair_mlp_bwd.cu, fdk_pair_mlp_bwd_split):
-# kernel A's tile of flat pairs; per pair y0, y1, dy1, dy0 (HIDDEN each), dx
-# (C_OUT) and dem (1) in the workspace; kernel B's K slices, each a partial
-# set of W_PART_FLOATS; one vector partial (d_b1 | d_bf | d_ln_scale |
-# d_ln_bias) per tile, summed SPLIT_GROUP at a time, then the groups.
+# The backward (csrc/pair_mlp_bwd.cu, fdk_pair_mlp_bwd_split): kernel A's
+# tile of flat pairs; per pair in the workspace y0, y1, dy1, dy0 (HIDDEN
+# each) in the dtype, in bf16 also dxd = bf16(dx) (C_OUT), then float32 dx
+# (C_OUT) and dem (1); kernel B's K slices, each a partial set of
+# W_PART_FLOATS; one vector partial (d_b1 | d_bf | d_ln_scale | d_ln_bias)
+# per tile, summed SPLIT_GROUP at a time, then the groups.
 SPLIT_TILE = 64
-SPLIT_PAIR_FLOATS = 4 * HIDDEN + C_OUT + 1
+SPLIT_PAIR_FLOATS = {torch.float32: 4 * HIDDEN + C_OUT + 1,
+                     torch.bfloat16: (4 * HIDDEN + C_OUT) // 2 + C_OUT + 1}
 SPLIT_SLICES = 8
 SPLIT_GROUP = 32
 SPLIT_VEC = HIDDEN + 3 * C_OUT
@@ -207,24 +208,12 @@ def _kernel():
 
 
 @functools.cache
-def _bwd_kernel():
-    """The bf16 C entry point of csrc/pair_mlp_bwd.cu, built and bound at
-    first use."""
-    fn = library("pair_mlp_bwd").fdk_pair_mlp_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 28 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    return fn
-
-
-@functools.cache
 def _split_kernel():
-    """The float32 C entry point of csrc/pair_mlp_bwd.cu (one chunk), built
-    and bound at first use."""
+    """The C entry point of csrc/pair_mlp_bwd.cu (one chunk), built and
+    bound at first use."""
     fn = library("pair_mlp_bwd").fdk_pair_mlp_bwd_split
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 23 + [ctypes.c_longlong] + [
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 23 + [ctypes.c_longlong] + [
         ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     return fn
 
@@ -275,6 +264,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# The kernels stream the weights (and the backward's kernel B the pair
+# tensor) 16 bytes at a time, and read the first layer's terms two elements
+# at a time.
+_ALIGN = {"w0": 16, "w1": 16, "wf": 16, "wfe": 16, "pair": 16, "i_term": 8, "j_term": 8, "b0": 8}
+
+
+def _check_aligned(fn_name, **tensors):
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % _ALIGN[name]:
+            raise ValueError(f"{fn_name}: {name} is not {_ALIGN[name]}-byte aligned")
+
+
 def pair_mlp(
     pair, i_term, j_term, row_mask, col_mask,
     w0, b0, w1, b1, wf, bf, ln_scale, ln_bias,
@@ -296,12 +297,8 @@ def pair_mlp(
         "pair_mlp", pair, i_term, j_term, row_mask, col_mask,
         w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj, wfe,
     )
-    # The kernel streams the weights into shared memory 16 bytes at a time
-    # and reads the first layer's terms two elements at a time.
-    for name, t, align in (("w0", w0, 16), ("w1", w1, 16), ("wf", wf, 16), ("wfe", wfe, 16),
-                           ("i_term", i_term, 8), ("j_term", j_term, 8), ("b0", b0, 8)):
-        if t is not None and t.data_ptr() % align:
-            raise ValueError(f"pair_mlp: {name} is not {align}-byte aligned")
+    _check_aligned("pair_mlp", w0=w0, w1=w1, wf=wf, wfe=wfe, i_term=i_term, j_term=j_term,
+                   b0=b0)
     dev = pair.device
     out = torch.empty((B, Nr, Nc, C_OUT), dtype=pair.dtype, device=dev)
     with torch.cuda.device(dev):
@@ -323,21 +320,13 @@ def pair_mlp(
 pair_mlp.launches = 0
 
 
-def bwd_workspace_floats(B: int, Nr: int, Nc: int, blocks: int) -> int:
-    """Float32 scratch of one backward launch: ``blocks`` per-block weight
-    partial sets, the per-tile row and column partials, and their sums."""
-    n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
-    return ((blocks + 1) * W_PART_FLOATS
-            + ROW_PART * (B * Nr * (n_tj + 1) + B * Nc * (n_ti + 1)))
-
-
-def split_workspace_floats(pairs: int) -> int:
-    """Float32 workspace of the float32 backward for a chunk of ``pairs``
-    pairs: the per-pair activations and gradients, kernel B's slice
-    partials and the tiles' vector partials (mirrors ``split_ws_floats`` in
-    csrc/pair_mlp_bwd.cu)."""
+def split_workspace_floats(pairs: int, dtype: torch.dtype = F32) -> int:
+    """Float32 words of the backward's workspace for a chunk of ``pairs``
+    pairs in ``dtype``: the per-pair activations and gradients, kernel B's
+    slice partials and the tiles' vector partials (mirrors
+    ``split_ws_floats`` in csrc/pair_mlp_bwd.cu)."""
     groups = -(-(-(-pairs // SPLIT_TILE)) // SPLIT_GROUP)
-    return (pairs * SPLIT_PAIR_FLOATS + SPLIT_SLICES * W_PART_FLOATS
+    return (pairs * SPLIT_PAIR_FLOATS[dtype] + SPLIT_SLICES * W_PART_FLOATS
             + (groups * SPLIT_GROUP + groups) * SPLIT_VEC)
 
 
@@ -358,12 +347,15 @@ def plan_row_chunks(rows: int, Nc: int, cap_bytes: int, ws_floats,
     return [(m, min(rows, m + per)) for m in range(0, rows, per)]
 
 
-def plan_bwd_chunks(B: int, Nr: int, Nc: int,
-                    cap_bytes: int = BWD_WORKSPACE_CAP) -> list[tuple[int, int]]:
+def plan_bwd_chunks(B: int, Nr: int, Nc: int, cap_bytes: int = BWD_WORKSPACE_CAP,
+                    dtype: torch.dtype = F32) -> list[tuple[int, int]]:
     """Chunks (m0, m1) of the flat [B * Nr] grid rows, in order, that tile
-    the rows exactly, of near-equal size, each with a workspace of at most
-    ``cap_bytes`` (one row a chunk where even one row exceeds it)."""
-    return plan_row_chunks(B * Nr, Nc, cap_bytes, split_workspace_floats, SPLIT_PAIR_FLOATS)
+    the rows exactly, of near-equal size, each with a workspace in ``dtype``
+    of at most ``cap_bytes`` (one row a chunk where even one row exceeds
+    it)."""
+    return plan_row_chunks(B * Nr, Nc, cap_bytes,
+                           lambda pairs: split_workspace_floats(pairs, dtype),
+                           SPLIT_PAIR_FLOATS[dtype])
 
 
 def pair_mlp_bwd(
@@ -376,16 +368,16 @@ def pair_mlp_bwd(
     :func:`pair_mlp_bwd_plain`'s order and dtypes.
 
     CPU tensors take :func:`pair_mlp_bwd_plain`; CUDA tensors launch the
-    backward kernels (or raise). The grid-reduced gradients are summed in
-    float32 from partials in a fixed order (no atomics), so two launches on
-    the same inputs give the same bits. In float32 the grid runs in the
-    chunks of :func:`plan_bwd_chunks` (each workspace at most
-    ``workspace_cap`` bytes; the chunks' sums are added in chunk order).
-    ``recompute``, a dict, if given (float32), receives the kernels'
-    recompute, which runs the forward kernel's code: "out" (the same bits as
-    :func:`pair_mlp`), "y0" and "y1" ([B, Nr, Nc, hidden], the activations
-    whose relu decisions the gradients take). Adds one to
-    ``pair_mlp_bwd.launches`` per call."""
+    backward kernels (or raise). The grid runs in the chunks of
+    :func:`plan_bwd_chunks` (each workspace at most ``workspace_cap``
+    bytes); the grid-reduced gradients are summed in float32 from partials
+    in a fixed order (no atomics), the chunks' sums added in chunk order, so
+    two launches on the same inputs give the same bits. ``recompute``, a
+    dict, if given, receives the kernels' recompute, which runs the forward
+    kernel's code: "out" (the same bits as :func:`pair_mlp`), "y0" and "y1"
+    ([B, Nr, Nc, hidden] in pair's dtype: the activations whose relu
+    decisions the gradients take). Adds one to ``pair_mlp_bwd.launches`` per
+    call."""
     if pair.device.type == "cpu":
         return pair_mlp_bwd_plain(
             g, pair, i_term, j_term, row_mask, col_mask,
@@ -399,6 +391,8 @@ def pair_mlp_bwd(
     )
     dtype, dev = pair.dtype, pair.device
     _check("g", g, (B, Nr, Nc, C_OUT), dtype, dev)
+    _check_aligned("pair_mlp_bwd", w0=w0, w1=w1, wf=wf, wfe=wfe, pair=pair, i_term=i_term,
+                   j_term=j_term, b0=b0)
     # The kernels' transposed-weight products read W^T row-major.
     w0t, w1t, wft = (w.t().contiguous() for w in (w0, w1, wf))
     wfet = wfe.t().contiguous() if residual else None
@@ -410,59 +404,31 @@ def pair_mlp_bwd(
               _ptr(d_pair)]
     fwd_out = None
     if recompute is not None:
-        if dtype != F32:
-            raise ValueError("pair_mlp_bwd: recompute is for float32 inputs")
-        recompute.update({k: torch.empty(B, Nr, Nc, c, dtype=F32, device=dev)
+        recompute.update({k: torch.empty(B, Nr, Nc, c, dtype=dtype, device=dev)
                           for k, c in (("out", C_OUT), ("y0", HIDDEN), ("y1", HIDDEN))})
         fwd_out = _ptr(recompute["out"])
-    if dtype == F32:
-        # Outputs zeroed: the chunks add to them in order.
-        out = torch.zeros(W_PART_FLOATS + (B * Nr + B * Nc) * ROW_PART, dtype=F32, device=dev)
-        wred, rowred, colred = torch.split(out, [W_PART_FLOATS, B * Nr * ROW_PART,
-                                                 B * Nc * ROW_PART])
-        chunks = plan_bwd_chunks(B, Nr, Nc, workspace_cap)
-        if chunks:
-            n_ws = split_workspace_floats(max(m1 - m0 for m0, m1 in chunks) * Nc)
-            ws = torch.empty(n_ws, dtype=F32, device=dev)
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                for m0, m1 in chunks:
-                    err = _split_kernel()(
-                        int(residual), *inputs, _ptr(ws), n_ws, _ptr(wred), _ptr(rowred),
-                        _ptr(colred), B, Nr, Nc, m0, m1, fwd_out, stream,
-                    )
-                    if err != 0:
-                        raise RuntimeError(
-                            f"pair_mlp_bwd kernel launch failed: cudaError_t {err}")
-                    if recompute is not None:  # the workspace starts with y0, then y1
-                        n = (m1 - m0) * Nc * HIDDEN
-                        for k, part in (("y0", ws[:n]), ("y1", ws[n:2 * n])):
-                            recompute[k].view(-1, HIDDEN)[m0 * Nc:m1 * Nc] = part.view(-1, HIDDEN)
-            del ws
-            pair_mlp_bwd.launches += 1
-    else:
-        n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
-        # Persistent blocks, one per SM: each owns one weight partial set.
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = max(1, min(B * n_ti * n_tj, sms))
-        ws = torch.empty(bwd_workspace_floats(B, Nr, Nc, blocks), dtype=F32, device=dev)
-        sizes = [blocks * W_PART_FLOATS, B * Nr * n_tj * ROW_PART, B * Nc * n_ti * ROW_PART,
-                 W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART]
-        wpart, rowpart, colpart, wred, rowred, colred = torch.split(ws, sizes)
-        if B * Nr * Nc:
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = _bwd_kernel()(
-                    int(residual), *inputs, _ptr(wpart), _ptr(rowpart), _ptr(colpart),
-                    _ptr(wred), _ptr(rowred), _ptr(colred), B, Nr, Nc, blocks, stream,
+    # Outputs zeroed: the chunks add to them in order.
+    out = torch.zeros(W_PART_FLOATS + (B * Nr + B * Nc) * ROW_PART, dtype=F32, device=dev)
+    wred, rowred, colred = torch.split(out, [W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART])
+    chunks = plan_bwd_chunks(B, Nr, Nc, workspace_cap, dtype)
+    if chunks:
+        n_ws = split_workspace_floats(max(m1 - m0 for m0, m1 in chunks) * Nc, dtype)
+        ws = torch.empty(n_ws, dtype=F32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for m0, m1 in chunks:
+                err = _split_kernel()(
+                    _DTYPE_CODE[dtype], int(residual), *inputs, _ptr(ws), n_ws, _ptr(wred),
+                    _ptr(rowred), _ptr(colred), B, Nr, Nc, m0, m1, fwd_out, stream,
                 )
-            if err != 0:
-                raise RuntimeError(f"pair_mlp_bwd kernel launch failed: cudaError_t {err}")
-            pair_mlp_bwd.launches += 1
-        else:
-            wred.zero_()
-            rowred.zero_()
-            colred.zero_()
+                if err != 0:
+                    raise RuntimeError(f"pair_mlp_bwd kernel launch failed: cudaError_t {err}")
+                if recompute is not None:  # the workspace starts with y0, then y1
+                    n, acts = (m1 - m0) * Nc * HIDDEN, ws.view(dtype)
+                    for k, part in (("y0", acts[:n]), ("y1", acts[n:2 * n])):
+                        recompute[k].view(-1, HIDDEN)[m0 * Nc:m1 * Nc] = part.view(-1, HIDDEN)
+        del ws
+        pair_mlp_bwd.launches += 1
 
     parts, off = {}, 0
     for name, shape in _W_PARTS:

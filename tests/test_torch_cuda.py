@@ -182,10 +182,10 @@ def assert_grads_close(got, want, tol, names=None):
 
 
 def kernel_relu_masks(g, args, tol, **kw):
-    """The float32 backward kernels' relu decisions (y0 > 0, y1 > 0), after
-    checking that their recompute equals the forward kernel's output and that
-    every relu site where the plain forward decides otherwise holds an
-    activation within tol of 0 (the two forwards round differently)."""
+    """The backward kernels' relu decisions (y0 > 0, y1 > 0), after checking
+    that their recompute equals the forward kernel's output and that every
+    relu site where the plain forward decides otherwise holds an activation
+    within tol of 0 (the two forwards round differently)."""
     rec = {}
     t_pair.pair_mlp_bwd(g, *args, recompute=rec, **kw)
     assert torch.equal(rec["out"], t_pair.pair_mlp(*args))
@@ -193,7 +193,7 @@ def kernel_relu_masks(g, args, tol, **kw):
     for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
         flip = (plain_y > 0) != (kern_y > 0)
         if flip.any():
-            assert float(torch.maximum(plain_y[flip], kern_y[flip]).max()) <= tol
+            assert float(torch.maximum(plain_y[flip].float(), kern_y[flip].float()).max()) <= tol
     return rec["y0"] > 0, rec["y1"] > 0
 
 
@@ -205,14 +205,14 @@ def kernel_relu_masks(g, args, tol, **kw):
 def test_cuda_pair_mlp_bwd_matches_plain_version(dtype, B, N, residual, chunk_rows):
     """On the card: the backward kernels against their plain version at a
     ragged shape with masked rows, at a serving shape, at one pair and one
-    partial tile, and with a workspace cap that makes the float32 wrapper run
-    in several chunks (chunk_rows grid rows each; bf16 ignores the cap), all
-    16 gradients; two launches give the same bits; one launch counted per
-    call. In float32 the kernels' recompute runs the forward kernel's code:
-    its output equals the forward kernel's, every relu site where the plain
-    forward falls on the other side of 0 holds an activation within rounding
-    of 0, and the gradients are held against the plain backward through the
-    recompute's relu decisions (the gradient jumps at such a site)."""
+    partial tile, and with a workspace cap that makes the wrapper run in
+    several chunks (chunk_rows grid rows each), all 16 gradients; two
+    launches give the same bits; one launch counted per call. The kernels'
+    recompute runs the forward kernel's code: its output equals the forward
+    kernel's, every relu site where the plain forward falls on the other side
+    of 0 holds an activation within rounding of 0 (tol), and the gradients
+    are held against the plain backward through the recompute's relu
+    decisions (the gradient jumps at such a site)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tol = 1e-4 if dtype == torch.float32 else 5e-2
@@ -223,13 +223,14 @@ def test_cuda_pair_mlp_bwd_matches_plain_version(dtype, B, N, residual, chunk_ro
     g = torch.as_tensor(rng.normal(size=(B, N, N, 128)).astype(np.float32)).to(dtype).cuda()
     kw = {}
     if chunk_rows:
-        kw["workspace_cap"] = 4 * t_pair.split_workspace_floats(chunk_rows * N)
-        assert len(t_pair.plan_bwd_chunks(B, N, N, kw["workspace_cap"])) == -(-B * N // chunk_rows)
+        kw["workspace_cap"] = 4 * t_pair.split_workspace_floats(chunk_rows * N, dtype)
+        chunks = t_pair.plan_bwd_chunks(B, N, N, kw["workspace_cap"], dtype)
+        assert len(chunks) == -(-B * N // chunk_rows)
     before = t_pair.pair_mlp_bwd.launches
     got = t_pair.pair_mlp_bwd(g, *args, **kw)
     again = t_pair.pair_mlp_bwd(g, *args, **kw)
     assert t_pair.pair_mlp_bwd.launches == before + 2
-    masks = kernel_relu_masks(g, args, tol, **kw) if dtype == torch.float32 else None
+    masks = kernel_relu_masks(g, args, tol, **kw)
     want = t_pair.pair_mlp_bwd_plain(g, *args, relu_masks=masks)
     assert_grads_close([None if a is None else a.cpu() for a in got],
                        [None if b is None else b.cpu() for b in want], tol)
@@ -311,7 +312,7 @@ def emb_kernel_relu_masks(g, args, bins, tol, **kw):
     for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
         flip = (plain_y > 0) != (kern_y > 0)
         if flip.any():
-            assert float(torch.maximum(plain_y[flip], kern_y[flip]).max()) <= tol
+            assert float(torch.maximum(plain_y[flip].float(), kern_y[flip].float()).max()) <= tol
     return rec["y0"] > 0, rec["y1"] > 0
 
 

@@ -161,9 +161,9 @@ def emulate_split_bwd(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b
                     opt(cols[..., H:-1]), opt(grads["wfe"]))
 
 
-def rows_cap(rows: int, Nc: int) -> int:
+def rows_cap(rows: int, Nc: int, dtype: torch.dtype = F32) -> int:
     """A workspace cap that holds ``rows`` grid rows of Nc pairs."""
-    return 4 * t_pair.split_workspace_floats(rows * Nc)
+    return 4 * t_pair.split_workspace_floats(rows * Nc, dtype)
 
 
 @pytest.mark.parametrize("residual", [True, False])
