@@ -73,21 +73,18 @@ Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=1, N=17 and 256, B=2 N=200 ragged
 with masked rows, B=2 N=256; the pair MLP residual and not, the embedder
 with 22 and 0 distance bins; B=2 N=200 also in 10 chunks under a small
-workspace cap: the pair MLP in both dtypes, residual and not, the embedder
-in float32), checks that two launches give the same bits, and times them at
-B=2 N=256 (the pair MLP's in both dtypes and the embedder's float32 call
-also by part: kernel A, kernel B, the row/column sums, the ordered
-reductions, under torch.profiler, with the chunk count, workspace bytes and
-each kernel's bound on the tensor cores; the earlier CUDA-core kernel's
-time beside; the embedder's also beside its CUDA-core bound and the
-``xla`` setting's backward, the VJP of its plain forward). The split
-backwards' recompute (the pair MLP's in both dtypes, the embedder's in
-float32) must equal the forward kernel's output bit for bit, and their
-gradients are held against the plain backward through the recompute's relu
-decisions, after every relu site where the plain forward decides otherwise
-is shown to hold an activation within the dtype's tolerance of 0 (float32
-1e-4, bf16 5e-2; the count of such sites and the largest there are
-printed).
+workspace cap), checks that two launches give the same bits, and times them
+at B=2 N=256 in both dtypes, also by part: kernel A, kernel B, the
+row/column sums, the ordered reductions, under torch.profiler, with the
+chunk count, workspace bytes and each kernel's bound on the tensor cores;
+the earlier persistent CUDA-core kernel's time beside; the embedder's also
+beside the ``xla`` setting's backward, the VJP of its plain forward. The
+backwards' recompute must equal the forward kernel's output bit for bit,
+and their gradients are held against the plain backward through the
+recompute's relu decisions, after every relu site where the plain forward
+decides otherwise is shown to hold an activation within the dtype's
+tolerance of 0 (float32 1e-4, bf16 5e-2; the count of such sites and the
+largest there are printed).
 
 The last two lines are a JSON object with one entry per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
@@ -566,9 +563,10 @@ def check_pair_mlp_bwd() -> dict:
 # 128); 245,760 in all.
 EMB_BWD_A_FLOP_PER_PAIR = 2 * (64 * 128 + 128 * 128 + 128 * 128) + 2 * (2 * 128 * 128 + 64 * 128)
 EMB_BWD_B_FLOP_PER_PAIR = 2 * (2 * 128 * 128 + 64 * 128)
-# The persistent CUDA-core kernel, float32 B=2 N=256 (PERF.md section 6; NVIDIA H100
-# 80GB HBM3, 700 W), printed for reference: bf16 still runs it.
-EMB_BWD_CUDA_CORE_MS = 1.8980
+# The earlier persistent CUDA-core kernel at B=2 N=256 (PERF.md section 6;
+# NVIDIA H100 80GB HBM3, 700 W), printed for reference: both dtypes have
+# left it for kernels A and B.
+EMB_BWD_CUDA_CORE_MS = {torch.float32: 1.8980, torch.bfloat16: 2.0669}
 EMB_BWD_PARTS = (("A", "emb_split_tile_kernel"), ("B", "wgrad_kernel"), ("row/col sums", "_sums"),
                  ("ordered reductions", "sum_partials"))
 
@@ -600,24 +598,24 @@ def xla_emb_backward(g, args):
 
 
 def check_edge_embedder_bwd() -> dict:
-    """The embedder backward against its plain version on the card: every
-    gradient within tol of its own max-abs (float32 1e-4, bf16 5e-2), with
-    22 and 0 distance bins, at one pair, one partial tile, a ragged grid with
-    masked rows and the training shape, and in float32 a grid the wrapper
-    runs in several chunks (a small workspace cap); two launches
+    """The embedder backward against its plain version on the card, in
+    float32 and bf16: every gradient within tol of its own max-abs (float32
+    1e-4, bf16 5e-2), with 22 and 0 distance bins, at one pair, one partial
+    tile, a ragged grid with masked rows and the training shape, and a grid
+    the wrapper runs in several chunks (a small workspace cap); two launches
     bit-identical; at B=2 N=256 the call, its plain version and the ``xla``
-    backward timed (float32 also by kernel).
+    backward timed, the call also by kernel.
 
-    The float32 kernels take their relu decisions from their recompute,
-    which runs the forward kernel's code (3xTF32): the recompute's output
-    must equal the forward kernel's bit for bit, every site where the plain
-    forward's relu falls on the other side of 0 must hold an activation
-    within float32 rounding of 0 (<= 1e-4), and the gradients are held
-    against the plain backward through the recompute's relu decisions."""
+    The kernels take their relu decisions from their recompute, which runs
+    the forward kernel's code: the recompute's output must equal the forward
+    kernel's bit for bit, every site where the plain forward's relu falls on
+    the other side of 0 must hold an activation within the dtype's rounding
+    of 0 (tol), and the gradients are held against the plain backward
+    through the recompute's relu decisions. Returns the float32 numbers at
+    B=2 N=256 and the bf16 ones under "bf16"."""
     from framedipt_tpu_torch.model.kernels.edge_embedder import (
         BWD_WORKSPACE_CAP,
         _pre_norm,
-        bwd_workspace_floats,
         edge_embedder,
         edge_embedder_bwd,
         edge_embedder_bwd_plain,
@@ -627,73 +625,67 @@ def check_edge_embedder_bwd() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
-    small_cap = 4 * split_workspace_floats(40 * 200, 22)  # 40 grid rows a chunk: 10 chunks
-    shapes = [(B, N, n_bins, None) for B, N in ((1, 1), (1, 17), (1, 256), (2, 200), (2, 256))
-              for n_bins in (22, 0)] + [(2, 200, 22, small_cap)]
     for dtype in (torch.float32, torch.bfloat16):
+        small_cap = 4 * split_workspace_floats(40 * 200, 22, dtype)  # 40 grid rows a chunk: 10 chunks
+        shapes = [(B, N, n_bins, None) for B, N in ((1, 1), (1, 17), (1, 256), (2, 200), (2, 256))
+                  for n_bins in (22, 0)] + [(2, 200, 22, small_cap)]
         for B, N, n_bins, cap in shapes:
-            if cap is not None and dtype != torch.float32:
-                continue  # the bf16 kernel keeps no chunked workspace
             kw_cap = {} if cap is None else {"workspace_cap": cap}
             args = edge_embedder_inputs(B, N, dtype, gen, n_bins=n_bins)
             *tensors, lower, upper = args
             kw = {"bins_lower": lower, "bins_upper": upper}
             g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
-            rec = {} if dtype == torch.float32 else None
+            rec = {}
             got = edge_embedder_bwd(g, *tensors, recompute=rec, **kw, **kw_cap)
             again = edge_embedder_bwd(g, *tensors, **kw, **kw_cap)
-            masks = None if rec is None else (rec["y0"] > 0, rec["y1"] > 0)
-            ref = edge_embedder_bwd_plain(g, *tensors, **kw, relu_masks=masks)
+            ref = edge_embedder_bwd_plain(g, *tensors, **kw,
+                                          relu_masks=(rec["y0"] > 0, rec["y1"] > 0))
             torch.cuda.synchronize()
             same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
-            label = f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins}"
+            chunks = plan_bwd_chunks(B, N, N, n_bins, cap or BWD_WORKSPACE_CAP, dtype)
+            ws_bytes = 4 * split_workspace_floats(max(b - a for a, b in chunks) * N, n_bins, dtype)
+            label = (f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins} "
+                     f"chunks={len(chunks)} (workspace {ws_bytes} bytes)")
             worst_rel, worst_abs = grad_errors(got, ref, label)
-            if dtype == torch.float32:
-                chunks = plan_bwd_chunks(B, N, N, n_bins, cap or BWD_WORKSPACE_CAP)
-                label += (f" chunks={len(chunks)} (workspace "
-                          f"{4 * split_workspace_floats(max(b - a for a, b in chunks) * N, n_bins)}"
-                          " bytes)")
+            fwd_diff = float((rec["out"].float() - edge_embedder(*args).float()).abs().max())
+            n_flips, flip_max = relu_flips(
+                *_pre_norm(*tensors[:6], *tensors[8:15], lower, upper)[2:4], rec)
+            own_rel = grad_errors(got, edge_embedder_bwd_plain(g, *tensors, **kw), label)[0]
             line = (f"{label}: max err {worst_abs:.3e} abs, {worst_rel:.3e} of the gradient's "
-                    f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}")
-            if rec is not None:
-                fwd_diff = float((rec["out"] - edge_embedder(*args)).abs().max())
-                n_flips, flip_max = relu_flips(
-                    *_pre_norm(*tensors[:6], *tensors[8:15], lower, upper)[2:4], rec)
-                own_rel = grad_errors(got, edge_embedder_bwd_plain(g, *tensors, **kw), label)[0]
-                line += (f"; recompute vs forward kernel output: max diff {fwd_diff:.3e}; relu "
-                         f"sites on the other side of 0 from the plain forward: {n_flips} (largest "
-                         f"|activation| there {flip_max:.3e}); against the plain backward through "
-                         f"its own relu decisions {own_rel:.3e}")
-                if fwd_diff != 0 or flip_max > TOL[torch.float32]:
-                    log(line)
-                    raise AssertionError(f"{label}: the recompute is not the forward kernel's")
+                    f"max-abs (tol {TOL[dtype]}); two launches bit-identical: {same}; recompute vs "
+                    f"forward kernel output: max diff {fwd_diff:.3e}; relu sites on the other side "
+                    f"of 0 from the plain forward: {n_flips} (largest |activation| there "
+                    f"{flip_max:.3e}); against the plain backward through its own relu decisions "
+                    f"{own_rel:.3e}")
+            if fwd_diff != 0 or flip_max > TOL[dtype]:
+                log(line)
+                raise AssertionError(f"{label}: the recompute is not the forward kernel's")
             if (B, N, n_bins, cap) == (2, 256, 22, None):
                 ms = cuda_time_ms(lambda: edge_embedder_bwd(g, *tensors, **kw), 20)
                 plain_ms = cuda_time_ms(lambda: edge_embedder_bwd_plain(g, *tensors, **kw), 5)
                 xla_ms = cuda_time_ms(lambda: xla_emb_backward(g, args), 5)
                 a_flops, b_flops, nbytes = edge_embedder_bwd_cost(B, N, dtype, n_bins)
                 flops = a_flops + b_flops
-                cuda_core_ms = bound(flops, nbytes, PEAK_FLOPS[dtype])[0]
+                peak = TENSOR_CORE_FLOPS[dtype]
+                bound_ms, bound_by = bound(flops, nbytes, peak)
+                parts = bwd_parts_ms(lambda: edge_embedder_bwd(g, *tensors, **kw), EMB_BWD_PARTS)
                 line += (f"; call {ms:.4f} ms, plain {plain_ms:.4f} ms, xla backward "
-                         f"{xla_ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s")
-                if dtype == torch.float32:
-                    bound_ms, bound_by = bound(flops, nbytes, TENSOR_CORE_FLOPS[dtype])
-                    parts = bwd_parts_ms(lambda: edge_embedder_bwd(g, *tensors, **kw),
-                                         EMB_BWD_PARTS)
-                    line += (f"; bound {bound_ms:.4f} ms ({bound_by}, 3xTF32; CUDA cores "
-                             f"{cuda_core_ms:.4f} ms); the persistent CUDA-core kernel (PERF.md) "
-                             f"{EMB_BWD_CUDA_CORE_MS} ms; device ms by part (profiler, one call): "
-                             + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
-                             + f"; kernel A bound {1e3 * a_flops / TENSOR_CORE_FLOPS[dtype]:.4f} ms, "
-                             f"kernel B bound {1e3 * b_flops / TENSOR_CORE_FLOPS[dtype]:.4f} ms; "
-                             f"{card_line()}")
-                    out = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                         f"{xla_ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s; bound {bound_ms:.4f} "
+                         f"ms ({bound_by}, tensor cores"
+                         + (f", 3xTF32; CUDA cores {bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms"
+                            if dtype == torch.float32 else "")
+                         + f"); the persistent CUDA-core kernel (PERF.md) "
+                         f"{EMB_BWD_CUDA_CORE_MS[dtype]} ms; device ms by part (profiler, one "
+                         "call): "
+                         + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
+                         + f"; kernel A bound {1e3 * a_flops / peak:.4f} ms, kernel B bound "
+                         f"{1e3 * b_flops / peak:.4f} ms; {card_line()}")
+                numbers = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                if dtype == torch.float32:
+                    out.update(numbers)
                 else:
-                    blocks = torch.cuda.get_device_properties(0).multi_processor_count
-                    bound_ms, bound_by = bound(flops, nbytes, PEAK_FLOPS[dtype])
-                    line += (f", bound {bound_ms:.4f} ms ({bound_by}), workspace "
-                             f"{4 * bwd_workspace_floats(B, N, N, blocks)} bytes ({blocks} blocks)")
+                    out["bf16"] = numbers
             log(line)
             if worst_rel > TOL[dtype] or not same:
                 raise AssertionError(f"{label}: error {worst_rel} over tolerance or "

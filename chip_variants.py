@@ -15,12 +15,12 @@ outputs and are only timed, to show what that part costs. With ``--parent``
 DIR``), that tree's ``edge_embedder.cu`` is timed too and must give the
 same bits as this checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256
 with and without distance bins (the forward's tile is shared with the
-embedder backward's recompute); its ``pair_mlp.cu`` (both dtypes),
-``pair_mlp_bwd.cu`` (float32) and ``edge_embedder_bwd.cu`` (float32) must
-give the same bits as this checkout's (the product code, the forward tiles
-and kernel B are shared), and the four are timed beside this checkout's
-(a parent's float32-only C entry of the pair-MLP backward, without the
-dtype argument, is called through an adapter).
+embedder backward's recompute); its ``pair_mlp.cu`` and ``pair_mlp_bwd.cu``
+(both dtypes) and ``edge_embedder_bwd.cu`` (float32) must give the same
+bits as this checkout's (the product code, the forward tiles and kernel B
+are shared), and they are timed beside this checkout's, the embedder
+backward in bf16 too. The parent's backwards run through that tree's own
+wrapper modules, which bind its C entries as it built them.
 
 Times: CUDA events over 20 launches at B=2 N=256 in float32 and bf16, every
 variant once a round, three rounds in alternating order; this checkout's
@@ -33,13 +33,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import pathlib
 import shutil
 import subprocess
 import sys
 import tempfile
-import types
 
 import torch
 
@@ -99,8 +99,9 @@ PLAIN_EPI1 = """    for_each_elem([&](int r, int c, int mi, int ni, int q) {
       const float2 it = ld2(i_term + (size_t)prow * C + c);
       const float2 jt = ld2(j_term + (size_t)pcol * C + c);
       const float2 bb = ld2(b0 + c);
-      const float v0 = emb_y0<T>(acc[mi][ni][q], bn, w_dist, c, it.x, jt.x, bb.x);
-      const float v1 = emb_y0<T>(acc[mi][ni][q + 1], bn, w_dist, c + 1, it.y, jt.y, bb.y);
+      const float2 w = bn >= 0 ? ld2(w_dist + (size_t)bn * C + c) : make_float2(0.f, 0.f);
+      const float v0 = emb_y0<T>(acc[mi][ni][q], bn >= 0, w.x, it.x, jt.x, bb.x);
+      const float v1 = emb_y0<T>(acc[mi][ni][q + 1], bn >= 0, w.y, it.y, jt.y, bb.y);
       X[r * L::LDX + c] = v0;
       X[r * L::LDX + c + 1] = v1;
       if (STORE) store_relu_bits(keep.m0, 0, mi, ni, q, v0, v1);
@@ -180,48 +181,50 @@ def patched_copy(root: pathlib.Path, name: str, patches: dict) -> pathlib.Path:
     return d / EMB
 
 
-def parent_pair_mlp_bwd(lib: ctypes.CDLL) -> types.SimpleNamespace:
-    """A parent's pair-MLP backward library as the wrapper binds it, where
-    its C entry was float32 only and took no dtype argument (before the bf16
-    backward took the same route)."""
-    fn = lib.fdk_pair_mlp_bwd_split
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 23 + [ctypes.c_longlong] + [
-        ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-
-    def entry(dtype, *args):
-        if dtype != 0:
-            raise ValueError("the parent's split backward is float32 only")
-        return fn(*args)
-
-    return types.SimpleNamespace(fdk_pair_mlp_bwd_split=entry)
+def parent_module(tree: pathlib.Path, name: str):
+    """The parent tree's kernel wrapper module ``name`` (its imports resolve
+    to this checkout's package, its libraries to what ``use`` installs)."""
+    path = tree / "framedipt_tpu_torch" / "model" / "kernels" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def time_beside_parent(cs, libs, new_libs, use, gen) -> dict:
-    """This checkout's pair-MLP forward (float32, bf16), float32 pair-MLP
-    backward and float32 embedder backward beside the parent's, B=2 N=256,
-    CUDA events over 20 calls, three rounds in alternating order."""
+def time_beside_parent(cs, pmods, libs, new_libs, use, gen) -> dict:
+    """This checkout's pair-MLP forward and backward and embedder backward
+    (float32, bf16) beside the parent's, B=2 N=256, CUDA events over 20
+    calls, three rounds in alternating order; the backwards through each
+    tree's own wrapper (``pmods``: the parent's)."""
     from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
     from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 
-    cases = {}
+    cases = {}  # label: (library kind, this checkout's call, the parent's call)
     for dtype in (torch.float32, torch.bfloat16):
         a = cs.pair_mlp_inputs(2, 256, dtype, gen)
-        cases[f"pair_mlp {str(dtype)[6:]}"] = ("pair_mlp", lambda a=a: t_pair.pair_mlp(*a))
-    a = cs.pair_mlp_inputs(2, 256, torch.float32, gen)
-    g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda")
-    cases["pair_mlp_bwd float32"] = ("pair_mlp_bwd", lambda: t_pair.pair_mlp_bwd(g, *a))
-    *e, lower, upper = cs.edge_embedder_inputs(2, 256, torch.float32, gen)
-    cases["edge_embedder_bwd float32"] = (
-        "edge_embedder_bwd",
-        lambda: t_emb.edge_embedder_bwd(g, *e, bins_lower=lower, bins_upper=upper))
+        g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
+        fwd = lambda a=a: t_pair.pair_mlp(*a)  # noqa: E731
+        cases[f"pair_mlp {str(dtype)[6:]}"] = ("pair_mlp", fwd, fwd)
+        cases[f"pair_mlp_bwd {str(dtype)[6:]}"] = (
+            "pair_mlp_bwd", lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
+            lambda a=a, g=g: pmods["pair_mlp"].pair_mlp_bwd(g, *a))
+    parent_emb = pmods["edge_embedder"]
+    for dtype in (torch.float32, torch.bfloat16):
+        *e, lower, upper = cs.edge_embedder_inputs(2, 256, dtype, gen)
+        g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
+        cases[f"edge_embedder_bwd {str(dtype)[6:]}"] = (
+            "edge_embedder_bwd",
+            lambda e=e, g=g, lo=lower, up=upper: t_emb.edge_embedder_bwd(
+                g, *e, bins_lower=lo, bins_upper=up),
+            lambda e=e, g=g, lo=lower, up=upper: parent_emb.edge_embedder_bwd(
+                g, *e, bins_lower=lo, bins_upper=up))
     times = {}
-    for label, (kind, fn) in cases.items():
+    for label, (kind, new_fn, parent_fn) in cases.items():
         t = {"new": [], "parent": []}
         for rnd in range(3):
             for who in (("new", "parent") if rnd % 2 == 0 else ("parent", "new")):
                 use(kind, new_libs[kind] if who == "new" else libs[f"parent_{kind}"])
-                t[who].append(cs.cuda_time_ms(fn, 20))
+                t[who].append(cs.cuda_time_ms(new_fn if who == "new" else parent_fn, 20))
         use(kind, new_libs[kind])
         log(f"{label} B=2 N=256: this checkout " + ", ".join(f"{x:.4f}" for x in t["new"])
             + " ms; the parent " + ", ".join(f"{x:.4f}" for x in t["parent"]) + " ms")
@@ -271,16 +274,15 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")
         new_libs = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd", "edge_embedder_bwd")}
-        if "parent_pair_mlp_bwd" in libs and "fdk_pair_mlp_bwd_split(int dtype" not in (
-                parent / "pair_mlp_bwd.cu").read_text():
-            libs["parent_pair_mlp_bwd"] = parent_pair_mlp_bwd(libs["parent_pair_mlp_bwd"])
+        pmods = {} if parent is None else {
+            n: parent_module(args.parent, n) for n in ("pair_mlp", "edge_embedder")}
 
         def use(kind: str, lib) -> None:
             build._libs[kind] = lib
-            t_emb._kernel.cache_clear()
-            t_emb._split_kernel.cache_clear()
-            t_pair._kernel.cache_clear()
-            t_pair._split_kernel.cache_clear()
+            for mod in (t_emb, t_pair, *pmods.values()):
+                for entry in ("_kernel", "_split_kernel", "_bwd_kernel"):
+                    if hasattr(mod, entry):
+                        getattr(mod, entry).cache_clear()
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         checked = ["new"] + [n for n, (_, ok) in VARIANTS.items() if ok and n in libs]
@@ -319,15 +321,15 @@ def main() -> int:
                         outs.append(t_pair.pair_mlp(*a))
                     same = torch.equal(*outs)
                     line = f"pair_mlp {str(dtype)[6:]} residual={residual}: the parent's bits {same}"
-                    if dtype == torch.float32:
-                        g = torch.randn(2, 200, 200, 128, generator=gen, device="cuda")
-                        grads = []
-                        for lib in (new_libs["pair_mlp_bwd"], libs["parent_pair_mlp_bwd"]):
-                            use("pair_mlp_bwd", lib)
-                            grads.append(t_pair.pair_mlp_bwd(g, *a))
-                        bwd_same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
-                        line += f"; float32 backward (kernel A's recompute inside) {bwd_same}"
-                        same = same and bwd_same
+                    g = torch.randn(2, 200, 200, 128, generator=gen, device="cuda").to(dtype)
+                    grads = []
+                    for lib, wrapper in ((new_libs["pair_mlp_bwd"], t_pair),
+                                         (libs["parent_pair_mlp_bwd"], pmods["pair_mlp"])):
+                        use("pair_mlp_bwd", lib)
+                        grads.append(wrapper.pair_mlp_bwd(g, *a))
+                    bwd_same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
+                    line += f"; backward (kernel A's recompute inside) {bwd_same}"
+                    same = same and bwd_same
                     log(line)
                     fails += not same
             use("pair_mlp", new_libs["pair_mlp"])
@@ -339,10 +341,11 @@ def main() -> int:
                                                                      n_bins=n_bins)
                     g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
                     grads = []
-                    for lib in (new_libs["edge_embedder_bwd"], libs["parent_edge_embedder_bwd"]):
+                    for lib, wrapper in ((new_libs["edge_embedder_bwd"], t_emb),
+                                         (libs["parent_edge_embedder_bwd"], pmods["edge_embedder"])):
                         use("edge_embedder_bwd", lib)
-                        grads.append(t_emb.edge_embedder_bwd(g, *tensors, bins_lower=lower,
-                                                             bins_upper=upper))
+                        grads.append(wrapper.edge_embedder_bwd(g, *tensors, bins_lower=lower,
+                                                               bins_upper=upper))
                     same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
                     log(f"edge_embedder_bwd float32 B={B} N={N} n_bins={n_bins}: the parent's "
                         f"bits {same}")
@@ -350,7 +353,7 @@ def main() -> int:
             use("edge_embedder_bwd", new_libs["edge_embedder_bwd"])
         times = {}
         if parent is not None:
-            times["parent"] = time_beside_parent(cs, libs, new_libs, use, gen)
+            times["parent"] = time_beside_parent(cs, pmods, libs, new_libs, use, gen)
         order = ["new"] + [n for n in libs if n not in ("new", "parent_pair_mlp",
                                                          "parent_pair_mlp_bwd",
                                                          "parent_edge_embedder_bwd")]

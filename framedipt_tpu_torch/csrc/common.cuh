@@ -1,13 +1,7 @@
-// Shared pieces of the edge-stack kernels: element-type conversion, a
-// shared-memory-tiled float32 product for 64-row tiles with a double-buffered
-// weight stream, the pair MLP's and the edge embedder's epilogues, the fused
-// LayerNorm + edge-mask epilogue, and the backward kernels' weight-gradient
-// product and ordered partial sums.
-//
-// Thread layout (256 threads): tx = tid % 16 picks columns, ty = tid / 16
-// picks rows; each thread owns a 4-row x (NC/16)-column micro-tile of the
-// 64-row output tile. Column j of the micro-tile is (j/4)*64 + tx*4 + j%4, so
-// a warp reads 16 consecutive float4 of a staged weight row.
+// Shared pieces of the edge-stack kernels: element-type conversion, the pair
+// MLP's and the edge embedder's epilogues, the distance bin, the 64-pair
+// tile's bookkeeping, the fused LayerNorm + edge-mask epilogue, and the
+// backward kernels' ordered partial sums.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,98 +40,6 @@ template <typename T> __device__ __forceinline__ float ld(const T* p) {
 }
 template <typename T> __device__ __forceinline__ T st(float x) {
   return Elem<T>::from_f(x);
-}
-
-__device__ __forceinline__ int tile_col(int j, int tx) {
-  return (j >> 2) * 64 + tx * 4 + (j & 3);
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
-// Rows [k0, k0 + kKc) x columns [col0, col0 + NC) of W into registers, one
-// column per thread and row group, so a warp reads 32 consecutive elements.
-template <typename T, int NC>
-__device__ __forceinline__ void fetch_slice(const T* __restrict__ W, int ldw, int col0, int k0,
-                                            float (&r)[kKc * NC / kThreads]) {
-#pragma unroll
-  for (int m = 0; m < kKc * NC / kThreads; ++m) {
-    const int idx = threadIdx.x + m * kThreads, kk = idx / NC, cc = idx - kk * NC;
-    r[m] = ld<T>(W + (size_t)(k0 + kk) * ldw + col0 + cc);
-  }
-}
-
-template <int NC>
-__device__ __forceinline__ void stash_slice(float* __restrict__ Ws,
-                                            const float (&r)[kKc * NC / kThreads]) {
-#pragma unroll
-  for (int m = 0; m < kKc * NC / kThreads; ++m) Ws[threadIdx.x + m * kThreads] = r[m];
-}
-
-// acc[TM][NC/16] += A[16 TM x K] @ W[K x NC] (TM = 4: a 64-row tile, TM = 2:
-// a 32-row one; thread ty owns rows ty * TM ..): A is float in shared memory with
-// row stride lda (a multiple of 4, K a multiple of kKc); W is row-major T in
-// global memory with row stride ldw, read from column col0. Ws is a shared
-// staging buffer of 2 * kKc * NC floats: while the block multiplies one
-// slice, each thread holds its share of the next in registers, so the L2
-// latency of the weight stream hides behind the products. A is read as
-// float4 along k (four k steps per load). The sum over k runs in order.
-// Every thread of the block must call it (it synchronizes, first and last).
-template <typename T, int NC, int TM = 4>
-__device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, int K,
-                                          const T* __restrict__ W, int ldw, int col0,
-                                          float* __restrict__ Ws,
-                                          float (&acc)[TM][NC / 16]) {
-  constexpr int TN = NC / 16;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int slices = K / kKc;
-  float next[kKc * NC / kThreads];
-  fetch_slice<T, NC>(W, ldw, col0, 0, next);
-  stash_slice<NC>(Ws, next);
-  __syncthreads();
-  for (int s = 0; s < slices; ++s) {
-    const float* Wc = Ws + (s & 1) * (kKc * NC);
-    if (s + 1 < slices) fetch_slice<T, NC>(W, ldw, col0, (s + 1) * kKc, next);
-    const float* Ar = A + ty * TM * lda + s * kKc;
-#pragma unroll 2
-    for (int kk = 0; kk < kKc; kk += 4) {
-      float4 a4[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a4[i] = *reinterpret_cast<const float4*>(Ar + i * lda + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float w[TN];
-#pragma unroll
-        for (int q = 0; q < TN / 4; ++q) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(Wc + (kk + u) * NC + q * 64 + tx * 4);
-          w[q * 4 + 0] = v.x;
-          w[q * 4 + 1] = v.y;
-          w[q * 4 + 2] = v.z;
-          w[q * 4 + 3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float a = lane4(a4[i], u);
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-        }
-      }
-    }
-    // The other buffer was last read in step s - 1, which every thread has
-    // left (the barrier at its end).
-    if (s + 1 < slices) stash_slice<NC>(Ws + ((s + 1) & 1) * (kKc * NC), next);
-    __syncthreads();
-  }
-}
-
-template <int TM, int TN>
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 }
 
 // The pair MLP's epilogues, in the one addition order that its forward
@@ -190,15 +92,6 @@ __device__ __forceinline__ float emb_y0(float acc, bool has_bin, float w_dist, f
   v = rnd<T>(v + j_term);
   v = rnd<T>(v + b0);
   return fmaxf(v, 0.f);
-}
-
-// The same with the W_dist row gathered here, bin < 0: no row; W_dist rows
-// are 128 wide (the edge width both kernels are built for).
-template <typename T>
-__device__ __forceinline__ float emb_y0(float acc, int bin, const T* __restrict__ w_dist, int c,
-                                        float i_term, float j_term, float b0) {
-  return emb_y0<T>(acc, bin >= 0, bin >= 0 ? ld<T>(w_dist + (size_t)bin * 128 + c) : 0.f,
-                   i_term, j_term, b0);
 }
 
 // Pre-norm output of the last layer: y1 @ W2 + b2.
@@ -300,74 +193,9 @@ __device__ __forceinline__ void layer_norm_store(const float* __restrict__ O, in
 
 // ---- pieces of the backward kernels ----------------------------------------
 //
-// The edge embedder's bf16 backward kernel (edge_embedder_bwd.cu) has
-// persistent blocks: each owns one float32 partial set of the grid-summed
-// gradients in global memory and adds each tile's contribution to it;
-// per-tile row and column partials go to buffers that a second kernel
-// (reduce_partials, which every backward uses) sums in a fixed order. No
-// float atomics, so two launches give the same bits.
-
-// G[K x N] (+)= A^T Bm over the P rows of a tile. A and Bm are float in
-// shared memory (row strides lda, ldb, multiples of 4); G is row-major
-// (stride N) in global memory, the block's own. K is a multiple of 16 RK and N
-// of 128. Each thread owns an RK x 8 block of every (16 RK) x 128 output tile
-// (rows ty * RK + i, columns tile_col(j, tx)) and adds the rows p = 0 .. P-1
-// to it in order; on the block's first tile it writes instead of adding.
-template <int RK, int P>
-__device__ __forceinline__ void wgrad(const float* __restrict__ A, int lda, int K,
-                                      const float* __restrict__ Bm, int ldb, int N,
-                                      float* __restrict__ G, bool first) {
-  static_assert(RK % 4 == 0, "A is read as float4");
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int kb = 0; kb < K; kb += 16 * RK) {
-    for (int nb = 0; nb < N; nb += 128) {
-      float acc[RK][8];
-      float* Gt = G + (size_t)(kb + ty * RK) * N + nb + tx * 4;
-#pragma unroll
-      for (int i = 0; i < RK; ++i)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const float4 v = first ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                 : *reinterpret_cast<const float4*>(Gt + (size_t)i * N + q * 64);
-          acc[i][q * 4 + 0] = v.x;
-          acc[i][q * 4 + 1] = v.y;
-          acc[i][q * 4 + 2] = v.z;
-          acc[i][q * 4 + 3] = v.w;
-        }
-#pragma unroll 4
-      for (int p = 0; p < P; ++p) {
-        const float* ap = A + p * lda + kb + ty * RK;
-        const float* bp = Bm + p * ldb + nb + tx * 4;
-        float a[RK];
-#pragma unroll
-        for (int u = 0; u < RK / 4; ++u) {
-          const float4 v = *reinterpret_cast<const float4*>(ap + 4 * u);
-          a[4 * u + 0] = v.x;
-          a[4 * u + 1] = v.y;
-          a[4 * u + 2] = v.z;
-          a[4 * u + 3] = v.w;
-        }
-        const float4 b0 = *reinterpret_cast<const float4*>(bp);
-        const float4 b1 = *reinterpret_cast<const float4*>(bp + 64);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RK; ++i)
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-          *reinterpret_cast<float4*>(Gt + (size_t)i * N + q * 64) =
-              make_float4(acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2], acc[i][q * 4 + 3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void add_part(float* __restrict__ dst, float v, bool first) {
-  *dst = first ? v : *dst + v;
-}
+// The split backwards (pair_mlp_bwd.cu, edge_embedder_bwd.cu) write partial
+// sums of each gradient to scratch; reduce_partials adds them in a fixed
+// order. No float atomics, so two launches give the same bits.
 
 namespace {
 

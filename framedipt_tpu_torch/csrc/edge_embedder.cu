@@ -30,7 +30,7 @@
 //
 // Design: 64-pair tiles of the flat [B*Nr*Nc] grid, one block of 8 warps
 // each; the tile's forward is edge_embedder_tc.cuh's emb_forward_tile, which
-// the float32 backward's recompute runs too. No [N, N, .] feature exists in device memory: the block forms the CP
+// the backward's recompute runs too. No [N, N, .] feature exists in device memory: the block forms the CP
 // product and the distance bin per pair in shared memory and fuses LayerNorm
 // and the mask; the only N^2 traffic is the output write. What the earlier
 // CUDA-core kernel lost time to, and what this one does instead:
@@ -92,7 +92,7 @@ edge_embedder_kernel(const T* __restrict__ g, const T* __restrict__ h,
   }
   __syncthreads();
   emb_forward_tile<T, false>(et, ws, g, h, pos_r, pos_c, i_term, j_term, w_dist, b0, b1, b2,
-                             n_bins, EmbKeep{});
+                             n_bins, EmbKeep<T>{});
   __syncthreads();
   layer_norm_store<T>(et.X, L::LDX, *et.pt, p0, ln_scale, ln_bias, out);
 }

@@ -1,6 +1,6 @@
 // The edge embedder's tensor-core pieces for Hopper (sm_90a), shared by the
-// forward kernel (edge_embedder.cu) and the float32 backward's kernel A
-// (edge_embedder_bwd.cu): the weight stream's slice maps, the 64-pair
+// forward kernel (edge_embedder.cu) and the backward's kernel A
+// (edge_embedder_bwd.cu), both in float32 and bf16: the weight stream's slice maps, the 64-pair
 // tile's shared-memory layout and the forward of a tile up to its pre-norm
 // output (emb_forward_tile). Both kernels run this code, so the backward's
 // recompute equals the forward kernel's output bit for bit and its relu
@@ -80,12 +80,14 @@ struct EmbTile {
 };
 
 // What a backward's recompute keeps (STORE): each valid row's CP product,
-// y0 and y1 (row r at r * CP, r * C), and the relus' decisions (y > 0) of
-// y0 and y1 (mask_word order, one chunk each).
+// y0 and y1 (row r at r * CP, r * C) as the workspace's element type W
+// (exact: each is a T value), and the relus' decisions (y > 0) of y0 and
+// y1 (mask_word order, one chunk each).
+template <typename W>
 struct EmbKeep {
-  float* m;
-  float* y0;
-  float* y1;
+  W* m;
+  W* y0;
+  W* y1;
   uint32_t* m0;
   uint32_t* m1;
 };
@@ -93,14 +95,14 @@ struct EmbKeep {
 // The forward of a 64-pair tile up to its pre-norm output, which it leaves
 // in et.X (rows past the grid hold no pair). The caller has started the
 // stream's first slices, filled *et.pt and the bin edges, and synchronized.
-// With STORE (float32), also `keep`.
-template <typename T, bool STORE>
+// With STORE, also `keep`.
+template <typename T, bool STORE, typename W = T>
 __device__ __forceinline__ void emb_forward_tile(
     const EmbTile<T>& et, const EmbStream<T>& ws, const T* __restrict__ g,
     const T* __restrict__ h, const float* __restrict__ pos_r, const float* __restrict__ pos_c,
     const T* __restrict__ i_term, const T* __restrict__ j_term, const T* __restrict__ w_dist,
     const T* __restrict__ b0, const T* __restrict__ b1, const T* __restrict__ b2, int n_bins,
-    const EmbKeep& keep) {
+    const EmbKeep<W>& keep) {
   using L = EmbSmem<T>;
   float* X = et.X;
   float* Y1 = et.Y1;

@@ -1,7 +1,7 @@
 // Kernel B of the split backward kernels, for Hopper (sm_90a): weight
 // gradients G = A^T Bm summed over the pairs of a chunk, as one split-K GEMM
 // on the tensor cores. Shared by the pair MLP's backward (pair_mlp_bwd.cu,
-// float32 and bf16) and the edge embedder's (edge_embedder_bwd.cu, float32).
+// float32 and bf16) and the edge embedder's (edge_embedder_bwd.cu, both).
 //
 // - Jobs: each job is one output tile of at most 128 x 128 (WJob.rows rows
 //   of A's columns, 128 of Bm's) of one gradient; A and Bm are [pairs, .]

@@ -21,9 +21,9 @@ tensors and :func:`edge_embedder_plain` for CPU tensors. The backward:
 (``csrc/edge_embedder_bwd.cu``) for CUDA tensors and
 :func:`edge_embedder_bwd_plain` for CPU tensors; both recompute the forward
 from the O(N) inputs and return every input gradient but the coordinates'.
-In float32 the kernels run per chunk of grid rows (:func:`plan_bwd_chunks`)
-with a transient workspace of the chunk's activations and their gradients
-(:func:`split_workspace_floats`); bf16 takes one persistent kernel.
+In both dtypes the kernels run per chunk of grid rows
+(:func:`plan_bwd_chunks`) with a transient workspace of the chunk's
+activations and their gradients (:func:`split_workspace_floats`).
 :class:`EdgeEmbedderFunction` binds them for autograd; with
 ``pallas_emb_bwd_impl="xla"`` its backward is instead the VJP of the plain
 formulation (the JAX package's remat twin).
@@ -319,24 +319,36 @@ edge_embedder.launches = 0
 
 
 # The grid-summed gradients in float32, in this order (d_w_dist has MAX_BINS
-# rows, the first n_bins used): the bf16 kernel's per-block partial sets and
-# both paths' sums. Mirrors the offsets in csrc/edge_embedder_bwd.cu.
+# rows, the first n_bins used). Mirrors the offsets in
+# csrc/edge_embedder_bwd.cu.
 _W_PARTS = (
     ("w_rel", (CP, C)), ("w_dist", (MAX_BINS, C)), ("w1", (C, C)), ("w2", (C, C)),
     ("b1", (C,)), ("b2", (C,)), ("ln_scale", (C,)), ("ln_bias", (C,)),
 )
 W_PART_FLOATS = sum(int(np.prod(shape)) for _, shape in _W_PARTS)
-ROW_PART = CP + C + 1  # d_g | d_i_term | d_row_mask per row sum (columns alike)
-TILE_I, TILE_J = 4, 8  # pairs of one bf16 backward tile
 
-# The float32 backward (csrc/edge_embedder_bwd.cu, fdk_edge_embedder_bwd_split):
-# kernel A's tile of flat pairs; per pair y0, y1, dx, dy1, dy0 (C each), m,
-# dm (CP each) and dem (1) in the workspace; kernel B's K slices, each a
-# partial set of d_w_rel | d_w1 | d_w2; one vector partial (d_b1 | d_b2 |
-# d_ln_scale | d_ln_bias | d_w_dist) per tile, summed SPLIT_GROUP at a time,
-# then the groups.
+
+def _w_parts(wred: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The grid-summed gradients, by name, as views of ``wred``."""
+    parts, off = {}, 0
+    for name, shape in _W_PARTS:
+        n = int(np.prod(shape))
+        parts[name] = wred[off : off + n].view(shape)
+        off += n
+    return parts
+
+
+ROW_PART = CP + C + 1  # d_g | d_i_term | d_row_mask per row sum (columns alike)
+
+# The backward (csrc/edge_embedder_bwd.cu, fdk_edge_embedder_bwd_split):
+# kernel A's tile of flat pairs; per pair in the workspace y0, y1, dx (bf16:
+# dxd), dy1, dy0 (C each) and m (CP) in the dtype, then float32 dm (CP) and
+# dem (1); kernel B's K slices, each a partial set of d_w_rel | d_w1 |
+# d_w2; one vector partial (d_b1 | d_b2 | d_ln_scale | d_ln_bias |
+# d_w_dist) per tile, summed SPLIT_GROUP at a time, then the groups.
 SPLIT_TILE = 64
-SPLIT_PAIR_FLOATS = 5 * C + 2 * CP + 1
+SPLIT_PAIR_FLOATS = {torch.float32: 5 * C + 2 * CP + 1,
+                     torch.bfloat16: (5 * C + CP) // 2 + CP + 1}
 SPLIT_SLICES = 44
 SPLIT_B_PARTS = CP * C + 2 * C * C
 SPLIT_GROUP = 32
@@ -348,53 +360,36 @@ def split_vec_floats(n_bins: int) -> int:
     return (4 + n_bins) * C
 
 
-def split_workspace_floats(pairs: int, n_bins: int) -> int:
-    """Float32 workspace of the float32 backward for a chunk of ``pairs``
-    pairs: the per-pair activations and gradients, kernel B's slice
-    partials and the tiles' vector partials (mirrors ``split_ws_floats`` in
-    csrc/edge_embedder_bwd.cu)."""
+def split_workspace_floats(pairs: int, n_bins: int, dtype: torch.dtype = F32) -> int:
+    """Float32 words of the backward's workspace for a chunk of ``pairs``
+    pairs in ``dtype``: the per-pair activations and gradients, kernel B's
+    slice partials and the tiles' vector partials (mirrors
+    ``split_ws_floats`` in csrc/edge_embedder_bwd.cu)."""
     groups = -(-(-(-pairs // SPLIT_TILE)) // SPLIT_GROUP)
-    return (pairs * SPLIT_PAIR_FLOATS + SPLIT_SLICES * SPLIT_B_PARTS
+    return (pairs * SPLIT_PAIR_FLOATS[dtype] + SPLIT_SLICES * SPLIT_B_PARTS
             + (groups * SPLIT_GROUP + groups) * split_vec_floats(n_bins))
 
 
-def plan_bwd_chunks(B: int, Nr: int, Nc: int, n_bins: int,
-                    cap_bytes: int = BWD_WORKSPACE_CAP) -> list[tuple[int, int]]:
+def plan_bwd_chunks(B: int, Nr: int, Nc: int, n_bins: int, cap_bytes: int = BWD_WORKSPACE_CAP,
+                    dtype: torch.dtype = F32) -> list[tuple[int, int]]:
     """Chunks (m0, m1) of the flat [B * Nr] grid rows, in order, that tile
-    the rows exactly, of near-equal size, each with a workspace of at most
-    ``cap_bytes`` (one row a chunk where even one row exceeds it)."""
+    the rows exactly, of near-equal size, each with a workspace in ``dtype``
+    of at most ``cap_bytes`` (one row a chunk where even one row exceeds
+    it)."""
     return plan_row_chunks(B * Nr, Nc, cap_bytes,
-                           lambda pairs: split_workspace_floats(pairs, n_bins), SPLIT_PAIR_FLOATS)
-
-
-@functools.cache
-def _bwd_kernel():
-    """The C entry point of the bf16 kernel in csrc/edge_embedder_bwd.cu,
-    built and bound at first use."""
-    fn = library("edge_embedder_bwd").fdk_edge_embedder_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    return fn
+                           lambda pairs: split_workspace_floats(pairs, n_bins, dtype),
+                           SPLIT_PAIR_FLOATS[dtype])
 
 
 @functools.cache
 def _split_kernel():
-    """The C entry point of the float32 kernels in csrc/edge_embedder_bwd.cu
-    (one chunk a call), built and bound at first use."""
+    """The C entry point of csrc/edge_embedder_bwd.cu (one chunk a call),
+    built and bound at first use."""
     fn = library("edge_embedder_bwd").fdk_edge_embedder_bwd_split
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 24 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
     return fn
-
-
-def bwd_workspace_floats(B: int, Nr: int, Nc: int, blocks: int) -> int:
-    """Float32 scratch of one bf16 backward launch: ``blocks`` per-block
-    weight partial sets, the per-tile row and column partials, and their
-    sums."""
-    n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
-    return ((blocks + 1) * W_PART_FLOATS
-            + ROW_PART * (B * Nr * (n_tj + 1) + B * Nc * (n_ti + 1)))
 
 
 def edge_embedder_bwd(
@@ -407,16 +402,16 @@ def edge_embedder_bwd(
     order and dtypes.
 
     CPU tensors take :func:`edge_embedder_bwd_plain`; CUDA tensors launch
-    the backward kernels (or raise). The grid-summed gradients are summed in
-    float32 from partials in a fixed order (no atomics), so two launches on
-    the same inputs give the same bits. In float32 the grid runs in the
-    chunks of :func:`plan_bwd_chunks` (each workspace at most
-    ``workspace_cap`` bytes; the chunks' sums are added in chunk order).
-    ``recompute``, a dict, if given (float32), receives the kernels'
-    recompute, which runs the forward kernel's code: "out" (the same bits as
-    :func:`edge_embedder`), "y0" and "y1" ([B, Nr, Nc, 128], the activations
-    whose relu decisions the gradients take). Adds one to
-    ``edge_embedder_bwd.launches`` per call."""
+    the backward kernels (or raise). The grid runs in the chunks of
+    :func:`plan_bwd_chunks` (each workspace at most ``workspace_cap``
+    bytes); the grid-summed gradients are summed in float32 from partials in
+    a fixed order (no atomics), the chunks' sums added in chunk order, so
+    two launches on the same inputs give the same bits. ``recompute``, a
+    dict, if given, receives the kernels' recompute, which runs the forward
+    kernel's code: "out" (the same bits as :func:`edge_embedder`), "y0" and
+    "y1" ([B, Nr, Nc, 128] in g's dtype, the activations whose relu
+    decisions the gradients take). Adds one to ``edge_embedder_bwd.launches``
+    per call."""
     if g.device.type == "cpu":
         return edge_embedder_bwd_plain(
             grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
@@ -433,91 +428,55 @@ def edge_embedder_bwd(
     edges = _edges(bins_lower, bins_upper, dev)
     ptrs = [grad.data_ptr(), *(t.data_ptr() for t in args[:10]), edges[0].data_ptr(),
             edges[1].data_ptr(), *(t.data_ptr() for t in args[10:])]
-    if dtype == F32:
-        _check_aligned("edge_embedder_bwd", w_rel, w1, w2, i_term, j_term, b0, b1, b2)
-        # The input-gradient chain reads W^T row-major; W_rel^T [C, CP] padded
-        # with zero columns to [C, C], the width of every product.
-        w_relt = torch.zeros(C, C, dtype=F32, device=dev)
-        w_relt[:, :CP] = w_rel.t()
-        w1t, w2t = (w.t().contiguous() for w in (w1, w2))
-        # Outputs zeroed: the chunks add to them in order.
-        sums = torch.zeros(W_PART_FLOATS + (B * Nr + B * Nc) * ROW_PART, dtype=F32, device=dev)
-        wred, rowred, colred = torch.split(sums, [W_PART_FLOATS, B * Nr * ROW_PART,
-                                                  B * Nc * ROW_PART])
-        fwd_out = None
-        if recompute is not None:
-            recompute.update({k: torch.empty(B, Nr, Nc, C, dtype=F32, device=dev)
-                              for k in ("out", "y0", "y1")})
-            fwd_out = recompute["out"].data_ptr()
-        chunks = plan_bwd_chunks(B, Nr, Nc, n_bins, workspace_cap)
-        if chunks:
-            n_ws = split_workspace_floats(max(m1 - m0 for m0, m1 in chunks) * Nc, n_bins)
-            ws = torch.empty(n_ws, dtype=F32, device=dev)
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                for m0, m1 in chunks:
-                    err = _split_kernel()(
-                        *ptrs, w_relt.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
-                        ws.data_ptr(), n_ws, wred.data_ptr(), rowred.data_ptr(),
-                        colred.data_ptr(), n_bins, B, Nr, Nc, m0, m1, fwd_out, stream,
-                    )
-                    if err != 0:
-                        raise RuntimeError(
-                            f"edge_embedder_bwd kernel launch failed: cudaError_t {err}")
-                    if recompute is not None:  # the workspace starts with y0, then y1
-                        n = (m1 - m0) * Nc * C
-                        for k, part in (("y0", ws[:n]), ("y1", ws[n:2 * n])):
-                            recompute[k].view(-1, C)[m0 * Nc:m1 * Nc] = part.view(-1, C)
-            del ws
-            edge_embedder_bwd.launches += 1
-    else:
-        if recompute is not None:
-            raise ValueError("edge_embedder_bwd: recompute is for float32 inputs")
-        n_ti, n_tj = -(-Nr // TILE_I), -(-Nc // TILE_J)
-        # Persistent blocks, one per SM: each owns one weight partial set.
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = max(1, min(B * n_ti * n_tj, sms))
-        # The kernel's transposed-weight products read W^T row-major.
-        w_relt, w1t, w2t = (w.t().contiguous() for w in (w_rel, w1, w2))
-        ws = torch.empty(bwd_workspace_floats(B, Nr, Nc, blocks), dtype=F32, device=dev)
-        sizes = [blocks * W_PART_FLOATS, B * Nr * n_tj * ROW_PART, B * Nc * n_ti * ROW_PART,
-                 W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART]
-        wpart, rowpart, colpart, wred, rowred, colred = torch.split(ws, sizes)
-        if B * Nr * Nc:
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = _bwd_kernel()(
-                    *ptrs, w_relt.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
-                    wpart.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(),
-                    wred.data_ptr(), rowred.data_ptr(), colred.data_ptr(),
-                    n_bins, B, Nr, Nc, blocks, stream,
+    _check_aligned("edge_embedder_bwd", w_rel, w1, w2, i_term, j_term, b0, b1, b2)
+    # The input-gradient chain reads W^T row-major; W_rel^T [C, CP] padded
+    # with zero columns to [C, C], the width of every product.
+    w_relt = torch.zeros(C, C, dtype=dtype, device=dev)
+    w_relt[:, :CP] = w_rel.t()
+    w1t, w2t = (w.t().contiguous() for w in (w1, w2))
+    # Outputs zeroed: the chunks add to them in order.
+    sums = torch.zeros(W_PART_FLOATS + (B * Nr + B * Nc) * ROW_PART, dtype=F32, device=dev)
+    wred, rowred, colred = torch.split(sums, [W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART])
+    fwd_out = None
+    if recompute is not None:
+        recompute.update({k: torch.empty(B, Nr, Nc, C, dtype=dtype, device=dev)
+                          for k in ("out", "y0", "y1")})
+        fwd_out = recompute["out"].data_ptr()
+    chunks = plan_bwd_chunks(B, Nr, Nc, n_bins, workspace_cap, dtype)
+    if chunks:
+        n_ws = split_workspace_floats(max(m1 - m0 for m0, m1 in chunks) * Nc, n_bins, dtype)
+        ws = torch.empty(n_ws, dtype=F32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for m0, m1 in chunks:
+                err = _split_kernel()(
+                    _DTYPE_CODE[dtype], *ptrs, w_relt.data_ptr(), w1t.data_ptr(),
+                    w2t.data_ptr(), ws.data_ptr(), n_ws, wred.data_ptr(), rowred.data_ptr(),
+                    colred.data_ptr(), n_bins, B, Nr, Nc, m0, m1, fwd_out, stream,
                 )
-            if err != 0:
-                raise RuntimeError(f"edge_embedder_bwd kernel launch failed: cudaError_t {err}")
-            edge_embedder_bwd.launches += 1
-        else:
-            wred.zero_()
-            rowred.zero_()
-            colred.zero_()
+                if err != 0:
+                    raise RuntimeError(f"edge_embedder_bwd kernel launch failed: cudaError_t {err}")
+                if recompute is not None:  # the workspace starts with y0, then y1
+                    n, acts = (m1 - m0) * Nc * C, ws.view(dtype)
+                    for k, part in (("y0", acts[:n]), ("y1", acts[n:2 * n])):
+                        recompute[k].view(-1, C)[m0 * Nc:m1 * Nc] = part.view(-1, C)
+        del ws
+        edge_embedder_bwd.launches += 1
 
-    parts, off = {}, 0
-    for name, shape in _W_PARTS:
-        n = int(np.prod(shape))
-        parts[name] = wred[off : off + n].view(shape)
-        off += n
-    rows = rowred.view(B, Nr, ROW_PART)
-    cols = colred.view(B, Nc, ROW_PART)
-    d_i_term, d_j_term = rows[..., CP:-1], cols[..., CP:-1]
     # The relu input is base + i_term + j_term + b0: d_b0 sums d_i_term.
-    d_b0 = torch.sum(d_i_term, dim=(0, 1))
+    d_b0 = torch.sum(rowred.view(B, Nr, ROW_PART)[..., CP:-1], dim=(0, 1)).to(dtype)
+    # Every gradient but ln_scale's and ln_bias's in the dtype, in one cast
+    # (float32: the sums themselves).
+    wred_t, rowred_t, colred_t = torch.split(
+        sums.to(dtype), [W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART])
+    parts, parts_f = _w_parts(wred_t), _w_parts(wred)
+    rows = rowred_t.view(B, Nr, ROW_PART)
+    cols = colred_t.view(B, Nc, ROW_PART)
     return (
-        rows[..., :CP].to(g.dtype), cols[..., :CP].to(h.dtype), None, None,
-        d_i_term.to(i_term.dtype), d_j_term.to(j_term.dtype),
-        rows[..., -1].to(row_mask.dtype), cols[..., -1].to(col_mask.dtype),
-        parts["w_rel"].to(w_rel.dtype), parts["w_dist"][:n_bins].to(w_dist.dtype),
-        d_b0.to(b0.dtype), parts["w1"].to(w1.dtype), parts["b1"].to(b1.dtype),
-        parts["w2"].to(w2.dtype), parts["b2"].to(b2.dtype),
-        parts["ln_scale"].to(ln_scale.dtype), parts["ln_bias"].to(ln_bias.dtype),
+        rows[..., :CP], cols[..., :CP], None, None, rows[..., CP:-1], cols[..., CP:-1],
+        rows[..., -1], cols[..., -1], parts["w_rel"], parts["w_dist"][:n_bins], d_b0,
+        parts["w1"], parts["b1"], parts["w2"], parts["b2"],
+        parts_f["ln_scale"], parts_f["ln_bias"],
     )
 
 

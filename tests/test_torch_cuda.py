@@ -301,8 +301,8 @@ def test_cuda_edge_embedder_output_unchanged(dtype):
 
 
 def emb_kernel_relu_masks(g, args, bins, tol, **kw):
-    """The float32 embedder backward kernels' relu decisions (y0 > 0,
-    y1 > 0), after checking that their recompute equals the forward
+    """The embedder backward kernels' relu decisions (y0 > 0, y1 > 0),
+    after checking that their recompute equals the forward
     kernel's output and that every relu site where the plain forward
     decides otherwise holds an activation within tol of 0."""
     rec = {}
@@ -325,14 +325,13 @@ def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins, chunk
     """On the card: the embedder's backward kernels against their plain
     version at a ragged shape with masked rows, at a serving shape, at one
     pair and one partial tile, with and without distance bins, and with a
-    workspace cap that makes the float32 wrapper run in several chunks
-    (chunk_rows grid rows each; bf16 ignores the cap), every gradient; two
-    launches give the same bits; one launch counted per call. In float32 the
-    kernels' recompute runs the forward kernel's code: its output equals the
-    forward kernel's, every relu site where the plain forward falls on the
-    other side of 0 holds an activation within rounding of 0, and the
-    gradients are held against the plain backward through the recompute's
-    relu decisions."""
+    workspace cap that makes the wrapper run in several chunks (chunk_rows
+    grid rows each), every gradient; two launches give the same bits; one
+    launch counted per call. The kernels' recompute runs the forward
+    kernel's code: its output equals the forward kernel's, every relu site
+    where the plain forward falls on the other side of 0 holds an activation
+    within rounding of 0 (tol), and the gradients are held against the plain
+    backward through the recompute's relu decisions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tol = 1e-4 if dtype == torch.float32 else 5e-2
@@ -343,14 +342,14 @@ def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins, chunk
     kw = {"bins_lower": bins[0], "bins_upper": bins[1]}
     cap = {}
     if chunk_rows:
-        cap["workspace_cap"] = 4 * t_emb.split_workspace_floats(chunk_rows * N, n_bins)
-        assert len(t_emb.plan_bwd_chunks(B, N, N, n_bins, cap["workspace_cap"])) == -(
+        cap["workspace_cap"] = 4 * t_emb.split_workspace_floats(chunk_rows * N, n_bins, dtype)
+        assert len(t_emb.plan_bwd_chunks(B, N, N, n_bins, cap["workspace_cap"], dtype)) == -(
             -B * N // chunk_rows)
     before = t_emb.edge_embedder_bwd.launches
     got = t_emb.edge_embedder_bwd(g, *args, **kw, **cap)
     again = t_emb.edge_embedder_bwd(g, *args, **kw, **cap)
     assert t_emb.edge_embedder_bwd.launches == before + 2
-    masks = emb_kernel_relu_masks(g, args, bins, tol, **cap) if dtype == torch.float32 else None
+    masks = emb_kernel_relu_masks(g, args, bins, tol, **cap)
     want = t_emb.edge_embedder_bwd_plain(g, *args, **kw, relu_masks=masks)
     assert_grads_close([None if a is None else a.cpu() for a in got],
                        [None if b is None else b.cpu() for b in want], tol)
@@ -359,22 +358,25 @@ def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins, chunk
 
 
 @pytest.mark.gpu
-def test_cuda_edge_embedder_bwd_chunks_agree():
-    """On the card: the float32 backward in 13 chunks of 20 grid rows gives
-    the one-chunk gradients up to float32 reordering of the sums."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)])
+def test_cuda_edge_embedder_bwd_chunks_agree(dtype, tol):
+    """On the card: the backward in 13 chunks of 20 grid rows gives the
+    one-chunk gradients up to float32 reordering of the sums (bf16: then
+    each gradient rounds to bf16, so a reordering can move it by one bf16
+    step, 2^-7 of its value)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(11)
     args, bins = emb_args(rng, 2, 130, 128, 22)
-    args = [a.cuda() for a in emb_to_torch(args, torch.float32)]
-    g = torch.as_tensor(rng.normal(size=(2, 130, 130, 128)).astype(np.float32)).cuda()
+    args = [a.cuda() for a in emb_to_torch(args, dtype)]
+    g = torch.as_tensor(rng.normal(size=(2, 130, 130, 128)).astype(np.float32)).to(dtype).cuda()
     kw = {"bins_lower": bins[0], "bins_upper": bins[1]}
-    cap = 4 * t_emb.split_workspace_floats(20 * 130, 22)
-    assert len(t_emb.plan_bwd_chunks(2, 130, 130, 22, cap)) == 13
+    cap = 4 * t_emb.split_workspace_floats(20 * 130, 22, dtype)
+    assert len(t_emb.plan_bwd_chunks(2, 130, 130, 22, cap, dtype)) == 13
     one = t_emb.edge_embedder_bwd(g, *args, **kw)
     many = t_emb.edge_embedder_bwd(g, *args, **kw, workspace_cap=cap)
     assert_grads_close([None if a is None else a.cpu() for a in many],
-                       [None if b is None else b.cpu() for b in one], 1e-5)
+                       [None if b is None else b.cpu() for b in one], tol)
 
 
 @pytest.mark.gpu

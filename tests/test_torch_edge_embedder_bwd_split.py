@@ -1,6 +1,7 @@
 """The float32 edge-embedder backward's decomposition
 (``csrc/edge_embedder_bwd.cu``, ``fdk_edge_embedder_bwd_split``), emulated in
-torch on the CPU, and its chunk planner.
+torch on the CPU, and its chunk planner (bf16: ``emulate_split_bwd`` on bf16
+inputs, ``tests/test_torch_edge_embedder_bwd_bf16.py``).
 
 The emulation takes the kernels' steps in their order: per chunk of grid
 rows (``plan_bwd_chunks``), kernel A's per-pair workspace (m, y0, y1, dx,
@@ -34,55 +35,67 @@ from framedipt_tpu_torch.model.layers import matmul_f32
 
 from tests.test_torch_cuda import assert_grads_close, emb_args, emb_to_torch
 from tests.test_torch_edge_embedder_bwd import NAMES, _jax_args, _without_coords
+from tests.test_torch_pair_mlp_bwd_bf16 import split_k_bf16
 from tests.test_torch_pair_mlp_bwd_split import in_order, split_k, tile_partials
 
-F32 = torch.float32
+F32, BF16 = torch.float32, torch.bfloat16
 C, CP = t_emb.C, t_emb.CP
 
 
 def emulate_split_bwd(grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
                       w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias, bins,
-                      cap=t_emb.BWD_WORKSPACE_CAP):
-    """The float32 kernels' decomposition; returns (chunks, the gradients in
-    edge_embedder_bwd's order)."""
+                      cap=t_emb.BWD_WORKSPACE_CAP, round_dm=False):
+    """The kernels' decomposition in g's dtype; returns (chunks, the
+    gradients in float32, in edge_embedder_bwd's order). bf16 rounds where
+    the JAX kernel rounds: the recompute as the forward, dxd = bf16(dx)
+    (d_b2 sums dx unrounded), dy1 and dy0 before their relu masks; dm stays
+    float32 (``round_dm``: rounded to bf16 instead, to show that the
+    rounding point matters); kernel B's products are bf16 MMA."""
     B, Nr, Nc, _ = grad.shape
     n_bins = len(bins[0])
+    dtype = g.dtype
     # Kernel A, per pair (its rows do not depend on the chunk).
     m, onehot, y0, y1, out = t_emb._pre_norm(g, h, pos_rows, pos_cols, i_term, j_term, w_rel,
                                              w_dist, b0, w1, b1, w2, b2, *bins)
+    out = out.float()
     mean = out.mean(dim=-1, keepdim=True)
     xc = out - mean
     inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + 1e-6)
     xhat = xc * inv
-    emask = (row_mask[:, :, None] * col_mask[:, None, :])[..., None]
+    grad = grad.float()
+    emask = (row_mask[:, :, None] * col_mask[:, None, :]).float()[..., None]
     dem = torch.sum((xhat * ln_scale + ln_bias) * grad, dim=-1)
     gm = grad * emask
     dxhat = gm * ln_scale
     dx = (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True)) * inv
-    dy1 = matmul_f32(dx, w2.t()) * (y1 > 0)
-    dy0 = matmul_f32(dy1, w1.t()) * (y0 > 0)
-    dm = matmul_f32(dy0, w_rel.t())
+    dxd = dx.to(dtype)
+    dy1 = matmul_f32(dxd, w2.t()) * (y1 > 0).to(dtype)
+    dy0 = matmul_f32(dy1, w1.t()) * (y0 > 0).to(dtype)
+    dm = torch.matmul(dy0.float(), w_rel.float().t())
+    if round_dm:
+        dm = dm.to(dtype).float()
 
     P_all = B * Nr * Nc
     flat = {n: v.reshape(P_all, -1) for n, v in
-            (("m", m), ("y0", y0), ("y1", y1), ("dx", dx), ("dy1", dy1), ("dy0", dy0),
-             ("dm", dm), ("lns", gm * xhat), ("lnb", gm))}
+            (("m", m), ("y0", y0), ("y1", y1), ("dx", dx), ("dxd", dxd), ("dy1", dy1),
+             ("dy0", dy0), ("dm", dm), ("lns", gm * xhat), ("lnb", gm))}
     # Each pair adds dy0 to its bin's row of d_w_dist (a zero row elsewhere).
-    flat["wdist"] = (onehot[..., :, None] * dy0[..., None, :]).reshape(P_all, n_bins * C)
+    flat["wdist"] = (onehot.float()[..., :, None] * dy0.float()[..., None, :]).reshape(
+        P_all, n_bins * C)
     dem_f = dem.reshape(-1)
     b_of = torch.arange(P_all) // (Nr * Nc)
     m_of = torch.arange(P_all) // Nc  # flat grid row b * Nr + i
     col_of = b_of * Nc + torch.arange(P_all) % Nc  # flat column b * Nc + j
-    g_f, h_f = g.reshape(B * Nr, CP), h.reshape(B * Nc, CP)
-    per_row = torch.cat([flat["dm"] * h_f[col_of], flat["dy0"],
-                         (dem_f * col_mask.reshape(-1)[col_of])[:, None]], 1)
-    per_col = torch.cat([flat["dm"] * g_f[m_of], flat["dy0"],
-                         (dem_f * row_mask.reshape(-1)[m_of])[:, None]], 1)
-    jobs = {"w_rel": ("m", "dy0"), "w1": ("y0", "dy1"), "w2": ("y1", "dx")}
+    g_f, h_f = g.reshape(B * Nr, CP).float(), h.reshape(B * Nc, CP).float()
+    per_row = torch.cat([flat["dm"] * h_f[col_of], flat["dy0"].float(),
+                         (dem_f * col_mask.reshape(-1).float()[col_of])[:, None]], 1)
+    per_col = torch.cat([flat["dm"] * g_f[m_of], flat["dy0"].float(),
+                         (dem_f * row_mask.reshape(-1).float()[m_of])[:, None]], 1)
+    jobs = {"w_rel": ("m", "dy0"), "w1": ("y0", "dy1"), "w2": ("y1", "dxd")}
     grads = {n: torch.zeros(s) for n, s in t_emb._W_PARTS}
     rows = torch.zeros(B * Nr, t_emb.ROW_PART)
     cols = torch.zeros(B * Nc, t_emb.ROW_PART)
-    chunks = t_emb.plan_bwd_chunks(B, Nr, Nc, n_bins, cap)
+    chunks = t_emb.plan_bwd_chunks(B, Nr, Nc, n_bins, cap, dtype)
     for m0, m1 in chunks:
         q = slice(m0 * Nc, m1 * Nc)
         # Row sums (a row lies in one chunk) and column sums, in index order.
@@ -93,8 +106,11 @@ def emulate_split_bwd(grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, 
             cols[b * Nc:(b + 1) * Nc] += in_order(part, 0)
         # Kernel B, then the tiles' vector partials.
         for name, (a, b_) in jobs.items():
-            grads[name] += split_k(flat[a][q], flat[b_][q], t_emb.SPLIT_SLICES)
-        grads["b1"] += tile_partials(flat["dy1"][q], rows_then_warps=False)
+            if dtype == BF16:
+                grads[name] += split_k_bf16(flat[a][q], flat[b_][q], t_emb.SPLIT_SLICES)
+            else:
+                grads[name] += split_k(flat[a][q], flat[b_][q], t_emb.SPLIT_SLICES)
+        grads["b1"] += tile_partials(flat["dy1"][q].float(), rows_then_warps=False)
         if n_bins:
             grads["w_dist"][:n_bins] += tile_partials(flat["wdist"][q],
                                                       rows_then_warps=False).view(n_bins, C)
@@ -109,9 +125,9 @@ def emulate_split_bwd(grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, 
                     grads["b2"], grads["ln_scale"], grads["ln_bias"])
 
 
-def rows_cap(rows: int, Nc: int, n_bins: int) -> int:
+def rows_cap(rows: int, Nc: int, n_bins: int, dtype=F32) -> int:
     """A workspace cap that holds ``rows`` grid rows of Nc pairs."""
-    return 4 * t_emb.split_workspace_floats(rows * Nc, n_bins)
+    return 4 * t_emb.split_workspace_floats(rows * Nc, n_bins, dtype)
 
 
 @pytest.mark.parametrize("n_bins", [22, 0])
