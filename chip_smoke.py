@@ -11,7 +11,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 (tolerance 1e-4) and bf16 (5e-2), at B=1 N=256, B=2 N=200 (ragged)
    and B=2 N=128 and 256 (the serving shapes), the pair MLP and the edge
-   embedder also at B=1 N=1 and B=1 N=17 (one partial tile), the pair MLP
+   embedder also at B=2 and B=1 N=896 (phase 8's batch and its confidence
+   score's sample), B=1 N=1 and B=1 N=17 (one partial tile), the pair MLP
    also without its residual terms, and the IPA attention also at B=1 N=1,
    N=17, N=512 and N=768 (a bucket past the JAX kernel's N <= 640 gate) with
    a fully masked row, every kernel with two launches giving the same bits,
@@ -67,7 +68,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and profiled for the device's busy share, and the last checkpoint
    loaded into the inpainting service for one /inpaint request: finite
    losses, one embedder backward launch a step, the checkpoint files, the
-   resumed step count, the reply's residue count and fixed CA.
+   resumed step count, the reply's residue count and fixed CA;
+8. the batch inpainting CLI in-process at the full default width (float32,
+   the JAX package's initialization): the TCR database's pMHC-II complexes
+   in ``tests/data/cifs`` (801-819 residues, bucket 896), CDR3 of both TCR
+   chains, 2 samples of num_t=100 in one sampler call a complex: the tree
+   (ground truth with the diffused residues marked, diffusion_info.csv
+   with its regions inside TCR chains A and B, each sample's structure and
+   both trajectories), finite coordinates, the fixed CA equal to the ground
+   truth's within 1e-3 A, and the launches of each case (edge embedder
+   num_t+1, pair MLP 3 (num_t+1), no IPA); the seconds per structure, the
+   writer's time and the device's busy share of one case; a second run over
+   the tree writes nothing; the serial loop on one complex; then on the
+   test fixtures' weights: the EigenFold confidence score on one sample at
+   num_t=25 against the same score through every kernel's plain version
+   (CONFIDENCE_TOL relative), and one structure at noise_scale=0, num_t=5,
+   against the plain-version run (fixed CA within 1e-3 A, diffused CA
+   within DIFFUSED_CA_TOL).
 
 Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=1, N=17 and 256, B=2 N=200 ragged
@@ -86,8 +103,9 @@ decides otherwise is shown to hold an activation within the dtype's
 tolerance of 0 (float32 1e-4, bf16 5e-2; the count of such sites and the
 largest there are printed).
 
-The last two lines are a JSON object with one entry per kernel and the
-contract line ``{"ok": true, "device": {...}}``.
+The last two lines are a JSON object with one entry per kernel (its
+``launches`` from the path that runs it first: phases 5, 6 and 7;
+``inference_cli_launches`` from phase 8's batched run) and the contract line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -315,12 +333,15 @@ def check_kernels() -> dict[str, dict]:
 
     ipa_kw = {"no_heads": IPA_H, "no_v_points": IPA_PV}
     serving_shapes = ((1, 256), (2, 200), (2, 128), (2, 256))
+    # Phase 8's: the CLI's batch of two samples at bucket 896, and the
+    # confidence score's one sample.
+    cli_shapes = ((2, 896), (1, 896))
     kernels = {
         # Tiny and ragged shapes too: one pair, one partial tile.
         "edge_embedder": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
-                          edge_embedder_cost, serving_shapes + ((1, 1), (1, 17))),
+                          edge_embedder_cost, serving_shapes + cli_shapes + ((1, 1), (1, 17))),
         "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost,
-                     serving_shapes + ((1, 1), (1, 17))),
+                     serving_shapes + cli_shapes + ((1, 1), (1, 17))),
         "ipa_attention": (lambda *a: ipa_attention(*a, **ipa_kw),
                           lambda *a: ipa_attention_plain(*a, **ipa_kw),
                           ipa_attention_inputs, ipa_attention_cost,
@@ -1517,6 +1538,333 @@ def check_training_cli() -> int:
     return launches["edge_embedder_bwd"]
 
 
+# -- phase 8: the batch inpainting CLI ----------------------------------------
+
+CLI_NUM_T = 100
+# The EigenFold score with every kernel against the same score with every
+# kernel's plain version, relative (1.85e-7 measured at num_t 25); and the
+# noise_scale=0 structure's diffused CA against the plain-version run's, in
+# A (under the PDB text's 1e-3 A measured). NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md section 6.
+CONFIDENCE_TOL = 1e-5
+DIFFUSED_CA_TOL = 1e-3
+
+
+def cli_config(root: pathlib.Path, name: str, *overrides: str):
+    """Phase 8's CLI settings: the full default model and diffuser in
+    float32, the JAX package's initialization, the TCR database's pMHC-II
+    complexes (CDR3 of both TCR chains), two samples of CLI_NUM_T steps;
+    then ``overrides`` (dotted, as on the command line)."""
+    from framedipt_tpu_torch.tools.config import load_config
+
+    return load_config([
+        f"data.csv_path={REPO / 'database' / 'TCR_pMHC_II.csv'}", "inference.weights_path=",
+        f"inference.output_dir={root}", f"inference.name={name}",
+        f"inference.diffusion.num_t={CLI_NUM_T}", "inference.inpainting_samples.samples=2",
+        *overrides,
+    ])
+
+
+def tree_files(run_dir: pathlib.Path) -> dict[str, int]:
+    """Every file under ``run_dir`` with its mtime (ns)."""
+    return {str(f.relative_to(run_dir)): f.stat().st_mtime_ns
+            for f in sorted(run_dir.rglob("*")) if f.is_file()}
+
+
+def check_tree(run_dir: pathlib.Path, cases: list[str], samples: int, num_t: int,
+               confidence: bool = False) -> dict[str, dict]:
+    """The CLI's tree for ``cases`` (pdb names): per case the ground truth
+    with its diffused residues marked, diffusion_info.csv with its regions
+    inside TCR chains A and B, and per sample the structure (the ground
+    truth's residues, finite, the fixed CA equal to the ground truth's
+    within 1e-3 A) and both trajectories of num_t models. Returns per case
+    its directory, ground truth and samples."""
+    import csv as csv_lib
+
+    from framedipt_tpu_torch.data.protein import from_pdb_string
+
+    if not (run_dir / "inference_conf.json").exists():
+        raise AssertionError(f"{run_dir}: no inference_conf.json")
+    found = {}
+    for pdb in cases:
+        dirs = sorted(run_dir.glob(f"{pdb}_length_*"))
+        if len(dirs) != 1:
+            raise AssertionError(f"{pdb}: case directories {dirs}")
+        case = dirs[0]
+        gt = from_pdb_string((case / f"{pdb}_1.pdb").read_text())
+        diffused = gt.b_factors.max(axis=-1) == 100.0
+        if int(diffused.sum()) != int(case.name.rsplit("_", 1)[1]):
+            raise AssertionError(f"{case.name}: {int(diffused.sum())} residues marked diffused")
+        with open(case / "diffusion_info.csv", newline="") as f:
+            rows = list(csv_lib.reader(f, delimiter="\t"))
+        if rows[0] != ["pdb_name", "seq", "chain", "start", "end"] or len(rows) != 2:
+            raise AssertionError(f"{case.name}: diffusion_info.csv {rows[:1]}")
+        info = dict(zip(rows[0], rows[1]))
+        chains = info["chain"].split(",")
+        starts = [int(x) for x in info["start"].split(",")]
+        ends = [int(x) for x in info["end"].split(",")]
+        chain_len = {c: int((gt.chain_index == i).sum())
+                     for i, c in enumerate("ABCDEFGH") if (gt.chain_index == i).any()}
+        if (sorted(chains) != ["A", "B"] or info["pdb_name"] != pdb
+                or any(not 0 <= s_ <= e < chain_len[c] for c, s_, e in zip(chains, starts, ends))):
+            raise AssertionError(f"{case.name}: diffusion_info {info['chain']} {starts} {ends}, "
+                                 f"chains {chain_len}")
+        worst = 0.0
+        prots = []
+        for s in range(samples):
+            sd = case / f"sample_{s}"
+            prot = from_pdb_string((sd / f"sample_{s}_1.pdb").read_text())
+            if len(prot.aatype) != len(gt.aatype) or not np.isfinite(prot.atom_positions).all():
+                raise AssertionError(f"{sd}: {len(prot.aatype)} residues or non-finite")
+            ca_err = float(np.abs(prot.atom_positions[~diffused, 1]
+                                  - gt.atom_positions[~diffused, 1]).max())
+            if not ca_err <= 1e-3 + 1e-9:
+                raise AssertionError(f"{sd}: fixed CA moved {ca_err} A")
+            worst = max(worst, ca_err)
+            for traj in ("bb_traj", "x0_traj"):
+                with open(sd / f"{traj}_{s}_1.pdb") as f:
+                    models = sum(line.startswith("MODEL") for line in f)
+                if models != num_t:
+                    raise AssertionError(f"{sd}: {traj} has {models} models")
+            if confidence and not np.isfinite(float((sd / "confidence_score.txt").read_text())):
+                raise AssertionError(f"{sd}: confidence score not finite")
+            prots.append(prot)
+        found[pdb] = {"dir": case, "gt": gt, "diffused": diffused, "samples": prots,
+                      "fixed_ca_dev": worst, "regions": (info["chain"], starts, ends)}
+    if sorted(p.name.split("_length_")[0] for p in run_dir.glob("*_length_*")) != sorted(cases):
+        raise AssertionError(f"{run_dir}: cases {sorted(run_dir.glob('*_length_*'))}")
+    return found
+
+
+@contextlib.contextmanager
+def counted_sampler():
+    """For phase 8's reading only: each sampler call of the CLI is timed
+    (host clock, synchronised) and its kernel launches counted; yields the
+    list of (launches, seconds, outputs) it fills."""
+    from framedipt_tpu_torch.experiments import inference as cli
+
+    wrappers = kernel_wrappers()
+    real = cli.sample
+    calls = []
+
+    def counted(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = {name: fn.launches for name, fn in wrappers.items()}
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append(({name: fn.launches - before[name] for name, fn in wrappers.items()},
+                      time.perf_counter() - t0, out))
+        return out
+
+    cli.sample = counted
+    try:
+        yield calls
+    finally:
+        cli.sample = real
+
+
+def timed_writer(inf) -> list[float]:
+    """Times each save_traj call of ``inf``."""
+    real = inf.save_traj
+    times = []
+
+    def save_traj(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    inf.save_traj = save_traj
+    return times
+
+
+def forward_launches(forwards: int) -> dict[str, int]:
+    """Each kernel's launches over ``forwards`` model forwards without
+    gradients and with the IPA attention as einsums."""
+    return {"edge_embedder": forwards, "pair_mlp": (NUM_BLOCKS - 1) * forwards,
+            "ipa_attention": 0, "pair_mlp_bwd": 0, "edge_embedder_bwd": 0}
+
+
+def check_inference_cli() -> dict[str, int]:
+    """Phase 8. Returns each kernel's launches over the batched run."""
+    import shutil
+    import tempfile
+
+    from framedipt_tpu_torch.experiments.inference import Inference
+    from framedipt_tpu_torch.model.weights import synth_state_dict
+    from framedipt_tpu_torch.sampling import sample
+    from framedipt_tpu_torch.sampling.confidence import logp_confidence_score
+
+    wrappers = kernel_wrappers()
+    cifs = REPO / "tests" / "data" / "cifs"
+    cases = sorted(p.name.split("-")[0] for p in cifs.glob("*.cif"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_infer_") as tmp:
+        root = pathlib.Path(tmp)
+        one = root / "cifs_1fyt"
+        one.mkdir()
+        shutil.copy(cifs / "1fyt-assembly1.cif", one)
+
+        # The batched loop over the three complexes.
+        cfg = cli_config(root, "batched")
+        t0 = time.perf_counter()
+        inf = Inference(cfg, cif_dir=cifs, device="cuda")
+        setup_s = time.perf_counter() - t0
+        writes = timed_writer(inf)
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with counted_sampler() as calls:
+            inf.run_sampling()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        want = forward_launches(CLI_NUM_T + 1)
+        if len(calls) != len(cases) or any(c[0] != want for c in calls):
+            raise AssertionError(f"batched run: launches per case {[c[0] for c in calls]}, "
+                                 f"expected {want} for each of {len(cases)}")
+        found = check_tree(inf.output_dir, cases, 2, CLI_NUM_T)
+        order = [path.stem[:4] for path in inf.sampler.cif_paths]  # the CSV's order
+        n_res = {pdb: len(f["gt"].aatype) for pdb, f in found.items()}
+        log(f"CLI batched: {len(cases)} complexes x 2 samples, num_t={CLI_NUM_T}, bucket "
+            f"{sorted({((n + 127) // 128) * 128 for n in n_res.values()})}: {run_s:.2f} s "
+            f"({run_s / len(cases):.2f} s a structure, {setup_s:.2f} s to set up); sampler "
+            + ", ".join(f"{pdb} N={n_res[pdb]} {c[1]:.2f} s" for pdb, c in zip(order, calls))
+            + f"; writer {len(writes)} save_traj calls, {sum(writes):.2f} s in all "
+            f"(max {max(writes):.2f} s); launches {launches}")
+        for pdb, f in found.items():
+            log(f"  {f['dir'].name}: regions {f['regions']}, fixed CA max dev "
+                f"{f['fixed_ca_dev']:.1e} A")
+
+        # The device's busy share of one case (the first), run again.
+        items = [inf.sampler[s] for s in range(2)]
+        feats = inf._to_device({k: np.concatenate([it[2][k] for it in items]) for k in items[0][2]})
+
+        def one_case():
+            sample(inf.model, inf.diffuser, feats, inf._generator(0),
+                   num_t=CLI_NUM_T, min_t=0.01, noise_scale=0.1, inpainting=True, aux_traj=True)
+            torch.cuda.synchronize()
+
+        wall = wall_ms(one_case)
+        busy, by_name = device_time(one_case)
+        log(f"CLI case {items[0][0]} B=2 N={feats['res_mask'].shape[1]} num_t={CLI_NUM_T}: "
+            f"{wall:.1f} ms wall, " + (
+                f"{busy:.1f} ms of device time, busy share {busy / wall:.3f}" if by_name else
+                "torch.profiler recorded no device time (busy share not measured)"))
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"  {ms:9.3f} ms  {name[:100]}")
+        del feats
+
+        # Resume: a second run over the same tree writes nothing.
+        before = tree_files(inf.output_dir)
+        again = Inference(cfg, cif_dir=cifs, device="cuda")
+        for fn in wrappers.values():
+            fn.launches = 0
+        with counted_sampler() as calls:
+            again.run_sampling()
+        after = tree_files(inf.output_dir)
+        before.pop("inference_conf.json"), after.pop("inference_conf.json")
+        if calls or after != before or any(fn.launches for fn in wrappers.values()):
+            raise AssertionError(f"resume: {len(calls)} sampler calls, "
+                                 f"{len(set(after) ^ set(before))} files differ")
+        log(f"CLI resume: no sampler call, {len(after)} files unchanged")
+        del inf, again
+        torch.cuda.empty_cache()
+
+        # The serial loop on one complex.
+        cfg = cli_config(root, "serial", "inference.inpainting_samples.batch_samples=false")
+        serial = Inference(cfg, cif_dir=one, device="cuda")
+        writes = timed_writer(serial)
+        t0 = time.perf_counter()
+        with counted_sampler() as calls:
+            serial.run_sampling()
+        run_s = time.perf_counter() - t0
+        if len(calls) != 2 or any(c[0] != want for c in calls):
+            raise AssertionError(f"serial run: launches {[c[0] for c in calls]}")
+        check_tree(serial.output_dir, ["1fyt"], 2, CLI_NUM_T)
+        log(f"CLI serial: 1fyt 2 samples one at a time, num_t={CLI_NUM_T}: {run_s:.2f} s; "
+            f"sampler {[round(c[1], 2) for c in calls]} s; writer {sum(writes):.2f} s")
+        del serial
+        torch.cuda.empty_cache()
+
+        # The rest on the test fixtures' weights (every layer non-zero): the
+        # JAX package's initialization zeroes the final layers, so its
+        # predictions equal its inputs and no kernel moves a coordinate.
+        def fixture_cli(name, num_t, *overrides, plain=False):
+            cfg = cli_config(root, name, f"inference.diffusion.num_t={num_t}", *overrides)
+            run = Inference(cfg, cif_dir=one, device="cuda")
+            run.model.load_state_dict(synth_state_dict(run.model), strict=True)
+            with counted_sampler() as calls, (
+                    plain_versions_in_model() if plain else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                run.run_sampling()
+                took = time.perf_counter() - t0
+            return run, calls, took
+
+        # EigenFold on one sample at num_t 25, against the plain versions.
+        num_t = 25
+        conf, calls, took = fixture_cli("eigenfold", num_t, "inference.inpainting_samples.samples=1",
+                                        "inference.confidence_score=eigenfold")
+        found = check_tree(conf.output_dir, ["1fyt"], 1, num_t, confidence=True)
+        score_file = float((found["1fyt"]["dir"] / "sample_0" / "confidence_score.txt").read_text())
+        feats = conf._to_device(conf.sampler[0][2])
+        final = calls[0][2]["final_rigids"]
+        dmask = (1.0 - feats["fixed_mask"]) * feats["res_mask"]
+        scores, times = {}, {}
+        for label in ("kernels", "plain", "plain", "kernels"):
+            plain = plain_versions_in_model() if label == "plain" else contextlib.nullcontext()
+            for fn in wrappers.values():
+                fn.launches = 0
+            with plain:
+                t0 = time.perf_counter()
+                scores[label] = float(logp_confidence_score(
+                    conf.model, conf.diffuser, feats, final, dmask, num_t=num_t, min_t=0.01,
+                    generator=conf._generator(0, 1000)))  # the CLI's stream for case 0, sample 0
+                times.setdefault(label, []).append(time.perf_counter() - t0)
+            # Two forwards a step of the ladder (self-conditioning, then scores).
+            if label == "kernels" and {n: fn.launches for n, fn in wrappers.items()} != (
+                    forward_launches(2 * (num_t - 1))):
+                raise AssertionError(f"confidence score: launches "
+                                     f"{ {n: fn.launches for n, fn in wrappers.items()} }")
+        rel = abs(scores["kernels"] - scores["plain"]) / abs(scores["plain"])
+        log(f"CLI eigenfold 1fyt num_t={num_t} (fixture weights): run {took:.2f} s, score "
+            f"{score_file!r} (file), recomputed with the kernels {scores['kernels']!r} "
+            f"({min(times['kernels']):.2f} s), with the plain versions {scores['plain']!r} "
+            f"({min(times['plain']):.2f} s): rel diff {rel:.2e} (tol {CONFIDENCE_TOL})")
+        if scores["kernels"] != score_file and abs(scores["kernels"] - score_file) > 1e-6 * abs(
+                score_file):
+            raise AssertionError(f"confidence score {scores['kernels']} != file {score_file}")
+        if not rel <= CONFIDENCE_TOL:
+            raise AssertionError(f"confidence score: kernels vs plain rel diff {rel}")
+        del conf, feats
+        torch.cuda.empty_cache()
+
+        # noise_scale 0, num_t 5: the kernels' structure against the plain versions'.
+        kern, k_calls, _ = fixture_cli("det_kernels", 5, "inference.diffusion.noise_scale=0")
+        plain, p_calls, _ = fixture_cli("det_plain", 5, "inference.diffusion.noise_scale=0",
+                                        plain=True)
+        got = check_tree(kern.output_dir, ["1fyt"], 2, 5)["1fyt"]
+        ref = check_tree(plain.output_dir, ["1fyt"], 2, 5)["1fyt"]
+        diffused = got["diffused"]
+        fixed_dev = max(float(np.abs(a.atom_positions[~diffused, 1]
+                                     - b.atom_positions[~diffused, 1]).max())
+                        for a, b in zip(got["samples"], ref["samples"]))
+        # The diffused CA in memory (float32), before the PDB text rounds it.
+        feats = kern.sampler[0][2]
+        rows = ((1.0 - feats["fixed_mask"][0]) * feats["res_mask"][0]) > 0
+        ca = [c[0][2]["prot_traj"][0].cpu()[:, torch.as_tensor(rows), 1]
+              for c in (k_calls, p_calls)]
+        diff_dev = float((ca[0] - ca[1]).abs().max())
+        log(f"CLI noise_scale=0 num_t=5 1fyt (fixture weights), kernels against plain versions: "
+            f"fixed CA max diff {fixed_dev:.1e} A (PDB text), diffused CA max diff "
+            f"{diff_dev:.3e} A (float32; tol {DIFFUSED_CA_TOL})")
+        if not (fixed_dev <= 1e-3 + 1e-9 and diff_dev <= DIFFUSED_CA_TOL):
+            raise AssertionError(f"noise_scale=0: fixed {fixed_dev}, diffused {diff_dev}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_label(mangled: str) -> str:
     """A CUDA kernel's name and the start of its template arguments from its
     mangled name (``..._cu_<hash><len><name>I13__nv_bfloat16Lb1E...``)."""
@@ -1582,6 +1930,8 @@ def main() -> int:
     launches["pair_mlp_bwd"] = check_train_step()
     log("phase 7: the training CLI")
     launches["edge_embedder_bwd"] = check_training_cli()
+    log("phase 8: the batch inpainting CLI")
+    cli_launches = check_inference_cli()
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
@@ -1596,6 +1946,7 @@ def main() -> int:
             "source": f"framedipt_tpu_torch/csrc/{name}.cu",
             "sources": [f"framedipt_tpu_torch/csrc/{f}" for f in kernel_sources(name)],
             "replaces": replaces[name], "launches": launches[name],
+            "inference_cli_launches": cli_launches[name],
             **serving[name],
         }
         for name in KERNEL_NAMES

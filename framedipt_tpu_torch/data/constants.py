@@ -50,3 +50,11 @@ restype_1to3: dict[str, str] = _names()["restype_1to3"]
 restype_3to1: dict[str, str] = _names()["restype_3to1"]
 
 CA_IDX = atom_order["CA"]
+
+
+def aatype_to_sequence(aatype: np.ndarray) -> str:
+    """One-letter sequence of aatype indices; anything outside the 20
+    standard residues is "X"."""
+    return "".join(
+        restypes[i] if 0 <= i < restype_num else "X" for i in np.asarray(aatype)
+    )

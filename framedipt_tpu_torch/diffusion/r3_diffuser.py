@@ -1,13 +1,16 @@
 """VP-SDE translation diffusion on torch tensors: linear beta(t), coordinate
 scaling, score / score scaling, the closed-form forward marginal, NaN-safe
-stationary sampling, and the Euler-Maruyama reverse step with the reference's centering convention (the
-COM sums all residues but divides by the diffused count)."""
+stationary sampling, the Euler-Maruyama reverse step with the reference's centering convention (the
+COM sums all residues but divides by the diffused count), one forward
+noising step, and the Gaussian log-densities of a step in either direction
+(the EigenFold confidence score)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from framedipt_tpu_torch.diffusion.so3_diffuser import gaussian_log_prob
 from framedipt_tpu_torch.tools.config import R3Config
 
 
@@ -127,6 +130,70 @@ class R3Diffuser:
         )
         out_scaled = torch.where(mask[..., None], noise, self.scale(x_reference))
         return self.unscale(out_scaled)
+
+    def forward(
+        self,
+        x_t_1: torch.Tensor,
+        t_1: torch.Tensor,
+        dt: float,
+        z: torch.Tensor,
+        diffuse_mask: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """One forward Euler-Maruyama noising step, not centred; ``z`` is the
+        standard-normal noise, shaped like ``x_t_1``."""
+        x = self.scale(x_t_1)
+        perturb = self.drift_coef(x, t_1) * dt + self.diffusion_coef(t_1) * math.sqrt(dt) * z
+        if diffuse_mask is not None:
+            perturb = perturb * diffuse_mask[..., None]
+        return self.unscale(x + perturb)
+
+    def distribution(
+        self,
+        x_t: torch.Tensor,
+        score_t: torch.Tensor,
+        t: torch.Tensor,
+        dt: float,
+        diffuse_mask: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, std) of the reverse step from x_t, in scaled coordinates;
+        the mean is 0 outside the diffused region."""
+        x = self.scale(x_t)
+        g_t = self.diffusion_coef(t)
+        mu = x - (self.drift_coef(x, t) - g_t**2 * score_t) * dt
+        if diffuse_mask is not None:
+            mu = mu * diffuse_mask[..., None]
+        return mu, g_t * math.sqrt(dt)
+
+    def log_prob_forward(
+        self,
+        x_t: torch.Tensor,
+        x_t_1: torch.Tensor,
+        t_1: torch.Tensor,
+        dt: float,
+        diffuse_mask: torch.Tensor | None,
+    ) -> torch.Tensor:
+        """log p(x_t | x_t_1) of the forward step, summed over the diffused
+        region."""
+        x_prev = self.scale(x_t_1)
+        mu = x_prev + self.drift_coef(x_prev, t_1) * dt
+        if diffuse_mask is not None:
+            mu = mu * diffuse_mask[..., None]
+        std = self.diffusion_coef(t_1) * math.sqrt(dt)
+        return gaussian_log_prob(mu, std, self.scale(x_t), diffuse_mask)
+
+    def log_prob_backward(
+        self,
+        x_t: torch.Tensor,
+        x_t_1: torch.Tensor,
+        score_t: torch.Tensor,
+        t: torch.Tensor,
+        dt: float,
+        diffuse_mask: torch.Tensor | None,
+    ) -> torch.Tensor:
+        """log p(x_t_1 | x_t) of the reverse step with score ``score_t``,
+        summed over the diffused region."""
+        mu, std = self.distribution(x_t, score_t, t, dt, diffuse_mask)
+        return gaussian_log_prob(mu, std, self.scale(x_t_1), diffuse_mask)
 
     def reverse(
         self,

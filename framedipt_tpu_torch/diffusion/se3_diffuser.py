@@ -1,7 +1,8 @@
 """SE(3) diffusion over rigid frames: IGSO(3) rotations + VP-SDE
 translations, with inpainting masks (the forward marginal that noises a
 training batch, reference sampling with imputation, scores from predicted
-frames, one reverse step)."""
+frames, one reverse step, and for the EigenFold confidence score one
+forward noising step and the log-densities of a step either way)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -122,6 +123,64 @@ class SE3Diffuser:
             assemble_rigid(rot_t, trans_t), trans_score, rot_score,
             trans_score_scaling, rot_score_scaling,
         )
+
+    def forward(
+        self,
+        rigids_t_1: Rigid,
+        t_1,
+        dt: float,
+        z_rot: torch.Tensor,
+        z_trans: torch.Tensor,
+        diffuse_mask: torch.Tensor | None = None,
+    ) -> Rigid:
+        """One forward noising step on frames, not centred. ``z_rot`` /
+        ``z_trans`` are the standard-normal noises, shaped like the rotation
+        vectors and translations; fixed residues keep their frames."""
+        trans_t_1, rot_t_1 = extract_trans_rotvec(rigids_t_1)
+        t_1 = self.so3._t(t_1)
+        trans_t = self.r3.forward(trans_t_1, t_1, dt, z_trans, diffuse_mask=diffuse_mask)
+        rot_t = self.so3.forward(rot_t_1, t_1, dt, z_rot, diffuse_mask=diffuse_mask)
+        if diffuse_mask is not None:
+            m = diffuse_mask[..., None]
+            rot_t = _apply_mask(rot_t, rot_t_1, m)
+            trans_t = _apply_mask(trans_t, trans_t_1, m)
+        return assemble_rigid(rot_t, trans_t)
+
+    def log_prob_forward(
+        self,
+        rigids_t: Rigid,
+        rigids_t_1: Rigid,
+        t_1,
+        dt: float,
+        diffuse_mask: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """log p(rigids_t | rigids_t_1) of the forward step (translations
+        plus rotations), summed."""
+        trans_t, rot_t = extract_trans_rotvec(rigids_t)
+        trans_t_1, rot_t_1 = extract_trans_rotvec(rigids_t_1)
+        t_1 = self.so3._t(t_1)
+        return self.r3.log_prob_forward(
+            trans_t, trans_t_1, t_1, dt, diffuse_mask
+        ) + self.so3.log_prob_forward(rot_t, rot_t_1, t_1, dt, diffuse_mask)
+
+    def log_prob_backward(
+        self,
+        rigids_t: Rigid,
+        rigids_t_1: Rigid,
+        trans_score_t: torch.Tensor,
+        rot_score_t: torch.Tensor,
+        t,
+        dt: float,
+        diffuse_mask: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """log p(rigids_t_1 | rigids_t) of the reverse step with the model's
+        scores, summed."""
+        trans_t, rot_t = extract_trans_rotvec(rigids_t)
+        trans_t_1, rot_t_1 = extract_trans_rotvec(rigids_t_1)
+        t = self.so3._t(t)
+        return self.r3.log_prob_backward(
+            trans_t, trans_t_1, trans_score_t, t, dt, diffuse_mask
+        ) + self.so3.log_prob_backward(rot_t, rot_t_1, rot_score_t, t, dt, diffuse_mask)
 
     def reverse(
         self,

@@ -1,0 +1,209 @@
+"""Inpainting samplers over real structures: each item is (pdb_name,
+sample_idx, feats), the features of one sample with a batch dim of 1,
+padded to the structure's length bucket, the fixed region imputed from the
+ground truth in the initial frames. Host-side numpy; the inference CLI
+moves a case's items to the device.
+
+``ConditionalSampler`` redacts a random region per chain (or an explicit
+window of the first chain); ``TCRSampler`` diffuses CDR loops of the TCR
+chains of the complexes listed in a TCR database CSV.
+"""
+from __future__ import annotations
+
+import csv
+import pathlib
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from framedipt_tpu_torch.data import features as feature_lib
+from framedipt_tpu_torch.data import tcr as tcr_lib
+from framedipt_tpu_torch.data.mmcif import parse_mmcif
+from framedipt_tpu_torch.diffusion import SE3Diffuser
+from framedipt_tpu_torch.geometry.rigid import Rigid
+from framedipt_tpu_torch.tools.config import Config
+from framedipt_tpu_torch.tools.device import seeded_generator
+from framedipt_tpu_torch.tools.log import get_logger
+
+logger = get_logger()
+
+SampleItem = tuple[str, int, dict[str, np.ndarray]]
+
+
+class ConditionalSampler:
+    """Inpainting over the mmCIF files ``cif_paths``, each restricted to
+    its chains in ``chains_per_structure`` (all chains for None), with
+    ``inference.inpainting_samples.samples`` samples a structure."""
+
+    def __init__(
+        self,
+        cfg: Config,
+        diffuser: SE3Diffuser,
+        cif_paths: list[pathlib.Path],
+        chains_per_structure: list[list[str] | None] | None = None,
+        seed: int = 123,
+    ) -> None:
+        self.cfg = cfg
+        self.diffuser = diffuser
+        self.cif_paths = [pathlib.Path(p) for p in cif_paths]
+        self.chains_per_structure = chains_per_structure or [None] * len(self.cif_paths)
+        self.samples = cfg.inference.inpainting_samples.samples
+        self.seed = seed
+        self._mask_cache: dict[int, np.ndarray] = {}
+        self._feat_cache: dict[int, dict[str, np.ndarray]] = {}
+
+    def __len__(self) -> int:
+        return len(self.cif_paths) * self.samples
+
+    def create_diffusion_mask(
+        self, chain_feats: dict[str, np.ndarray], example_idx: int
+    ) -> np.ndarray:
+        """The window [start_idx, end_idx] of the first chain when
+        ``inpainting_samples`` sets both; else one random contiguous region
+        per chain, drawn from ``np.random.default_rng(example_idx)``."""
+        if example_idx in self._mask_cache:
+            return self._mask_cache[example_idx]
+        start = self.cfg.inference.inpainting_samples.start_idx
+        end = self.cfg.inference.inpainting_samples.end_idx
+        if start is not None and end is not None:
+            mask = np.zeros_like(chain_feats["res_mask"])
+            first_chain = chain_feats["chain_idx"] == np.unique(chain_feats["chain_idx"])[0]
+            mask[np.where(first_chain)[0][start : end + 1]] = 1
+        else:
+            mask = feature_lib.create_redacted_regions(
+                chain_feats["chain_idx"],
+                chain_feats["res_mask"],
+                np.random.default_rng(example_idx),
+                redact_min_len=self.cfg.data.redaction.redact_min_len,
+                redact_max_len=self.cfg.data.redaction.redact_max_len,
+            )
+        self._mask_cache[example_idx] = mask
+        return mask
+
+    def load_features(self, example_idx: int) -> dict[str, np.ndarray]:
+        if example_idx in self._feat_cache:
+            return self._feat_cache[example_idx]
+        path = self.cif_paths[example_idx]
+        mmcif_obj = parse_mmcif(path)
+        chains = self.chains_per_structure[example_idx]
+        missing = [c for c in (chains or []) if c not in mmcif_obj.chains]
+        if missing:
+            raise ValueError(f"{path.name}: chains {missing} not in structure")
+        raw = feature_lib.structure_to_features(mmcif_obj, chain_ids=chains)
+        feats = feature_lib.build_model_features(raw)
+        self._feat_cache[example_idx] = feats
+        return feats
+
+    def sample_initial_rigids(
+        self, idx: int, impute: Rigid, diffuse_mask: torch.Tensor
+    ) -> np.ndarray:
+        """Frames at t = 1 for item ``idx`` [N, 7]: drawn from the reference
+        distribution in the diffused region, ``impute`` elsewhere; the
+        generator is seeded from (seed, idx)."""
+        rigids_t = self.diffuser.sample_ref(
+            seeded_generator(self.diffuser.device, self.seed, idx),
+            n_samples=diffuse_mask.shape[0],
+            impute=impute,
+            diffuse_mask=diffuse_mask,
+        )
+        return rigids_t.to_tensor7().cpu().numpy().astype(np.float32)
+
+    def __iter__(self) -> Iterator[SampleItem]:
+        for idx in range(len(self)):
+            yield self[idx]
+
+    def __getitem__(self, idx: int) -> SampleItem:
+        example_idx, sample_idx = divmod(idx, self.samples)
+        pdb_name = self.cif_paths[example_idx].stem[:4]
+        chain_feats = dict(self.load_features(example_idx))
+
+        diffused_mask = self.create_diffusion_mask(chain_feats, example_idx)
+        if diffused_mask.sum() < 1:
+            raise ValueError(f"{pdb_name}: the diffusion mask selects no residue")
+        chain_feats["fixed_mask"] = (1 - diffused_mask).astype(np.float32)
+        chain_feats["sc_ca_t"] = np.zeros_like(chain_feats["rigids_0"][:, 4:])
+        dev = self.diffuser.device
+        chain_feats["rigids_t"] = self.sample_initial_rigids(
+            idx,
+            impute=Rigid.from_tensor7(torch.as_tensor(chain_feats["rigids_0"], device=dev)),
+            diffuse_mask=torch.as_tensor(diffused_mask, dtype=torch.float32, device=dev),
+        )
+        chain_feats["t"] = np.asarray(1.0, np.float32)
+
+        # Pad to the length bucket and add the batch dim.
+        bucket = feature_lib.length_bucket(len(chain_feats["res_mask"]))
+        chain_feats = feature_lib.pad_feats(chain_feats, bucket)
+        final = {
+            k: (v[None] if np.ndim(v) >= 1 else np.asarray([v], np.float32))
+            for k, v in chain_feats.items()
+        }
+        return pdb_name, sample_idx, final
+
+
+class TCRSampler(ConditionalSampler):
+    """CDR-loop inpainting over the complexes of a TCR database CSV whose
+    ``<pdb_id>-assembly1.cif`` is in ``cif_dir``; a listed complex without
+    its file is skipped with a warning."""
+
+    def __init__(
+        self,
+        cfg: Config,
+        diffuser: SE3Diffuser,
+        cif_dir: str | pathlib.Path,
+        csv_path: str | pathlib.Path,
+        seed: int = 123,
+    ) -> None:
+        with open(csv_path, newline="", encoding="utf-8") as f:
+            pdb_ids, all_chains = _tcr_rows(list(csv.DictReader(f)))
+        cif_dir = pathlib.Path(cif_dir)
+        cif_paths, chains_list = [], []
+        for pid, chains in zip(pdb_ids, all_chains):
+            path = cif_dir / f"{pid}-assembly1.cif"
+            if not path.exists():
+                logger.warning(f"missing structure file {path}; skipping")
+                continue
+            cif_paths.append(path)
+            chains_list.append(chains)
+        super().__init__(cfg, diffuser, cif_paths, chains_list, seed=seed)
+        self.cdr_loops = [_canonical_loop(c) for c in cfg.inference.inpainting_samples.cdr_loops]
+        self.shifted_region = cfg.inference.inpainting_samples.shifted_region
+
+    def create_diffusion_mask(
+        self, chain_feats: dict[str, np.ndarray], example_idx: int
+    ) -> np.ndarray:
+        if example_idx in self._mask_cache:
+            return self._mask_cache[example_idx]
+        mask = tcr_lib.create_diffusion_mask(
+            chain_indexes=chain_feats["chain_idx"],
+            aatype=np.asarray(chain_feats["aatype"]),
+            tcr_chains=list(self.chains_per_structure[example_idx][:2]),
+            cdr_loops=self.cdr_loops,
+            shifted_region=self.shifted_region,
+        )
+        self._mask_cache[example_idx] = mask
+        return mask
+
+
+def _tcr_rows(rows: list[dict[str, str]]) -> tuple[list[str], list[list[str]]]:
+    """(pdb_ids, chains to process) of the TCR database's rows: TCR alpha and
+    beta first (the CDR masks take the first two chains processed as the
+    TCR's), then the peptide and MHC chains a row names."""
+    pdb_ids: list[str] = []
+    all_chains: list[list[str]] = []
+    for row in rows:
+        chains = [row["tcr_alpha_chain"], row["tcr_beta_chain"]]
+        chains += [row[col] for col in ("peptide_chain", "mhc_alpha_chain", "mhc_beta_chain")
+                   if row.get(col)]
+        pdb_ids.append(str(row["pdb_id"]).lower())
+        all_chains.append(chains)
+    return pdb_ids, all_chains
+
+
+def _canonical_loop(name: str) -> str:
+    """A config loop name ('beta_3', 'alpha_3', 'CDR3') as its CDR id."""
+    name = str(name)
+    if name.upper().startswith("CDR"):
+        return name.upper()
+    digit = name.split("_")[-1]
+    return {"1": "CDR1", "2": "CDR2", "2.5": "CDR2.5", "3": "CDR3"}.get(digit, "CDR3")

@@ -49,11 +49,11 @@ from framedipt_tpu_torch.tools.config import (
     merge_checkpoint_config,
     resolve_kernel_flags,
 )
-from framedipt_tpu_torch.tools.device import resolve_device, set_full_precision_matmul
-
-
-def _generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + stream)
+from framedipt_tpu_torch.tools.device import (
+    resolve_device,
+    seeded_generator,
+    set_full_precision_matmul,
+)
 
 
 class InpaintingService:
@@ -142,7 +142,7 @@ class InpaintingService:
             entries = []
             for s in range(samples):
                 rigids_t = self.diffuser.sample_ref(
-                    _generator(dev, self.cfg.inference.seed, req * 997 + s),
+                    seeded_generator(dev, self.cfg.inference.seed, req * 997 + s),
                     n_samples=n, impute=impute, diffuse_mask=diffuse_mask,
                 )
                 item = dict(base, rigids_t=rigids_t.to_tensor7().cpu().numpy())
@@ -154,7 +154,7 @@ class InpaintingService:
             d = self.cfg.inference.diffusion
             out = sample(
                 self.model, self.diffuser, feats,
-                _generator(dev, self.cfg.inference.seed + 1, req),
+                seeded_generator(dev, self.cfg.inference.seed + 1, req),
                 num_t=num_t, min_t=d.min_t, noise_scale=d.noise_scale,
                 inpainting=True,
             )

@@ -6,6 +6,8 @@ reverse step for t > min_t and the model's x0 prediction at the final step,
 the self-conditioning CA update from the predicted frames, and the atom37
 rebuild; the trajectory is flipped at the end to start at t = 0. A model
 without self-conditioning skips the initial forward and keeps ``sc_ca_t``.
+With ``aux_traj`` the sampler also returns the model's x0 predictions as
+atom37, the frames and the translations of each step.
 """
 from __future__ import annotations
 
@@ -31,13 +33,19 @@ def sample(
     noise_scale: float = 1.0,
     inpainting: bool = False,
     input_aatype: bool = False,
+    aux_traj: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Run the sampler on ``feats`` (rigids_t [B,N,7], res_mask/fixed_mask
     [B,N], seq_idx [B,N], sc_ca_t [B,N,3], torsion_angles_sin_cos
     [B,N,7,2], aatype [B,N] when inpainting), all on the model's device.
 
     Returns prot_traj [num_t, B, N, 37, 3] (index 0 is t = 0), psi_pred
-    [1, B, N, 2] and final_rigids [B, N, 7]."""
+    [1, B, N, 2] and final_rigids [B, N, 7]. With ``aux_traj`` also, each
+    starting at t = 0: rigid_0_traj [num_t, B, N, 37, 3], the atom37 of the
+    model's x0 prediction at each step; rigid_traj [num_t + 1, B, N, 7], the
+    frames after each step and the initial frames last; trans_traj
+    [num_t, B, N, 3], the predicted translations in the diffused region and
+    the step's own in the fixed region."""
     reverse_steps = np.linspace(min_t, 1.0, num_t)[::-1].astype(np.float32)
     dt = 1.0 / num_t
     min_t32 = np.float32(min_t)
@@ -63,7 +71,7 @@ def sample(
     if self_conditioning:
         sc_ca = model(step_feats(rigids_t7, sc_ca, reverse_steps[0]))["rigids"][..., 4:]
 
-    traj = []
+    traj, x0_traj, rigid_traj, trans_traj = [], [], [], []
     psi = None
     for t in reverse_steps:
         out = model(step_feats(rigids_t7, sc_ca, t))
@@ -86,9 +94,22 @@ def sample(
             Rigid.from_tensor7(rigids_t7), psi, aatype=aatype
         )
         traj.append(atom37 * atom37_mask[..., None])
+        if aux_traj:
+            a37_0, m37_0, _, _ = frames.compute_backbone(
+                Rigid.from_tensor7(rigid_pred), psi, aatype=aatype
+            )
+            x0_traj.append(a37_0 * m37_0[..., None])
+            rigid_traj.append(rigids_t7)
+            trans_traj.append(diffuse_mask[..., None] * rigid_pred[..., 4:]
+                              + fixed_mask[..., None] * rigids_t7[..., 4:])
 
-    return {
+    out = {
         "prot_traj": torch.stack(traj[::-1]),
         "psi_pred": psi[None],
         "final_rigids": rigids_t7,
     }
+    if aux_traj:
+        out["rigid_0_traj"] = torch.stack(x0_traj[::-1])
+        out["rigid_traj"] = torch.stack(rigid_traj[::-1] + [feats["rigids_t"].to(F32)])
+        out["trans_traj"] = torch.stack(trans_traj[::-1])
+    return out

@@ -112,11 +112,41 @@ class InferenceDiffusionConfig:
 
 
 @dataclass
+class InpaintingSamplesConfig:
+    samples: int = 5
+    # All samples of a test case in one sampler call (batch of ``samples``);
+    # False runs them one at a time.
+    batch_samples: bool = True
+    # CDR-loop masks over the TCR database's complexes (TCRSampler); False
+    # draws a random redaction per chain (ConditionalSampler).
+    tcr: bool = True
+    # CDR3 flank ablations: diffuse the region just before or after the loop.
+    shifted_region: str | None = None
+    # An ESMFold prediction beside the ground truth; the port has no ESMFold
+    # weights, so the CLI logs a skip.
+    run_esmfold: bool = False
+    cdr_loops: list[str] = field(default_factory=lambda: ["beta_3"])
+    # An explicit diffused window [start_idx, end_idx] of the first chain.
+    start_idx: int | None = None
+    end_idx: int | None = None
+
+
+@dataclass
 class InferenceConfig:
+    name: str | None = None
     seed: int = 123
+    inpainting: bool = True
+    input_aatype: bool = False
+    confidence_score: str | None = None
+    output_dir: str = "./inference_outputs/"
     weights_path: str = "./weights/inpainting.pth"
+    save_backbone_trajectory: bool = True
+    save_pred_x0_trajectory: bool = True
     diffusion: InferenceDiffusionConfig = field(
         default_factory=InferenceDiffusionConfig
+    )
+    inpainting_samples: InpaintingSamplesConfig = field(
+        default_factory=InpaintingSamplesConfig
     )
 
 
@@ -243,12 +273,14 @@ def parse_value(raw: str) -> Any:
 
 def load_config(overrides: list[str] | None = None, json_path: str | None = None) -> Config:
     """Defaults, then the JSON file ``json_path`` if given (a config as
-    :func:`save_config` writes it; every key must be known), then CLI-style
-    dotted overrides (``model.ipa.num_blocks=2``)."""
+    :func:`save_config` writes it; a key the port does not know is dropped
+    with a warning, as :func:`merge_checkpoint_config` drops it, since the
+    JAX package's configs carry fields the port leaves out), then CLI-style
+    dotted overrides (``model.ipa.num_blocks=2``; every key must be known)."""
     cfg = Config()
     if json_path is not None:
         with open(json_path, encoding="utf-8") as f:
-            _apply_dict(cfg, json.load(f))
+            _apply_dict(cfg, _known_only(cfg, json.load(f), ""))
     for ov in overrides or []:
         key, _, raw = ov.partition("=")
         node = cfg
@@ -289,8 +321,7 @@ def _known_only(obj: Any, updates: dict[str, Any], path: str) -> dict[str, Any]:
     out = {}
     for key, value in updates.items():
         if not hasattr(obj, key):
-            get_logger().warning("checkpoint config key %s%s is not used by this port; dropped",
-                                 path, key)
+            get_logger().warning("config key %s%s is not used by this port; dropped", path, key)
             continue
         current = getattr(obj, key)
         if dataclasses.is_dataclass(current) and hasattr(value, "items"):

@@ -15,6 +15,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def seeded_generator(device: torch.device | str, seed: int, *streams: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``seed`` and the stream numbers
+    (one stream per request, case or sample)."""
+    value = seed
+    for stream in streams:
+        value = value * 1_000_003 + stream
+    return torch.Generator(device=device).manual_seed(value % (1 << 63))
+
+
 def set_full_precision_matmul() -> None:
     """Float32 products in full float32 (no TF32) and bf16 products with
     float32 reductions, as the JAX reference computes them on the CPU."""

@@ -49,11 +49,14 @@ def test_serving_entry_point_loads_without_jax():
 
 
 def test_training_entry_points_load_without_jax_pandas_yaml_orbax():
-    """The preprocessing and training CLIs import in a fresh interpreter
-    with none of jax, pandas, yaml or orbax loaded."""
+    """The preprocessing, training and batch inpainting CLIs (with the
+    inpainting CLI's samplers, TCR masks and confidence score) import in a
+    fresh interpreter with none of jax, pandas, yaml or orbax loaded."""
     code = (
         "import sys\n"
         "import framedipt_tpu_torch.data.pipeline, framedipt_tpu_torch.experiments.train\n"
+        "import framedipt_tpu_torch.experiments.inference, framedipt_tpu_torch.data.tcr\n"
+        "import framedipt_tpu_torch.sampling.confidence\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
