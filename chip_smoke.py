@@ -7,7 +7,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. print the card (``nvidia-smi`` name and power limit); refuse to run
    without CUDA;
-2. build the CUDA kernels from ``framedipt_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build the CUDA kernels from ``framedipt_tpu_torch/csrc`` (nvcc, sm_90a)
+   and the native PDB writer (``framedipt_tpu_torch/native``, the host's
+   g++), which must load;
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 (tolerance 1e-4) and bf16 (5e-2), at B=1 N=256, B=2 N=200 (ragged)
    and B=2 N=128 and 256 (the serving shapes), the pair MLP and the edge
@@ -84,7 +86,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    num_t=25 against the same score through every kernel's plain version
    (CONFIDENCE_TOL relative), and one structure at noise_scale=0, num_t=5,
    against the plain-version run (fixed CA within 1e-3 A, diffused CA
-   within DIFFUSED_CA_TOL).
+   within DIFFUSED_CA_TOL). The native PDB writer (``native/pdb_writer.cpp``,
+   built by the host's g++) must load, so the CLI writes no text in Python;
+   one real trajectory (the first case's sample 0 bb_traj, 100 models) is
+   byte-equal as the CLI's file, the native text and the Python writer's
+   text, both writers timed on it; the writer's seconds and the seconds a
+   structure are printed beside those of the Python writer before it;
+9. the TCR evaluation CLI (``python -m framedipt_tpu_torch.eval.tcr_eval``)
+   over phase 8's batched tree, with ``--sasa`` and without, each timed:
+   one row a sample (6) with a finite backbone RMSD overall and per TCR
+   chain, one row a complex (3) in each of the five strategies' CSVs, the
+   RSA columns with ``--sasa``, and the plots drawn where matplotlib and
+   seaborn import, else skipped with the CLI's warning.
 
 Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=1, N=17 and 256, B=2 N=200 ragged
@@ -114,6 +127,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1664,12 +1678,15 @@ def counted_sampler():
         cli.sample = real
 
 
-def timed_writer(inf) -> list[float]:
-    """Times each save_traj call of ``inf``."""
+def timed_writer(inf, first: list | None = None) -> list[float]:
+    """Times each save_traj call of ``inf``; appends the first call's
+    (args, kwargs) to ``first`` when given."""
     real = inf.save_traj
     times = []
 
     def save_traj(*args, **kwargs):
+        if first is not None and not first:
+            first.append((args, kwargs))
         t0 = time.perf_counter()
         out = real(*args, **kwargs)
         times.append(time.perf_counter() - t0)
@@ -1679,6 +1696,53 @@ def timed_writer(inf) -> list[float]:
     return times
 
 
+# The batched CLI with the Python writer (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md section 6): the writer's seconds and the seconds a structure.
+PYTHON_WRITER_S, PYTHON_WRITER_S_PER_STRUCTURE = 29.82, 20.65
+
+
+def check_native_writer() -> float:
+    """The native PDB writer must build and load on the card's host: the
+    writers then take it (no Python fallback). Returns the seconds of the
+    call (the build on the first call, after that a cached load)."""
+    from framedipt_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if native.load_pdb_writer() is None:
+        raise AssertionError("the native PDB writer did not build or load (see the warning)")
+    return time.perf_counter() - t0
+
+
+def check_trajectory_text(first_call) -> None:
+    """One real trajectory (the first save_traj call: the first case's
+    sample 0 bb_traj): the file the CLI wrote, the native text of its frames
+    and the pure-Python text of the same frames byte-equal; both writers
+    timed on it."""
+    from framedipt_tpu_torch.analysis.utils import _as_protein, prot_pos_to_pdb
+    from framedipt_tpu_torch.data.protein import prots_to_pdb
+
+    (bb_traj, _, diffuse_mask), kw = first_call[0]
+    b_factors = np.tile((diffuse_mask.astype(bool) * 100.0)[:, None], (1, 37))
+    common = dict(aatype=kw["aatype"], residue_index=kw["residue_index"],
+                  chain_index=kw["chain_index"], b_factors=b_factors)
+    t0 = time.perf_counter()
+    native_text = prot_pos_to_pdb(bb_traj, **common)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python_text = prots_to_pdb([
+        _as_protein(frame, kw["aatype"], b_factors, kw["residue_index"], kw["chain_index"])
+        for frame in bb_traj])
+    python_s = time.perf_counter() - t0
+    path = kw["output_dir"] / f"bb_traj_{kw['sample_idx']}_1.pdb"
+    file_text = path.read_text()
+    log(f"trajectory text {path.parent.parent.name}/{path.parent.name}/{path.name}: "
+        f"{bb_traj.shape[0]} models x {bb_traj.shape[1]} residues, {len(native_text)} bytes; "
+        f"native writer {native_s:.3f} s, Python writer {python_s:.3f} s "
+        f"({python_s / native_s:.1f}x)")
+    if not (file_text == native_text == python_text):
+        raise AssertionError(f"{path}: the CLI's file, the native text and the Python text differ")
+
+
 def forward_launches(forwards: int) -> dict[str, int]:
     """Each kernel's launches over ``forwards`` model forwards without
     gradients and with the IPA attention as einsums."""
@@ -1686,10 +1750,10 @@ def forward_launches(forwards: int) -> dict[str, int]:
             "ipa_attention": 0, "pair_mlp_bwd": 0, "edge_embedder_bwd": 0}
 
 
-def check_inference_cli() -> dict[str, int]:
-    """Phase 8. Returns each kernel's launches over the batched run."""
+def check_inference_cli(root: pathlib.Path) -> tuple[dict[str, int], pathlib.Path]:
+    """Phase 8, in ``root``. Returns each kernel's launches over the batched
+    run and the batched run's tree."""
     import shutil
-    import tempfile
 
     from framedipt_tpu_torch.experiments.inference import Inference
     from framedipt_tpu_torch.model.weights import synth_state_dict
@@ -1699,170 +1763,234 @@ def check_inference_cli() -> dict[str, int]:
     wrappers = kernel_wrappers()
     cifs = REPO / "tests" / "data" / "cifs"
     cases = sorted(p.name.split("-")[0] for p in cifs.glob("*.cif"))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_infer_") as tmp:
-        root = pathlib.Path(tmp)
-        one = root / "cifs_1fyt"
-        one.mkdir()
-        shutil.copy(cifs / "1fyt-assembly1.cif", one)
+    check_native_writer()
+    log("native PDB writer loaded")
+    one = root / "cifs_1fyt"
+    one.mkdir()
+    shutil.copy(cifs / "1fyt-assembly1.cif", one)
 
-        # The batched loop over the three complexes.
-        cfg = cli_config(root, "batched")
-        t0 = time.perf_counter()
-        inf = Inference(cfg, cif_dir=cifs, device="cuda")
-        setup_s = time.perf_counter() - t0
-        writes = timed_writer(inf)
+    # The batched loop over the three complexes.
+    cfg = cli_config(root, "batched")
+    t0 = time.perf_counter()
+    inf = Inference(cfg, cif_dir=cifs, device="cuda")
+    setup_s = time.perf_counter() - t0
+    first_call = []
+    writes = timed_writer(inf, first_call)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with counted_sampler() as calls:
+        inf.run_sampling()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    want = forward_launches(CLI_NUM_T + 1)
+    if len(calls) != len(cases) or any(c[0] != want for c in calls):
+        raise AssertionError(f"batched run: launches per case {[c[0] for c in calls]}, "
+                             f"expected {want} for each of {len(cases)}")
+    found = check_tree(inf.output_dir, cases, 2, CLI_NUM_T)
+    order = [path.stem[:4] for path in inf.sampler.cif_paths]  # the CSV's order
+    n_res = {pdb: len(f["gt"].aatype) for pdb, f in found.items()}
+    log(f"CLI batched: {len(cases)} complexes x 2 samples, num_t={CLI_NUM_T}, bucket "
+        f"{sorted({((n + 127) // 128) * 128 for n in n_res.values()})}: {run_s:.2f} s "
+        f"({run_s / len(cases):.2f} s a structure, {setup_s:.2f} s to set up); sampler "
+        + ", ".join(f"{pdb} N={n_res[pdb]} {c[1]:.2f} s" for pdb, c in zip(order, calls))
+        + f"; writer {len(writes)} save_traj calls, {sum(writes):.2f} s in all "
+        f"(max {max(writes):.2f} s); launches {launches}")
+    log(f"CLI writer {sum(writes):.2f} s in all (with the Python writer {PYTHON_WRITER_S} s), "
+        f"{run_s / len(cases):.2f} s a structure (with the Python writer "
+        f"{PYTHON_WRITER_S_PER_STRUCTURE} s)")
+    for pdb, f in found.items():
+        log(f"  {f['dir'].name}: regions {f['regions']}, fixed CA max dev "
+            f"{f['fixed_ca_dev']:.1e} A")
+    check_trajectory_text(first_call)
+    del first_call
+
+    # The device's busy share of one case (the first), run again.
+    items = [inf.sampler[s] for s in range(2)]
+    feats = inf._to_device({k: np.concatenate([it[2][k] for it in items]) for k in items[0][2]})
+
+    def one_case():
+        sample(inf.model, inf.diffuser, feats, inf._generator(0),
+               num_t=CLI_NUM_T, min_t=0.01, noise_scale=0.1, inpainting=True, aux_traj=True)
         torch.cuda.synchronize()
-        for fn in wrappers.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        with counted_sampler() as calls:
-            inf.run_sampling()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        want = forward_launches(CLI_NUM_T + 1)
-        if len(calls) != len(cases) or any(c[0] != want for c in calls):
-            raise AssertionError(f"batched run: launches per case {[c[0] for c in calls]}, "
-                                 f"expected {want} for each of {len(cases)}")
-        found = check_tree(inf.output_dir, cases, 2, CLI_NUM_T)
-        order = [path.stem[:4] for path in inf.sampler.cif_paths]  # the CSV's order
-        n_res = {pdb: len(f["gt"].aatype) for pdb, f in found.items()}
-        log(f"CLI batched: {len(cases)} complexes x 2 samples, num_t={CLI_NUM_T}, bucket "
-            f"{sorted({((n + 127) // 128) * 128 for n in n_res.values()})}: {run_s:.2f} s "
-            f"({run_s / len(cases):.2f} s a structure, {setup_s:.2f} s to set up); sampler "
-            + ", ".join(f"{pdb} N={n_res[pdb]} {c[1]:.2f} s" for pdb, c in zip(order, calls))
-            + f"; writer {len(writes)} save_traj calls, {sum(writes):.2f} s in all "
-            f"(max {max(writes):.2f} s); launches {launches}")
-        for pdb, f in found.items():
-            log(f"  {f['dir'].name}: regions {f['regions']}, fixed CA max dev "
-                f"{f['fixed_ca_dev']:.1e} A")
 
-        # The device's busy share of one case (the first), run again.
-        items = [inf.sampler[s] for s in range(2)]
-        feats = inf._to_device({k: np.concatenate([it[2][k] for it in items]) for k in items[0][2]})
+    wall = wall_ms(one_case)
+    busy, by_name = device_time(one_case)
+    log(f"CLI case {items[0][0]} B=2 N={feats['res_mask'].shape[1]} num_t={CLI_NUM_T}: "
+        f"{wall:.1f} ms wall, " + (
+            f"{busy:.1f} ms of device time, busy share {busy / wall:.3f}" if by_name else
+            "torch.profiler recorded no device time (busy share not measured)"))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {ms:9.3f} ms  {name[:100]}")
+    del feats
 
-        def one_case():
-            sample(inf.model, inf.diffuser, feats, inf._generator(0),
-                   num_t=CLI_NUM_T, min_t=0.01, noise_scale=0.1, inpainting=True, aux_traj=True)
-            torch.cuda.synchronize()
-
-        wall = wall_ms(one_case)
-        busy, by_name = device_time(one_case)
-        log(f"CLI case {items[0][0]} B=2 N={feats['res_mask'].shape[1]} num_t={CLI_NUM_T}: "
-            f"{wall:.1f} ms wall, " + (
-                f"{busy:.1f} ms of device time, busy share {busy / wall:.3f}" if by_name else
-                "torch.profiler recorded no device time (busy share not measured)"))
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"  {ms:9.3f} ms  {name[:100]}")
-        del feats
-
-        # Resume: a second run over the same tree writes nothing.
-        before = tree_files(inf.output_dir)
-        again = Inference(cfg, cif_dir=cifs, device="cuda")
-        for fn in wrappers.values():
-            fn.launches = 0
-        with counted_sampler() as calls:
-            again.run_sampling()
-        after = tree_files(inf.output_dir)
-        before.pop("inference_conf.json"), after.pop("inference_conf.json")
-        if calls or after != before or any(fn.launches for fn in wrappers.values()):
-            raise AssertionError(f"resume: {len(calls)} sampler calls, "
-                                 f"{len(set(after) ^ set(before))} files differ")
-        log(f"CLI resume: no sampler call, {len(after)} files unchanged")
-        del inf, again
-        torch.cuda.empty_cache()
-
-        # The serial loop on one complex.
-        cfg = cli_config(root, "serial", "inference.inpainting_samples.batch_samples=false")
-        serial = Inference(cfg, cif_dir=one, device="cuda")
-        writes = timed_writer(serial)
-        t0 = time.perf_counter()
-        with counted_sampler() as calls:
-            serial.run_sampling()
-        run_s = time.perf_counter() - t0
-        if len(calls) != 2 or any(c[0] != want for c in calls):
-            raise AssertionError(f"serial run: launches {[c[0] for c in calls]}")
-        check_tree(serial.output_dir, ["1fyt"], 2, CLI_NUM_T)
-        log(f"CLI serial: 1fyt 2 samples one at a time, num_t={CLI_NUM_T}: {run_s:.2f} s; "
-            f"sampler {[round(c[1], 2) for c in calls]} s; writer {sum(writes):.2f} s")
-        del serial
-        torch.cuda.empty_cache()
-
-        # The rest on the test fixtures' weights (every layer non-zero): the
-        # JAX package's initialization zeroes the final layers, so its
-        # predictions equal its inputs and no kernel moves a coordinate.
-        def fixture_cli(name, num_t, *overrides, plain=False):
-            cfg = cli_config(root, name, f"inference.diffusion.num_t={num_t}", *overrides)
-            run = Inference(cfg, cif_dir=one, device="cuda")
-            run.model.load_state_dict(synth_state_dict(run.model), strict=True)
-            with counted_sampler() as calls, (
-                    plain_versions_in_model() if plain else contextlib.nullcontext()):
-                t0 = time.perf_counter()
-                run.run_sampling()
-                took = time.perf_counter() - t0
-            return run, calls, took
-
-        # EigenFold on one sample at num_t 25, against the plain versions.
-        num_t = 25
-        conf, calls, took = fixture_cli("eigenfold", num_t, "inference.inpainting_samples.samples=1",
-                                        "inference.confidence_score=eigenfold")
-        found = check_tree(conf.output_dir, ["1fyt"], 1, num_t, confidence=True)
-        score_file = float((found["1fyt"]["dir"] / "sample_0" / "confidence_score.txt").read_text())
-        feats = conf._to_device(conf.sampler[0][2])
-        final = calls[0][2]["final_rigids"]
-        dmask = (1.0 - feats["fixed_mask"]) * feats["res_mask"]
-        scores, times = {}, {}
-        for label in ("kernels", "plain", "plain", "kernels"):
-            plain = plain_versions_in_model() if label == "plain" else contextlib.nullcontext()
-            for fn in wrappers.values():
-                fn.launches = 0
-            with plain:
-                t0 = time.perf_counter()
-                scores[label] = float(logp_confidence_score(
-                    conf.model, conf.diffuser, feats, final, dmask, num_t=num_t, min_t=0.01,
-                    generator=conf._generator(0, 1000)))  # the CLI's stream for case 0, sample 0
-                times.setdefault(label, []).append(time.perf_counter() - t0)
-            # Two forwards a step of the ladder (self-conditioning, then scores).
-            if label == "kernels" and {n: fn.launches for n, fn in wrappers.items()} != (
-                    forward_launches(2 * (num_t - 1))):
-                raise AssertionError(f"confidence score: launches "
-                                     f"{ {n: fn.launches for n, fn in wrappers.items()} }")
-        rel = abs(scores["kernels"] - scores["plain"]) / abs(scores["plain"])
-        log(f"CLI eigenfold 1fyt num_t={num_t} (fixture weights): run {took:.2f} s, score "
-            f"{score_file!r} (file), recomputed with the kernels {scores['kernels']!r} "
-            f"({min(times['kernels']):.2f} s), with the plain versions {scores['plain']!r} "
-            f"({min(times['plain']):.2f} s): rel diff {rel:.2e} (tol {CONFIDENCE_TOL})")
-        if scores["kernels"] != score_file and abs(scores["kernels"] - score_file) > 1e-6 * abs(
-                score_file):
-            raise AssertionError(f"confidence score {scores['kernels']} != file {score_file}")
-        if not rel <= CONFIDENCE_TOL:
-            raise AssertionError(f"confidence score: kernels vs plain rel diff {rel}")
-        del conf, feats
-        torch.cuda.empty_cache()
-
-        # noise_scale 0, num_t 5: the kernels' structure against the plain versions'.
-        kern, k_calls, _ = fixture_cli("det_kernels", 5, "inference.diffusion.noise_scale=0")
-        plain, p_calls, _ = fixture_cli("det_plain", 5, "inference.diffusion.noise_scale=0",
-                                        plain=True)
-        got = check_tree(kern.output_dir, ["1fyt"], 2, 5)["1fyt"]
-        ref = check_tree(plain.output_dir, ["1fyt"], 2, 5)["1fyt"]
-        diffused = got["diffused"]
-        fixed_dev = max(float(np.abs(a.atom_positions[~diffused, 1]
-                                     - b.atom_positions[~diffused, 1]).max())
-                        for a, b in zip(got["samples"], ref["samples"]))
-        # The diffused CA in memory (float32), before the PDB text rounds it.
-        feats = kern.sampler[0][2]
-        rows = ((1.0 - feats["fixed_mask"][0]) * feats["res_mask"][0]) > 0
-        ca = [c[0][2]["prot_traj"][0].cpu()[:, torch.as_tensor(rows), 1]
-              for c in (k_calls, p_calls)]
-        diff_dev = float((ca[0] - ca[1]).abs().max())
-        log(f"CLI noise_scale=0 num_t=5 1fyt (fixture weights), kernels against plain versions: "
-            f"fixed CA max diff {fixed_dev:.1e} A (PDB text), diffused CA max diff "
-            f"{diff_dev:.3e} A (float32; tol {DIFFUSED_CA_TOL})")
-        if not (fixed_dev <= 1e-3 + 1e-9 and diff_dev <= DIFFUSED_CA_TOL):
-            raise AssertionError(f"noise_scale=0: fixed {fixed_dev}, diffused {diff_dev}")
+    # Resume: a second run over the same tree writes nothing.
+    before = tree_files(inf.output_dir)
+    again = Inference(cfg, cif_dir=cifs, device="cuda")
+    for fn in wrappers.values():
+        fn.launches = 0
+    with counted_sampler() as calls:
+        again.run_sampling()
+    after = tree_files(inf.output_dir)
+    before.pop("inference_conf.json"), after.pop("inference_conf.json")
+    if calls or after != before or any(fn.launches for fn in wrappers.values()):
+        raise AssertionError(f"resume: {len(calls)} sampler calls, "
+                             f"{len(set(after) ^ set(before))} files differ")
+    log(f"CLI resume: no sampler call, {len(after)} files unchanged")
+    inf_tree = inf.output_dir
+    del inf, again
     torch.cuda.empty_cache()
-    return launches
+
+    # The serial loop on one complex.
+    cfg = cli_config(root, "serial", "inference.inpainting_samples.batch_samples=false")
+    serial = Inference(cfg, cif_dir=one, device="cuda")
+    writes = timed_writer(serial)
+    t0 = time.perf_counter()
+    with counted_sampler() as calls:
+        serial.run_sampling()
+    run_s = time.perf_counter() - t0
+    if len(calls) != 2 or any(c[0] != want for c in calls):
+        raise AssertionError(f"serial run: launches {[c[0] for c in calls]}")
+    check_tree(serial.output_dir, ["1fyt"], 2, CLI_NUM_T)
+    log(f"CLI serial: 1fyt 2 samples one at a time, num_t={CLI_NUM_T}: {run_s:.2f} s; "
+        f"sampler {[round(c[1], 2) for c in calls]} s; writer {sum(writes):.2f} s")
+    del serial
+    torch.cuda.empty_cache()
+
+    # The rest on the test fixtures' weights (every layer non-zero): the
+    # JAX package's initialization zeroes the final layers, so its
+    # predictions equal its inputs and no kernel moves a coordinate.
+    def fixture_cli(name, num_t, *overrides, plain=False):
+        cfg = cli_config(root, name, f"inference.diffusion.num_t={num_t}", *overrides)
+        run = Inference(cfg, cif_dir=one, device="cuda")
+        run.model.load_state_dict(synth_state_dict(run.model), strict=True)
+        with counted_sampler() as calls, (
+                plain_versions_in_model() if plain else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            run.run_sampling()
+            took = time.perf_counter() - t0
+        return run, calls, took
+
+    # EigenFold on one sample at num_t 25, against the plain versions.
+    num_t = 25
+    conf, calls, took = fixture_cli("eigenfold", num_t, "inference.inpainting_samples.samples=1",
+                                    "inference.confidence_score=eigenfold")
+    found = check_tree(conf.output_dir, ["1fyt"], 1, num_t, confidence=True)
+    score_file = float((found["1fyt"]["dir"] / "sample_0" / "confidence_score.txt").read_text())
+    feats = conf._to_device(conf.sampler[0][2])
+    final = calls[0][2]["final_rigids"]
+    dmask = (1.0 - feats["fixed_mask"]) * feats["res_mask"]
+    scores, times = {}, {}
+    for label in ("kernels", "plain", "plain", "kernels"):
+        plain = plain_versions_in_model() if label == "plain" else contextlib.nullcontext()
+        for fn in wrappers.values():
+            fn.launches = 0
+        with plain:
+            t0 = time.perf_counter()
+            scores[label] = float(logp_confidence_score(
+                conf.model, conf.diffuser, feats, final, dmask, num_t=num_t, min_t=0.01,
+                generator=conf._generator(0, 1000)))  # the CLI's stream for case 0, sample 0
+            times.setdefault(label, []).append(time.perf_counter() - t0)
+        # Two forwards a step of the ladder (self-conditioning, then scores).
+        if label == "kernels" and {n: fn.launches for n, fn in wrappers.items()} != (
+                forward_launches(2 * (num_t - 1))):
+            raise AssertionError(f"confidence score: launches "
+                                 f"{ {n: fn.launches for n, fn in wrappers.items()} }")
+    rel = abs(scores["kernels"] - scores["plain"]) / abs(scores["plain"])
+    log(f"CLI eigenfold 1fyt num_t={num_t} (fixture weights): run {took:.2f} s, score "
+        f"{score_file!r} (file), recomputed with the kernels {scores['kernels']!r} "
+        f"({min(times['kernels']):.2f} s), with the plain versions {scores['plain']!r} "
+        f"({min(times['plain']):.2f} s): rel diff {rel:.2e} (tol {CONFIDENCE_TOL})")
+    if scores["kernels"] != score_file and abs(scores["kernels"] - score_file) > 1e-6 * abs(
+            score_file):
+        raise AssertionError(f"confidence score {scores['kernels']} != file {score_file}")
+    if not rel <= CONFIDENCE_TOL:
+        raise AssertionError(f"confidence score: kernels vs plain rel diff {rel}")
+    del conf, feats
+    torch.cuda.empty_cache()
+
+    # noise_scale 0, num_t 5: the kernels' structure against the plain versions'.
+    kern, k_calls, _ = fixture_cli("det_kernels", 5, "inference.diffusion.noise_scale=0")
+    plain, p_calls, _ = fixture_cli("det_plain", 5, "inference.diffusion.noise_scale=0",
+                                    plain=True)
+    got = check_tree(kern.output_dir, ["1fyt"], 2, 5)["1fyt"]
+    ref = check_tree(plain.output_dir, ["1fyt"], 2, 5)["1fyt"]
+    diffused = got["diffused"]
+    fixed_dev = max(float(np.abs(a.atom_positions[~diffused, 1]
+                                 - b.atom_positions[~diffused, 1]).max())
+                    for a, b in zip(got["samples"], ref["samples"]))
+    # The diffused CA in memory (float32), before the PDB text rounds it.
+    feats = kern.sampler[0][2]
+    rows = ((1.0 - feats["fixed_mask"][0]) * feats["res_mask"][0]) > 0
+    ca = [c[0][2]["prot_traj"][0].cpu()[:, torch.as_tensor(rows), 1]
+          for c in (k_calls, p_calls)]
+    diff_dev = float((ca[0] - ca[1]).abs().max())
+    log(f"CLI noise_scale=0 num_t=5 1fyt (fixture weights), kernels against plain versions: "
+        f"fixed CA max diff {fixed_dev:.1e} A (PDB text), diffused CA max diff "
+        f"{diff_dev:.3e} A (float32; tol {DIFFUSED_CA_TOL})")
+    if not (fixed_dev <= 1e-3 + 1e-9 and diff_dev <= DIFFUSED_CA_TOL):
+        raise AssertionError(f"noise_scale=0: fixed {fixed_dev}, diffused {diff_dev}")
+    torch.cuda.empty_cache()
+    return launches, inf_tree
+
+
+# -- phase 9: the TCR evaluation CLI over phase 8's tree ----------------------
+
+
+def read_csv_rows(path: pathlib.Path) -> list[dict[str, str]]:
+    import csv as csv_lib
+
+    with open(path, newline="") as f:
+        return list(csv_lib.DictReader(f))
+
+
+def check_tcr_eval(tree: pathlib.Path, out_root: pathlib.Path, cases: int, samples: int) -> None:
+    """Phase 9: ``python -m framedipt_tpu_torch.eval.tcr_eval`` over phase
+    8's batched tree, with ``--sasa`` and without: one row a sample with a
+    finite backbone RMSD overall and per TCR chain, one row a case in each
+    strategy's CSV, the RSA columns with ``--sasa``; the plots drawn where
+    matplotlib and seaborn import, else skipped with the CLI's warning."""
+    import importlib.util
+
+    from framedipt_tpu_torch.eval.selection import SAMPLE_SELECTION_STRATEGIES
+
+    have_plots = all(importlib.util.find_spec(m) is not None for m in ("matplotlib", "seaborn"))
+    seconds = {}
+    for label, extra in (("--sasa", ["--sasa"]), ("without --sasa", [])):
+        out = out_root / ("eval_sasa" if extra else "eval")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "framedipt_tpu_torch.eval.tcr_eval",
+             f"--prediction_dir={tree}", f"--output_dir={out}", *extra],
+            cwd=REPO, capture_output=True, text=True, timeout=900)
+        seconds[label] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"tcr_eval {label} failed:\n{proc.stderr[-3000:]}")
+        rows = read_csv_rows(out / "eval_metrics_all.csv")
+        cols = ("backbone_rmsd", "bb_rmsd_alpha", "bb_rmsd_beta")
+        if len(rows) != cases * samples or not all(
+                np.isfinite(float(r[c])) for r in rows for c in cols):
+            raise AssertionError(f"tcr_eval {label}: {len(rows)} rows, "
+                                 f"{[[r.get(c) for c in cols] for r in rows]}")
+        for strategy in SAMPLE_SELECTION_STRATEGIES:
+            n = len(read_csv_rows(out / f"eval_metrics_{strategy}.csv"))
+            if n != cases:
+                raise AssertionError(f"tcr_eval {label}: {n} rows for {strategy}")
+        if extra and not any(c.startswith("gt_rsa_alpha_") for c in rows[0]):
+            raise AssertionError("tcr_eval --sasa: no RSA columns")
+        pngs = sorted(p.name for p in out.glob("*.png"))
+        warned = "matplotlib/seaborn unavailable; skipping plots" in proc.stderr
+        if (have_plots and not pngs) or (not have_plots and (pngs or not warned)):
+            raise AssertionError(f"tcr_eval {label}: plots {pngs}, warning {warned}, "
+                                 f"matplotlib and seaborn {'present' if have_plots else 'missing'}")
+        mean = np.mean([float(r["backbone_rmsd"]) for r in rows])
+        log(f"tcr_eval {label}: {seconds[label]:.2f} s for {len(rows)} samples of {cases} "
+            f"complexes, mean backbone RMSD {mean:.3f} A, "
+            + (f"{len(pngs)} plots" if have_plots else "plots skipped with the warning"))
+    log(f"tcr_eval: --sasa {seconds['--sasa']:.2f} s, without {seconds['without --sasa']:.2f} s "
+        f"(the SASA {seconds['--sasa'] - seconds['without --sasa']:.2f} s)")
 
 
 def kernel_label(mangled: str) -> str:
@@ -1905,7 +2033,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     info = build_all()
-    log(f"phase 2: kernels built in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 2: kernels built in {time.perf_counter() - t0:.2f} s; native PDB writer built "
+        f"and loaded in {check_native_writer():.2f} s")
     for name, entry in info.items():
         fn = ""
         for line in entry["log"].splitlines():
@@ -1930,8 +2059,12 @@ def main() -> int:
     launches["pair_mlp_bwd"] = check_train_step()
     log("phase 7: the training CLI")
     launches["edge_embedder_bwd"] = check_training_cli()
-    log("phase 8: the batch inpainting CLI")
-    cli_launches = check_inference_cli()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_infer_") as tmp:
+        root = pathlib.Path(tmp)
+        log("phase 8: the batch inpainting CLI")
+        cli_launches, tree = check_inference_cli(root)
+        log("phase 9: the TCR evaluation CLI over phase 8's tree")
+        check_tcr_eval(tree, root, cases=3, samples=2)
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",

@@ -1,5 +1,7 @@
 """atom37 -> PDB writers with diffusion-region b-factor markers and
-trajectory (multi-model) support, in pure Python."""
+trajectory (multi-model) support: the native writer
+(``data.protein.format_models_native``), and the pure-Python one where the
+native library cannot be built."""
 from __future__ import annotations
 
 import os
@@ -8,7 +10,12 @@ import re
 
 import numpy as np
 
-from framedipt_tpu_torch.data.protein import Protein, prots_to_pdb, to_pdb
+from framedipt_tpu_torch.data.protein import (
+    Protein,
+    format_models_native,
+    prots_to_pdb,
+    to_pdb,
+)
 
 ATOM_MASK_EPS = 1e-7
 
@@ -48,6 +55,16 @@ def prot_pos_to_pdb(
     """PDB text of atom37 positions [N,37,3], or of a trajectory [T,N,37,3]
     as one MODEL per frame. Atoms at the origin are treated as absent."""
     pos = np.asarray(prot_pos)
+    n = pos.shape[-3]
+    text = format_models_native(
+        pos[None] if pos.ndim == 3 else pos,
+        np.zeros(n, np.int64) if aatype is None else np.asarray(aatype),
+        np.arange(1, n + 1) if residue_index is None else np.asarray(residue_index),
+        np.zeros(n, np.int64) if chain_index is None else np.asarray(chain_index),
+        np.zeros((n, 37)) if b_factors is None else np.asarray(b_factors),
+    )
+    if text is not None:
+        return text + "END\n"
     if pos.ndim == 3:
         return to_pdb(_as_protein(pos, aatype, b_factors, residue_index, chain_index))
     return prots_to_pdb(

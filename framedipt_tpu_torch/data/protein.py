@@ -1,11 +1,15 @@
-"""Protein structure container + PDB text IO (pure Python).
+"""Protein structure container + PDB text IO.
 
 Same behaviour as the JAX package's ``data/protein.py`` (``Protein``,
-``from_pdb_string``, ``to_pdb``, ``prots_to_pdb``, chain-id mapping), kept as
-an own copy so the port imports nothing of that package.
+``from_pdb_string``, ``to_pdb``, ``prots_to_pdb``, chain-id mapping,
+``format_models_native``), kept as an own copy so the port imports nothing of
+that package. ``to_pdb`` is the pure-Python writer; ``format_models_native``
+formats whole trajectories in C++ (``native/pdb_writer.cpp``) to the same
+bytes.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import io
 
@@ -182,3 +186,46 @@ def prots_to_pdb(prots: list[Protein]) -> str:
     """Multi-model PDB (trajectory writer)."""
     parts = [to_pdb(p, model=i + 1, add_end=False) for i, p in enumerate(prots)]
     return "".join(parts) + "END\n"
+
+
+def format_models_native(
+    pos4: np.ndarray,  # [T, N, 37, 3]
+    aatype: np.ndarray,
+    residue_index: np.ndarray,
+    chain_index: np.ndarray,
+    b_factors: np.ndarray,  # [N, 37]
+    start_model: int = 1,
+) -> str | None:
+    """All MODEL blocks of a trajectory (no END record) from the native
+    writer, byte-equal to ``to_pdb(..., add_end=False)`` of each frame with
+    its atoms present iff sum(|xyz|) > 1e-7; None when the library is not
+    there (the callers then take ``to_pdb``). Raises ValueError for more than
+    PDB_MAX_CHAINS chains, as ``Protein`` does."""
+    from framedipt_tpu_torch import native
+
+    sorted_chains = sorted(set(int(c) for c in chain_index))
+    if len(sorted_chains) > PDB_MAX_CHAINS:
+        raise ValueError(f"Cannot handle more than {PDB_MAX_CHAINS} chains.")
+    lib = native.load_pdb_writer()
+    if lib is None:
+        return None
+    pos4 = np.ascontiguousarray(pos4, np.float64)
+    t, n = pos4.shape[0], pos4.shape[1]
+    res3 = b"".join(_res3(int(a)).encode("ascii") for a in aatype)
+    chains = bytes(ord(_chain_letter(int(c), sorted_chains)) for c in chain_index)
+    resi = np.ascontiguousarray(residue_index, np.int64)
+    bfac = np.ascontiguousarray(b_factors, np.float64)
+    atom_fields = "".join(f" {a:<3}" if len(a) < 4 else a for a in rc.atom_types).encode("ascii")
+    elem_fields = "".join(f"{a[0]:>2}" for a in rc.atom_types).encode("ascii")
+    if resi.shape != (n,) or bfac.shape != (n, 37) or len(res3) != 3 * n or len(chains) != n:
+        raise ValueError(f"format_models_native: per-residue inputs do not match N={n}")
+    ptr = ctypes.c_void_p
+    need = lib.fdt_pdb_models_bytes(pos4.ctypes.data, t, n, chains)
+    while True:
+        buf = ctypes.create_string_buffer(max(need, 1))
+        got = lib.fdt_format_models(
+            pos4.ctypes.data, t, n, res3, resi.ctypes.data, chains, bfac.ctypes.data,
+            atom_fields, elem_fields, start_model, ptr(ctypes.addressof(buf)), need)
+        if got <= need:
+            return ctypes.string_at(buf, got).decode("ascii")
+        need = got  # a field wider than its column: format again at the exact size

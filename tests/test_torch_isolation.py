@@ -68,6 +68,27 @@ def test_training_entry_points_load_without_jax_pandas_yaml_orbax():
     assert out.stdout.strip() == "clean"
 
 
+def test_evaluation_entry_points_load_without_jax_pandas_yaml_matplotlib():
+    """The TCR evaluation CLI, residue renumbering and the native PDB writer's
+    loader import in a fresh interpreter with none of jax, pandas, yaml,
+    orbax, matplotlib or seaborn loaded (the plots import the last two when
+    they draw)."""
+    banned = FORBIDDEN + ("matplotlib", "seaborn")
+    code = (
+        "import sys\n"
+        "import framedipt_tpu_torch.eval.tcr_eval, framedipt_tpu_torch.eval.residue_reindex\n"
+        "import framedipt_tpu_torch.native, framedipt_tpu_torch.analysis.utils\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{banned!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """Without a card the script exits non-zero and prints no result line;
     alone in a directory it fails too."""
