@@ -14,7 +14,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    float32 (tolerance 1e-4) and bf16 (5e-2), at B=1 N=256, B=2 N=200 (ragged)
    and B=2 N=128 and 256 (the serving shapes), the pair MLP and the edge
    embedder also at B=2 and B=1 N=896 (phase 8's batch and its confidence
-   score's sample), B=1 N=1 and B=1 N=17 (one partial tile), the pair MLP
+   score's sample), B=1 N=100 and N=500 (phase 10's de novo samples; 500 a
+   partial tile), B=1 N=1 and B=1 N=17 (one partial tile), the pair MLP
    also without its residual terms, and the IPA attention also at B=1 N=1,
    N=17, N=512 and N=768 (a bucket past the JAX kernel's N <= 640 gate) with
    a fully masked row, every kernel with two launches giving the same bits,
@@ -97,7 +98,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    one row a sample (6) with a finite backbone RMSD overall and per TCR
    chain, one row a complex (3) in each of the five strategies' CSVs, the
    RSA columns with ``--sasa``, and the plots drawn where matplotlib and
-   seaborn import, else skipped with the CLI's warning.
+   seaborn import, else skipped with the CLI's warning;
+10. de novo design at the full default width (float32): (a) the reference
+    model at the de novo config (``inpainting=False``: the embedder without
+    aatype) with the weights of ``recorded_denovo_parity.npz``'s manifest,
+    its N=128 forward through the kernels within 5e-3 relative and its
+    100-step reverse trajectory at noise_scale 0 within 0.1 A CA-RMSD final
+    and 0.5 A at the worst step; (b) the port's ProteinMPNN on the card
+    against the recorded reference ProteinMPNN
+    (``recorded_mpnn_parity.npz`` and ``recorded_mpnn_ca_parity.npz``):
+    every log-probability variant and the scores within 2e-4 (the CA-only
+    model's within 3e-2, its argmax equal), the near-greedy and tied
+    samples equal, the tied and PSSM probs within 2e-4; (c) the de novo CLI
+    in-process (``inference.inpainting=false``, the JAX package's
+    initialization) at lengths 100 and 500, one sample each of num_t 100,
+    with the self-consistency check's in-process ProteinMPNN on (b)'s
+    vanilla weights (8 sequences a backbone) and no ESMFold (a warning a
+    sample): the tree, each sample's residue count and finite coordinates,
+    both trajectories, one ``seqs/*.fa`` a sample with 8 sequences of the
+    sample's length over the alphabet without X, the launches of each
+    sample (edge embedder num_t+1, pair MLP 3 (num_t+1), no IPA); the
+    sampler's, the writer's and the design's seconds a sample, the
+    design's seconds a backbone with the weights loaded, and the device's
+    busy share of one N=500 sample and of one N=500 design; a second run
+    writes nothing; (d) the TM-score and aligned RMSD of the N=500 sample
+    against itself and a rotated, translated copy (TM 1, RMSD < 1e-3 A).
 
 Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=1, N=17 and 256, B=2 N=200 ragged
@@ -118,7 +143,9 @@ largest there are printed).
 
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` from the path that runs it first: phases 5, 6 and 7;
-``inference_cli_launches`` from phase 8's batched run) and the contract line ``{"ok": true, "device": {...}}``.
+``inference_cli_launches`` from phase 8's batched run,
+``denovo_cli_launches`` from phase 10's de novo run) and the contract line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -350,12 +377,15 @@ def check_kernels() -> dict[str, dict]:
     # Phase 8's: the CLI's batch of two samples at bucket 896, and the
     # confidence score's one sample.
     cli_shapes = ((2, 896), (1, 896))
+    # Phase 10's de novo samples: one structure of exactly N residues.
+    denovo_shapes = ((1, 100), (1, 500))
     kernels = {
         # Tiny and ragged shapes too: one pair, one partial tile.
         "edge_embedder": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
-                          edge_embedder_cost, serving_shapes + cli_shapes + ((1, 1), (1, 17))),
+                          edge_embedder_cost,
+                          serving_shapes + cli_shapes + denovo_shapes + ((1, 1), (1, 17))),
         "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost,
-                     serving_shapes + cli_shapes + ((1, 1), (1, 17))),
+                     serving_shapes + cli_shapes + denovo_shapes + ((1, 1), (1, 17))),
         "ipa_attention": (lambda *a: ipa_attention(*a, **ipa_kw),
                           lambda *a: ipa_attention_plain(*a, **ipa_kw),
                           ipa_attention_inputs, ipa_attention_cost,
@@ -1993,6 +2023,368 @@ def check_tcr_eval(tree: pathlib.Path, out_root: pathlib.Path, cases: int, sampl
         f"(the SASA {seconds['--sasa'] - seconds['without --sasa']:.2f} s)")
 
 
+# -- phase 10: de novo design at full width ----------------------------------
+
+DENOVO_LENGTHS = (100, 500)
+DENOVO_SEQS = 8
+# Recorded ProteinMPNN: log-probabilities and scores (and the tied and PSSM
+# probs) within 2e-4; the CA-only model's log-probabilities within 3e-2 of
+# the recording (tests/parity/test_mpnn_parity.py; its docstring says why).
+MPNN_TOL, MPNN_CA_TOL = 2e-4, 3e-2
+
+
+def check_recorded_denovo() -> None:
+    """(a) The reference model at the de novo config (inpainting=False: the
+    embedder without aatype), N=128, weights synthesised from the manifest
+    of ``recorded_denovo_parity.npz``: the forward through the kernels
+    within 5e-3 relative, then the 100-step reverse trajectory at
+    noise_scale 0 against ``traj100::ca_traj`` (final CA-RMSD < 0.1 A,
+    worst step < 0.5 A), with one edge-embedder and three pair-MLP launches
+    a forward."""
+    from framedipt_tpu_torch.diffusion import SE3Diffuser
+    from framedipt_tpu_torch.model import ScoreNetwork
+    from framedipt_tpu_torch.model.weights import synth_value
+    from framedipt_tpu_torch.sampling import sample
+    from framedipt_tpu_torch.tools.config import Config, resolve_kernel_flags
+
+    z = np.load(REPO / "tests" / "parity" / "fixtures" / "recorded_denovo_parity.npz")
+    cfg = Config()
+    resolve_kernel_flags(cfg, torch.device("cuda"))
+    diffuser = SE3Diffuser(cfg.diffuser, device="cuda")
+    net = ScoreNetwork(cfg.model, diffuser, inpainting=False)
+    net.load_state_dict({n: torch.as_tensor(synth_value(n, tuple(s)))
+                         for n, s in json.loads(str(z["param_manifest"]))}, strict=True)
+    net.to("cuda").eval()
+    feats = {k[6:]: torch.as_tensor(z[k], device="cuda") for k in z.files if k.startswith("feat::")}
+    with torch.inference_mode():
+        out = net(feats)
+    torch.cuda.synchronize()
+    for key in ("psi", "atom37", "rot_score", "trans_score"):
+        ref = z[f"out::{key}"]
+        rel = float(np.abs(out[key].float().cpu().numpy() - ref).max()
+                    / max(1.0, float(np.abs(ref).max())))
+        log(f"recorded de novo forward N=128 {key}: rel err {rel:.3e} (tol 5e-3)")
+        if not rel < 5e-3:
+            raise AssertionError(f"recorded de novo forward {key}: rel err {rel}")
+    ref_traj = z["traj100::ca_traj"]  # [T, N, 3], index 0 the final structure
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    traj = sample(net, diffuser, feats, torch.Generator(device="cuda").manual_seed(0),
+                  num_t=ref_traj.shape[0], min_t=0.01, noise_scale=0.0,
+                  inpainting=False)["prot_traj"][:, 0, :, 1].cpu().numpy()
+    took = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    per_step = np.sqrt(np.mean(np.sum((ref_traj - traj) ** 2, axis=-1), axis=-1))
+    log(f"recorded de novo trajectory N=128 num_t={ref_traj.shape[0]} noise_scale=0: final "
+        f"CA-RMSD {per_step[0]:.4f} A (tol 0.1), worst step {per_step.max():.4f} A at step "
+        f"{int(per_step.argmax())} (tol 0.5), {took:.2f} s, launches {launches}")
+    if not (per_step[0] < 0.1 and per_step.max() < 0.5):
+        raise AssertionError(f"recorded de novo trajectory: final {per_step[0]}, "
+                             f"worst {per_step.max()}")
+    if launches != forward_launches(ref_traj.shape[0] + 1):
+        raise AssertionError(f"recorded de novo trajectory: launches {launches}")
+    del net
+    torch.cuda.empty_cache()
+
+
+def mpnn_fixture(name: str, ca_only: bool):
+    """(recording, the port's ProteinMPNN with the manifest's synthesised
+    weights on the card, the inputs on the card)."""
+    from framedipt_tpu_torch.model import mpnn
+    from framedipt_tpu_torch.model.weights import synth_value
+
+    z = np.load(REPO / "tests" / "parity" / "fixtures" / name, allow_pickle=False)
+    sd = {str(n): torch.as_tensor(synth_value(str(n), tuple(int(x) for x in s.split(",")),
+                                              seed=int(z["seed"])))
+          for n, s in zip(z["manifest_names"], z["manifest_shapes"])}
+    model = mpnn.ProteinMPNN(mpnn.MPNNConfig(k_neighbors=48, ca_only=ca_only))
+    model.load_state_dict(sd, strict=True)
+    f = {k[3:]: torch.as_tensor(z[k], device="cuda") for k in z.files if k.startswith("in_")}
+    return z, model.to("cuda").eval(), f, sd
+
+
+def check_recorded_mpnn() -> dict[str, torch.Tensor]:
+    """(b) The port's ProteinMPNN on the card against the recorded reference
+    ProteinMPNN, vanilla and CA-only: the log-probabilities (random and
+    fixed order, unconditional, conditional and its backbone-only form) and
+    the scores, the near-greedy sample's S and order, the tied sample's S,
+    order and probs, the PSSM probs. Returns the vanilla manifest's weights
+    (phase 10's design weights)."""
+    from framedipt_tpu_torch.model import mpnn
+
+    def cuda(a):
+        return torch.as_tensor(a, device="cuda")
+
+    def check(label, got, want, tol):
+        err = float(np.abs(np.asarray(got, np.float64) - want).max())
+        log(f"recorded ProteinMPNN {label}: max abs err {err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"recorded ProteinMPNN {label}: error {err}")
+
+    def equal(label, got, want):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"recorded ProteinMPNN {label}: differs from the recording")
+        log(f"recorded ProteinMPNN {label}: equal to the recording")
+
+    z, model, f, sd = mpnn_fixture("recorded_mpnn_parity.npz", ca_only=False)
+    x = (f["X"], f["S"], f["mask"], f["chain_M"], f["residue_idx"], f["chain_encoding_all"])
+    with torch.inference_mode():
+        lp = mpnn.mpnn_log_probs(model, *x, randn=cuda(z["randn_fwd"]))
+        check("log_probs_rand", lp.cpu(), z["log_probs_rand"], MPNN_TOL)
+        check("scores", mpnn.mpnn_scores(f["S"], lp, f["mask"] * f["chain_M"]).cpu(), z["scores"],
+              MPNN_TOL)
+        check("log_probs_fixed", mpnn.mpnn_log_probs(
+            model, *x, decoding_order=cuda(z["order_fixed"])).cpu(), z["log_probs_fixed"],
+            MPNN_TOL)
+        check("log_probs_uncond", mpnn.mpnn_unconditional_log_probs(
+            model, f["X"], f["mask"], f["residue_idx"], f["chain_encoding_all"]).cpu(),
+            z["log_probs_uncond"], MPNN_TOL)
+        for bb, key in ((False, "log_probs_cond"), (True, "log_probs_cond_bb")):
+            check(key, mpnn.mpnn_conditional_log_probs(
+                model, *x, cuda(z["randn_cond"]), backbone_only=bb).cpu(), z[key], MPNN_TOL)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rest = (f["S"], f["chain_M"], f["chain_encoding_all"], f["residue_idx"], f["mask"])
+    out = mpnn.mpnn_sample(model, gen, f["X"], cuda(z["randn_smp"]), *rest, temperature=1e-4)
+    equal("near-greedy S", out["S"].cpu().numpy(), z["sample_S"])
+    equal("near-greedy decoding order", out["decoding_order"].cpu().numpy(), z["sample_order"])
+    tied_pos = tuple(tuple(int(v) for v in row) for row in z["tied_pos"])
+    out = mpnn.mpnn_tied_sample(model, gen, f["X"], cuda(z["randn_tied"]), *rest, tied_pos,
+                                temperature=1e-4)
+    equal("tied S", out["S"].cpu().numpy(), z["sample_tied_S"])
+    equal("tied decoding order", out["decoding_order"].cpu().numpy(), z["sample_tied_order"])
+    check("tied probs", out["probs"].cpu(), z["sample_tied_probs"], MPNN_TOL)
+    pos = int(z["pssm_pos"])
+    chain_m_pos = torch.zeros_like(f["chain_M"])
+    chain_m_pos[:, pos] = 1.0
+    out = mpnn.mpnn_sample(model, gen, f["X"], cuda(z["randn_pssm"]), *rest, temperature=0.2,
+                           chain_m_pos=chain_m_pos, pssm_coef=cuda(z["pssm_coef"]),
+                           pssm_bias=cuda(z["pssm_bias"]), pssm_multi=0.7,
+                           pssm_log_odds_mask=cuda(z["pssm_log_odds_mask"]))
+    check("PSSM probs", out["probs"][:, pos].cpu(), z["sample_pssm_probs"][:, pos], MPNN_TOL)
+    weights = sd
+
+    z, model, f, _ = mpnn_fixture("recorded_mpnn_ca_parity.npz", ca_only=True)
+    x = (f["X"], f["S"], f["mask"], f["chain_M"], f["residue_idx"], f["chain_encoding_all"])
+    with torch.inference_mode():
+        lp = mpnn.mpnn_log_probs(model, *x, randn=cuda(z["randn_fwd"])).cpu().numpy()
+    check("CA-only log_probs_rand", lp, z["log_probs_rand"], MPNN_CA_TOL)
+    valid = z["in_mask"][0] > 0
+    equal("CA-only log_probs argmax", lp[0, valid].argmax(-1),
+          z["log_probs_rand"][0, valid].argmax(-1))
+    out = mpnn.mpnn_sample(model, gen, f["X"], cuda(z["randn_smp"]), f["S"], f["chain_M"],
+                           f["chain_encoding_all"], f["residue_idx"], f["mask"], temperature=1e-4)
+    equal("CA-only near-greedy S", out["S"].cpu().numpy(), z["sample_S"])
+    equal("CA-only near-greedy decoding order", out["decoding_order"].cpu().numpy(),
+          z["sample_order"])
+    del model
+    return weights
+
+
+class _Warnings:
+    """The package logger's warnings while in use."""
+
+    def __enter__(self):
+        import logging
+
+        from framedipt_tpu_torch.tools.log import get_logger
+
+        self.messages = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                outer.messages.append(record.getMessage())
+
+        self.handler = Handler(logging.WARNING)
+        get_logger().addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        from framedipt_tpu_torch.tools.log import get_logger
+
+        get_logger().removeHandler(self.handler)
+
+
+def check_denovo_cli(root: pathlib.Path, mpnn_weights: dict[str, torch.Tensor]) -> dict[str, int]:
+    """(c) The de novo CLI in-process at the full default width (float32,
+    the JAX package's initialization), lengths 100 and 500, one sample of
+    num_t 100 at noise_scale 0.1 each, and the self-consistency check with
+    the in-process ProteinMPNN (``mpnn_weights``, written to an .npz) and
+    no ESMFold. Then (d) the TM-score and RMSD of the N=500 sample. Returns
+    each kernel's launches over the run."""
+    from framedipt_tpu_torch.analysis import metrics
+    from framedipt_tpu_torch.data.protein import from_pdb_string
+    from framedipt_tpu_torch.experiments import inference as cli
+    from framedipt_tpu_torch.model.mpnn import MPNN_ALPHABET
+    from framedipt_tpu_torch.sampling import sample
+    from framedipt_tpu_torch.tools import mpnn_design
+    from framedipt_tpu_torch.tools.config import load_config
+
+    weights = root / "v_48_020_synth.npz"
+    np.savez(weights, num_edges=np.asarray(48), **{k: v.numpy() for k, v in mpnn_weights.items()})
+    lo, hi = DENOVO_LENGTHS
+    cfg = load_config([
+        "inference.inpainting=false", f"inference.samples.min_length={lo}",
+        f"inference.samples.max_length={hi}", f"inference.samples.length_step={hi - lo}",
+        "inference.samples.samples_per_length=1", f"inference.samples.seq_per_sample={DENOVO_SEQS}",
+        "inference.weights_path=", f"inference.mpnn_weights_path={weights}",
+        f"inference.output_dir={root}", "inference.name=denovo",
+    ])
+    num_t = cfg.inference.diffusion.num_t
+    wrappers = kernel_wrappers()
+    inf = cli.Inference(cfg, device="cuda")
+    writes = timed_writer(inf)
+    real_design = mpnn_design.design_sequences
+    designs = []
+
+    def timed_design(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_design(*args, **kwargs)
+        torch.cuda.synchronize()
+        designs.append(time.perf_counter() - t0)
+        return out
+
+    mpnn_design.design_sequences = timed_design
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    try:
+        with counted_sampler() as calls, _Warnings() as warned:
+            t0 = time.perf_counter()
+            inf.run_sampling()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    finally:
+        mpnn_design.design_sequences = real_design
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    want = forward_launches(num_t + 1)
+    if len(calls) != 2 or any(c[0] != want for c in calls) or launches != forward_launches(
+            2 * (num_t + 1)):
+        raise AssertionError(f"de novo run: launches per sample {[c[0] for c in calls]}, "
+                             f"expected {want}; over the run {launches}")
+    if len(designs) != 2 or len(writes) != 2:
+        raise AssertionError(f"de novo run: {len(designs)} designs, {len(writes)} writes")
+    esm = [m for m in warned.messages if m.startswith("ESMFold unavailable")]
+    if len(esm) != 2:
+        raise AssertionError(f"de novo run: ESMFold warnings {warned.messages}")
+    samples = {}
+    for n, call, design_s, write_s in zip(DENOVO_LENGTHS, calls, designs, writes):
+        sd = inf.output_dir / f"length_{n}" / "sample_0"
+        prot = from_pdb_string((sd / "sample_0_1.pdb").read_text())
+        if len(prot.aatype) != n or not np.isfinite(prot.atom_positions).all():
+            raise AssertionError(f"{sd}: {len(prot.aatype)} residues or non-finite")
+        for traj in ("bb_traj", "x0_traj"):
+            with open(sd / f"{traj}_0_1.pdb") as f:
+                models = sum(line.startswith("MODEL") for line in f)
+            if models != num_t:
+                raise AssertionError(f"{sd}: {traj} has {models} models")
+        fas = sorted((sd / "self_consistency" / "seqs").glob("*.fa"))
+        if [p.name for p in fas] != ["sample_0_1.fa"]:
+            raise AssertionError(f"{sd}: fasta files {fas}")
+        lines = fas[0].read_text().splitlines()
+        seqs = lines[3::2]
+        if (len(lines) != 2 * (1 + DENOVO_SEQS) or len(seqs) != DENOVO_SEQS
+                or any(len(s) != n or not set(s) <= set(MPNN_ALPHABET[:20]) for s in seqs)):
+            raise AssertionError(f"{fas[0]}: {len(lines)} lines, lengths "
+                                 f"{[len(s) for s in seqs]}")
+        if (sd / "self_consistency" / "sc_results.csv").exists():
+            raise AssertionError(f"{sd}: sc_results.csv without ESMFold")
+        samples[n] = prot
+        log(f"de novo N={n} num_t={num_t}: sampler {call[1]:.3f} s, writer {write_s:.3f} s, "
+            f"ProteinMPNN design of {DENOVO_SEQS} sequences {design_s:.3f} s, "
+            f"launches {call[0]}; "
+            f"recovery line {lines[2][:70]}")
+    log(f"de novo CLI: 2 samples in {run_s:.2f} s (ESMFold absent: {len(esm)} warnings)")
+
+    # The design again, with the weights loaded: seconds a backbone.
+    for n in DENOVO_LENGTHS:
+        sd = inf.output_dir / f"length_{n}" / "sample_0"
+        stage = root / f"design_{n}"
+        stage.mkdir()
+        (stage / "sample_0_1.pdb").write_text((sd / "sample_0_1.pdb").read_text())
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mpnn_design.design_sequences(stage, stage / "out", num_seq_per_target=DENOVO_SEQS,
+                                         model=inf._mpnn)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        log(f"ProteinMPNN design N={n}, {DENOVO_SEQS} sequences (weights loaded): "
+            f"{secs[0]:.3f} s, {secs[1]:.3f} s")
+        if n == DENOVO_LENGTHS[-1]:
+            def design_once(stage=stage):
+                mpnn_design.design_sequences(stage, stage / "profiled",
+                                             num_seq_per_target=DENOVO_SEQS, model=inf._mpnn)
+                torch.cuda.synchronize()
+
+            wall = wall_ms(design_once)
+            t0 = time.perf_counter()
+            busy, by_name = device_time(design_once)
+            log(f"ProteinMPNN design N={n} (profiled in {time.perf_counter() - t0:.1f} s): "
+                f"{wall:.1f} ms wall, " + (
+                f"{busy:.1f} ms of device time, busy share {busy / wall:.3f}" if by_name else
+                "torch.profiler recorded no device time (busy share not measured)"))
+            for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+                log(f"  {ms:9.3f} ms  {name[:100]}")
+
+    # The N=500 sample's device busy share, its sampler call run again.
+    feats = inf._to_device(next(it for it in inf.sampler if it[0] == f"length_{hi}")[2])
+
+    def one_sample():
+        sample(inf.model, inf.diffuser, feats, inf._generator(1), num_t=num_t, min_t=0.01,
+               noise_scale=0.1, inpainting=False, aux_traj=True)
+        torch.cuda.synchronize()
+
+    wall = wall_ms(one_sample)
+    t0 = time.perf_counter()
+    busy, by_name = device_time(one_sample)
+    log(f"de novo sample N={hi} num_t={num_t} (profiled in {time.perf_counter() - t0:.1f} s): "
+        f"{wall:.1f} ms wall, " + (
+        f"{busy:.1f} ms of device time, busy share {busy / wall:.3f}" if by_name else
+        "torch.profiler recorded no device time (busy share not measured)"))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {ms:9.3f} ms  {name[:100]}")
+    del feats
+
+    # Resume: a second run over the same tree writes nothing.
+    before = tree_files(inf.output_dir)
+    again = cli.Inference(cfg, device="cuda")
+    for fn in wrappers.values():
+        fn.launches = 0
+    with counted_sampler() as calls:
+        again.run_sampling()
+    after = tree_files(inf.output_dir)
+    before.pop("inference_conf.json"), after.pop("inference_conf.json")
+    if calls or after != before or any(fn.launches for fn in wrappers.values()):
+        raise AssertionError(f"de novo resume: {len(calls)} sampler calls, "
+                             f"{len(set(after) ^ set(before))} files differ")
+    log(f"de novo CLI resume: no sampler call, {len(after)} files unchanged")
+
+    # (d) TM-score and aligned RMSD of the N=500 sample against itself and a
+    # rotated, translated copy.
+    ca = samples[hi].atom_positions[:, 1]
+    angle = 0.7
+    rot = np.array([[np.cos(angle), -np.sin(angle), 0.0], [np.sin(angle), np.cos(angle), 0.0],
+                    [0.0, 0.0, 1.0]]) @ np.array([[1.0, 0.0, 0.0], [0.0, 0.6, -0.8],
+                                                  [0.0, 0.8, 0.6]])
+    moved = ca @ rot.T + np.array([12.0, -7.5, 30.0])
+    for label, other in (("itself", ca), ("a rotated, translated copy", moved)):
+        t0 = time.perf_counter()
+        tm = metrics.calc_tm_score(other, ca)
+        rmsd = metrics.calc_aligned_rmsd(other, ca)
+        took = time.perf_counter() - t0
+        log(f"TM-score / aligned RMSD N={hi} against {label}: TM {tm[0]:.6f} / {tm[1]:.6f}, "
+            f"RMSD {rmsd:.2e} A ({took:.3f} s on the host)")
+        if not (abs(tm[0] - 1.0) < 1e-6 and abs(tm[1] - 1.0) < 1e-6 and rmsd < 1e-3):
+            raise AssertionError(f"TM-score / RMSD against {label}: {tm}, {rmsd}")
+    del inf, again
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_label(mangled: str) -> str:
     """A CUDA kernel's name and the start of its template arguments from its
     mangled name (``..._cu_<hash><len><name>I13__nv_bfloat16Lb1E...``)."""
@@ -2065,6 +2457,10 @@ def main() -> int:
         cli_launches, tree = check_inference_cli(root)
         log("phase 9: the TCR evaluation CLI over phase 8's tree")
         check_tcr_eval(tree, root, cases=3, samples=2)
+        log("phase 10: de novo design at full width")
+        check_recorded_denovo()
+        mpnn_weights = check_recorded_mpnn()
+        denovo_launches = check_denovo_cli(root, mpnn_weights)
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
@@ -2080,6 +2476,7 @@ def main() -> int:
             "sources": [f"framedipt_tpu_torch/csrc/{f}" for f in kernel_sources(name)],
             "replaces": replaces[name], "launches": launches[name],
             "inference_cli_launches": cli_launches[name],
+            "denovo_cli_launches": denovo_launches[name],
             **serving[name],
         }
         for name in KERNEL_NAMES

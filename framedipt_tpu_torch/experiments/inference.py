@@ -1,8 +1,11 @@
-"""Batch inpainting CLI: sample every structure of a directory of mmCIF
-files (or the TCR complexes of a database CSV found there) and write the
-output tree that evaluation reads.
+"""Batch inference CLI: inpainting over every structure of a directory of
+mmCIF files (or the TCR complexes of a database CSV found there), or de
+novo design (``inference.inpainting=false``); it writes the output tree
+that evaluation reads.
 
     python -m framedipt_tpu_torch.experiments.inference --cif_dir=<dir> \
+        [--config=conf.json] [--device=cuda] [key=value ...]
+    python -m framedipt_tpu_torch.experiments.inference inference.inpainting=false \
         [--config=conf.json] [--device=cuda] [key=value ...]
 
 Under ``inference.output_dir/inference.name`` (a timestamp when unnamed;
@@ -15,6 +18,19 @@ sample s, ``sample_<s>/sample_<s>_1.pdb`` with the backbone trajectory
 and, with ``inference.confidence_score=eigenfold``,
 ``confidence_score.txt``. A sample whose ``sample_<s>_1.pdb`` exists is
 skipped, so a second run over the same tree resumes the first.
+
+De novo, over the grid of ``inference.samples``, it writes per length L and
+sample i ``length_{L}/sample_{i}/`` with ``sample_{i}_1.pdb``,
+``bb_traj_{i}_1.pdb`` and ``x0_traj_{i}_1.pdb`` (every residue diffused,
+b-factor 100), then the self-consistency check under
+``self_consistency/``: ProteinMPNN designs ``inference.samples.
+seq_per_sample`` sequences for the sample's structure in process
+(``seqs/sample_{i}_1.fa``; weights ``inference.mpnn_weights_path``; without
+them ProteinMPNN's own runner from ``inference.pmpnn_dir``; without both
+a warning and no check), ESMFold refolds each sequence
+(``esmf_sample_{k}.pdb``; without ESMFold a warning ends the sample's
+check) and ``sc_results.csv`` holds each refold's TM-score and aligned
+RMSD against the sample. A sample whose directory exists is skipped.
 
 ``inference.weights_path`` is a reference ``.pth`` file, or a directory of
 the train CLI's checkpoints (a ``step_<N>`` directory or the run directory
@@ -29,17 +45,26 @@ from __future__ import annotations
 import copy
 import os
 import pathlib
+import shutil
 import sys
+import tempfile
 from datetime import datetime
 
 import numpy as np
 import torch
 
+from framedipt_tpu_torch.analysis import metrics as analysis_metrics
 from framedipt_tpu_torch.analysis import utils as analysis_utils
 from framedipt_tpu_torch.data import constants as rc
+from framedipt_tpu_torch.data.protein import from_pdb_string
 from framedipt_tpu_torch.diffusion import SE3Diffuser
+from framedipt_tpu_torch.eval.table import write_csv
 from framedipt_tpu_torch.experiments import utils as exp_utils
-from framedipt_tpu_torch.experiments.samplers import ConditionalSampler, TCRSampler
+from framedipt_tpu_torch.experiments.samplers import (
+    ConditionalSampler,
+    TCRSampler,
+    UnconditionalSampler,
+)
 from framedipt_tpu_torch.geometry import frames
 from framedipt_tpu_torch.geometry.rigid import Rigid
 from framedipt_tpu_torch.model import ScoreNetwork
@@ -47,6 +72,7 @@ from framedipt_tpu_torch.model.kernels.build import build_all
 from framedipt_tpu_torch.model.weights import init_state_dict, load_reference_checkpoint
 from framedipt_tpu_torch.sampling import sample
 from framedipt_tpu_torch.sampling.confidence import logp_confidence_score
+from framedipt_tpu_torch.tools import external, mpnn_design
 from framedipt_tpu_torch.tools.config import (
     Config,
     load_config,
@@ -81,8 +107,7 @@ class Inference:
         set_full_precision_matmul()
         cfg, ckpt_state_dict = self._load_checkpoint(copy.deepcopy(cfg))
         self.cfg = cfg
-        if not cfg.inference.inpainting:
-            raise ValueError("inference.inpainting=false (de novo sampling) is not ported yet")
+        self.inpainting = cfg.inference.inpainting
 
         name = cfg.inference.name or datetime.now().strftime("%d_%m_%Y_%H_%M_%S")
         job_num = os.environ.get("FRAMEDIPT_JOB_NUM")
@@ -96,7 +121,7 @@ class Inference:
         if self.device.type == "cuda":
             build_all()
         self.diffuser = SE3Diffuser(cfg.diffuser, device=self.device)
-        self.model = ScoreNetwork(cfg.model, self.diffuser, inpainting=True)
+        self.model = ScoreNetwork(cfg.model, self.diffuser, inpainting=self.inpainting)
         if state_dict is None:
             state_dict = ckpt_state_dict
         if state_dict is None:
@@ -107,6 +132,7 @@ class Inference:
         self.model.to(self.device).eval()
         self.cif_dir = pathlib.Path(cif_dir) if cif_dir else None
         self.sampler = self._create_sampler()
+        self._mpnn = None  # the self-consistency check's ProteinMPNN, loaded at first use
 
     def _load_checkpoint(self, cfg: Config) -> tuple[Config, dict | None]:
         """(config, state_dict or None) from ``inference.weights_path``."""
@@ -130,8 +156,10 @@ class Inference:
             logger.warning(f"weights not found at {weights_path}; using random init")
         return cfg, None
 
-    def _create_sampler(self) -> ConditionalSampler:
+    def _create_sampler(self) -> ConditionalSampler | UnconditionalSampler:
         cfg = self.cfg
+        if not self.inpainting:
+            return UnconditionalSampler(cfg, self.diffuser, seed=cfg.inference.seed)
         if self.cif_dir is None:
             raise ValueError(
                 "conditional sampling requires cif_dir (the database download path is not ported)"
@@ -144,7 +172,9 @@ class Inference:
                                   seed=cfg.inference.seed)
 
     def run_sampling(self) -> None:
-        if self.cfg.inference.inpainting_samples.batch_samples:
+        if not self.inpainting:
+            self.run_unconditional_sampling()
+        elif self.cfg.inference.inpainting_samples.batch_samples:
             self._run_conditional_batched()
         else:
             self._run_conditional_serial()
@@ -162,7 +192,8 @@ class Inference:
         with exp_utils.Timer() as timer:
             out = sample(
                 self.model, self.diffuser, self._to_device(feats), generator,
-                num_t=d.num_t, min_t=d.min_t, noise_scale=d.noise_scale, inpainting=True,
+                num_t=d.num_t, min_t=d.min_t, noise_scale=d.noise_scale,
+                inpainting=self.inpainting,
                 input_aatype=self.cfg.inference.input_aatype, aux_traj=True,
             )
             out = {k: v.cpu().numpy() for k, v in out.items()}
@@ -207,6 +238,80 @@ class Inference:
                     feats, out["final_rigids"], length_dir / f"sample_{sample_i}",
                     self._generator(item_idx, 1),
                 )
+
+    def run_unconditional_sampling(self) -> None:
+        """One sample at a time over the de novo grid, each followed by its
+        self-consistency check; the generator is seeded from (seed + 1,
+        item)."""
+        for item_idx, (name, sample_i, feats) in enumerate(self.sampler):
+            sample_dir = self.output_dir / name / f"sample_{sample_i}"
+            if sample_dir.exists():
+                continue
+            sample_dir.mkdir(parents=True)
+            out = self._sample(f"{name} sample {sample_i}", feats, self._generator(item_idx))
+            length = feats["res_mask"].shape[1]
+            paths = self.save_traj(out["prot_traj"][:, 0], out["rigid_0_traj"][:, 0],
+                                   np.ones(length), output_dir=sample_dir, sample_idx=sample_i)
+            self.run_self_consistency(sample_dir, paths["sample_path"])
+            logger.info(f"done {name} sample {sample_i}: {paths['sample_path']}")
+
+    def _design(self, pdb_dir: pathlib.Path, sc_dir: pathlib.Path) -> pathlib.Path:
+        """ProteinMPNN's sequences for the structures of ``pdb_dir`` under
+        ``sc_dir/seqs``: in process, else through ProteinMPNN's runner."""
+        n_seqs = self.cfg.inference.samples.seq_per_sample
+        try:
+            if self._mpnn is None:
+                self._mpnn = mpnn_design.load_mpnn_params(
+                    self.cfg.inference.mpnn_weights_path, self.device)
+            return mpnn_design.design_sequences(pdb_dir, sc_dir, num_seq_per_target=n_seqs,
+                                                model=self._mpnn)
+        except external.ToolUnavailable as e_inproc:
+            try:
+                return external.run_protein_mpnn(pdb_dir=pdb_dir, output_dir=sc_dir,
+                                                 mpnn_repo=self.cfg.inference.pmpnn_dir,
+                                                 num_seq_per_target=n_seqs)
+            except external.ToolUnavailable as e:
+                raise external.ToolUnavailable(f"{e_inproc}; fallback: {e}") from e
+
+    def run_self_consistency(self, sample_dir: pathlib.Path, sample_pdb: pathlib.Path) -> None:
+        """ProteinMPNN's sequences for the sample's structure, each refolded
+        by ESMFold and scored against the sample (TM-score, aligned RMSD of
+        the CA) into ``self_consistency/sc_results.csv``. A missing tool
+        logs a warning and ends the check."""
+        sc_dir = sample_dir / "self_consistency"
+        sc_dir.mkdir(exist_ok=True)
+        # The sample's structure alone, so that its trajectories are not designed.
+        with tempfile.TemporaryDirectory(prefix="sc_design_") as stage:
+            shutil.copy(sample_pdb, stage)
+            try:
+                seqs_dir = self._design(pathlib.Path(stage), sc_dir)
+            except external.ToolUnavailable as e:
+                logger.warning(f"self-consistency skipped: {e}")
+                return
+
+        sample_ca = from_pdb_string(pathlib.Path(sample_pdb).read_text()).atom_positions[
+            :, rc.CA_IDX]
+        rows = []
+        for fasta in sorted(pathlib.Path(seqs_dir).glob("*.fa")):
+            seqs = [line.strip() for line in fasta.read_text().splitlines()
+                    if line and not line.startswith(">")]
+            for i, seq in enumerate(seqs):
+                try:
+                    pdb_str = external.esmfold_predict(seq)
+                except external.ToolUnavailable as e:
+                    logger.warning(f"ESMFold unavailable: {e}")
+                    return
+                pred_path = sc_dir / f"esmf_sample_{i}.pdb"
+                pred_path.write_text(pdb_str)
+                pred_ca = from_pdb_string(pdb_str).atom_positions[:, rc.CA_IDX]
+                if len(pred_ca) != len(sample_ca):
+                    continue
+                _, tm = analysis_metrics.calc_tm_score(pred_ca, sample_ca)
+                rmsd = analysis_metrics.calc_aligned_rmsd(pred_ca, sample_ca)
+                rows.append({"sequence": seq, "sample": str(pred_path), "rmsd": rmsd,
+                             "tm_score": tm})
+        if rows:
+            write_csv(rows, sc_dir / "sc_results.csv")
 
     def _to_device(self, feats: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         out = {}

@@ -1,12 +1,14 @@
-"""Inpainting samplers over real structures: each item is (pdb_name,
-sample_idx, feats), the features of one sample with a batch dim of 1,
-padded to the structure's length bucket, the fixed region imputed from the
-ground truth in the initial frames. Host-side numpy; the inference CLI
-moves a case's items to the device.
+"""The inference CLI's samplers: each item is (name, sample_idx, feats),
+the features of one sample with a batch dim of 1. Host-side numpy; the
+inference CLI moves a case's items to the device.
 
-``ConditionalSampler`` redacts a random region per chain (or an explicit
-window of the first chain); ``TCRSampler`` diffuses CDR loops of the TCR
-chains of the complexes listed in a TCR database CSV.
+``UnconditionalSampler`` is the de novo grid of lengths, every residue
+diffused from frames of the reference distribution. The inpainting
+samplers run over real structures, padded to the structure's length
+bucket, the fixed region imputed from the ground truth in the initial
+frames: ``ConditionalSampler`` redacts a random region per chain (or an
+explicit window of the first chain); ``TCRSampler`` diffuses CDR loops of
+the TCR chains of the complexes listed in a TCR database CSV.
 """
 from __future__ import annotations
 
@@ -29,6 +31,49 @@ from framedipt_tpu_torch.tools.log import get_logger
 logger = get_logger()
 
 SampleItem = tuple[str, int, dict[str, np.ndarray]]
+
+
+class UnconditionalSampler:
+    """The de novo grid: ``inference.samples`` lengths (min_length to
+    max_length by length_step), samples_per_length samples each, named
+    ``length_{L}``. Every residue is diffused; the initial frames of (L,
+    sample) come from a generator seeded from (seed, L, sample)."""
+
+    def __init__(self, cfg: Config, diffuser: SE3Diffuser, seed: int = 123) -> None:
+        self.cfg = cfg
+        self.diffuser = diffuser
+        self.seed = seed
+        s = cfg.inference.samples
+        self.lengths = list(range(s.min_length, s.max_length + 1, s.length_step))
+        self.samples_per_length = s.samples_per_length
+
+    def __len__(self) -> int:
+        return len(self.lengths) * self.samples_per_length
+
+    def sample_initial_rigids(self, length: int, sample_idx: int) -> np.ndarray:
+        """Frames at t = 1 [L, 7] from the reference distribution."""
+        rigids_t = self.diffuser.sample_ref(
+            seeded_generator(self.diffuser.device, self.seed, length, sample_idx),
+            n_samples=length,
+        )
+        return rigids_t.to_tensor7().cpu().numpy().astype(np.float32)
+
+    def __iter__(self) -> Iterator[SampleItem]:
+        for length in self.lengths:
+            for sample_idx in range(self.samples_per_length):
+                feats = {
+                    "res_mask": np.ones((length,), np.float32),
+                    "fixed_mask": np.zeros((length,), np.float32),
+                    "seq_idx": np.arange(length, dtype=np.int64),
+                    "chain_idx": np.zeros((length,), np.int64),
+                    "residue_index": np.arange(1, length + 1, dtype=np.int64),
+                    "sc_ca_t": np.zeros((length, 3), np.float32),
+                    "rigids_t": self.sample_initial_rigids(length, sample_idx),
+                    "torsion_angles_sin_cos": np.zeros((length, 7, 2), np.float32),
+                }
+                feats = {k: v[None] for k, v in feats.items()}
+                feats["t"] = np.ones((1,), np.float32)
+                yield f"length_{length}", sample_idx, feats
 
 
 class ConditionalSampler:

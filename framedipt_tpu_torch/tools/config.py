@@ -112,6 +112,19 @@ class InferenceDiffusionConfig:
 
 
 @dataclass
+class InferenceSamplesConfig:
+    """The de novo grid: lengths min_length..max_length by length_step,
+    samples_per_length backbones each, seq_per_sample ProteinMPNN sequences
+    a backbone for the self-consistency check."""
+
+    samples_per_length: int = 10
+    seq_per_sample: int = 8
+    min_length: int = 100
+    max_length: int = 500
+    length_step: int = 100
+
+
+@dataclass
 class InpaintingSamplesConfig:
     samples: int = 5
     # All samples of a test case in one sampler call (batch of ``samples``);
@@ -140,11 +153,17 @@ class InferenceConfig:
     confidence_score: str | None = None
     output_dir: str = "./inference_outputs/"
     weights_path: str = "./weights/inpainting.pth"
+    # De novo self-consistency: the in-process ProteinMPNN's weights (a
+    # reference .pt or an .npz of the same names), and a ProteinMPNN checkout
+    # whose runner is the fallback when those weights are missing.
+    mpnn_weights_path: str = "./weights/mpnn/v_48_020.pt"
+    pmpnn_dir: str | None = None
     save_backbone_trajectory: bool = True
     save_pred_x0_trajectory: bool = True
     diffusion: InferenceDiffusionConfig = field(
         default_factory=InferenceDiffusionConfig
     )
+    samples: InferenceSamplesConfig = field(default_factory=InferenceSamplesConfig)
     inpainting_samples: InpaintingSamplesConfig = field(
         default_factory=InpaintingSamplesConfig
     )
@@ -368,7 +387,7 @@ def check_single_device(cfg: Config) -> None:
     if exp.dp_size not in (-1, 1) or exp.fsdp_size != 1:
         raise ValueError(
             f"experiment.dp_size={exp.dp_size}, fsdp_size={exp.fsdp_size}: the port trains "
-            "on one card (dp_size -1 or 1, fsdp_size 1); multi-GPU is ROADMAP queue 1 item 8"
+            "on one card (dp_size -1 or 1, fsdp_size 1); multi-GPU is ROADMAP queue 1 item 7"
         )
 
 

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions on the card, and the input
-builders that tests/test_torch_kernels.py shares.
+builders that tests/test_torch_kernels.py shares; on the card also the de
+novo model's forward at N=500 through the kernels against their plain
+versions, and the port's ProteinMPNN against the recorded reference.
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without them:
@@ -400,3 +402,100 @@ def test_cuda_edge_embedder_function_pallas_matches_autograd_of_plain_version():
         masks = emb_kernel_relu_masks(g, [a.detach() for a in args], bins, 1e-4)
     want = torch.autograd.grad(t_emb.edge_embedder_plain(*args, *bins, relu_masks=masks), ins, g)
     assert_grads_close([a.cpu() for a in got], [b.cpu() for b in want], 1e-4)
+
+
+def denovo_feats(rng, N, device):
+    """A de novo model input of one structure of N residues: every residue
+    diffused, frames of unit quaternions and translations spread as the
+    reference distribution spreads them, t = 0.6."""
+    qs = rng.normal(size=(1, N, 4))
+    qs /= np.linalg.norm(qs, axis=-1, keepdims=True)
+    feats = {
+        "res_mask": np.ones((1, N)), "fixed_mask": np.zeros((1, N)),
+        "seq_idx": np.arange(N)[None], "t": np.asarray([0.6]),
+        "sc_ca_t": rng.normal(size=(1, N, 3)) * 8.0,
+        "rigids_t": np.concatenate([qs, rng.normal(size=(1, N, 3)) * 8.0], axis=-1),
+        "torsion_angles_sin_cos": np.zeros((1, N, 7, 2)),
+    }
+    return {k: torch.as_tensor(v, dtype=torch.int64 if k == "seq_idx" else torch.float32,
+                               device=device) for k, v in feats.items()}
+
+
+@pytest.mark.gpu
+def test_cuda_denovo_forward_n500_matches_plain_versions(monkeypatch):
+    """On the card: the default model at the de novo config
+    (inpainting=False, the embedder without aatype), float32, one structure
+    of N=500 (a partial tile), the fixtures' synthesised weights: the
+    forward through the kernels against the same forward through their
+    plain versions (every output within 1e-3 of its scale), one embedder
+    and three pair-MLP launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from framedipt_tpu_torch.diffusion import SE3Diffuser
+    from framedipt_tpu_torch.model import ScoreNetwork
+    from framedipt_tpu_torch.model.weights import synth_state_dict
+    from framedipt_tpu_torch.tools.config import Config, resolve_kernel_flags
+    from framedipt_tpu_torch.tools.device import set_full_precision_matmul
+
+    set_full_precision_matmul()
+    cfg = Config()
+    resolve_kernel_flags(cfg, torch.device("cuda"))
+    net = ScoreNetwork(cfg.model, SE3Diffuser(cfg.diffuser, device="cuda"), inpainting=False)
+    net.load_state_dict(synth_state_dict(net), strict=True)
+    net.cuda().eval()
+    feats = denovo_feats(np.random.default_rng(500), 500, "cuda")
+    before = (t_emb.edge_embedder.launches, t_pair.pair_mlp.launches)
+    with torch.inference_mode():
+        got = net(feats)
+    assert (t_emb.edge_embedder.launches, t_pair.pair_mlp.launches) == (
+        before[0] + 1, before[1] + cfg.model.ipa.num_blocks - 1)
+    monkeypatch.setattr(t_emb, "edge_embedder", t_emb.edge_embedder_plain)
+    monkeypatch.setattr(t_pair, "pair_mlp", t_pair.pair_mlp_plain)
+    with torch.inference_mode():
+        want = net(feats)
+    for key in ("psi", "rot_score", "trans_score", "atom37"):
+        g, w = got[key].float().cpu(), want[key].float().cpu()
+        assert torch.isfinite(g).all(), key
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) / scale < 1e-3, key
+
+
+@pytest.mark.gpu
+def test_cuda_mpnn_matches_recorded_reference():
+    """On the card: the port's ProteinMPNN with the recorded fixture's
+    synthesised weights against the recorded reference ProteinMPNN:
+    log-probabilities in a random and a fixed order and unconditional, and
+    the scores, within 2e-4 (products in full float32); the near-greedy
+    sample's S and decoding order equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pathlib
+
+    from framedipt_tpu_torch.model import mpnn
+    from framedipt_tpu_torch.model.weights import synth_value
+    from framedipt_tpu_torch.tools.device import set_full_precision_matmul
+
+    set_full_precision_matmul()
+    z = np.load(pathlib.Path(__file__).parent / "parity" / "fixtures" / "recorded_mpnn_parity.npz")
+    model = mpnn.ProteinMPNN(mpnn.MPNNConfig(k_neighbors=48))
+    model.load_state_dict({str(n): torch.as_tensor(synth_value(
+        str(n), tuple(int(x) for x in s.split(",")), seed=int(z["seed"])))
+        for n, s in zip(z["manifest_names"], z["manifest_shapes"])}, strict=True)
+    model.cuda().eval()
+    f = {k[3:]: torch.as_tensor(z[k], device="cuda") for k in z.files if k.startswith("in_")}
+    x = (f["X"], f["S"], f["mask"], f["chain_M"], f["residue_idx"], f["chain_encoding_all"])
+    with torch.inference_mode():
+        lp = mpnn.mpnn_log_probs(model, *x, randn=torch.as_tensor(z["randn_fwd"], device="cuda"))
+        fixed = mpnn.mpnn_log_probs(model, *x,
+                                    decoding_order=torch.as_tensor(z["order_fixed"], device="cuda"))
+        uncond = mpnn.mpnn_unconditional_log_probs(model, f["X"], f["mask"], f["residue_idx"],
+                                                   f["chain_encoding_all"])
+        scores = mpnn.mpnn_scores(f["S"], lp, f["mask"] * f["chain_M"])
+    for got, key in ((lp, "log_probs_rand"), (fixed, "log_probs_fixed"),
+                     (uncond, "log_probs_uncond"), (scores, "scores")):
+        np.testing.assert_allclose(got.cpu().numpy(), z[key], atol=2e-4, rtol=2e-4, err_msg=key)
+    out = mpnn.mpnn_sample(model, torch.Generator(device="cuda").manual_seed(3), f["X"],
+                           torch.as_tensor(z["randn_smp"], device="cuda"), f["S"], f["chain_M"],
+                           f["chain_encoding_all"], f["residue_idx"], f["mask"], temperature=1e-4)
+    np.testing.assert_array_equal(out["S"].cpu().numpy(), z["sample_S"])
+    np.testing.assert_array_equal(out["decoding_order"].cpu().numpy(), z["sample_order"])
