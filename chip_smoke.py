@@ -122,7 +122,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
     design's seconds a backbone with the weights loaded, and the device's
     busy share of one N=500 sample and of one N=500 design; a second run
     writes nothing; (d) the TM-score and aligned RMSD of the N=500 sample
-    against itself and a rotated, translated copy (TM 1, RMSD < 1e-3 A).
+    against itself and a rotated, translated copy (TM 1, RMSD < 1e-3 A);
+11. ProteinMPNN training at the published width (hidden 128, 3 + 3 layers,
+    48 neighbours; float32, TF32 off): (a) the train step on the recorded
+    ProteinMPNN's structure and weights (dropout 0, no noise, the
+    recording's decoding order): its loss within 2e-4 (relative) of the
+    smoothed loss of the recorded log-probabilities, every gradient within
+    1e-4 of its max-abs of the same step on the CPU; then 20 steps with
+    noise 0.2 and dropout 0.1: finite losses, the parameters moved, the
+    loss without noise and dropout lower after than before; (b) the
+    training CLI (``python -m framedipt_tpu_torch.experiments.train_mpnn``)
+    in-process over the fixture complexes preprocessed without a chain
+    length cap (801-820 residues, five chains each; crops of 512, batch 8),
+    20 steps warm-started from (a)'s weights, an eval and a checkpoint every
+    10: the metrics rows, finite values, ``step_10.npz``, ``step_20.npz``,
+    ``last.npz``; ``last.npz`` through the designer, 8 sequences for one
+    complex; a warm start whose neighbour count differs refused; (c) the
+    train step at B=8 L=512 (crops of 512 of the complexes, every row
+    valid): ms a step, valid residues a second, peak memory, the step's
+    FLOP count and its bound at float32's CUDA-core peak, and the busy
+    share and device time by kernel over 2 steps.
 
 Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=1, N=17 and 256, B=2 N=200 ragged
@@ -2385,6 +2404,258 @@ def check_denovo_cli(root: pathlib.Path, mpnn_weights: dict[str, torch.Tensor]) 
     return launches
 
 
+# -- phase 11: ProteinMPNN training at the published width --------------------
+
+# (a) The train step's loss against the recorded reference's smoothed loss,
+# relative, and each gradient on the card against the same step on the CPU,
+# on the scale of its max-abs (the card's gather backward sums with atomics).
+MPNN_LOSS_TOL, MPNN_GRAD_TOL = 2e-4, 1e-4
+MPNN_TRAIN_STEPS = 20
+# (c) The timed shape: the train CLI's default batch and crop.
+MPNN_B, MPNN_L = 8, 512
+
+
+def mpnn_clean_loss(model, f: dict, randn: torch.Tensor) -> float:
+    """The smoothed loss in eval mode: no noise, no dropout, ``randn``'s order."""
+    from framedipt_tpu_torch.model import mpnn
+    from framedipt_tpu_torch.train.mpnn_train import smoothed_loss
+
+    model.eval()
+    with torch.no_grad():
+        lp = mpnn.mpnn_log_probs(model, f["X"], f["S"], f["mask"], f["chain_M"],
+                                 f["residue_idx"], f["chain_encoding_all"], randn=randn)
+        return float(smoothed_loss(f["S"], lp, f["mask"] * f["chain_M"]))
+
+
+def check_mpnn_train_step(weights: dict[str, torch.Tensor], device: str = "cuda") -> None:
+    """(a) The train step at the published width on the recorded ProteinMPNN's
+    structure and weights (``recorded_mpnn_parity.npz``; dropout 0, no noise,
+    the recording's ``randn_fwd``): the loss against the smoothed loss of the
+    recorded log-probabilities, every gradient against the same step on the
+    CPU; then 20 steps on that batch with the training settings (noise 0.2,
+    dropout 0.1): finite losses, the parameters moved, and the loss without
+    noise and dropout lower after than before. (``device`` "cpu" rehearses
+    it.)"""
+    from framedipt_tpu_torch.model import mpnn
+    from framedipt_tpu_torch.train.mpnn_train import MPNNTrainer, smoothed_loss
+
+    z = np.load(REPO / "tests" / "parity" / "fixtures" / "recorded_mpnn_parity.npz")
+    f_cpu = {k[3:]: torch.as_tensor(z[k]) for k in z.files if k.startswith("in_")}
+    f = {k: v.to(device) for k, v in f_cpu.items()}
+    randn = torch.as_tensor(z["randn_fwd"])
+    want = float(smoothed_loss(f_cpu["S"], torch.as_tensor(z["log_probs_rand"]),
+                               f_cpu["mask"] * f_cpu["chain_M"]))
+
+    def first_step(dev: str):
+        model = mpnn.ProteinMPNN(mpnn.MPNNConfig(k_neighbors=48, dropout=0.0))
+        model.load_state_dict(weights, strict=True)
+        trainer = MPNNTrainer(model.to(dev))
+        batch = {k: v.to(dev) for k, v in f_cpu.items()}
+        return model, trainer.step(batch, torch.Generator(device=dev).manual_seed(0),
+                                   randn=randn.to(dev))
+
+    (model, m), (cpu_model, _) = first_step(device), first_step("cpu")
+    rel = abs(float(m["loss"]) - want) / want
+    log(f"ProteinMPNN train step (recorded structure, L=53): loss {float(m['loss']):.7f} against "
+        f"the recording's smoothed loss {want:.7f}, rel err {rel:.3e} (tol {MPNN_LOSS_TOL}); "
+        f"grad_norm {float(m['grad_norm']):.5f}, lr {m['lr']:.3e}")
+    if not rel <= MPNN_LOSS_TOL:
+        raise AssertionError(f"ProteinMPNN train step loss: rel err {rel}")
+    cpu_grads = dict(cpu_model.named_parameters())
+    errs = {}
+    for name, p in model.named_parameters():
+        ref = cpu_grads[name].grad
+        errs[name] = float((p.grad.cpu() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    worst = max(errs, key=errs.get)
+    log(f"ProteinMPNN train step gradients, card against CPU: worst {errs[worst]:.3e} "
+        f"({worst}) of the gradient's max-abs (tol {MPNN_GRAD_TOL}), {len(errs)} tensors")
+    if not errs[worst] <= MPNN_GRAD_TOL:
+        raise AssertionError(f"ProteinMPNN gradient {worst}: error {errs[worst]}")
+
+    model = mpnn.ProteinMPNN(mpnn.MPNNConfig(k_neighbors=48, augment_eps=0.2, dropout=0.1))
+    model.load_state_dict(weights, strict=True)
+    model.to(device)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    clean0 = mpnn_clean_loss(model, f, randn.to(device))
+    trainer = MPNNTrainer(model)
+    gen = torch.Generator(device=device).manual_seed(1)
+    losses = [float(trainer.step(f, gen)["loss"]) for _ in range(MPNN_TRAIN_STEPS)]
+    clean1 = mpnn_clean_loss(model, f, randn.to(device))
+    moved = max(float((v - before[k]).abs().max()) for k, v in model.state_dict().items())
+    log(f"ProteinMPNN {MPNN_TRAIN_STEPS} steps (noise 0.2, dropout 0.1): losses "
+        f"{[round(x, 5) for x in losses]}; loss without noise and dropout {clean0:.6f} -> "
+        f"{clean1:.6f}; largest parameter change {moved:.3e}")
+    if not (all(np.isfinite(losses)) and moved > 0 and clean1 < clean0):
+        raise AssertionError(f"ProteinMPNN training: losses {losses}, clean {clean0} -> "
+                             f"{clean1}, moved {moved}")
+
+
+def check_mpnn_train_cli(root: pathlib.Path, weights: dict[str, torch.Tensor],
+                         device: str = "cuda") -> None:
+    """(b) ``python -m framedipt_tpu_torch.experiments.train_mpnn`` in-process
+    on the card: the fixture mmCIF complexes preprocessed by the port's
+    pipeline (max_len 2000, min_len 10, chain_max_len 2000), 20 steps at the
+    defaults (batch 8, crops of 512) from the recorded weights, an eval and a
+    checkpoint every 10 steps; the metrics rows, finite losses, the three
+    checkpoints; ``last.npz`` loaded by the designer, 8 sequences designed
+    for one complex; a warm start whose neighbour count differs refused.
+    (``device`` "cpu" rehearses it.)"""
+    import pickle
+
+    from framedipt_tpu_torch.data.pipeline import ProcessOptions, process_serially, write_metadata
+    from framedipt_tpu_torch.data.protein import Protein, to_pdb
+    from framedipt_tpu_torch.experiments import train_mpnn
+    from framedipt_tpu_torch.tools import mpnn_design
+    from framedipt_tpu_torch.tools.config import FilteringConfig
+
+    data = root / "mpnn_data"
+    t0 = time.perf_counter()
+    rows = process_serially(sorted((REPO / "tests" / "data" / "cifs").glob("*.cif")),
+                            ProcessOptions(output_dir=data, filtering=FilteringConfig(
+                                max_len=2000, min_len=10, chain_max_len=2000)))
+    write_metadata(rows, data / "metadata.csv")
+    log(f"preprocessed {len(rows)} complexes in {time.perf_counter() - t0:.2f} s: "
+        f"{[(r['pdb_name'], r['seq_len'], r['num_chains']) for r in rows]}")
+    if len(rows) != 3:
+        raise AssertionError(f"preprocessing kept {len(rows)} of 3 complexes")
+    start = root / "recorded_mpnn.npz"
+    np.savez(start, num_edges=np.int64(48), **{k: v.numpy() for k, v in weights.items()})
+    out = root / "mpnn_run"
+    flags = ["--csv_path", str(data / "metadata.csv"), "--previous_checkpoint", str(start),
+             "--device", device]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = train_mpnn.main([*flags, "--output_dir", str(out), "--num_steps", "20",
+                            "--eval_freq", "10", "--ckpt_freq", "10"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    metrics = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    log(f"ProteinMPNN train CLI: 20 steps (batch 8, crops of 512, 2 complexes a batch) in "
+        f"{run_s:.2f} s with 2 evals; rows {metrics}")
+    steps = [(r["step"], "loss" in r) for r in metrics]
+    if steps != [(10, True), (10, False), (20, True), (20, False)] or not all(
+            np.isfinite(r[k]) for r in metrics for k in r if k != "step"):
+        raise AssertionError(f"ProteinMPNN train CLI: metrics rows {metrics}")
+    ckpts = sorted(p.name for p in out.glob("*.npz"))
+    if ckpts != ["last.npz", "step_10.npz", "step_20.npz"] or set(last) != {
+            "loss", "nll", "accuracy", "grad_norm", "lr"}:
+        raise AssertionError(f"ProteinMPNN train CLI: checkpoints {ckpts}, last {last}")
+
+    model = mpnn_design.load_mpnn_params(out / "last.npz", device=device)
+    with open(rows[0]["processed_path"], "rb") as fh:
+        raw = pickle.load(fh)
+    stage = root / "mpnn_design"
+    stage.mkdir()
+    (stage / f"{rows[0]['pdb_name']}.pdb").write_text(to_pdb(Protein(
+        atom_positions=raw["atom_positions"], atom_mask=raw["atom_mask"], aatype=raw["aatype"],
+        residue_index=raw["residue_index"], chain_index=raw["chain_index"],
+        b_factors=raw["b_factors"])))
+    t0 = time.perf_counter()
+    mpnn_design.design_sequences(stage, stage / "out", num_seq_per_target=DENOVO_SEQS,
+                                 model=model)
+    torch.cuda.synchronize()
+    design_s = time.perf_counter() - t0
+    lines = (stage / "out" / "seqs" / f"{rows[0]['pdb_name']}.fa").read_text().splitlines()
+    seqs = [s.replace("/", "") for s in lines[3::2]]
+    log(f"ProteinMPNN design with last.npz: {len(seqs)} sequences of {rows[0]['seq_len']} "
+        f"residues ({rows[0]['num_chains']} chains) in {design_s:.2f} s; {lines[2][:70]}")
+    if len(seqs) != DENOVO_SEQS or any(len(s) != rows[0]["seq_len"] for s in seqs):
+        raise AssertionError(f"ProteinMPNN design with last.npz: {lines[:3]}")
+    with expect_raise(ValueError, "k_neighbors"):
+        train_mpnn.main([*flags[:2], "--previous_checkpoint", str(out / "last.npz"),
+                         "--device", device, "--k_neighbors", "32", "--num_steps", "1",
+                         "--output_dir", str(root / "mpnn_refused")])
+    log("ProteinMPNN train CLI: a warm start from a checkpoint of 48 neighbours with "
+        "--k_neighbors 32 refused")
+    del model
+    torch.cuda.empty_cache()
+
+
+def mpnn_step_flops(B: int, L: int, cfg) -> float:
+    """The products of one train step (forward, and twice the forward for the
+    backward): per edge the edge embedding and W_e, each encoder layer's node
+    messages and edge update (5 h^2 multiply-adds each) and its feed-forward
+    per node (8 h^2), each decoder layer's messages (6 h^2) and feed-forward."""
+    from framedipt_tpu_torch.model.mpnn import edge_input_width
+
+    h, k = cfg.hidden_dim, min(cfg.k_neighbors, L)
+    edges, nodes = B * L * k, B * L
+    fwd = 2 * edges * (edge_input_width(cfg) * h + h * h)
+    fwd += cfg.num_encoder_layers * 2 * (edges * 10 * h * h + nodes * 8 * h * h)
+    fwd += cfg.num_decoder_layers * 2 * (edges * 6 * h * h + nodes * 8 * h * h)
+    return 3.0 * fwd
+
+
+def time_mpnn_train_step() -> None:
+    """(c) The train step's cost at B=8, L=512, every row valid: crops of 512
+    residues of the fixture complexes (all five chains, parsed from the
+    mmCIF files without filtering), the published width and training
+    settings, fresh weights. ms a step (CUDA events, 5 steps after 3 warm),
+    valid residues a second, peak memory, the bound of its products at
+    float32's CUDA-core peak, and the device's busy share and time by kernel
+    over 2 steps (torch.profiler)."""
+    from framedipt_tpu_torch.data import features as feature_lib
+    from framedipt_tpu_torch.data.mmcif import parse_mmcif
+    from framedipt_tpu_torch.experiments.train_mpnn import structure_to_mpnn_features
+    from framedipt_tpu_torch.model import mpnn
+    from framedipt_tpu_torch.train.mpnn_train import MPNNTrainer
+
+    complexes = []
+    for path in sorted((REPO / "tests" / "data" / "cifs").glob("*.cif")):
+        raw = feature_lib.structure_to_features(parse_mmcif(path, file_id=path.stem[:4]))
+        complexes.append(structure_to_mpnn_features(raw))
+    rows = []
+    for i in range(MPNN_B):
+        feats = complexes[i % len(complexes)]
+        start = 144 * (i // len(complexes))
+        rows.append({k: v[:, start:start + MPNN_L] for k, v in feats.items()})
+    batch = {k: torch.as_tensor(np.concatenate([r[k] for r in rows])).cuda() for k in rows[0]}
+    valid = float((batch["mask"] * batch["chain_M"]).sum())
+    if batch["X"].shape[1] != MPNN_L or valid != MPNN_B * MPNN_L:
+        raise AssertionError(f"ProteinMPNN timing batch: {tuple(batch['X'].shape)}, "
+                             f"{valid} valid residues")
+    cfg = mpnn.MPNNConfig(augment_eps=0.2)
+    model = mpnn.ProteinMPNN(cfg)
+    model.load_state_dict(mpnn.init_mpnn_state_dict(cfg, seed=0), strict=True)
+    trainer = MPNNTrainer(model.cuda())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(3):
+        trainer.step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    losses = [trainer.step(batch, gen)["loss"] for _ in range(5)]
+    end_ev.record()
+    torch.cuda.synchronize()
+    ms = start_ev.elapsed_time(end_ev) / 5
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = mpnn_step_flops(MPNN_B, MPNN_L, cfg)
+    bound_ms = 1e3 * flops / PEAK_FLOPS[torch.float32]
+    log(f"ProteinMPNN train step B={MPNN_B} L={MPNN_L} (published width, float32): {ms:.2f} ms a "
+        f"step, {valid / ms * 1e3:.0f} valid residues/s, peak memory {peak:.3f} GB; "
+        f"{flops / 1e12:.3f} TFLOP a step, bound {bound_ms:.2f} ms at float32's CUDA-core peak "
+        f"({ms / bound_ms:.1f}x); losses {[round(float(x), 5) for x in losses]}")
+    if not all(np.isfinite(float(x)) for x in losses):
+        raise AssertionError(f"ProteinMPNN timed steps: losses {losses}")
+
+    def two_steps():
+        for _ in range(2):
+            trainer.step(batch, gen)
+        torch.cuda.synchronize()
+
+    wall = wall_ms(two_steps)
+    t0 = time.perf_counter()
+    busy, by_name = device_time(two_steps)
+    log(f"ProteinMPNN 2 train steps (profiled in {time.perf_counter() - t0:.1f} s): {wall:.1f} ms "
+        f"wall, " + (f"{busy:.1f} ms of device time, busy share {busy / wall:.3f}" if by_name else
+                     "torch.profiler recorded no device time (busy share not measured)"))
+    for name, dev_ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"  {dev_ms:9.3f} ms  {name[:100]}")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+
+
 def kernel_label(mangled: str) -> str:
     """A CUDA kernel's name and the start of its template arguments from its
     mangled name (``..._cu_<hash><len><name>I13__nv_bfloat16Lb1E...``)."""
@@ -2461,6 +2732,10 @@ def main() -> int:
         check_recorded_denovo()
         mpnn_weights = check_recorded_mpnn()
         denovo_launches = check_denovo_cli(root, mpnn_weights)
+        log("phase 11: ProteinMPNN training at the published width")
+        check_mpnn_train_step(mpnn_weights)
+        check_mpnn_train_cli(root, mpnn_weights)
+        time_mpnn_train_step()
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",

@@ -1,6 +1,8 @@
 """Structure comparison and plausibility metrics of sampled backbones
 (numpy, on the host): the Kabsch superposition, aligned and direct RMSD,
-the TM-score of two equal-length CA traces, and CA-CA geometry checks."""
+the TM-score of two equal-length CA traces, CA-CA geometry checks, and
+:func:`protein_metrics`, which gathers them with secondary structure and
+the violation metrics for one prediction."""
 from __future__ import annotations
 
 import numpy as np
@@ -111,3 +113,40 @@ def ca_ca_clashes(ca_pos: np.ndarray, tol: float = 1.5) -> tuple[float, float]:
     inter = d[np.triu_indices(len(ca_pos), k=1)]
     clashes = inter < tol
     return float(clashes.sum()), float(clashes.mean())
+
+
+def protein_metrics(*, pdb_path, atom37_pos: np.ndarray, gt_atom37_pos: np.ndarray,
+                    gt_aatype: np.ndarray, diffuse_mask: np.ndarray) -> dict[str, float]:
+    """The plausibility and accuracy metrics of one prediction: CA-CA
+    deviation and validity, CA clashes, the TM-score of the diffused CA
+    against the ground truth's, secondary structure and radius of gyration,
+    and the violation metrics. An atom at the origin counts as missing.
+    ``pdb_path`` is accepted for the reference's signature and not read."""
+    from framedipt_tpu_torch.analysis import dssp as dssp_lib
+    from framedipt_tpu_torch.analysis import violations as viol_lib
+
+    del pdb_path
+    atom37_mask = np.any(atom37_pos, axis=-1)
+    bb_mask = np.any(atom37_mask, axis=-1)
+    ss_metrics = dssp_lib.ss_metrics_from_atom37(atom37_pos[bb_mask], atom37_mask[bb_mask])
+
+    ca_pos = atom37_pos[..., rc.CA_IDX, :][bb_mask]
+    ca_dev, ca_valid = ca_ca_distance(ca_pos)
+    num_clash, clash_pct = ca_ca_clashes(ca_pos)
+
+    bb_diffuse_mask = (diffuse_mask * bb_mask).astype(bool)
+    gt_ca = gt_atom37_pos[..., rc.CA_IDX, :][bb_diffuse_mask]
+    pred_ca = atom37_pos[..., rc.CA_IDX, :][bb_diffuse_mask]
+    _, tm = calc_tm_score(pred_ca, gt_ca)
+
+    viol = viol_lib.violation_metrics(atom37_pos, atom37_mask.astype(np.float32), gt_aatype)
+    out = {
+        "ca_ca_bond_dev": ca_dev,
+        "ca_ca_valid_percent": ca_valid,
+        "ca_steric_clash_percent": clash_pct,
+        "num_ca_steric_clashes": num_clash,
+        "tm_score": tm,
+        **ss_metrics,
+        **viol,
+    }
+    return {k: float(np.mean(v)) for k, v in out.items()}

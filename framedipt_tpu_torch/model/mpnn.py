@@ -21,7 +21,15 @@ device of their inputs, and draw from an explicit ``torch.Generator``:
   position of every batch row), with the omit, bias, per-residue bias, PSSM
   and per-position omit restraints; :func:`mpnn_tied_sample`: tied
   positions share one draw;
-- :func:`featurize_chains`: chains of (sequence, backbone) -> inputs.
+- :func:`featurize_chains`: chains of (sequence, backbone) -> inputs;
+- :func:`init_mpnn_state_dict`: fresh weights for training.
+
+Training mode (``train/mpnn_train.py``): :func:`mpnn_encode` and
+:func:`mpnn_log_probs` take ``noise``, standard-normal draws that move the
+backbone by ``cfg.augment_eps`` times them, and ``dropout``, a generator
+whose draws drop the residual branches of every layer at ``cfg.dropout``
+while the model is in training mode. Without them every path computes what
+it computes at inference.
 
 Neighbour lists and decoding orders come from stable sorts, so equal
 distances and equal keys keep the lower index first. A draw is the argmax of
@@ -32,6 +40,7 @@ points turn TF32 off through ``tools/device.py``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping
 
 import numpy as np
@@ -59,6 +68,8 @@ class MPNNConfig:
     max_relative_feature: int = 32
     scale: float = 30.0  # message-sum normaliser of the encoder and decoder layers
     ca_only: bool = False  # the CA-only models
+    augment_eps: float = 0.0  # backbone noise std in training (0 at inference)
+    dropout: float = 0.1  # residual-branch dropout in training
 
 
 def edge_input_width(cfg: MPNNConfig) -> int:
@@ -179,13 +190,41 @@ def mpnn_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tenso
         lin(f"{s}.dense.W_in", p["ffn_in"])
         lin(f"{s}.dense.W_out", p["ffn_out"])
     lin("W_out", params["W_out"])
-    h = sd["W_e.weight"].shape[0]
+    return with_unused_tensors(sd)
+
+
+def with_unused_tensors(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """``sd`` with zeros for the CA-only models' vestigial tensors it lacks
+    (a state_dict from the JAX params or a JAX-written checkpoint holds
+    none), so that it loads with ``strict=True``."""
+    out = dict(sd)
     if sd["features.edge_embedding.weight"].shape[1] != 25 * 16 + 16:  # CA-only
-        sd["features.node_embedding.weight"] = torch.zeros(h, 3)
-        sd["features.norm_nodes.weight"] = torch.zeros(h)
-        sd["features.norm_nodes.bias"] = torch.zeros(h)
-        sd["W_v.weight"] = torch.zeros(h, h)
-        sd["W_v.bias"] = torch.zeros(h)
+        h = sd["W_e.weight"].shape[0]
+        for name, shape in (("features.node_embedding.weight", (h, 3)),
+                            ("features.norm_nodes.weight", (h,)),
+                            ("features.norm_nodes.bias", (h,)),
+                            ("W_v.weight", (h, h)), ("W_v.bias", (h,))):
+            out.setdefault(name, torch.zeros(shape))
+    return out
+
+
+def init_mpnn_state_dict(cfg: MPNNConfig, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Fresh weights under the reference names, on the JAX package's
+    distributions (``init_mpnn_params``): every matrix xavier-uniform,
+    U(-a, a) with a = sqrt(6 / (fan_in + fan_out)), every bias 0, LayerNorm
+    scales 1. Drawn on the CPU from a generator seeded with ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        shapes = {n: p.shape for n, p in ProteinMPNN(cfg).state_dict().items()}
+    sd = {}
+    for name, shape in shapes.items():
+        if len(shape) == 2:
+            a = math.sqrt(6.0 / (shape[0] + shape[1]))
+            sd[name] = (2.0 * torch.rand(shape, generator=gen) - 1.0) * a
+        elif name.endswith(".weight"):  # LayerNorm scales
+            sd[name] = torch.ones(shape)
+        else:
+            sd[name] = torch.zeros(shape)
     return sd
 
 
@@ -227,29 +266,45 @@ def _messages(layer: nn.Module, w1: str, w2: str, w3: str, x: torch.Tensor) -> t
     return getattr(layer, w3)(F.gelu(getattr(layer, w2)(x)))
 
 
-def _enc_layer(layer: _EncLayer, h_V, h_E, e_idx, mask_V, mask_attend, scale):
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: identity without a generator or at rate 0; else an
+    element is kept where a uniform draw from ``generator`` falls below 1 -
+    rate, and scaled by 1 / (1 - rate)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _enc_layer(layer: _EncLayer, h_V, h_E, e_idx, mask_V, mask_attend, scale,
+               dropout: float = 0.0, generator: torch.Generator | None = None):
     """Node messages over the neighbours, the feed-forward, then the edge
-    update."""
+    update; with a ``generator``, dropout on the message sum, the
+    feed-forward and the edge update, drawn in that order."""
     h_EV = _cat_neighbors_nodes(h_V, h_E, e_idx)
     h_EV = torch.cat([h_V[:, :, None, :].expand(*h_EV.shape[:3], h_V.shape[-1]), h_EV], -1)
     msg = _messages(layer, "W1", "W2", "W3", h_EV) * mask_attend[..., None]
-    h_V = layer.norm1(h_V + torch.sum(msg, dim=-2) / scale)
-    h_V = layer.norm2(h_V + layer.dense(h_V))
+    h_V = layer.norm1(h_V + _dropout(torch.sum(msg, dim=-2) / scale, dropout, generator))
+    h_V = layer.norm2(h_V + _dropout(layer.dense(h_V), dropout, generator))
     h_V = h_V * mask_V[..., None]
 
     h_EV = _cat_neighbors_nodes(h_V, h_E, e_idx)
     h_EV = torch.cat([h_V[:, :, None, :].expand(*h_EV.shape[:3], h_V.shape[-1]), h_EV], -1)
-    h_E = layer.norm3(h_E + _messages(layer, "W11", "W12", "W13", h_EV))
+    msg = _messages(layer, "W11", "W12", "W13", h_EV)
+    h_E = layer.norm3(h_E + _dropout(msg, dropout, generator))
     return h_V, h_E
 
 
-def _dec_layer(layer: _DecLayer, h_V, h_ESV, mask_V, scale):
+def _dec_layer(layer: _DecLayer, h_V, h_ESV, mask_V, scale,
+               dropout: float = 0.0, generator: torch.Generator | None = None):
     """h_V [..., H], h_ESV [..., K, 3H]: the whole [B, L] pass and one
-    position of each batch row [B] alike."""
+    position of each batch row [B] alike; with a ``generator``, dropout on
+    the message sum, then on the feed-forward."""
     h_EV = torch.cat([h_V[..., None, :].expand(*h_ESV.shape[:-1], h_V.shape[-1]), h_ESV], -1)
     msg = _messages(layer, "W1", "W2", "W3", h_EV)
-    h_V = layer.norm1(h_V + torch.sum(msg, dim=-2) / scale)
-    h_V = layer.norm2(h_V + layer.dense(h_V))
+    h_V = layer.norm1(h_V + _dropout(torch.sum(msg, dim=-2) / scale, dropout, generator))
+    h_V = layer.norm2(h_V + _dropout(layer.dense(h_V), dropout, generator))
     return h_V * mask_V[..., None]
 
 
@@ -421,10 +476,17 @@ def mpnn_features_ca(model: ProteinMPNN, ca, mask, residue_idx, chain_labels):
 # ---------------------------------------------------------------------------
 
 
-def mpnn_encode(model: ProteinMPNN, x, mask, residue_idx, chain_labels):
+def mpnn_encode(model: ProteinMPNN, x, mask, residue_idx, chain_labels, noise=None,
+                dropout: torch.Generator | None = None):
     """The features and the encoder layers -> (h_V, h_E, e_idx). For the
-    CA-only models ``x`` is [B, L, 3] or [B, L, 1, 3]."""
+    CA-only models ``x`` is [B, L, 3] or [B, L, 1, 3]. In training,
+    ``noise`` (standard-normal draws of x's shape) moves the backbone by
+    ``cfg.augment_eps * noise`` before the features, and ``dropout`` draws
+    the dropout masks of every layer while the model is in training mode."""
     cfg = model.cfg
+    if noise is not None:
+        x = x + cfg.augment_eps * noise
+    dropout = dropout if model.training else None
     if cfg.ca_only:
         ca = x[:, :, 0, :] if x.dim() == 4 else x
         e, e_idx = mpnn_features_ca(model, ca, mask, residue_idx, chain_labels)
@@ -434,7 +496,8 @@ def mpnn_encode(model: ProteinMPNN, x, mask, residue_idx, chain_labels):
     h_E = model.W_e(e)
     mask_attend = mask[:, :, None] * _gather_nodes(mask[:, :, None], e_idx)[..., 0]
     for layer in model.encoder_layers:
-        h_V, h_E = _enc_layer(layer, h_V, h_E, e_idx, mask, mask_attend, cfg.scale)
+        h_V, h_E = _enc_layer(layer, h_V, h_E, e_idx, mask, mask_attend, cfg.scale,
+                              cfg.dropout, dropout)
     return h_V, h_E, e_idx
 
 
@@ -455,10 +518,13 @@ def _autoregressive_masks(decoding_order, e_idx, mask):
 
 
 def mpnn_log_probs(model: ProteinMPNN, x, s, mask, chain_m, residue_idx, chain_labels,
-                   randn=None, decoding_order=None) -> torch.Tensor:
+                   randn=None, decoding_order=None, noise=None,
+                   dropout: torch.Generator | None = None) -> torch.Tensor:
     """Teacher-forced log-probabilities [B, L, 21], in ``decoding_order``
-    or in the order that ``randn`` draws."""
-    h_V, h_E, e_idx = mpnn_encode(model, x, mask, residue_idx, chain_labels)
+    or in the order that ``randn`` draws; ``noise`` and ``dropout`` as in
+    :func:`mpnn_encode` (the encoder's masks drawn first)."""
+    h_V, h_E, e_idx = mpnn_encode(model, x, mask, residue_idx, chain_labels, noise, dropout)
+    dropout = dropout if model.training else None
     h_S = model.W_s(s.long())
     h_ES = _cat_neighbors_nodes(h_S, h_E, e_idx)
     h_EX = _cat_neighbors_nodes(torch.zeros_like(h_S), h_E, e_idx)
@@ -471,7 +537,7 @@ def mpnn_log_probs(model: ProteinMPNN, x, s, mask, chain_m, residue_idx, chain_l
     h_EXV_fw = mask_fw * h_EXV
     for layer in model.decoder_layers:
         h_ESV = mask_bw * _cat_neighbors_nodes(h_V, h_ES, e_idx) + h_EXV_fw
-        h_V = _dec_layer(layer, h_V, h_ESV, mask, model.cfg.scale)
+        h_V = _dec_layer(layer, h_V, h_ESV, mask, model.cfg.scale, model.cfg.dropout, dropout)
     return F.log_softmax(model.W_out(h_V), dim=-1)
 
 

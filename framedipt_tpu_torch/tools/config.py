@@ -387,7 +387,7 @@ def check_single_device(cfg: Config) -> None:
     if exp.dp_size not in (-1, 1) or exp.fsdp_size != 1:
         raise ValueError(
             f"experiment.dp_size={exp.dp_size}, fsdp_size={exp.fsdp_size}: the port trains "
-            "on one card (dp_size -1 or 1, fsdp_size 1); multi-GPU is ROADMAP queue 1 item 7"
+            "on one card (dp_size -1 or 1, fsdp_size 1); multi-GPU is ROADMAP queue 1 item 4"
         )
 
 

@@ -58,7 +58,9 @@ def load_mpnn_params(weights_path: str | pathlib.Path,
     (``model_state_dict``, read with ``weights_only``) or an ``.npz`` of the
     same names, on ``device`` (CUDA by default). The neighbour count comes
     from the checkpoint's ``num_edges`` (48 without one); CA-only, hidden
-    width and layer counts from the weights."""
+    width and layer counts from the weights. A CA-only checkpoint without
+    the vestigial tensors (the JAX training CLI writes none) loads with
+    zeros there."""
     path = pathlib.Path(weights_path)
     if not path.exists():
         raise ToolUnavailable(
@@ -73,7 +75,7 @@ def load_mpnn_params(weights_path: str | pathlib.Path,
         k = int(ckpt.get("num_edges", 48))
         sd = ckpt["model_state_dict"]
     model = mpnn.ProteinMPNN(mpnn.config_from_state_dict(sd, k_neighbors=k))
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(mpnn.with_unused_tensors(sd), strict=True)
     set_full_precision_matmul()
     return model.to(resolve_device(device)).eval()
 

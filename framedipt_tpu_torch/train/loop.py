@@ -29,13 +29,15 @@ F32 = torch.float32
 
 
 class ClippedAdam(torch.optim.Adam):
-    """Adam (beta 0.9/0.999, eps 1e-8: ``optax.adam``'s update) after
-    clipping the gradients by their global norm as
+    """Adam (by default beta 0.9/0.999, eps 1e-8: ``optax.adam``'s update)
+    after clipping the gradients by their global norm as
     ``optax.clip_by_global_norm`` does: g * max_norm / norm where norm >=
-    max_norm, no epsilon. :meth:`step` returns the norm before clipping."""
+    max_norm, no epsilon; a ``max_grad_norm`` <= 0 clips nothing.
+    :meth:`step` returns the norm before clipping."""
 
-    def __init__(self, params, lr: float, max_grad_norm: float = 10.0) -> None:
-        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    def __init__(self, params, lr: float, max_grad_norm: float = 10.0,
+                 betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8) -> None:
+        super().__init__(params, lr=lr, betas=betas, eps=eps)
         self.max_grad_norm = max_grad_norm
 
     @torch.no_grad()
@@ -44,10 +46,11 @@ class ClippedAdam(torch.optim.Adam):
                  if p.grad is not None]
         # Multi-tensor ops: a few launches for all gradients, none per tensor.
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        clip = norm >= self.max_grad_norm
-        one = torch.ones_like(norm)
-        torch._foreach_mul_(grads, torch.where(clip, self.max_grad_norm * one, one))
-        torch._foreach_div_(grads, torch.where(clip, norm, one))
+        if self.max_grad_norm > 0:
+            clip = norm >= self.max_grad_norm
+            one = torch.ones_like(norm)
+            torch._foreach_mul_(grads, torch.where(clip, self.max_grad_norm * one, one))
+            torch._foreach_div_(grads, torch.where(clip, norm, one))
         super().step()
         return norm
 

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card, and the input
 builders that tests/test_torch_kernels.py shares; on the card also the de
 novo model's forward at N=500 through the kernels against their plain
-versions, and the port's ProteinMPNN against the recorded reference.
+versions, and the port's ProteinMPNN and its train step against the
+recorded reference.
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without them:
@@ -499,3 +500,44 @@ def test_cuda_mpnn_matches_recorded_reference():
                            f["chain_encoding_all"], f["residue_idx"], f["mask"], temperature=1e-4)
     np.testing.assert_array_equal(out["S"].cpu().numpy(), z["sample_S"])
     np.testing.assert_array_equal(out["decoding_order"].cpu().numpy(), z["sample_order"])
+
+
+@pytest.mark.gpu
+def test_cuda_mpnn_train_step_matches_recorded_reference():
+    """On the card: ProteinMPNN's train step at the published width on the
+    recorded structure and weights (dropout 0, no noise, the recording's
+    decoding order): the loss within 2e-4 (relative) of the smoothed loss of
+    the recorded log-probabilities, and every gradient within 1e-4 of its
+    max-abs of the same step on the CPU (the card's gather backward sums
+    with atomics, in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pathlib
+
+    from framedipt_tpu_torch.model import mpnn
+    from framedipt_tpu_torch.model.weights import synth_value
+    from framedipt_tpu_torch.tools.device import set_full_precision_matmul
+    from framedipt_tpu_torch.train.mpnn_train import MPNNTrainer, smoothed_loss
+
+    set_full_precision_matmul()
+    z = np.load(pathlib.Path(__file__).parent / "parity" / "fixtures" / "recorded_mpnn_parity.npz")
+    sd = {str(n): torch.as_tensor(synth_value(str(n), tuple(int(x) for x in s.split(",")),
+                                              seed=int(z["seed"])))
+          for n, s in zip(z["manifest_names"], z["manifest_shapes"])}
+    f = {k[3:]: torch.as_tensor(z[k]) for k in z.files if k.startswith("in_")}
+    randn = torch.as_tensor(z["randn_fwd"])
+
+    def first_step(device):
+        model = mpnn.ProteinMPNN(mpnn.MPNNConfig(k_neighbors=48, dropout=0.0))
+        model.load_state_dict(sd, strict=True)
+        m = MPNNTrainer(model.to(device)).step(
+            {k: v.to(device) for k, v in f.items()},
+            torch.Generator(device=device).manual_seed(0), randn=randn.to(device))
+        return float(m["loss"]), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+    loss, grads = first_step("cuda")
+    _, cpu_grads = first_step("cpu")
+    want = float(smoothed_loss(f["S"], torch.as_tensor(z["log_probs_rand"]), f["mask"] * f["chain_M"]))
+    assert abs(loss - want) <= 2e-4 * want, (loss, want)
+    for name, ref in cpu_grads.items():
+        assert float((grads[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
