@@ -8,8 +8,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. print the card (``nvidia-smi`` name and power limit); refuse to run
    without CUDA;
 2. build the CUDA kernels from ``framedipt_tpu_torch/csrc`` (nvcc, sm_90a)
-   and the native PDB writer (``framedipt_tpu_torch/native``, the host's
-   g++), which must load;
+   and the native PDB writer and CIF tokenizer (``framedipt_tpu_torch/
+   native``, the host's g++), which must load;
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 (tolerance 1e-4) and bf16 (5e-2), at B=1 N=256, B=2 N=200 (ragged)
    and B=2 N=128 and 256 (the serving shapes), the pair MLP and the edge
@@ -141,7 +141,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
     train step at B=8 L=512 (crops of 512 of the complexes, every row
     valid): ms a step, valid residues a second, peak memory, the step's
     FLOP count and its bound at float32's CUDA-core peak, and the busy
-    share and device time by kernel over 2 steps.
+    share and device time by kernel over 2 steps;
+12. evaluation, the host tools and the CIF tokenizer, each timed: (a) the de
+    novo evaluation (``eval/denovo_eval.py``) over phase 10's tree: scipy
+    diversity, foldseek absent (a warning), 2 samples, 2 composition rows;
+    (b) ``python -m framedipt_tpu_torch.eval.cg2all_eval --skip_convert``
+    over phase 8's tree, each sample's ``_all_atom.pdb`` a copy of its
+    backbone PDB (cg2all is not installed): 6 rows, finite RMSDs, the
+    full-atom RMSD equal to the RMSD over the sample's N, CA, C, CB and O
+    recomputed; (c) the monomer PDB preprocessing CLI over phase 10's two
+    samples: 2 rows and their pickles; (d) the inpainting CLI's database
+    flow in-process (``inference.inpainting_samples.download_dir`` with the
+    three fixture CIFs in ``cifs/``, the pMHC-II database CSV, 1 sample of
+    num_t 5; RCSB pointed at an empty local directory and every URL that
+    is not a local file refused, so the 15 other listed complexes log the
+    offline download warning): phase 8's tree checks and launches for the
+    three cases, the cached ``metadata.csv`` reused by a second run; (e)
+    ``python -m framedipt_tpu_torch.tools.sweep --devices 0`` over two de
+    novo CLI jobs (length 100, num_t 2 and 5): rc 0, ``sweep_job0`` and
+    ``sweep_job1`` with their samples; (f) ``tools/profiling.trace`` around
+    a 3-step sampler run at B=1 N=256: the Chrome trace names the pair-MLP
+    and edge-embedder CUDA kernels, as many times as they launch; (g) the
+    fixture CIFs through the native and the Python CIF parser, 5 times
+    each: equal dicts, the seconds of each and the ratio.
 
 Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=1, N=17 and 256, B=2 N=200 ragged
@@ -163,7 +185,8 @@ largest there are printed).
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` from the path that runs it first: phases 5, 6 and 7;
 ``inference_cli_launches`` from phase 8's batched run,
-``denovo_cli_launches`` from phase 10's de novo run) and the contract line
+``denovo_cli_launches`` from phase 10's de novo run,
+``database_cli_launches`` from phase 12's database flow) and the contract line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2656,6 +2679,320 @@ def time_mpnn_train_step() -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 12: evaluation, host tools, the database flow, the CIF parser -------
+
+DATABASE_NUM_T = 5
+
+
+def check_cif_tokenizer() -> float:
+    """The native CIF parser must build and load on the card's host (phase
+    2). Returns the seconds of the call."""
+    from framedipt_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if native.load_cif_tokenizer() is None:
+        raise AssertionError("the native CIF tokenizer did not build or load (see the warning)")
+    return time.perf_counter() - t0
+
+
+def check_denovo_eval(tree: pathlib.Path, root: pathlib.Path) -> None:
+    """(a) The de novo evaluation over phase 10's tree (lengths 100 and 500):
+    scipy diversity (MaxCluster absent or not, the run logs which), foldseek
+    asked for and absent (a warning), two samples, two composition rows."""
+    from framedipt_tpu_torch.eval import denovo_eval
+
+    out = root / "eval_denovo"
+    with _Warnings() as warned:
+        t0 = time.perf_counter()
+        results = denovo_eval.run(tree, out, foldseek_db=root / "no_foldseek_db")
+        took = time.perf_counter() - t0
+    comp = read_csv_rows(out / "ss_composition.csv")
+    if results["num_samples"] != 2 or len(comp) != 2 or "pdbTM_mean" in results:
+        raise AssertionError(f"denovo_eval: {results}, {len(comp)} composition rows")
+    if sorted(int(r["length"]) for r in comp) != list(DENOVO_LENGTHS):
+        raise AssertionError(f"denovo_eval: lengths {[r['length'] for r in comp]}")
+    summary = (out / "denovo_summary.csv").read_text().splitlines()
+    log(f"denovo_eval over phase 10's tree: {took:.3f} s; {summary[0]} = {summary[1]}; "
+        f"warnings {warned.messages}")
+
+
+def check_cg2all_eval(tree: pathlib.Path, root: pathlib.Path, rows: int) -> None:
+    """(b) ``cg2all_eval --skip_convert`` over phase 8's tree, each sample's
+    ``_all_atom.pdb`` a copy of its backbone PDB (no cg2all on the card's
+    machine): ``rows`` rows with finite RMSDs, the full-atom RMSD equal to
+    the RMSD over the five atoms a sample holds (N, CA, C, CB, O) recomputed
+    here."""
+    import shutil
+
+    from framedipt_tpu_torch.data import constants as rc
+    from framedipt_tpu_torch.data.protein import chain_id_to_int, from_pdb_string
+    from framedipt_tpu_torch.eval.tcr_eval import parse_diffusion_info
+
+    samples = sorted(tree.glob("*_length_*/sample_*/sample_*_1.pdb"))
+    for p in samples:
+        shutil.copy(p, p.with_name(p.stem + "_all_atom.pdb"))
+    out = root / "eval_cg2all"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "framedipt_tpu_torch.eval.cg2all_eval",
+         f"--prediction_dir={tree}", f"--output_dir={out}", "--skip_convert"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    took = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cg2all_eval failed:\n{proc.stderr[-3000:]}")
+    got = read_csv_rows(out / "cg2all_eval.csv")
+    if len(got) != rows or not all(np.isfinite(float(r[c])) for r in got
+                                   for c in ("bb_rmsd", "full_atom_rmsd")):
+        raise AssertionError(f"cg2all_eval: {len(got)} rows, {got[:2]}")
+    # The copies hold N, CA, C, CB and O: the full-atom RMSD is the RMSD over
+    # those five slots where the ground truth has them (no CB on a glycine).
+    slots = [rc.atom_order[a] for a in ("N", "CA", "C", "CB", "O")]
+    worst = 0.0
+    for r in got:
+        case = next(tree.glob(f"{r['pdb_name']}_length_*"))
+        info = parse_diffusion_info(case / "diffusion_info.csv")
+        gt = from_pdb_string((case / f"{r['pdb_name']}_1.pdb").read_text())
+        pred = from_pdb_string((case / f"sample_{r['sample_idx']}" /
+                                f"sample_{r['sample_idx']}_1.pdb").read_text())
+        if sorted(np.flatnonzero(pred.atom_mask.any(0))) != sorted(slots):
+            raise AssertionError(f"{r['pdb_name']} sample {r['sample_idx']}: atoms "
+                                 f"{np.flatnonzero(pred.atom_mask.any(0))}")
+        deltas = []
+        for ch, (s0, e0) in zip(info["chains"], info["regions"]):
+            sel = [np.flatnonzero(p.chain_index == chain_id_to_int(ch))[s0:e0 + 1]
+                   for p in (pred, gt)]
+            both = gt.atom_mask[sel[1]][:, slots] > 0
+            deltas.append((pred.atom_positions[sel[0]][:, slots]
+                           - gt.atom_positions[sel[1]][:, slots])[both])
+        d = np.concatenate(deltas)
+        worst = max(worst, abs(float(np.sqrt((d ** 2).sum() / len(d))) - float(r["full_atom_rmsd"])))
+    if not worst < 1e-9:
+        raise AssertionError(f"cg2all_eval: full-atom RMSD off the five-slot RMSD by {worst}")
+    bb, fa = [float(r["bb_rmsd"]) for r in got], [float(r["full_atom_rmsd"]) for r in got]
+    log(f"cg2all_eval --skip_convert over phase 8's tree: {took:.3f} s (subprocess), {len(got)} "
+        f"rows; bb_rmsd {[round(x, 3) for x in bb]}, full_atom_rmsd {[round(x, 3) for x in fa]} "
+        f"(the N, CA, C, CB, O RMSD within {worst:.1e}; it differs from bb_rmsd by the CB)")
+
+
+def check_process_pdb_files(tree: pathlib.Path, root: pathlib.Path) -> None:
+    """(c) The monomer PDB preprocessing over phase 10's two samples."""
+    import pickle
+    import shutil
+
+    from framedipt_tpu_torch.data import process_pdb_files
+
+    pdbs = root / "denovo_pdbs"
+    pdbs.mkdir()
+    for n in DENOVO_LENGTHS:
+        shutil.copy(tree / f"length_{n}" / "sample_0" / "sample_0_1.pdb", pdbs / f"dn{n}.pdb")
+    out = root / "denovo_processed"
+    t0 = time.perf_counter()
+    process_pdb_files.main([f"--pdb_dir={pdbs}", f"--output_dir={out}", "--device=cuda"])
+    took = time.perf_counter() - t0
+    rows = read_csv_rows(out / "metadata.csv")
+    if sorted(int(r["seq_len"]) for r in rows) != list(DENOVO_LENGTHS):
+        raise AssertionError(f"process_pdb_files: rows {rows}")
+    for r in rows:
+        with open(r["processed_path"], "rb") as f:
+            raw = pickle.load(f)
+        if raw["atom_positions"].shape != (int(r["seq_len"]), 37, 3):
+            raise AssertionError(f"process_pdb_files: {r['pdb_name']} {raw['atom_positions'].shape}")
+    log(f"process_pdb_files over phase 10's samples: {took:.3f} s, {len(rows)} rows, "
+        + ", ".join(f"{r['pdb_name']} helix {float(r['helix_percent']):.3f} strand "
+                    f"{float(r['strand_percent']):.3f} Rg {float(r['radius_gyration']):.3f} nm"
+                    for r in rows))
+
+
+def check_database_cli(root: pathlib.Path) -> dict[str, int]:
+    """(d) The inpainting CLI's database flow, in-process: the three fixture
+    CIFs in ``download_dir/cifs``, the pMHC-II database CSV, one sample of
+    DATABASE_NUM_T steps. RCSB is a local directory that holds nothing, so
+    each listed structure not present fails to download (no network: a
+    guard refuses any URL that is not a local file). The three cases' trees
+    and launches as phase 8's; then a second run reuses the cached
+    ``metadata.csv``. Returns each kernel's launches over the first run."""
+    import shutil
+    import urllib.request
+
+    from framedipt_tpu_torch.data import download
+    from framedipt_tpu_torch.experiments.inference import Inference
+
+    cifs = REPO / "tests" / "data" / "cifs"
+    cases = sorted(p.name.split("-")[0] for p in cifs.glob("*.cif"))
+    dl = root / "database"
+    (dl / "cifs").mkdir(parents=True)
+    for p in cifs.glob("*.cif"):
+        shutil.copy(p, dl / "cifs")
+    real_url, real_urlopen = download.RCSB_URL, download.urllib.request.urlopen
+
+    def local_only(url, *args, **kwargs):
+        if not str(url).startswith("file:"):
+            raise AssertionError(f"phase 12 asked for a non-local URL: {url}")
+        return real_urlopen(url, *args, **kwargs)
+
+    download.RCSB_URL = (root / "rcsb_offline").as_uri()
+    download.urllib.request.urlopen = local_only
+    wrappers = kernel_wrappers()
+    try:
+        cfg = cli_config(root, "database", f"inference.diffusion.num_t={DATABASE_NUM_T}",
+                         "inference.inpainting_samples.samples=1",
+                         f"inference.inpainting_samples.data_path="
+                         f"{REPO / 'database' / 'TCR_pMHC_II.csv'}",
+                         f"inference.inpainting_samples.download_dir={dl}")
+        with _Warnings() as warned:
+            t0 = time.perf_counter()
+            inf = Inference(cfg, device="cuda")
+            setup_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            t1 = time.perf_counter()
+            with counted_sampler() as calls:
+                inf.run_sampling()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        want = forward_launches(DATABASE_NUM_T + 1)
+        if len(calls) != len(cases) or any(c[0] != want for c in calls):
+            raise AssertionError(f"database run: launches per case {[c[0] for c in calls]}, "
+                                 f"expected {want} for each of {len(cases)}")
+        check_tree(inf.output_dir, cases, 1, DATABASE_NUM_T)
+        offline = [m for m in warned.messages if "failed to download" in m]
+        if len(offline) != 15 or not all("offline environment?" in m for m in offline):
+            raise AssertionError(f"database run: download warnings {warned.messages[:3]}")
+        meta = read_csv_rows(dl / "processed" / "metadata.csv")
+        if sorted(r["pdb_name"] for r in meta) != cases:
+            raise AssertionError(f"database run: metadata rows {[r['pdb_name'] for r in meta]}")
+        log(f"database CLI: {len(cases)} complexes x 1 sample, num_t={DATABASE_NUM_T}: set-up "
+            f"(download attempts, filters, metadata.csv, model) {setup_s:.2f} s, sampling "
+            f"{run_s:.2f} s, {setup_s + run_s:.2f} s in all; sampler "
+            f"{[round(c[1], 2) for c in calls]} s; launches {launches}; {len(offline)} offline "
+            f"download warnings, the first: {offline[0][:160]}")
+        # A second run reuses the cached metadata.csv and the tree: no sampler call.
+        with _Warnings() as warned:
+            again = Inference(cfg, device="cuda")
+            with counted_sampler() as calls:
+                again.run_sampling()
+        if calls or [p.name for p in again.sampler.cif_paths] != [p.name for p in inf.sampler.cif_paths]:
+            raise AssertionError(f"database resume: {len(calls)} sampler calls")
+        log("database CLI resume: cached metadata.csv reused, no sampler call")
+    finally:
+        download.RCSB_URL, download.urllib.request.urlopen = real_url, real_urlopen
+    del inf, again
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_sweep(root: pathlib.Path) -> None:
+    """(e) ``tools.sweep`` over two jobs of the de novo CLI on device 0
+    (length 100, one sample, num_t 2 and 5): rc 0, two run directories with
+    their ``_job<N>`` suffix, each with its sample. Each job's seconds from
+    its log's last write (the jobs run one after the other)."""
+    out = root / "sweep"
+    logs = root / "sweep_logs"
+    cmd = [sys.executable, "-m", "framedipt_tpu_torch.tools.sweep", "--devices", "0",
+           f"--log_dir={logs}", "--", sys.executable, "-m",
+           "framedipt_tpu_torch.experiments.inference", "inference.inpainting=false",
+           "inference.samples.min_length=100", "inference.samples.max_length=100",
+           "inference.samples.samples_per_length=1", "inference.diffusion.num_t=2,5",
+           "inference.weights_path=", f"inference.mpnn_weights_path={root / 'no_mpnn.pt'}",
+           f"inference.output_dir={out}", "inference.name=sweep"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    took = time.time() - t0
+    if proc.returncode != 0:
+        tails = "".join((logs / f"job_{i}.log").read_text()[-1500:] for i in range(2)
+                        if (logs / f"job_{i}.log").exists())
+        raise AssertionError(f"sweep rc {proc.returncode}:\n{proc.stderr[-1500:]}\n{tails}")
+    dirs = sorted(p.name for p in out.iterdir())
+    if dirs != ["sweep_job0", "sweep_job1"]:
+        raise AssertionError(f"sweep: run directories {dirs}")
+    for i, num_t in enumerate((2, 5)):
+        sd = out / f"sweep_job{i}" / "length_100" / "sample_0"
+        with open(sd / "bb_traj_0_1.pdb") as f:
+            models = sum(line.startswith("MODEL") for line in f)
+        if not (sd / "sample_0_1.pdb").exists() or models != num_t:
+            raise AssertionError(f"sweep job {i}: {models} models in {sd}")
+    ends = [(logs / f"job_{i}.log").stat().st_mtime for i in range(2)]
+    log(f"sweep of 2 de novo CLI jobs on CUDA device 0: {took:.2f} s in all, job 0 "
+        f"{ends[0] - t0:.2f} s, job 1 {ends[1] - ends[0]:.2f} s (from the logs' last writes)")
+
+
+def check_profiling_trace(root: pathlib.Path) -> None:
+    """(f) ``profiling.trace`` around a sampler run of three steps at B=1
+    N=256 (the full default model): the Chrome trace names the pair-MLP and
+    edge-embedder CUDA kernels."""
+    from framedipt_tpu_torch.diffusion import SE3Diffuser
+    from framedipt_tpu_torch.model import ScoreNetwork
+    from framedipt_tpu_torch.model.weights import init_state_dict
+    from framedipt_tpu_torch.sampling import sample
+    from framedipt_tpu_torch.tools import profiling
+    from framedipt_tpu_torch.tools.config import Config, resolve_kernel_flags
+
+    cfg = Config()
+    resolve_kernel_flags(cfg, torch.device("cuda"))
+    diffuser = SE3Diffuser(cfg.diffuser, device="cuda")
+    model = ScoreNetwork(cfg.model, diffuser, inpainting=True)
+    model.load_state_dict(init_state_dict(model, torch.Generator().manual_seed(0)), strict=True)
+    model.to("cuda").eval()
+    feats = {k: v[:1] for k, v in serving_feats().items()}
+    t0 = time.perf_counter()
+    with profiling.trace(root / "trace"):
+        sample(model, diffuser, feats, torch.Generator(device="cuda").manual_seed(3), num_t=3,
+               min_t=0.01, noise_scale=0.1, inpainting=True)
+        torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    files = list((root / "trace").glob("trace_*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    found = {k: sum(n for name, n in kernels.items() if f"{k}_kernel" in name)
+             for k in ("pair_mlp", "edge_embedder")}
+    want = forward_launches(3 + 1)  # the sampler's forwards: num_t + 1
+    if found != {k: want[k] for k in found}:
+        raise AssertionError(f"trace: kernel events {found}; names {sorted(kernels)[:10]}")
+    log(f"profiling.trace of 3 sampler steps at B=1 N=256: {took:.2f} s with the export, "
+        f"{files[0].stat().st_size / 1e6:.1f} MB, {len(events)} events, {len(kernels)} CUDA "
+        f"kernel names; pair_mlp_kernel x{found['pair_mlp']}, edge_embedder_kernel "
+        f"x{found['edge_embedder']}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def check_cif_parse_speed(repeats: int = 5) -> None:
+    """(g) The fixture CIFs through the native parser and the Python one,
+    ``repeats`` times each: equal dicts; the seconds of each and the ratio."""
+    from framedipt_tpu_torch import native
+    from framedipt_tpu_torch.data.mmcif import parse_cif_categories_py
+
+    total = {"native": 0.0, "python": 0.0}
+    for path in sorted((REPO / "tests" / "data" / "cifs").glob("*.cif")):
+        text = path.read_text()
+        secs = {}
+        for label, fn in (("native", native.parse_cif_categories),
+                          ("python", parse_cif_categories_py)):
+            times = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                cats = fn(text)
+                times.append(time.perf_counter() - t0)
+            secs[label] = min(times)
+            total[label] += sum(times)
+            if label == "native":
+                got = cats
+        if got != cats:
+            raise AssertionError(f"{path.name}: native and Python parses differ")
+        log(f"CIF parse {path.name} ({len(text) / 1e6:.2f} MB, {len(cats)} categories): native "
+            f"{secs['native'] * 1e3:.1f} ms, Python {secs['python'] * 1e3:.1f} ms (best of "
+            f"{repeats}), {secs['python'] / secs['native']:.1f}x")
+    log(f"CIF parse, 3 files x {repeats}: native {total['native']:.3f} s, Python "
+        f"{total['python']:.3f} s, ratio {total['python'] / total['native']:.1f}x")
+
+
 def kernel_label(mangled: str) -> str:
     """A CUDA kernel's name and the start of its template arguments from its
     mangled name (``..._cu_<hash><len><name>I13__nv_bfloat16Lb1E...``)."""
@@ -2697,7 +3034,8 @@ def main() -> int:
     t0 = time.perf_counter()
     info = build_all()
     log(f"phase 2: kernels built in {time.perf_counter() - t0:.2f} s; native PDB writer built "
-        f"and loaded in {check_native_writer():.2f} s")
+        f"and loaded in {check_native_writer():.2f} s; native CIF tokenizer built and loaded in "
+        f"{check_cif_tokenizer():.2f} s")
     for name, entry in info.items():
         fn = ""
         for line in entry["log"].splitlines():
@@ -2736,6 +3074,16 @@ def main() -> int:
         check_mpnn_train_step(mpnn_weights)
         check_mpnn_train_cli(root, mpnn_weights)
         time_mpnn_train_step()
+        log("phase 12: evaluation, host tools, the database flow, the CIF parser")
+        t12 = time.perf_counter()
+        check_denovo_eval(root / "denovo", root)
+        check_cg2all_eval(tree, root, rows=3 * 2)
+        check_process_pdb_files(root / "denovo", root)
+        database_launches = check_database_cli(root)
+        check_sweep(root)
+        check_profiling_trace(root)
+        check_cif_parse_speed()
+        log(f"phase 12: {time.perf_counter() - t12:.2f} s")
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
@@ -2752,6 +3100,7 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "inference_cli_launches": cli_launches[name],
             "denovo_cli_launches": denovo_launches[name],
+            "database_cli_launches": database_launches[name],
             **serving[name],
         }
         for name in KERNEL_NAMES

@@ -1,10 +1,12 @@
-"""mmCIF parser in pure Python.
+"""mmCIF parser.
 
 Tokenizes the CIF grammar (loops, quoted values, semicolon text fields),
 reads the header (resolution, method, release date, oligomeric state) and
 the first model's protein chains as atom37 arrays keyed by author chain id.
-The same parse as the JAX package's ``data/mmcif.py`` through its
-pure-Python tokenizer.
+The same parse as the JAX package's ``data/mmcif.py``. The categories come
+from the native C++ parser where it builds (``parse_cif_categories``), else
+from the pure-Python tokenizer here (``parse_cif_categories_py``), which
+is its behavioural oracle.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Iterator
 
 import numpy as np
 
+from framedipt_tpu_torch import native
 from framedipt_tpu_torch.data import constants as rc
 from framedipt_tpu_torch.tools.errors import MmcifParsingError
 
@@ -129,6 +132,14 @@ def parse_cif_categories_py(text: str) -> dict[str, dict[str, list[str]]]:
     return cats
 
 
+def parse_cif_categories(text: str) -> dict[str, dict[str, list[str]]]:
+    """CIF text -> {category: {item: [values...]}}, through the native
+    parser (``native/cif_tokenizer.cpp``, built at first use) where it
+    loads, else :func:`parse_cif_categories_py`; the two give equal dicts."""
+    cats = native.parse_cif_categories(text)
+    return parse_cif_categories_py(text) if cats is None else cats
+
+
 @dataclasses.dataclass
 class MmcifHeader:
     resolution: float | None
@@ -200,7 +211,7 @@ def parse_mmcif(path: str | pathlib.Path, file_id: str | None = None) -> MmcifOb
     path = pathlib.Path(path)
     opener = gzip.open if path.suffix == ".gz" else open
     with opener(path, "rt") as f:
-        cats = parse_cif_categories_py(f.read())
+        cats = parse_cif_categories(f.read())
     atom_site = cats.get("_atom_site")
     if not atom_site or "Cartn_x" not in atom_site:
         raise MmcifParsingError(f"no _atom_site records in {path}")

@@ -14,6 +14,9 @@ column by column:
   cell): each as a float64, written as its shortest repr (a float32 is
   widened first: ``0.10000000149011612``), NaN and missing cells empty;
 - any other column: ``str`` of each value, None, NaN and missing empty.
+
+``read_csv`` reads such a file back with the types pandas' ``read_csv``
+gives its columns (see there).
 """
 from __future__ import annotations
 
@@ -74,3 +77,41 @@ def write_csv(rows: list[dict], path: str | pathlib.Path) -> None:
         writer.writerow(names)
         for i in range(len(rows)):
             writer.writerow([c[i] for c in cells])
+
+
+# The cells pandas' read_csv takes for missing values by default.
+NA_CELLS = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
+})
+
+
+def _parsed_column(cells: list[str]) -> list:
+    """A column's cells as pandas' read_csv types them: ints when every cell
+    is an int, floats (NaN where missing) when every present cell is a
+    number, else strings (None where missing)."""
+    present = [c for c in cells if c not in NA_CELLS]
+    for cast in (int, float):
+        try:
+            values = [cast(c) for c in present]
+        except ValueError:
+            continue
+        if cast is int and len(present) < len(cells):
+            continue  # a missing cell makes an int column float
+        it = iter(values)
+        return [math.nan if c in NA_CELLS else next(it) for c in cells]
+    return [None if c in NA_CELLS else c for c in cells]
+
+
+def read_csv(path: str | pathlib.Path, delimiter: str = ",",
+             names: list[str] | None = None) -> list[dict]:
+    """The rows of a CSV file (the first line its header, unless ``names``
+    are given), each column typed as pandas' ``read_csv`` types it: ints,
+    floats with NaN for missing cells, or strings with None."""
+    with open(path, newline="", encoding="utf-8") as f:
+        lines = list(csv.reader(f, delimiter=delimiter))
+    if names is None:
+        names, lines = (lines[0], lines[1:]) if lines else ([], [])
+    columns = {name: _parsed_column([line[i] if i < len(line) else "" for line in lines])
+               for i, name in enumerate(names)}
+    return [{name: columns[name][r] for name in names} for r in range(len(lines))]

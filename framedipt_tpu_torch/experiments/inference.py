@@ -1,10 +1,14 @@
 """Batch inference CLI: inpainting over every structure of a directory of
-mmCIF files (or the TCR complexes of a database CSV found there), or de
-novo design (``inference.inpainting=false``); it writes the output tree
-that evaluation reads.
+mmCIF files (or the TCR complexes of a database CSV found there, or, without
+``--cif_dir``, downloaded into ``inference.inpainting_samples.download_dir``
+and filtered there), or de novo design (``inference.inpainting=false``); it
+writes the output tree that evaluation reads.
 
     python -m framedipt_tpu_torch.experiments.inference --cif_dir=<dir> \
         [--config=conf.json] [--device=cuda] [key=value ...]
+    python -m framedipt_tpu_torch.experiments.inference \
+        inference.inpainting_samples.download_dir=<dir> \
+        inference.inpainting_samples.data_path=<TCR database CSV> [key=value ...]
     python -m framedipt_tpu_torch.experiments.inference inference.inpainting=false \
         [--config=conf.json] [--device=cuda] [key=value ...]
 
@@ -161,8 +165,12 @@ class Inference:
         if not self.inpainting:
             return UnconditionalSampler(cfg, self.diffuser, seed=cfg.inference.seed)
         if self.cif_dir is None:
+            isc = cfg.inference.inpainting_samples
+            if isc.tcr and isc.download_dir:
+                return TCRSampler.from_database(cfg, self.diffuser, seed=cfg.inference.seed)
             raise ValueError(
-                "conditional sampling requires cif_dir (the database download path is not ported)"
+                "conditional sampling requires cif_dir (or inference.inpainting_samples."
+                "download_dir for the database-driven TCR flow)"
             )
         if cfg.inference.inpainting_samples.tcr:
             return TCRSampler(cfg, self.diffuser, cif_dir=self.cif_dir,

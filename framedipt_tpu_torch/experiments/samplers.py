@@ -8,22 +8,30 @@ samplers run over real structures, padded to the structure's length
 bucket, the fixed region imputed from the ground truth in the initial
 frames: ``ConditionalSampler`` redacts a random region per chain (or an
 explicit window of the first chain); ``TCRSampler`` diffuses CDR loops of
-the TCR chains of the complexes listed in a TCR database CSV.
+the TCR chains of the complexes listed in a TCR database CSV, found in a
+directory or (``TCRSampler.from_database``) downloaded into
+``inference.inpainting_samples.download_dir`` and filtered there by
+``init_database_metadata``.
 """
 from __future__ import annotations
 
 import csv
+import dataclasses
 import pathlib
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from framedipt_tpu_torch.data import download as download_lib
 from framedipt_tpu_torch.data import features as feature_lib
+from framedipt_tpu_torch.data import pipeline as pipeline_lib
 from framedipt_tpu_torch.data import tcr as tcr_lib
 from framedipt_tpu_torch.data.mmcif import parse_mmcif
 from framedipt_tpu_torch.diffusion import SE3Diffuser
+from framedipt_tpu_torch.eval import table
 from framedipt_tpu_torch.geometry.rigid import Rigid
+from framedipt_tpu_torch.tools import errors
 from framedipt_tpu_torch.tools.config import Config
 from framedipt_tpu_torch.tools.device import seeded_generator
 from framedipt_tpu_torch.tools.log import get_logger
@@ -31,6 +39,79 @@ from framedipt_tpu_torch.tools.log import get_logger
 logger = get_logger()
 
 SampleItem = tuple[str, int, dict[str, np.ndarray]]
+
+
+def init_database_metadata(
+    cfg: Config,
+    pdb_ids: list[str],
+    chains_per_structure: list[list[str] | None],
+    cif_dir: pathlib.Path | None = None,
+) -> tuple[list[pathlib.Path], list[list[str] | None]]:
+    """The database flow's structures: download the listed structures into
+    ``download_dir/cifs`` (or ``cif_dir``) where missing (best effort: a file
+    present is kept, and offline the files present are used), build
+    ``download_dir/processed/metadata.csv`` with the inference filters
+    (resolution, total and per-chain length, chain count) unless it exists
+    and ``overwrite`` is off, and return the surviving (cif_path, chains)
+    pairs in the order of ``pdb_ids``. An empty ``metadata.csv`` means no
+    survivor."""
+    isc = cfg.inference.inpainting_samples
+    download_dir = pathlib.Path(isc.download_dir)
+    cifs_dir = pathlib.Path(cif_dir) if cif_dir else download_dir / "cifs"
+    processed_dir = download_dir / "processed"
+    metadata_path = processed_dir / "metadata.csv"
+
+    missing = [pid for pid in pdb_ids
+               if not (cifs_dir / download_lib.cif_name(pid, isc.first_assembly)).exists()]
+    if missing:
+        try:
+            download_lib.download_cifs(missing, cifs_dir, first_assembly=isc.first_assembly,
+                                       max_workers=isc.num_workers_download)
+        except Exception as e:  # noqa: BLE001 - offline is a supported mode
+            logger.warning(f"structure download unavailable: {e}")
+
+    candidates: list[tuple[str, pathlib.Path, list[str] | None]] = []
+    for pid, chains in zip(pdb_ids, chains_per_structure):
+        path = cifs_dir / download_lib.cif_name(pid, isc.first_assembly)
+        if path.exists():
+            candidates.append((pid.lower(), path, chains))
+        else:
+            logger.warning(f"missing structure file {path}; skipping")
+
+    if metadata_path.exists() and not isc.overwrite:
+        with open(metadata_path, newline="", encoding="utf-8") as f:
+            kept = {row["pdb_name"] for row in csv.DictReader(f)}
+        logger.info(f"reusing cached metadata ({len(kept)} entries)")
+    else:
+        rows = []
+        for pid, path, chains in candidates:
+            opts = pipeline_lib.ProcessOptions(
+                output_dir=processed_dir,
+                filtering=dataclasses.replace(cfg.data.filtering, max_len=isc.max_len or 10**9,
+                                              min_len=isc.min_len or 0),
+                max_resolution=isc.max_resolution,
+                first_assembly=isc.first_assembly,
+                chains=list(chains) if chains else None,
+                chain_min_len=isc.chain_min_len,
+                chain_max_len=isc.chain_max_len,
+                max_num_chains=isc.max_num_chains,
+                check_valid_resolution=isc.check_valid_resolution,
+                ss_filters=False,
+            )
+            try:
+                rows.append(pipeline_lib.process_mmcif(path, opts))
+            except errors.DataError as e:
+                logger.info(f"filtered out {path.name}: {e}")
+        processed_dir.mkdir(parents=True, exist_ok=True)
+        if rows:
+            table.write_csv(rows, metadata_path)
+        else:
+            metadata_path.write_text("pdb_name\n")
+        kept = {str(row["pdb_name"]) for row in rows}
+        logger.info(f"processed {len(kept)}/{len(candidates)} structures")
+
+    survivors = [(path, chains) for pid, path, chains in candidates if pid in kept]
+    return [p for p, _ in survivors], [c for _, c in survivors]
 
 
 class UnconditionalSampler:
@@ -188,31 +269,47 @@ class ConditionalSampler:
 
 class TCRSampler(ConditionalSampler):
     """CDR-loop inpainting over the complexes of a TCR database CSV whose
-    ``<pdb_id>-assembly1.cif`` is in ``cif_dir``; a listed complex without
-    its file is skipped with a warning."""
+    ``<pdb_id>-assembly1.cif`` is in ``cif_dir`` (a listed complex without
+    its file is skipped with a warning), or over ``cif_paths`` with their
+    ``chains_list`` when given."""
 
     def __init__(
         self,
         cfg: Config,
         diffuser: SE3Diffuser,
-        cif_dir: str | pathlib.Path,
-        csv_path: str | pathlib.Path,
+        cif_dir: str | pathlib.Path | None = None,
+        csv_path: str | pathlib.Path | None = None,
         seed: int = 123,
+        cif_paths: list[pathlib.Path] | None = None,
+        chains_list: list[list[str] | None] | None = None,
     ) -> None:
-        with open(csv_path, newline="", encoding="utf-8") as f:
-            pdb_ids, all_chains = _tcr_rows(list(csv.DictReader(f)))
-        cif_dir = pathlib.Path(cif_dir)
-        cif_paths, chains_list = [], []
-        for pid, chains in zip(pdb_ids, all_chains):
-            path = cif_dir / f"{pid}-assembly1.cif"
-            if not path.exists():
-                logger.warning(f"missing structure file {path}; skipping")
-                continue
-            cif_paths.append(path)
-            chains_list.append(chains)
+        if cif_paths is None:
+            pdb_ids, all_chains = _read_tcr_csv(csv_path)
+            cif_dir = pathlib.Path(cif_dir)
+            cif_paths, chains_list = [], []
+            for pid, chains in zip(pdb_ids, all_chains):
+                path = cif_dir / f"{pid}-assembly1.cif"
+                if not path.exists():
+                    logger.warning(f"missing structure file {path}; skipping")
+                    continue
+                cif_paths.append(path)
+                chains_list.append(chains)
         super().__init__(cfg, diffuser, cif_paths, chains_list, seed=seed)
         self.cdr_loops = [_canonical_loop(c) for c in cfg.inference.inpainting_samples.cdr_loops]
         self.shifted_region = cfg.inference.inpainting_samples.shifted_region
+
+    @classmethod
+    def from_database(cls, cfg: Config, diffuser: SE3Diffuser, seed: int = 123) -> "TCRSampler":
+        """The database flow: the TCR database CSV (``inpainting_samples
+        .data_path``, else ``data.csv_path``, else ``database/TCR.csv``)
+        drives the download into ``inpainting_samples.download_dir``, the
+        inference filters build the cached ``metadata.csv``, and sampling
+        runs over the survivors."""
+        csv_path = cfg.inference.inpainting_samples.data_path or cfg.data.csv_path or (
+            "database/TCR.csv")
+        pdb_ids, all_chains = _read_tcr_csv(csv_path)
+        cif_paths, chains_list = init_database_metadata(cfg, pdb_ids, all_chains)
+        return cls(cfg, diffuser, seed=seed, cif_paths=cif_paths, chains_list=chains_list)
 
     def create_diffusion_mask(
         self, chain_feats: dict[str, np.ndarray], example_idx: int
@@ -228,6 +325,11 @@ class TCRSampler(ConditionalSampler):
         )
         self._mask_cache[example_idx] = mask
         return mask
+
+
+def _read_tcr_csv(path: str | pathlib.Path) -> tuple[list[str], list[list[str]]]:
+    with open(path, newline="", encoding="utf-8") as f:
+        return _tcr_rows(list(csv.DictReader(f)))
 
 
 def _tcr_rows(rows: list[dict[str, str]]) -> tuple[list[str], list[list[str]]]:

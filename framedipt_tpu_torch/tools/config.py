@@ -142,6 +142,23 @@ class InpaintingSamplesConfig:
     # An explicit diffused window [start_idx, end_idx] of the first chain.
     start_idx: int | None = None
     end_idx: int | None = None
+    # The database flow (the inference CLI without --cif_dir, with ``tcr``
+    # and ``download_dir`` set): the structures listed in the TCR database
+    # CSV ``data_path`` are downloaded into ``download_dir/cifs``, filtered
+    # by the settings below into a cached ``download_dir/processed/
+    # metadata.csv`` (rebuilt when ``overwrite``), and the survivors sampled.
+    data_path: str | None = None
+    download_dir: str | None = None
+    first_assembly: bool = True
+    overwrite: bool = False
+    max_resolution: float | None = None
+    max_len: int | None = None
+    min_len: int | None = None
+    chain_max_len: int | None = None
+    chain_min_len: int | None = None
+    max_num_chains: int | None = None
+    check_valid_resolution: bool = False
+    num_workers_download: int = 4
 
 
 @dataclass

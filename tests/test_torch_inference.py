@@ -338,18 +338,24 @@ def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):
 
 
 def test_json_config_drops_left_out_fields_with_a_warning(tmp_path, caplog, monkeypatch):
-    """A JSON config carrying fields the port leaves out (the download path)
-    loads; a dotted override of an unknown key still raises."""
+    """A JSON config carrying fields the port leaves out (the JAX CLI's
+    ``inference.gpu_id`` and compilation cache) loads; the database flow's
+    fields, which the port has, load too; a dotted override of an unknown
+    key still raises."""
     monkeypatch.setattr(get_logger(), "propagate", True)
     path = tmp_path / "conf.json"
-    path.write_text(json.dumps({"inference": {"seed": 7, "inpainting_samples": {
-        "samples": 3, "download_dir": "/data", "num_workers_download": 2}}}))
+    path.write_text(json.dumps({
+        "inference": {"seed": 7, "gpu_id": 0, "inpainting_samples": {
+            "samples": 3, "download_dir": "/data", "num_workers_download": 2}},
+        "experiment": {"compilation_cache_dir": "/cache"}}))
     with caplog.at_level(logging.WARNING, logger="framedipt_tpu_torch"):
         cfg = load_config(["inference.diffusion.num_t=9"], json_path=str(path))
     assert (cfg.inference.seed, cfg.inference.inpainting_samples.samples) == (7, 3)
     assert cfg.inference.diffusion.num_t == 9 and cfg.inference.diffusion.noise_scale == 0.1
+    isc = cfg.inference.inpainting_samples
+    assert (isc.download_dir, isc.num_workers_download) == ("/data", 2)
     dropped = " ".join(r.getMessage() for r in caplog.records)
-    assert "inference.inpainting_samples.download_dir" in dropped
-    assert "inference.inpainting_samples.num_workers_download" in dropped
+    assert "inference.gpu_id" in dropped and "experiment.compilation_cache_dir" in dropped
+    assert "download_dir" not in dropped
     with pytest.raises(KeyError):
-        load_config(["inference.inpainting_samples.download_dir=/data"])
+        load_config(["inference.gpu_id=0"])

@@ -69,14 +69,18 @@ def test_training_entry_points_load_without_jax_pandas_yaml_orbax():
 
 
 def test_evaluation_entry_points_load_without_jax_pandas_yaml_matplotlib():
-    """The TCR evaluation CLI, residue renumbering and the native PDB writer's
-    loader import in a fresh interpreter with none of jax, pandas, yaml,
-    orbax, matplotlib or seaborn loaded (the plots import the last two when
-    they draw)."""
+    """The TCR, de novo and cg2all evaluation CLIs, residue renumbering, the
+    sweep, the monomer PDB preprocessing and the native libraries' loader
+    import in a fresh interpreter with none of jax, pandas, yaml, orbax,
+    matplotlib or seaborn loaded (the plots import the last two when they
+    draw)."""
     banned = FORBIDDEN + ("matplotlib", "seaborn")
     code = (
         "import sys\n"
         "import framedipt_tpu_torch.eval.tcr_eval, framedipt_tpu_torch.eval.residue_reindex\n"
+        "import framedipt_tpu_torch.eval.denovo_eval, framedipt_tpu_torch.eval.cg2all_eval\n"
+        "import framedipt_tpu_torch.tools.sweep, framedipt_tpu_torch.data.process_pdb_files\n"
+        "import framedipt_tpu_torch.tools.profiling, framedipt_tpu_torch.data.download\n"
         "import framedipt_tpu_torch.native, framedipt_tpu_torch.analysis.utils\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{banned!r})\n"
