@@ -163,7 +163,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
     a 3-step sampler run at B=1 N=256: the Chrome trace names the pair-MLP
     and edge-embedder CUDA kernels, as many times as they launch; (g) the
     fixture CIFs through the native and the Python CIF parser, 5 times
-    each: equal dicts, the seconds of each and the ratio.
+    each: equal dicts, the seconds of each and the ratio;
+13. the multi-process paths (``parallel/``), their backend chosen before any
+    rank starts (NCCL where every rank has a card of its own, else gloo with
+    two ranks on the one card), each part spawned under a time limit of its
+    own: (a) in one process, each rank's row block at sp 2 and 4 (B=2, N=896
+    and the ragged N=230, float32 and bf16) through the pair-MLP and
+    edge-embedder kernels against the same rows of the full launch (largest
+    difference within the kernel tolerance, bits equal or not, padded rows
+    0), each block timed beside the full launch; (b) the sequence-parallel
+    sampler, two ranks at sp=2, full width, B=2, N=896, num_t 10, the test
+    fixtures' weights, against the one-process sampler on the card
+    (final_rigids 2e-5, prot_traj 2e-4), the ranks' final_rigids bit-equal,
+    the launches a rank (embedder num_t+1, pair MLP 3 (num_t+1), no IPA),
+    each rank's peak memory beside the one process's, seconds a forward;
+    (c) the train step at dp=2, global B=4, N=256, float32, 3 steps from the
+    fixtures' weights with Adam's eps at 1e-3 against the one-process step
+    on the whole batch (each step's loss and grad norm 1e-5 relative and
+    gradients within 1e-4 of max(their max-abs, 1e-3 of the largest); the
+    parameters after the first and the third step within 1e-5 of their
+    max-abs but where the gradient is 0 in exact arithmetic, the key biases
+    the softmax cancels), ms a step and peak memory a rank; at (dp=1,
+    fsdp=2) only with two cards, else a line saying why not; (d) the training CLI under ``torchrun --standalone
+    --nproc_per_node=1`` (2 with two cards) with ``experiment.dp_size``: a
+    few steps, one line a step in metrics.jsonl, one eval, the checkpoint
+    served for one /inpaint request.
 
 Phase 3 also holds the two backward kernels against their plain versions
 (every gradient, float32 and bf16, B=1 N=1, N=17 and 256, B=2 N=200 ragged
@@ -186,7 +210,9 @@ The last two lines are a JSON object with one entry per kernel (its
 ``launches`` from the path that runs it first: phases 5, 6 and 7;
 ``inference_cli_launches`` from phase 8's batched run,
 ``denovo_cli_launches`` from phase 10's de novo run,
-``database_cli_launches`` from phase 12's database flow) and the contract line
+``database_cli_launches`` from phase 12's database flow, ``sp_launches``
+and ``dp_launches`` from phase 13's (b) and (c), both ranks together) and
+the contract line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2993,6 +3019,436 @@ def check_cif_parse_speed(repeats: int = 5) -> None:
         f"{total['python']:.3f} s, ratio {total['python'] / total['native']:.1f}x")
 
 
+# -- phase 13: row blocks, the SP sampler, the DP step, torchrun --------------
+
+# (a) Row blocks: B=2 at the CLI's bucket 896 and at 230 (ragged at sp=4:
+# rows 58, 58, 58, 56).
+ROW_BLOCK_NS = (896, 230)
+# The wrappers' row-side arguments: pair, i_term, row_mask, fi of the pair
+# MLP; g, pos_rows, i_term, row_mask of the edge embedder.
+ROW_ARGS = {"pair_mlp": (0, 1, 3, 13), "edge_embedder": (0, 2, 4, 6)}
+# (b) The SP sampler against the one-process sampler on the card: the JAX
+# package's SP test's tolerances (tests/unit/test_sequence_parallel.py).
+SP_N, SP_NUM_T = 896, 10
+SP_TOL = {"final_rigids": 2e-5, "prot_traj": 2e-4}
+# (c) The DP step against the one-process step on the whole batch: loss and
+# grad norm relative, the parameters on the scale of each one's max-abs but
+# where the gradient cancels (below, compare_dp_part).
+DP_B, DP_N, DP_STEPS, DP_TOL = 4, 256, 3, 1e-5
+# Adam's eps in both runs of (c). At the training default (1e-8) Adam moves
+# an entry by about lr whatever its gradient's size, so where the gradient is
+# at rounding level two sums of it in another order (one batch against two
+# halves all-reduced) end up to 2 lr apart, and the steps after carry that
+# into every gradient: on an H100 the parameters after steps 1 and 3 differ
+# by 5.85e-4 and 2.20e-3 of their max-abs at 1e-8 and 3.39e-5 and 3.28e-5 at
+# 1e-4; at 1e-3 the update is continuous in the gradient there and they
+# agree within 5.30e-6 and 6.88e-6.
+DP_ADAM_EPS = 1e-3
+PART_TIMEOUT_S = 300
+
+
+def parallel_backend(world: int) -> str:
+    """Chosen before any rank starts: NCCL where every rank has a card of
+    its own, gloo where ranks share one (NCCL refuses two ranks on a
+    device)."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def check_row_blocks() -> None:
+    """(a) One process, no collective: each rank's row block at sp 2 and 4
+    through the pair-MLP and edge-embedder kernels against the same rows of
+    the full launch (bits, largest difference), each block timed beside the
+    full launch."""
+    from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder
+    from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp
+    from framedipt_tpu_torch.parallel.sp import row_block
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    kernels = {"pair_mlp": (pair_mlp, pair_mlp_inputs), "edge_embedder": (edge_embedder,
+                                                                           edge_embedder_inputs)}
+    for n in ROW_BLOCK_NS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, (fn, inputs) in kernels.items():
+                args = inputs(2, n, dtype, gen)
+                full = fn(*args)
+                full_ms = cuda_time_ms(lambda: fn(*args), 5)
+                for size in (2, 4):
+                    rows = -(-n // size)
+                    worst, equal, times = 0.0, True, []
+                    for index in range(size):
+                        block = [row_block(a, index, size) if i in ROW_ARGS[name] else a
+                                 for i, a in enumerate(args)]
+                        got = fn(*block)
+                        valid = min(n, (index + 1) * rows) - index * rows
+                        want = full[:, index * rows:index * rows + valid]
+                        diff, violation = max_violation(got[:, :valid], want, TOL[dtype])
+                        if violation > 0 or got[:, valid:].any():
+                            raise AssertionError(f"{name} N={n} {dtype} sp={size} block {index}: "
+                                                 f"max diff {diff}, padded rows not 0")
+                        worst = max(worst, diff)
+                        equal = equal and torch.equal(got[:, :valid], want)
+                        times.append(cuda_time_ms(lambda: fn(*block), 5))
+                    log(f"row blocks {name} B=2 N={n} {str(dtype)[6:]} sp={size} ({rows} rows): "
+                        f"max diff {worst:.3e}, bits equal {equal}; ms a block "
+                        f"{[round(t, 4) for t in times]} (sum {sum(times):.4f}) beside "
+                        f"{full_ms:.4f} the full launch")
+
+
+def sp_model():
+    """The default full-width model on the card with the test fixtures'
+    weights (every layer non-zero: the JAX package's initialization zeroes
+    the frame and psi heads, and the trajectory would not see the edge
+    stack)."""
+    from framedipt_tpu_torch.diffusion import SE3Diffuser
+    from framedipt_tpu_torch.model import ScoreNetwork
+    from framedipt_tpu_torch.model.weights import synth_state_dict
+    from framedipt_tpu_torch.tools.config import Config, resolve_kernel_flags
+
+    cfg = Config()
+    resolve_kernel_flags(cfg, torch.device("cuda"))
+    model = ScoreNetwork(cfg.model, SE3Diffuser(cfg.diffuser, device="cuda"), inpainting=True)
+    model.load_state_dict(synth_state_dict(model), strict=True)
+    return model.to("cuda").eval()
+
+
+def sp_feats() -> dict[str, torch.Tensor]:
+    """Two samples at bucket 896: an 819-residue complex (the largest
+    fixture's length) with a 14-residue loop diffused, random frames, from a
+    numpy seed (the same on every process)."""
+    rng = np.random.default_rng(20)
+    B, N = 2, SP_N
+    qs = rng.normal(size=(B, N, 4))
+    res = np.ones((B, N), np.float32)
+    res[:, 819:] = 0.0
+    fixed = np.ones((B, N), np.float32)
+    fixed[:, 400:414] = 0.0
+    feats = {
+        "res_mask": res, "fixed_mask": fixed, "seq_idx": np.tile(np.arange(N), (B, 1)),
+        "t": np.ones(B, np.float32), "sc_ca_t": np.zeros((B, N, 3), np.float32),
+        "rigids_t": np.concatenate([qs / np.linalg.norm(qs, axis=-1, keepdims=True),
+                                    rng.normal(size=(B, N, 3)) * 10], -1).astype(np.float32),
+        "torsion_angles_sin_cos": rng.normal(size=(B, N, 7, 2)).astype(np.float32),
+        "aatype": rng.integers(0, 20, size=(B, N)),
+    }
+    return {k: torch.as_tensor(v, device="cuda") for k, v in feats.items()}
+
+
+def run_sp_sampler(mesh=None) -> dict:
+    """The sampler at noise_scale 1 from seed 3, timed, with its launches and
+    peak memory."""
+    from framedipt_tpu_torch.sampling import sample
+
+    model, feats = sp_model(), sp_feats()
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = sample(model, model.diffuser, feats, torch.Generator(device="cuda").manual_seed(3),
+                 num_t=SP_NUM_T, min_t=0.01, inpainting=True, sp_mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"final_rigids": out["final_rigids"].cpu().numpy(),
+            "prot_traj": out["prot_traj"].cpu().numpy(),
+            "launches": {name: fn.launches for name, fn in wrappers.items()},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "s_per_forward": seconds / (SP_NUM_T + 1)}
+
+
+def dp_model(cfg):
+    """The full-width model of phase 13(c) on the CPU."""
+    from framedipt_tpu_torch.diffusion import SE3Diffuser
+    from framedipt_tpu_torch.model import ScoreNetwork
+
+    return ScoreNetwork(cfg.model, SE3Diffuser(cfg.diffuser, device="cpu"), inpainting=True)
+
+
+def fixture_state_dict(cfg) -> dict[str, torch.Tensor]:
+    from framedipt_tpu_torch.model.weights import synth_state_dict
+
+    return synth_state_dict(dp_model(cfg))
+
+
+def run_dp_steps(mesh=None) -> dict:
+    """DP_STEPS float32 train steps on the whole batch of DP_B at N=DP_N from
+    the fixtures' weights, Adam's eps DP_ADAM_EPS (each rank keeps its rows
+    under ``mesh``): loss and
+    grad norm a step, ms a step, peak memory, launches, and (rank 0, or one
+    process) each step's gradients (clipped, whole) and the parameters after
+    the first step and after the last."""
+    from torch.distributed.tensor import DTensor
+
+    from framedipt_tpu_torch.parallel.mesh import rank
+    from framedipt_tpu_torch.train.checkpoints import full_state
+    from framedipt_tpu_torch.train.loop import make_trainer
+
+    cfg = train_config()
+    trainer = make_trainer(cfg, device="cuda", state_dict=fixture_state_dict(cfg), mesh=mesh)
+    for group in trainer.optimizer.param_groups:
+        group["eps"] = DP_ADAM_EPS
+    batch = train_batch(DP_B, DP_N)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, norms, ms, grads, params = [], [], [], [], []
+    for i in range(DP_STEPS):
+        t0 = time.perf_counter()
+        m = trainer.step(batch, gen)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        # FSDP's shards gathered on every rank (a collective); rank 0 keeps them.
+        step_grads = {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad).cpu()
+                      for n, p in trainer.model.named_parameters() if p.grad is not None}
+        if rank() == 0:
+            grads.append(step_grads)
+        if i in (0, DP_STEPS - 1):
+            params.append({k: v.numpy().copy() for k, v in
+                           full_state(trainer.model, trainer.optimizer)[0].items()})
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return {"loss": losses, "grad_norm": norms, "ms": ms, "peak_gb": peak, "launches": launches,
+            "params": params, "grads": grads}
+
+
+def parallel_rank(part: str, rank: int, world: int, backend: str, work: str) -> None:
+    """One rank of phase 13's part ``part`` ("sp": the sampler at sp=world;
+    "dp": the train step at dp=world; "fsdp": at fsdp=world), started by
+    :func:`spawn_part`; writes ``<part>_rank<r>.pt`` in ``work``."""
+    sys.path.insert(0, str(REPO))
+    from framedipt_tpu_torch.model.kernels.build import build_all
+    from framedipt_tpu_torch.parallel import init_distributed, make_mesh, make_sp_mesh
+    from framedipt_tpu_torch.tools.device import set_full_precision_matmul
+
+    set_full_precision_matmul()
+    build_all()  # the libraries the parent built
+    init_distributed(f"file://{work}/rendezvous_{part}", world, rank, device="cuda",
+                     backend=backend, initialization_timeout=120)
+    if part == "sp":
+        result = run_sp_sampler(make_sp_mesh(world, 1, "cuda"))
+    elif part == "dp":
+        result = run_dp_steps(make_mesh(world, 1, "cuda"))
+    else:
+        result = run_dp_steps(make_mesh(1, world, "cuda"))
+    torch.save(result, pathlib.Path(work) / f"{part}_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def spawn_part(part: str, world: int, work: pathlib.Path) -> list[dict]:
+    """Start ``world`` ranks of ``part`` on the card(s), each with its own
+    log, under PART_TIMEOUT_S (every rank killed at the limit); returns the
+    ranks' results. Any rank that fails fails the run."""
+    backend = parallel_backend(world)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.parallel_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), "
+            "sys.argv[5], sys.argv[6])")
+    logs = [open(work / f"{part}_rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(REPO), part, str(r), str(world),
+                               backend, str(work)], cwd=REPO, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + PART_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (work / f"{part}_rank{r}.log").read_text()[-3000:]
+            raise AssertionError(f"phase 13 {part} rank {r}/{world} ({backend}): "
+                                 f"rc {p.returncode}\n{tail}")
+    return [torch.load(work / f"{part}_rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def check_sp_sampler(work: pathlib.Path) -> dict[str, int]:
+    """(b) Two ranks at sp=2 against the one-process sampler on the card;
+    returns the launches of both ranks together."""
+    single = run_sp_sampler()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_part("sp", 2, work)
+    spawn_s = time.perf_counter() - t0
+    for key, tol in SP_TOL.items():
+        errs = [float(np.abs(r[key] - single[key]).max()) for r in ranks]
+        log(f"SP sampler sp=2 B=2 N={SP_N} num_t {SP_NUM_T}: {key} max diff a rank {errs} "
+            f"(tol {tol})")
+        if not max(errs) <= tol:
+            raise AssertionError(f"SP sampler {key}: {errs} > {tol}")
+    if not np.array_equal(ranks[0]["final_rigids"], ranks[1]["final_rigids"]):
+        raise AssertionError("SP sampler: the ranks' final_rigids differ")
+    expect = {"edge_embedder": SP_NUM_T + 1, "pair_mlp": (NUM_BLOCKS - 1) * (SP_NUM_T + 1)}
+    for r, res in enumerate(ranks):
+        if any(res["launches"][k] != v for k, v in expect.items()) or res["launches"][
+                "ipa_attention"]:
+            raise AssertionError(f"SP sampler rank {r}: launches {res['launches']}")
+    log(f"SP sampler ({parallel_backend(2)}, {torch.cuda.device_count()} card(s)): ranks' "
+        f"final_rigids bit-equal; launches a rank "
+        f"{[{k: r['launches'][k] for k in expect} for r in ranks]}; peak GB a rank "
+        f"{[round(r['peak_gb'], 3) for r in ranks]} beside {single['peak_gb']:.3f} in one "
+        f"process; s a forward {[round(r['s_per_forward'], 4) for r in ranks]} beside "
+        f"{single['s_per_forward']:.4f} in one process; the part {spawn_s:.1f} s")
+    return {k: sum(r["launches"][k] for r in ranks) for k in KERNEL_NAMES}
+
+
+def check_dp_step(work: pathlib.Path) -> dict[str, int]:
+    """(c) Two ranks at dp=2 (and at fsdp=2 where there are two cards)
+    against the one-process step on the whole batch; returns the dp=2 run's
+    launches, both ranks together."""
+    single = run_dp_steps()
+    torch.cuda.empty_cache()
+    launches = compare_dp_part("dp", single, work)
+    if torch.cuda.device_count() < 2:
+        log("FSDP step (dp=1, fsdp=2): not run: the machine has one card, and this phase runs "
+            "FSDP only with a card a rank (NCCL); the CPU tests hold FSDP over gloo "
+            "(tests/test_torch_parallel_dist.py)")
+    else:
+        compare_dp_part("fsdp", single, work)
+    return launches
+
+
+def param_errors(got: dict, want: dict, left_out: dict | None) -> tuple[float, str]:
+    """The largest difference of ``got``'s parameters from ``want``'s on the
+    scale of each one's max-abs, over every entry but those ``left_out``
+    marks (None: every entry), and its parameter."""
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        keep = ~left_out[name] if left_out and name in left_out else np.ones(w.shape, bool)
+        err = float(np.abs(got[name] - w)[keep].max(initial=0.0))
+        err /= max(float(np.abs(w).max(initial=0.0)), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
+def compare_dp_part(part: str, single: dict, work: pathlib.Path) -> dict[str, int]:
+    """Two ranks of ``part`` against the one-process steps ``single``: every
+    number printed first, then each gate; returns the launches of both
+    ranks together. Gated: each step's loss and grad norm (DP_TOL relative)
+    and gradients (TRAIN_TOL of max(own max-abs, 1e-3 x the largest), as
+    phase 6 holds the kernels' step); the parameters after the first and the
+    last step (DP_TOL of their max-abs) but the entries whose gradient is 0
+    in exact arithmetic (``cancelled_entries``, as
+    tests/test_torch_parallel_dist.py leaves them out): their gradient is
+    rounding noise and the softmax cancels whatever value they take."""
+    from framedipt_tpu_torch.model.weights import cancelled_entries
+
+    ranks = spawn_part(part, 2, work)
+    rel = {key: max(abs(a / b - 1) for r in ranks for a, b in zip(r[key], single[key]))
+           for key in ("loss", "grad_norm")}
+    grad_err = []
+    for got, want in zip(ranks[0]["grads"], single["grads"]):
+        if got.keys() != want.keys():
+            raise AssertionError(f"{part} step: gradients of {sorted(set(got) ^ set(want))}")
+        largest = max(float(g.abs().max()) for g in want.values())
+        grad_err.append(max((float((got[n] - g).abs().max())
+                             / max(float(g.abs().max()), 1e-3 * largest), n)
+                            for n, g in want.items()))
+    cancelled = cancelled_entries(dp_model(train_config()))
+    errs = [param_errors(got, want, cancelled)
+            for got, want in zip(ranks[0]["params"], single["params"])]
+    every = [param_errors(got, want, None)[0]
+             for got, want in zip(ranks[0]["params"], single["params"])]
+    left_out = sum(int(m.sum()) for m in cancelled.values())
+    log(f"{part} step at {part}=2 B={DP_B} N={DP_N} float32, {DP_STEPS} steps, Adam eps "
+        f"{DP_ADAM_EPS} "
+        f"({parallel_backend(2)}, {torch.cuda.device_count()} card(s)): loss {ranks[0]['loss']} "
+        f"beside {single['loss']}, grad norm {ranks[0]['grad_norm']} beside "
+        f"{single['grad_norm']} (relative {rel['loss']:.2e}, {rel['grad_norm']:.2e}); "
+        f"gradients within {[f'{e:.2e} ({n})' for e, n in grad_err]} of their scale a step; "
+        f"the parameters after steps 1 and {DP_STEPS} within "
+        f"{[f'{e:.2e} ({n})' for e, n in errs]} of their max-abs but where the gradient "
+        f"cancels ({left_out} of {sum(v.size for v in single['params'][0].values())} entries "
+        f"left out), {[f'{e:.2e}' for e in every]} over every entry; ms a step a "
+        f"rank {[[round(t, 1) for t in r['ms']] for r in ranks]} beside "
+        f"{[round(t, 1) for t in single['ms']]} in one process; peak GB a rank "
+        f"{[round(r['peak_gb'], 3) for r in ranks]} beside {single['peak_gb']:.3f}")
+    for key, err in rel.items():
+        if not err <= DP_TOL:
+            raise AssertionError(f"{part} step {key}: relative {err} > {DP_TOL}")
+    for step, (err, name) in enumerate(grad_err, 1):
+        if not err <= TRAIN_TOL:
+            raise AssertionError(f"{part} step {step}: gradient {name} off by {err} of its "
+                                 f"scale (> {TRAIN_TOL})")
+    for step, (err, name) in zip((1, DP_STEPS), errs):
+        if not err <= DP_TOL:
+            raise AssertionError(f"{part} step {step}: parameter {name} off by {err} of its "
+                                 f"max-abs (> {DP_TOL})")
+    return {k: sum(r["launches"][k] for r in ranks) for k in KERNEL_NAMES}
+
+
+def check_torchrun_cli(work: pathlib.Path) -> None:
+    """(d) The training CLI under ``torchrun --standalone --nproc_per_node=1``
+    with experiment.dp_size=1: a few steps through init_distributed and the
+    rank-0 writers, an eval, and its checkpoint served."""
+    from framedipt_tpu_torch.data.pipeline import ProcessOptions, process_serially, write_metadata
+    from framedipt_tpu_torch.experiments.serve import InpaintingService
+    from framedipt_tpu_torch.tools.config import Config, FilteringConfig
+    from framedipt_tpu_torch.train.checkpoints import CKPT_FILE, latest_checkpoint
+
+    rows = process_serially(sorted((REPO / "tests" / "data" / "cifs").glob("*.cif")), ProcessOptions(
+        output_dir=work / "data", filtering=FilteringConfig(min_len=10, max_len=2000,
+                                                            chain_max_len=256)))
+    write_metadata(rows, work / "data" / "metadata.csv")
+    procs = 1 if torch.cuda.device_count() < 2 else 2
+    args = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={procs}", "-m", "framedipt_tpu_torch.experiments.train",
+            f"experiment.dp_size={procs}", *cli_overrides(work / "data", work),
+            "experiment.num_epoch=1", "experiment.eval_freq=2", "experiment.ckpt_freq=1000",
+            "experiment.early_ckpt=false", "experiment.log_freq=1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, cwd=REPO, capture_output=True, text=True, timeout=PART_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun CLI: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    run_dir = work / "ckpt" / "chip_smoke"
+    metrics = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    steps = [r["step"] for r in metrics if "loss" in r]
+    evals = [r for r in metrics if "eval_ca_ca_deviation" in r]
+    ckpt = latest_checkpoint(run_dir)
+    if (not steps or steps != sorted(set(steps)) or len(evals) != 1 or ckpt is None
+            or not (run_dir / "train_conf.json").exists()
+            or not all(np.isfinite(r["loss"]) for r in metrics if "loss" in r)):
+        raise AssertionError(f"torchrun CLI: steps {steps}, evals {evals}, checkpoint {ckpt}")
+    if procs == 1:
+        log("torchrun CLI at --nproc_per_node=2: not run (one card)")
+    log(f"torchrun --standalone --nproc_per_node={procs} training CLI: {len(steps)} steps in "
+        f"{seconds:.1f} s (process start included), one line a step in metrics.jsonl, one eval, "
+        f"{ckpt.name}")
+    scfg = Config()
+    scfg.inference.weights_path = str(ckpt / CKPT_FILE)
+    service = InpaintingService(scfg, device="cuda")
+    serve_requests(service, [(230, (100, 112), 25)])
+    del service
+    torch.cuda.empty_cache()
+
+
+def check_parallel() -> dict[str, dict[str, int]]:
+    """Phase 13. Returns the SP sampler's and the DP step's launches (both
+    ranks together)."""
+    t0 = time.perf_counter()
+    log(f"phase 13 ({torch.cuda.device_count()} card(s): {parallel_backend(2)} for two ranks)")
+    check_row_blocks()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        work = pathlib.Path(tmp)
+        sp_launches = check_sp_sampler(work)
+        dp_launches = check_dp_step(work)
+        check_torchrun_cli(work)
+    log(f"phase 13: {time.perf_counter() - t0:.2f} s")
+    return {"sp": sp_launches, "dp": dp_launches}
+
+
 def kernel_label(mangled: str) -> str:
     """A CUDA kernel's name and the start of its template arguments from its
     mangled name (``..._cu_<hash><len><name>I13__nv_bfloat16Lb1E...``)."""
@@ -3084,6 +3540,8 @@ def main() -> int:
         check_profiling_trace(root)
         check_cif_parse_speed()
         log(f"phase 12: {time.perf_counter() - t12:.2f} s")
+    log("phase 13: row blocks, the SP sampler, the DP step, the training CLI under torchrun")
+    parallel_launches = check_parallel()
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
@@ -3101,6 +3559,8 @@ def main() -> int:
             "inference_cli_launches": cli_launches[name],
             "denovo_cli_launches": denovo_launches[name],
             "database_cli_launches": database_launches[name],
+            "sp_launches": parallel_launches["sp"][name],
+            "dp_launches": parallel_launches["dp"][name],
             **serving[name],
         }
         for name in KERNEL_NAMES

@@ -10,14 +10,25 @@ Generator seeded with ``experiment.seed``, drawn in the JAX package's order
 (the init batch draw included); device randomness is one ``torch.Generator``
 on the device seeded with ``experiment.seed + 1``.
 
+Under ``torchrun`` it trains on a ``(dp, fsdp)`` mesh of one process per GPU
+(``experiment.dp_size`` x ``experiment.fsdp_size`` = the number of
+processes; ``parallel/mesh.py``): every rank builds the same batch from the
+same host Generator, pads it by repeating examples to a multiple of the
+ranks and keeps its own rows in the step; rank 0 alone logs and writes
+``metrics.jsonl``, ``train_conf.json``, the eval PDBs and the checkpoints,
+which hold the whole model and optimizer state, as a one-process run's do.
+
 Usage:
     python -m framedipt_tpu_torch.experiments.train [--device=cpu] \
         [--config=conf.json] data.csv_path=.../metadata.csv [key=value ...]
+    torchrun --nproc_per_node=K -m framedipt_tpu_torch.experiments.train \
+        experiment.dp_size=K data.csv_path=... [key=value ...]
 """
 from __future__ import annotations
 
 import collections
 import csv
+import logging
 import os
 import pathlib
 import pickle
@@ -27,16 +38,24 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from framedipt_tpu_torch.data import features as feature_lib
 from framedipt_tpu_torch.diffusion import SE3Diffuser
 from framedipt_tpu_torch.model import ScoreNetwork
 from framedipt_tpu_torch.model.kernels.build import build_all
 from framedipt_tpu_torch.model.weights import init_state_dict
+from framedipt_tpu_torch.parallel.mesh import (
+    init_distributed,
+    make_mesh,
+    pad_batch,
+    rank,
+    shard_params,
+    world_size,
+)
 from framedipt_tpu_torch.tools.config import (
     Config,
     check_emb_bwd_impl,
-    check_single_device,
     load_config,
     merge_checkpoint_config,
     resolve_kernel_flags,
@@ -45,7 +64,12 @@ from framedipt_tpu_torch.tools.config import (
 from framedipt_tpu_torch.tools.device import resolve_device, set_full_precision_matmul
 from framedipt_tpu_torch.tools.log import get_logger
 from framedipt_tpu_torch.tools.metrics_logger import MetricsLogger
-from framedipt_tpu_torch.train.checkpoints import latest_checkpoint, load_checkpoint, save_checkpoint
+from framedipt_tpu_torch.train.checkpoints import (
+    latest_checkpoint,
+    load_checkpoint,
+    load_state,
+    save_checkpoint,
+)
 from framedipt_tpu_torch.train.eval_sampling import build_eval_sampler, run_training_eval
 from framedipt_tpu_torch.train.importance import TimestepImportanceSampler
 from framedipt_tpu_torch.train.loop import build_train_step, make_optimizer
@@ -186,10 +210,15 @@ def train(cfg: Config, device: str | torch.device | None = None) -> SimpleNamesp
     directory when it holds one; with ``use_ckpt_conf`` the checkpoint's
     model and diffuser sections replace ``cfg``'s (in place). Returns the
     run's summary: steps, checkpoint directory, the training loop's wall
-    seconds and the seconds of them spent waiting for the input pipeline."""
-    check_single_device(cfg)
+    seconds and the seconds of them spent waiting for the input pipeline.
+    In a process group (:func:`main` under ``torchrun``) every rank calls,
+    with its own device."""
     check_emb_bwd_impl(cfg)
     dev = resolve_device(device)
+    mesh = make_mesh(cfg.experiment.dp_size, cfg.experiment.fsdp_size, dev.type)
+    ranks, main_rank = world_size(), rank() == 0
+    if not main_rank:
+        logger.setLevel(logging.WARNING)
     seed = cfg.experiment.seed
     rng = np.random.default_rng(seed)
 
@@ -223,23 +252,26 @@ def train(cfg: Config, device: str | torch.device | None = None) -> SimpleNamesp
         model.load_state_dict(init_state_dict(model, torch.Generator().manual_seed(seed)),
                               strict=True)
     model.to(dev)
+    wrapped = shard_params(mesh, model)
     optimizer = make_optimizer(model.parameters(), cfg.experiment.learning_rate)
     step = 0
     if restored is not None:
-        model.load_state_dict(restored["model"], strict=True)
-        optimizer.load_state_dict(restored["optim"])
+        load_state(model, optimizer, restored)
         step = int(restored["step"])
         logger.info(f"resumed from step {step}")
     del restored
 
     cfg.experiment.num_parameters = sum(p.numel() for p in model.parameters())
     logger.info(f"model parameters: {cfg.experiment.num_parameters:,}")
+    if mesh is not None:
+        logger.info(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over {ranks} processes")
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    save_config(cfg, ckpt_dir / "train_conf.json")
+    if main_rank:
+        save_config(cfg, ckpt_dir / "train_conf.json")
 
-    train_step = build_train_step(model, diffuser, cfg, optimizer)
+    train_step = build_train_step(wrapped, diffuser, cfg, optimizer, mesh)
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
-    mlogger = MetricsLogger(ckpt_dir)
+    mlogger = MetricsLogger(ckpt_dir) if main_rank else None
     importance = None
     if cfg.experiment.use_importance_sampling:
         importance = TimestepImportanceSampler(
@@ -261,6 +293,8 @@ def train(cfg: Config, device: str | torch.device | None = None) -> SimpleNamesp
                     wait_s += time.perf_counter() - t_wait
                     if batch is None:
                         break
+                    # Every rank holds the whole batch and keeps its rows in the step.
+                    batch = pad_batch(batch, ranks)
                     if importance is not None:
                         t_np, w_np = importance.sample(rng, batch["res_mask"].shape[0])
                         batch = {**batch, "t": t_np, "loss_weight": w_np}
@@ -271,7 +305,7 @@ def train(cfg: Config, device: str | torch.device | None = None) -> SimpleNamesp
                         importance.update(metrics["t"].cpu().numpy(),
                                           metrics["raw_per_example_loss"].cpu().numpy())
                     step += 1
-                    if step % exp.log_freq == 0 or step == 1:
+                    if main_rank and (step % exp.log_freq == 0 or step == 1):
                         loss = float(metrics["loss"])
                         rate = exp.log_freq / max(time.perf_counter() - log_t0, 1e-9)
                         log_t0 = time.perf_counter()
@@ -290,16 +324,21 @@ def train(cfg: Config, device: str | torch.device | None = None) -> SimpleNamesp
                     if step % exp.eval_freq == 0:
                         if eval_run is None:
                             eval_run = build_eval_sampler(model, diffuser, cfg)
-                        mlogger.log(step, run_training_eval(
+                        # Every rank samples: the generator stays in step, and
+                        # an FSDP forward needs every rank.
+                        evaluated = run_training_eval(
                             eval_run, diffuser, cfg, step, generator,
-                            out_dir=pathlib.Path(exp.eval_dir) / run_name,
-                        ))
+                            out_dir=pathlib.Path(exp.eval_dir) / run_name, write=main_rank,
+                        )
+                        if main_rank:
+                            mlogger.log(step, evaluated)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         loop_s = time.perf_counter() - loop_t0
         save_checkpoint(ckpt_dir, step, model, optimizer, cfg)
     finally:
-        mlogger.close()
+        if mlogger is not None:
+            mlogger.close()
     return SimpleNamespace(step=step, steps_run=step - start_step, ckpt_dir=ckpt_dir,
                            loop_seconds=loop_s, input_wait_seconds=wait_s, model=model)
 
@@ -314,7 +353,15 @@ def main(argv: list[str] | None = None) -> None:
             json_path = arg.split("=", 1)[1]
         else:
             overrides.append(arg)
-    train(load_config(overrides, json_path=json_path), device=device)
+    cfg = load_config(overrides, json_path=json_path)
+    if "WORLD_SIZE" not in os.environ:  # not started by torchrun
+        train(cfg, device=device)
+        return
+    device = init_distributed(device=device)
+    try:
+        train(cfg, device=device)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ from framedipt_tpu_torch.model.kernels.edge_embedder import (
     rel_cp_factors,
 )
 from framedipt_tpu_torch.model.layers import Linear, LayerNorm, mlp3_layer_norm
+from framedipt_tpu_torch.parallel import sp
 from framedipt_tpu_torch.tools.config import ModelConfig
 
 F32 = torch.float32
@@ -86,7 +87,10 @@ class Embedder(nn.Module):
         node_mask: torch.Tensor,  # [B, N]
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(node_embed [B, N, C_s], edge_embed [B, N, N, C_z]); the edge
-        output already carries the edge mask node_mask_i * node_mask_j."""
+        output already carries the edge mask node_mask_i * node_mask_j.
+        Under sequence parallelism (``parallel/sp.py``) the edge output is
+        this rank's row block [B, ceil(N/sp), N, C_z]: the row inputs (g,
+        CA, i_term, mask) are its rows, the column inputs whole."""
         e = self.conf.embed
         dtype = self.dtype
         num_batch, num_res = seq_idx.shape
@@ -135,8 +139,9 @@ class Embedder(nn.Module):
         edge_embed = EdgeEmbedderFunction.apply(
             self.conf.ipa.pallas_emb_bwd_impl,
             tuple(float(x) for x in lower), tuple(float(x) for x in upper),
-            g.to(dtype).contiguous(), h.to(dtype).contiguous(), ca, ca,
-            i_term.contiguous(), j_term.contiguous(), mask, mask,
+            sp.local_rows(g.to(dtype)).contiguous(), h.to(dtype).contiguous(),
+            sp.local_rows(ca), ca, sp.local_rows(i_term).contiguous(), j_term.contiguous(),
+            sp.local_rows(mask), mask,
             expand_w_rel(w0[2 * c_t : 2 * c_t + n_rel]).contiguous(),
             w0[2 * c_t + n_rel :].contiguous(),
             b0, w1, b1, w2, b2, ln.weight, ln.bias,

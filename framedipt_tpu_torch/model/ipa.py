@@ -13,6 +13,13 @@ versions on CPU tensors. With ``model.ipa.use_pallas_ipa`` the IPA attention
 runs through the fused attention wrapper (``kernels/ipa_attention.py``) in
 the same way, forward only (it refuses to run where autograd records);
 without it, as einsums.
+
+Under sequence parallelism (``parallel/sp.py``) the pair tensor is this
+rank's row block: the IPA attends from this rank's query rows to every key,
+the edge transition's row terms are this rank's rows, and the trunk
+all-gathers each IPA block's output, so every node-level tensor is whole on
+every rank. The fused IPA attention kernel is refused there, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from framedipt_tpu_torch.geometry.rigid import Rigid
 from framedipt_tpu_torch.model.kernels.ipa_attention import build_point_inputs, ipa_attention
 from framedipt_tpu_torch.model.kernels.pair_mlp import PairMLPFunction
 from framedipt_tpu_torch.model.layers import Linear, LayerNorm
+from framedipt_tpu_torch.parallel import sp
 from framedipt_tpu_torch.tools.config import IPAConfig, ModelConfig
 
 F32 = torch.float32
@@ -85,12 +93,19 @@ class InvariantPointAttention(nn.Module):
 
     def forward(self, s: torch.Tensor, z: torch.Tensor, rigids: Rigid,
                 mask: torch.Tensor) -> torch.Tensor:
+        """[B, N, C_s]; under sequence parallelism ``z`` is this rank's row
+        block and the output its rows [B, ceil(N/sp), C_s]."""
         mats, trans = rigids.rot_mats(), rigids.trans
-        heads = self.project(s, mats, trans)
+        q, k, v, q_pts, k_pts, v_pts, pt_scale = self.project(s, mats, trans)
+        # The query side: this rank's rows under sequence parallelism.
+        q, q_pts, mats, trans, row_mask = (
+            sp.local_rows(x) for x in (q, q_pts, mats, trans, mask))
         if self.use_kernel:
-            o, o_pt_global, o_pair = self.attend_kernel(*heads, z, mask)
+            o, o_pt_global, o_pair = self.attend_kernel(
+                q, k, v, q_pts, k_pts, v_pts, pt_scale, z, mask)
         else:
-            o, o_pt_global, o_pair = self.attend_einsum(*heads, z, mask)
+            o, o_pt_global, o_pair = self.attend_einsum(
+                q, k, v, q_pts, k_pts, v_pts, pt_scale, z, mask, row_mask)
 
         o_pt = _invert_apply_frames(mats, trans, o_pt_global)
         o_pt_norm = torch.sqrt(torch.sum(o_pt**2, dim=-1) + self.eps)
@@ -119,11 +134,16 @@ class InvariantPointAttention(nn.Module):
         pt_scale = F.softplus(self.head_weights) * np.sqrt(1.0 / (3 * (Pq * 9.0 / 2)))
         return q, k, v, q_pts, k_pts, v_pts, pt_scale
 
-    def attend_einsum(self, q, k, v, q_pts, k_pts, v_pts, pt_scale, z, mask):
+    def attend_einsum(self, q, k, v, q_pts, k_pts, v_pts, pt_scale, z, mask, row_mask=None):
         """Attention as einsums (the JAX package's XLA formulation): returns
-        o [B,N,H*C], o_pt_global [B,N,H*Pv,3] and o_pair [B,N,H*dz], float32.
-        Fully masked rows get uniform-softmax values (node-masked downstream)."""
-        B, N, H, C = q.shape
+        o [B,Nr,H*C], o_pt_global [B,Nr,H*Pv,3] and o_pair [B,Nr,H*dz], float32,
+        for the Nr query rows of q, q_pts and z [B,Nr,N,C_z] against the N
+        keys; ``mask`` [B,N] masks the keys and ``row_mask`` [B,Nr] (default
+        ``mask``) the queries. Fully masked rows get uniform-softmax values
+        (node-masked downstream)."""
+        row_mask = mask if row_mask is None else row_mask
+        B, Nr, H, C = q.shape
+        N = k.shape[1]
         Pq, Pv = q_pts.shape[3], v_pts.shape[3]
         b = self.linear_b(z)  # [B, N, N, H]
         a = torch.einsum("bihc,bjhc->bhij", q.to(F32), k.to(F32))
@@ -133,7 +153,7 @@ class InvariantPointAttention(nn.Module):
         sq_q = torch.sum(q_pts**2, dim=(-1, -2))  # [B, N, H]
         sq_k = torch.sum(k_pts**2, dim=(-1, -2))
         qk_pts = torch.einsum(
-            "bihp,bjhp->bhij", q_pts.reshape(B, N, H, Pq * 3), k_pts.reshape(B, N, H, Pq * 3)
+            "bihp,bjhp->bhij", q_pts.reshape(B, Nr, H, Pq * 3), k_pts.reshape(B, N, H, Pq * 3)
         )
         sq_dist = (
             sq_q.permute(0, 2, 1)[..., :, None]
@@ -142,19 +162,19 @@ class InvariantPointAttention(nn.Module):
         )
         a = a + (-0.5) * pt_scale[None, :, None, None] * sq_dist
 
-        square_mask = self.inf * (mask[:, :, None] * mask[:, None, :] - 1.0)
+        square_mask = self.inf * (row_mask[:, :, None] * mask[:, None, :] - 1.0)
         a = torch.softmax(a + square_mask[:, None, :, :], dim=-1)
 
         o = torch.einsum(
             "bhij,bjhc->bihc", a.to(self.dtype).to(F32), v.to(F32)
-        ).reshape(B, N, H * C)
+        ).reshape(B, Nr, H * C)
         o_pt_global = torch.einsum(
             "bhij,bjhp->bihp", a, v_pts.reshape(B, N, H, Pv * 3)
-        ).reshape(B, N, H, Pv, 3).reshape(B, N, H * Pv, 3)
+        ).reshape(B, Nr, H, Pv, 3).reshape(B, Nr, H * Pv, 3)
         pair_z = self.down_z(z)
         o_pair = torch.einsum(
             "bhij,bijd->bihd", a.to(self.dtype).to(F32), pair_z.to(F32)
-        ).reshape(B, N, -1)
+        ).reshape(B, Nr, -1)
         return o, o_pt_global, o_pair
 
     def attend_kernel(self, q, k, v, q_pts, k_pts, v_pts, pt_scale, z, mask):
@@ -215,6 +235,8 @@ class EdgeTransition(nn.Module):
 
     def forward(self, node_embed: torch.Tensor, edge_embed: torch.Tensor,
                 node_mask: torch.Tensor) -> torch.Tensor:
+        """The updated edge tensor; under sequence parallelism ``edge_embed``
+        and the output are this rank's row block, and so are the row terms."""
         dtype, c_e, b = self.dtype, self.c_e, self.bias_size
         node_bias = self.initial_embed(node_embed)
         w0 = self.trunk[0].weight.t().to(dtype)  # [hidden, hidden] kernel layout
@@ -231,10 +253,11 @@ class EdgeTransition(nn.Module):
         fj = torch.matmul(node_bias, wf[c_e + b :])
         mask = node_mask.to(dtype).contiguous()
         return PairMLPFunction.apply(
-            edge_embed.contiguous(), i_term.contiguous(), j_term.contiguous(), mask, mask,
+            edge_embed.contiguous(), sp.local_rows(i_term).contiguous(), j_term.contiguous(),
+            sp.local_rows(mask), mask,
             w0[:c_e].contiguous(), b0, w1, b1, wf.contiguous(), bf,
             self.layer_norm.weight, self.layer_norm.bias,
-            fi.contiguous(), fj.contiguous(), wf[:c_e].contiguous(),
+            sp.local_rows(fi).contiguous(), fj.contiguous(), wf[:c_e].contiguous(),
         )
 
 
@@ -359,6 +382,11 @@ class IpaScore(nn.Module):
         diffuse_mask: torch.Tensor,  # [B, N]
     ) -> dict[str, torch.Tensor]:
         ipa, dtype, t = self.conf.ipa, self.dtype, self.trunk
+        if sp.active() is not None and any(t[f"ipa_{b}"].use_kernel for b in range(ipa.num_blocks)):
+            raise ValueError(
+                "sequence parallelism runs the edge-embedder and pair-MLP kernels on row "
+                "blocks but not the fused IPA attention kernel; set model.ipa.use_pallas_ipa=False"
+            )
         curr = Rigid.from_tensor7(rigids_t7).scale_trans(ipa.coordinate_scaling)
         init_node_embed = (init_node_embed * node_mask[..., None]).to(dtype)
         edge_embed = edge_embed.to(dtype)
@@ -366,7 +394,10 @@ class IpaScore(nn.Module):
         node_mask_c = node_mask[..., None].to(dtype)
 
         for b in range(ipa.num_blocks):
-            ipa_embed = t[f"ipa_{b}"](node_embed, edge_embed, curr, node_mask)
+            # Under sequence parallelism the block's rows are gathered from
+            # every rank: the trunk's one collective a block.
+            ipa_embed = sp.gather_rows(
+                t[f"ipa_{b}"](node_embed, edge_embed, curr, node_mask), node_embed.shape[1])
             node_embed = t[f"ipa_ln_{b}"](node_embed + ipa_embed * node_mask_c)
             skip = t[f"skip_embed_{b}"](init_node_embed)
             tfmr_out = t[f"seq_tfmr_{b}"](torch.cat([node_embed, skip], dim=-1), node_mask)

@@ -12,6 +12,8 @@ torch names.
 - :func:`synth_state_dict`: the test fixtures' weights, a pure function of
   each parameter's (name, shape), with the zero-initialized final layers
   damped so the trunk stays contractive.
+- :func:`cancelled_entries`: the entries whose gradient is 0 in exact
+  arithmetic, which comparisons of training runs leave out.
 """
 from __future__ import annotations
 
@@ -241,3 +243,27 @@ def synth_state_dict(model: torch.nn.Module, seed: int = 0) -> dict[str, torch.T
         name: torch.as_tensor(synth_value(name, tuple(t.shape), seed))
         for name, t in model.state_dict().items()
     }
+
+
+def cancelled_entries(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """Boolean masks, by parameter name, of the entries whose gradient is 0
+    in exact arithmetic: the IPA's key biases (the k half of each head of
+    ``linear_kv``), ``linear_b``'s bias and the sequence transformer's key
+    bias (the middle third of ``in_proj_bias``). Each adds one term to a
+    whole softmax row, which the softmax cancels, so its computed gradient
+    is float32 rounding noise, whose sign Adam follows with a step of lr."""
+    heads, c_hidden = model.conf.ipa.no_heads, model.conf.ipa.c_hidden
+    masks = {}
+    for name, p in model.named_parameters():
+        mask = np.zeros(tuple(p.shape), bool)
+        if name.endswith("linear_b.bias"):
+            mask[:] = True
+        elif name.endswith("linear_kv.bias"):
+            mask.reshape(heads, 2, c_hidden)[:, 0] = True
+        elif name.endswith("in_proj_bias"):
+            d = mask.shape[0] // 3
+            mask[d:2 * d] = True
+        else:
+            continue
+        masks[name] = mask
+    return masks

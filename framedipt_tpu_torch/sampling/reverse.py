@@ -8,8 +8,15 @@ rebuild; the trajectory is flipped at the end to start at t = 0. A model
 without self-conditioning skips the initial forward and keeps ``sc_ca_t``.
 With ``aux_traj`` the sampler also returns the model's x0 predictions as
 atom37, the frames and the translations of each step.
+
+With ``sp_mesh``, a ``(dp, sp)`` mesh (``parallel/sp.py``), the samples are
+split over ``dp`` and the edge stack's rows over ``sp``; every rank draws the
+noise of the whole batch and keeps its samples' rows, so the run equals the
+single-process run draw for draw, and every rank returns the whole batch.
 """
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -18,6 +25,11 @@ from framedipt_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
 from framedipt_tpu_torch.geometry import frames
 from framedipt_tpu_torch.geometry.rigid import Rigid
 from framedipt_tpu_torch.model.score_network import preprocess_aatype
+from framedipt_tpu_torch.parallel import sp
+from framedipt_tpu_torch.parallel.mesh import DP_AXIS, all_gather_rows
+
+if TYPE_CHECKING:
+    from torch.distributed.device_mesh import DeviceMesh
 
 F32 = torch.float32
 
@@ -34,6 +46,7 @@ def sample(
     inpainting: bool = False,
     input_aatype: bool = False,
     aux_traj: bool = False,
+    sp_mesh: DeviceMesh | None = None,
 ) -> dict[str, torch.Tensor]:
     """Run the sampler on ``feats`` (rigids_t [B,N,7], res_mask/fixed_mask
     [B,N], seq_idx [B,N], sc_ca_t [B,N,3], torsion_angles_sin_cos
@@ -45,7 +58,38 @@ def sample(
     model's x0 prediction at each step; rigid_traj [num_t + 1, B, N, 7], the
     frames after each step and the initial frames last; trans_traj
     [num_t, B, N, 3], the predicted translations in the diffused region and
-    the step's own in the fixed region."""
+    the step's own in the fixed region.
+
+    ``sp_mesh``: a ``(dp, sp)`` mesh from ``parallel.make_sp_mesh`` (every
+    rank calls with the same ``feats`` and generator seed), or None. The
+    fused IPA attention kernel (``model.ipa.use_pallas_ipa``) is refused
+    with it, as in the JAX package."""
+    if sp_mesh is not None and model.conf.ipa.use_pallas_ipa:
+        raise ValueError(
+            "sequence parallelism (sp_mesh) runs the edge-embedder and pair-MLP kernels "
+            "on row blocks but not the fused IPA attention kernel; set "
+            "model.ipa.use_pallas_ipa=False"
+        )
+    with sp.sp_context(sp_mesh):
+        return _sample(model, diffuser, feats, generator, num_t, min_t, noise_scale,
+                       inpainting, input_aatype, aux_traj, sp_mesh)
+
+
+def _sample(model, diffuser, feats, generator, num_t, min_t, noise_scale, inpainting,
+            input_aatype, aux_traj, sp_mesh):
+    global_batch = feats["res_mask"].shape[0]
+    dp_group = None
+    if sp_mesh is not None:
+        dp_size = sp_mesh.size(0)
+        if global_batch % dp_size:
+            raise ValueError(f"{global_batch} samples do not split over dp={dp_size}")
+        start = sp_mesh.get_local_rank(DP_AXIS) * (global_batch // dp_size)
+        rows = slice(start, start + global_batch // dp_size)
+        feats = {k: v[rows] for k, v in feats.items()}
+        dp_group = sp_mesh.get_group(DP_AXIS) if dp_size > 1 else None
+    else:
+        rows = slice(None)
+
     reverse_steps = np.linspace(min_t, 1.0, num_t)[::-1].astype(np.float32)
     dt = 1.0 / num_t
     min_t32 = np.float32(min_t)
@@ -78,8 +122,11 @@ def sample(
         rigid_pred = out["rigids"]
         if self_conditioning:
             sc_ca = rigid_pred[..., 4:]
-        z_rot = torch.randn(out["rot_score"].shape, generator=generator, device=device)
-        z_trans = torch.randn(out["trans_score"].shape, generator=generator, device=device)
+        # The whole batch's noise, drawn on every rank; this rank keeps its rows.
+        z_rot = torch.randn((global_batch,) + out["rot_score"].shape[1:], generator=generator,
+                            device=device)[rows]
+        z_trans = torch.randn((global_batch,) + out["trans_score"].shape[1:],
+                              generator=generator, device=device)[rows]
         if t > min_t32:
             rigids_t7 = diffuser.reverse(
                 Rigid.from_tensor7(rigids_t7), out["rot_score"], out["trans_score"],
@@ -112,4 +159,9 @@ def sample(
         out["rigid_0_traj"] = torch.stack(x0_traj[::-1])
         out["rigid_traj"] = torch.stack(rigid_traj[::-1] + [feats["rigids_t"].to(F32)])
         out["trans_traj"] = torch.stack(trans_traj[::-1])
+    if dp_group is not None:
+        # Every rank returns the whole batch: dim 0 of final_rigids, 1 of the rest.
+        for k, v in out.items():
+            dim = 0 if k == "final_rigids" else 1
+            out[k] = all_gather_rows(v.movedim(dim, 0), dp_group).movedim(0, dim)
     return out

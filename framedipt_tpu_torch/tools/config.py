@@ -228,8 +228,8 @@ class RecycleConfig:
 @dataclass
 class ExperimentConfig:
     """The JAX ExperimentConfig's fields that the train step and the train
-    CLI read, with its defaults. One card: ``dp_size`` -1 or 1 and
-    ``fsdp_size`` 1 (:func:`check_single_device`)."""
+    CLI read, with its defaults. ``dp_size`` x ``fsdp_size`` is the number of
+    processes, one per GPU (``parallel.make_mesh``; -1: all of them)."""
 
     name: str = "baseline"
     inpainting: bool = False
@@ -395,17 +395,6 @@ def check_emb_bwd_impl(cfg: Config) -> None:
     impl = cfg.model.ipa.pallas_emb_bwd_impl
     if impl not in ("xla", "pallas"):
         raise ValueError(f"model.ipa.pallas_emb_bwd_impl must be 'xla' or 'pallas', got {impl!r}")
-
-
-def check_single_device(cfg: Config) -> None:
-    """The port trains on one card: ``experiment.dp_size`` -1 (all devices,
-    here one) or 1, and ``experiment.fsdp_size`` 1."""
-    exp = cfg.experiment
-    if exp.dp_size not in (-1, 1) or exp.fsdp_size != 1:
-        raise ValueError(
-            f"experiment.dp_size={exp.dp_size}, fsdp_size={exp.fsdp_size}: the port trains "
-            "on one card (dp_size -1 or 1, fsdp_size 1); multi-GPU is ROADMAP queue 1 item 4"
-        )
 
 
 def to_dict(cfg: Any) -> dict[str, Any]:

@@ -80,12 +80,15 @@ def run_training_eval(
     step: int,
     generator: torch.Generator,
     out_dir: str | pathlib.Path | None = None,
+    write: bool = True,
 ) -> dict[str, float]:
     """Sample ``samples_per_eval_length`` backbones at each eval length,
     write them under ``<out_dir>/step_<step>/length_<L>/`` (``out_dir``
     defaults to ``experiment.eval_dir``; the train loop passes
     ``eval_dir/<run name>``) and return the metrics averaged over all
-    samples, each key prefixed ``eval_``."""
+    samples, each key prefixed ``eval_``. ``write=False`` samples and
+    measures without writing (the ranks other than 0 of a distributed run,
+    which sample too: an FSDP forward gathers every rank's parameters)."""
     out_root = pathlib.Path(out_dir if out_dir is not None else cfg.experiment.eval_dir)
     out_root = out_root / f"step_{step}"
     total = int(cfg.data.samples_per_eval_length)
@@ -101,10 +104,12 @@ def run_training_eval(
             atom37 = out["prot_traj"][0].float().cpu().numpy()[:, :length]
             samples.extend(atom37[: total - len(samples)])
         length_dir = out_root / f"length_{length}"
-        length_dir.mkdir(parents=True, exist_ok=True)
+        if write:
+            length_dir.mkdir(parents=True, exist_ok=True)
         for i, pos in enumerate(samples):
             mask37 = np.any(pos != 0.0, axis=-1)
-            write_prot_to_pdb(pos, length_dir / f"sample_{i}", no_indexing=False)
+            if write:
+                write_prot_to_pdb(pos, length_dir / f"sample_{i}", no_indexing=False)
             ca = pos[:, 1]
             dev, valid = an_metrics.ca_ca_distance(ca)
             _, clash_frac = an_metrics.ca_ca_clashes(ca)
@@ -115,5 +120,6 @@ def run_training_eval(
                 **dssp_lib.ss_metrics_from_atom37(pos, mask37),
             })
     agg = {f"eval_{k}": float(np.mean([r[k] for r in rows])) for k in rows[0]}
-    logger.info(f"eval step {step}: {agg}")
+    if write:
+        logger.info(f"eval step {step}: {agg}")
     return agg

@@ -8,22 +8,34 @@ The port of the JAX package's ``train/loop.py``. Randomness comes from one
 forward marginal (rotations, then translation noise), the recycle path's
 marginal and reverse-step noises, the self-conditioning coin. The model runs
 on CUDA unless it was built on the CPU (:func:`make_trainer`).
+
+With a ``(dp, fsdp)`` mesh (``parallel/mesh.py``) every rank gets the whole
+batch, draws all of its randomness in that order from the same seeded
+generator, as the JAX package splits one key over the global array, and
+keeps its own rows for the model. The loss stays the mean over the whole
+batch (DDP and FSDP average the ranks' gradients of equal-sized blocks), the
+gradient norm is the full gradient's, and the metrics are the whole batch's.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 import torch
+import torch.distributed as dist
 
 from framedipt_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
 from framedipt_tpu_torch.geometry import frames
 from framedipt_tpu_torch.geometry.rigid import Rigid
 from framedipt_tpu_torch.model.score_network import ScoreNetwork
 from framedipt_tpu_torch.model.weights import init_state_dict
+from framedipt_tpu_torch.parallel.mesh import all_gather_rows, shard_batch, shard_params
 from framedipt_tpu_torch.tools.config import Config, check_emb_bwd_impl, resolve_kernel_flags
 from framedipt_tpu_torch.tools.device import resolve_device
 from framedipt_tpu_torch.train.losses import score_matching_losses
+
+if TYPE_CHECKING:
+    from torch.distributed.device_mesh import DeviceMesh
 
 F32 = torch.float32
 
@@ -33,7 +45,9 @@ class ClippedAdam(torch.optim.Adam):
     after clipping the gradients by their global norm as
     ``optax.clip_by_global_norm`` does: g * max_norm / norm where norm >=
     max_norm, no epsilon; a ``max_grad_norm`` <= 0 clips nothing.
-    :meth:`step` returns the norm before clipping."""
+    :meth:`step` returns the norm before clipping. Gradients sharded by FSDP
+    (DTensors) are clipped by the norm of the full gradient: the squared
+    norms of the local shards summed over the shard groups."""
 
     def __init__(self, params, lr: float, max_grad_norm: float = 10.0,
                  betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8) -> None:
@@ -41,17 +55,30 @@ class ClippedAdam(torch.optim.Adam):
         self.max_grad_norm = max_grad_norm
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self, closure=None) -> torch.Tensor:
         grads = [p.grad for group in self.param_groups for p in group["params"]
                  if p.grad is not None]
+        sharded = None
+        if dist.is_initialized():  # only FSDP gives DTensors; imported only then
+            from torch.distributed.tensor import DTensor
+
+            sharded = next((g for g in grads if isinstance(g, DTensor)), None)
+        if sharded is not None:
+            grads = [g.to_local() for g in grads]
         # Multi-tensor ops: a few launches for all gradients, none per tensor.
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if sharded is not None:
+            squared = norm * norm
+            for dim, placement in enumerate(sharded.placements):
+                if placement.is_shard():
+                    dist.all_reduce(squared, group=sharded.device_mesh.get_group(dim))
+            norm = torch.sqrt(squared)
         if self.max_grad_norm > 0:
             clip = norm >= self.max_grad_norm
             one = torch.ones_like(norm)
             torch._foreach_mul_(grads, torch.where(clip, self.max_grad_norm * one, one))
             torch._foreach_div_(grads, torch.where(clip, norm, one))
-        super().step()
+        super().step(closure)
         return norm
 
 
@@ -81,9 +108,12 @@ def build_train_step(
     diffuser: SE3Diffuser,
     cfg: Config,
     optimizer: ClippedAdam,
+    mesh: DeviceMesh | None = None,
 ) -> Callable[[dict, torch.Generator], dict]:
     """Returns ``train_step(batch, generator) -> metrics``, which updates the
-    model's parameters in place.
+    model's parameters in place. ``model`` is the module to call: with a
+    ``mesh``, the one :func:`parallel.shard_params` returns, and every rank
+    passes the whole batch and a generator in the same state.
 
     ``batch`` (tensors on the model's device): rigids_0 [B,N,7], res_mask,
     fixed_mask, seq_idx [B,N], torsion_angles_sin_cos [B,N,7,2], optional
@@ -94,6 +124,10 @@ def build_train_step(
     min_t = cfg.data.min_t
     device = next(model.parameters()).device
     check_emb_bwd_impl(cfg)
+
+    def local(x):
+        """This rank's rows of a whole-batch tensor or dict."""
+        return None if x is None else shard_batch(mesh, x)
 
     def diffuse_mask_of(batch):
         return (1.0 - batch["fixed_mask"].to(F32)) * batch["res_mask"].to(F32)
@@ -108,9 +142,10 @@ def build_train_step(
         rigids_0 = Rigid.from_tensor7(batch["rigids_0"].to(F32))
         return t, diffuser.forward_marginal(generator, rigids_0, t, diffuse_mask_of(batch))
 
-    def recycle_rigids(batch, t, generator):
+    def recycle_rigids(batch, rows, t, generator):
         """Noise to a later time ('max' -> t=1, 'next' -> t+dt), run the
-        model without gradient, take one reverse step back to t."""
+        model without gradient, take one reverse step back to t. Draws over
+        the whole ``batch``; returns the frames of its rows ``rows``."""
         dt = 1.0 / cfg.data.num_t
         if exp_conf.recycle.mode == "max":
             t_recycle = torch.ones_like(t)
@@ -120,23 +155,27 @@ def build_train_step(
         marg_r = diffuser.forward_marginal(
             generator, Rigid.from_tensor7(batch["rigids_0"].to(F32)), t_recycle, diffuse_mask
         )
-        rigids_r7 = marg_r.rigids_t.to_tensor7()
+        rigids_r7, t_recycle = local(marg_r.rigids_t.to_tensor7()), local(t_recycle)
         with torch.no_grad():
-            out_r = model(build_model_feats(batch, rigids_r7, t_recycle,
+            out_r = model(build_model_feats(rows, rigids_r7, t_recycle,
                                             torch.zeros_like(rigids_r7[..., 4:])))
-        z_rot = torch.randn(out_r["rot_score"].shape, generator=generator, device=device)
-        z_trans = torch.randn(out_r["trans_score"].shape, generator=generator, device=device)
+        size = batch["res_mask"].shape[0]
+        z_rot = local(torch.randn((size,) + out_r["rot_score"].shape[1:], generator=generator,
+                                  device=device))
+        z_trans = local(torch.randn((size,) + out_r["trans_score"].shape[1:],
+                                    generator=generator, device=device))
         return diffuser.reverse(
-            marg_r.rigids_t, out_r["rot_score"], out_r["trans_score"],
-            t_recycle[:, None, None], dt, z_rot, z_trans, diffuse_mask=diffuse_mask,
+            Rigid.from_tensor7(rigids_r7), out_r["rot_score"], out_r["trans_score"],
+            t_recycle[:, None, None], dt, z_rot, z_trans, diffuse_mask=local(diffuse_mask),
         ).to_tensor7()
 
-    def loss_fn(batch, generator):
-        t, marg = noise_batch(batch, generator)
-        rigids_t7 = marg.rigids_t.to_tensor7()
-        trans_score_target, rot_score_target = marg.trans_score, marg.rot_score
+    def loss_fn(whole, generator):
+        t_whole, marg = noise_batch(whole, generator)
+        batch, t = local(whole), local(t_whole)
+        rigids_t7 = local(marg.rigids_t.to_tensor7())
+        trans_score_target, rot_score_target = local(marg.trans_score), local(marg.rot_score)
         if exp_conf.recycle.enabled:
-            rigids_t7 = recycle_rigids(batch, t, generator)
+            rigids_t7 = recycle_rigids(whole, batch, t_whole, generator)
             # The recycled frames are another x_t than the marginal's draw:
             # recompute the score targets against them.
             r0 = batch["rigids_0"].to(F32)
@@ -166,8 +205,8 @@ def build_train_step(
             "t": t,
             "trans_score": trans_score_target,
             "rot_score": rot_score_target,
-            "trans_score_scaling": marg.trans_score_scaling,
-            "rot_score_scaling": marg.rot_score_scaling,
+            "trans_score_scaling": local(marg.trans_score_scaling),
+            "rot_score_scaling": local(marg.rot_score_scaling),
             "atom14_gt": atom14_gt,
         }
         total, terms = score_matching_losses(
@@ -185,28 +224,41 @@ def build_train_step(
         terms["t"] = t
         return total, terms, self_conditioned
 
+    def whole_batch(terms: dict) -> dict:
+        """The metrics of the whole batch from every rank's: per-example
+        ones all-gathered in rank order, means averaged over the ranks."""
+        if mesh is None:
+            return terms
+        means = [k for k, v in terms.items() if v.ndim == 0]
+        rows = [k for k, v in terms.items() if v.ndim == 1]
+        avg = torch.stack([terms[k] for k in means])
+        dist.all_reduce(avg)
+        avg /= dist.get_world_size()
+        per_example = all_gather_rows(torch.stack([terms[k] for k in rows], dim=1))
+        return {**dict(zip(means, avg)), **{k: per_example[:, i] for i, k in enumerate(rows)}}
+
     def train_step(batch: dict, generator: torch.Generator) -> dict:
         optimizer.zero_grad(set_to_none=True)
         loss, terms, self_conditioned = loss_fn(batch, generator)
         loss.backward()
         grad_norm = optimizer.step()
-        return {
-            "loss": loss.detach(),
-            "grad_norm": grad_norm,
-            **{k: v.detach() for k, v in terms.items()},
-            "self_conditioned": self_conditioned,
-        }
+        terms = whole_batch({"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}})
+        return {**terms, "grad_norm": grad_norm, "self_conditioned": self_conditioned}
 
     return train_step
 
 
 def make_trainer(cfg: Config, device: str | torch.device | None = None,
-                 state_dict: dict | None = None, seed: int = 0) -> SimpleNamespace:
+                 state_dict: dict | None = None, seed: int = 0,
+                 mesh: DeviceMesh | None = None) -> SimpleNamespace:
     """A model, diffuser, optimizer and train step for ``cfg`` on ``device``
     (CUDA unless asked otherwise), with ``state_dict`` or the JAX package's
     initialization drawn from ``seed`` (``init_state_dict``, as
     ``init_train_state`` runs ``model.init``). Resolves the kernel flags as
-    training does (``use_pallas_ipa=None`` -> False)."""
+    training does (``use_pallas_ipa=None`` -> False). With a ``mesh`` the
+    model is wrapped by :func:`parallel.shard_params` (``trainer.model`` stays
+    the module whose state_dict names the reference's) and the step splits
+    the batch over it."""
     dev = resolve_device(device)
     resolve_kernel_flags(cfg, dev)
     diffuser = SE3Diffuser(cfg.diffuser, device=dev)
@@ -215,7 +267,8 @@ def make_trainer(cfg: Config, device: str | torch.device | None = None,
                           else init_state_dict(model, torch.Generator().manual_seed(seed)),
                           strict=True)
     model.to(dev)
+    wrapped = shard_params(mesh, model)
     optimizer = make_optimizer(model.parameters(), cfg.experiment.learning_rate)
-    step = build_train_step(model, diffuser, cfg, optimizer)
+    step = build_train_step(wrapped, diffuser, cfg, optimizer, mesh)
     return SimpleNamespace(model=model, diffuser=diffuser, optimizer=optimizer, step=step,
                            device=dev)

@@ -166,6 +166,33 @@ def test_cuda_kernels_match_plain_versions(dtype):
         assert t_emb.edge_embedder.launches == before + 1
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_row_blocks_match_the_full_launch(dtype):
+    """On the card: the last rank's row block at sp=4 of a ragged N=230
+    (56 rows of 58, two padded), as the sequence-parallel sampler launches
+    it, through both kernels against the same rows of the full launch (bits
+    equal), its padded rows 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from framedipt_tpu_torch.parallel.sp import row_block
+
+    rng = np.random.default_rng(3)
+    n, size, index, rows = 230, 4, 3, 58
+    pair = [None if a is None else a.cuda()
+            for a in pair_to_torch(pair_args(rng, 2, n, 128, 384, 128, True), dtype)]
+    emb, bins = emb_args(rng, 2, n, 128, 22)
+    emb = [a.cuda() for a in emb_to_torch(emb, dtype)]
+    for fn, args, row_side, extra in ((t_pair.pair_mlp, pair, (0, 1, 3, 13), ()),
+                                      (t_emb.edge_embedder, emb, (0, 2, 4, 6), bins)):
+        full = fn(*args, *extra)
+        block = fn(*[row_block(a, index, size) if i in row_side else a
+                     for i, a in enumerate(args)], *extra)
+        assert block.shape == (2, rows) + full.shape[2:]
+        assert torch.equal(block[:, :n - index * rows], full[:, index * rows:])
+        assert not block[:, n - index * rows:].any()
+
+
 def assert_grads_close(got, want, tol, names=None):
     """Each gradient (a tensor or an array) within tol of its reference on
     the scale max(1, its own max-abs): a gradient summed over the pair grid

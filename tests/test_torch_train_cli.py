@@ -325,9 +325,10 @@ def test_cli_refuses_more_than_one_card_and_runs_on_the_cpu(data_dir, tmp_path):
         ("experiment.eval_freq", 1000), ("diffuser.so3.num_omega", 50),
         ("diffuser.so3.num_sigma", 20), ("diffuser.so3.cache_dir", "null"),
     )] + [f"model.{k}={v}" for k, v in TINY.items()]
-    with pytest.raises(ValueError, match="one card"):
+    # Without torchrun the process runs alone: dp x fsdp above 1 is refused.
+    with pytest.raises(ValueError, match="runs alone.*torchrun"):
         main(["--device=cpu", "experiment.dp_size=4"] + args)
-    with pytest.raises(ValueError, match="one card"):
+    with pytest.raises(ValueError, match="runs alone.*torchrun"):
         main(["--device=cpu", "experiment.fsdp_size=2"] + args)
     main(["--device=cpu"] + args)
     assert latest_checkpoint(tmp_path / "c" / "baseline").name == "step_1"
