@@ -21,13 +21,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    a fully masked row, every kernel with two launches giving the same bits,
    with random non-zero weights; time the kernel, the plain version and
    compute the bound (on the tensor cores, 3xTF32 in float32, with the
-   CUDA-core bound beside it, and the earlier CUDA-core kernel's time; the
-   pair MLP's also beside its time before its product code was shared with
-   the edge embedder; the IPA attention's device ms also by CUDA kernel:
-   pair projection, attention, the splits merged with o_pair); the edge
-   embedder without distance bins, in both dtypes; and the IPA module's kernel
-   branch against its einsum branch at B=2 N=256, both timed (CUDA events,
-   and their summed device time under torch.profiler);
+   CUDA-core bound beside it; the IPA attention's device ms also by CUDA
+   kernel: pair projection, attention, the splits merged with o_pair); the
+   pair MLP's two float32 forwards apart, each at every shape: the mma.sync
+   kernel (``csrc/pair_mlp.cu``, the forward autograd differentiates, also
+   in bf16) and the wgmma kernel (``csrc/pair_mlp_wg.cu``, the forward no
+   gradient is taken through), the wgmma kernel at B=2 N=256 and N=896 also
+   beside the mma.sync kernel's time in the same run and the card's name and
+   power limit; how the tensor cores read a raw float32 operand as TF32 (a
+   probe), the wgmma kernel's weight split against ``wgmma_weight_split``
+   bit for bit, and its library's HGMMA and UTMALDG instruction counts
+   (``cuobjdump -sass``); the edge embedder without distance bins, in both
+   dtypes; and the IPA module's kernel branch against its einsum branch at
+   B=2 N=256, both timed (CUDA events, and their summed device time under
+   torch.profiler);
 4. one full-width forward (default config, N=128) against the recorded
    reference activations in ``tests/parity/fixtures/recorded_full_parity.npz``,
    with the IPA attention as einsums and again through its kernel
@@ -37,7 +44,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    seeded), send three /inpaint requests
    (buckets 256 and 128, two samples each, num_t=100 for two of them), and
    check residue count, finite coordinates, the fixed residues' CA against the
-   input, and the kernels' launch counts per request (no IPA launch); then a
+   input, and the kernels' launch counts per request (no IPA launch; every
+   pair-MLP launch on the wgmma kernel); then a
    second service with ``model.ipa.use_pallas_ipa=true`` and two requests
    (bucket 256 num_t=100, bucket 128 num_t=25), 4 (num_t + 1) IPA launches
    each, and the first request once more on the default service (request
@@ -54,7 +62,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    version and against the step with the ``xla`` embedder backward (loss
    and every gradient), then 10 steps at lr 1e-4 (finite loss and grad
    norm, parameters moved, 3 pair-MLP and 1 embedder backward launches a
-   step); the same step in bf16 (``model.compute_dtype=bfloat16``): its
+   step, the autograd forward's 3 pair-MLP launches on the mma.sync kernel
+   and the self-conditioning forward's 3 on the wgmma kernel); the same step
+   in bf16 (``model.compute_dtype=bfloat16``): its
    first step's loss within 5e-2 of the plain-version bf16 step's, each
    gradient's error against its max-abs printed, then 3 steps (finite, the
    same launches); the step time, examples/s and peak memory of the three
@@ -168,14 +178,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
     rank starts (NCCL where every rank has a card of its own, else gloo with
     two ranks on the one card), each part spawned under a time limit of its
     own: (a) in one process, each rank's row block at sp 2 and 4 (B=2, N=896
-    and the ragged N=230, float32 and bf16) through the pair-MLP and
-    edge-embedder kernels against the same rows of the full launch (largest
+    and the ragged N=230, float32 and bf16) through the pair-MLP kernels
+    (the wgmma one in float32) and the edge-embedder kernel against the same
+    rows of the full launch (largest
     difference within the kernel tolerance, bits equal or not, padded rows
     0), each block timed beside the full launch; (b) the sequence-parallel
     sampler, two ranks at sp=2, full width, B=2, N=896, num_t 10, the test
     fixtures' weights, against the one-process sampler on the card
     (final_rigids 2e-5, prot_traj 2e-4), the ranks' final_rigids bit-equal,
-    the launches a rank (embedder num_t+1, pair MLP 3 (num_t+1), no IPA),
+    the launches a rank (embedder num_t+1, the wgmma pair MLP 3 (num_t+1),
+    no mma.sync pair MLP, no IPA),
     each rank's peak memory beside the one process's, seconds a forward;
     (c) the train step at dp=2, global B=4, N=256, float32, 3 steps from the
     fixtures' weights with Adam's eps at 1e-3 against the one-process step
@@ -207,7 +219,8 @@ tolerance of 0 (float32 1e-4, bf16 5e-2; the count of such sites and the
 largest there are printed).
 
 The last two lines are a JSON object with one entry per kernel (its
-``launches`` from the path that runs it first: phases 5, 6 and 7;
+``launches`` from the path that runs it first: phases 5, 6 and 7, the
+pair MLP's mma.sync kernel from phase 6's steps;
 ``inference_cli_launches`` from phase 8's batched run,
 ``denovo_cli_launches`` from phase 10's de novo run,
 ``database_cli_launches`` from phase 12's database flow, ``sp_launches``
@@ -239,16 +252,7 @@ PEAK_BYTES = 3.35e12
 # A kernel whose float32 products run on the tensor cores as 3xTF32 does
 # three TF32 products (495 TFLOP/s) for each float32 one.
 TENSOR_CORE_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-TENSOR_CORE_KERNELS = ("pair_mlp", "ipa_attention", "edge_embedder")
-# The earlier CUDA-core kernels at B=2 N=256 (PERF.md section 6; NVIDIA H100
-# 80GB HBM3, 700 W), printed for reference.
-CUDA_CORE_MS = {"pair_mlp": {torch.float32: 2.4049, torch.bfloat16: 2.5462},
-                "ipa_attention": {torch.float32: 0.2918, torch.bfloat16: 0.3040},
-                "edge_embedder": {torch.float32: 0.4104, torch.bfloat16: 0.4029}}
-# The pair-MLP forward's times at B=2 N=256 before its product code was
-# shared with the edge embedder (PERF.md section 6; NVIDIA H100 80GB HBM3,
-# 700 W), printed beside this run's: the shared code computes the same bits.
-PAIR_MLP_EARLIER_MS = {torch.float32: 1.9287, torch.bfloat16: 0.8782}
+TENSOR_CORE_KERNELS = ("pair_mlp", "pair_mlp_wg", "ipa_attention", "edge_embedder")
 # The IPA attention's CUDA kernels by name: kernel P (pair projection),
 # kernel S (attention), kernel F (the key splits merged, o_pair).
 IPA_PARTS = (("P", "pair_proj_kernel"), ("S", "attend_kernel"), ("F", "finish_kernel"))
@@ -440,29 +444,39 @@ def check_kernels() -> dict[str, dict]:
     )
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp, pair_mlp_plain
 
+    def pair_mlp_mma(*args):  # the forward that autograd differentiates: csrc/pair_mlp.cu
+        return pair_mlp(*args, needs_grad=True)
+
     ipa_kw = {"no_heads": IPA_H, "no_v_points": IPA_PV}
+    both = (torch.float32, torch.bfloat16)
     serving_shapes = ((1, 256), (2, 200), (2, 128), (2, 256))
     # Phase 8's: the CLI's batch of two samples at bucket 896, and the
     # confidence score's one sample.
     cli_shapes = ((2, 896), (1, 896))
     # Phase 10's de novo samples: one structure of exactly N residues.
     denovo_shapes = ((1, 100), (1, 500))
+    edge_shapes = serving_shapes + cli_shapes + denovo_shapes + ((1, 1), (1, 17))
     kernels = {
         # Tiny and ragged shapes too: one pair, one partial tile.
         "edge_embedder": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
-                          edge_embedder_cost,
-                          serving_shapes + cli_shapes + denovo_shapes + ((1, 1), (1, 17))),
-        "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost,
-                     serving_shapes + cli_shapes + denovo_shapes + ((1, 1), (1, 17))),
+                          edge_embedder_cost, edge_shapes, both),
+        # The pair MLP's two forwards: csrc/pair_mlp.cu (mma.sync; the
+        # differentiated float32 forward and every bf16 one) and
+        # csrc/pair_mlp_wg.cu (wgmma; the float32 forward that no gradient
+        # is taken through), each as pair_mlp's route picks it.
+        "pair_mlp": (pair_mlp_mma, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, edge_shapes,
+                     both),
+        "pair_mlp_wg": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, edge_shapes,
+                        (torch.float32,)),
         "ipa_attention": (lambda *a: ipa_attention(*a, **ipa_kw),
                           lambda *a: ipa_attention_plain(*a, **ipa_kw),
                           ipa_attention_inputs, ipa_attention_cost,
-                          serving_shapes + ((1, 1), (1, 17), (1, 512), (1, 768))),
+                          serving_shapes + ((1, 1), (1, 17), (1, 512), (1, 768)), both),
     }
     serving = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, (kernel, plain, make, cost, shapes) in kernels.items():
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, (kernel, plain, make, cost, shapes, dtypes) in kernels.items():
+        for dtype in dtypes:
             # (2, 128) and (2, 256) are the serving shapes of phase 5.
             for B, N in shapes:
                 args = make(B, N, dtype, gen)
@@ -492,10 +506,10 @@ def check_kernels() -> dict[str, dict]:
                 if tensor_cores and dtype == torch.float32:
                     line += (f"; 3xTF32 bound, CUDA-core bound "
                              f"{bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms")
-                if tensor_cores and (B, N) == (2, 256) and dtype in CUDA_CORE_MS[name]:
-                    line += f"; CUDA-core kernel (PERF.md) {CUDA_CORE_MS[name][dtype]} ms"
-                if name == "pair_mlp" and (B, N) == (2, 256):
-                    line += f"; before the shared product code (PERF.md) {PAIR_MLP_EARLIER_MS[dtype]} ms"
+                if name == "pair_mlp_wg" and (B, N) in ((2, 256), (2, 896)):
+                    mma_ms = cuda_time_ms(lambda: pair_mlp_mma(*args), 20)
+                    line += (f"; the mma.sync forward (csrc/pair_mlp.cu) {mma_ms:.4f} ms in this "
+                             f"run; {ms / bound_ms:.2f}x the bound; {card_line()}")
                 line += "; two launches bit-identical"
                 if name == "ipa_attention":
                     line += ipa_parts_line(kernel, args, B, N)
@@ -510,9 +524,12 @@ def check_kernels() -> dict[str, dict]:
     # The plain-MLP variant (no residual terms) of the pair-MLP kernel, and
     # the edge embedder with no distance bins (a model without the
     # self-conditioning distogram).
-    checks = [(f"pair_mlp residual=False {str(dtype)[6:]} B={B} N={N}", pair_mlp, pair_mlp_plain,
+    checks = [(f"pair_mlp residual=False {str(dtype)[6:]} B={B} N={N}", pair_mlp_mma, pair_mlp_plain,
                pair_mlp_inputs(B, N, dtype, gen, residual=False), TOL[dtype])
-              for dtype in (torch.float32, torch.bfloat16) for B, N in ((1, 17), (2, 200))]
+              for dtype in both for B, N in ((1, 17), (2, 200))]
+    checks += [(f"pair_mlp_wg residual=False float32 B={B} N={N}", pair_mlp, pair_mlp_plain,
+                pair_mlp_inputs(B, N, torch.float32, gen, residual=False), TOL[torch.float32])
+               for B, N in ((1, 17), (2, 200))]
     checks += [(f"edge_embedder n_bins=0 {str(dtype)[6:]} B=2 N=200", edge_embedder,
                 edge_embedder_plain, edge_embedder_inputs(2, 200, dtype, gen, n_bins=0), TOL[dtype])
                for dtype in (torch.float32, torch.bfloat16)]
@@ -525,7 +542,61 @@ def check_kernels() -> dict[str, dict]:
         if not torch.equal(got, kernel(*args)):
             raise AssertionError(f"{label}: two launches differ")
     torch.cuda.synchronize()
+    check_wgmma_pieces(gen)
     return serving
+
+
+def check_wgmma_pieces(gen) -> None:
+    """The wgmma forward's pieces on the card: how the tensor cores read a
+    float32 operand that is not a TF32 value (one wgmma with b's raw values;
+    the kernel hands it TF32 values, so either reading gives its bits), the
+    weights' TF32 parts its first step writes (equal to wgmma_weight_split's,
+    bit for bit), and the HGMMA and UTMALDG instructions in its library."""
+    from framedipt_tpu_torch.model.kernels import build
+    from framedipt_tpu_torch.model.kernels import pair_mlp as pm
+
+    a = torch.zeros(64, 8, device="cuda")
+    a[torch.arange(64), torch.arange(64) % 8] = 1.0  # d[r, n] = b'[n, r % 8]
+    b = torch.randn(64, 8, generator=gen, device="cuda") * 3.0
+    d = pm.wgmma_tf32_probe(a, b)
+    read = torch.stack([d[r] for r in range(8)], 1)  # [n, k]
+    if not all(torch.equal(d[r], d[r % 8]) for r in range(64)):
+        raise AssertionError("wgmma TF32 probe: rows of d disagree (fragment layout)")
+    bits = b.view(torch.int32)
+    truncated = torch.equal(read, (bits & ~0x1FFF).view(torch.float32))
+    rounded = torch.equal(read, pm.tf32_rna(b))
+    log(f"wgmma TF32 probe: a raw float32 operand reads as TF32 "
+        + ("truncated (low 13 bits dropped)" if truncated else
+           "rounded to nearest, ties away" if rounded else "neither truncated nor rounded"))
+    if not (truncated or rounded):
+        raise AssertionError("wgmma TF32 probe: unexpected reading of a float32 operand")
+    # The C entry with scratch of our own, to read what the first step wrote.
+    args = pair_mlp_inputs(2, 17, torch.float32, gen)
+    (pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj,
+     wfe) = args
+    split = torch.full((pm.WG_SPLIT_FLOATS,), float("nan"), device="cuda")
+    out = torch.empty(2, 17, 17, 128, device="cuda")
+    err = pm._wg_kernel()(
+        1, *(t.data_ptr() for t in (pair, i_term, j_term, fi, fj, row_mask, col_mask, w0, b0, w1,
+                                    b1, wf, bf, wfe, ln_scale, ln_bias, out, split)),
+        2, 17, 17, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    want = pm.wgmma_weight_split(w0.cpu(), w1.cpu(), wf.cpu(), wfe.cpu())
+    same_split = err == 0 and torch.equal(split.cpu().view(torch.int32), want.view(torch.int32))
+    same_out = err == 0 and torch.equal(out, pm.pair_mlp(*args))
+    log(f"wgmma forward's first step: the weights' TF32 parts equal wgmma_weight_split's bit for "
+        f"bit: {same_split}; the output equals the wrapper's: {same_out}")
+    if not (same_split and same_out):
+        raise AssertionError(f"wgmma forward's scratch or output (cudaError_t {err})")
+    lib = build._lib_path("pair_mlp_wg")
+    cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120).stdout.splitlines()
+    counts = {op: sum(op in line for line in sass) for op in ("HGMMA", "UTMALDG")}
+    log(f"{lib.name}: {counts['HGMMA']} HGMMA and {counts['UTMALDG']} UTMALDG instructions "
+        "(cuobjdump -sass)")
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        raise AssertionError("the wgmma forward's library has no HGMMA or no UTMALDG")
 
 
 # The pair-MLP backward: kernel A (recompute and input-gradient chain) and
@@ -651,7 +722,9 @@ def check_pair_mlp_bwd() -> dict:
                      f"chunks={len(chunks)} (workspace "
                      f"{4 * split_workspace_floats(max(b - a for a, b in chunks) * N, dtype)} bytes)")
             worst_rel, worst_abs = grad_errors(got, ref, label)
-            fwd_diff = float((rec["out"].float() - pair_mlp(*args).float()).abs().max())
+            # The forward that the training step launches (and differentiates).
+            fwd = pair_mlp(*args, needs_grad=True)
+            fwd_diff = float((rec["out"].float() - fwd.float()).abs().max())
             n_flips, flip_max = relu_flips(*_pre_norm(*args[:3], *args[5:11], *args[13:])[:2], rec)
             own_rel = grad_errors(got, pair_mlp_bwd_plain(g, *args), label)[0]
             line = (f"{label}: max err {worst_abs:.3e} abs, {worst_rel:.3e} of the gradient's "
@@ -964,17 +1037,36 @@ def helix_pdb(n_res: int, seed: int) -> str:
     ))
 
 
-KERNEL_NAMES = ("edge_embedder", "pair_mlp", "ipa_attention", "pair_mlp_bwd", "edge_embedder_bwd")
+KERNEL_NAMES = ("edge_embedder", "pair_mlp", "pair_mlp_wg", "ipa_attention", "pair_mlp_bwd",
+                "edge_embedder_bwd")
+
+
+class RouteLaunches:
+    """The pair-MLP wrapper's launches of one kernel (``launches_mma``:
+    csrc/pair_mlp.cu, ``launches_wgmma``: csrc/pair_mlp_wg.cu), read and set
+    as a wrapper's ``launches`` is."""
+
+    def __init__(self, wrapper, attr: str) -> None:
+        self.wrapper, self.attr = wrapper, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.wrapper, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.wrapper, self.attr, value)
 
 
 def kernel_wrappers() -> dict:
+    """Each kernel's launch count by name: the pair MLP's by route."""
     from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder, edge_embedder_bwd
     from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp, pair_mlp_bwd
 
-    return {"edge_embedder": edge_embedder, "pair_mlp": pair_mlp,
-            "ipa_attention": ipa_attention, "pair_mlp_bwd": pair_mlp_bwd,
-            "edge_embedder_bwd": edge_embedder_bwd}
+    return {"edge_embedder": edge_embedder, "pair_mlp": RouteLaunches(pair_mlp, "launches_mma"),
+            "pair_mlp_wg": RouteLaunches(pair_mlp, "launches_wgmma"), "ipa_attention": ipa_attention,
+            "pair_mlp_bwd": pair_mlp_bwd, "edge_embedder_bwd": edge_embedder_bwd}
 
 
 def serve_requests(service, requests) -> dict[str, int]:
@@ -1018,7 +1110,8 @@ def serve_requests(service, requests) -> dict[str, int]:
             got_launches = {name: fn.launches - before[name] for name, fn in wrappers.items()}
             want = {
                 "edge_embedder": num_t + 1,
-                "pair_mlp": (NUM_BLOCKS - 1) * (num_t + 1),
+                "pair_mlp": 0,  # every float32 forward without gradients: the wgmma kernel
+                "pair_mlp_wg": (NUM_BLOCKS - 1) * (num_t + 1),
                 "ipa_attention": NUM_BLOCKS * (num_t + 1) if ipa_on else 0,
                 "pair_mlp_bwd": 0,
                 "edge_embedder_bwd": 0,
@@ -1089,7 +1182,7 @@ def drive_service() -> dict[str, int]:
     for on in (False, True):
         with ipa_kernel(service.model, on):
             profile_sampler(service.model, service.diffuser)
-    return {"edge_embedder": default["edge_embedder"], "pair_mlp": default["pair_mlp"],
+    return {"edge_embedder": default["edge_embedder"], "pair_mlp_wg": default["pair_mlp_wg"],
             "ipa_attention": with_ipa["ipa_attention"]}
 
 
@@ -1141,9 +1234,12 @@ def plain_versions_in_model():
     from framedipt_tpu_torch.model.kernels import pair_mlp as pm
     from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention_plain
 
+    def pair_mlp_plain(*args):  # the wrapper's arguments: needs_grad last
+        return pm.pair_mlp_plain(*args[:16])
+
     swaps = [(emb, "edge_embedder", emb.edge_embedder_plain),
              (emb, "edge_embedder_bwd", emb.edge_embedder_bwd_plain),
-             (pm, "pair_mlp", pm.pair_mlp_plain), (pm, "pair_mlp_bwd", pm.pair_mlp_bwd_plain),
+             (pm, "pair_mlp", pair_mlp_plain), (pm, "pair_mlp_bwd", pm.pair_mlp_bwd_plain),
              (ipa, "ipa_attention", ipa_attention_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -1282,10 +1378,15 @@ def step_launches(trainer, batch, seed: int) -> tuple[dict, dict[str, int]]:
     return metrics, {name: fn.launches for name, fn in wrappers.items()}
 
 
-def expected_launches(self_conditioned: bool, emb_bwd_impl: str = "pallas") -> dict[str, int]:
-    forwards = 2 if self_conditioned else 1  # the coin's forward runs without gradients
-    return {"edge_embedder": forwards, "pair_mlp": (NUM_BLOCKS - 1) * forwards,
-            "ipa_attention": 0, "pair_mlp_bwd": NUM_BLOCKS - 1,
+def expected_launches(self_conditioned: bool, emb_bwd_impl: str = "pallas",
+                      bf16: bool = False) -> dict[str, int]:
+    """A train step's launches: the autograd forward's pair MLPs on the
+    mma.sync kernel (the backward recomputes its bits); the coin's forward,
+    under no_grad, on the wgmma kernel in float32 and on mma.sync in bf16."""
+    edge = NUM_BLOCKS - 1
+    sc = edge if self_conditioned else 0  # the coin's forward runs without gradients
+    return {"edge_embedder": 1 + bool(self_conditioned), "pair_mlp": edge + (sc if bf16 else 0),
+            "pair_mlp_wg": 0 if bf16 else sc, "ipa_attention": 0, "pair_mlp_bwd": edge,
             "edge_embedder_bwd": int(emb_bwd_impl == "pallas")}
 
 
@@ -1416,7 +1517,7 @@ def check_bf16_step(batch) -> tuple[object, int]:
     kern = fixture_trainer(train_config(dtype="bfloat16"))
     plain = fixture_trainer(train_config(dtype="bfloat16"))
     m_k, launches = step_launches(kern, batch, seed=0)
-    if launches != expected_launches(m_k["self_conditioned"]):
+    if launches != expected_launches(m_k["self_conditioned"], bf16=True):
         raise AssertionError(f"first bf16 train step: launches {launches}")
     with plain_versions_in_model():
         m_p = plain.step(batch, torch.Generator(device="cuda").manual_seed(0))
@@ -1444,22 +1545,24 @@ def check_bf16_step(batch) -> tuple[object, int]:
         raise AssertionError(f"first bf16 train step: loss rel err {loss_rel} over {BF16_TRAIN_TOL}")
     del plain
     torch.cuda.empty_cache()
-    bwd_launches = 0
+    bwd_launches = fwd_launches = 0
     for i in range(3):
         m, launches = step_launches(kern, batch, seed=300 + i)
         if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
             raise AssertionError(f"bf16 train step {i}: loss {m['loss']} grad norm {m['grad_norm']}")
-        if launches != expected_launches(m["self_conditioned"]):
+        if launches != expected_launches(m["self_conditioned"], bf16=True):
             raise AssertionError(f"bf16 train step {i}: launches {launches}")
         bwd_launches += launches["pair_mlp_bwd"]
+        fwd_launches += launches["pair_mlp"]
         log(f"  bf16 step {i}: loss {float(m['loss']):.4f}, grad norm "
             f"{float(m['grad_norm']):.4f}, launches {launches}")
-    return kern, bwd_launches
+    return kern, bwd_launches, fwd_launches
 
 
-def check_train_step() -> int:
-    """Phase 6. Returns the pair-MLP backward kernel's launches over the 10
-    float32 and 3 bf16 steps checked for correctness."""
+def check_train_step() -> tuple[int, int]:
+    """Phase 6. Returns the launches of the pair-MLP backward kernel and of
+    the mma.sync forward (csrc/pair_mlp.cu) over the 10 float32 and 3 bf16
+    steps checked for correctness."""
     B, N = 2, 256
     batch = train_batch(B, N)
     kern = fixture_trainer(train_config())
@@ -1482,7 +1585,7 @@ def check_train_step() -> int:
 
     # 10 steps at lr 1e-4: finite, parameters move, 3 + 1 backward launches each.
     start = {n: p.detach().clone() for n, p in kern.model.named_parameters()}
-    bwd_launches = 0
+    bwd_launches = fwd_launches = 0
     for i in range(10):
         m, launches = step_launches(kern, batch, seed=100 + i)
         if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
@@ -1490,6 +1593,7 @@ def check_train_step() -> int:
         if launches != expected_launches(m["self_conditioned"]):
             raise AssertionError(f"train step {i}: launches {launches}")
         bwd_launches += launches["pair_mlp_bwd"]
+        fwd_launches += launches["pair_mlp"]
         log(f"  step {i}: loss {float(m['loss']):.4f}, grad norm {float(m['grad_norm']):.4f}, "
             f"t {[round(float(x), 3) for x in m['t']]}, self_conditioned {m['self_conditioned']}")
     # Every parameter the forward reads moves (linear_rbf and linear_3 are
@@ -1501,8 +1605,9 @@ def check_train_step() -> int:
     if still:
         raise AssertionError(f"parameters did not move: {still}")
 
-    kern16, bf16_launches = check_bf16_step(batch)
-    bwd_launches += bf16_launches
+    kern16, bf16_bwd, bf16_fwd = check_bf16_step(batch)
+    bwd_launches += bf16_bwd
+    fwd_launches += bf16_fwd
 
     # Step time (CUDA events), peak memory, the settings in turn; busy share.
     gen = torch.Generator(device="cuda").manual_seed(200)
@@ -1530,7 +1635,7 @@ def check_train_step() -> int:
                "torch.profiler recorded no device time (busy share not measured)"))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             log(f"  {ms:9.3f} ms  {name[:100]}")
-    return bwd_launches
+    return bwd_launches, fwd_launches
 
 
 # -- phase 7: the training CLI -----------------------------------------------
@@ -1842,9 +1947,10 @@ def check_trajectory_text(first_call) -> None:
 
 
 def forward_launches(forwards: int) -> dict[str, int]:
-    """Each kernel's launches over ``forwards`` model forwards without
-    gradients and with the IPA attention as einsums."""
-    return {"edge_embedder": forwards, "pair_mlp": (NUM_BLOCKS - 1) * forwards,
+    """Each kernel's launches over ``forwards`` float32 model forwards
+    without gradients (the pair MLP on the wgmma kernel) and with the IPA
+    attention as einsums."""
+    return {"edge_embedder": forwards, "pair_mlp": 0, "pair_mlp_wg": (NUM_BLOCKS - 1) * forwards,
             "ipa_attention": 0, "pair_mlp_bwd": 0, "edge_embedder_bwd": 0}
 
 
@@ -2977,14 +3083,14 @@ def check_profiling_trace(root: pathlib.Path) -> None:
         if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel":
             kernels[e["name"]] = kernels.get(e["name"], 0) + 1
     found = {k: sum(n for name, n in kernels.items() if f"{k}_kernel" in name)
-             for k in ("pair_mlp", "edge_embedder")}
+             for k in ("pair_mlp", "pair_mlp_wg", "edge_embedder")}
     want = forward_launches(3 + 1)  # the sampler's forwards: num_t + 1
     if found != {k: want[k] for k in found}:
         raise AssertionError(f"trace: kernel events {found}; names {sorted(kernels)[:10]}")
     log(f"profiling.trace of 3 sampler steps at B=1 N=256: {took:.2f} s with the export, "
         f"{files[0].stat().st_size / 1e6:.1f} MB, {len(events)} events, {len(kernels)} CUDA "
-        f"kernel names; pair_mlp_kernel x{found['pair_mlp']}, edge_embedder_kernel "
-        f"x{found['edge_embedder']}")
+        f"kernel names; pair_mlp_wg_kernel x{found['pair_mlp_wg']}, pair_mlp_kernel "
+        f"x{found['pair_mlp']}, edge_embedder_kernel x{found['edge_embedder']}")
     del model
     torch.cuda.empty_cache()
 
@@ -3026,7 +3132,7 @@ def check_cif_parse_speed(repeats: int = 5) -> None:
 ROW_BLOCK_NS = (896, 230)
 # The wrappers' row-side arguments: pair, i_term, row_mask, fi of the pair
 # MLP; g, pos_rows, i_term, row_mask of the edge embedder.
-ROW_ARGS = {"pair_mlp": (0, 1, 3, 13), "edge_embedder": (0, 2, 4, 6)}
+ROW_ARGS = {"pair_mlp": (0, 1, 3, 13), "pair_mlp_wg": (0, 1, 3, 13), "edge_embedder": (0, 2, 4, 6)}
 # (b) The SP sampler against the one-process sampler on the card: the JAX
 # package's SP test's tolerances (tests/unit/test_sequence_parallel.py).
 SP_N, SP_NUM_T = 896, 10
@@ -3064,11 +3170,14 @@ def check_row_blocks() -> None:
     from framedipt_tpu_torch.parallel.sp import row_block
 
     gen = torch.Generator(device="cuda").manual_seed(13)
-    kernels = {"pair_mlp": (pair_mlp, pair_mlp_inputs), "edge_embedder": (edge_embedder,
-                                                                           edge_embedder_inputs)}
+    kernels = {"pair_mlp": (lambda *a: pair_mlp(*a, needs_grad=True), pair_mlp_inputs),
+               "pair_mlp_wg": (pair_mlp, pair_mlp_inputs),
+               "edge_embedder": (edge_embedder, edge_embedder_inputs)}
     for n in ROW_BLOCK_NS:
         for dtype in (torch.float32, torch.bfloat16):
             for name, (fn, inputs) in kernels.items():
+                if name == "pair_mlp_wg" and dtype != torch.float32:
+                    continue
                 args = inputs(2, n, dtype, gen)
                 full = fn(*args)
                 full_ms = cuda_time_ms(lambda: fn(*args), 5)
@@ -3288,10 +3397,10 @@ def check_sp_sampler(work: pathlib.Path) -> dict[str, int]:
             raise AssertionError(f"SP sampler {key}: {errs} > {tol}")
     if not np.array_equal(ranks[0]["final_rigids"], ranks[1]["final_rigids"]):
         raise AssertionError("SP sampler: the ranks' final_rigids differ")
-    expect = {"edge_embedder": SP_NUM_T + 1, "pair_mlp": (NUM_BLOCKS - 1) * (SP_NUM_T + 1)}
+    expect = {"edge_embedder": SP_NUM_T + 1, "pair_mlp_wg": (NUM_BLOCKS - 1) * (SP_NUM_T + 1),
+              "pair_mlp": 0, "ipa_attention": 0}
     for r, res in enumerate(ranks):
-        if any(res["launches"][k] != v for k, v in expect.items()) or res["launches"][
-                "ipa_attention"]:
+        if any(res["launches"][k] != v for k, v in expect.items()):
             raise AssertionError(f"SP sampler rank {r}: launches {res['launches']}")
     log(f"SP sampler ({parallel_backend(2)}, {torch.cuda.device_count()} card(s)): ranks' "
         f"final_rigids bit-equal; launches a rank "
@@ -3513,7 +3622,7 @@ def main() -> int:
     launches = drive_service()
     log("phase 6: train step")
     check_training_refusals()
-    launches["pair_mlp_bwd"] = check_train_step()
+    launches["pair_mlp_bwd"], launches["pair_mlp"] = check_train_step()
     log("phase 7: the training CLI")
     launches["edge_embedder_bwd"] = check_training_cli()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_infer_") as tmp:
@@ -3546,6 +3655,7 @@ def main() -> int:
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
         "pair_mlp": "framedipt_tpu/model/pallas/pair_mlp.py:78",
+        "pair_mlp_wg": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "ipa_attention": "framedipt_tpu/model/pallas/ipa_attention.py:65",
         "pair_mlp_bwd": "framedipt_tpu/model/pallas/pair_mlp.py:349",
         "edge_embedder_bwd": "framedipt_tpu/model/pallas/edge_embedder.py:366",

@@ -203,7 +203,7 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         a = cs.pair_mlp_inputs(2, 256, dtype, gen)
         g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
-        fwd = lambda a=a: t_pair.pair_mlp(*a)  # noqa: E731
+        fwd = lambda a=a: t_pair.pair_mlp(*a, needs_grad=True)  # noqa: E731
         cases[f"pair_mlp {str(dtype)[6:]}"] = ("pair_mlp", fwd, fwd)
         cases[f"pair_mlp_bwd {str(dtype)[6:]}"] = (
             "pair_mlp_bwd", lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
@@ -318,7 +318,7 @@ def main() -> int:
                     outs = []
                     for lib in (new_libs["pair_mlp"], libs["parent_pair_mlp"]):
                         use("pair_mlp", lib)
-                        outs.append(t_pair.pair_mlp(*a))
+                        outs.append(t_pair.pair_mlp(*a, needs_grad=True))
                     same = torch.equal(*outs)
                     line = f"pair_mlp {str(dtype)[6:]} residual={residual}: the parent's bits {same}"
                     g = torch.randn(2, 200, 200, 128, generator=gen, device="cuda").to(dtype)

@@ -30,7 +30,7 @@ from torch import nn
 
 from framedipt_tpu_torch.geometry.rigid import Rigid
 from framedipt_tpu_torch.model.kernels.ipa_attention import build_point_inputs, ipa_attention
-from framedipt_tpu_torch.model.kernels.pair_mlp import PairMLPFunction
+from framedipt_tpu_torch.model.kernels.pair_mlp import PairMLPFunction, autograd_records
 from framedipt_tpu_torch.model.layers import Linear, LayerNorm
 from framedipt_tpu_torch.parallel import sp
 from framedipt_tpu_torch.tools.config import IPAConfig, ModelConfig
@@ -252,13 +252,16 @@ class EdgeTransition(nn.Module):
         fi = torch.matmul(node_bias, wf[c_e : c_e + b])
         fj = torch.matmul(node_bias, wf[c_e + b :])
         mask = node_mask.to(dtype).contiguous()
-        return PairMLPFunction.apply(
+        args = (
             edge_embed.contiguous(), sp.local_rows(i_term).contiguous(), j_term.contiguous(),
             sp.local_rows(mask), mask,
             w0[:c_e].contiguous(), b0, w1, b1, wf.contiguous(), bf,
             self.layer_norm.weight, self.layer_norm.bias,
             sp.local_rows(fi).contiguous(), fj.contiguous(), wf[:c_e].contiguous(),
         )
+        # Decided here, where grad mode is the caller's: a float32 forward
+        # that no gradient is taken through runs the wgmma kernel.
+        return PairMLPFunction.apply(*args, autograd_records(*args))
 
 
 class _SelfAttention(nn.Module):

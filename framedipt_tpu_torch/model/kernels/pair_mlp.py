@@ -11,9 +11,17 @@ Each product accumulates in float32 and is rounded to the compute dtype;
 LayerNorm statistics are float32 (eps 1e-6). ``residual=False`` (no
 fi/fj/wfe) is the plain MLP variant.
 
-:func:`pair_mlp` takes the kernel (``csrc/pair_mlp.cu``: tensor-core
-products, 3xTF32 in float32 and bf16 MMA in bf16) for CUDA tensors and
-:func:`pair_mlp_plain` for CPU tensors, which exist for the tests.
+:func:`pair_mlp` takes :func:`pair_mlp_plain` for CPU tensors, which exist
+for the tests, and one of two kernels for CUDA tensors, as
+:func:`forward_route` says: a float32 forward that autograd will not
+differentiate (every sampler, the service, the CLIs, a train step's
+self-conditioning forward) launches ``csrc/pair_mlp_wg.cu`` (wgmma and TMA,
+3xTF32); a forward that will be differentiated, and every bf16 forward,
+launches ``csrc/pair_mlp.cu`` (``mma.sync``: 3xTF32 in float32, bf16 MMA in
+bf16), whose code the backward's recompute shares bit for bit, so the
+backward's relu decisions are the forward's. The caller says which
+(``needs_grad``, from :func:`autograd_records`, decided before
+:class:`PairMLPFunction` runs: inside its forward grad mode is off).
 
 The backward: :func:`pair_mlp_bwd` takes the backward kernels
 (``csrc/pair_mlp_bwd.cu``) for CUDA tensors and :func:`pair_mlp_bwd_plain`
@@ -194,6 +202,9 @@ SPLIT_SLICES = 8
 SPLIT_GROUP = 32
 SPLIT_VEC = HIDDEN + 3 * C_OUT
 BWD_WORKSPACE_CAP = 1 << 30  # bytes of one chunk's workspace
+# The wgmma forward's scratch: each weight's TF32 hi and lo parts, K-major
+# (mirrors kSplitFloats in csrc/pair_mlp_wg.cu).
+WG_SPLIT_FLOATS = 2 * (C_IN * HIDDEN + HIDDEN * HIDDEN + HIDDEN * C_OUT + C_IN * C_OUT)
 
 
 @functools.cache
@@ -205,6 +216,76 @@ def _kernel():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
+
+
+@functools.cache
+def _wg_kernel():
+    """The C entry point of csrc/pair_mlp_wg.cu, built and bound at first use."""
+    fn = library("pair_mlp_wg").fdk_pair_mlp_wg
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 18 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    return fn
+
+
+def forward_route(dtype: torch.dtype, needs_grad: bool) -> str:
+    """Which kernel a forward on CUDA tensors launches: "wgmma"
+    (``csrc/pair_mlp_wg.cu``) for a float32 forward that no gradient is taken
+    through, else "mma" (``csrc/pair_mlp.cu``), the code the backward's
+    recompute runs, so that a differentiated forward's relu decisions are
+    the backward's."""
+    return "wgmma" if dtype == torch.float32 and not needs_grad else "mma"
+
+
+def autograd_records(*tensors) -> bool:
+    """Whether autograd records a call on these inputs: grad mode on and an
+    input that requires a gradient (under ``torch.no_grad()`` a parameter
+    still requires one; under ``torch.inference_mode()`` grad mode is off)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (ties away from zero), as float32:
+    ``cvt.rna.tf32.f32``, which the kernels split their operands with."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def wgmma_weight_split(w0, w1, wf, wfe=None) -> torch.Tensor:
+    """What the wgmma kernel's first step (``prepare_weights`` in
+    ``csrc/pair_mlp_wg.cu``) writes to its scratch, in PyTorch: for W0, W1,
+    Wf and Wfe in turn ([in, out] float32 each), hi = tf32(w^T) and then lo =
+    tf32(w^T - hi), both K-major ([out, in]); WG_SPLIT_FLOATS floats, Wfe's
+    part zero without the residual terms (the kernel leaves it unwritten).
+    hi + lo holds w to about 2^-22 of its size."""
+    parts = []
+    for w, shape in ((w0, (C_IN, HIDDEN)), (w1, (HIDDEN, HIDDEN)), (wf, (HIDDEN, C_OUT)),
+                     (wfe, (C_IN, C_OUT))):
+        wt = torch.zeros(shape[::-1], dtype=F32) if w is None else w.t().to(F32).contiguous()
+        hi = tf32_rna(wt)
+        parts += [hi.flatten(), tf32_rna(wt - hi).flatten()]
+    return torch.cat(parts)
+
+
+def wgmma_tf32_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """d = a @ b.T from one m64n64k8 TF32 wgmma (``csrc/pair_mlp_wg.cu``)
+    with b's raw float32 values in shared memory: a [64, 8] (TF32 values),
+    b [64, 8] float32 on the card; d [64, 64]. Shows how the tensor cores
+    read a float32 operand that is not a TF32 value."""
+    if a.shape != (64, 8) or b.shape != (64, 8) or a.device.type != "cuda":
+        raise ValueError("wgmma_tf32_probe: a and b are [64, 8] on the card")
+    a, b = a.float().contiguous(), b.float().contiguous()
+    d = torch.empty(64, 64, dtype=F32, device=a.device)
+    fn = library("pair_mlp_wg").fdk_wgmma_tf32_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma_tf32_probe launch failed: cudaError_t {err}")
+    return d
 
 
 @functools.cache
@@ -279,13 +360,16 @@ def _check_aligned(fn_name, **tensors):
 def pair_mlp(
     pair, i_term, j_term, row_mask, col_mask,
     w0, b0, w1, b1, wf, bf, ln_scale, ln_bias,
-    fi=None, fj=None, wfe=None,
+    fi=None, fj=None, wfe=None, needs_grad=False,
 ):
     """Masked-LayerNorm pair MLP, [B, Nr, Nc, C_out] in pair's dtype.
 
     CPU tensors take :func:`pair_mlp_plain`; CUDA tensors launch the kernel
-    (or raise). Weights are [in, out]; masks are in the compute dtype,
-    ln_scale/ln_bias float32. Adds one to ``pair_mlp.launches`` per launch."""
+    that :func:`forward_route` names for the dtype and ``needs_grad`` (True
+    where autograd will differentiate this forward), or raise. Weights are
+    [in, out]; masks are in the compute dtype, ln_scale/ln_bias float32.
+    Adds one to ``pair_mlp.launches`` per launch, and to
+    ``pair_mlp.launches_wgmma`` or ``pair_mlp.launches_mma`` by route."""
     if pair.device.type == "cpu":
         return pair_mlp_plain(
             pair, i_term, j_term, row_mask, col_mask,
@@ -297,27 +381,36 @@ def pair_mlp(
         "pair_mlp", pair, i_term, j_term, row_mask, col_mask,
         w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj, wfe,
     )
+    route = forward_route(pair.dtype, needs_grad)
+    # The wgmma kernel brings the pair rows by TMA (16-byte aligned).
     _check_aligned("pair_mlp", w0=w0, w1=w1, wf=wf, wfe=wfe, i_term=i_term, j_term=j_term,
-                   b0=b0)
+                   b0=b0, pair=pair if route == "wgmma" else None)
     dev = pair.device
     out = torch.empty((B, Nr, Nc, C_OUT), dtype=pair.dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(
-            _DTYPE_CODE[pair.dtype], int(residual),
-            _ptr(pair), _ptr(i_term), _ptr(j_term), _ptr(fi), _ptr(fj),
+    ptrs = (_ptr(pair), _ptr(i_term), _ptr(j_term), _ptr(fi), _ptr(fj),
             _ptr(row_mask), _ptr(col_mask),
             _ptr(w0), _ptr(b0), _ptr(w1), _ptr(b1), _ptr(wf), _ptr(bf), _ptr(wfe),
-            _ptr(ln_scale), _ptr(ln_bias), _ptr(out),
-            B, Nr, Nc, stream,
-        )
+            _ptr(ln_scale), _ptr(ln_bias), _ptr(out))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "wgmma":
+            # The kernel's first step writes the weights' K-major TF32 hi and
+            # lo parts here (2 MB) each call; caching them beside the other
+            # layouts that model/ipa.py rebuilds each forward is ROADMAP
+            # queue 4 item 3.
+            split = torch.empty(WG_SPLIT_FLOATS, dtype=F32, device=dev)
+            err = _wg_kernel()(int(residual), *ptrs, _ptr(split), B, Nr, Nc, stream)
+        else:
+            err = _kernel()(_DTYPE_CODE[pair.dtype], int(residual), *ptrs, B, Nr, Nc, stream)
     if err != 0:
-        raise RuntimeError(f"pair_mlp kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"pair_mlp kernel launch failed ({route}): cudaError_t {err}")
     pair_mlp.launches += 1
+    pair_mlp.launches_wgmma += route == "wgmma"
+    pair_mlp.launches_mma += route == "mma"
     return out
 
 
-pair_mlp.launches = 0
+pair_mlp.launches = pair_mlp.launches_wgmma = pair_mlp.launches_mma = 0
 
 
 def split_workspace_floats(pairs: int, dtype: torch.dtype = F32) -> int:
@@ -460,14 +553,21 @@ class PairMLPFunction(torch.autograd.Function):
     """:func:`pair_mlp` with :func:`pair_mlp_bwd` as its backward. Saves
     only the inputs (the backward recomputes the forward), never the
     [B, N, N, hidden] activations. Takes the arguments of :func:`pair_mlp`
-    positionally; ``fi``, ``fj``, ``wfe`` may be None."""
+    positionally; ``fi``, ``fj``, ``wfe`` may be None. ``needs_grad``, the
+    caller's :func:`autograd_records` of the inputs, picks the forward's
+    kernel (:func:`forward_route`); it defaults to True, the route whose
+    relu decisions the backward shares."""
 
     @staticmethod
-    def forward(ctx, *args):
+    def forward(ctx, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
+                ln_scale, ln_bias, fi=None, fj=None, wfe=None, needs_grad=True):
+        args = (pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
+                ln_scale, ln_bias, fi, fj, wfe)
         ctx.save_for_backward(*args)
-        return pair_mlp(*args)
+        return pair_mlp(*args, needs_grad)
 
     @staticmethod
     def backward(ctx, g):
         grads = pair_mlp_bwd(g.contiguous(), *ctx.saved_tensors)
-        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))
+        # One gradient an input; None for needs_grad.
+        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad)) + (None,)

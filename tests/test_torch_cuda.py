@@ -193,6 +193,92 @@ def test_cuda_row_blocks_match_the_full_launch(dtype):
         assert not block[:, n - index * rows:].any()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,residual", [(2, 200, True), (2, 200, False), (1, 17, True),
+                                          (1, 17, False)])
+def test_cuda_pair_mlp_wgmma_matches_plain_version(B, N, residual):
+    """On the card: the float32 forward without gradients (csrc/pair_mlp_wg.cu,
+    wgmma and TMA) against the plain version within 1e-4, two launches
+    bit-identical, counted on its route; its first step's TF32 weight parts
+    equal wgmma_weight_split's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    args = pair_args(rng, B, N, 128, 384, 128, residual, zero_rows=min(3, N - 1))
+    args = [None if a is None else a.cuda() for a in pair_to_torch(args, torch.float32)]
+    total, wgmma, mma = (t_pair.pair_mlp.launches, t_pair.pair_mlp.launches_wgmma,
+                         t_pair.pair_mlp.launches_mma)
+    got = t_pair.pair_mlp(*args)
+    torch.testing.assert_close(got, t_pair.pair_mlp_plain(*args), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, t_pair.pair_mlp(*args))
+    assert (t_pair.pair_mlp.launches, t_pair.pair_mlp.launches_wgmma,
+            t_pair.pair_mlp.launches_mma) == (total + 2, wgmma + 2, mma)
+    (pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj,
+     wfe) = args
+    split = torch.full((t_pair.WG_SPLIT_FLOATS,), float("nan"), device="cuda")
+    out = torch.empty_like(got)
+    ptrs = [None if a is None else a.data_ptr() for a in
+            (pair, i_term, j_term, fi, fj, row_mask, col_mask, w0, b0, w1, b1, wf, bf, wfe,
+             ln_scale, ln_bias, out, split)]
+    assert t_pair._wg_kernel()(int(residual), *ptrs, B, N, N,
+                               torch.cuda.current_stream().cuda_stream) == 0
+    assert torch.equal(out, got)
+    want = t_pair.wgmma_weight_split(*(None if w is None else w.cpu() for w in (w0, w1, wf, wfe)))
+    n = t_pair.WG_SPLIT_FLOATS - (0 if residual else 2 * 128 * 128)  # Wfe's part unwritten
+    assert torch.equal(split.cpu()[:n].view(torch.int32), want[:n].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_wgmma_probe_reads_float32_as_tf32():
+    """On the card: one TF32 wgmma with raw float32 values in shared memory
+    reads each as TF32, truncated or rounded (chip_smoke.py prints which),
+    through the fragment layout the kernel assumes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = torch.zeros(64, 8, device="cuda")
+    a[torch.arange(64), torch.arange(64) % 8] = 1.0
+    b = torch.as_tensor(np.random.default_rng(5).normal(size=(64, 8)).astype(np.float32)).cuda()
+    d = t_pair.wgmma_tf32_probe(a, b)
+    assert all(torch.equal(d[r], d[r % 8]) for r in range(64))
+    read = torch.stack([d[r] for r in range(8)], 1)
+    trunc = (b.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    assert torch.equal(read, trunc) or torch.equal(read, t_pair.tf32_rna(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["autograd", "inference_mode", "no_grad"])
+def test_cuda_edge_transition_route(mode):
+    """On the card at the kernels' widths: the edge transition's pair MLP
+    launches the mma.sync kernel under autograd (and its backward runs) and
+    the wgmma kernel under inference_mode and no_grad; the two outputs agree
+    within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from framedipt_tpu_torch.model.ipa import EdgeTransition
+
+    torch.manual_seed(0)
+    layer = EdgeTransition(256, 128, 128, torch.float32).cuda()
+    rng = np.random.default_rng(9)
+    node = torch.as_tensor(rng.normal(size=(2, 40, 256)).astype(np.float32)).cuda()
+    edge = torch.as_tensor(rng.normal(size=(2, 40, 40, 128)).astype(np.float32)).cuda()
+    mask = torch.ones(2, 40, device="cuda")
+    wgmma, mma = t_pair.pair_mlp.launches_wgmma, t_pair.pair_mlp.launches_mma
+    ctx = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad,
+           "autograd": torch.enable_grad}[mode]
+    with ctx():
+        out = layer(node, edge, mask)
+    if mode == "autograd":
+        assert (t_pair.pair_mlp.launches_wgmma - wgmma, t_pair.pair_mlp.launches_mma - mma) == (0, 1)
+        out.sum().backward()
+        assert layer.final_layer.weight.grad is not None
+    else:
+        assert (t_pair.pair_mlp.launches_wgmma - wgmma, t_pair.pair_mlp.launches_mma - mma) == (1, 0)
+    with torch.no_grad():
+        other = layer(node, edge, mask) if mode == "autograd" else None
+    if other is not None:
+        torch.testing.assert_close(out.detach(), other, atol=1e-4, rtol=1e-4)
+
+
 def assert_grads_close(got, want, tol, names=None):
     """Each gradient (a tensor or an array) within tol of its reference on
     the scale max(1, its own max-abs): a gradient summed over the pair grid
@@ -218,7 +304,8 @@ def kernel_relu_masks(g, args, tol, **kw):
     within tol of 0 (the two forwards round differently)."""
     rec = {}
     t_pair.pair_mlp_bwd(g, *args, recompute=rec, **kw)
-    assert torch.equal(rec["out"], t_pair.pair_mlp(*args))
+    # The forward that autograd differentiates (the mma.sync kernel).
+    assert torch.equal(rec["out"], t_pair.pair_mlp(*args, needs_grad=True))
     y0, y1, _ = t_pair._pre_norm(*args[:3], *args[5:11], *args[13:])
     for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
         flip = (plain_y > 0) != (kern_y > 0)

@@ -215,6 +215,110 @@ def test_model_reaches_the_kernels_only_through_the_wrappers(module, kernel_mod,
     assert not any(isinstance(n, (ast.If, ast.IfExp, ast.Try)) for n in ast.walk(fwd))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("needs_grad", [False, True])
+def test_forward_route(dtype, needs_grad):
+    """The wgmma kernel takes the float32 forwards that no gradient is taken
+    through; every differentiated forward and every bf16 one takes the
+    mma.sync kernel, whose code the backward's recompute shares."""
+    want = "wgmma" if dtype == torch.float32 and not needs_grad else "mma"
+    assert t_pair.forward_route(dtype, needs_grad) == want
+
+
+def test_pair_mlp_routes_in_its_dispatch():
+    """Read from the wrapper: after the CPU branch it asks forward_route once
+    for the dtype and ``needs_grad``, launches csrc/pair_mlp_wg.cu
+    (``_wg_kernel``) exactly when the route is "wgmma" and csrc/pair_mlp.cu
+    (``_kernel``) otherwise, with no ``try`` and nothing read from the
+    environment, and counts the launch in ``launches`` and in its route's
+    count only after the C function returned 0."""
+    fn = _wrapper_ast(t_pair.pair_mlp)
+    assert [ast.unparse(c) for c in _calls(fn, "forward_route")] == [
+        "forward_route(pair.dtype, needs_grad)"]
+    branch = [n for n in ast.walk(fn) if isinstance(n, ast.If)
+              and ast.unparse(n.test) == "route == 'wgmma'"]
+    assert len(branch) == 1
+    assert len(_calls(ast.Module(branch[0].body, []), "_wg_kernel")) == 1
+    assert not _calls(ast.Module(branch[0].body, []), "_kernel")
+    assert len(_calls(ast.Module(branch[0].orelse, []), "_kernel")) == 1
+    assert not _calls(ast.Module(branch[0].orelse, []), "_wg_kernel")
+    assert len(_calls(fn, "_wg_kernel")) == len(_calls(fn, "_kernel")) == 1
+    src = ast.unparse(fn)
+    assert "environ" not in src and "getenv" not in src
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    for count in (".launches += 1", ".launches_wgmma += ", ".launches_mma += "):
+        assert src.index("if err != 0") < src.index(count)
+
+
+def test_edge_transition_passes_autograd_records_to_the_function():
+    """Read from the model's code: the edge transition hands
+    ``PairMLPFunction.apply`` its arguments and, last, whether autograd
+    records the call (``autograd_records`` of the same arguments), and the
+    Function's forward hands that to the wrapper as ``needs_grad``."""
+    tree = ast.parse(inspect.getsource(t_ipa_mod))
+    (call,) = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+               and ast.unparse(n.func) == "PairMLPFunction.apply"]
+    assert ast.unparse(call) == "PairMLPFunction.apply(*args, autograd_records(*args))"
+    fn_cls = next(c for c in ast.parse(inspect.getsource(t_pair)).body
+                  if isinstance(c, ast.ClassDef) and c.name == "PairMLPFunction")
+    fwd = next(f for f in fn_cls.body if isinstance(f, ast.FunctionDef) and f.name == "forward")
+    assert [ast.unparse(c) for c in _calls(fwd, "pair_mlp")] == ["pair_mlp(*args, needs_grad)"]
+
+
+def _edge_transition(dtype=torch.float32):
+    torch.manual_seed(0)
+    return t_ipa_mod.EdgeTransition(16, 8, 8, dtype)
+
+
+def _edge_inputs(dtype=torch.float32):
+    rng = np.random.default_rng(2)
+    node = torch.as_tensor(rng.normal(size=(1, 5, 16)).astype(np.float32)).to(dtype)
+    edge = torch.as_tensor(rng.normal(size=(1, 5, 5, 8)).astype(np.float32)).to(dtype)
+    mask = torch.ones(1, 5)
+    return node, edge, mask
+
+
+@pytest.mark.parametrize("mode,want", [("inference_mode", False), ("no_grad", False),
+                                       ("autograd", True)])
+def test_edge_transition_asks_for_the_route(monkeypatch, mode, want):
+    """On the CPU, the wrapper spied on: under ``torch.inference_mode()`` and
+    ``torch.no_grad()`` (the samplers, the self-conditioning forward) the
+    edge transition asks for the forward with ``needs_grad=False``, the
+    wgmma route in float32; under autograd with parameters that need
+    gradients, ``needs_grad=True``, the route the backward recomputes."""
+    seen = []
+    wrapper = t_pair.pair_mlp
+
+    def spy(*args):
+        seen.append(args[16])
+        return wrapper(*args)
+
+    monkeypatch.setattr(t_pair, "pair_mlp", spy)
+    layer = _edge_transition()
+    node, edge, mask = _edge_inputs()
+    ctx = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad,
+           "autograd": torch.enable_grad}[mode]
+    with ctx():
+        out = layer(node, edge, mask)
+    assert seen == [want]
+    assert t_pair.forward_route(torch.float32, seen[0]) == ("mma" if want else "wgmma")
+    assert out.requires_grad == want
+    if want:
+        out.sum().backward()
+        assert layer.final_layer.weight.grad is not None
+
+
+def test_build_names_the_wgmma_source():
+    """The build compiles csrc/pair_mlp_wg.cu (and hashes its header) beside
+    the other kernels."""
+    from framedipt_tpu_torch.model.kernels import build
+
+    assert build.SOURCES["pair_mlp_wg"] == "pair_mlp_wg.cu"
+    assert "wgmma_tma.cuh" in build.HEADERS
+    for name in list(build.SOURCES.values()) + list(build.HEADERS):
+        assert (build.CSRC / name).is_file(), name
+
+
 def _calls(tree, name):
     return [n for n in ast.walk(tree) if isinstance(n, ast.Call)
             and ((isinstance(n.func, ast.Name) and n.func.id == name)

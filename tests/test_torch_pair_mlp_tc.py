@@ -11,11 +11,18 @@ replaces); a single TF32 product is hundreds of times worse, which is why
 the kernel takes three. The kernel itself is held against its plain version
 on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3).
 
+The float32 forward that takes no gradient runs on wgmma
+(``csrc/pair_mlp_wg.cu``): the same 3xTF32 products, with B's parts made by
+the kernel's first step and each 32-deep slice summed apart (below).
+
     python -m pytest tests/test_torch_pair_mlp_tc.py -s   # prints the errors
 """
 import numpy as np
 import pytest
 import torch
+
+from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+from tests.test_torch_cuda import pair_args, pair_to_torch
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -93,3 +100,84 @@ def test_3xtf32_keeps_float32_accuracy(K):
           f"{float(exact.abs().max()):.3f})")
     assert e_3x <= 2.0 * e_fma
     assert e_1x > 100.0 * e_fma  # a single TF32 product would need a looser gate
+
+
+# The wgmma forward (csrc/pair_mlp_wg.cu): B's hi and lo come from the
+# kernel's first step, tf32 to nearest (wgmma_weight_split; on an H100 the
+# tensor cores read a raw float32 operand truncated to TF32, chip_smoke.py
+# phase 3's probe, so the kernel hands them exact TF32 values); each k step
+# of 8 adds a_lo b_hi, a_hi b_lo, a_hi b_hi into a fresh accumulator for
+# each 32-deep slice, the tensor cores truncating each sum (toward zero),
+# and the slice's sum is added to the running sum with round to nearest.
+
+
+def f32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def product_wgmma_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    b_hi = t_pair.tf32_rna(b)
+    b_lo = t_pair.tf32_rna(b - b_hi)
+    for k0 in range(0, a.shape[1], 32):
+        part = torch.zeros_like(acc).double()
+        for k in range(k0, k0 + 32, 8):
+            a_hi, a_lo = split(a[:, k : k + 8])
+            for x, y in ((a_lo, b_hi[k : k + 8]), (a_hi, b_lo[k : k + 8]), (a_hi, b_hi[k : k + 8])):
+                part = f32_toward_zero(part + x.double() @ y.double()).double()
+        acc = (acc.double() + part).float()
+    return acc
+
+
+def test_tf32_rna_matches_the_tests_rounding():
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=1000).astype(np.float32))
+    assert torch.equal(t_pair.tf32_rna(x), tf32_rna(x))
+
+
+@pytest.mark.parametrize("K", [128, 384])
+def test_wgmma_3xtf32_slices_keep_float32_accuracy(K):
+    """The wgmma kernel's sums, emulated, at the pair MLP's depths: within
+    twice the float32 fma chain's error against float64, though each TF32
+    sum is truncated (fresh accumulator each 32-deep slice)."""
+    rng = np.random.default_rng(K + 1)
+    a = torch.as_tensor(np.maximum(rng.normal(size=(64, K)), 0.0).astype(np.float32))
+    b = torch.as_tensor((rng.normal(size=(K, 128)) / np.sqrt(K)).astype(np.float32))
+    exact = a.double() @ b.double()
+
+    def err(c):
+        return float((c.double() - exact).abs().max())
+
+    e_fma, e_wg = err(product_fma_chain(a, b)), err(product_wgmma_3xtf32(a, b))
+    print(f"K={K}: max abs error against float64: fma chain {e_fma:.3e}, wgmma 3xTF32 {e_wg:.3e}")
+    assert e_wg <= 2.0 * e_fma
+
+
+def test_wgmma_weight_split_laid_back_gives_the_plain_output():
+    """The K-major hi and lo parts handed to the wgmma kernel, laid back to
+    [in, out] as hi + lo, give pair_mlp_plain's output (float32, 1e-5), and
+    the layout's offsets mirror the kernel's (hi then lo, W0, W1, Wf, Wfe)."""
+    rng = np.random.default_rng(7)
+    args = pair_to_torch(pair_args(rng, 1, 9, 128, 384, 128, True), torch.float32)
+    w0, w1, wf, wfe = args[5], args[7], args[9], args[15]
+    split_w = t_pair.wgmma_weight_split(w0, w1, wf, wfe)
+    assert split_w.shape == (t_pair.WG_SPLIT_FLOATS,)
+    laid, off = [], 0
+    for w in (w0, w1, wf, wfe):
+        n_in, n_out = w.shape
+        hi = split_w[off : off + n_in * n_out].view(n_out, n_in)
+        lo = split_w[off + n_in * n_out : off + 2 * n_in * n_out].view(n_out, n_in)
+        assert torch.equal(hi, t_pair.tf32_rna(hi)) and torch.equal(lo, t_pair.tf32_rna(lo))
+        assert float(((hi + lo).t() - w).abs().max()) <= 2.0**-21 * float(w.abs().max())
+        laid.append((hi + lo).t().contiguous())
+        off += 2 * n_in * n_out
+    assert off == t_pair.WG_SPLIT_FLOATS
+    back = list(args)
+    back[5], back[7], back[9], back[15] = laid
+    torch.testing.assert_close(t_pair.pair_mlp_plain(*back), t_pair.pair_mlp_plain(*args),
+                               atol=1e-5, rtol=1e-5)
+    no_res = t_pair.wgmma_weight_split(w0, w1, wf)
+    assert torch.equal(no_res[: off - 2 * 128 * 128], split_w[: off - 2 * 128 * 128])
+    assert not no_res[off - 2 * 128 * 128 :].any()
