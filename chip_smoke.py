@@ -31,8 +31,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    power limit; how the tensor cores read a raw float32 operand as TF32 (a
    probe), the wgmma kernel's weight split against ``wgmma_weight_split``
    bit for bit, and its library's HGMMA and UTMALDG instruction counts
-   (``cuobjdump -sass``); the edge embedder without distance bins, in both
-   dtypes; and the IPA module's kernel branch against its einsum branch at
+   (``cuobjdump -sass``); the edge embedder's two float32 forwards apart
+   likewise, each at every shape: the mma.sync kernel
+   (``csrc/edge_embedder.cu``, the forward autograd differentiates, also in
+   bf16) and the wgmma kernel (``csrc/edge_embedder_wg.cu``, the forward no
+   gradient is taken through), the wgmma kernel at B=2 N=256 and N=896
+   beside the mma.sync kernel's time in the same run and the card's name
+   and power limit, its weight split against ``wgmma_weight_split`` bit for
+   bit and its library's HGMMA and UTMALDG counts; the edge embedder without
+   distance bins, in both dtypes and on both float32 routes; and the IPA
+   module's kernel branch against its einsum branch at
    B=2 N=256, both timed (CUDA events, and their summed device time under
    torch.profiler);
 4. one full-width forward (default config, N=128) against the recorded
@@ -45,7 +53,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (buckets 256 and 128, two samples each, num_t=100 for two of them), and
    check residue count, finite coordinates, the fixed residues' CA against the
    input, and the kernels' launch counts per request (no IPA launch; every
-   pair-MLP launch on the wgmma kernel); then a
+   pair-MLP and edge-embedder launch on its wgmma kernel); then a
    second service with ``model.ipa.use_pallas_ipa=true`` and two requests
    (bucket 256 num_t=100, bucket 128 num_t=25), 4 (num_t + 1) IPA launches
    each, and the first request once more on the default service (request
@@ -62,8 +70,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    version and against the step with the ``xla`` embedder backward (loss
    and every gradient), then 10 steps at lr 1e-4 (finite loss and grad
    norm, parameters moved, 3 pair-MLP and 1 embedder backward launches a
-   step, the autograd forward's 3 pair-MLP launches on the mma.sync kernel
-   and the self-conditioning forward's 3 on the wgmma kernel); the same step
+   step, the autograd forward's 3 pair-MLP launches and its embedder launch
+   on the mma.sync kernels and the self-conditioning forward's 3 and 1 on
+   the wgmma kernels); the same step
    in bf16 (``model.compute_dtype=bfloat16``): its
    first step's loss within 5e-2 of the plain-version bf16 step's, each
    gradient's error against its max-abs printed, then 3 steps (finite, the
@@ -179,15 +188,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
     two ranks on the one card), each part spawned under a time limit of its
     own: (a) in one process, each rank's row block at sp 2 and 4 (B=2, N=896
     and the ragged N=230, float32 and bf16) through the pair-MLP kernels
-    (the wgmma one in float32) and the edge-embedder kernel against the same
-    rows of the full launch (largest
+    (the wgmma one in float32) and the edge-embedder kernels (likewise)
+    against the same rows of the full launch (largest
     difference within the kernel tolerance, bits equal or not, padded rows
     0), each block timed beside the full launch; (b) the sequence-parallel
     sampler, two ranks at sp=2, full width, B=2, N=896, num_t 10, the test
     fixtures' weights, against the one-process sampler on the card
     (final_rigids 2e-5, prot_traj 2e-4), the ranks' final_rigids bit-equal,
-    the launches a rank (embedder num_t+1, the wgmma pair MLP 3 (num_t+1),
-    no mma.sync pair MLP, no IPA),
+    the launches a rank (the wgmma embedder num_t+1, the wgmma pair MLP 3
+    (num_t+1), no mma.sync pair MLP or embedder, no IPA),
     each rank's peak memory beside the one process's, seconds a forward;
     (c) the train step at dp=2, global B=4, N=256, float32, 3 steps from the
     fixtures' weights with Adam's eps at 1e-3 against the one-process step
@@ -220,7 +229,7 @@ largest there are printed).
 
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` from the path that runs it first: phases 5, 6 and 7, the
-pair MLP's mma.sync kernel from phase 6's steps;
+pair MLP's and the edge embedder's mma.sync kernels from phase 6's steps;
 ``inference_cli_launches`` from phase 8's batched run,
 ``denovo_cli_launches`` from phase 10's de novo run,
 ``database_cli_launches`` from phase 12's database flow, ``sp_launches``
@@ -252,7 +261,8 @@ PEAK_BYTES = 3.35e12
 # A kernel whose float32 products run on the tensor cores as 3xTF32 does
 # three TF32 products (495 TFLOP/s) for each float32 one.
 TENSOR_CORE_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-TENSOR_CORE_KERNELS = ("pair_mlp", "pair_mlp_wg", "ipa_attention", "edge_embedder")
+TENSOR_CORE_KERNELS = ("pair_mlp", "pair_mlp_wg", "ipa_attention", "edge_embedder",
+                       "edge_embedder_wg")
 # The IPA attention's CUDA kernels by name: kernel P (pair projection),
 # kernel S (attention), kernel F (the key splits merged, o_pair).
 IPA_PARTS = (("P", "pair_proj_kernel"), ("S", "attend_kernel"), ("F", "finish_kernel"))
@@ -447,6 +457,9 @@ def check_kernels() -> dict[str, dict]:
     def pair_mlp_mma(*args):  # the forward that autograd differentiates: csrc/pair_mlp.cu
         return pair_mlp(*args, needs_grad=True)
 
+    def edge_embedder_mma(*args):  # likewise: csrc/edge_embedder.cu
+        return edge_embedder(*args, needs_grad=True)
+
     ipa_kw = {"no_heads": IPA_H, "no_v_points": IPA_PV}
     both = (torch.float32, torch.bfloat16)
     serving_shapes = ((1, 256), (2, 200), (2, 128), (2, 256))
@@ -457,9 +470,15 @@ def check_kernels() -> dict[str, dict]:
     denovo_shapes = ((1, 100), (1, 500))
     edge_shapes = serving_shapes + cli_shapes + denovo_shapes + ((1, 1), (1, 17))
     kernels = {
-        # Tiny and ragged shapes too: one pair, one partial tile.
-        "edge_embedder": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
+        # Tiny and ragged shapes too: one pair, one partial tile. The edge
+        # embedder's two forwards: csrc/edge_embedder.cu (mma.sync; the
+        # differentiated float32 forward and every bf16 one) and
+        # csrc/edge_embedder_wg.cu (wgmma; the float32 forward without
+        # gradients), each as edge_embedder's route picks it.
+        "edge_embedder": (edge_embedder_mma, edge_embedder_plain, edge_embedder_inputs,
                           edge_embedder_cost, edge_shapes, both),
+        "edge_embedder_wg": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
+                             edge_embedder_cost, edge_shapes, (torch.float32,)),
         # The pair MLP's two forwards: csrc/pair_mlp.cu (mma.sync; the
         # differentiated float32 forward and every bf16 one) and
         # csrc/pair_mlp_wg.cu (wgmma; the float32 forward that no gradient
@@ -473,13 +492,21 @@ def check_kernels() -> dict[str, dict]:
                           ipa_attention_inputs, ipa_attention_cost,
                           serving_shapes + ((1, 1), (1, 17), (1, 512), (1, 768)), both),
     }
+    # Each wgmma kernel is timed beside its mma.sync twin in the same run.
+    mma_twins = {"pair_mlp_wg": (pair_mlp_mma, "pair_mlp.cu"),
+                 "edge_embedder_wg": (edge_embedder_mma, "edge_embedder.cu")}
+    # A wgmma kernel takes its twin's float32 inputs at each shape.
+    twin_inputs = {}
     serving = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, (kernel, plain, make, cost, shapes, dtypes) in kernels.items():
         for dtype in dtypes:
             # (2, 128) and (2, 256) are the serving shapes of phase 5.
             for B, N in shapes:
-                args = make(B, N, dtype, gen)
+                key = (make, B, N, dtype)
+                args = twin_inputs.pop(key) if name in mma_twins else make(B, N, dtype, gen)
+                if f"{name}_wg" in mma_twins and dtype == torch.float32:
+                    twin_inputs[key] = args
                 got = kernel(*args)
                 ref = plain(*args)
                 torch.cuda.synchronize()
@@ -506,9 +533,10 @@ def check_kernels() -> dict[str, dict]:
                 if tensor_cores and dtype == torch.float32:
                     line += (f"; 3xTF32 bound, CUDA-core bound "
                              f"{bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms")
-                if name == "pair_mlp_wg" and (B, N) in ((2, 256), (2, 896)):
-                    mma_ms = cuda_time_ms(lambda: pair_mlp_mma(*args), 20)
-                    line += (f"; the mma.sync forward (csrc/pair_mlp.cu) {mma_ms:.4f} ms in this "
+                if name in mma_twins and (B, N) in ((2, 256), (2, 896)):
+                    twin, source = mma_twins[name]
+                    mma_ms = cuda_time_ms(lambda: twin(*args), 20)
+                    line += (f"; the mma.sync forward (csrc/{source}) {mma_ms:.4f} ms in this "
                              f"run; {ms / bound_ms:.2f}x the bound; {card_line()}")
                 line += "; two launches bit-identical"
                 if name == "ipa_attention":
@@ -530,9 +558,11 @@ def check_kernels() -> dict[str, dict]:
     checks += [(f"pair_mlp_wg residual=False float32 B={B} N={N}", pair_mlp, pair_mlp_plain,
                 pair_mlp_inputs(B, N, torch.float32, gen, residual=False), TOL[torch.float32])
                for B, N in ((1, 17), (2, 200))]
-    checks += [(f"edge_embedder n_bins=0 {str(dtype)[6:]} B=2 N=200", edge_embedder,
+    checks += [(f"edge_embedder n_bins=0 {str(dtype)[6:]} B=2 N=200", edge_embedder_mma,
                 edge_embedder_plain, edge_embedder_inputs(2, 200, dtype, gen, n_bins=0), TOL[dtype])
                for dtype in (torch.float32, torch.bfloat16)]
+    checks += [("edge_embedder_wg n_bins=0 float32 B=2 N=200", edge_embedder, edge_embedder_plain,
+                edge_embedder_inputs(2, 200, torch.float32, gen, n_bins=0), TOL[torch.float32])]
     for label, kernel, plain, args, tol in checks:
         got = kernel(*args)
         err, excess = max_violation(got, plain(*args), tol)
@@ -547,12 +577,13 @@ def check_kernels() -> dict[str, dict]:
 
 
 def check_wgmma_pieces(gen) -> None:
-    """The wgmma forward's pieces on the card: how the tensor cores read a
+    """The wgmma forwards' pieces on the card: how the tensor cores read a
     float32 operand that is not a TF32 value (one wgmma with b's raw values;
-    the kernel hands it TF32 values, so either reading gives its bits), the
-    weights' TF32 parts its first step writes (equal to wgmma_weight_split's,
-    bit for bit), and the HGMMA and UTMALDG instructions in its library."""
-    from framedipt_tpu_torch.model.kernels import build
+    the kernels hand it TF32 values, so either reading gives their bits), the
+    weights' TF32 parts each kernel's first step writes (equal to its
+    module's wgmma_weight_split, bit for bit), and the HGMMA and UTMALDG
+    instructions in each library."""
+    from framedipt_tpu_torch.model.kernels import edge_embedder as emb
     from framedipt_tpu_torch.model.kernels import pair_mlp as pm
 
     a = torch.zeros(64, 8, device="cuda")
@@ -588,15 +619,40 @@ def check_wgmma_pieces(gen) -> None:
         f"bit: {same_split}; the output equals the wrapper's: {same_out}")
     if not (same_split and same_out):
         raise AssertionError(f"wgmma forward's scratch or output (cudaError_t {err})")
-    lib = build._lib_path("pair_mlp_wg")
+    # The edge embedder's: its weight split, through the C entry likewise.
+    args = edge_embedder_inputs(2, 17, torch.float32, gen)
+    *tensors, lower, upper = args
+    edges = emb._edges(lower, upper, torch.device("cuda"))
+    split = torch.full((emb.WG_SPLIT_FLOATS,), float("nan"), device="cuda")
+    out = torch.empty(2, 17, 17, 128, device="cuda")
+    ptrs = ([t.data_ptr() for t in tensors[:10]] + [edges[0].data_ptr(), edges[1].data_ptr()]
+            + [t.data_ptr() for t in tensors[10:]] + [out.data_ptr(), split.data_ptr()])
+    err = emb._wg_kernel()(*ptrs, len(lower), 2, 17, 17, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    want = emb.wgmma_weight_split(tensors[8].cpu(), tensors[11].cpu(), tensors[13].cpu())
+    same_split = err == 0 and torch.equal(split.cpu().view(torch.int32), want.view(torch.int32))
+    same_out = err == 0 and torch.equal(out, emb.edge_embedder(*args))
+    log(f"wgmma edge embedder's first step: the weights' TF32 parts equal wgmma_weight_split's "
+        f"bit for bit: {same_split}; the output equals the wrapper's: {same_out}")
+    if not (same_split and same_out):
+        raise AssertionError(f"wgmma edge embedder's scratch or output (cudaError_t {err})")
+    for name in ("pair_mlp_wg", "edge_embedder_wg"):
+        counts = sass_counts(name, ("HGMMA", "UTMALDG"))
+        log(f"{name}: {counts['HGMMA']} HGMMA and {counts['UTMALDG']} UTMALDG instructions "
+            "(cuobjdump -sass)")
+        if not (counts["HGMMA"] and counts["UTMALDG"]):
+            raise AssertionError(f"the {name} library has no HGMMA or no UTMALDG")
+
+
+def sass_counts(name: str, ops) -> dict[str, int]:
+    """How many SASS instructions of each kind in ``ops`` kernel library
+    ``name`` holds (``cuobjdump -sass``)."""
+    from framedipt_tpu_torch.model.kernels import build
+
     cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=120).stdout.splitlines()
-    counts = {op: sum(op in line for line in sass) for op in ("HGMMA", "UTMALDG")}
-    log(f"{lib.name}: {counts['HGMMA']} HGMMA and {counts['UTMALDG']} UTMALDG instructions "
-        "(cuobjdump -sass)")
-    if not (counts["HGMMA"] and counts["UTMALDG"]):
-        raise AssertionError("the wgmma forward's library has no HGMMA or no UTMALDG")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build._lib_path(name))],
+                          capture_output=True, text=True, timeout=120).stdout.splitlines()
+    return {op: sum(op in line for line in sass) for op in ops}
 
 
 # The pair-MLP backward: kernel A (recompute and input-gradient chain) and
@@ -853,7 +909,8 @@ def check_edge_embedder_bwd() -> dict:
             label = (f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins} "
                      f"chunks={len(chunks)} (workspace {ws_bytes} bytes)")
             worst_rel, worst_abs = grad_errors(got, ref, label)
-            fwd_diff = float((rec["out"].float() - edge_embedder(*args).float()).abs().max())
+            fwd_diff = float((rec["out"].float()
+                              - edge_embedder(*args, needs_grad=True).float()).abs().max())
             n_flips, flip_max = relu_flips(
                 *_pre_norm(*tensors[:6], *tensors[8:15], lower, upper)[2:4], rec)
             own_rel = grad_errors(got, edge_embedder_bwd_plain(g, *tensors, **kw), label)[0]
@@ -1037,14 +1094,15 @@ def helix_pdb(n_res: int, seed: int) -> str:
     ))
 
 
-KERNEL_NAMES = ("edge_embedder", "pair_mlp", "pair_mlp_wg", "ipa_attention", "pair_mlp_bwd",
-                "edge_embedder_bwd")
+KERNEL_NAMES = ("edge_embedder", "edge_embedder_wg", "pair_mlp", "pair_mlp_wg", "ipa_attention",
+                "pair_mlp_bwd", "edge_embedder_bwd")
 
 
 class RouteLaunches:
-    """The pair-MLP wrapper's launches of one kernel (``launches_mma``:
-    csrc/pair_mlp.cu, ``launches_wgmma``: csrc/pair_mlp_wg.cu), read and set
-    as a wrapper's ``launches`` is."""
+    """An edge-stack wrapper's launches of one of its kernels
+    (``launches_mma``: csrc/pair_mlp.cu or csrc/edge_embedder.cu,
+    ``launches_wgmma``: csrc/pair_mlp_wg.cu or csrc/edge_embedder_wg.cu),
+    read and set as a wrapper's ``launches`` is."""
 
     def __init__(self, wrapper, attr: str) -> None:
         self.wrapper, self.attr = wrapper, attr
@@ -1059,12 +1117,15 @@ class RouteLaunches:
 
 
 def kernel_wrappers() -> dict:
-    """Each kernel's launch count by name: the pair MLP's by route."""
+    """Each kernel's launch count by name: the edge embedder's and the pair
+    MLP's by route."""
     from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder, edge_embedder_bwd
     from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp, pair_mlp_bwd
 
-    return {"edge_embedder": edge_embedder, "pair_mlp": RouteLaunches(pair_mlp, "launches_mma"),
+    return {"edge_embedder": RouteLaunches(edge_embedder, "launches_mma"),
+            "edge_embedder_wg": RouteLaunches(edge_embedder, "launches_wgmma"),
+            "pair_mlp": RouteLaunches(pair_mlp, "launches_mma"),
             "pair_mlp_wg": RouteLaunches(pair_mlp, "launches_wgmma"), "ipa_attention": ipa_attention,
             "pair_mlp_bwd": pair_mlp_bwd, "edge_embedder_bwd": edge_embedder_bwd}
 
@@ -1109,8 +1170,10 @@ def serve_requests(service, requests) -> dict[str, int]:
                 raise AssertionError(f"request {k} failed: {reply}")
             got_launches = {name: fn.launches - before[name] for name, fn in wrappers.items()}
             want = {
-                "edge_embedder": num_t + 1,
-                "pair_mlp": 0,  # every float32 forward without gradients: the wgmma kernel
+                # every float32 forward without gradients: the wgmma kernels
+                "edge_embedder": 0,
+                "edge_embedder_wg": num_t + 1,
+                "pair_mlp": 0,
                 "pair_mlp_wg": (NUM_BLOCKS - 1) * (num_t + 1),
                 "ipa_attention": NUM_BLOCKS * (num_t + 1) if ipa_on else 0,
                 "pair_mlp_bwd": 0,
@@ -1182,7 +1245,7 @@ def drive_service() -> dict[str, int]:
     for on in (False, True):
         with ipa_kernel(service.model, on):
             profile_sampler(service.model, service.diffuser)
-    return {"edge_embedder": default["edge_embedder"], "pair_mlp_wg": default["pair_mlp_wg"],
+    return {"edge_embedder_wg": default["edge_embedder_wg"], "pair_mlp_wg": default["pair_mlp_wg"],
             "ipa_attention": with_ipa["ipa_attention"]}
 
 
@@ -1237,7 +1300,10 @@ def plain_versions_in_model():
     def pair_mlp_plain(*args):  # the wrapper's arguments: needs_grad last
         return pm.pair_mlp_plain(*args[:16])
 
-    swaps = [(emb, "edge_embedder", emb.edge_embedder_plain),
+    def edge_embedder_plain(*args):  # likewise, after the bin edges
+        return emb.edge_embedder_plain(*args[:19])
+
+    swaps = [(emb, "edge_embedder", edge_embedder_plain),
              (emb, "edge_embedder_bwd", emb.edge_embedder_bwd_plain),
              (pm, "pair_mlp", pair_mlp_plain), (pm, "pair_mlp_bwd", pm.pair_mlp_bwd_plain),
              (ipa, "ipa_attention", ipa_attention_plain)]
@@ -1380,13 +1446,15 @@ def step_launches(trainer, batch, seed: int) -> tuple[dict, dict[str, int]]:
 
 def expected_launches(self_conditioned: bool, emb_bwd_impl: str = "pallas",
                       bf16: bool = False) -> dict[str, int]:
-    """A train step's launches: the autograd forward's pair MLPs on the
-    mma.sync kernel (the backward recomputes its bits); the coin's forward,
-    under no_grad, on the wgmma kernel in float32 and on mma.sync in bf16."""
+    """A train step's launches: the autograd forward's embedder and pair
+    MLPs on the mma.sync kernels (the backwards recompute their bits); the
+    coin's forward, under no_grad, on the wgmma kernels in float32 and on
+    mma.sync in bf16."""
     edge = NUM_BLOCKS - 1
-    sc = edge if self_conditioned else 0  # the coin's forward runs without gradients
-    return {"edge_embedder": 1 + bool(self_conditioned), "pair_mlp": edge + (sc if bf16 else 0),
-            "pair_mlp_wg": 0 if bf16 else sc, "ipa_attention": 0, "pair_mlp_bwd": edge,
+    sc = int(self_conditioned)  # the coin's forward runs without gradients
+    return {"edge_embedder": 1 + (sc if bf16 else 0), "edge_embedder_wg": 0 if bf16 else sc,
+            "pair_mlp": edge + (edge * sc if bf16 else 0),
+            "pair_mlp_wg": 0 if bf16 else edge * sc, "ipa_attention": 0, "pair_mlp_bwd": edge,
             "edge_embedder_bwd": int(emb_bwd_impl == "pallas")}
 
 
@@ -1513,7 +1581,8 @@ def check_bf16_step(batch) -> tuple[object, int]:
     first step's loss within BF16_TRAIN_TOL of the plain-version step's,
     each gradient's error against its own max-abs printed; then 3 steps,
     finite, 3 pair-MLP and 1 embedder backward launches each. Returns the
-    trainer and the pair-MLP backward's launches over those 3 steps."""
+    trainer and the launches over those 3 steps of the pair-MLP backward, the
+    pair MLP's mma.sync forward and the embedder's."""
     kern = fixture_trainer(train_config(dtype="bfloat16"))
     plain = fixture_trainer(train_config(dtype="bfloat16"))
     m_k, launches = step_launches(kern, batch, seed=0)
@@ -1545,7 +1614,7 @@ def check_bf16_step(batch) -> tuple[object, int]:
         raise AssertionError(f"first bf16 train step: loss rel err {loss_rel} over {BF16_TRAIN_TOL}")
     del plain
     torch.cuda.empty_cache()
-    bwd_launches = fwd_launches = 0
+    bwd_launches = fwd_launches = emb_launches = 0
     for i in range(3):
         m, launches = step_launches(kern, batch, seed=300 + i)
         if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
@@ -1554,15 +1623,16 @@ def check_bf16_step(batch) -> tuple[object, int]:
             raise AssertionError(f"bf16 train step {i}: launches {launches}")
         bwd_launches += launches["pair_mlp_bwd"]
         fwd_launches += launches["pair_mlp"]
+        emb_launches += launches["edge_embedder"]
         log(f"  bf16 step {i}: loss {float(m['loss']):.4f}, grad norm "
             f"{float(m['grad_norm']):.4f}, launches {launches}")
-    return kern, bwd_launches, fwd_launches
+    return kern, bwd_launches, fwd_launches, emb_launches
 
 
-def check_train_step() -> tuple[int, int]:
+def check_train_step() -> tuple[int, int, int]:
     """Phase 6. Returns the launches of the pair-MLP backward kernel and of
-    the mma.sync forward (csrc/pair_mlp.cu) over the 10 float32 and 3 bf16
-    steps checked for correctness."""
+    the mma.sync forwards (csrc/pair_mlp.cu, csrc/edge_embedder.cu) over the
+    10 float32 and 3 bf16 steps checked for correctness."""
     B, N = 2, 256
     batch = train_batch(B, N)
     kern = fixture_trainer(train_config())
@@ -1585,7 +1655,7 @@ def check_train_step() -> tuple[int, int]:
 
     # 10 steps at lr 1e-4: finite, parameters move, 3 + 1 backward launches each.
     start = {n: p.detach().clone() for n, p in kern.model.named_parameters()}
-    bwd_launches = fwd_launches = 0
+    bwd_launches = fwd_launches = emb_launches = 0
     for i in range(10):
         m, launches = step_launches(kern, batch, seed=100 + i)
         if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
@@ -1594,6 +1664,7 @@ def check_train_step() -> tuple[int, int]:
             raise AssertionError(f"train step {i}: launches {launches}")
         bwd_launches += launches["pair_mlp_bwd"]
         fwd_launches += launches["pair_mlp"]
+        emb_launches += launches["edge_embedder"]
         log(f"  step {i}: loss {float(m['loss']):.4f}, grad norm {float(m['grad_norm']):.4f}, "
             f"t {[round(float(x), 3) for x in m['t']]}, self_conditioned {m['self_conditioned']}")
     # Every parameter the forward reads moves (linear_rbf and linear_3 are
@@ -1605,9 +1676,10 @@ def check_train_step() -> tuple[int, int]:
     if still:
         raise AssertionError(f"parameters did not move: {still}")
 
-    kern16, bf16_bwd, bf16_fwd = check_bf16_step(batch)
+    kern16, bf16_bwd, bf16_fwd, bf16_emb = check_bf16_step(batch)
     bwd_launches += bf16_bwd
     fwd_launches += bf16_fwd
+    emb_launches += bf16_emb
 
     # Step time (CUDA events), peak memory, the settings in turn; busy share.
     gen = torch.Generator(device="cuda").manual_seed(200)
@@ -1635,7 +1707,7 @@ def check_train_step() -> tuple[int, int]:
                "torch.profiler recorded no device time (busy share not measured)"))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             log(f"  {ms:9.3f} ms  {name[:100]}")
-    return bwd_launches, fwd_launches
+    return bwd_launches, fwd_launches, emb_launches
 
 
 # -- phase 7: the training CLI -----------------------------------------------
@@ -1948,10 +2020,11 @@ def check_trajectory_text(first_call) -> None:
 
 def forward_launches(forwards: int) -> dict[str, int]:
     """Each kernel's launches over ``forwards`` float32 model forwards
-    without gradients (the pair MLP on the wgmma kernel) and with the IPA
-    attention as einsums."""
-    return {"edge_embedder": forwards, "pair_mlp": 0, "pair_mlp_wg": (NUM_BLOCKS - 1) * forwards,
-            "ipa_attention": 0, "pair_mlp_bwd": 0, "edge_embedder_bwd": 0}
+    without gradients (the edge embedder and the pair MLP on their wgmma
+    kernels) and with the IPA attention as einsums."""
+    return {"edge_embedder": 0, "edge_embedder_wg": forwards, "pair_mlp": 0,
+            "pair_mlp_wg": (NUM_BLOCKS - 1) * forwards, "ipa_attention": 0, "pair_mlp_bwd": 0,
+            "edge_embedder_bwd": 0}
 
 
 def check_inference_cli(root: pathlib.Path) -> tuple[dict[str, int], pathlib.Path]:
@@ -3083,14 +3156,13 @@ def check_profiling_trace(root: pathlib.Path) -> None:
         if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel":
             kernels[e["name"]] = kernels.get(e["name"], 0) + 1
     found = {k: sum(n for name, n in kernels.items() if f"{k}_kernel" in name)
-             for k in ("pair_mlp", "pair_mlp_wg", "edge_embedder")}
+             for k in ("pair_mlp", "pair_mlp_wg", "edge_embedder", "edge_embedder_wg")}
     want = forward_launches(3 + 1)  # the sampler's forwards: num_t + 1
     if found != {k: want[k] for k in found}:
         raise AssertionError(f"trace: kernel events {found}; names {sorted(kernels)[:10]}")
     log(f"profiling.trace of 3 sampler steps at B=1 N=256: {took:.2f} s with the export, "
         f"{files[0].stat().st_size / 1e6:.1f} MB, {len(events)} events, {len(kernels)} CUDA "
-        f"kernel names; pair_mlp_wg_kernel x{found['pair_mlp_wg']}, pair_mlp_kernel "
-        f"x{found['pair_mlp']}, edge_embedder_kernel x{found['edge_embedder']}")
+        f"kernel names; " + ", ".join(f"{k}_kernel x{n}" for k, n in found.items()))
     del model
     torch.cuda.empty_cache()
 
@@ -3132,7 +3204,8 @@ def check_cif_parse_speed(repeats: int = 5) -> None:
 ROW_BLOCK_NS = (896, 230)
 # The wrappers' row-side arguments: pair, i_term, row_mask, fi of the pair
 # MLP; g, pos_rows, i_term, row_mask of the edge embedder.
-ROW_ARGS = {"pair_mlp": (0, 1, 3, 13), "pair_mlp_wg": (0, 1, 3, 13), "edge_embedder": (0, 2, 4, 6)}
+ROW_ARGS = {"pair_mlp": (0, 1, 3, 13), "pair_mlp_wg": (0, 1, 3, 13), "edge_embedder": (0, 2, 4, 6),
+            "edge_embedder_wg": (0, 2, 4, 6)}
 # (b) The SP sampler against the one-process sampler on the card: the JAX
 # package's SP test's tolerances (tests/unit/test_sequence_parallel.py).
 SP_N, SP_NUM_T = 896, 10
@@ -3162,9 +3235,9 @@ def parallel_backend(world: int) -> str:
 
 def check_row_blocks() -> None:
     """(a) One process, no collective: each rank's row block at sp 2 and 4
-    through the pair-MLP and edge-embedder kernels against the same rows of
-    the full launch (bits, largest difference), each block timed beside the
-    full launch."""
+    through the pair-MLP and edge-embedder kernels (both routes of each in
+    float32) against the same rows of the full launch (bits, largest
+    difference), each block timed beside the full launch."""
     from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp
     from framedipt_tpu_torch.parallel.sp import row_block
@@ -3172,11 +3245,13 @@ def check_row_blocks() -> None:
     gen = torch.Generator(device="cuda").manual_seed(13)
     kernels = {"pair_mlp": (lambda *a: pair_mlp(*a, needs_grad=True), pair_mlp_inputs),
                "pair_mlp_wg": (pair_mlp, pair_mlp_inputs),
-               "edge_embedder": (edge_embedder, edge_embedder_inputs)}
+               "edge_embedder": (lambda *a: edge_embedder(*a, needs_grad=True),
+                                 edge_embedder_inputs),
+               "edge_embedder_wg": (edge_embedder, edge_embedder_inputs)}
     for n in ROW_BLOCK_NS:
         for dtype in (torch.float32, torch.bfloat16):
             for name, (fn, inputs) in kernels.items():
-                if name == "pair_mlp_wg" and dtype != torch.float32:
+                if name.endswith("_wg") and dtype != torch.float32:
                     continue
                 args = inputs(2, n, dtype, gen)
                 full = fn(*args)
@@ -3397,8 +3472,8 @@ def check_sp_sampler(work: pathlib.Path) -> dict[str, int]:
             raise AssertionError(f"SP sampler {key}: {errs} > {tol}")
     if not np.array_equal(ranks[0]["final_rigids"], ranks[1]["final_rigids"]):
         raise AssertionError("SP sampler: the ranks' final_rigids differ")
-    expect = {"edge_embedder": SP_NUM_T + 1, "pair_mlp_wg": (NUM_BLOCKS - 1) * (SP_NUM_T + 1),
-              "pair_mlp": 0, "ipa_attention": 0}
+    expect = {"edge_embedder_wg": SP_NUM_T + 1, "edge_embedder": 0,
+              "pair_mlp_wg": (NUM_BLOCKS - 1) * (SP_NUM_T + 1), "pair_mlp": 0, "ipa_attention": 0}
     for r, res in enumerate(ranks):
         if any(res["launches"][k] != v for k, v in expect.items()):
             raise AssertionError(f"SP sampler rank {r}: launches {res['launches']}")
@@ -3606,7 +3681,8 @@ def main() -> int:
         for line in entry["log"].splitlines():
             if "Function properties for" in line:
                 fn = kernel_label(line.split()[-1])
-            elif "registers" in line or "spill" in line or "error" in line.lower():
+            elif ("registers" in line or "spill" in line or "C7512" in line
+                  or "error" in line.lower()):
                 log(f"  {name} {fn}: {line.strip()}")
     torch.cuda.synchronize()
 
@@ -3622,7 +3698,7 @@ def main() -> int:
     launches = drive_service()
     log("phase 6: train step")
     check_training_refusals()
-    launches["pair_mlp_bwd"], launches["pair_mlp"] = check_train_step()
+    launches["pair_mlp_bwd"], launches["pair_mlp"], launches["edge_embedder"] = check_train_step()
     log("phase 7: the training CLI")
     launches["edge_embedder_bwd"] = check_training_cli()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_infer_") as tmp:
@@ -3654,6 +3730,7 @@ def main() -> int:
 
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
+        "edge_embedder_wg": "framedipt_tpu/model/pallas/edge_embedder.py:76",
         "pair_mlp": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "pair_mlp_wg": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "ipa_attention": "framedipt_tpu/model/pallas/ipa_attention.py:65",

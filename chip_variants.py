@@ -1,33 +1,40 @@
 #!/usr/bin/env python3
-"""Time the edge-embedder forward kernel beside variants of its source, on
-one CUDA card.
+"""Time the edge-embedder forward kernels beside variants of their sources,
+on one CUDA card.
 
-    python3 chip_variants.py [--parent DIR] [--out FILE]
+    python3 chip_variants.py [--parent DIR] [--out FILE] [--only mma|wgmma]
 
 Each variant is this checkout's ``framedipt_tpu_torch/csrc`` with text
 patches applied to a copy, built by nvcc (one process per variant, all
 started together) and loaded in place of the library the wrapper
-``edge_embedder`` calls. Variants that change how the kernel works are held
-against the plain version (float32 1e-4, bf16 5e-2) at B=1 N=1, B=1 N=17,
-B=2 N=200 and B=2 N=256; variants that remove a part of the work give wrong
-outputs and are only timed, to show what that part costs. With ``--parent``
-(a tree unpacked from an earlier commit: ``git archive <rev> | tar -x -C
-DIR``), that tree's ``edge_embedder.cu`` is timed too and must give the
-same bits as this checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256
-with and without distance bins (the forward's tile is shared with the
-embedder backward's recompute); its ``pair_mlp.cu`` and ``pair_mlp_bwd.cu``
-(both dtypes) and ``edge_embedder_bwd.cu`` (float32) must give the same
-bits as this checkout's (the product code, the forward tiles and kernel B
-are shared), and they are timed beside this checkout's, the embedder
-backward in bf16 too. The parent's backwards run through that tree's own
-wrapper modules, which bind its C entries as it built them.
+``edge_embedder`` calls: variants of ``edge_embedder.cu`` (the ``mma.sync``
+kernel, reached with ``needs_grad=True``, both dtypes) and of
+``edge_embedder_wg.cu`` (the wgmma kernel, the float32 forward without
+gradients). ``--only`` builds and times one kernel's variants. Variants that
+change how a kernel works are held against the plain version (float32 1e-4,
+bf16 5e-2) at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256; variants that
+remove a part of the work give wrong outputs and are only timed, to show
+what that part costs. With ``--parent`` (a tree unpacked from an earlier
+commit: ``git archive <rev> | tar -x -C DIR``), that tree's
+``edge_embedder.cu`` is timed too and must give the same bits as this
+checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256 with and without
+distance bins (the forward's tile is shared with the embedder backward's
+recompute); its ``pair_mlp.cu`` and ``pair_mlp_bwd.cu`` (both dtypes),
+``pair_mlp_wg.cu`` (float32, with and without the residual terms; it shares
+``wgmma_tma.cuh`` with the wgmma embedder) and ``edge_embedder_bwd.cu``
+(float32) must give the same bits as this checkout's (the product code, the
+forward tiles and kernel B are shared), and they are timed beside this
+checkout's, the embedder backward in bf16 too. The parent's backwards run
+through that tree's own wrapper modules, which bind its C entries as it
+built them.
 
-Times: CUDA events over 20 launches at B=2 N=256 in float32 and bf16, every
-variant once a round, three rounds in alternating order; this checkout's
-and the parent's other kernels likewise. Prints one line per check and per
-timing, then the card's name and power limit; writes the times as JSON to
-``--out``. Exits non-zero if a variant fails to build or a checked one
-disagrees with the plain version or the parent.
+Times: CUDA events over 20 launches at B=2 N=256 (the wgmma variants also at
+B=2 N=896) in float32 and, for the mma.sync kernel, bf16, every variant once
+a round, three rounds in alternating order; this checkout's and the parent's
+other kernels likewise. Prints one line per check and per timing, then the
+card's name and power limit; writes the times as JSON to ``--out``. Exits
+non-zero if a variant fails to build or a checked one disagrees with the
+plain version or the parent.
 """
 from __future__ import annotations
 
@@ -135,7 +142,53 @@ TILE128 = {
     ],
 }
 STAGES = "template <typename T> constexpr int kEmbStages = sizeof(T) == 4 ? 2 : 3;"
-# name: (patches {file: [(old, new)]}, checked against the plain version)
+EMB_WG = "edge_embedder_wg.cu"
+WG_MMA3 = """      wg::wgmma_m64n128k8_tf32(d, lo[kk], bh, kk > 0);
+      wg::wgmma_m64n128k8_tf32(d, hi[kk], bl, 1);
+      wg::wgmma_m64n128k8_tf32(d, hi[kk], bh, 1);
+"""
+WG_SLICE_LOADS = """      wg::mbar_arrive_expect_tx(&sm.full[st], 2 * kSliceBytes);
+      wg::tma_load_2d(sm.hi[st], map, &sm.full[st], c_in, 0);
+      wg::tma_load_2d(sm.lo[st], map, &sm.full[st], c_in, C);
+"""
+WG_STORE = "      __stcs(reinterpret_cast<float2*>(out + ((size_t)un.prow * Nc + j[e]) * C + c),"
+WG_STAGES = "  if (smem_bytes<3>(n_bins) <= kSmemLimit) return launch_kernel<3>(FDK_ARGS);\n"
+WG_EPI1 = """      *y = make_float2(emb_y0<float>(acc[i], bn >= 0, wd.x, iv.x, jt.x, bb.x),
+                       emb_y0<float>(acc[i + 1], bn >= 0, wd.y, iv.y, jt.y, bb.y));
+"""
+# A second block of A fragments, loaded while the previous block's products
+# run (a hook between the slice's commit and its wait).
+WG_DOUBLE_BUFFER = [
+    ("""  template <bool FIRST>
+  __device__ __forceinline__ void slice(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                        float (&acc)[64]) {""",
+     """  template <bool FIRST, typename Next>
+  __device__ __forceinline__ void slice(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                        float (&acc)[64], Next next) {"""),
+    ("    wg::wgmma_commit();\n    wg::wgmma_wait<0>();",
+     "    wg::wgmma_commit();\n    next();\n    wg::wgmma_wait<0>();"),
+    ("""    uint32_t hi[4][4], lo[4][4];
+    load(0, hi, lo);
+    slice<true>(hi, lo, acc);
+#pragma unroll 1
+    for (int ks = 1; ks < KS; ++ks) {
+      load(ks, hi, lo);
+      slice<false>(hi, lo, acc);
+    }""",
+     """    uint32_t xh[4][4], xl[4][4], yh[4][4], yl[4][4];
+    load(0, xh, xl);
+    slice<true>(xh, xl, acc, [&] { load(1, yh, yl); });
+#pragma unroll 1
+    for (int ks = 1; ks + 1 < KS; ks += 2) {
+      slice<false>(yh, yl, acc, [&] { load(ks + 1, xh, xl); });
+      slice<false>(xh, xl, acc, [&] { load(ks + 2, yh, yl); });
+    }
+    slice<false>(yh, yl, acc, [] {});"""),
+]
+WG_REGS = [("    wg::setmaxnreg_dec<40>();", "    wg::setmaxnreg_dec<24>();"),
+           ("    wg::setmaxnreg_inc<232>();", "    wg::setmaxnreg_inc<240>();")]
+# name: (patches {file: [(old, new)]}, checked against the plain version);
+# the mma.sync kernel's (edge_embedder.cu)
 VARIANTS = {
     "f32_three_stages_one_block": ({EMB_TC: [(STAGES, STAGES.replace("? 2 : 3", "? 3 : 3"))]},
                                    True),
@@ -160,13 +213,33 @@ VARIANTS = {
     "no_bins": ({EMB_TC: [("    bin[tid] = prow < 0 ? -1\n", "    bin[tid] = prow < 0 || n_bins > 0 ? -1\n")]},
                 False),
 }
+# The wgmma kernel's (edge_embedder_wg.cu, float32): two ring stages at
+# every n_bins; a second block of A fragments; 240 registers a consumer
+# thread (24 the producer's); no products; one TF32 product a k step; no
+# weight slices by TMA (the full barriers arrive at once); neither (the
+# CUDA-core work and the barriers alone); layer 1's epilogue without its
+# gathers and adds; the outputs not stored.
+WG_NO_PRODUCTS = (WG_MMA3, "")
+WG_NO_TMA = (WG_SLICE_LOADS, "      wg::mbar_arrive(&sm.full[st]);\n")
+WG_VARIANTS = {
+    "wg_two_stages": ({EMB_WG: [(WG_STAGES, "")]}, True),
+    "wg_double_buffer": ({EMB_WG: WG_DOUBLE_BUFFER}, True),
+    "wg_regs_240": ({EMB_WG: WG_REGS}, True),
+    "wg_no_products": ({EMB_WG: [WG_NO_PRODUCTS]}, False),
+    "wg_one_tf32_product": ({EMB_WG: [(WG_MMA3, WG_MMA3.split("\n", 2)[2])]}, False),
+    "wg_no_weight_tma": ({EMB_WG: [WG_NO_TMA]}, False),
+    "wg_no_products_no_tma": ({EMB_WG: [WG_NO_PRODUCTS, WG_NO_TMA]}, False),
+    "wg_bare_epilogue1": ({EMB_WG: [(WG_EPI1, "      *y = make_float2(acc[i], acc[i + 1]);\n")]},
+                          False),
+    "wg_no_store": ({EMB_WG: [(WG_STORE, "      if (Nc == -1) " + WG_STORE.lstrip())]}, False),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def patched_copy(root: pathlib.Path, name: str, patches: dict) -> pathlib.Path:
+def patched_copy(root: pathlib.Path, name: str, patches: dict, source: str) -> pathlib.Path:
     from framedipt_tpu_torch.model.kernels import build
 
     d = root / name
@@ -178,7 +251,7 @@ def patched_copy(root: pathlib.Path, name: str, patches: dict) -> pathlib.Path:
                 raise RuntimeError(f"variant {name}: patch does not apply to {fname}: {old[:60]!r}")
             src = src.replace(old, new)
         (d / fname).write_text(src)
-    return d / EMB
+    return d / source
 
 
 def parent_module(tree: pathlib.Path, name: str):
@@ -205,6 +278,9 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen) -> dict:
         g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
         fwd = lambda a=a: t_pair.pair_mlp(*a, needs_grad=True)  # noqa: E731
         cases[f"pair_mlp {str(dtype)[6:]}"] = ("pair_mlp", fwd, fwd)
+        if dtype == torch.float32:
+            wg_fwd = lambda a=a: t_pair.pair_mlp(*a)  # noqa: E731
+            cases["pair_mlp_wg float32"] = ("pair_mlp_wg", wg_fwd, wg_fwd)
         cases[f"pair_mlp_bwd {str(dtype)[6:]}"] = (
             "pair_mlp_bwd", lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
             lambda a=a, g=g: pmods["pair_mlp"].pair_mlp_bwd(g, *a))
@@ -236,6 +312,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=pathlib.Path, default=None)
     ap.add_argument("--out", type=pathlib.Path, default=None)
+    ap.add_argument("--only", choices=("mma", "wgmma"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_variants: no CUDA device")
@@ -248,21 +325,34 @@ def main() -> int:
     from framedipt_tpu_torch.tools.device import set_full_precision_matmul
 
     set_full_precision_matmul()
+    # name: (library kind, checked, the call); "new" and "new_wg" are this
+    # checkout's kernels.
+    kinds = {"new": ("edge_embedder", True), "new_wg": ("edge_embedder_wg", True)}
+    variants = {}
+    if args.only != "wgmma":
+        variants.update({n: (p, ok, "edge_embedder", EMB) for n, (p, ok) in VARIANTS.items()})
+    if args.only != "mma":
+        variants.update({n: (p, ok, "edge_embedder_wg", EMB_WG)
+                         for n, (p, ok) in WG_VARIANTS.items()})
+    kinds.update({n: (kind, ok) for n, (_, ok, kind, _) in variants.items()})
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_variants_"))
     try:
-        sources = {name: patched_copy(work, name, patches)
-                   for name, (patches, _) in VARIANTS.items()}
+        sources = {name: patched_copy(work, name, patches, source)
+                   for name, (patches, _, _, source) in variants.items()}
         parent = None if args.parent is None else args.parent / "framedipt_tpu_torch" / "csrc"
         if parent is not None:
             sources.update({"parent": parent / EMB, "parent_pair_mlp": parent / "pair_mlp.cu",
                             "parent_pair_mlp_bwd": parent / "pair_mlp_bwd.cu",
+                            "parent_pair_mlp_wg": parent / "pair_mlp_wg.cu",
                             "parent_edge_embedder_bwd": parent / "edge_embedder_bwd.cu"})
+            kinds["parent"] = ("edge_embedder", False)
         procs = {name: subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(work / f"{name}.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for name, src in sources.items()}
         build.build_all()
-        libs, fails = {"new": build.library("edge_embedder")}, 0
+        libs = {"new": build.library("edge_embedder"), "new_wg": build.library("edge_embedder_wg")}
+        fails = 0
         for name, proc in procs.items():
             out = proc.communicate()[0]
             if proc.returncode:
@@ -271,32 +361,44 @@ def main() -> int:
                 continue
             libs[name] = ctypes.CDLL(str(work / f"{name}.so"))
             for line in out.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
-        new_libs = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd", "edge_embedder_bwd")}
+                if "registers" in line or "spill" in line or "C7512" in line:
+                    log(f"  {name}: {line.strip()[:160]}")
+        new_libs = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd", "pair_mlp_wg",
+                                                  "edge_embedder_bwd")}
         pmods = {} if parent is None else {
             n: parent_module(args.parent, n) for n in ("pair_mlp", "edge_embedder")}
 
         def use(kind: str, lib) -> None:
             build._libs[kind] = lib
             for mod in (t_emb, t_pair, *pmods.values()):
-                for entry in ("_kernel", "_split_kernel", "_bwd_kernel"):
+                for entry in ("_kernel", "_wg_kernel", "_split_kernel", "_bwd_kernel"):
                     if hasattr(mod, entry):
                         getattr(mod, entry).cache_clear()
 
+        def call(name: str, a):
+            """The embedder through the kernel ``name`` stands in for: the
+            mma.sync kernel asked for with needs_grad=True."""
+            return t_emb.edge_embedder(*a, needs_grad=kinds[name][0] == "edge_embedder")
+
+        def dtypes(name: str):
+            f32_only = kinds[name][0] == "edge_embedder_wg"
+            return (torch.float32,) if f32_only else (torch.float32, torch.bfloat16)
+
         gen = torch.Generator(device="cuda").manual_seed(0)
-        checked = ["new"] + [n for n, (_, ok) in VARIANTS.items() if ok and n in libs]
+        checked = [n for n, (kind, ok) in kinds.items() if ok and n in libs
+                   and (args.only is None or (kind == "edge_embedder_wg") == (args.only == "wgmma"))]
         for name in checked:
-            use("edge_embedder", libs[name])
-            for dtype in (torch.float32, torch.bfloat16):
+            use(kinds[name][0], libs[name])
+            for dtype in dtypes(name):
                 for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
                     a = cs.edge_embedder_inputs(B, N, dtype, gen)
-                    got = t_emb.edge_embedder(*a)
+                    got = call(name, a)
                     err, excess = cs.max_violation(got, t_emb.edge_embedder_plain(*a), cs.TOL[dtype])
-                    same = torch.equal(got, t_emb.edge_embedder(*a))
+                    same = torch.equal(got, call(name, a))
                     log(f"{name} {str(dtype)[6:]} B={B} N={N}: max_abs_err={err:.3e} "
                         f"(tol {cs.TOL[dtype]} abs+rel), two launches bit-identical: {same}")
                     fails += excess > 0 or not same
+            use(kinds[name][0], libs["new" if kinds[name][0] == "edge_embedder" else "new_wg"])
         if "parent" in libs:
             for dtype in (torch.float32, torch.bfloat16):
                 for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
@@ -305,7 +407,7 @@ def main() -> int:
                         outs = []
                         for name in ("new", "parent"):
                             use("edge_embedder", libs[name])
-                            outs.append(t_emb.edge_embedder(*a))
+                            outs.append(call(name, a))
                         same = torch.equal(*outs)
                         log(f"edge_embedder {str(dtype)[6:]} B={B} N={N} n_bins={n_bins}: the "
                             f"parent's bits {same}")
@@ -334,6 +436,19 @@ def main() -> int:
                     fails += not same
             use("pair_mlp", new_libs["pair_mlp"])
             use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
+        if "parent_pair_mlp_wg" in libs:
+            for B, N in ((1, 17), (2, 200)):
+                for residual in (True, False):
+                    a = cs.pair_mlp_inputs(B, N, torch.float32, gen, residual=residual)
+                    outs = []
+                    for lib in (new_libs["pair_mlp_wg"], libs["parent_pair_mlp_wg"]):
+                        use("pair_mlp_wg", lib)
+                        outs.append(t_pair.pair_mlp(*a))
+                    same = torch.equal(*outs)
+                    log(f"pair_mlp_wg float32 B={B} N={N} residual={residual}: the parent's "
+                        f"bits {same}")
+                    fails += not same
+            use("pair_mlp_wg", new_libs["pair_mlp_wg"])
         if "parent_edge_embedder_bwd" in libs:
             for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
                 for n_bins in (22, 0):
@@ -354,21 +469,25 @@ def main() -> int:
         times = {}
         if parent is not None:
             times["parent"] = time_beside_parent(cs, pmods, libs, new_libs, use, gen)
-        order = ["new"] + [n for n in libs if n not in ("new", "parent_pair_mlp",
-                                                         "parent_pair_mlp_bwd",
-                                                         "parent_edge_embedder_bwd")]
-        for dtype in (torch.float32, torch.bfloat16):
-            a = cs.edge_embedder_inputs(2, 256, dtype, gen)
+        timed = [n for n in libs if n in kinds and (
+            args.only is None or n in ("new", "new_wg", "parent")
+            or (kinds[n][0] == "edge_embedder_wg") == (args.only == "wgmma"))]
+        for dtype, B, N in ((torch.float32, 2, 256), (torch.bfloat16, 2, 256),
+                            (torch.float32, 2, 896)):
+            order = [n for n in timed if dtype in dtypes(n)
+                     and (N == 256 or kinds[n][0] == "edge_embedder_wg" or n == "new")]
+            a = cs.edge_embedder_inputs(B, N, dtype, gen)
             t = {n: [] for n in order}
             for rnd in range(3):
                 for name in (order if rnd % 2 == 0 else order[::-1]):
-                    use("edge_embedder", libs[name])
-                    t[name].append(cs.cuda_time_ms(lambda: t_emb.edge_embedder(*a), 20))
+                    use(kinds[name][0], libs[name])
+                    t[name].append(cs.cuda_time_ms(lambda: call(name, a), 20))
             for name in order:
-                log(f"{name} {str(dtype)[6:]} B=2 N=256: " + ", ".join(f"{x:.4f}" for x in t[name])
+                log(f"{name} {str(dtype)[6:]} B={B} N={N}: " + ", ".join(f"{x:.4f}" for x in t[name])
                     + " ms")
-            times[str(dtype)[6:]] = t
+            times[f"{str(dtype)[6:]} B={B} N={N}"] = t
         use("edge_embedder", libs["new"])
+        use("edge_embedder_wg", libs["new_wg"])
         card = cs.card_line()
         log(card)
         if args.out is not None:

@@ -22,6 +22,7 @@ from framedipt_tpu_torch.model.kernels.edge_embedder import (
     expand_w_rel,
     rel_cp_factors,
 )
+from framedipt_tpu_torch.model.kernels.pair_mlp import autograd_records
 from framedipt_tpu_torch.model.layers import Linear, LayerNorm, mlp3_layer_norm
 from framedipt_tpu_torch.parallel import sp
 from framedipt_tpu_torch.tools.config import ModelConfig
@@ -136,14 +137,19 @@ class Embedder(nn.Module):
             lower = upper = np.zeros(0)  # no distogram: no pair gets a bin
         mask = node_mask.to(dtype).contiguous()
         ca = self_conditioning_ca.to(F32).contiguous()
-        edge_embed = EdgeEmbedderFunction.apply(
-            self.conf.ipa.pallas_emb_bwd_impl,
-            tuple(float(x) for x in lower), tuple(float(x) for x in upper),
+        args = (
             sp.local_rows(g.to(dtype)).contiguous(), h.to(dtype).contiguous(),
             sp.local_rows(ca), ca, sp.local_rows(i_term).contiguous(), j_term.contiguous(),
             sp.local_rows(mask), mask,
             expand_w_rel(w0[2 * c_t : 2 * c_t + n_rel]).contiguous(),
             w0[2 * c_t + n_rel :].contiguous(),
             b0, w1, b1, w2, b2, ln.weight, ln.bias,
+        )
+        # Decided here, where grad mode is the caller's: a float32 forward
+        # that no gradient is taken through runs the wgmma kernel.
+        edge_embed = EdgeEmbedderFunction.apply(
+            self.conf.ipa.pallas_emb_bwd_impl,
+            tuple(float(x) for x in lower), tuple(float(x) for x in upper),
+            *args, autograd_records(*args),
         )
         return node_embed, edge_embed

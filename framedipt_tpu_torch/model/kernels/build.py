@@ -23,6 +23,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "edge_embedder": "edge_embedder.cu",
     "edge_embedder_bwd": "edge_embedder_bwd.cu",
+    "edge_embedder_wg": "edge_embedder_wg.cu",
     "ipa_attention": "ipa_attention.cu",
     "pair_mlp": "pair_mlp.cu",
     "pair_mlp_bwd": "pair_mlp_bwd.cu",

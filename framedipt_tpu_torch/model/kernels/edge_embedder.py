@@ -15,8 +15,16 @@ sinusoid embedding of ``seq_idx_i - seq_idx_j``. A distance bin n holds
 give no bin. Products accumulate in float32 and are rounded to the compute
 dtype; LayerNorm statistics are float32 (eps 1e-6).
 
-:func:`edge_embedder` takes the kernel (``csrc/edge_embedder.cu``) for CUDA
-tensors and :func:`edge_embedder_plain` for CPU tensors. The backward:
+:func:`edge_embedder` takes :func:`edge_embedder_plain` for CPU tensors and
+one of two kernels for CUDA tensors, as :func:`~.pair_mlp.forward_route`
+says (the pair MLP's rule): a float32 forward that autograd will not
+differentiate (every sampler, the service, the CLIs, a train step's
+self-conditioning forward) launches ``csrc/edge_embedder_wg.cu`` (wgmma and
+TMA, 3xTF32); a forward that will be differentiated, and every bf16 forward,
+launches ``csrc/edge_embedder.cu`` (``mma.sync``), whose tile code the
+backward's recompute shares bit for bit. The caller says which
+(``needs_grad``, from :func:`~.pair_mlp.autograd_records`, decided before
+:class:`EdgeEmbedderFunction` runs). The backward:
 :func:`edge_embedder_bwd` takes the backward kernels
 (``csrc/edge_embedder_bwd.cu``) for CUDA tensors and
 :func:`edge_embedder_bwd_plain` for CPU tensors; both recompute the forward
@@ -37,12 +45,20 @@ import numpy as np
 import torch
 
 from framedipt_tpu_torch.model.kernels.build import library
-from framedipt_tpu_torch.model.kernels.pair_mlp import _relu, plan_row_chunks
+from framedipt_tpu_torch.model.kernels.pair_mlp import (
+    _relu,
+    forward_route,
+    plan_row_chunks,
+    tf32_rna,
+)
 from framedipt_tpu_torch.model.layers import layer_norm_f32, matmul_f32
 
 F32 = torch.float32
 CP, C = 64, 128  # CP-factor and edge widths the kernel is built for
 MAX_BINS = 64
+# The wgmma forward's scratch: each weight's TF32 hi and lo parts, K-major
+# (mirrors kSplitFloats in csrc/edge_embedder_wg.cu).
+WG_SPLIT_FLOATS = 2 * (CP * C + 2 * C * C)
 
 
 def rel_cp_factors(
@@ -213,6 +229,30 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _wg_kernel():
+    """The C entry point of csrc/edge_embedder_wg.cu, built and bound at first
+    use."""
+    fn = library("edge_embedder_wg").fdk_edge_embedder_wg
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
+def wgmma_weight_split(w_rel, w1, w2) -> torch.Tensor:
+    """What the wgmma kernel's first step (``prepare_weights`` in
+    ``csrc/edge_embedder_wg.cu``) writes to its scratch, in PyTorch: for the
+    expanded W_rel [64, 128], W1 and W2 [128, 128] in turn (float32, [in,
+    out]), hi = tf32(w^T) and then lo = tf32(w^T - hi), both K-major ([out,
+    in]); WG_SPLIT_FLOATS floats."""
+    parts = []
+    for w in (w_rel, w1, w2):
+        wt = w.t().to(F32).contiguous()
+        hi = tf32_rna(wt)
+        parts += [hi.flatten(), tf32_rna(wt - hi).flatten()]
+    return torch.cat(parts)
+
+
 def _check_inputs(fn_name, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
                   w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias, bins_lower, bins_upper):
     """Shapes, dtypes, device and contiguity the kernels take; returns
@@ -253,12 +293,14 @@ def _check_inputs(fn_name, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, c
     return B, Nr, Nc, n_bins
 
 
-def _check_aligned(fn_name, w_rel, w1, w2, i_term, j_term, b0, b1, b2):
+def _check_aligned(fn_name, w_rel, w1, w2, i_term, j_term, b0, b1, b2, rows=()):
     """The tensor-core kernels stream the weights into shared memory 16 bytes
-    at a time and read the per-channel terms two elements at a time."""
+    at a time and read the per-channel terms two elements at a time; the
+    wgmma kernel brings the row-side and column-side rows (``rows``: (name,
+    tensor) pairs) by bulk copies and TMA, 16 bytes aligned."""
     for name, t, align in (("w_rel", w_rel, 16), ("w1", w1, 16), ("w2", w2, 16),
                            ("i_term", i_term, 8), ("j_term", j_term, 8), ("b0", b0, 8),
-                           ("b1", b1, 8), ("b2", b2, 8)):
+                           ("b1", b1, 8), ("b2", b2, 8), *((n, r, 16) for n, r in rows)):
         if t.data_ptr() % align:
             raise ValueError(f"{fn_name}: {name} is not {align}-byte aligned")
 
@@ -272,15 +314,19 @@ def _edges(bins_lower, bins_upper, dev) -> torch.Tensor:
 def edge_embedder(
     g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
     w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
-    bins_lower, bins_upper,
+    bins_lower, bins_upper, needs_grad=False,
 ):
     """Masked-LayerNorm embedder edge output, [B, Nr, Nc, C] in g's dtype.
 
     CPU tensors take :func:`edge_embedder_plain`; CUDA tensors launch the
-    kernel (or raise). Coordinates and ln_scale/ln_bias are float32, every
-    other tensor in the compute dtype; bins_lower/upper are tuples of
-    floats, empty when the model embeds no self-conditioning distogram.
-    Adds one to ``edge_embedder.launches`` per launch."""
+    kernel that :func:`~.pair_mlp.forward_route` names for the dtype and
+    ``needs_grad`` (True where autograd will differentiate this forward), or
+    raise. Coordinates and ln_scale/ln_bias are float32, every other tensor
+    in the compute dtype; bins_lower/upper are tuples of floats, empty when
+    the model embeds no self-conditioning distogram. Adds one to
+    ``edge_embedder.launches`` per launch, and to
+    ``edge_embedder.launches_wgmma`` or ``edge_embedder.launches_mma`` by
+    route."""
     if g.device.type == "cpu":
         return edge_embedder_plain(
             g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
@@ -293,29 +339,37 @@ def edge_embedder(
         "edge_embedder", g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
         w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias, bins_lower, bins_upper,
     )
-    _check_aligned("edge_embedder", w_rel, w1, w2, i_term, j_term, b0, b1, b2)
+    route = forward_route(g.dtype, needs_grad)
+    _check_aligned("edge_embedder", w_rel, w1, w2, i_term, j_term, b0, b1, b2,
+                   rows=(("g", g), ("h", h), ("i_term", i_term), ("j_term", j_term))
+                   if route == "wgmma" else ())
     dtype, dev = g.dtype, g.device
     edges = _edges(bins_lower, bins_upper, dev)
 
     out = torch.empty((B, Nr, Nc, C), dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(
-            _DTYPE_CODE[dtype],
-            g.data_ptr(), h.data_ptr(), pos_rows.data_ptr(), pos_cols.data_ptr(),
+    ptrs = (g.data_ptr(), h.data_ptr(), pos_rows.data_ptr(), pos_cols.data_ptr(),
             i_term.data_ptr(), j_term.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(),
             w_rel.data_ptr(), w_dist.data_ptr(), edges[0].data_ptr(), edges[1].data_ptr(),
             b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            ln_scale.data_ptr(), ln_bias.data_ptr(), out.data_ptr(),
-            n_bins, B, Nr, Nc, stream,
-        )
+            ln_scale.data_ptr(), ln_bias.data_ptr(), out.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "wgmma":
+            # The kernel's first step writes the weights' K-major TF32 hi and
+            # lo parts here (320 KB) each call.
+            split = torch.empty(WG_SPLIT_FLOATS, dtype=F32, device=dev)
+            err = _wg_kernel()(*ptrs, split.data_ptr(), n_bins, B, Nr, Nc, stream)
+        else:
+            err = _kernel()(_DTYPE_CODE[dtype], *ptrs, n_bins, B, Nr, Nc, stream)
     if err != 0:
-        raise RuntimeError(f"edge_embedder kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"edge_embedder kernel launch failed ({route}): cudaError_t {err}")
     edge_embedder.launches += 1
+    edge_embedder.launches_wgmma += route == "wgmma"
+    edge_embedder.launches_mma += route == "mma"
     return out
 
 
-edge_embedder.launches = 0
+edge_embedder.launches = edge_embedder.launches_wgmma = edge_embedder.launches_mma = 0
 
 
 # The grid-summed gradients in float32, in this order (d_w_dist has MAX_BINS
@@ -487,7 +541,10 @@ class EdgeEmbedderFunction(torch.autograd.Function):
     """:func:`edge_embedder` for autograd. Arguments: the backward setting
     (``model.ipa.pallas_emb_bwd_impl``), then :func:`edge_embedder`'s
     arguments with the bin edges first: ``(bwd_impl, bins_lower,
-    bins_upper, g, h, pos_rows, ..., ln_bias)``.
+    bins_upper, g, h, pos_rows, ..., ln_bias)``, then ``needs_grad``, the
+    caller's :func:`~.pair_mlp.autograd_records` of the tensor arguments,
+    which picks the forward's kernel (:func:`~.pair_mlp.forward_route`); it
+    defaults to True, the route whose relu decisions the backward shares.
 
     Saves only the O(N) inputs. "pallas" runs :func:`edge_embedder_bwd`
     (the backward kernel on CUDA tensors, its plain version on CPU tensors);
@@ -498,19 +555,24 @@ class EdgeEmbedderFunction(torch.autograd.Function):
     requires one."""
 
     @staticmethod
-    def forward(ctx, bwd_impl, bins_lower, bins_upper, *args):
+    def forward(ctx, bwd_impl, bins_lower, bins_upper, g, h, pos_rows, pos_cols, i_term,
+                j_term, row_mask, col_mask, w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale,
+                ln_bias, needs_grad=True):
+        args = (g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask, w_rel, w_dist,
+                b0, w1, b1, w2, b2, ln_scale, ln_bias)
         ctx.bwd_impl, ctx.bins = bwd_impl, (bins_lower, bins_upper)
         ctx.save_for_backward(*args)
-        return edge_embedder(*args, bins_lower, bins_upper)
+        return edge_embedder(*args, bins_lower, bins_upper, needs_grad)
 
     @staticmethod
     def backward(ctx, grad):
-        needs = list(ctx.needs_input_grad[3:])
+        needs = list(ctx.needs_input_grad[3:20])  # the 17 tensors
         needs[2] = needs[3] = False  # pos_rows, pos_cols
         if ctx.bwd_impl == "pallas":
             grads = edge_embedder_bwd(grad.contiguous(), *ctx.saved_tensors,
                                       bins_lower=ctx.bins[0], bins_upper=ctx.bins[1])
-            return (None, None, None) + tuple(d if need else None for d, need in zip(grads, needs))
+            return ((None, None, None)
+                    + tuple(d if need else None for d, need in zip(grads, needs)) + (None,))
         if ctx.bwd_impl != "xla":
             raise ValueError(
                 f"pallas_emb_bwd_impl must be 'xla' or 'pallas', got {ctx.bwd_impl!r}"
@@ -520,4 +582,5 @@ class EdgeEmbedderFunction(torch.autograd.Function):
             out = edge_embedder_plain(*inputs, *ctx.bins)
             wanted = [t for t, need in zip(inputs, needs) if need]
             got = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
-        return (None, None, None) + tuple(next(got) if need else None for need in needs)
+        return ((None, None, None) + tuple(next(got) if need else None for need in needs)
+                + (None,))

@@ -230,11 +230,12 @@ def _wg_kernel():
 
 
 def forward_route(dtype: torch.dtype, needs_grad: bool) -> str:
-    """Which kernel a forward on CUDA tensors launches: "wgmma"
-    (``csrc/pair_mlp_wg.cu``) for a float32 forward that no gradient is taken
-    through, else "mma" (``csrc/pair_mlp.cu``), the code the backward's
-    recompute runs, so that a differentiated forward's relu decisions are
-    the backward's."""
+    """Which kernel an edge-stack forward on CUDA tensors launches, the pair
+    MLP's and the edge embedder's alike: "wgmma" (``csrc/pair_mlp_wg.cu``,
+    ``csrc/edge_embedder_wg.cu``) for a float32 forward that no gradient is
+    taken through, else "mma" (``csrc/pair_mlp.cu``,
+    ``csrc/edge_embedder.cu``), the code the backward's recompute runs, so
+    that a differentiated forward's relu decisions are the backward's."""
     return "wgmma" if dtype == torch.float32 and not needs_grad else "mma"
 
 

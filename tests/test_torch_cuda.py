@@ -1,5 +1,7 @@
-"""The CUDA kernels against their plain versions on the card, and the input
-builders that tests/test_torch_kernels.py shares; on the card also the de
+"""The CUDA kernels against their plain versions on the card (the edge
+embedder's and the pair MLP's two float32 forwards apart: the wgmma kernel
+without gradients, the mma.sync kernel with ``needs_grad=True``), and the
+input builders that tests/test_torch_kernels.py shares; on the card also the de
 novo model's forward at N=500 through the kernels against their plain
 versions, and the port's ProteinMPNN and its train step against the
 recorded reference.
@@ -378,26 +380,81 @@ def test_cuda_pair_mlp_function_matches_autograd_of_plain_version():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,n_bins", [(1, 1, 22), (1, 17, 22), (3, 75, 22), (3, 75, 0)])
 def test_cuda_edge_embedder_matches_plain_version(dtype, B, N, n_bins):
-    """On the card: the edge-embedder forward kernel (tensor cores) against
-    its plain version at one pair, one partial tile and a ragged grid, with
-    and without distance bins; two launches give the same bits; one launch
-    counted per call."""
+    """On the card: the mma.sync edge-embedder forward kernel
+    (csrc/edge_embedder.cu, asked for with needs_grad=True) against its plain
+    version at one pair, one partial tile and a ragged grid, with and without
+    distance bins; two launches give the same bits; one launch counted per
+    call, on its route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     args, bins = emb_args(np.random.default_rng(N + n_bins), B, N, 128, n_bins)
     args = [a.cuda() for a in emb_to_torch(args, dtype)]
-    before = t_emb.edge_embedder.launches
-    got = t_emb.edge_embedder(*args, *bins)
-    again = t_emb.edge_embedder(*args, *bins)
+    before, mma = t_emb.edge_embedder.launches, t_emb.edge_embedder.launches_mma
+    got = t_emb.edge_embedder(*args, *bins, needs_grad=True)
+    again = t_emb.edge_embedder(*args, *bins, needs_grad=True)
     assert t_emb.edge_embedder.launches == before + 2
+    assert t_emb.edge_embedder.launches_mma == mma + 2
     torch.testing.assert_close(got, t_emb.edge_embedder_plain(*args, *bins), atol=tol, rtol=tol)
     assert torch.equal(got, again)
 
 
-# sha256 of edge_embedder's output bytes for emb_args(default_rng(97), 3, 75,
-# 128, 22), as the build before the forward's tile became the backward's
-# recompute (edge_embedder_tc.cuh) gave them on an NVIDIA H100 80GB HBM3.
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,n_bins", [(2, 200, 22), (1, 17, 22), (1, 1, 22), (2, 200, 0)])
+def test_cuda_edge_embedder_wgmma_matches_plain_version(B, N, n_bins):
+    """On the card: the float32 forward without gradients
+    (csrc/edge_embedder_wg.cu, wgmma and TMA) against the plain version
+    within 1e-4, two launches bit-identical, counted on its route; its first
+    step's TF32 weight parts equal wgmma_weight_split's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, bins = emb_args(np.random.default_rng(N + n_bins + 1), B, N, 128, n_bins)
+    args = [a.cuda() for a in emb_to_torch(args, torch.float32)]
+    total, wgmma, mma = (t_emb.edge_embedder.launches, t_emb.edge_embedder.launches_wgmma,
+                         t_emb.edge_embedder.launches_mma)
+    got = t_emb.edge_embedder(*args, *bins)
+    torch.testing.assert_close(got, t_emb.edge_embedder_plain(*args, *bins), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, t_emb.edge_embedder(*args, *bins))
+    assert (t_emb.edge_embedder.launches, t_emb.edge_embedder.launches_wgmma,
+            t_emb.edge_embedder.launches_mma) == (total + 2, wgmma + 2, mma)
+    edges = t_emb._edges(*bins, args[0].device)
+    split = torch.full((t_emb.WG_SPLIT_FLOATS,), float("nan"), device="cuda")
+    out = torch.empty_like(got)
+    ptrs = ([a.data_ptr() for a in args[:10]] + [edges[0].data_ptr(), edges[1].data_ptr()]
+            + [a.data_ptr() for a in args[10:]] + [out.data_ptr(), split.data_ptr()])
+    assert t_emb._wg_kernel()(*ptrs, n_bins, B, N, N, torch.cuda.current_stream().cuda_stream) == 0
+    assert torch.equal(out, got)
+    want = t_emb.wgmma_weight_split(*(args[k].cpu() for k in (8, 11, 13)))
+    assert torch.equal(split.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("needs_grad", [False, True])
+def test_cuda_edge_embedder_row_blocks_on_both_routes(needs_grad):
+    """On the card: each rank's row block at sp=4 of a ragged N=230 (58 rows,
+    the last 56 and two padded) through the float32 wgmma kernel
+    (needs_grad=False) and the mma.sync kernel (True) against the same rows
+    of the full launch on that route, bit for bit, the padded rows 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from framedipt_tpu_torch.parallel.sp import row_block
+
+    args, bins = emb_args(np.random.default_rng(5), 2, 230, 128, 22)
+    args = [a.cuda() for a in emb_to_torch(args, torch.float32)]
+    full = t_emb.edge_embedder(*args, *bins, needs_grad=needs_grad)
+    for index in range(4):
+        block = t_emb.edge_embedder(*[row_block(a, index, 4) if i in (0, 2, 4, 6) else a
+                                      for i, a in enumerate(args)], *bins, needs_grad=needs_grad)
+        valid = min(230, 58 * (index + 1)) - 58 * index
+        assert block.shape == (2, 58, 230, 128)
+        assert torch.equal(block[:, :valid], full[:, 58 * index:58 * index + valid])
+        assert not block[:, valid:].any()
+
+
+# sha256 of the mma.sync edge_embedder's output bytes for
+# emb_args(default_rng(97), 3, 75, 128, 22), as the build before the
+# forward's tile became the backward's recompute (edge_embedder_tc.cuh) gave
+# them on an NVIDIA H100 80GB HBM3.
 EMB_FORWARD_SHA256 = {
     torch.float32: "ffda01f5b1ae2b84e2a15f92f13ab42887f2567ad12ddc83232a6d5741671866",
     torch.bfloat16: "d769df20453f7180def773a2a14e523e391f22a71d4e50b699bc69ddeec3caa8",
@@ -407,24 +464,27 @@ EMB_FORWARD_SHA256 = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_edge_embedder_output_unchanged(dtype):
-    """On the card: the forward kernel gives the same bits as before its
-    tile's code was shared with the backward's recompute."""
+    """On the card: the mma.sync forward kernel (csrc/edge_embedder.cu,
+    needs_grad=True) gives the same bits as before its tile's code was
+    shared with the backward's recompute."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args, bins = emb_args(np.random.default_rng(97), 3, 75, 128, 22)
-    out = t_emb.edge_embedder(*[a.cuda() for a in emb_to_torch(args, dtype)], *bins)
+    out = t_emb.edge_embedder(*[a.cuda() for a in emb_to_torch(args, dtype)], *bins,
+                              needs_grad=True)
     as_int = out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
     assert hashlib.sha256(as_int.cpu().numpy().tobytes()).hexdigest() == EMB_FORWARD_SHA256[dtype]
 
 
 def emb_kernel_relu_masks(g, args, bins, tol, **kw):
     """The embedder backward kernels' relu decisions (y0 > 0, y1 > 0),
-    after checking that their recompute equals the forward
-    kernel's output and that every relu site where the plain forward
-    decides otherwise holds an activation within tol of 0."""
+    after checking that their recompute equals the output of the forward
+    kernel whose code it shares (the mma.sync one, needs_grad=True) and that
+    every relu site where the plain forward decides otherwise holds an
+    activation within tol of 0."""
     rec = {}
     t_emb.edge_embedder_bwd(g, *args, bins_lower=bins[0], bins_upper=bins[1], recompute=rec, **kw)
-    assert torch.equal(rec["out"], t_emb.edge_embedder(*args, *bins))
+    assert torch.equal(rec["out"], t_emb.edge_embedder(*args, *bins, needs_grad=True))
     _, _, y0, y1, _ = t_emb._pre_norm(*args[:6], *args[8:15], *bins)
     for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
         flip = (plain_y > 0) != (kern_y > 0)

@@ -265,6 +265,91 @@ def test_edge_transition_passes_autograd_records_to_the_function():
     assert [ast.unparse(c) for c in _calls(fwd, "pair_mlp")] == ["pair_mlp(*args, needs_grad)"]
 
 
+def test_edge_embedder_routes_in_its_dispatch():
+    """Read from the wrapper: after the CPU branch it asks forward_route (the
+    pair MLP's rule, imported, not a second one) once for the dtype and
+    ``needs_grad``, launches csrc/edge_embedder_wg.cu (``_wg_kernel``) exactly
+    when the route is "wgmma" and csrc/edge_embedder.cu (``_kernel``)
+    otherwise, with no ``try`` and nothing read from the environment, and
+    counts the launch in ``launches`` and in its route's count only after the
+    C function returned 0."""
+    assert t_emb.forward_route is t_pair.forward_route
+    assert not any(isinstance(n, ast.FunctionDef) and n.name == "forward_route"
+                   for n in ast.parse(inspect.getsource(t_emb)).body)
+    fn = _wrapper_ast(t_emb.edge_embedder)
+    assert [ast.unparse(c) for c in _calls(fn, "forward_route")] == [
+        "forward_route(g.dtype, needs_grad)"]
+    branch = [n for n in ast.walk(fn) if isinstance(n, ast.If)
+              and ast.unparse(n.test) == "route == 'wgmma'"]
+    assert len(branch) == 1
+    assert len(_calls(ast.Module(branch[0].body, []), "_wg_kernel")) == 1
+    assert not _calls(ast.Module(branch[0].body, []), "_kernel")
+    assert len(_calls(ast.Module(branch[0].orelse, []), "_kernel")) == 1
+    assert not _calls(ast.Module(branch[0].orelse, []), "_wg_kernel")
+    assert len(_calls(fn, "_wg_kernel")) == len(_calls(fn, "_kernel")) == 1
+    src = ast.unparse(fn)
+    assert "environ" not in src and "getenv" not in src
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    for count in (".launches += 1", ".launches_wgmma += ", ".launches_mma += "):
+        assert src.index("if err != 0") < src.index(count)
+
+
+def test_embedder_passes_autograd_records_to_the_function():
+    """Read from the model's code: the embedder hands
+    ``EdgeEmbedderFunction.apply`` its tensor arguments and, last, whether
+    autograd records the call (``autograd_records`` of the same arguments),
+    and the Function's forward hands that to the wrapper as ``needs_grad``."""
+    tree = ast.parse(inspect.getsource(t_embed_mod))
+    (call,) = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+               and ast.unparse(n.func) == "EdgeEmbedderFunction.apply"]
+    assert [ast.unparse(a) for a in call.args[-2:]] == ["*args", "autograd_records(*args)"]
+    fn_cls = next(c for c in ast.parse(inspect.getsource(t_emb)).body
+                  if isinstance(c, ast.ClassDef) and c.name == "EdgeEmbedderFunction")
+    fwd = next(f for f in fn_cls.body if isinstance(f, ast.FunctionDef) and f.name == "forward")
+    assert [ast.unparse(c) for c in _calls(fwd, "edge_embedder")] == [
+        "edge_embedder(*args, bins_lower, bins_upper, needs_grad)"]
+    assert fwd.args.args[-1].arg == "needs_grad" and ast.unparse(fwd.args.defaults[-1]) == "True"
+
+
+@pytest.mark.parametrize("mode,want", [("inference_mode", False), ("no_grad", False),
+                                       ("autograd", True)])
+def test_embedder_asks_for_the_route(monkeypatch, mode, want):
+    """On the CPU, the wrapper spied on: under ``torch.inference_mode()`` and
+    ``torch.no_grad()`` (the samplers, the self-conditioning forward) the
+    embedder asks for the forward with ``needs_grad=False``, the wgmma route
+    in float32; under autograd with parameters that need gradients,
+    ``needs_grad=True``, the route the backward recomputes."""
+    from framedipt_tpu_torch.tools.config import Config
+
+    seen = []
+    wrapper = t_emb.edge_embedder
+
+    def spy(*args):
+        seen.append(args[19])
+        return wrapper(*args)
+
+    monkeypatch.setattr(t_emb, "edge_embedder", spy)
+    cfg = Config().model
+    cfg.embed.index_embed_size, cfg.node_embed_size, cfg.edge_embed_size = 32, 16, 128
+    torch.manual_seed(0)
+    emb = t_embed_mod.Embedder(cfg, inpainting=True, dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    B, N = 1, 6
+    inputs = (torch.arange(N)[None], torch.full((B,), 0.5), torch.zeros(B, N),
+              torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32)),
+              torch.zeros(B, N, dtype=torch.long), torch.ones(B, N))
+    ctx = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad,
+           "autograd": torch.enable_grad}[mode]
+    with ctx():
+        _, edge = emb(*inputs)
+    assert seen == [want]
+    assert t_emb.forward_route(torch.float32, seen[0]) == ("mma" if want else "wgmma")
+    assert edge.requires_grad == want
+    if want:
+        edge.sum().backward()
+        assert emb.edge_embedder[2].weight.grad is not None
+
+
 def _edge_transition(dtype=torch.float32):
     torch.manual_seed(0)
     return t_ipa_mod.EdgeTransition(16, 8, 8, dtype)
