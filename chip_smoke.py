@@ -23,15 +23,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    compute the bound (on the tensor cores, 3xTF32 in float32, with the
    CUDA-core bound beside it; the IPA attention's device ms also by CUDA
    kernel: pair projection, attention, the splits merged with o_pair); the
-   pair MLP's two float32 forwards apart, each at every shape: the mma.sync
-   kernel (``csrc/pair_mlp.cu``, the forward autograd differentiates, also
-   in bf16) and the wgmma kernel (``csrc/pair_mlp_wg.cu``, the forward no
-   gradient is taken through), the wgmma kernel at B=2 N=256 and N=896 also
-   beside the mma.sync kernel's time in the same run and the card's name and
-   power limit; how the tensor cores read a raw float32 operand as TF32 (a
-   probe), the wgmma kernel's weight split against ``wgmma_weight_split``
-   bit for bit, and its library's HGMMA and UTMALDG instruction counts
-   (``cuobjdump -sass``); the edge embedder's two float32 forwards apart
+   pair MLP's two forwards, each at every shape: the wgmma kernel
+   (``csrc/pair_mlp_wg.cu``, every float32 forward, differentiated or not)
+   and the mma.sync kernel (``csrc/pair_mlp.cu``, every bf16 one); how the
+   tensor cores read a raw float32 operand as TF32 (a probe), the wgmma
+   kernel's weight split against ``wgmma_weight_split`` bit for bit, the
+   float32 backward's two splits (``wgmma_weight_split``,
+   ``chain_weight_split``) likewise, and the HGMMA and UTMALDG instruction
+   counts of the wgmma libraries, the backward's included (``cuobjdump
+   -sass``); the edge embedder's two float32 forwards apart
    likewise, each at every shape: the mma.sync kernel
    (``csrc/edge_embedder.cu``, the forward autograd differentiates, also in
    bf16) and the wgmma kernel (``csrc/edge_embedder_wg.cu``, the forward no
@@ -70,10 +70,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    version and against the step with the ``xla`` embedder backward (loss
    and every gradient), then 10 steps at lr 1e-4 (finite loss and grad
    norm, parameters moved, 3 pair-MLP and 1 embedder backward launches a
-   step, the autograd forward's 3 pair-MLP launches and its embedder launch
-   on the mma.sync kernels and the self-conditioning forward's 3 and 1 on
-   the wgmma kernels); the same step
-   in bf16 (``model.compute_dtype=bfloat16``): its
+   step, every pair-MLP forward and backward on the wgmma kernels
+   (``csrc/pair_mlp_wg.cu``, ``csrc/pair_mlp_bwd_wg.cu``), the autograd
+   forward's embedder launch on its mma.sync kernel and the
+   self-conditioning forward's on its wgmma kernel); the same step
+   in bf16 (``model.compute_dtype=bfloat16``; the mma.sync kernels): its
    first step's loss within 5e-2 of the plain-version bf16 step's, each
    gradient's error against its max-abs printed, then 3 steps (finite, the
    same launches); the step time, examples/s and peak memory of the three
@@ -188,7 +189,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     two ranks on the one card), each part spawned under a time limit of its
     own: (a) in one process, each rank's row block at sp 2 and 4 (B=2, N=896
     and the ragged N=230, float32 and bf16) through the pair-MLP kernels
-    (the wgmma one in float32) and the edge-embedder kernels (likewise)
+    (the wgmma one in float32, the mma.sync one in bf16) and the
+    edge-embedder kernels (both routes in float32)
     against the same rows of the full launch (largest
     difference within the kernel tolerance, bits equal or not, padded rows
     0), each block timed beside the full launch; (b) the sequence-parallel
@@ -215,11 +217,12 @@ Phase 3 also holds the two backward kernels against their plain versions
 with masked rows, B=2 N=256; the pair MLP residual and not, the embedder
 with 22 and 0 distance bins; B=2 N=200 also in 10 chunks under a small
 workspace cap), checks that two launches give the same bits, and times them
-at B=2 N=256 in both dtypes, also by part: kernel A, kernel B, the
-row/column sums, the ordered reductions, under torch.profiler, with the
-chunk count, workspace bytes and each kernel's bound on the tensor cores;
-the earlier persistent CUDA-core kernel's time beside; the embedder's also
-beside the ``xla`` setting's backward, the VJP of its plain forward. The
+at B=2 N=256 in both dtypes, also by part: kernel A (the pair MLP's in
+float32 on wgmma and TMA, ``csrc/pair_mlp_bwd_wg.cu``), its weight splits,
+kernel B, the row/column sums, the ordered reductions, under
+torch.profiler, with the chunk count, workspace bytes and each kernel's
+bound on the tensor cores; the embedder's also beside the ``xla``
+setting's backward, the VJP of its plain forward. The
 backwards' recompute must equal the forward kernel's output bit for bit,
 and their gradients are held against the plain backward through the
 recompute's relu decisions, after every relu site where the plain forward
@@ -229,7 +232,9 @@ largest there are printed).
 
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` from the path that runs it first: phases 5, 6 and 7, the
-pair MLP's and the edge embedder's mma.sync kernels from phase 6's steps;
+pair MLP's backwards (float32 ``pair_mlp_bwd_wg``, bf16 ``pair_mlp_bwd``),
+its bf16 forward and the edge embedder's mma.sync kernel from phase 6's
+steps;
 ``inference_cli_launches`` from phase 8's batched run,
 ``denovo_cli_launches`` from phase 10's de novo run,
 ``database_cli_launches`` from phase 12's database flow, ``sp_launches``
@@ -454,7 +459,7 @@ def check_kernels() -> dict[str, dict]:
     )
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp, pair_mlp_plain
 
-    def pair_mlp_mma(*args):  # the forward that autograd differentiates: csrc/pair_mlp.cu
+    def pair_mlp_mma(*args):  # the bf16 forward, differentiated or not: csrc/pair_mlp.cu
         return pair_mlp(*args, needs_grad=True)
 
     def edge_embedder_mma(*args):  # likewise: csrc/edge_embedder.cu
@@ -479,12 +484,11 @@ def check_kernels() -> dict[str, dict]:
                           edge_embedder_cost, edge_shapes, both),
         "edge_embedder_wg": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
                              edge_embedder_cost, edge_shapes, (torch.float32,)),
-        # The pair MLP's two forwards: csrc/pair_mlp.cu (mma.sync; the
-        # differentiated float32 forward and every bf16 one) and
-        # csrc/pair_mlp_wg.cu (wgmma; the float32 forward that no gradient
-        # is taken through), each as pair_mlp's route picks it.
+        # The pair MLP's two forwards: csrc/pair_mlp.cu (mma.sync; every bf16
+        # forward) and csrc/pair_mlp_wg.cu (wgmma; every float32 forward,
+        # differentiated or not), each as pair_mlp's route picks it.
         "pair_mlp": (pair_mlp_mma, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, edge_shapes,
-                     both),
+                     (torch.bfloat16,)),
         "pair_mlp_wg": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, edge_shapes,
                         (torch.float32,)),
         "ipa_attention": (lambda *a: ipa_attention(*a, **ipa_kw),
@@ -492,9 +496,10 @@ def check_kernels() -> dict[str, dict]:
                           ipa_attention_inputs, ipa_attention_cost,
                           serving_shapes + ((1, 1), (1, 17), (1, 512), (1, 768)), both),
     }
-    # Each wgmma kernel is timed beside its mma.sync twin in the same run.
-    mma_twins = {"pair_mlp_wg": (pair_mlp_mma, "pair_mlp.cu"),
-                 "edge_embedder_wg": (edge_embedder_mma, "edge_embedder.cu")}
+    # The wgmma embedder is timed beside its mma.sync twin in the same run
+    # (the pair MLP's mma.sync kernel takes bf16 only; PERF.md keeps its
+    # float32 times).
+    mma_twins = {"edge_embedder_wg": (edge_embedder_mma, "edge_embedder.cu")}
     # A wgmma kernel takes its twin's float32 inputs at each shape.
     twin_inputs = {}
     serving = {}
@@ -544,7 +549,7 @@ def check_kernels() -> dict[str, dict]:
                 log(line)
                 if excess > 0:
                     raise AssertionError(f"{name} {dtype} B={B} N={N}: error {err} over tolerance")
-                if dtype == torch.float32 and (B, N) == (2, 256):
+                if dtype == dtypes[0] and (B, N) == (2, 256):  # float32, else bf16
                     serving[name] = {
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -552,9 +557,9 @@ def check_kernels() -> dict[str, dict]:
     # The plain-MLP variant (no residual terms) of the pair-MLP kernel, and
     # the edge embedder with no distance bins (a model without the
     # self-conditioning distogram).
-    checks = [(f"pair_mlp residual=False {str(dtype)[6:]} B={B} N={N}", pair_mlp_mma, pair_mlp_plain,
-               pair_mlp_inputs(B, N, dtype, gen, residual=False), TOL[dtype])
-              for dtype in both for B, N in ((1, 17), (2, 200))]
+    checks = [(f"pair_mlp residual=False bfloat16 B={B} N={N}", pair_mlp_mma, pair_mlp_plain,
+               pair_mlp_inputs(B, N, torch.bfloat16, gen, residual=False), TOL[torch.bfloat16])
+              for B, N in ((1, 17), (2, 200))]
     checks += [(f"pair_mlp_wg residual=False float32 B={B} N={N}", pair_mlp, pair_mlp_plain,
                 pair_mlp_inputs(B, N, torch.float32, gen, residual=False), TOL[torch.float32])
                for B, N in ((1, 17), (2, 200))]
@@ -636,7 +641,34 @@ def check_wgmma_pieces(gen) -> None:
         f"bit for bit: {same_split}; the output equals the wrapper's: {same_out}")
     if not (same_split and same_out):
         raise AssertionError(f"wgmma edge embedder's scratch or output (cudaError_t {err})")
-    for name in ("pair_mlp_wg", "edge_embedder_wg"):
+    # The float32 backward's first step: the forward's split, then the
+    # chain's (chain_weight_split), through its C entry likewise.
+    args = pair_mlp_inputs(2, 17, torch.float32, gen)
+    g = torch.randn(2, 17, 17, 128, generator=gen, device="cuda")
+    split = torch.full((2 * pm.WG_SPLIT_FLOATS,), float("nan"), device="cuda")
+    ws = torch.empty(pm.split_workspace_floats(2 * 17 * 17), device="cuda")
+    sums = torch.zeros(pm.W_PART_FLOATS + 2 * 2 * 17 * pm.ROW_PART, device="cuda")
+    d_pair = torch.empty(2, 17, 17, 128, device="cuda")
+    (pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj,
+     wfe) = args
+    wred = sums.data_ptr()
+    err = pm._bwd_wg_kernel()(
+        1, *(t.data_ptr() for t in (g, pair, i_term, j_term, fi, fj, row_mask, col_mask, w0, b0,
+                                    w1, b1, wf, bf, wfe, ln_scale, ln_bias, d_pair, ws)),
+        ws.numel(), split.data_ptr(), wred, wred + 4 * pm.W_PART_FLOATS,
+        wred + 4 * (pm.W_PART_FLOATS + 2 * 17 * pm.ROW_PART), 2, 17, 17, 0, 2 * 17, None,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    cpu = [w.cpu() for w in (w0, w1, wf, wfe)]
+    want = torch.cat([pm.wgmma_weight_split(*cpu), pm.chain_weight_split(*cpu)])
+    same_split = err == 0 and torch.equal(split.cpu().view(torch.int32), want.view(torch.int32))
+    same_out = err == 0 and torch.equal(d_pair, pm.pair_mlp_bwd(g, *args)[0])
+    log(f"wgmma backward's first step: the forward's and the chain's TF32 weight parts equal "
+        f"wgmma_weight_split's and chain_weight_split's bit for bit: {same_split}; d_pair equals "
+        f"the wrapper's: {same_out}")
+    if not (same_split and same_out):
+        raise AssertionError(f"wgmma backward's scratch or d_pair (cudaError_t {err})")
+    for name in ("pair_mlp_wg", "edge_embedder_wg", "pair_mlp_bwd_wg"):
         counts = sass_counts(name, ("HGMMA", "UTMALDG"))
         log(f"{name}: {counts['HGMMA']} HGMMA and {counts['UTMALDG']} UTMALDG instructions "
             "(cuobjdump -sass)")
@@ -657,12 +689,12 @@ def sass_counts(name: str, ops) -> dict[str, int]:
 
 # The pair-MLP backward: kernel A (recompute and input-gradient chain) and
 # kernel B (weight gradients) run their products on the tensor cores, as
-# 3xTF32 in float32 and bf16 MMA in bf16.
-# The persistent CUDA-core kernels they replace, B=2 N=256 (PERF.md section
-# 6; NVIDIA H100 80GB HBM3, 700 W), printed for reference.
-PAIR_MLP_BWD_CUDA_CORE_MS = {torch.float32: 9.966, torch.bfloat16: 12.0084}
-BWD_PARTS = (("A", "split_tile_kernel"), ("B", "wgrad_kernel"), ("row/col sums", "_sums"),
-             ("ordered reductions", "sum_partials"))
+# 3xTF32 in float32 and bf16 MMA in bf16. Its CUDA kernels by name: kernel A
+# (float32: csrc/pair_mlp_bwd_wg.cu on wgmma; bf16: csrc/pair_mlp_bwd.cu),
+# float32's weight splits (kernel A's first step), kernel B, the sums.
+BWD_PARTS = (("A", "bwd_tile_kernel"), ("A", "split_tile_kernel"),
+             ("weight splits", "prepare_weights"), ("B", "wgrad_kernel"),
+             ("row/col sums", "_sums"), ("ordered reductions", "sum_partials"))
 
 
 def pair_mlp_bwd_cost(B, N, dtype):
@@ -744,8 +776,8 @@ def check_pair_mlp_bwd() -> dict:
     dtype's rounding of 0 (tol: float32 1e-4, bf16 5e-2), and the gradients
     are held against the plain backward through the recompute's relu
     decisions (the gradient jumps at such a site; without them the error is
-    printed too). Returns the float32 numbers at B=2 N=256 and the bf16 ones
-    under "bf16"."""
+    printed too). Returns the numbers at B=2 N=256 by dtype (float32: kernel
+    A on wgmma, csrc/pair_mlp_bwd_wg.cu; bf16: csrc/pair_mlp_bwd.cu)."""
     from framedipt_tpu_torch.model.kernels.pair_mlp import (
         BWD_WORKSPACE_CAP,
         _pre_norm,
@@ -800,19 +832,13 @@ def check_pair_mlp_bwd() -> dict:
                 parts = bwd_parts_ms(lambda: pair_mlp_bwd(g, *args))
                 peak = TENSOR_CORE_FLOPS[dtype]
                 line += (f"; call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by}), {(a_flops + b_flops) / ms / 1e9:.2f} TFLOP/s; the "
-                         f"persistent CUDA-core kernel (PERF.md) "
-                         f"{PAIR_MLP_BWD_CUDA_CORE_MS[dtype]} ms; device ms by part (profiler, "
-                         "one call): "
+                         f"({bound_by}), {(a_flops + b_flops) / ms / 1e9:.2f} TFLOP/s; device ms "
+                         "by part (profiler, one call): "
                          + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
                          + f"; kernel A bound {1e3 * a_flops / peak:.4f} ms, kernel B bound "
                          f"{1e3 * b_flops / peak:.4f} ms; {card_line()}")
-                numbers = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-                if dtype == torch.float32:
-                    out.update(numbers)
-                else:
-                    out["bf16"] = numbers
+                out[dtype] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
             log(line)
             if worst_rel > TOL[dtype] or not same:
                 raise AssertionError(f"{label}: error {worst_rel} over tolerance or not deterministic")
@@ -825,10 +851,6 @@ def check_pair_mlp_bwd() -> dict:
 # 128); 245,760 in all.
 EMB_BWD_A_FLOP_PER_PAIR = 2 * (64 * 128 + 128 * 128 + 128 * 128) + 2 * (2 * 128 * 128 + 64 * 128)
 EMB_BWD_B_FLOP_PER_PAIR = 2 * (2 * 128 * 128 + 64 * 128)
-# The earlier persistent CUDA-core kernel at B=2 N=256 (PERF.md section 6;
-# NVIDIA H100 80GB HBM3, 700 W), printed for reference: both dtypes have
-# left it for kernels A and B.
-EMB_BWD_CUDA_CORE_MS = {torch.float32: 1.8980, torch.bfloat16: 2.0669}
 EMB_BWD_PARTS = (("A", "emb_split_tile_kernel"), ("B", "wgrad_kernel"), ("row/col sums", "_sums"),
                  ("ordered reductions", "sum_partials"))
 
@@ -937,9 +959,7 @@ def check_edge_embedder_bwd() -> dict:
                          f"ms ({bound_by}, tensor cores"
                          + (f", 3xTF32; CUDA cores {bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms"
                             if dtype == torch.float32 else "")
-                         + f"); the persistent CUDA-core kernel (PERF.md) "
-                         f"{EMB_BWD_CUDA_CORE_MS[dtype]} ms; device ms by part (profiler, one "
-                         "call): "
+                         + "); device ms by part (profiler, one call): "
                          + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
                          + f"; kernel A bound {1e3 * a_flops / peak:.4f} ms, kernel B bound "
                          f"{1e3 * b_flops / peak:.4f} ms; {card_line()}")
@@ -1095,14 +1115,15 @@ def helix_pdb(n_res: int, seed: int) -> str:
 
 
 KERNEL_NAMES = ("edge_embedder", "edge_embedder_wg", "pair_mlp", "pair_mlp_wg", "ipa_attention",
-                "pair_mlp_bwd", "edge_embedder_bwd")
+                "pair_mlp_bwd", "pair_mlp_bwd_wg", "edge_embedder_bwd")
 
 
 class RouteLaunches:
     """An edge-stack wrapper's launches of one of its kernels
-    (``launches_mma``: csrc/pair_mlp.cu or csrc/edge_embedder.cu,
-    ``launches_wgmma``: csrc/pair_mlp_wg.cu or csrc/edge_embedder_wg.cu),
-    read and set as a wrapper's ``launches`` is."""
+    (``launches_mma``: csrc/pair_mlp.cu, csrc/pair_mlp_bwd.cu or
+    csrc/edge_embedder.cu; ``launches_wgmma``: csrc/pair_mlp_wg.cu,
+    csrc/pair_mlp_bwd_wg.cu or csrc/edge_embedder_wg.cu), read and set as a
+    wrapper's ``launches`` is."""
 
     def __init__(self, wrapper, attr: str) -> None:
         self.wrapper, self.attr = wrapper, attr
@@ -1118,7 +1139,7 @@ class RouteLaunches:
 
 def kernel_wrappers() -> dict:
     """Each kernel's launch count by name: the edge embedder's and the pair
-    MLP's by route."""
+    MLP's (forward and backward) by route."""
     from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder, edge_embedder_bwd
     from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp, pair_mlp_bwd
@@ -1127,7 +1148,9 @@ def kernel_wrappers() -> dict:
             "edge_embedder_wg": RouteLaunches(edge_embedder, "launches_wgmma"),
             "pair_mlp": RouteLaunches(pair_mlp, "launches_mma"),
             "pair_mlp_wg": RouteLaunches(pair_mlp, "launches_wgmma"), "ipa_attention": ipa_attention,
-            "pair_mlp_bwd": pair_mlp_bwd, "edge_embedder_bwd": edge_embedder_bwd}
+            "pair_mlp_bwd": RouteLaunches(pair_mlp_bwd, "launches_mma"),
+            "pair_mlp_bwd_wg": RouteLaunches(pair_mlp_bwd, "launches_wgmma"),
+            "edge_embedder_bwd": edge_embedder_bwd}
 
 
 def serve_requests(service, requests) -> dict[str, int]:
@@ -1177,6 +1200,7 @@ def serve_requests(service, requests) -> dict[str, int]:
                 "pair_mlp_wg": (NUM_BLOCKS - 1) * (num_t + 1),
                 "ipa_attention": NUM_BLOCKS * (num_t + 1) if ipa_on else 0,
                 "pair_mlp_bwd": 0,
+                "pair_mlp_bwd_wg": 0,
                 "edge_embedder_bwd": 0,
             }
             if got_launches != want:
@@ -1446,16 +1470,20 @@ def step_launches(trainer, batch, seed: int) -> tuple[dict, dict[str, int]]:
 
 def expected_launches(self_conditioned: bool, emb_bwd_impl: str = "pallas",
                       bf16: bool = False) -> dict[str, int]:
-    """A train step's launches: the autograd forward's embedder and pair
-    MLPs on the mma.sync kernels (the backwards recompute their bits); the
-    coin's forward, under no_grad, on the wgmma kernels in float32 and on
-    mma.sync in bf16."""
+    """A train step's launches: the autograd forward's embedder on its
+    mma.sync kernel (the backward recomputes its bits), the coin's forward,
+    under no_grad, on the wgmma embedder in float32 and on mma.sync in bf16;
+    every pair-MLP forward and backward on the dtype's kernels (float32:
+    wgmma, the backward's kernel A recomputing the wgmma forward's bits;
+    bf16: mma.sync)."""
     edge = NUM_BLOCKS - 1
     sc = int(self_conditioned)  # the coin's forward runs without gradients
-    return {"edge_embedder": 1 + (sc if bf16 else 0), "edge_embedder_wg": 0 if bf16 else sc,
-            "pair_mlp": edge + (edge * sc if bf16 else 0),
-            "pair_mlp_wg": 0 if bf16 else edge * sc, "ipa_attention": 0, "pair_mlp_bwd": edge,
-            "edge_embedder_bwd": int(emb_bwd_impl == "pallas")}
+    pair_fwd, pair_bwd = ("pair_mlp", "pair_mlp_bwd") if bf16 else ("pair_mlp_wg", "pair_mlp_bwd_wg")
+    launches = {"edge_embedder": 1 + (sc if bf16 else 0), "edge_embedder_wg": 0 if bf16 else sc,
+                "pair_mlp": 0, "pair_mlp_wg": 0, "ipa_attention": 0, "pair_mlp_bwd": 0,
+                "pair_mlp_bwd_wg": 0, "edge_embedder_bwd": int(emb_bwd_impl == "pallas")}
+    launches[pair_fwd], launches[pair_bwd] = edge + edge * sc, edge
+    return launches
 
 
 def check_training_refusals() -> None:
@@ -1581,8 +1609,7 @@ def check_bf16_step(batch) -> tuple[object, int]:
     first step's loss within BF16_TRAIN_TOL of the plain-version step's,
     each gradient's error against its own max-abs printed; then 3 steps,
     finite, 3 pair-MLP and 1 embedder backward launches each. Returns the
-    trainer and the launches over those 3 steps of the pair-MLP backward, the
-    pair MLP's mma.sync forward and the embedder's."""
+    trainer and each kernel's launches over those 3 steps."""
     kern = fixture_trainer(train_config(dtype="bfloat16"))
     plain = fixture_trainer(train_config(dtype="bfloat16"))
     m_k, launches = step_launches(kern, batch, seed=0)
@@ -1614,25 +1641,22 @@ def check_bf16_step(batch) -> tuple[object, int]:
         raise AssertionError(f"first bf16 train step: loss rel err {loss_rel} over {BF16_TRAIN_TOL}")
     del plain
     torch.cuda.empty_cache()
-    bwd_launches = fwd_launches = emb_launches = 0
+    total = dict.fromkeys(KERNEL_NAMES, 0)
     for i in range(3):
         m, launches = step_launches(kern, batch, seed=300 + i)
         if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
             raise AssertionError(f"bf16 train step {i}: loss {m['loss']} grad norm {m['grad_norm']}")
         if launches != expected_launches(m["self_conditioned"], bf16=True):
             raise AssertionError(f"bf16 train step {i}: launches {launches}")
-        bwd_launches += launches["pair_mlp_bwd"]
-        fwd_launches += launches["pair_mlp"]
-        emb_launches += launches["edge_embedder"]
+        total = {k: total[k] + launches[k] for k in total}
         log(f"  bf16 step {i}: loss {float(m['loss']):.4f}, grad norm "
             f"{float(m['grad_norm']):.4f}, launches {launches}")
-    return kern, bwd_launches, fwd_launches, emb_launches
+    return kern, total
 
 
-def check_train_step() -> tuple[int, int, int]:
-    """Phase 6. Returns the launches of the pair-MLP backward kernel and of
-    the mma.sync forwards (csrc/pair_mlp.cu, csrc/edge_embedder.cu) over the
-    10 float32 and 3 bf16 steps checked for correctness."""
+def check_train_step() -> dict[str, int]:
+    """Phase 6. Returns each kernel's launches over the 10 float32 and 3
+    bf16 steps checked for correctness."""
     B, N = 2, 256
     batch = train_batch(B, N)
     kern = fixture_trainer(train_config())
@@ -1655,16 +1679,14 @@ def check_train_step() -> tuple[int, int, int]:
 
     # 10 steps at lr 1e-4: finite, parameters move, 3 + 1 backward launches each.
     start = {n: p.detach().clone() for n, p in kern.model.named_parameters()}
-    bwd_launches = fwd_launches = emb_launches = 0
+    total = dict.fromkeys(KERNEL_NAMES, 0)
     for i in range(10):
         m, launches = step_launches(kern, batch, seed=100 + i)
         if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
             raise AssertionError(f"train step {i}: loss {m['loss']} grad norm {m['grad_norm']}")
         if launches != expected_launches(m["self_conditioned"]):
             raise AssertionError(f"train step {i}: launches {launches}")
-        bwd_launches += launches["pair_mlp_bwd"]
-        fwd_launches += launches["pair_mlp"]
-        emb_launches += launches["edge_embedder"]
+        total = {k: total[k] + launches[k] for k in total}
         log(f"  step {i}: loss {float(m['loss']):.4f}, grad norm {float(m['grad_norm']):.4f}, "
             f"t {[round(float(x), 3) for x in m['t']]}, self_conditioned {m['self_conditioned']}")
     # Every parameter the forward reads moves (linear_rbf and linear_3 are
@@ -1676,10 +1698,8 @@ def check_train_step() -> tuple[int, int, int]:
     if still:
         raise AssertionError(f"parameters did not move: {still}")
 
-    kern16, bf16_bwd, bf16_fwd, bf16_emb = check_bf16_step(batch)
-    bwd_launches += bf16_bwd
-    fwd_launches += bf16_fwd
-    emb_launches += bf16_emb
+    kern16, bf16_launches = check_bf16_step(batch)
+    total = {k: total[k] + bf16_launches[k] for k in total}
 
     # Step time (CUDA events), peak memory, the settings in turn; busy share.
     gen = torch.Generator(device="cuda").manual_seed(200)
@@ -1707,7 +1727,7 @@ def check_train_step() -> tuple[int, int, int]:
                "torch.profiler recorded no device time (busy share not measured)"))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             log(f"  {ms:9.3f} ms  {name[:100]}")
-    return bwd_launches, fwd_launches, emb_launches
+    return total
 
 
 # -- phase 7: the training CLI -----------------------------------------------
@@ -1772,7 +1792,7 @@ def check_training_cli() -> int:
             f"{ {k: round(v, 4) for k, v in losses.items()} }; launches {launches}")
         if not 14 <= first.steps_run <= 21 or not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"train run: {first.steps_run} steps, losses {losses}")
-        if launches["edge_embedder_bwd"] != first.steps_run or launches["pair_mlp_bwd"] != (
+        if launches["edge_embedder_bwd"] != first.steps_run or launches["pair_mlp_bwd_wg"] != (
                 NUM_BLOCKS - 1) * first.steps_run:
             raise AssertionError(f"train run: launches {launches} for {first.steps_run} steps")
         pdbs = sorted((root / "eval" / "chip_smoke" / "step_12").rglob("*.pdb"))
@@ -2024,7 +2044,7 @@ def forward_launches(forwards: int) -> dict[str, int]:
     kernels) and with the IPA attention as einsums."""
     return {"edge_embedder": 0, "edge_embedder_wg": forwards, "pair_mlp": 0,
             "pair_mlp_wg": (NUM_BLOCKS - 1) * forwards, "ipa_attention": 0, "pair_mlp_bwd": 0,
-            "edge_embedder_bwd": 0}
+            "pair_mlp_bwd_wg": 0, "edge_embedder_bwd": 0}
 
 
 def check_inference_cli(root: pathlib.Path) -> tuple[dict[str, int], pathlib.Path]:
@@ -3235,23 +3255,25 @@ def parallel_backend(world: int) -> str:
 
 def check_row_blocks() -> None:
     """(a) One process, no collective: each rank's row block at sp 2 and 4
-    through the pair-MLP and edge-embedder kernels (both routes of each in
-    float32) against the same rows of the full launch (bits, largest
-    difference), each block timed beside the full launch."""
+    through the pair-MLP kernels (the wgmma one in float32, the mma.sync one
+    in bf16) and the edge-embedder kernels (both routes in float32) against
+    the same rows of the full launch (bits, largest difference), each block
+    timed beside the full launch."""
     from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp
     from framedipt_tpu_torch.parallel.sp import row_block
 
     gen = torch.Generator(device="cuda").manual_seed(13)
-    kernels = {"pair_mlp": (lambda *a: pair_mlp(*a, needs_grad=True), pair_mlp_inputs),
-               "pair_mlp_wg": (pair_mlp, pair_mlp_inputs),
+    f32, bf16 = (torch.float32,), (torch.bfloat16,)
+    kernels = {"pair_mlp": (lambda *a: pair_mlp(*a, needs_grad=True), pair_mlp_inputs, bf16),
+               "pair_mlp_wg": (pair_mlp, pair_mlp_inputs, f32),
                "edge_embedder": (lambda *a: edge_embedder(*a, needs_grad=True),
-                                 edge_embedder_inputs),
-               "edge_embedder_wg": (edge_embedder, edge_embedder_inputs)}
+                                 edge_embedder_inputs, f32 + bf16),
+               "edge_embedder_wg": (edge_embedder, edge_embedder_inputs, f32)}
     for n in ROW_BLOCK_NS:
         for dtype in (torch.float32, torch.bfloat16):
-            for name, (fn, inputs) in kernels.items():
-                if name.endswith("_wg") and dtype != torch.float32:
+            for name, (fn, inputs, dtypes) in kernels.items():
+                if dtype not in dtypes:
                     continue
                 args = inputs(2, n, dtype, gen)
                 full = fn(*args)
@@ -3688,7 +3710,8 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     serving = check_kernels()
-    serving["pair_mlp_bwd"] = check_pair_mlp_bwd()
+    bwd = check_pair_mlp_bwd()
+    serving["pair_mlp_bwd_wg"], serving["pair_mlp_bwd"] = bwd[torch.float32], bwd[torch.bfloat16]
     serving["edge_embedder_bwd"] = check_edge_embedder_bwd()
     compare_ipa_branches()
     log("phase 4: full-width forward against the recorded reference")
@@ -3698,7 +3721,9 @@ def main() -> int:
     launches = drive_service()
     log("phase 6: train step")
     check_training_refusals()
-    launches["pair_mlp_bwd"], launches["pair_mlp"], launches["edge_embedder"] = check_train_step()
+    train_launches = check_train_step()
+    for name in ("pair_mlp_bwd", "pair_mlp_bwd_wg", "pair_mlp", "edge_embedder"):
+        launches[name] = train_launches[name]
     log("phase 7: the training CLI")
     launches["edge_embedder_bwd"] = check_training_cli()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_infer_") as tmp:
@@ -3735,6 +3760,7 @@ def main() -> int:
         "pair_mlp_wg": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "ipa_attention": "framedipt_tpu/model/pallas/ipa_attention.py:65",
         "pair_mlp_bwd": "framedipt_tpu/model/pallas/pair_mlp.py:349",
+        "pair_mlp_bwd_wg": "framedipt_tpu/model/pallas/pair_mlp.py:349",
         "edge_embedder_bwd": "framedipt_tpu/model/pallas/edge_embedder.py:366",
     }
     kernels = [

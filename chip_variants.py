@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the edge-embedder forward kernels beside variants of their sources,
-on one CUDA card.
+"""Time the edge-embedder forward kernels and the float32 pair-MLP
+backward's kernel A beside variants of their sources, on one CUDA card.
 
-    python3 chip_variants.py [--parent DIR] [--out FILE] [--only mma|wgmma]
+    python3 chip_variants.py [--parent DIR] [--out FILE] [--only mma|wgmma|bwd]
 
 Each variant is this checkout's ``framedipt_tpu_torch/csrc`` with text
 patches applied to a copy, built by nvcc (one process per variant, all
@@ -10,7 +10,12 @@ started together) and loaded in place of the library the wrapper
 ``edge_embedder`` calls: variants of ``edge_embedder.cu`` (the ``mma.sync``
 kernel, reached with ``needs_grad=True``, both dtypes) and of
 ``edge_embedder_wg.cu`` (the wgmma kernel, the float32 forward without
-gradients). ``--only`` builds and times one kernel's variants. Variants that
+gradients), and of ``pair_mlp_bwd_wg.cu`` (the float32 pair-MLP backward,
+kernel A on wgmma: its relu decisions read back from the workspace in place
+of registers, and one part removed at a time: the products, the workspace
+stores, the LayerNorm backward, the relu masks), the backward held and timed
+at B=2 N=256 by its call and by kernel A's device time (torch.profiler).
+``--only`` builds and times one kernel's variants. Variants that
 change how a kernel works are held against the plain version (float32 1e-4,
 bf16 5e-2) at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256; variants that
 remove a part of the work give wrong outputs and are only timed, to show
@@ -18,15 +23,20 @@ what that part costs. With ``--parent`` (a tree unpacked from an earlier
 commit: ``git archive <rev> | tar -x -C DIR``), that tree's
 ``edge_embedder.cu`` is timed too and must give the same bits as this
 checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256 with and without
-distance bins (the forward's tile is shared with the embedder backward's
-recompute); its ``pair_mlp.cu`` and ``pair_mlp_bwd.cu`` (both dtypes),
-``pair_mlp_wg.cu`` (float32, with and without the residual terms; it shares
-``wgmma_tma.cuh`` with the wgmma embedder) and ``edge_embedder_bwd.cu``
-(float32) must give the same bits as this checkout's (the product code, the
+distance bins in both dtypes (the forward's tile is shared with the embedder
+backward's recompute); its ``pair_mlp.cu`` and ``pair_mlp_bwd.cu`` (bf16),
+``pair_mlp_wg.cu`` (float32, with and without the residual terms; its tile
+is now shared with the float32 backward's kernel A),
+``edge_embedder_wg.cu`` (float32) and ``edge_embedder_bwd.cu`` (both
+dtypes) must give the same bits as this checkout's (the product code, the
 forward tiles and kernel B are shared), and they are timed beside this
-checkout's, the embedder backward in bf16 too. The parent's backwards run
-through that tree's own wrapper modules, which bind its C entries as it
-built them.
+checkout's; the float32 pair-MLP backward, whose kernel A this checkout
+runs on wgmma, is held against the plain version instead (1e-4 of each
+gradient's max-abs, through the recompute's relu decisions) and timed
+beside the parent's, as is the differentiated float32 forward (this
+checkout's wgmma kernel, the parent's mma.sync one). The parent's wrappers
+run through that tree's own wrapper modules, which bind its C entries as
+it built them.
 
 Times: CUDA events over 20 launches at B=2 N=256 (the wgmma variants also at
 B=2 N=896) in float32 and, for the mma.sync kernel, bf16, every variant once
@@ -187,6 +197,59 @@ WG_DOUBLE_BUFFER = [
 ]
 WG_REGS = [("    wg::setmaxnreg_dec<40>();", "    wg::setmaxnreg_dec<24>();"),
            ("    wg::setmaxnreg_inc<232>();", "    wg::setmaxnreg_inc<240>();")]
+# The float32 pair-MLP backward's kernel A (pair_mlp_bwd_wg.cu, on the
+# forward's tile code in pair_mlp_wg.cuh).
+BWD_WG = "pair_mlp_bwd_wg.cu"
+BWD_MASKS = "constexpr bool kMasksInRegisters = true;"
+BWD_MMA3 = """      wg::wgmma_m64n64k8_tf32(part, lo[kk], bh, kk > 0);
+      wg::wgmma_m64n64k8_tf32(part, hi[kk], bl, 1);
+      wg::wgmma_m64n64k8_tf32(part, hi[kk], bh, 1);
+"""
+# No workspace stores (the store warps still take each region over).
+BWD_NO_STORES = [("idx < rows * per_row; idx += 96)", "idx < rows * per_row && ld < 0; idx += 96)"),
+                 ("    if (pt.row[r] < 0) continue;\n    const float4 v =",
+                  "    if (pt.row[r] < 0 || ld > 0) continue;\n    const float4 v =")]
+BWD_LN = "    layer_norm_backward(sm, pt, "
+BWD_PICKS = [("uint32_t m = kMasksInRegisters ? pick(h.m1, cb) : 0u;", "uint32_t m = ~0u;"),
+             ("uint32_t m = kMasksInRegisters ? pick(h.m0, hc) : 0u;", "uint32_t m = ~0u;"),
+             ("    if (kMasksInRegisters) put(m0, cb,", "    if (cb < 0) put(m0, cb,"),
+             ("    if (kMasksInRegisters) put(m1, hc,", "    if (hc < 0) put(m1, hc,")]
+# The weight slices not loaded (the full barriers arrive at once).
+BWD_NO_TMA = [("""        wg::mbar_arrive_expect_tx(&sm.full[st], 2 * kSliceBytes);
+        wg::tma_load_2d(sm.hi[st], map, &sm.full[st], c_in, c_out);
+        wg::tma_load_2d(sm.lo[st], map, &sm.full[st], c_in, c_lo);
+""", "        wg::mbar_arrive(&sm.full[st]);\n")]
+# Two consumer warpgroups and one producer warp, no setmaxnreg: ptxas may
+# then give every thread 224 registers (65,536 / 288), not 168; the
+# consumers store the workspace themselves (no store warps).
+BWD_STORE_WARPS = "constexpr bool kStoreWarps = true;"
+BWD_288 = [(BWD_STORE_WARPS, BWD_STORE_WARPS.replace("true", "false")),
+           ("__global__ void __launch_bounds__(kBlockWG, 1)\nbwd_tile_kernel",
+            "__global__ void __launch_bounds__(kConsumers + 32, 1)\nbwd_tile_kernel"),
+           ("    wg::setmaxnreg_dec<40>();\n", ""), ("    wg::setmaxnreg_inc<232>();\n", ""),
+           ("kBlockWG, kSmemBytes, stream>>>(\n      maps, a);",
+            "kConsumers + 32, kSmemBytes, stream>>>(\n      maps, a);")]
+# name: (patches, checked against the plain version): the relu decisions
+# read back from the workspace; the workspace stored by the consumers themselves,
+# between the products; 288 threads (and without stores); no products (the
+# slices still stream); no workspace stores; no weight slices (and no
+# stores); no LayerNorm backward (dx is X's old contents); no relu masks
+# (neither recorded nor applied).
+BWD_VARIANTS = {
+    "bwd_mask_reload": ({BWD_WG: [(BWD_MASKS, BWD_MASKS.replace("true", "false"))]}, True),
+    "bwd_consumer_stores": ({BWD_WG: [(BWD_STORE_WARPS, BWD_STORE_WARPS.replace("true",
+                                                                                "false"))]},
+                            True),
+    "bwd_288_threads": ({BWD_WG: BWD_288}, True),
+    "bwd_288_no_stores": ({BWD_WG: BWD_288 + BWD_NO_STORES}, False),
+    "bwd_no_products": ({"pair_mlp_wg.cuh": [(BWD_MMA3, "")]}, False),
+    "bwd_no_stores": ({BWD_WG: BWD_NO_STORES}, False),
+    "bwd_no_weight_tma": ({"pair_mlp_wg.cuh": BWD_NO_TMA}, False),
+    "bwd_no_weight_tma_no_stores": ({"pair_mlp_wg.cuh": BWD_NO_TMA, BWD_WG: BWD_NO_STORES}, False),
+    "bwd_no_layernorm": ({BWD_WG: [(BWD_LN, "    if (a.Nr < 0) layer_norm_backward(sm, pt, ")]},
+                         False),
+    "bwd_no_relu_masks": ({BWD_WG: BWD_PICKS}, False),
+}
 # name: (patches {file: [(old, new)]}, checked against the plain version);
 # the mma.sync kernel's (edge_embedder.cu)
 VARIANTS = {
@@ -272,18 +335,23 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen) -> dict:
     from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
     from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 
-    cases = {}  # label: (library kind, this checkout's call, the parent's call)
+    cases = {}  # label: (the parent's library kind, this checkout's call, the parent's call)
+    parent_pair = pmods["pair_mlp"]
     for dtype in (torch.float32, torch.bfloat16):
         a = cs.pair_mlp_inputs(2, 256, dtype, gen)
         g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
-        fwd = lambda a=a: t_pair.pair_mlp(*a, needs_grad=True)  # noqa: E731
-        cases[f"pair_mlp {str(dtype)[6:]}"] = ("pair_mlp", fwd, fwd)
+        # The forward autograd differentiates: this checkout's wgmma kernel
+        # in float32, the parent's mma.sync one; both mma.sync in bf16.
+        cases[f"pair_mlp {str(dtype)[6:]}, differentiated"] = (
+            "pair_mlp", lambda a=a: t_pair.pair_mlp(*a, needs_grad=True),
+            lambda a=a: parent_pair.pair_mlp(*a, needs_grad=True))
         if dtype == torch.float32:
             wg_fwd = lambda a=a: t_pair.pair_mlp(*a)  # noqa: E731
             cases["pair_mlp_wg float32"] = ("pair_mlp_wg", wg_fwd, wg_fwd)
+        # This checkout's float32 backward runs kernel A on wgmma.
         cases[f"pair_mlp_bwd {str(dtype)[6:]}"] = (
             "pair_mlp_bwd", lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
-            lambda a=a, g=g: pmods["pair_mlp"].pair_mlp_bwd(g, *a))
+            lambda a=a, g=g: parent_pair.pair_mlp_bwd(g, *a))
     parent_emb = pmods["edge_embedder"]
     for dtype in (torch.float32, torch.bfloat16):
         *e, lower, upper = cs.edge_embedder_inputs(2, 256, dtype, gen)
@@ -301,18 +369,65 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen) -> dict:
             for who in (("new", "parent") if rnd % 2 == 0 else ("parent", "new")):
                 use(kind, new_libs[kind] if who == "new" else libs[f"parent_{kind}"])
                 t[who].append(cs.cuda_time_ms(new_fn if who == "new" else parent_fn, 20))
+                if kind == "pair_mlp_bwd":  # kernel A's device ms, by name
+                    fn = new_fn if who == "new" else parent_fn
+                    t.setdefault(f"{who} kernel A", []).append(cs.bwd_parts_ms(fn).get("A", 0.0))
         use(kind, new_libs[kind])
-        log(f"{label} B=2 N=256: this checkout " + ", ".join(f"{x:.4f}" for x in t["new"])
-            + " ms; the parent " + ", ".join(f"{x:.4f}" for x in t["parent"]) + " ms")
+        log(f"{label} B=2 N=256: " + "; ".join(
+            f"{'this checkout' if who.startswith('new') else 'the parent'}"
+            f"{who[who.find(' '):] if ' ' in who else ''} " + ", ".join(f"{x:.4f}" for x in xs)
+            + " ms" for who, xs in t.items()))
         times[label] = t
     return times
+
+
+def pair_bwd_check(cs, label: str, a, g) -> bool:
+    """The pair-MLP backward on ``a``, ``g`` against the plain version through
+    its recompute's relu decisions (the dtype's tolerance of each gradient's
+    max-abs), two launches bit-identical, the recompute equal to the forward
+    autograd differentiates; logs one line, returns whether it passed."""
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    rec = {}
+    got = t_pair.pair_mlp_bwd(g, *a, recompute=rec)
+    again = t_pair.pair_mlp_bwd(g, *a)
+    ref = t_pair.pair_mlp_bwd_plain(g, *a, relu_masks=(rec["y0"] > 0, rec["y1"] > 0))
+    rel, err = cs.grad_errors(got, ref, label)
+    same = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+    fwd = torch.equal(rec["out"], t_pair.pair_mlp(*a, needs_grad=True))
+    tol = cs.TOL[a[0].dtype]
+    log(f"{label}: max err {err:.3e} abs, {rel:.3e} of the gradient's max-abs (tol {tol}), "
+        f"two launches bit-identical: {same}, recompute equal to the forward: {fwd}")
+    return rel <= tol and same and fwd
+
+
+def time_bwd_variants(cs, libs, names, use, gen) -> dict:
+    """The float32 pair-MLP backward at B=2 N=256 through each library in
+    ``names`` (this checkout's "new_bwd" and the variants): CUDA events over
+    10 calls and kernel A's device ms (torch.profiler), three rounds in
+    alternating order."""
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    a = cs.pair_mlp_inputs(2, 256, torch.float32, gen)
+    g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda")
+    t = {n: {"call": [], "A": []} for n in names}
+    for rnd in range(3):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            use("pair_mlp_bwd_wg", libs[name])
+            t[name]["call"].append(cs.cuda_time_ms(lambda: t_pair.pair_mlp_bwd(g, *a), 10))
+            t[name]["A"].append(cs.bwd_parts_ms(lambda: t_pair.pair_mlp_bwd(g, *a)).get("A", 0.0))
+    use("pair_mlp_bwd_wg", libs["new_bwd"])
+    for name in names:
+        log(f"{name} float32 B=2 N=256: call " + ", ".join(f"{x:.4f}" for x in t[name]["call"])
+            + " ms; kernel A " + ", ".join(f"{x:.4f}" for x in t[name]["A"]) + " ms")
+    return t
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=pathlib.Path, default=None)
     ap.add_argument("--out", type=pathlib.Path, default=None)
-    ap.add_argument("--only", choices=("mma", "wgmma"), default=None)
+    ap.add_argument("--only", choices=("mma", "wgmma", "bwd"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_variants: no CUDA device")
@@ -329,11 +444,14 @@ def main() -> int:
     # checkout's kernels.
     kinds = {"new": ("edge_embedder", True), "new_wg": ("edge_embedder_wg", True)}
     variants = {}
-    if args.only != "wgmma":
+    if args.only in (None, "mma"):
         variants.update({n: (p, ok, "edge_embedder", EMB) for n, (p, ok) in VARIANTS.items()})
-    if args.only != "mma":
+    if args.only in (None, "wgmma"):
         variants.update({n: (p, ok, "edge_embedder_wg", EMB_WG)
                          for n, (p, ok) in WG_VARIANTS.items()})
+    if args.only in (None, "bwd"):
+        variants.update({n: (p, ok, "pair_mlp_bwd_wg", BWD_WG)
+                         for n, (p, ok) in BWD_VARIANTS.items()})
     kinds.update({n: (kind, ok) for n, (_, ok, kind, _) in variants.items()})
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_variants_"))
     try:
@@ -344,6 +462,7 @@ def main() -> int:
             sources.update({"parent": parent / EMB, "parent_pair_mlp": parent / "pair_mlp.cu",
                             "parent_pair_mlp_bwd": parent / "pair_mlp_bwd.cu",
                             "parent_pair_mlp_wg": parent / "pair_mlp_wg.cu",
+                            "parent_edge_embedder_wg": parent / EMB_WG,
                             "parent_edge_embedder_bwd": parent / "edge_embedder_bwd.cu"})
             kinds["parent"] = ("edge_embedder", False)
         procs = {name: subprocess.Popen(
@@ -351,7 +470,8 @@ def main() -> int:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for name, src in sources.items()}
         build.build_all()
-        libs = {"new": build.library("edge_embedder"), "new_wg": build.library("edge_embedder_wg")}
+        libs = {"new": build.library("edge_embedder"), "new_wg": build.library("edge_embedder_wg"),
+                "new_bwd": build.library("pair_mlp_bwd_wg")}
         fails = 0
         for name, proc in procs.items():
             out = proc.communicate()[0]
@@ -364,14 +484,15 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "C7512" in line:
                     log(f"  {name}: {line.strip()[:160]}")
         new_libs = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd", "pair_mlp_wg",
-                                                  "edge_embedder_bwd")}
+                                                  "edge_embedder_wg", "edge_embedder_bwd")}
         pmods = {} if parent is None else {
             n: parent_module(args.parent, n) for n in ("pair_mlp", "edge_embedder")}
 
         def use(kind: str, lib) -> None:
             build._libs[kind] = lib
             for mod in (t_emb, t_pair, *pmods.values()):
-                for entry in ("_kernel", "_wg_kernel", "_split_kernel", "_bwd_kernel"):
+                for entry in ("_kernel", "_wg_kernel", "_split_kernel", "_bwd_kernel",
+                              "_bwd_wg_kernel"):
                     if hasattr(mod, entry):
                         getattr(mod, entry).cache_clear()
 
@@ -385,8 +506,20 @@ def main() -> int:
             return (torch.float32,) if f32_only else (torch.float32, torch.bfloat16)
 
         gen = torch.Generator(device="cuda").manual_seed(0)
+        bwd_names = [n for n, (kind, _) in kinds.items() if kind == "pair_mlp_bwd_wg" and n in libs]
+        for name in [n for n in bwd_names if kinds[n][1]]:
+            use("pair_mlp_bwd_wg", libs[name])
+            for B, N in ((1, 1), (1, 17), (2, 200)):
+                for residual in (True, False):
+                    a = cs.pair_mlp_inputs(B, N, torch.float32, gen, residual=residual)
+                    g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
+                    fails += not pair_bwd_check(
+                        cs, f"{name} float32 B={B} N={N} residual={residual}", a, g)
+            use("pair_mlp_bwd_wg", libs["new_bwd"])
+        kinds = {n: v for n, v in kinds.items() if v[0] != "pair_mlp_bwd_wg"}
+        emb_only = {None: None, "mma": "edge_embedder", "wgmma": "edge_embedder_wg"}.get(args.only, "")
         checked = [n for n, (kind, ok) in kinds.items() if ok and n in libs
-                   and (args.only is None or (kind == "edge_embedder_wg") == (args.only == "wgmma"))]
+                   and emb_only in (None, kind)]
         for name in checked:
             use(kinds[name][0], libs[name])
             for dtype in dtypes(name):
@@ -414,7 +547,8 @@ def main() -> int:
                         fails += not same
             use("edge_embedder", libs["new"])
         if "parent_pair_mlp" in libs and "parent_pair_mlp_bwd" in libs:
-            for dtype in (torch.float32, torch.bfloat16):
+            # The mma.sync kernels are bf16's only now.
+            for dtype in (torch.bfloat16,):
                 for residual in (True, False):
                     a = cs.pair_mlp_inputs(2, 200, dtype, gen, residual=residual)
                     outs = []
@@ -436,6 +570,14 @@ def main() -> int:
                     fails += not same
             use("pair_mlp", new_libs["pair_mlp"])
             use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
+            # float32: this checkout's kernel A runs on wgmma, so the
+            # backward is held against the plain version, not the parent.
+            for B, N in ((1, 17), (2, 200), (2, 256)):
+                for residual in (True, False):
+                    a = cs.pair_mlp_inputs(B, N, torch.float32, gen, residual=residual)
+                    g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
+                    fails += not pair_bwd_check(
+                        cs, f"pair_mlp_bwd float32 B={B} N={N} residual={residual}", a, g)
         if "parent_pair_mlp_wg" in libs:
             for B, N in ((1, 17), (2, 200)):
                 for residual in (True, False):
@@ -449,31 +591,48 @@ def main() -> int:
                         f"bits {same}")
                     fails += not same
             use("pair_mlp_wg", new_libs["pair_mlp_wg"])
-        if "parent_edge_embedder_bwd" in libs:
-            for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
+        if "parent_edge_embedder_wg" in libs:
+            for B, N in ((1, 17), (2, 200), (2, 256)):
                 for n_bins in (22, 0):
-                    *tensors, lower, upper = cs.edge_embedder_inputs(B, N, torch.float32, gen,
-                                                                     n_bins=n_bins)
-                    g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
-                    grads = []
-                    for lib, wrapper in ((new_libs["edge_embedder_bwd"], t_emb),
-                                         (libs["parent_edge_embedder_bwd"], pmods["edge_embedder"])):
-                        use("edge_embedder_bwd", lib)
-                        grads.append(wrapper.edge_embedder_bwd(g, *tensors, bins_lower=lower,
-                                                               bins_upper=upper))
-                    same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
-                    log(f"edge_embedder_bwd float32 B={B} N={N} n_bins={n_bins}: the parent's "
+                    a = cs.edge_embedder_inputs(B, N, torch.float32, gen, n_bins=n_bins)
+                    outs = []
+                    for lib in (new_libs["edge_embedder_wg"], libs["parent_edge_embedder_wg"]):
+                        use("edge_embedder_wg", lib)
+                        outs.append(t_emb.edge_embedder(*a))
+                    same = torch.equal(*outs)
+                    log(f"edge_embedder_wg float32 B={B} N={N} n_bins={n_bins}: the parent's "
                         f"bits {same}")
                     fails += not same
+            use("edge_embedder_wg", new_libs["edge_embedder_wg"])
+        if "parent_edge_embedder_bwd" in libs:
+            for dtype in (torch.float32, torch.bfloat16):
+                for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
+                    for n_bins in (22, 0):
+                        *tensors, lower, upper = cs.edge_embedder_inputs(B, N, dtype, gen,
+                                                                         n_bins=n_bins)
+                        g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
+                        grads = []
+                        for lib, wrapper in ((new_libs["edge_embedder_bwd"], t_emb),
+                                             (libs["parent_edge_embedder_bwd"],
+                                              pmods["edge_embedder"])):
+                            use("edge_embedder_bwd", lib)
+                            grads.append(wrapper.edge_embedder_bwd(g, *tensors, bins_lower=lower,
+                                                                   bins_upper=upper))
+                        same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
+                        log(f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins}: "
+                            f"the parent's bits {same}")
+                        fails += not same
             use("edge_embedder_bwd", new_libs["edge_embedder_bwd"])
         times = {}
         if parent is not None:
             times["parent"] = time_beside_parent(cs, pmods, libs, new_libs, use, gen)
-        timed = [n for n in libs if n in kinds and (
-            args.only is None or n in ("new", "new_wg", "parent")
-            or (kinds[n][0] == "edge_embedder_wg") == (args.only == "wgmma"))]
+        if bwd_names:
+            times["pair_mlp_bwd float32 B=2 N=256"] = time_bwd_variants(
+                cs, libs, ["new_bwd"] + bwd_names, use, gen)
+        timed = [n for n in libs if n in kinds and emb_only != "" and (
+            args.only is None or n in ("new", "new_wg", "parent") or kinds[n][0] == emb_only)]
         for dtype, B, N in ((torch.float32, 2, 256), (torch.bfloat16, 2, 256),
-                            (torch.float32, 2, 896)):
+                            (torch.float32, 2, 896)) if timed else ():
             order = [n for n in timed if dtype in dtypes(n)
                      and (N == 256 or kinds[n][0] == "edge_embedder_wg" or n == "new")]
             a = cs.edge_embedder_inputs(B, N, dtype, gen)

@@ -50,9 +50,13 @@
 // - Epilogues and LayerNorm are common.cuh's, applied to the accumulator
 //   fragments, in the plain version's addition order; only the order of the
 //   k-sum differs from the plain version.
-// - The backward's kernel A (pair_mlp_bwd.cu), in both element types,
-//   recomputes this forward through the same code (forward_tile), so its
-//   recompute equals this kernel's output bit for bit.
+// - The bf16 backward's kernel A (pair_mlp_bwd.cu) recomputes this forward
+//   through the same code (forward_tile), so its recompute equals this
+//   kernel's output bit for bit.
+// - Its C entry takes bf16 only: every float32 forward, differentiated or
+//   not, is pair_mlp_wg.cu's, whose tile the float32 backward recomputes
+//   through. The float32 arithmetic stays in the templates (tc_product.cuh),
+//   which the edge embedder's float32 kernels share.
 #include "pair_mlp_tc.cuh"
 
 namespace fdk {
@@ -121,7 +125,8 @@ cudaError_t launch(const void* pair, const void* i_term, const void* j_term, con
 }  // namespace
 }  // namespace fdk
 
-// C interface. dtype: 0 = float32, 1 = bfloat16. residual: 1 for the edge
+// C interface. dtype: 1 = bfloat16; 0 (float32) is refused: every float32
+// forward is fdk_pair_mlp_wg's (pair_mlp_wg.cu). residual: 1 for the edge
 // transition (fi, fj, wfe given), 0 for the plain MLP (they are ignored).
 // Weights are row-major [in, out], 16-byte aligned. Returns a cudaError_t (0
 // on success).
@@ -136,8 +141,7 @@ extern "C" int fdk_pair_mlp(int dtype, int residual, const void* pair, const voi
 #define FDK_ARGS                                                                     \
   pair, i_term, j_term, fi, fj, row_mask, col_mask, w0, b0, w1, b1, wf, bf, wfe,     \
       ln_scale, ln_bias, out, B, Nr, Nc, s
-  if (dtype == 0)
-    return residual ? fdk::launch<float, true>(FDK_ARGS) : fdk::launch<float, false>(FDK_ARGS);
+  // float32 is pair_mlp_wg.cu's (wgmma and TMA).
   if (dtype == 1)
     return residual ? fdk::launch<__nv_bfloat16, true>(FDK_ARGS)
                     : fdk::launch<__nv_bfloat16, false>(FDK_ARGS);

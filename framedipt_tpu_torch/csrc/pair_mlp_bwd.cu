@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/pair_mlp.py:349
 // (_pair_mlp_bwd_kernel, reached through fused_pair_mlp_bwd). For a
 // [B, Nr, Nc, 128] pair tensor and its cotangent g it recomputes the forward
-// of csrc/pair_mlp.cu per pair and back-propagates through the edge mask, the
+// per pair and back-propagates through the edge mask, the
 // LayerNorm, the three products and the relus (relu'(0) = 0):
 //
 //   d_pair [B,Nr,Nc,128] (element type T), and in float32
@@ -23,25 +23,25 @@
 //
 // Both element types: two kernels and fixed-order sums, per chunk of grid
 // rows (the wrapper plans the chunks so that the workspace stays under its
-// cap).
-// - Kernel A (split_tile_kernel), one block per 64-pair tile of the chunk's
-//   flat pairs, in the forward kernel's shared-memory layout (215 KB in
-//   float32, 192 KB in bf16, and 6 KB of relu decisions). It recomputes the
-//   forward through the forward kernel's own code (pair_mlp_tc.cuh:
-//   forward_tile; tc_product.cuh: mma.sync, 3xTF32 in float32 and bf16 MMA
-//   in bf16, the weight ring; common.cuh's epilogues), so the recompute
-//   equals pair_mlp.cu's output bit for bit and the relu masks are the
-//   forward's. Then the mask and LayerNorm backward (one warp per 8 pairs),
-//   and the input-gradient chain through the same products (mlp_products)
-//   on the transposed weights the wrapper lays out, which have the forward
-//   weights' shapes: dy1 = (dx Wf^T) . [y1 > 0], dy0 = (dy1 W1^T) . [y0 > 0]
-//   by 128-column chunk, d_pair = dy0 W0^T (+ dx Wfe^T). It writes y0, y1,
-//   dy1, dy0 and dx ([pairs, 384] / [pairs, 128]) and dem (the mask
-//   gradients' yln . g) to the workspace, keeps the recompute's relu
-//   decisions as ballot words in shared memory (the chain's epilogues walk
-//   the same fragments), and writes one partial of d_b1 | d_bf | d_ln_scale
-//   | d_ln_bias per tile. Bound: 3 x 137 GFLOP / 495 TFLOP/s = 0.83 ms
-//   (3xTF32); 137 GFLOP / 989 TFLOP/s = 0.14 ms (bf16).
+// cap). This file holds bf16's kernel A and entry; float32's kernel A runs
+// on wgmma and TMA in pair_mlp_bwd_wg.cu, and both share the rest
+// (pair_mlp_split.cuh: the workspace, the sums, kernel B).
+// - Kernel A, per 64-pair tile of the chunk's flat pairs, recomputes the
+//   forward through the forward kernel's own tile code, so the recompute
+//   equals the forward's output bit for bit and the relu masks are the
+//   forward's; then the mask and LayerNorm backward, and the input-gradient
+//   chain dy1 = (dx Wf^T) . [y1 > 0], dy0 = (dy1 W1^T) . [y0 > 0] by
+//   128-column chunk, d_pair = dy0 W0^T (+ dx Wfe^T), through the same
+//   products on the transposed weights, which have the forward weights'
+//   shapes. It writes y0, y1, dy1, dy0 and dx ([pairs, 384] / [pairs, 128])
+//   and dem (the mask gradients' yln . g) to the workspace, and one partial
+//   of d_b1 | d_bf | d_ln_scale | d_ln_bias per tile. Bound: 3 x 137 GFLOP /
+//   495 TFLOP/s = 0.83 ms (3xTF32); 137 GFLOP / 989 TFLOP/s = 0.14 ms
+//   (bf16). In bf16 (split_tile_kernel) one block a tile, in the forward
+//   kernel's shared-memory layout (192 KB, and 6 KB of relu decisions as
+//   ballot words: the chain's epilogues walk the same fragments), on
+//   pair_mlp_tc.cuh's forward_tile and mlp_products (mma.sync, bf16 MMA;
+//   the weight ring), the transposed weights laid out by the wrapper.
 // - Row and column sums (row_sums, col_sums): d_i_term | d_fi | d_row_mask
 //   and the column ones, summed from the workspace in index order.
 // - Kernel B (wgrad_tc.cuh's wgrad_kernel, shared with the embedder's
@@ -76,91 +76,23 @@
 // Padded pairs (past the chunk) contribute nothing. Masked pairs keep their
 // contribution: the mask gradients read yln . g there.
 #include "pair_mlp_tc.cuh"
-#include "wgrad_tc.cuh"
+#include "pair_mlp_split.cuh"
 
 namespace fdk {
 namespace {
 
 constexpr int kWarps = kThreads / 32;
-// Offsets of the grid-summed gradients (floats); mirrored in
-// model/kernels/pair_mlp.py (_W_PARTS).
-constexpr int OFF_W0 = 0, OFF_W1 = OFF_W0 + C_IN * HID, OFF_WF = OFF_W1 + HID * HID,
-              OFF_B1 = OFF_WF + HID * C_OUT, OFF_BF = OFF_B1 + HID, OFF_LNS = OFF_BF + C_OUT,
-              OFF_LNB = OFF_LNS + C_OUT, OFF_WFE = OFF_LNB + C_OUT,
-              kWParts = OFF_WFE + C_IN * C_OUT;
-constexpr int kRowPart = HID + C_OUT + 1;  // d_i_term | d_fi | d_mask
-constexpr int kVec = HID + 3 * C_OUT;      // d_b1 | d_bf | d_ln_scale | d_ln_bias
-constexpr int kGroup = 32;                 // tile partials summed 32 at a time
-constexpr int kSlices = 8;                 // K slices of kernel B
-static_assert(OFF_B1 + kVec == OFF_WFE, "the vector sums sit between d_wf and d_wfe");
 static_assert(kBlock == kThreads, "kernel A runs common.cuh's LayerNorm with its block");
-
-// bf16 keeps dxd = bf16(dx) beside dx.
-template <typename T>
-constexpr bool kBf16 = sizeof(T) == 2;
-
-// A chunk's workspace, in this order: y0, y1, dy1, dy0 [P, 384] and (bf16)
-// dxd [P, 128] as T; then float32: dx [P, 128], kernel B's partials
-// [kSlices, kWParts], the tiles' vector partials [groups * kGroup, kVec],
-// their group sums [groups, kVec], dem [P]. In float32 dxd is dx. Every
-// array starts 16-byte aligned. Mirrored in model/kernels/pair_mlp.py
-// (split_workspace_floats).
-template <typename T>
-struct SplitWs {
-  T *y0, *y1, *dy1, *dy0, *dxd;
-  float *dx, *wpart, *vpart, *vmid, *dem;
-};
-
-inline long long split_tiles(long long P) { return (P + kRows - 1) / kRows; }
-inline long long split_groups(long long P) { return (split_tiles(P) + kGroup - 1) / kGroup; }
-
-template <typename T>
-constexpr int kActs = 4 * HID + (kBf16<T> ? C_OUT : 0);  // T elements a pair
-static_assert(kActs<__nv_bfloat16> % 8 == 0, "16-byte aligned float32 arrays after the T ones");
-
-template <typename T>
-long long split_ws_floats(long long P) {
-  return P * kActs<T> * (long long)sizeof(T) / 4 + P * (C_OUT + 1) +
-         (long long)kSlices * kWParts + (split_groups(P) * kGroup + split_groups(P)) * kVec;
-}
-
-template <typename T>
-SplitWs<T> split_ws(float* ws, long long P) {
-  SplitWs<T> w;
-  w.y0 = reinterpret_cast<T*>(ws);
-  w.y1 = w.y0 + P * HID;
-  w.dy1 = w.y1 + P * HID;
-  w.dy0 = w.dy1 + P * HID;
-  T* next = w.dy0 + P * HID;
-  if constexpr (kBf16<T>) {
-    w.dxd = next;
-    next += P * C_OUT;
-  }
-  w.dx = reinterpret_cast<float*>(next);
-  if constexpr (!kBf16<T>) w.dxd = w.dx;
-  w.wpart = w.dx + P * C_OUT;
-  w.vpart = w.wpart + (long long)kSlices * kWParts;
-  w.vmid = w.vpart + split_groups(P) * kGroup * kVec;
-  w.dem = w.vmid + split_groups(P) * kVec;
-  return w;
-}
 
 template <typename T>
 constexpr size_t kASmemBytes =
     Smem<T>::kBytes + sizeof(uint32_t) * 2 * (HID / NC) * kMaskWords;
-static_assert(kASmemBytes<float> <= 232448, "shared memory of one block");
+static_assert(kASmemBytes<__nv_bfloat16> <= 232448, "shared memory of one block");
 // The LayerNorm backward's channel sums go to the weight ring's memory.
 static_assert(sizeof(float) * kWarps * 3 * C_OUT <= sizeof(__nv_bfloat16) * kStages * kStageElems,
               "channel sums in the ring");
 
-// A workspace value as float.
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // Two neighbouring elements of a row.
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
@@ -345,63 +277,6 @@ split_tile_kernel(const T* __restrict__ g, const T* __restrict__ pair,
   }
 }
 
-// d_i_term | d_fi | d_row_mask of the chunk's rows m0 .. m0 + rows - 1 (a
-// row lies in one chunk), each a sum over j in order.
-template <typename T>
-__global__ void row_sums(const T* __restrict__ dy0, const float* __restrict__ dx,
-                         const float* __restrict__ dem, const T* __restrict__ col_mask,
-                         float* __restrict__ rowred, int m0, int rows, int Nr, int Nc) {
-  const long long total = (long long)rows * kRowPart;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const int lr = (int)(idx / kRowPart), c = (int)(idx - (long long)lr * kRowPart);
-    const int m = m0 + lr, b = m / Nr;
-    const size_t base = (size_t)lr * Nc;
-    // Unrolled so that several loads are in flight; the adds stay in order.
-    float s = 0.f;
-    if (c < HID) {
-#pragma unroll 8
-      for (int j = 0; j < Nc; ++j) s += to_f(dy0[(base + j) * HID + c]);
-    } else if (c < HID + C_OUT) {
-#pragma unroll 8
-      for (int j = 0; j < Nc; ++j) s += dx[(base + j) * C_OUT + c - HID];
-    } else {
-      for (int j = 0; j < Nc; ++j) s += dem[base + j] * ld<T>(col_mask + (size_t)b * Nc + j);
-    }
-    rowred[(size_t)m * kRowPart + c] = s;
-  }
-}
-
-// d_j_term | d_fj | d_col_mask over the chunk's rows m0 .. m1 - 1 of the
-// batches b_lo .. b_lo + nb - 1, each a sum over i in order, added to
-// colred (the chunks run in order).
-template <typename T>
-__global__ void col_sums(const T* __restrict__ dy0, const float* __restrict__ dx,
-                         const float* __restrict__ dem, const T* __restrict__ row_mask,
-                         float* __restrict__ colred, int m0, int m1, int b_lo, int nb, int Nr,
-                         int Nc) {
-  const long long total = (long long)nb * Nc * kRowPart;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const int bj = (int)(idx / kRowPart), c = (int)(idx - (long long)bj * kRowPart);
-    const int b = b_lo + bj / Nc, j = bj % Nc;
-    const int lo = max(m0, b * Nr), hi = min(m1, (b + 1) * Nr);
-    float s = 0.f;
-    const size_t p0 = (size_t)(lo - m0) * Nc + j;
-    if (c < HID) {
-#pragma unroll 8
-      for (int m = lo; m < hi; ++m) s += to_f(dy0[(p0 + (size_t)(m - lo) * Nc) * HID + c]);
-    } else if (c < HID + C_OUT) {
-#pragma unroll 8
-      for (int m = lo; m < hi; ++m) s += dx[(p0 + (size_t)(m - lo) * Nc) * C_OUT + c - HID];
-    } else {
-      for (int m = lo; m < hi; ++m) s += dem[p0 + (size_t)(m - lo) * Nc] * ld<T>(row_mask + m);
-    }
-    float* dst = colred + ((size_t)b * Nc + j) * kRowPart + c;
-    *dst += s;
-  }
-}
-
 // One chunk, rows m0 .. m1 - 1 of the flat [B * Nr] grid.
 template <typename T, bool RESIDUAL>
 cudaError_t launch_split(const T* g, const T* pair, const T* i_term, const T* j_term,
@@ -433,51 +308,17 @@ cudaError_t launch_split(const T* g, const T* pair, const T* i_term, const T* j_
       ln_scale, ln_bias, w0t, w1t, wft, wfet, d_pair, ws, q0, P, Nr, Nc, fwd_out);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // Row and column sums.
-  row_sums<<<grid_of((long long)(m1 - m0) * kRowPart), kThreads, 0, stream>>>(
-      ws.dy0, ws.dx, ws.dem, col_mask, rowred, m0, m1 - m0, Nr, Nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int b_lo = m0 / Nr, nb = (m1 - 1) / Nr - b_lo + 1;
-  col_sums<<<grid_of((long long)nb * Nc * kRowPart), kThreads, 0, stream>>>(
-      ws.dy0, ws.dx, ws.dem, row_mask, colred, m0, m1, b_lo, nb, Nr, Nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  // Kernel B.
-  WJobs<T> jobs;
-  int n = 0;
-  const T* pc = pair + q0 * C_IN;
-  for (int c = 0; c < HID / 128; ++c)  // d_w0 = pair^T dy0
-    jobs.job[n++] = {pc, ws.dy0 + c * 128, C_IN, HID, OFF_W0 + c * 128, HID};
-  for (int r = 0; r < HID / 128; ++r)  // d_w1 = y0^T dy1
-    for (int c = 0; c < HID / 128; ++c)
-      jobs.job[n++] = {ws.y0 + r * 128, ws.dy1 + c * 128, HID, HID,
-                       OFF_W1 + r * 128 * HID + c * 128, HID};
-  for (int r = 0; r < HID / 128; ++r)  // d_wf = y1^T dxd
-    jobs.job[n++] = {ws.y1 + r * 128, ws.dxd, HID, C_OUT, OFF_WF + r * 128 * C_OUT, C_OUT};
-  if (RESIDUAL) jobs.job[n++] = {pc, ws.dxd, C_IN, C_OUT, OFF_WFE, C_OUT};  // d_wfe = pair^T dxd
-  if ((err = launch_wgrad(jobs, n, kSlices, ws.wpart, kWParts, P, stream)) != cudaSuccess)
-    return err;
-
-  // Fixed-order sums into the outputs.
-  if ((err = reduce_partials(ws.wpart, wred, 1, kSlices, OFF_B1, kWParts, stream, true)) !=
-      cudaSuccess)
-    return err;
-  if (RESIDUAL &&
-      (err = reduce_partials(ws.wpart + OFF_WFE, wred + OFF_WFE, 1, kSlices, C_IN * C_OUT,
-                             kWParts, stream, true)) != cudaSuccess)
-    return err;
-  if ((err = reduce_partials(ws.vpart, ws.vmid, groups, kGroup, kVec, kVec, stream)) !=
-      cudaSuccess)
-    return err;
-  return reduce_partials(ws.vmid, wred + OFF_B1, 1, (int)groups, kVec, kVec, stream, true);
+  return finish_split<T, RESIDUAL>(pair, row_mask, col_mask, ws, wred, rowred, colred, Nr, Nc,
+                                   m0, m1, stream);
 }
 
 }  // namespace
 }  // namespace fdk
 
 // C interface, for one chunk: rows m0 .. m1 - 1 of the flat [B * Nr] grid
-// (pairs m0 * Nc ..). dtype: 0 = float32, 1 = bfloat16, the type of every
-// tensor but ln_scale and ln_bias (float32). residual: 1 for the edge
+// (pairs m0 * Nc ..). dtype: 1 = bfloat16, the type of every tensor but
+// ln_scale and ln_bias (float32); 0 (float32) is refused: it is
+// fdk_pair_mlp_bwd_wg's (pair_mlp_bwd_wg.cu). residual: 1 for the edge
 // transition (fi, fj, wfe, wfet given), 0 for the plain MLP. Weights are
 // row-major [in, out], 16-byte aligned, w0t/w1t/wft/wfet their transposes;
 // pair 16-byte aligned. ws: the chunk's workspace of ws_floats floats
@@ -505,9 +346,7 @@ extern "C" int fdk_pair_mlp_bwd_split(int dtype, int residual, const void* g, co
       (const T*)b1, (const T*)wf, (const T*)bf, (const T*)wfe, ln_scale, ln_bias,              \
       (const T*)w0t, (const T*)w1t, (const T*)wft, (const T*)wfet, (T*)d_pair, ws, ws_floats,  \
       wred, rowred, colred, B, Nr, Nc, m0, m1, (T*)fwd_out, s
-  if (dtype == 0)
-    return residual ? fdk::launch_split<float, true>(FDK_ARGS(float))
-                    : fdk::launch_split<float, false>(FDK_ARGS(float));
+  // float32 is pair_mlp_bwd_wg.cu's (kernel A on wgmma).
   if (dtype == 1)
     return residual ? fdk::launch_split<__nv_bfloat16, true>(FDK_ARGS(__nv_bfloat16))
                     : fdk::launch_split<__nv_bfloat16, false>(FDK_ARGS(__nv_bfloat16));

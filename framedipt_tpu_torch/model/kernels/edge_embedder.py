@@ -16,9 +16,8 @@ give no bin. Products accumulate in float32 and are rounded to the compute
 dtype; LayerNorm statistics are float32 (eps 1e-6).
 
 :func:`edge_embedder` takes :func:`edge_embedder_plain` for CPU tensors and
-one of two kernels for CUDA tensors, as :func:`~.pair_mlp.forward_route`
-says (the pair MLP's rule): a float32 forward that autograd will not
-differentiate (every sampler, the service, the CLIs, a train step's
+one of two kernels for CUDA tensors, as :func:`forward_route` says: a
+float32 forward that autograd will not differentiate (every sampler, the service, the CLIs, a train step's
 self-conditioning forward) launches ``csrc/edge_embedder_wg.cu`` (wgmma and
 TMA, 3xTF32); a forward that will be differentiated, and every bf16 forward,
 launches ``csrc/edge_embedder.cu`` (``mma.sync``), whose tile code the
@@ -45,12 +44,7 @@ import numpy as np
 import torch
 
 from framedipt_tpu_torch.model.kernels.build import library
-from framedipt_tpu_torch.model.kernels.pair_mlp import (
-    _relu,
-    forward_route,
-    plan_row_chunks,
-    tf32_rna,
-)
+from framedipt_tpu_torch.model.kernels.pair_mlp import _relu, plan_row_chunks, tf32_rna
 from framedipt_tpu_torch.model.layers import layer_norm_f32, matmul_f32
 
 F32 = torch.float32
@@ -311,6 +305,17 @@ def _edges(bins_lower, bins_upper, dev) -> torch.Tensor:
     )
 
 
+def forward_route(dtype: torch.dtype, needs_grad: bool) -> str:
+    """Which kernel an embedder forward on CUDA tensors launches: "wgmma"
+    (``csrc/edge_embedder_wg.cu``) for a float32 forward that no gradient is
+    taken through, else "mma" (``csrc/edge_embedder.cu``): the backward's
+    recompute (``csrc/edge_embedder_bwd.cu``) runs that kernel's tile code
+    (``edge_embedder_tc.cuh``) in both dtypes, so a differentiated forward
+    takes it and its relu decisions are the backward's. The pair MLP has a
+    rule of its own (:func:`.pair_mlp.forward_route`)."""
+    return "wgmma" if dtype == torch.float32 and not needs_grad else "mma"
+
+
 def edge_embedder(
     g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
     w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
@@ -319,7 +324,7 @@ def edge_embedder(
     """Masked-LayerNorm embedder edge output, [B, Nr, Nc, C] in g's dtype.
 
     CPU tensors take :func:`edge_embedder_plain`; CUDA tensors launch the
-    kernel that :func:`~.pair_mlp.forward_route` names for the dtype and
+    kernel that :func:`forward_route` names for the dtype and
     ``needs_grad`` (True where autograd will differentiate this forward), or
     raise. Coordinates and ln_scale/ln_bias are float32, every other tensor
     in the compute dtype; bins_lower/upper are tuples of floats, empty when
@@ -543,7 +548,7 @@ class EdgeEmbedderFunction(torch.autograd.Function):
     arguments with the bin edges first: ``(bwd_impl, bins_lower,
     bins_upper, g, h, pos_rows, ..., ln_bias)``, then ``needs_grad``, the
     caller's :func:`~.pair_mlp.autograd_records` of the tensor arguments,
-    which picks the forward's kernel (:func:`~.pair_mlp.forward_route`); it
+    which picks the forward's kernel (:func:`forward_route`); it
     defaults to True, the route whose relu decisions the backward shares.
 
     Saves only the O(N) inputs. "pallas" runs :func:`edge_embedder_bwd`

@@ -13,24 +13,22 @@ fi/fj/wfe) is the plain MLP variant.
 
 :func:`pair_mlp` takes :func:`pair_mlp_plain` for CPU tensors, which exist
 for the tests, and one of two kernels for CUDA tensors, as
-:func:`forward_route` says: a float32 forward that autograd will not
-differentiate (every sampler, the service, the CLIs, a train step's
-self-conditioning forward) launches ``csrc/pair_mlp_wg.cu`` (wgmma and TMA,
-3xTF32); a forward that will be differentiated, and every bf16 forward,
-launches ``csrc/pair_mlp.cu`` (``mma.sync``: 3xTF32 in float32, bf16 MMA in
-bf16), whose code the backward's recompute shares bit for bit, so the
-backward's relu decisions are the forward's. The caller says which
-(``needs_grad``, from :func:`autograd_records`, decided before
-:class:`PairMLPFunction` runs: inside its forward grad mode is off).
+:func:`forward_route` says: every float32 forward, differentiated or not,
+launches ``csrc/pair_mlp_wg.cu`` (wgmma and TMA, 3xTF32), and every bf16
+forward ``csrc/pair_mlp.cu`` (``mma.sync``, bf16 MMA). Each is the tile code
+that its dtype's backward recomputes through bit for bit, so the backward's
+relu decisions are the forward's.
 
-The backward: :func:`pair_mlp_bwd` takes the backward kernels
-(``csrc/pair_mlp_bwd.cu``) for CUDA tensors and :func:`pair_mlp_bwd_plain`
-for CPU tensors. Both recompute the forward from the inputs and return every
-input gradient; :class:`PairMLPFunction` binds forward and backward for
-autograd and saves only the inputs, never the [B, N, N, hidden]
-activations. In both dtypes the kernels run per chunk of grid rows
-(:func:`plan_bwd_chunks`) with a transient workspace of the chunk's
-activations and their gradients (:func:`split_workspace_floats`).
+The backward: :func:`pair_mlp_bwd` takes the backward kernels for CUDA
+tensors (float32: ``csrc/pair_mlp_bwd_wg.cu``, kernel A on wgmma and TMA;
+bf16: ``csrc/pair_mlp_bwd.cu``, kernel A on ``mma.sync``; both share kernel B
+and the ordered sums) and :func:`pair_mlp_bwd_plain` for CPU tensors. Both
+recompute the forward from the inputs and return every input gradient;
+:class:`PairMLPFunction` binds forward and backward for autograd and saves
+only the inputs, never the [B, N, N, hidden] activations. In both dtypes the
+kernels run per chunk of grid rows (:func:`plan_bwd_chunks`) with a
+transient workspace of the chunk's activations and their gradients
+(:func:`split_workspace_floats`).
 """
 from __future__ import annotations
 
@@ -180,7 +178,7 @@ def _check(name, t, shape, dtype, device):
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The grid-reduced gradients (float32), in this order: d_w0, d_w1, d_wf,
 # d_b1, d_bf, d_ln_scale, d_ln_bias, then d_wfe (residual only). Mirrors the
-# offsets in csrc/pair_mlp_bwd.cu.
+# offsets in csrc/pair_mlp_split.cuh.
 _W_PARTS = (
     ("w0", (C_IN, HIDDEN)), ("w1", (HIDDEN, HIDDEN)), ("wf", (HIDDEN, C_OUT)),
     ("b1", (HIDDEN,)), ("bf", (C_OUT,)), ("ln_scale", (C_OUT,)), ("ln_bias", (C_OUT,)),
@@ -189,12 +187,13 @@ _W_PARTS = (
 W_PART_FLOATS = sum(int(np.prod(shape)) for _, shape in _W_PARTS)
 ROW_PART = HIDDEN + C_OUT + 1  # d_i_term | d_fi | d_row_mask per row
 
-# The backward (csrc/pair_mlp_bwd.cu, fdk_pair_mlp_bwd_split): kernel A's
-# tile of flat pairs; per pair in the workspace y0, y1, dy1, dy0 (HIDDEN
-# each) in the dtype, in bf16 also dxd = bf16(dx) (C_OUT), then float32 dx
-# (C_OUT) and dem (1); kernel B's K slices, each a partial set of
-# W_PART_FLOATS; one vector partial (d_b1 | d_bf | d_ln_scale | d_ln_bias)
-# per tile, summed SPLIT_GROUP at a time, then the groups.
+# The backward (csrc/pair_mlp_split.cuh; kernel A in csrc/pair_mlp_bwd_wg.cu,
+# float32, and csrc/pair_mlp_bwd.cu, bf16): kernel A's tile of flat pairs;
+# per pair in the workspace y0, y1, dy1, dy0 (HIDDEN each) in the dtype, in
+# bf16 also dxd = bf16(dx) (C_OUT), then float32 dx (C_OUT) and dem (1);
+# kernel B's K slices, each a partial set of W_PART_FLOATS; one vector
+# partial (d_b1 | d_bf | d_ln_scale | d_ln_bias) per tile, summed
+# SPLIT_GROUP at a time, then the groups.
 SPLIT_TILE = 64
 SPLIT_PAIR_FLOATS = {torch.float32: 4 * HIDDEN + C_OUT + 1,
                      torch.bfloat16: (4 * HIDDEN + C_OUT) // 2 + C_OUT + 1}
@@ -203,7 +202,8 @@ SPLIT_GROUP = 32
 SPLIT_VEC = HIDDEN + 3 * C_OUT
 BWD_WORKSPACE_CAP = 1 << 30  # bytes of one chunk's workspace
 # The wgmma forward's scratch: each weight's TF32 hi and lo parts, K-major
-# (mirrors kSplitFloats in csrc/pair_mlp_wg.cu).
+# (mirrors kSplitFloats in csrc/pair_mlp_wg.cuh); the float32 backward takes
+# two (the forward's and the chain's).
 WG_SPLIT_FLOATS = 2 * (C_IN * HIDDEN + HIDDEN * HIDDEN + HIDDEN * C_OUT + C_IN * C_OUT)
 
 
@@ -230,13 +230,14 @@ def _wg_kernel():
 
 
 def forward_route(dtype: torch.dtype, needs_grad: bool) -> str:
-    """Which kernel an edge-stack forward on CUDA tensors launches, the pair
-    MLP's and the edge embedder's alike: "wgmma" (``csrc/pair_mlp_wg.cu``,
-    ``csrc/edge_embedder_wg.cu``) for a float32 forward that no gradient is
-    taken through, else "mma" (``csrc/pair_mlp.cu``,
-    ``csrc/edge_embedder.cu``), the code the backward's recompute runs, so
-    that a differentiated forward's relu decisions are the backward's."""
-    return "wgmma" if dtype == torch.float32 and not needs_grad else "mma"
+    """Which kernel a pair-MLP forward on CUDA tensors launches: "wgmma"
+    (``csrc/pair_mlp_wg.cu``) in float32 and "mma" (``csrc/pair_mlp.cu``) in
+    bf16, with or without gradients (``needs_grad``): each dtype's backward
+    recomputes through that kernel's tile code (float32's kernel A in
+    ``csrc/pair_mlp_bwd_wg.cu``, bf16's in ``csrc/pair_mlp_bwd.cu``), so a
+    differentiated forward's relu decisions are its backward's. The edge
+    embedder has a rule of its own (:func:`.edge_embedder.forward_route`)."""
+    return "wgmma" if dtype == torch.float32 else "mma"
 
 
 def autograd_records(*tensors) -> bool:
@@ -269,6 +270,16 @@ def wgmma_weight_split(w0, w1, wf, wfe=None) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def chain_weight_split(w0, w1, wf, wfe=None) -> torch.Tensor:
+    """What the float32 backward's first step writes for its input-gradient
+    chain (``prepare_weights<false>`` in ``csrc/pair_mlp_wg.cuh``), in
+    PyTorch: the chain's products are the forward's on Wf^T, W1^T, W0^T and
+    Wfe^T, whose K-major layout is each weight as stored, so the slots hold
+    Wf, W1, W0 and Wfe untransposed, split into TF32 hi and lo.
+    WG_SPLIT_FLOATS floats, Wfe's part zero without the residual terms."""
+    return wgmma_weight_split(wf.t(), w1.t(), w0.t(), None if wfe is None else wfe.t())
+
+
 def wgmma_tf32_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """d = a @ b.T from one m64n64k8 TF32 wgmma (``csrc/pair_mlp_wg.cu``)
     with b's raw float32 values in shared memory: a [64, 8] (TF32 values),
@@ -291,12 +302,23 @@ def wgmma_tf32_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 @functools.cache
 def _split_kernel():
-    """The C entry point of csrc/pair_mlp_bwd.cu (one chunk), built and
-    bound at first use."""
+    """The C entry point of csrc/pair_mlp_bwd.cu (one chunk, bf16), built
+    and bound at first use."""
     fn = library("pair_mlp_bwd").fdk_pair_mlp_bwd_split
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 23 + [ctypes.c_longlong] + [
         ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    return fn
+
+
+@functools.cache
+def _bwd_wg_kernel():
+    """The C entry point of csrc/pair_mlp_bwd_wg.cu (one chunk, float32),
+    built and bound at first use."""
+    fn = library("pair_mlp_bwd_wg").fdk_pair_mlp_bwd_wg
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_longlong] + [
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     return fn
 
 
@@ -366,9 +388,10 @@ def pair_mlp(
     """Masked-LayerNorm pair MLP, [B, Nr, Nc, C_out] in pair's dtype.
 
     CPU tensors take :func:`pair_mlp_plain`; CUDA tensors launch the kernel
-    that :func:`forward_route` names for the dtype and ``needs_grad`` (True
-    where autograd will differentiate this forward), or raise. Weights are
-    [in, out]; masks are in the compute dtype, ln_scale/ln_bias float32.
+    that :func:`forward_route` names for the dtype (``needs_grad``, True
+    where autograd will differentiate this forward, does not change it), or
+    raise. Weights are [in, out]; masks are in the compute dtype,
+    ln_scale/ln_bias float32.
     Adds one to ``pair_mlp.launches`` per launch, and to
     ``pair_mlp.launches_wgmma`` or ``pair_mlp.launches_mma`` by route."""
     if pair.device.type == "cpu":
@@ -418,7 +441,7 @@ def split_workspace_floats(pairs: int, dtype: torch.dtype = F32) -> int:
     """Float32 words of the backward's workspace for a chunk of ``pairs``
     pairs in ``dtype``: the per-pair activations and gradients, kernel B's
     slice partials and the tiles' vector partials (mirrors
-    ``split_ws_floats`` in csrc/pair_mlp_bwd.cu)."""
+    ``split_ws_floats`` in csrc/pair_mlp_split.cuh)."""
     groups = -(-(-(-pairs // SPLIT_TILE)) // SPLIT_GROUP)
     return (pairs * SPLIT_PAIR_FLOATS[dtype] + SPLIT_SLICES * W_PART_FLOATS
             + (groups * SPLIT_GROUP + groups) * SPLIT_VEC)
@@ -462,7 +485,10 @@ def pair_mlp_bwd(
     :func:`pair_mlp_bwd_plain`'s order and dtypes.
 
     CPU tensors take :func:`pair_mlp_bwd_plain`; CUDA tensors launch the
-    backward kernels (or raise). The grid runs in the chunks of
+    backward kernels (or raise): kernel A recomputes through the tile of the
+    forward that :func:`forward_route` gives a differentiated call, in
+    float32 ``csrc/pair_mlp_bwd_wg.cu`` (wgmma and TMA), in bf16
+    ``csrc/pair_mlp_bwd.cu`` (``mma.sync``). The grid runs in the chunks of
     :func:`plan_bwd_chunks` (each workspace at most ``workspace_cap``
     bytes); the grid-reduced gradients are summed in float32 from partials
     in a fixed order (no atomics), the chunks' sums added in chunk order, so
@@ -471,7 +497,8 @@ def pair_mlp_bwd(
     kernel's code: "out" (the same bits as :func:`pair_mlp`), "y0" and "y1"
     ([B, Nr, Nc, hidden] in pair's dtype: the activations whose relu
     decisions the gradients take). Adds one to ``pair_mlp_bwd.launches`` per
-    call."""
+    call, and to ``pair_mlp_bwd.launches_wgmma`` or
+    ``pair_mlp_bwd.launches_mma`` by route."""
     if pair.device.type == "cpu":
         return pair_mlp_bwd_plain(
             g, pair, i_term, j_term, row_mask, col_mask,
@@ -487,15 +514,21 @@ def pair_mlp_bwd(
     _check("g", g, (B, Nr, Nc, C_OUT), dtype, dev)
     _check_aligned("pair_mlp_bwd", w0=w0, w1=w1, wf=wf, wfe=wfe, pair=pair, i_term=i_term,
                    j_term=j_term, b0=b0)
-    # The kernels' transposed-weight products read W^T row-major.
-    w0t, w1t, wft = (w.t().contiguous() for w in (w0, w1, wf))
-    wfet = wfe.t().contiguous() if residual else None
+    route = forward_route(dtype, needs_grad=True)
+    if route == "wgmma":
+        # Kernel A's first step writes the weights' TF32 parts here: the
+        # forward's, then the chain's (chain_weight_split: the stored
+        # weights, untransposed).
+        weights = [torch.empty(2 * WG_SPLIT_FLOATS, dtype=F32, device=dev)]
+    else:
+        # bf16's kernel A reads W^T row-major.
+        weights = [w.t().contiguous() for w in (w0, w1, wf)]
+        weights.append(wfe.t().contiguous() if residual else None)
     d_pair = torch.empty_like(pair)
     inputs = [_ptr(g), _ptr(pair), _ptr(i_term), _ptr(j_term), _ptr(fi), _ptr(fj),
               _ptr(row_mask), _ptr(col_mask),
               _ptr(w0), _ptr(b0), _ptr(w1), _ptr(b1), _ptr(wf), _ptr(bf), _ptr(wfe),
-              _ptr(ln_scale), _ptr(ln_bias), _ptr(w0t), _ptr(w1t), _ptr(wft), _ptr(wfet),
-              _ptr(d_pair)]
+              _ptr(ln_scale), _ptr(ln_bias)]
     fwd_out = None
     if recompute is not None:
         recompute.update({k: torch.empty(B, Nr, Nc, c, dtype=dtype, device=dev)
@@ -504,6 +537,7 @@ def pair_mlp_bwd(
     # Outputs zeroed: the chunks add to them in order.
     out = torch.zeros(W_PART_FLOATS + (B * Nr + B * Nc) * ROW_PART, dtype=F32, device=dev)
     wred, rowred, colred = torch.split(out, [W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART])
+    sums = (_ptr(wred), _ptr(rowred), _ptr(colred), B, Nr, Nc)
     chunks = plan_bwd_chunks(B, Nr, Nc, workspace_cap, dtype)
     if chunks:
         n_ws = split_workspace_floats(max(m1 - m0 for m0, m1 in chunks) * Nc, dtype)
@@ -511,18 +545,25 @@ def pair_mlp_bwd(
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             for m0, m1 in chunks:
-                err = _split_kernel()(
-                    _DTYPE_CODE[dtype], int(residual), *inputs, _ptr(ws), n_ws, _ptr(wred),
-                    _ptr(rowred), _ptr(colred), B, Nr, Nc, m0, m1, fwd_out, stream,
-                )
+                if route == "wgmma":
+                    err = _bwd_wg_kernel()(
+                        int(residual), *inputs, _ptr(d_pair), _ptr(ws), n_ws,
+                        _ptr(weights[0]), *sums, m0, m1, fwd_out, stream)
+                else:
+                    err = _split_kernel()(
+                        _DTYPE_CODE[dtype], int(residual), *inputs, *map(_ptr, weights),
+                        _ptr(d_pair), _ptr(ws), n_ws, *sums, m0, m1, fwd_out, stream)
                 if err != 0:
-                    raise RuntimeError(f"pair_mlp_bwd kernel launch failed: cudaError_t {err}")
+                    raise RuntimeError(
+                        f"pair_mlp_bwd kernel launch failed ({route}): cudaError_t {err}")
                 if recompute is not None:  # the workspace starts with y0, then y1
                     n, acts = (m1 - m0) * Nc * HIDDEN, ws.view(dtype)
                     for k, part in (("y0", acts[:n]), ("y1", acts[n:2 * n])):
                         recompute[k].view(-1, HIDDEN)[m0 * Nc:m1 * Nc] = part.view(-1, HIDDEN)
         del ws
         pair_mlp_bwd.launches += 1
+        pair_mlp_bwd.launches_wgmma += route == "wgmma"
+        pair_mlp_bwd.launches_mma += route == "mma"
 
     parts, off = {}, 0
     for name, shape in _W_PARTS:
@@ -547,7 +588,7 @@ def pair_mlp_bwd(
     )
 
 
-pair_mlp_bwd.launches = 0
+pair_mlp_bwd.launches = pair_mlp_bwd.launches_wgmma = pair_mlp_bwd.launches_mma = 0
 
 
 class PairMLPFunction(torch.autograd.Function):
@@ -555,9 +596,9 @@ class PairMLPFunction(torch.autograd.Function):
     only the inputs (the backward recomputes the forward), never the
     [B, N, N, hidden] activations. Takes the arguments of :func:`pair_mlp`
     positionally; ``fi``, ``fj``, ``wfe`` may be None. ``needs_grad``, the
-    caller's :func:`autograd_records` of the inputs, picks the forward's
-    kernel (:func:`forward_route`); it defaults to True, the route whose
-    relu decisions the backward shares."""
+    caller's :func:`autograd_records` of the inputs, goes to the wrapper,
+    whose route (:func:`forward_route`) is the dtype's whichever it is; it
+    defaults to True."""
 
     @staticmethod
     def forward(ctx, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,

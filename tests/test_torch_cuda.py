@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card (the edge
-embedder's and the pair MLP's two float32 forwards apart: the wgmma kernel
-without gradients, the mma.sync kernel with ``needs_grad=True``), and the
+embedder's two float32 forwards apart: the wgmma kernel without gradients,
+the mma.sync kernel with ``needs_grad=True``; every float32 pair-MLP
+forward on the wgmma kernel, its backward's kernel A on wgmma too), and the
 input builders that tests/test_torch_kernels.py shares; on the card also the de
 novo model's forward at N=500 through the kernels against their plain
 versions, and the port's ProteinMPNN and its train step against the
@@ -250,10 +251,10 @@ def test_cuda_wgmma_probe_reads_float32_as_tf32():
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["autograd", "inference_mode", "no_grad"])
 def test_cuda_edge_transition_route(mode):
-    """On the card at the kernels' widths: the edge transition's pair MLP
-    launches the mma.sync kernel under autograd (and its backward runs) and
-    the wgmma kernel under inference_mode and no_grad; the two outputs agree
-    within 1e-4."""
+    """On the card at the kernels' widths: the edge transition's float32
+    pair MLP launches the wgmma kernel under autograd (and its backward,
+    kernel A on wgmma, runs), under inference_mode and under no_grad; the
+    outputs with and without gradients are the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from framedipt_tpu_torch.model.ipa import EdgeTransition
@@ -269,16 +270,16 @@ def test_cuda_edge_transition_route(mode):
            "autograd": torch.enable_grad}[mode]
     with ctx():
         out = layer(node, edge, mask)
+    assert (t_pair.pair_mlp.launches_wgmma - wgmma, t_pair.pair_mlp.launches_mma - mma) == (1, 0)
     if mode == "autograd":
-        assert (t_pair.pair_mlp.launches_wgmma - wgmma, t_pair.pair_mlp.launches_mma - mma) == (0, 1)
+        bwd = t_pair.pair_mlp_bwd.launches_wgmma
         out.sum().backward()
         assert layer.final_layer.weight.grad is not None
-    else:
-        assert (t_pair.pair_mlp.launches_wgmma - wgmma, t_pair.pair_mlp.launches_mma - mma) == (1, 0)
+        assert t_pair.pair_mlp_bwd.launches_wgmma == bwd + 1
     with torch.no_grad():
         other = layer(node, edge, mask) if mode == "autograd" else None
     if other is not None:
-        torch.testing.assert_close(out.detach(), other, atol=1e-4, rtol=1e-4)
+        assert torch.equal(out.detach(), other)
 
 
 def assert_grads_close(got, want, tol, names=None):
@@ -306,7 +307,8 @@ def kernel_relu_masks(g, args, tol, **kw):
     within tol of 0 (the two forwards round differently)."""
     rec = {}
     t_pair.pair_mlp_bwd(g, *args, recompute=rec, **kw)
-    # The forward that autograd differentiates (the mma.sync kernel).
+    # The forward that autograd differentiates (float32: the wgmma kernel;
+    # bf16: the mma.sync kernel).
     assert torch.equal(rec["out"], t_pair.pair_mlp(*args, needs_grad=True))
     y0, y1, _ = t_pair._pre_norm(*args[:3], *args[5:11], *args[13:])
     for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
@@ -355,6 +357,66 @@ def test_cuda_pair_mlp_bwd_matches_plain_version(dtype, B, N, residual, chunk_ro
                        [None if b is None else b.cpu() for b in want], tol)
     for a, b in zip(got, again):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,residual,chunk_rows", [
+    (1, 1, True, None), (1, 17, True, None), (1, 17, False, None), (2, 200, True, 60),
+    (2, 200, False, 60), (2, 256, True, None)])
+def test_cuda_pair_mlp_bwd_wgmma_kernel_a(B, N, residual, chunk_rows):
+    """On the card: the float32 backward, kernel A on wgmma and TMA
+    (csrc/pair_mlp_bwd_wg.cu), at one pair, one partial tile, B=2 N=200 in
+    several chunks and B=2 N=256: every gradient within 1e-4 of the plain
+    version through the recompute's relu decisions, two launches
+    bit-identical and counted on the wgmma route, the recompute equal to
+    ``pair_mlp(..., needs_grad=True)``, and the first step's TF32 weight
+    parts equal to wgmma_weight_split's and chain_weight_split's bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(100 + N)
+    args = pair_to_torch(pair_args(rng, B, N, 128, 384, 128, residual,
+                                   zero_rows=min(3, max(N - 1, 0))), torch.float32)
+    args = [None if a is None else a.cuda() for a in args]
+    g = torch.as_tensor(rng.normal(size=(B, N, N, 128)).astype(np.float32)).cuda()
+    kw = {}
+    if chunk_rows:
+        kw["workspace_cap"] = 4 * t_pair.split_workspace_floats(chunk_rows * N)
+        assert len(t_pair.plan_bwd_chunks(B, N, N, kw["workspace_cap"])) == -(-B * N // chunk_rows)
+    total, wgmma, mma = (t_pair.pair_mlp_bwd.launches, t_pair.pair_mlp_bwd.launches_wgmma,
+                         t_pair.pair_mlp_bwd.launches_mma)
+    got = t_pair.pair_mlp_bwd(g, *args, **kw)
+    again = t_pair.pair_mlp_bwd(g, *args, **kw)
+    assert (t_pair.pair_mlp_bwd.launches, t_pair.pair_mlp_bwd.launches_wgmma,
+            t_pair.pair_mlp_bwd.launches_mma) == (total + 2, wgmma + 2, mma)
+    masks = kernel_relu_masks(g, args, 1e-4, **kw)
+    want = t_pair.pair_mlp_bwd_plain(g, *args, relu_masks=masks)
+    assert_grads_close([None if a is None else a.cpu() for a in got],
+                       [None if b is None else b.cpu() for b in want], 1e-4)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    # The C entry with scratch of our own: both weight splits, bit for bit.
+    (pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj,
+     wfe) = args
+    split = torch.full((2 * t_pair.WG_SPLIT_FLOATS,), float("nan"), device="cuda")
+    ws = torch.empty(t_pair.split_workspace_floats(B * N * N), device="cuda")
+    out = torch.zeros(t_pair.W_PART_FLOATS + 2 * B * N * t_pair.ROW_PART, device="cuda")
+    d_pair = torch.empty_like(pair)
+    ptrs = [None if a is None else a.data_ptr() for a in
+            (g, pair, i_term, j_term, fi, fj, row_mask, col_mask, w0, b0, w1, b1, wf, bf, wfe,
+             ln_scale, ln_bias, d_pair, ws)]
+    wred = out.data_ptr()
+    rowred = wred + 4 * t_pair.W_PART_FLOATS
+    colred = rowred + 4 * B * N * t_pair.ROW_PART
+    assert t_pair._bwd_wg_kernel()(int(residual), *ptrs, ws.numel(), split.data_ptr(), wred,
+                                   rowred, colred, B, N, N, 0, B * N, None,
+                                   torch.cuda.current_stream().cuda_stream) == 0
+    assert torch.equal(d_pair, got[0])
+    n = t_pair.WG_SPLIT_FLOATS - (0 if residual else 2 * 128 * 128)  # Wfe's part unwritten
+    cpu = [None if w is None else w.cpu() for w in (w0, w1, wf, wfe)]
+    for part, want_split in ((split[:t_pair.WG_SPLIT_FLOATS], t_pair.wgmma_weight_split(*cpu)),
+                             (split[t_pair.WG_SPLIT_FLOATS:], t_pair.chain_weight_split(*cpu))):
+        assert torch.equal(part.cpu()[:n].view(torch.int32), want_split[:n].view(torch.int32))
 
 
 @pytest.mark.gpu

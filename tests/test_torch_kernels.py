@@ -215,14 +215,23 @@ def test_model_reaches_the_kernels_only_through_the_wrappers(module, kernel_mod,
     assert not any(isinstance(n, (ast.If, ast.IfExp, ast.Try)) for n in ast.walk(fwd))
 
 
+@pytest.mark.parametrize("wrapper", ["pair", "emb"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("needs_grad", [False, True])
-def test_forward_route(dtype, needs_grad):
-    """The wgmma kernel takes the float32 forwards that no gradient is taken
-    through; every differentiated forward and every bf16 one takes the
-    mma.sync kernel, whose code the backward's recompute shares."""
-    want = "wgmma" if dtype == torch.float32 and not needs_grad else "mma"
-    assert t_pair.forward_route(dtype, needs_grad) == want
+def test_forward_route(wrapper, dtype, needs_grad):
+    """Each wrapper's rule, the one its backward needs. The pair MLP: every
+    float32 forward, differentiated or not, takes the wgmma kernel (its
+    tile is the float32 backward's recompute), every bf16 one the mma.sync
+    kernel. The edge embedder: the wgmma kernel takes the float32 forwards
+    that no gradient is taken through; every differentiated forward and
+    every bf16 one takes the mma.sync kernel, whose code its backward's
+    recompute shares."""
+    if wrapper == "pair":
+        want = "wgmma" if dtype == torch.float32 else "mma"
+        assert t_pair.forward_route(dtype, needs_grad) == want
+    else:
+        want = "wgmma" if dtype == torch.float32 and not needs_grad else "mma"
+        assert t_emb.forward_route(dtype, needs_grad) == want
 
 
 def test_pair_mlp_routes_in_its_dispatch():
@@ -266,16 +275,21 @@ def test_edge_transition_passes_autograd_records_to_the_function():
 
 
 def test_edge_embedder_routes_in_its_dispatch():
-    """Read from the wrapper: after the CPU branch it asks forward_route (the
-    pair MLP's rule, imported, not a second one) once for the dtype and
-    ``needs_grad``, launches csrc/edge_embedder_wg.cu (``_wg_kernel``) exactly
-    when the route is "wgmma" and csrc/edge_embedder.cu (``_kernel``)
-    otherwise, with no ``try`` and nothing read from the environment, and
-    counts the launch in ``launches`` and in its route's count only after the
-    C function returned 0."""
-    assert t_emb.forward_route is t_pair.forward_route
-    assert not any(isinstance(n, ast.FunctionDef) and n.name == "forward_route"
-                   for n in ast.parse(inspect.getsource(t_emb)).body)
+    """Read from the wrapper: after the CPU branch it asks its own rule
+    (``edge_embedder.forward_route``, defined in its module, not the pair
+    MLP's) once for the dtype and ``needs_grad``, launches
+    csrc/edge_embedder_wg.cu (``_wg_kernel``) exactly when the route is
+    "wgmma" and csrc/edge_embedder.cu (``_kernel``) otherwise, with no
+    ``try`` and nothing read from the environment, and counts the launch in
+    ``launches`` and in its route's count only after the C function
+    returned 0. The pair MLP's wrapper likewise asks the rule of its own
+    module."""
+    assert t_emb.forward_route is not t_pair.forward_route
+    for mod in (t_emb, t_pair):
+        tree = ast.parse(inspect.getsource(mod))
+        assert any(isinstance(n, ast.FunctionDef) and n.name == "forward_route" for n in tree.body)
+        assert not any(isinstance(n, ast.ImportFrom) and "forward_route" in {a.name for a in n.names}
+                       for n in ast.walk(tree))
     fn = _wrapper_ast(t_emb.edge_embedder)
     assert [ast.unparse(c) for c in _calls(fn, "forward_route")] == [
         "forward_route(g.dtype, needs_grad)"]
@@ -368,9 +382,11 @@ def _edge_inputs(dtype=torch.float32):
 def test_edge_transition_asks_for_the_route(monkeypatch, mode, want):
     """On the CPU, the wrapper spied on: under ``torch.inference_mode()`` and
     ``torch.no_grad()`` (the samplers, the self-conditioning forward) the
-    edge transition asks for the forward with ``needs_grad=False``, the
-    wgmma route in float32; under autograd with parameters that need
-    gradients, ``needs_grad=True``, the route the backward recomputes."""
+    edge transition asks for the forward with ``needs_grad=False``; under
+    autograd with parameters that need gradients, ``needs_grad=True``.
+    Either way the pair MLP's route is the dtype's: the wgmma kernel in
+    float32 (the float32 backward recomputes through its tile), the mma.sync
+    one in bf16."""
     seen = []
     wrapper = t_pair.pair_mlp
 
@@ -386,7 +402,8 @@ def test_edge_transition_asks_for_the_route(monkeypatch, mode, want):
     with ctx():
         out = layer(node, edge, mask)
     assert seen == [want]
-    assert t_pair.forward_route(torch.float32, seen[0]) == ("mma" if want else "wgmma")
+    assert t_pair.forward_route(torch.float32, seen[0]) == "wgmma"
+    assert t_pair.forward_route(torch.bfloat16, seen[0]) == "mma"
     assert out.requires_grad == want
     if want:
         out.sum().backward()

@@ -1,6 +1,6 @@
-"""The float32 pair-MLP backward's decomposition (``csrc/pair_mlp_bwd.cu``,
-``fdk_pair_mlp_bwd_split``), emulated in torch on the CPU, and its chunk
-planner.
+"""The float32 pair-MLP backward's decomposition (``csrc/pair_mlp_bwd_wg.cu``,
+``fdk_pair_mlp_bwd_wg``; the split's rest in ``csrc/pair_mlp_split.cuh``),
+emulated in torch on the CPU, and its chunk planner.
 
 The emulation takes the kernels' steps in their order: per chunk of grid
 rows (``plan_bwd_chunks``), kernel A's per-pair activations and gradients
@@ -94,13 +94,20 @@ def tile_partials(per_pair: torch.Tensor, rows_then_warps: bool) -> torch.Tensor
     return in_order(in_order(tile.view(groups, t_pair.SPLIT_GROUP, C), 1), 0)
 
 
-def emulate_split_bwd(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
-                      ln_scale, ln_bias, fi=None, fj=None, wfe=None, cap=t_pair.BWD_WORKSPACE_CAP):
-    """The float32 kernels' decomposition; returns (chunks, the 16 gradients)."""
-    B, Nr, Nc, _ = pair.shape
-    residual = wfe is not None
-    # Kernel A, per pair (its rows do not depend on the chunk).
-    y0, y1, out = t_pair._pre_norm(pair, i_term, j_term, w0, b0, w1, b1, wf, bf, fi, fj, wfe)
+def kernel_a_float32(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
+                     ln_scale, ln_bias, fi=None, fj=None, wfe=None, matmul=matmul_f32):
+    """Kernel A's per-pair results (their rows do not depend on the chunk):
+    y0, y1, dx, dy1, dy0, dem, d_pair, and the LayerNorm sums' terms g em
+    xhat ("lns") and g em ("lnb"). ``matmul(a, w)``: its products, float32
+    products here (a kernel's arithmetic may be emulated in their place)."""
+    # The recompute, in the kernels' addition order (t_pair._pre_norm's).
+    y0 = torch.relu(matmul(pair, w0) + i_term[:, :, None, :] + j_term[:, None, :, :] + b0)
+    y1 = torch.relu(matmul(y0, w1) + b1)
+    out = matmul(y1, wf)
+    if wfe is not None:
+        out = out + matmul(pair, wfe)
+        out = out + fi[:, :, None, :] + fj[:, None, :, :]
+    out = out + bf
     mean = out.mean(dim=-1, keepdim=True)
     xc = out - mean
     inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + 1e-6)
@@ -110,15 +117,29 @@ def emulate_split_bwd(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b
     gm = g * emask
     dxhat = gm * ln_scale
     dx = (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True)) * inv
-    dy1 = matmul_f32(dx, wf.t()) * (y1 > 0)
-    dy0 = matmul_f32(dy1, w1.t()) * (y0 > 0)
-    d_pair = matmul_f32(dy0, w0.t())
-    if residual:
-        d_pair = d_pair + matmul_f32(dx, wfe.t())
+    dy1 = matmul(dx, wf.t()) * (y1 > 0)
+    dy0 = matmul(dy1, w1.t()) * (y0 > 0)
+    d_pair = matmul(dy0, w0.t())
+    if wfe is not None:
+        d_pair = d_pair + matmul(dx, wfe.t())
+    return {"y0": y0, "y1": y1, "dx": dx, "dy1": dy1, "dy0": dy0, "dem": dem,
+            "d_pair": d_pair, "lns": gm * xhat, "lnb": gm}
 
-    flat = {n: v.reshape(B * Nr * Nc, -1) for n, v in
-            (("pair", pair), ("y0", y0), ("y1", y1), ("dx", dx), ("dy1", dy1), ("dy0", dy0),
-             ("lns", gm * xhat), ("lnb", gm))}
+
+def emulate_split_bwd(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
+                      ln_scale, ln_bias, fi=None, fj=None, wfe=None, cap=t_pair.BWD_WORKSPACE_CAP,
+                      matmul=matmul_f32):
+    """The float32 kernels' decomposition; returns (chunks, the 16 gradients).
+    ``matmul``: kernel A's products (:func:`kernel_a_float32`)."""
+    B, Nr, Nc, _ = pair.shape
+    residual = wfe is not None
+    a = kernel_a_float32(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
+                         ln_scale, ln_bias, fi, fj, wfe, matmul)
+    d_pair, dem = a["d_pair"], a["dem"]
+
+    flat = {n: a[n].reshape(B * Nr * Nc, -1) for n in ("y0", "y1", "dx", "dy1", "dy0", "lns",
+                                                        "lnb")}
+    flat["pair"] = pair.reshape(B * Nr * Nc, -1)
     dem_f = dem.reshape(-1)
     rmask, cmask = row_mask.reshape(-1), col_mask.reshape(-1)
     prods = {"w0": ("pair", "dy0"), "w1": ("y0", "dy1"), "wf": ("y1", "dx")}
