@@ -30,8 +30,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernel's weight split against ``wgmma_weight_split`` bit for bit, the
    float32 backward's two splits (``wgmma_weight_split``,
    ``chain_weight_split``) likewise, and the HGMMA and UTMALDG instruction
-   counts of the wgmma libraries, the backward's included (``cuobjdump
-   -sass``); the edge embedder's two float32 forwards apart
+   counts of the wgmma libraries, both backwards' included (float32 kernel B
+   is ``csrc/wgrad_wg.cuh`` in each) (``cuobjdump -sass``); the edge embedder's two float32 forwards apart
    likewise, each at every shape: the mma.sync kernel
    (``csrc/edge_embedder.cu``, the forward autograd differentiates, also in
    bf16) and the wgmma kernel (``csrc/edge_embedder_wg.cu``, the forward no
@@ -219,10 +219,15 @@ with 22 and 0 distance bins; B=2 N=200 also in 10 chunks under a small
 workspace cap), checks that two launches give the same bits, and times them
 at B=2 N=256 in both dtypes, also by part: kernel A (the pair MLP's in
 float32 on wgmma and TMA, ``csrc/pair_mlp_bwd_wg.cu``), its weight splits,
-kernel B, the row/column sums, the ordered reductions, under
+kernel B (float32: ``csrc/wgrad_wg.cuh`` on wgmma and TMA; bf16:
+``csrc/wgrad_tc.cuh``), the row/column sums, the ordered reductions, under
 torch.profiler, with the chunk count, workspace bytes and each kernel's
 bound on the tensor cores; the embedder's also beside the ``xla``
-setting's backward, the VJP of its plain forward. The
+setting's backward, the VJP of its plain forward. Float32 kernel B also
+runs alone (``wgrad_f32``) against float64 at one pair, 289 pairs, a
+ragged 80,000-pair chunk and the embedder's 64-row job, two launches
+bit-identical, and its bound at each call site is printed beside the same
+products as ``torch.mm`` calls in float32 with TF32 off. The
 backwards' recompute must equal the forward kernel's output bit for bit,
 and their gradients are held against the plain backward through the
 recompute's relu decisions, after every relu site where the plain forward
@@ -247,6 +252,7 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -668,7 +674,7 @@ def check_wgmma_pieces(gen) -> None:
         f"the wrapper's: {same_out}")
     if not (same_split and same_out):
         raise AssertionError(f"wgmma backward's scratch or d_pair (cudaError_t {err})")
-    for name in ("pair_mlp_wg", "edge_embedder_wg", "pair_mlp_bwd_wg"):
+    for name in ("pair_mlp_wg", "edge_embedder_wg", "pair_mlp_bwd_wg", "edge_embedder_bwd"):
         counts = sass_counts(name, ("HGMMA", "UTMALDG"))
         log(f"{name}: {counts['HGMMA']} HGMMA and {counts['UTMALDG']} UTMALDG instructions "
             "(cuobjdump -sass)")
@@ -691,9 +697,11 @@ def sass_counts(name: str, ops) -> dict[str, int]:
 # kernel B (weight gradients) run their products on the tensor cores, as
 # 3xTF32 in float32 and bf16 MMA in bf16. Its CUDA kernels by name: kernel A
 # (float32: csrc/pair_mlp_bwd_wg.cu on wgmma; bf16: csrc/pair_mlp_bwd.cu),
-# float32's weight splits (kernel A's first step), kernel B, the sums.
+# float32's weight splits (kernel A's first step), kernel B (float32:
+# csrc/wgrad_wg.cuh's wgrad_wg_kernel on wgmma; bf16: csrc/wgrad_tc.cuh's
+# wgrad_kernel), the sums.
 BWD_PARTS = (("A", "bwd_tile_kernel"), ("A", "split_tile_kernel"),
-             ("weight splits", "prepare_weights"), ("B", "wgrad_kernel"),
+             ("weight splits", "prepare_weights"), ("B", "wgrad_wg_kernel"), ("B", "wgrad_kernel"),
              ("row/col sums", "_sums"), ("ordered reductions", "sum_partials"))
 
 
@@ -838,10 +846,76 @@ def check_pair_mlp_bwd() -> dict:
                          + f"; kernel A bound {1e3 * a_flops / peak:.4f} ms, kernel B bound "
                          f"{1e3 * b_flops / peak:.4f} ms; {card_line()}")
                 out[dtype] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                              "kernel_b_ms": parts.get("B")}
             log(line)
             if worst_rel > TOL[dtype] or not same:
                 raise AssertionError(f"{label}: error {worst_rel} over tolerance or not deterministic")
+    return out
+
+
+# Float32 kernel B (csrc/wgrad_wg.cuh) at B=2 N=256 at each call site: its
+# products as (A's width, Bm's width) over the workspace's [P, width] rows,
+# and the floats a pair of the distinct rows it reads (the pair MLP: pair,
+# y0, y1, dy0, dy1, dx; the embedder: m, y0, y1, dy0, dy1, dx).
+WGRAD_PRODUCTS = {"pair_mlp_bwd_wg": ((128, 384), (384, 384), (384, 128), (128, 128)),
+                  "edge_embedder_bwd": ((64, 128), (128, 128), (128, 128))}
+WGRAD_ROW_FLOATS = {"pair_mlp_bwd_wg": 2 * 128 + 4 * 384, "edge_embedder_bwd": 64 + 5 * 128}
+
+
+def check_wgrad() -> dict[str, dict]:
+    """Float32 kernel B alone (``csrc/wgrad_wg.cuh`` through the
+    ``wgrad_f32`` wrapper) against float64 a^T b: one pair, 289 pairs (a
+    partial step), a ragged chunk (80,000 pairs, the pair MLP's 384-wide
+    operands, 8 slices) and the embedder's 64-row job (289 and 5,000 pairs,
+    44 slices), each within 1e-4 of the product's max-abs, two launches
+    bit-identical. Then, for each call site at B=2 N=256, kernel B's bound
+    (3xTF32 operations or the distinct workspace rows' bytes) and the time of
+    the same products as ``torch.mm(a.t(), b)`` calls in float32 with TF32
+    off, the yardstick that the port never calls. Returns by kernel entry
+    the ``kernel_b_*`` numbers (kernel B's own ms come from the backwards'
+    profiles)."""
+    from framedipt_tpu_torch.model.kernels.wgrad import wgrad_f32
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the torch.mm yardstick needs TF32 off")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    worst = 0.0
+    for P, M, N, slices in ((1, 128, 128, 8), (289, 384, 384, 8), (80_000, 384, 384, 8),
+                            (289, 64, 128, 44), (5_000, 64, 128, 44)):
+        a = torch.randn(P, M, generator=gen, device="cuda")
+        b = torch.randn(P, N, generator=gen, device="cuda")
+        got, again = wgrad_f32(a, b, slices), wgrad_f32(a, b, slices)
+        ref = a.double().t() @ b.double()
+        torch.cuda.synchronize()
+        err = float((got.double() - ref).abs().max())
+        rel = err / max(float(ref.abs().max()), 1e-30)
+        same = torch.equal(got, again)
+        worst = max(worst, err)
+        log(f"wgrad_f32 P={P} M={M} N={N} slices={slices}: max err {err:.3e} abs, {rel:.3e} of the "
+            f"product's max-abs against float64 (tol {TOL[torch.float32]}); two launches "
+            f"bit-identical: {same}")
+        if rel > TOL[torch.float32] or not same:
+            raise AssertionError(f"wgrad_f32 P={P} M={M} N={N}: error {rel} or not deterministic")
+    out = {}
+    P = 2 * 256 * 256
+    for name, prods in WGRAD_PRODUCTS.items():
+        rows = {w: torch.randn(P, w, generator=gen, device="cuda") for p in prods for w in p}
+
+        def products(prods=prods, rows=rows):
+            for m, n in prods:
+                torch.mm(rows[m].t(), rows[n])
+
+        library_ms = cuda_time_ms(products, 5)
+        flops = sum(2 * P * m * n for m, n in prods)
+        bound_ms, bound_by = bound(flops, 4 * P * WGRAD_ROW_FLOATS[name],
+                                   TENSOR_CORE_FLOPS[torch.float32])
+        log(f"{name} kernel B at B=2 N=256: {flops / 1e9:.2f} GFLOP, bound {bound_ms:.4f} ms "
+            f"({bound_by}, 3xTF32; bytes {1e3 * 4 * P * WGRAD_ROW_FLOATS[name] / PEAK_BYTES:.4f} ms); "
+            f"the same products as torch.mm float32 (TF32 off) {library_ms:.4f} ms; {card_line()}")
+        out[name] = {"kernel_b_bound_ms": bound_ms, "kernel_b_bound_by": bound_by,
+                     "kernel_b_library_ms": library_ms, "kernel_b_max_abs_err": worst}
+        del rows
     return out
 
 
@@ -851,7 +925,8 @@ def check_pair_mlp_bwd() -> dict:
 # 128); 245,760 in all.
 EMB_BWD_A_FLOP_PER_PAIR = 2 * (64 * 128 + 128 * 128 + 128 * 128) + 2 * (2 * 128 * 128 + 64 * 128)
 EMB_BWD_B_FLOP_PER_PAIR = 2 * (2 * 128 * 128 + 64 * 128)
-EMB_BWD_PARTS = (("A", "emb_split_tile_kernel"), ("B", "wgrad_kernel"), ("row/col sums", "_sums"),
+EMB_BWD_PARTS = (("A", "emb_split_tile_kernel"), ("B", "wgrad_wg_kernel"), ("B", "wgrad_kernel"),
+                 ("row/col sums", "_sums"),
                  ("ordered reductions", "sum_partials"))
 
 
@@ -964,7 +1039,8 @@ def check_edge_embedder_bwd() -> dict:
                          + f"; kernel A bound {1e3 * a_flops / peak:.4f} ms, kernel B bound "
                          f"{1e3 * b_flops / peak:.4f} ms; {card_line()}")
                 numbers = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                           "kernel_b_ms": parts.get("B")}
                 if dtype == torch.float32:
                     out.update(numbers)
                 else:
@@ -1727,6 +1803,10 @@ def check_train_step() -> dict[str, int]:
                "torch.profiler recorded no device time (busy share not measured)"))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             log(f"  {ms:9.3f} ms  {name[:100]}")
+        kernel_b = {re.search(r"wgrad_\w+(<[^>]*>)?", n).group(0): ms
+                    for n, ms in by_name.items() if "wgrad_" in n}
+        log(f"  kernel B of the split backwards: {sum(kernel_b.values()):.3f} ms ("
+            + ", ".join(f"{n} {ms:.3f}" for n, ms in kernel_b.items()) + ")")
     return total
 
 
@@ -3658,8 +3738,6 @@ def check_parallel() -> dict[str, dict[str, int]]:
 def kernel_label(mangled: str) -> str:
     """A CUDA kernel's name and the start of its template arguments from its
     mangled name (``..._cu_<hash><len><name>I13__nv_bfloat16Lb1E...``)."""
-    import re
-
     m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
     if m is None:
         return mangled[:60]
@@ -3713,6 +3791,8 @@ def main() -> int:
     bwd = check_pair_mlp_bwd()
     serving["pair_mlp_bwd_wg"], serving["pair_mlp_bwd"] = bwd[torch.float32], bwd[torch.bfloat16]
     serving["edge_embedder_bwd"] = check_edge_embedder_bwd()
+    for name, numbers in check_wgrad().items():
+        serving[name].update(numbers)
     compare_ipa_branches()
     log("phase 4: full-width forward against the recorded reference")
     check_recorded_forward(use_pallas_ipa=False)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the edge-embedder forward kernels and the float32 pair-MLP
-backward's kernel A beside variants of their sources, on one CUDA card.
+"""Time the edge-embedder forward kernels, the float32 pair-MLP backward's
+kernel A and the float32 kernel B of both split backwards beside variants of
+their sources, on one CUDA card.
 
-    python3 chip_variants.py [--parent DIR] [--out FILE] [--only mma|wgmma|bwd]
+    python3 chip_variants.py [--parent DIR] [--out FILE] [--only mma|wgmma|bwd|wgrad]
 
 Each variant is this checkout's ``framedipt_tpu_torch/csrc`` with text
 patches applied to a copy, built by nvcc (one process per variant, all
@@ -14,8 +15,13 @@ gradients), and of ``pair_mlp_bwd_wg.cu`` (the float32 pair-MLP backward,
 kernel A on wgmma: its relu decisions read back from the workspace in place
 of registers, and one part removed at a time: the products, the workspace
 stores, the LayerNorm backward, the relu masks), the backward held and timed
-at B=2 N=256 by its call and by kernel A's device time (torch.profiler).
-``--only`` builds and times one kernel's variants. Variants that
+at B=2 N=256 by its call and by kernel A's device time (torch.profiler),
+and of ``wgrad_wg.cuh`` (float32 kernel B, built into both backwards'
+libraries: A through the transform too, two ring stages, and one part
+removed at a time: the transform, the products, two of the three TF32
+products, the TMA loads), each backward timed at B=2 N=256 by its call and
+by kernel B's device time. ``--only`` builds and times one kernel's
+variants. Variants that
 change how a kernel works are held against the plain version (float32 1e-4,
 bf16 5e-2) at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256; variants that
 remove a part of the work give wrong outputs and are only timed, to show
@@ -27,13 +33,14 @@ distance bins in both dtypes (the forward's tile is shared with the embedder
 backward's recompute); its ``pair_mlp.cu`` and ``pair_mlp_bwd.cu`` (bf16),
 ``pair_mlp_wg.cu`` (float32, with and without the residual terms; its tile
 is now shared with the float32 backward's kernel A),
-``edge_embedder_wg.cu`` (float32) and ``edge_embedder_bwd.cu`` (both
-dtypes) must give the same bits as this checkout's (the product code, the
-forward tiles and kernel B are shared), and they are timed beside this
-checkout's; the float32 pair-MLP backward, whose kernel A this checkout
-runs on wgmma, is held against the plain version instead (1e-4 of each
-gradient's max-abs, through the recompute's relu decisions) and timed
-beside the parent's, as is the differentiated float32 forward (this
+``edge_embedder_wg.cu`` (float32) and ``edge_embedder_bwd.cu`` (bf16)
+must give the same bits as this checkout's (the product code, the
+forward tiles and bf16's kernel B are shared), and they are timed beside
+this checkout's; the float32 pair-MLP and embedder backwards, whose kernel
+B (and the pair MLP's kernel A) this checkout runs on wgmma, are held
+against the plain version instead (1e-4 of each gradient's max-abs, through
+the recompute's relu decisions) and timed beside the parent's, by call and
+by kernel B's device ms, as is the differentiated float32 forward (this
 checkout's wgmma kernel, the parent's mma.sync one). The parent's wrappers
 run through that tree's own wrapper modules, which bind its C entries as
 it built them.
@@ -250,6 +257,42 @@ BWD_VARIANTS = {
                          False),
     "bwd_no_relu_masks": ({BWD_WG: BWD_PICKS}, False),
 }
+# Float32 kernel B (wgrad_wg.cuh), built into both backwards' libraries.
+WGRAD = "wgrad_wg.cuh"
+WGRAD_A_T = "constexpr bool kWgradATransform = false;"
+WGRAD_STAGES = "constexpr int kWgradStages = kWgradATransform ? 2 : 3;"
+WGRAD_MMA3 = """      wg::wgmma_m64n128k8_tf32(part, lo[kk], bh, kk > 0);
+      wg::wgmma_m64n128k8_tf32(part, hi[kk], bl, 1);
+      wg::wgmma_m64n128k8_tf32(part, hi[kk], bh, 1);
+"""
+WGRAD_TRANSFORM = "        transpose_split(tl[kTB], tl[kTBhi], tl[kTBlo], 128, idx - 32);\n"
+WGRAD_TMA = """        wg::mbar_arrive_expect_tx(&sm.full[st], bytes);
+        for (int b = 0; b < jb.rows / 32; ++b)
+          wg::tma_load_2d(sm.tile[st][kTA] + b * (kWgradStep * 32), am, &sm.full[st],
+                          jb.a_col + 32 * b, row);
+        for (int b = 0; b < 4; ++b)
+          wg::tma_load_2d(sm.tile[st][kTB] + b * (kWgradStep * 32), bm, &sm.full[st],
+                          jb.b_col + 32 * b, row);
+"""
+# name: (patches, checked against the plain version): A through the
+# transform too (its hi and lo tiles read by wgmma from shared memory; two
+# stages); two ring stages; one part removed at a time: the transform
+# (Bm^T's tiles left as they are), the products, one TF32 product a k step
+# in place of three, the TMA loads (the full barriers arrive at once); the
+# transform and the products together.
+WGRAD_NO_TMA = (WGRAD_TMA, "        wg::mbar_arrive(&sm.full[st]);\n")
+WGRAD_VARIANTS = {
+    "wgrad_a_transform": ({WGRAD: [(WGRAD_A_T, WGRAD_A_T.replace("false", "true"))]}, True),
+    "wgrad_two_stages": ({WGRAD: [(WGRAD_STAGES, WGRAD_STAGES.replace("? 2 : 3", "? 2 : 2"))]},
+                         True),
+    "wgrad_no_transform": ({WGRAD: [(WGRAD_TRANSFORM, "")]}, False),
+    "wgrad_no_products": ({WGRAD: [(WGRAD_MMA3, "")]}, False),
+    "wgrad_one_tf32_product": ({WGRAD: [(WGRAD_MMA3, WGRAD_MMA3.split("\n", 2)[2])]}, False),
+    "wgrad_no_tma": ({WGRAD: [WGRAD_NO_TMA]}, False),
+    "wgrad_no_transform_no_products": ({WGRAD: [(WGRAD_TRANSFORM, ""), (WGRAD_MMA3, "")]}, False),
+}
+# The library each backward's kernel B is built into, and its source.
+WGRAD_LIBS = {"pair": ("pair_mlp_bwd_wg", BWD_WG), "emb": ("edge_embedder_bwd", "edge_embedder_bwd.cu")}
 # name: (patches {file: [(old, new)]}, checked against the plain version);
 # the mma.sync kernel's (edge_embedder.cu)
 VARIANTS = {
@@ -348,9 +391,11 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen) -> dict:
         if dtype == torch.float32:
             wg_fwd = lambda a=a: t_pair.pair_mlp(*a)  # noqa: E731
             cases["pair_mlp_wg float32"] = ("pair_mlp_wg", wg_fwd, wg_fwd)
-        # This checkout's float32 backward runs kernel A on wgmma.
+        # Each dtype's backward through its library (float32's kernel B
+        # runs on wgmma in this checkout).
         cases[f"pair_mlp_bwd {str(dtype)[6:]}"] = (
-            "pair_mlp_bwd", lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
+            "pair_mlp_bwd_wg" if dtype == torch.float32 else "pair_mlp_bwd",
+            lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
             lambda a=a, g=g: parent_pair.pair_mlp_bwd(g, *a))
     parent_emb = pmods["edge_embedder"]
     for dtype in (torch.float32, torch.bfloat16):
@@ -369,9 +414,14 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen) -> dict:
             for who in (("new", "parent") if rnd % 2 == 0 else ("parent", "new")):
                 use(kind, new_libs[kind] if who == "new" else libs[f"parent_{kind}"])
                 t[who].append(cs.cuda_time_ms(new_fn if who == "new" else parent_fn, 20))
-                if kind == "pair_mlp_bwd":  # kernel A's device ms, by name
-                    fn = new_fn if who == "new" else parent_fn
-                    t.setdefault(f"{who} kernel A", []).append(cs.bwd_parts_ms(fn).get("A", 0.0))
+                fn = new_fn if who == "new" else parent_fn
+                if kind.startswith("pair_mlp_bwd"):  # kernel A's and kernel B's device ms
+                    parts = cs.bwd_parts_ms(fn)
+                    t.setdefault(f"{who} kernel A", []).append(parts.get("A", 0.0))
+                    t.setdefault(f"{who} kernel B", []).append(parts.get("B", 0.0))
+                elif kind == "edge_embedder_bwd":
+                    t.setdefault(f"{who} kernel B", []).append(
+                        cs.bwd_parts_ms(fn, cs.EMB_BWD_PARTS).get("B", 0.0))
         use(kind, new_libs[kind])
         log(f"{label} B=2 N=256: " + "; ".join(
             f"{'this checkout' if who.startswith('new') else 'the parent'}"
@@ -401,6 +451,82 @@ def pair_bwd_check(cs, label: str, a, g) -> bool:
     return rel <= tol and same and fwd
 
 
+def emb_bwd_check(cs, label: str, tensors, lower, upper, g) -> bool:
+    """The embedder backward against the plain version through its
+    recompute's relu decisions (the dtype's tolerance of each gradient's
+    max-abs), two launches bit-identical; logs one line, returns whether it
+    passed."""
+    from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+
+    kw = {"bins_lower": lower, "bins_upper": upper}
+    rec = {}
+    got = t_emb.edge_embedder_bwd(g, *tensors, recompute=rec, **kw)
+    again = t_emb.edge_embedder_bwd(g, *tensors, **kw)
+    ref = t_emb.edge_embedder_bwd_plain(g, *tensors, **kw,
+                                        relu_masks=(rec["y0"] > 0, rec["y1"] > 0))
+    rel, err = cs.grad_errors(got, ref, label)
+    same = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+    tol = cs.TOL[tensors[0].dtype]
+    log(f"{label}: max err {err:.3e} abs, {rel:.3e} of the gradient's max-abs (tol {tol}), "
+        f"two launches bit-identical: {same}")
+    return rel <= tol and same
+
+
+def wgrad_checks(cs, name: str, site: str, gen) -> int:
+    """A kernel B variant that should still be right (``name``, built into
+    ``site``'s library and in use) held through its backward against the
+    plain version; returns the failures."""
+    fails = 0
+    if site == "pair":
+        for B, N in ((1, 1), (1, 17), (2, 200)):
+            for residual in (True, False):
+                a = cs.pair_mlp_inputs(B, N, torch.float32, gen, residual=residual)
+                g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
+                fails += not pair_bwd_check(
+                    cs, f"{name} float32 B={B} N={N} residual={residual}", a, g)
+    else:
+        for B, N in ((1, 1), (1, 17), (2, 200)):
+            for n_bins in (22, 0):
+                *tensors, lower, upper = cs.edge_embedder_inputs(B, N, torch.float32, gen,
+                                                                 n_bins=n_bins)
+                g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
+                fails += not emb_bwd_check(cs, f"{name} float32 B={B} N={N} n_bins={n_bins}",
+                                           tensors, lower, upper, g)
+    return fails
+
+
+def time_wgrad_variants(cs, libs, names, site: str, use, gen) -> dict:
+    """Kernel B's device ms (torch.profiler) and the whole call's ms (CUDA
+    events over 10 calls) of the float32 backward of ``site`` ("pair": the
+    pair MLP, "emb": the embedder) at B=2 N=256 through each library in
+    ``names`` (this checkout's first), three rounds in alternating order."""
+    from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    lib_name = WGRAD_LIBS[site][0]
+    if site == "pair":
+        a = cs.pair_mlp_inputs(2, 256, torch.float32, gen)
+        g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda")
+        fn, kinds = (lambda: t_pair.pair_mlp_bwd(g, *a)), cs.BWD_PARTS
+    else:
+        *e, lower, upper = cs.edge_embedder_inputs(2, 256, torch.float32, gen)
+        g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda")
+        fn = lambda: t_emb.edge_embedder_bwd(g, *e, bins_lower=lower, bins_upper=upper)  # noqa: E731
+        kinds = cs.EMB_BWD_PARTS
+    t = {n: {"call": [], "B": []} for n in names}
+    for rnd in range(3):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            use(lib_name, libs[name])
+            t[name]["call"].append(cs.cuda_time_ms(fn, 10))
+            t[name]["B"].append(cs.bwd_parts_ms(fn, kinds).get("B", 0.0))
+    use(lib_name, libs[names[0]])
+    for name in names:
+        log(f"{name} float32 {'pair_mlp_bwd' if site == 'pair' else 'edge_embedder_bwd'} B=2 "
+            "N=256: call " + ", ".join(f"{x:.4f}" for x in t[name]["call"]) + " ms; kernel B "
+            + ", ".join(f"{x:.4f}" for x in t[name]["B"]) + " ms")
+    return t
+
+
 def time_bwd_variants(cs, libs, names, use, gen) -> dict:
     """The float32 pair-MLP backward at B=2 N=256 through each library in
     ``names`` (this checkout's "new_bwd" and the variants): CUDA events over
@@ -427,7 +553,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=pathlib.Path, default=None)
     ap.add_argument("--out", type=pathlib.Path, default=None)
-    ap.add_argument("--only", choices=("mma", "wgmma", "bwd"), default=None)
+    ap.add_argument("--only", choices=("mma", "wgmma", "bwd", "wgrad"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_variants: no CUDA device")
@@ -437,6 +563,7 @@ def main() -> int:
     from framedipt_tpu_torch.model.kernels import build
     from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
     from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+    from framedipt_tpu_torch.model.kernels import wgrad as t_wgrad
     from framedipt_tpu_torch.tools.device import set_full_precision_matmul
 
     set_full_precision_matmul()
@@ -452,6 +579,10 @@ def main() -> int:
     if args.only in (None, "bwd"):
         variants.update({n: (p, ok, "pair_mlp_bwd_wg", BWD_WG)
                          for n, (p, ok) in BWD_VARIANTS.items()})
+    if args.only in (None, "wgrad"):
+        for site, (_, source) in WGRAD_LIBS.items():
+            variants.update({f"{n}_{site}": (p, ok, f"wgrad_{site}", source)
+                             for n, (p, ok) in WGRAD_VARIANTS.items()})
     kinds.update({n: (kind, ok) for n, (_, ok, kind, _) in variants.items()})
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_variants_"))
     try:
@@ -462,6 +593,7 @@ def main() -> int:
             sources.update({"parent": parent / EMB, "parent_pair_mlp": parent / "pair_mlp.cu",
                             "parent_pair_mlp_bwd": parent / "pair_mlp_bwd.cu",
                             "parent_pair_mlp_wg": parent / "pair_mlp_wg.cu",
+                            "parent_pair_mlp_bwd_wg": parent / "pair_mlp_bwd_wg.cu",
                             "parent_edge_embedder_wg": parent / EMB_WG,
                             "parent_edge_embedder_bwd": parent / "edge_embedder_bwd.cu"})
             kinds["parent"] = ("edge_embedder", False)
@@ -471,7 +603,9 @@ def main() -> int:
             for name, src in sources.items()}
         build.build_all()
         libs = {"new": build.library("edge_embedder"), "new_wg": build.library("edge_embedder_wg"),
-                "new_bwd": build.library("pair_mlp_bwd_wg")}
+                "new_bwd": build.library("pair_mlp_bwd_wg"),
+                "new_wgrad_pair": build.library("pair_mlp_bwd_wg"),
+                "new_wgrad_emb": build.library("edge_embedder_bwd")}
         fails = 0
         for name, proc in procs.items():
             out = proc.communicate()[0]
@@ -484,13 +618,14 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "C7512" in line:
                     log(f"  {name}: {line.strip()[:160]}")
         new_libs = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd", "pair_mlp_wg",
-                                                  "edge_embedder_wg", "edge_embedder_bwd")}
+                                                  "pair_mlp_bwd_wg", "edge_embedder_wg",
+                                                  "edge_embedder_bwd")}
         pmods = {} if parent is None else {
             n: parent_module(args.parent, n) for n in ("pair_mlp", "edge_embedder")}
 
         def use(kind: str, lib) -> None:
             build._libs[kind] = lib
-            for mod in (t_emb, t_pair, *pmods.values()):
+            for mod in (t_emb, t_pair, t_wgrad, *pmods.values()):
                 for entry in ("_kernel", "_wg_kernel", "_split_kernel", "_bwd_kernel",
                               "_bwd_wg_kernel"):
                     if hasattr(mod, entry):
@@ -516,7 +651,15 @@ def main() -> int:
                     fails += not pair_bwd_check(
                         cs, f"{name} float32 B={B} N={N} residual={residual}", a, g)
             use("pair_mlp_bwd_wg", libs["new_bwd"])
-        kinds = {n: v for n, v in kinds.items() if v[0] != "pair_mlp_bwd_wg"}
+        wgrad_names = {site: [n for n, (kind, _) in kinds.items() if kind == f"wgrad_{site}"
+                              and n in libs] for site in WGRAD_LIBS}
+        for site, names in wgrad_names.items():
+            for name in [n for n in names if kinds[n][1]]:
+                use(WGRAD_LIBS[site][0], libs[name])
+                fails += wgrad_checks(cs, name, site, gen)
+            use(WGRAD_LIBS[site][0], libs[f"new_wgrad_{site}"])
+        kinds = {n: v for n, v in kinds.items()
+                 if v[0] != "pair_mlp_bwd_wg" and not v[0].startswith("wgrad_")}
         emb_only = {None: None, "mma": "edge_embedder", "wgmma": "edge_embedder_wg"}.get(args.only, "")
         checked = [n for n, (kind, ok) in kinds.items() if ok and n in libs
                    and emb_only in (None, kind)]
@@ -605,7 +748,17 @@ def main() -> int:
                     fails += not same
             use("edge_embedder_wg", new_libs["edge_embedder_wg"])
         if "parent_edge_embedder_bwd" in libs:
-            for dtype in (torch.float32, torch.bfloat16):
+            # float32: this checkout's kernel B runs on wgmma, so the
+            # backward is held against the plain version, not the parent.
+            for B, N in ((1, 17), (2, 200), (2, 256)):
+                for n_bins in (22, 0):
+                    *tensors, lower, upper = cs.edge_embedder_inputs(B, N, torch.float32, gen,
+                                                                     n_bins=n_bins)
+                    g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
+                    fails += not emb_bwd_check(
+                        cs, f"edge_embedder_bwd float32 B={B} N={N} n_bins={n_bins}", tensors,
+                        lower, upper, g)
+            for dtype in (torch.bfloat16,):
                 for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
                     for n_bins in (22, 0):
                         *tensors, lower, upper = cs.edge_embedder_inputs(B, N, dtype, gen,
@@ -629,6 +782,10 @@ def main() -> int:
         if bwd_names:
             times["pair_mlp_bwd float32 B=2 N=256"] = time_bwd_variants(
                 cs, libs, ["new_bwd"] + bwd_names, use, gen)
+        for site, names in wgrad_names.items():
+            if names:
+                times[f"kernel B {site} float32 B=2 N=256"] = time_wgrad_variants(
+                    cs, libs, [f"new_wgrad_{site}"] + names, site, use, gen)
         timed = [n for n in libs if n in kinds and emb_only != "" and (
             args.only is None or n in ("new", "new_wg", "parent") or kinds[n][0] == emb_only)]
         for dtype, B, N in ((torch.float32, 2, 256), (torch.bfloat16, 2, 256),

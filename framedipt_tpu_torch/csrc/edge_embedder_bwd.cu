@@ -54,22 +54,23 @@
 // - Row and column sums (emb_row_sums, emb_col_sums): d_g | d_i_term |
 //   d_row_mask and the column ones, summed from the workspace in index order
 //   (dm * H_j and dm * G_i formed there).
-// - Kernel B (wgrad_tc.cuh's wgrad_kernel, shared with the pair MLP):
-//   d_w_rel = m^T dy0 (a 64-row job: its A rows are 64 wide, so the staged
-//   columns 64-127 are the next pair's m, and the workspace keeps dx after
-//   m so that the last pair's are readable; rows 64-127 are not stored),
-//   d_w1 = y0^T dy1, d_w2 = y1^T dx as one split-K GEMM, 3xTF32 in float32
-//   and bf16 MMA in bf16, the chunk's pairs in kSlices = 44 slices: 3 x 44 =
-//   132 blocks, one wave on 132 SMs.
+// - Kernel B, shared with the pair MLP: d_w_rel = m^T dy0 (a 64-row job),
+//   d_w1 = y0^T dy1, d_w2 = y1^T dx as one split-K GEMM, the chunk's pairs
+//   in kSlices = 44 slices: 3 x 44 = 132 blocks, one wave on 132 SMs. In
+//   float32 wgrad_wg.cuh's kernel (wgmma and TMA, 3xTF32; the 64-row job
+//   runs one m64 half). In bf16 wgrad_tc.cuh's (bf16 mma.sync): its 64-row
+//   job stages 128 columns from m's rows, so the staged columns 64-127 are
+//   the next pair's m, and the workspace keeps dx after m so that the last
+//   pair's are readable; rows 64-127 are not stored.
 // - Then common.cuh's sum_partials adds the slices' partials in slice order,
 //   and the tiles' vector partials in tile order (32 at a time, then the
 //   groups), to the outputs, chunk after chunk.
 // The float32 workspace round trip at B=2 N=256 (one chunk; 0.40 GB
 // written, 0.40 GB read back by kernel B and 0.20 GB by the sums) takes
 // 0.30 ms at the HBM rate. Measured on an H100 (NVIDIA H100 80GB HBM3,
-// 700 W, chip_smoke.py): the float32 call 1.22 ms against the CUDA-core
-// kernel's 1.90; kernel A 0.68, kernel B 0.26, the sums 0.20, the
-// reductions 0.04.
+// 700 W, chip_smoke.py): the float32 call 1.11 ms (1.22 with kernel B on
+// mma.sync, the CUDA-core kernel's 1.90); kernel A 0.68, kernel B 0.15
+// (0.26 on mma.sync), the sums 0.18, the reductions 0.05.
 //
 // bf16 follows the JAX kernel's rounding points (edge_embedder.py:433-530):
 // - the recompute is the bf16 forward kernel's: m = bf16(G_i * H_j), each
@@ -97,6 +98,7 @@
 // (gm = g * emask).
 #include "edge_embedder_tc.cuh"
 #include "wgrad_tc.cuh"
+#include "wgrad_wg.cuh"
 
 namespace fdk {
 namespace {
@@ -493,12 +495,26 @@ cudaError_t launch_split(const T* grad, const T* g, const T* h, const float* pos
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // Kernel B: d_w_rel = m^T dy0 (64 rows), d_w1 = y0^T dy1, d_w2 = y1^T dx.
-  WJobs<T> jobs;
-  jobs.job[0] = {ws.m, ws.dy0, CP, C, 0, C, CP};
-  jobs.job[1] = {ws.y0, ws.dy1, C, C, CP * C, C};
-  jobs.job[2] = {ws.y1, ws.dx, C, C, CP * C + C * C, C};
-  if ((err = launch_wgrad(jobs, 3, kSlices, ws.wpart, kBParts, P, stream)) != cudaSuccess)
-    return err;
+  if constexpr (sizeof(T) == 2) {
+    WJobs<T> jobs;
+    jobs.job[0] = {ws.m, ws.dy0, CP, C, 0, C, CP};
+    jobs.job[1] = {ws.y0, ws.dy1, C, C, CP * C, C};
+    jobs.job[2] = {ws.y1, ws.dx, C, C, CP * C + C * C, C};
+    err = launch_wgrad(jobs, 3, kSlices, ws.wpart, kBParts, P, stream);
+  } else {
+    // Tensor maps: m, y0, y1, dy0, dy1, dx.
+    enum { kM, kY0, kY1, kDy0, kDy1, kDx };
+    WgradJobs jobs;
+    if (!wgrad_map(jobs, kM, ws.m, P, CP) || !wgrad_map(jobs, kY0, ws.y0, P, C) ||
+        !wgrad_map(jobs, kY1, ws.y1, P, C) || !wgrad_map(jobs, kDy0, ws.dy0, P, C) ||
+        !wgrad_map(jobs, kDy1, ws.dy1, P, C) || !wgrad_map(jobs, kDx, ws.dx, P, C))
+      return cudaErrorInvalidValue;
+    jobs.job[0] = {kM, 0, kDy0, 0, 0, C, CP};
+    jobs.job[1] = {kY0, 0, kDy1, 0, CP * C, C, 128};
+    jobs.job[2] = {kY1, 0, kDx, 0, CP * C + C * C, C, 128};
+    err = launch_wgrad_wg(jobs, 3, kSlices, ws.wpart, kBParts, P, stream);
+  }
+  if (err != cudaSuccess) return err;
 
   // Fixed-order sums into the outputs.
   if ((err = reduce_partials(ws.wpart, wred + OFF_WREL, 1, kSlices, CP * C, kBParts, stream,

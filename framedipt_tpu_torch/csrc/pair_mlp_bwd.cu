@@ -44,13 +44,14 @@
 //   the weight ring), the transposed weights laid out by the wrapper.
 // - Row and column sums (row_sums, col_sums): d_i_term | d_fi | d_row_mask
 //   and the column ones, summed from the workspace in index order.
-// - Kernel B (wgrad_tc.cuh's wgrad_kernel, shared with the embedder's
-//   backward): the four weight gradients as one split-K GEMM on the tensor
-//   cores, 3xTF32 in float32 and bf16 MMA in bf16. The outputs are cut into
-//   128 x 128 tiles (3 of d_w0, 9 of d_w1, 3 of d_wf, 1 of d_wfe) and the
-//   chunk's pairs into kSlices contiguous slices: 16 x 8 = 128 blocks, one
-//   wave on 132 SMs. Bound: 3 x 68.7 GFLOP / 495 TFLOP/s = 0.42 ms
-//   (3xTF32); 68.7 GFLOP / 989 TFLOP/s = 0.07 ms (bf16).
+// - Kernel B, shared with the embedder's backward: the four weight
+//   gradients as one split-K GEMM on the tensor cores, in float32
+//   wgrad_wg.cuh's wgmma kernel (3xTF32, operands by TMA, Bm turned K-major
+//   in shared memory), in bf16 wgrad_tc.cuh's mma.sync one (bf16 MMA). The
+//   outputs are cut into 128 x 128 tiles (3 of d_w0, 9 of d_w1, 3 of d_wf,
+//   1 of d_wfe) and the chunk's pairs into kSlices contiguous slices: 16 x
+//   8 = 128 blocks, one wave on 132 SMs. Bound: 3 x 68.7 GFLOP / 495
+//   TFLOP/s = 0.42 ms (3xTF32); 68.7 GFLOP / 989 TFLOP/s = 0.07 ms (bf16).
 // - A second pass (common.cuh's sum_partials) adds the slices' partials in
 //   slice order, and the tiles' vector partials in tile order (32 at a
 //   time, then the groups), to the outputs, chunk after chunk.

@@ -520,3 +520,27 @@ extern "C" int fdk_pair_mlp_bwd_wg(int residual, const void* g, const void* pair
   return residual ? fdk::launch<true>(FDK_ARGS) : fdk::launch<false>(FDK_ARGS);
 #undef FDK_ARGS
 }
+
+// C interface of float32 kernel B alone (wgrad_wg.cuh), for its tests: out
+// [M, Nb] = A^T Bm over P pairs, A [P, M] and Bm [P, Nb] row-major float32
+// (16-byte aligned), M = 64 or a multiple of 128, Nb a multiple of 128, at
+// most 16 output tiles; `slices` K slices, their partials in wpart [slices,
+// M * Nb], then summed in slice order into out. Returns a cudaError_t.
+extern "C" int fdk_wgrad_f32(const float* a, int M, const float* b, int Nb, long long P,
+                             int slices, float* wpart, float* out, void* stream) {
+  using namespace fdk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P < 1 || slices < 1 || Nb < 128 || Nb % 128 || (M != 64 && (M < 128 || M % 128)) ||
+      (M == 64 ? 1 : M / 128) * (Nb / 128) > kWgradMaxJobs)
+    return (int)cudaErrorInvalidValue;
+  WgradJobs jobs;
+  if (!wgrad_map(jobs, 0, a, P, M) || !wgrad_map(jobs, 1, b, P, Nb))
+    return (int)cudaErrorInvalidValue;
+  int n = 0;
+  for (int r = 0; r < M; r += 128)
+    for (int c = 0; c < Nb; c += 128)
+      jobs.job[n++] = {0, r, 1, c, r * Nb + c, Nb, M - r < 128 ? M - r : 128};
+  cudaError_t err = launch_wgrad_wg(jobs, n, slices, wpart, (long long)M * Nb, P, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce_partials(wpart, out, 1, slices, M * Nb, M * Nb, s);
+}

@@ -1,7 +1,8 @@
-// Kernel B of the split backward kernels, for Hopper (sm_90a): weight
+// Kernel B of the bf16 split backwards, for Hopper (sm_90a): weight
 // gradients G = A^T Bm summed over the pairs of a chunk, as one split-K GEMM
-// on the tensor cores. Shared by the pair MLP's backward (pair_mlp_bwd.cu,
-// float32 and bf16) and the edge embedder's (edge_embedder_bwd.cu, both).
+// on the tensor cores. Shared by the pair MLP's bf16 backward
+// (pair_mlp_bwd.cu) and the edge embedder's (edge_embedder_bwd.cu); their
+// float32 backwards run wgrad_wg.cuh's kernel on wgmma and TMA.
 //
 // - Jobs: each job is one output tile of at most 128 x 128 (WJob.rows rows
 //   of A's columns, 128 of Bm's) of one gradient; A and Bm are [pairs, .]
@@ -10,27 +11,25 @@
 //   slice and writes its partial to wpart[slice * part_ld + out_off ..]. The
 //   caller adds the slices' partials in slice order (common.cuh's
 //   reduce_partials): no float atomics, two launches give the same bits.
-// - Operands, T: float32 or bf16, staged by cp.async through a four-stage
-//   ring in shared memory ([32 pairs, 128] row blocks of A then of Bm, rows
-//   padded by 8 elements). Each 32-pair step sums into a zeroed fragment
-//   that is then added to the running sum with round-to-nearest, since the
-//   tensor cores round their sums toward zero.
-// - float32: 3xTF32 mma.sync (m16n8k8; mma.cuh: operands split into TF32
-//   hi + lo in registers). A enters transposed, read as scalars,
-//   conflict-free (row stride 8 (mod 32) floats).
-// - bf16: one bf16 mma.sync (m16n8k16) where float32 runs three TF32 ones,
-//   the products exact in float32. Both operands need pairs of k-neighbours
-//   in a register, and k runs down the staged rows: ldmatrix.trans gives
-//   them, for B as tc_product.cuh's bf16 product takes its weights, and for
-//   A^T the same four 8 x 8 matrices in another order. Row stride 272
-//   bytes: the eight rows of an 8 x 8 matrix fall in distinct banks.
+// - Operands, bf16, staged by cp.async through a four-stage ring in shared
+//   memory ([32 pairs, 128] row blocks of A then of Bm, rows padded by 8
+//   elements). Each 32-pair step sums into a zeroed fragment that is then
+//   added to the running sum with round-to-nearest, since the tensor cores
+//   round their sums toward zero.
+// - One bf16 mma.sync (m16n8k16) a k step, the products exact in float32.
+//   Both operands need pairs of k-neighbours in a register, and k runs down
+//   the staged rows: ldmatrix.trans gives them, for B as tc_product.cuh's
+//   bf16 product takes its weights, and for A^T the same four 8 x 8
+//   matrices in another order. Row stride 272 bytes: the eight rows of an
+//   8 x 8 matrix fall in distinct banks.
 // - A job of 64 rows (the embedder's d_w_rel = m^T dy0, [64, 128]) runs the
 //   whole 128-row tile and stores rows 0-63 only: A's row stride is 64, so
 //   its staged columns 64-127 are the next pair's m (the caller keeps
-//   readable memory past A's last row). A skip of those products in the
-//   upper warps cost the pair MLP's kernel B registers (255 with spills,
-//   against 230) and 0.3 ms at B=2 N=256 (H100), while the 64-row job's
-//   blocks wait for the 128-row jobs' in any case.
+//   readable memory past A's last row). In the float32 mma.sync kernel B
+//   that wgrad_wg.cuh replaced, a skip of those products in the upper warps
+//   cost registers (255 with spills, against 230) and 0.3 ms at B=2 N=256
+//   (H100), while the 64-row job's blocks wait for the 128-row jobs' in
+//   any case.
 #pragma once
 
 #include "common.cuh"
@@ -67,6 +66,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 wgrad_kernel(const WJobs<T> jobs, float* __restrict__ wpart, long long part_ld, long long P,
              long long k_slice) {
+  static_assert(sizeof(T) == 2, "bf16 only: float32 runs wgrad_wg.cuh");
   extern __shared__ __align__(16) float smem_f[];
   T* smem = reinterpret_cast<T*>(smem_f);
   const WJob<T> jb = jobs.job[blockIdx.x];
@@ -74,8 +74,8 @@ wgrad_kernel(const WJobs<T> jobs, float* __restrict__ wpart, long long part_ld, 
   const long long k_end = min(P, k_begin + k_slice);
   const int n_steps = k_end > k_begin ? (int)((k_end - k_begin + kBK - 1) / kBK) : 0;
 
-  // Step `it`'s rows of A and Bm into its stage (16 bytes a copy; 8 a
-  // thread in float32, 4 in bf16; rows past the slice zero), then one commit
+  // Step `it`'s rows of A and Bm into its stage (16 bytes a copy, 4 a
+  // thread; rows past the slice zero), then one commit
   // group (empty past the last step), so every thread's group count is the
   // step index.
   constexpr int kVec = 16 / sizeof(T), kPerRow = 128 / kVec;
@@ -110,53 +110,25 @@ wgrad_kernel(const WJobs<T> jobs, float* __restrict__ wpart, long long part_ld, 
     const T* As = smem + (it % kBStages) * kBStage;
     const T* Bs = As + kBK * LDB;
     float part[4][4][4] = {};  // this step's sum
-    if constexpr (sizeof(T) == 4) {
+    // This lane's ldmatrix row: k row lane % 16; lanes 16-31 the next 8
+    // columns. B's matrices are b0, b1 of two n-tiles; A^T's (As[k][m])
+    // are a0, a2, a1, a3.
+    const int off = (lane & 15) * LDB + (lane >> 4) * 8;
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 8) {
-        uint32_t bhi[4][2], blo[4][2];
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t b[2][4];
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          split_tf32(Bs[(kk + t) * LDB + n0 + ni * 8], bhi[ni][0], blo[ni][0]);
-          split_tf32(Bs[(kk + t + 4) * LDB + n0 + ni * 8], bhi[ni][1], blo[ni][1]);
-        }
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(b[np], Bs + kk * LDB + off + n0 - g + np * 16);
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          // A (m, k) = As[k][m]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
-          const float* a = As + (kk + t) * LDB + m0 + mi * 16;
-          uint32_t ahi[4], alo[4];
-          split_tf32(a[0], ahi[0], alo[0]);
-          split_tf32(a[8], ahi[1], alo[1]);
-          split_tf32(a[4 * LDB], ahi[2], alo[2]);
-          split_tf32(a[4 * LDB + 8], ahi[3], alo[3]);
+      for (int mi = 0; mi < 4; ++mi) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, As + kk * LDB + off + m0 - g + mi * 16);
+        const uint32_t a[4] = {r[0], r[2], r[1], r[3]};
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            mma_tf32(part[mi][ni], alo, bhi[ni]);
-            mma_tf32(part[mi][ni], ahi, blo[ni]);
-            mma_tf32(part[mi][ni], ahi, bhi[ni]);
-          }
-        }
-      }
-    } else {
-      // This lane's ldmatrix row: k row lane % 16; lanes 16-31 the next 8
-      // columns. B's matrices are b0, b1 of two n-tiles; A^T's (As[k][m])
-      // are a0, a2, a1, a3.
-      const int off = (lane & 15) * LDB + (lane >> 4) * 8;
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        uint32_t b[2][4];
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-          ldmatrix_x4_trans(b[np], Bs + kk * LDB + off + n0 - g + np * 16);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          uint32_t r[4];
-          ldmatrix_x4_trans(r, As + kk * LDB + off + m0 - g + mi * 16);
-          const uint32_t a[4] = {r[0], r[2], r[1], r[3]};
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            mma_bf16(part[mi][2 * np], a, b[np][0], b[np][1]);
-            mma_bf16(part[mi][2 * np + 1], a, b[np][2], b[np][3]);
-          }
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(part[mi][2 * np], a, b[np][0], b[np][1]);
+          mma_bf16(part[mi][2 * np + 1], a, b[np][2], b[np][3]);
         }
       }
     }

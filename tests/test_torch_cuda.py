@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card (the edge
 embedder's two float32 forwards apart: the wgmma kernel without gradients,
 the mma.sync kernel with ``needs_grad=True``; every float32 pair-MLP
-forward on the wgmma kernel, its backward's kernel A on wgmma too), and the
+forward on the wgmma kernel, its backward's kernel A on wgmma too; float32
+kernel B of both backwards, on wgmma, also alone against float64), and the
 input builders that tests/test_torch_kernels.py shares; on the card also the de
 novo model's forward at N=500 through the kernels against their plain
 versions, and the port's ProteinMPNN and its train step against the
@@ -23,6 +24,7 @@ import torch
 from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
 from framedipt_tpu_torch.model.kernels import ipa_attention as t_ipa
 from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+from framedipt_tpu_torch.model.kernels import wgrad as t_wgrad
 
 
 def pair_args(rng, B, N, c_in, h, c_out, residual, zero_rows=3):
@@ -417,6 +419,62 @@ def test_cuda_pair_mlp_bwd_wgmma_kernel_a(B, N, residual, chunk_rows):
     for part, want_split in ((split[:t_pair.WG_SPLIT_FLOATS], t_pair.wgmma_weight_split(*cpu)),
                              (split[t_pair.WG_SPLIT_FLOATS:], t_pair.chain_weight_split(*cpu))):
         assert torch.equal(part.cpu()[:n].view(torch.int32), want_split[:n].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,M,N,slices", [(1, 128, 128, 8), (289, 384, 384, 8),
+                                          (2 * 200 * 200, 128, 384, 8), (289, 64, 128, 44),
+                                          (5_000, 64, 128, 44)])
+def test_cuda_wgrad_f32_matches_float64(P, M, N, slices):
+    """On the card: float32 kernel B alone (csrc/wgrad_wg.cuh through
+    ``wgrad_f32``) against float64 a^T b within 1e-4 of its max-abs: one
+    pair, one partial step, a ragged chunk of 80,000 pairs, the embedder's
+    64-row job; two launches give the same bits; one launch counted each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(P + M)
+    a = torch.as_tensor(np.maximum(rng.normal(size=(P, M)), 0.0).astype(np.float32)).cuda()
+    b = torch.as_tensor(rng.normal(size=(P, N)).astype(np.float32)).cuda()
+    before = t_wgrad.wgrad_f32.launches
+    got = t_wgrad.wgrad_f32(a, b, slices)
+    again = t_wgrad.wgrad_f32(a, b, slices)
+    assert t_wgrad.wgrad_f32.launches == before + 2
+    want = a.double().t() @ b.double()
+    assert float((got.double() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_cuda_float32_backwards_launch_the_wgmma_kernel_b():
+    """On the card, read from torch.profiler: a float32 pair-MLP backward and
+    a float32 embedder backward each launch kernel B as
+    ``wgrad_wg_kernel`` (csrc/wgrad_wg.cuh) once a chunk and never the
+    bf16 ``wgrad_kernel``; a bf16 pair-MLP backward the other way round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+
+    def names(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if "wgrad" in e.name]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [None if a is None else a.cuda()
+                for a in pair_to_torch(pair_args(rng, 1, 40, 128, 384, 128, True), dtype)]
+        g = torch.as_tensor(rng.normal(size=(1, 40, 40, 128)).astype(np.float32)).to(dtype).cuda()
+        got = names(lambda: t_pair.pair_mlp_bwd(g, *args))
+        want = "wgrad_wg_kernel" if dtype == torch.float32 else "wgrad_kernel"
+        assert len(got) == 1 and want in got[0], got
+    eargs, bins = emb_args(rng, 1, 40, 128, 22)
+    eargs = [a.cuda() for a in emb_to_torch(eargs, torch.float32)]
+    g = torch.as_tensor(rng.normal(size=(1, 40, 40, 128)).astype(np.float32)).cuda()
+    got = names(lambda: t_emb.edge_embedder_bwd(g, *eargs, bins_lower=bins[0],
+                                                bins_upper=bins[1]))
+    assert len(got) == 1 and "wgrad_wg_kernel" in got[0], got
 
 
 @pytest.mark.gpu

@@ -11,9 +11,9 @@ vector partials (d_b1 and d_w_dist over a tile's rows in order, d_b2 |
 d_ln_scale | d_ln_bias per warp over its rows, then over the warps), the row
 and column sums in index order (d_g from dm * H_j, d_h from dm * G_i, each
 product rounded), kernel B's weight gradients as split-K sums
-(``SPLIT_SLICES`` slices of 32-pair steps, three TF32 products per 8 pairs
-summed into a zeroed fragment, as ``tests/test_torch_pair_mlp_bwd_split.py``
-emulates it), then the slice partials and the tile partials summed in order
+(``SPLIT_SLICES`` slices of 32-pair steps, each step's pairs in the wgmma
+kernel's k order, three TF32 products per 8 of them summed into a zeroed
+fragment, as ``tests/test_torch_pair_mlp_bwd_split.py`` emulates it), then the slice partials and the tile partials summed in order
 and added chunk after chunk. It is held against the JAX backward kernel
 (interpret mode) and the port's plain backward at 1e-4 (every gradient as
 |got - want| <= tol * max(1, max|want|)), with and without distance bins, at
@@ -36,21 +36,32 @@ from framedipt_tpu_torch.model.layers import matmul_f32
 from tests.test_torch_cuda import assert_grads_close, emb_args, emb_to_torch
 from tests.test_torch_edge_embedder_bwd import NAMES, _jax_args, _without_coords
 from tests.test_torch_pair_mlp_bwd_bf16 import split_k_bf16
-from tests.test_torch_pair_mlp_bwd_split import in_order, split_k, tile_partials
+from tests.test_torch_pair_mlp_bwd_split import KERNEL_B_ORDER, in_order, split_k, tile_partials
 
 F32, BF16 = torch.float32, torch.bfloat16
 C, CP = t_emb.C, t_emb.CP
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the many small ops here, beside the suite's other
+    workers, lose more to OpenMP threads spinning for a core than they gain."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def emulate_split_bwd(grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
                       w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias, bins,
-                      cap=t_emb.BWD_WORKSPACE_CAP, round_dm=False):
+                      cap=t_emb.BWD_WORKSPACE_CAP, round_dm=False, order=KERNEL_B_ORDER):
     """The kernels' decomposition in g's dtype; returns (chunks, the
     gradients in float32, in edge_embedder_bwd's order). bf16 rounds where
     the JAX kernel rounds: the recompute as the forward, dxd = bf16(dx)
     (d_b2 sums dx unrounded), dy1 and dy0 before their relu masks; dm stays
     float32 (``round_dm``: rounded to bf16 instead, to show that the
-    rounding point matters); kernel B's products are bf16 MMA."""
+    rounding point matters); kernel B's products are bf16 MMA. ``order``:
+    float32 kernel B's order of a step's pairs (``split_k``)."""
     B, Nr, Nc, _ = grad.shape
     n_bins = len(bins[0])
     dtype = g.dtype
@@ -109,7 +120,7 @@ def emulate_split_bwd(grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, 
             if dtype == BF16:
                 grads[name] += split_k_bf16(flat[a][q], flat[b_][q], t_emb.SPLIT_SLICES)
             else:
-                grads[name] += split_k(flat[a][q], flat[b_][q], t_emb.SPLIT_SLICES)
+                grads[name] += split_k(flat[a][q], flat[b_][q], t_emb.SPLIT_SLICES, order)
         grads["b1"] += tile_partials(flat["dy1"][q].float(), rows_then_warps=False)
         if n_bins:
             grads["w_dist"][:n_bins] += tile_partials(flat["wdist"][q],

@@ -9,10 +9,9 @@ rows (``plan_bwd_chunks``), kernel A's per-pair activations and gradients
 per-tile vector partials (d_b1 | d_bf | d_ln_scale | d_ln_bias, each tile's
 rows summed in the kernel's order), the
 row and column sums in index order, kernel B's weight gradients as split-K
-sums (``SPLIT_SLICES`` slices, each a chain of 32-pair steps, each step
-three TF32 products per 8 pairs summed into a zeroed fragment and added
-with one float32 rounding, as ``tests/test_torch_pair_mlp_tc.py`` emulates
-``mma.sync``), then the slice partials and the tile partials summed in
+sums (``SPLIT_SLICES`` slices, each a chain of 32-pair steps, each step's
+pairs in the wgmma kernel's k order, three TF32 products per 8 of them
+summed into a zeroed fragment and added with one float32 rounding), then the slice partials and the tile partials summed in
 order and added chunk after chunk. It is held against the JAX backward
 kernel (interpret mode) and the port's plain backward at 1e-4 (every
 gradient as |got - want| <= tol * max(1, max|want|)), with the planner
@@ -38,6 +37,19 @@ F32 = torch.float32
 NAMES = ("d_pair", "d_i_term", "d_j_term", "d_row_mask", "d_col_mask", "d_w0", "d_b0",
          "d_w1", "d_b1", "d_wf", "d_bf", "d_ln_scale", "d_ln_bias", "d_fi", "d_fj", "d_wfe")
 WARPS = 8  # kernel A's warps; each takes SPLIT_TILE / WARPS rows of the LayerNorm backward
+# The pair of a step at each k position 4 c + r of float32 kernel B's tiles
+# (csrc/wgrad_wg.cuh's step_pair).
+KERNEL_B_ORDER = tuple(8 * r + (c ^ (2 * r)) for c in range(8) for r in range(4))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the many small ops here, beside the suite's other
+    workers, lose more to OpenMP threads spinning for a core than they gain."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -53,16 +65,20 @@ def mma_k8(acc, a, b):
     return (acc.double() + a.double() @ b.double()).float()
 
 
-def split_k(a: torch.Tensor, b: torch.Tensor, slices: int = t_pair.SPLIT_SLICES) -> torch.Tensor:
-    """a^T b over the rows of a chunk, as kernel B sums it: ``slices``
-    slices of whole 32-row steps (zero rows past the chunk), 3xTF32 per 8
-    rows into a zeroed step sum, the step sums added in order; then the
-    slices added in order."""
+def split_k(a: torch.Tensor, b: torch.Tensor, slices: int = t_pair.SPLIT_SLICES,
+            order=KERNEL_B_ORDER) -> torch.Tensor:
+    """a^T b over the rows of a chunk, as float32 kernel B
+    (``csrc/wgrad_wg.cuh``) sums it: ``slices`` slices of whole 32-row steps
+    (zero rows past the chunk), each step's rows taken in ``order`` (the
+    kernel's k positions, KERNEL_B_ORDER; ``range(32)``: the rows' own
+    order), 3xTF32 per 8 positions into a zeroed step sum, the step sums
+    added in order; then the slices added in order."""
     P = a.shape[0]
     k_slice = -(-(-(-P // slices)) // 32) * 32
     pad = slices * k_slice - P
     a = torch.cat([a, a.new_zeros(pad, a.shape[1])]).view(slices, -1, 32, a.shape[1])
     b = torch.cat([b, b.new_zeros(pad, b.shape[1])]).view(slices, -1, 32, b.shape[1])
+    a, b = a[:, :, list(order)], b[:, :, list(order)]
     acc = a.new_zeros(slices, a.shape[-1], b.shape[-1])
     for step in range(a.shape[1]):
         part = torch.zeros_like(acc)
@@ -128,9 +144,10 @@ def kernel_a_float32(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1
 
 def emulate_split_bwd(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
                       ln_scale, ln_bias, fi=None, fj=None, wfe=None, cap=t_pair.BWD_WORKSPACE_CAP,
-                      matmul=matmul_f32):
+                      matmul=matmul_f32, order=KERNEL_B_ORDER):
     """The float32 kernels' decomposition; returns (chunks, the 16 gradients).
-    ``matmul``: kernel A's products (:func:`kernel_a_float32`)."""
+    ``matmul``: kernel A's products (:func:`kernel_a_float32`); ``order``:
+    kernel B's order of a step's pairs (:func:`split_k`)."""
     B, Nr, Nc, _ = pair.shape
     residual = wfe is not None
     a = kernel_a_float32(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
@@ -167,7 +184,7 @@ def emulate_split_bwd(g, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b
             cols[b * Nc:(b + 1) * Nc] += in_order(part, 0)
         # Kernel B, then the tiles' vector partials.
         for name, (a, b_) in prods.items():
-            grads[name] += split_k(flat[a][q], flat[b_][q])
+            grads[name] += split_k(flat[a][q], flat[b_][q], order=order)
         grads["b1"] += tile_partials(flat["dy1"][q], rows_then_warps=False)
         for name, key in (("bf", "dx"), ("ln_scale", "lns"), ("ln_bias", "lnb")):
             grads[name] += tile_partials(flat[key][q], rows_then_warps=True)
