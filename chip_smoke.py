@@ -31,15 +31,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    float32 backward's two splits (``wgmma_weight_split``,
    ``chain_weight_split``) likewise, and the HGMMA and UTMALDG instruction
    counts of the wgmma libraries, both backwards' included (float32 kernel B
-   is ``csrc/wgrad_wg.cuh`` in each) (``cuobjdump -sass``); the edge embedder's two float32 forwards apart
-   likewise, each at every shape: the mma.sync kernel
-   (``csrc/edge_embedder.cu``, the forward autograd differentiates, also in
-   bf16) and the wgmma kernel (``csrc/edge_embedder_wg.cu``, the forward no
-   gradient is taken through), the wgmma kernel at B=2 N=256 and N=896
-   beside the mma.sync kernel's time in the same run and the card's name
-   and power limit, its weight split against ``wgmma_weight_split`` bit for
-   bit and its library's HGMMA and UTMALDG counts; the edge embedder without
-   distance bins, in both dtypes and on both float32 routes; and the IPA
+   is ``csrc/wgrad_wg.cuh`` in each) (``cuobjdump -sass``); the edge
+   embedder's two forwards likewise, each at every shape: the wgmma kernel
+   (``csrc/edge_embedder_wg.cu``, every float32 forward, differentiated or
+   not: both give the same bits) and the mma.sync kernel
+   (``csrc/edge_embedder.cu``, every bf16 one), the wgmma kernel at B=2
+   N=256 and N=896 with the card's name and power limit, its weight split
+   against ``wgmma_weight_split`` bit for bit, the float32 backward's kernel
+   A's two splits (``wgmma_weight_split``, ``chain_weight_split``) likewise,
+   the HGMMA and UTMALDG counts of its library and kernel A's and their
+   generic (non-shared) LD/ST counts; the edge embedder without distance
+   bins, in both dtypes; and the IPA
    module's kernel branch against its einsum branch at
    B=2 N=256, both timed (CUDA events, and their summed device time under
    torch.profiler);
@@ -70,10 +72,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    version and against the step with the ``xla`` embedder backward (loss
    and every gradient), then 10 steps at lr 1e-4 (finite loss and grad
    norm, parameters moved, 3 pair-MLP and 1 embedder backward launches a
-   step, every pair-MLP forward and backward on the wgmma kernels
-   (``csrc/pair_mlp_wg.cu``, ``csrc/pair_mlp_bwd_wg.cu``), the autograd
-   forward's embedder launch on its mma.sync kernel and the
-   self-conditioning forward's on its wgmma kernel); the same step
+   step, every pair-MLP and embedder forward and backward on the wgmma
+   kernels (``csrc/pair_mlp_wg.cu``, ``csrc/pair_mlp_bwd_wg.cu``,
+   ``csrc/edge_embedder_wg.cu``, ``csrc/edge_embedder_bwd_wg.cu``), the
+   autograd forward's and the self-conditioning forward's alike); the same step
    in bf16 (``model.compute_dtype=bfloat16``; the mma.sync kernels): its
    first step's loss within 5e-2 of the plain-version bf16 step's, each
    gradient's error against its max-abs printed, then 3 steps (finite, the
@@ -189,8 +191,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     two ranks on the one card), each part spawned under a time limit of its
     own: (a) in one process, each rank's row block at sp 2 and 4 (B=2, N=896
     and the ragged N=230, float32 and bf16) through the pair-MLP kernels
-    (the wgmma one in float32, the mma.sync one in bf16) and the
-    edge-embedder kernels (both routes in float32)
+    and edge-embedder kernels (the wgmma ones in float32, the mma.sync ones
+    in bf16)
     against the same rows of the full launch (largest
     difference within the kernel tolerance, bits equal or not, padded rows
     0), each block timed beside the full launch; (b) the sequence-parallel
@@ -217,17 +219,20 @@ Phase 3 also holds the two backward kernels against their plain versions
 with masked rows, B=2 N=256; the pair MLP residual and not, the embedder
 with 22 and 0 distance bins; B=2 N=200 also in 10 chunks under a small
 workspace cap), checks that two launches give the same bits, and times them
-at B=2 N=256 in both dtypes, also by part: kernel A (the pair MLP's in
-float32 on wgmma and TMA, ``csrc/pair_mlp_bwd_wg.cu``), its weight splits,
-kernel B (float32: ``csrc/wgrad_wg.cuh`` on wgmma and TMA; bf16:
-``csrc/wgrad_tc.cuh``), the row/column sums, the ordered reductions, under
-torch.profiler, with the chunk count, workspace bytes and each kernel's
-bound on the tensor cores; the embedder's also beside the ``xla``
-setting's backward, the VJP of its plain forward. Float32 kernel B also
-runs alone (``wgrad_f32``) against float64 at one pair, 289 pairs, a
-ragged 80,000-pair chunk and the embedder's 64-row job, two launches
-bit-identical, and its bound at each call site is printed beside the same
-products as ``torch.mm`` calls in float32 with TF32 off. The
+at B=2 N=256 in both dtypes, also by part: kernel A (in float32 on wgmma
+and TMA, ``csrc/pair_mlp_bwd_wg.cu`` and ``csrc/edge_embedder_bwd_wg.cu``),
+its weight splits, kernel B (float32: ``csrc/wgrad_wg.cuh`` on wgmma and
+TMA; bf16: ``csrc/wgrad_tc.cuh``), the row/column sums, the ordered
+reductions, under torch.profiler, with the chunk count, workspace bytes and
+each kernel's bound on the tensor cores (the embedder's kernel A and sums
+also by their bytes); the embedder's also beside the ``xla`` setting's
+backward, the VJP of its plain forward. Float32 kernel B also runs alone
+(``wgrad_f32``) against float64 at one pair, 289 pairs, a ragged
+80,000-pair chunk and the embedder's 64-row job, two launches
+bit-identical, and its bound at each call site (float32 and bf16: the
+larger of its operations and its distinct workspace rows' bytes) is printed
+beside the same products as ``torch.mm`` calls in the dtype (float32 with
+TF32 off). The
 backwards' recompute must equal the forward kernel's output bit for bit,
 and their gradients are held against the plain backward through the
 recompute's relu decisions, after every relu site where the plain forward
@@ -238,8 +243,9 @@ largest there are printed).
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` from the path that runs it first: phases 5, 6 and 7, the
 pair MLP's backwards (float32 ``pair_mlp_bwd_wg``, bf16 ``pair_mlp_bwd``),
-its bf16 forward and the edge embedder's mma.sync kernel from phase 6's
-steps;
+its bf16 forward, the edge embedder's mma.sync kernel and its bf16 backward
+``edge_embedder_bwd`` from phase 6's steps, the float32 embedder backward
+``edge_embedder_bwd_wg`` from phase 7's;
 ``inference_cli_launches`` from phase 8's batched run,
 ``denovo_cli_launches`` from phase 10's de novo run,
 ``database_cli_launches`` from phase 12's database flow, ``sp_launches``
@@ -456,6 +462,7 @@ def ipa_parts_line(kernel, args, B: int, N: int) -> str:
 
 def check_kernels() -> dict[str, dict]:
     from framedipt_tpu_torch.model.kernels.edge_embedder import (
+        EdgeEmbedderFunction,
         edge_embedder,
         edge_embedder_plain,
     )
@@ -465,11 +472,13 @@ def check_kernels() -> dict[str, dict]:
     )
     from framedipt_tpu_torch.model.kernels.pair_mlp import pair_mlp, pair_mlp_plain
 
-    def pair_mlp_mma(*args):  # the bf16 forward, differentiated or not: csrc/pair_mlp.cu
-        return pair_mlp(*args, needs_grad=True)
-
-    def edge_embedder_mma(*args):  # likewise: csrc/edge_embedder.cu
-        return edge_embedder(*args, needs_grad=True)
+    def edge_embedder_differentiated(*args):
+        """The forward autograd records: the Function on inputs that
+        require gradients (float32: csrc/edge_embedder_wg.cu too)."""
+        *tensors, lower, upper = args
+        with torch.enable_grad():
+            tensors = [t.detach().requires_grad_() for t in tensors]
+            return EdgeEmbedderFunction.apply("pallas", lower, upper, *tensors).detach()
 
     ipa_kw = {"no_heads": IPA_H, "no_v_points": IPA_PV}
     both = (torch.float32, torch.bfloat16)
@@ -482,18 +491,18 @@ def check_kernels() -> dict[str, dict]:
     edge_shapes = serving_shapes + cli_shapes + denovo_shapes + ((1, 1), (1, 17))
     kernels = {
         # Tiny and ragged shapes too: one pair, one partial tile. The edge
-        # embedder's two forwards: csrc/edge_embedder.cu (mma.sync; the
-        # differentiated float32 forward and every bf16 one) and
-        # csrc/edge_embedder_wg.cu (wgmma; the float32 forward without
-        # gradients), each as edge_embedder's route picks it.
-        "edge_embedder": (edge_embedder_mma, edge_embedder_plain, edge_embedder_inputs,
-                          edge_embedder_cost, edge_shapes, both),
+        # embedder's two forwards: csrc/edge_embedder.cu (mma.sync; every
+        # bf16 forward) and csrc/edge_embedder_wg.cu (wgmma; every float32
+        # forward, differentiated or not), each as edge_embedder's route
+        # picks it.
+        "edge_embedder": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
+                          edge_embedder_cost, edge_shapes, (torch.bfloat16,)),
         "edge_embedder_wg": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
                              edge_embedder_cost, edge_shapes, (torch.float32,)),
         # The pair MLP's two forwards: csrc/pair_mlp.cu (mma.sync; every bf16
         # forward) and csrc/pair_mlp_wg.cu (wgmma; every float32 forward,
         # differentiated or not), each as pair_mlp's route picks it.
-        "pair_mlp": (pair_mlp_mma, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, edge_shapes,
+        "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, edge_shapes,
                      (torch.bfloat16,)),
         "pair_mlp_wg": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, edge_shapes,
                         (torch.float32,)),
@@ -502,22 +511,13 @@ def check_kernels() -> dict[str, dict]:
                           ipa_attention_inputs, ipa_attention_cost,
                           serving_shapes + ((1, 1), (1, 17), (1, 512), (1, 768)), both),
     }
-    # The wgmma embedder is timed beside its mma.sync twin in the same run
-    # (the pair MLP's mma.sync kernel takes bf16 only; PERF.md keeps its
-    # float32 times).
-    mma_twins = {"edge_embedder_wg": (edge_embedder_mma, "edge_embedder.cu")}
-    # A wgmma kernel takes its twin's float32 inputs at each shape.
-    twin_inputs = {}
     serving = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, (kernel, plain, make, cost, shapes, dtypes) in kernels.items():
         for dtype in dtypes:
             # (2, 128) and (2, 256) are the serving shapes of phase 5.
             for B, N in shapes:
-                key = (make, B, N, dtype)
-                args = twin_inputs.pop(key) if name in mma_twins else make(B, N, dtype, gen)
-                if f"{name}_wg" in mma_twins and dtype == torch.float32:
-                    twin_inputs[key] = args
+                args = make(B, N, dtype, gen)
                 got = kernel(*args)
                 ref = plain(*args)
                 torch.cuda.synchronize()
@@ -544,11 +544,14 @@ def check_kernels() -> dict[str, dict]:
                 if tensor_cores and dtype == torch.float32:
                     line += (f"; 3xTF32 bound, CUDA-core bound "
                              f"{bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms")
-                if name in mma_twins and (B, N) in ((2, 256), (2, 896)):
-                    twin, source = mma_twins[name]
-                    mma_ms = cuda_time_ms(lambda: twin(*args), 20)
-                    line += (f"; the mma.sync forward (csrc/{source}) {mma_ms:.4f} ms in this "
-                             f"run; {ms / bound_ms:.2f}x the bound; {card_line()}")
+                if name == "edge_embedder_wg":
+                    # The differentiated float32 forward is the same kernel.
+                    if not torch.equal(got, edge_embedder_differentiated(*args)):
+                        raise AssertionError(f"{name} B={B} N={N}: the differentiated forward's "
+                                             "bits differ")
+                    line += "; the differentiated forward's bits equal"
+                    if (B, N) in ((2, 256), (2, 896)):
+                        line += f"; {ms / bound_ms:.2f}x the bound; {card_line()}"
                 line += "; two launches bit-identical"
                 if name == "ipa_attention":
                     line += ipa_parts_line(kernel, args, B, N)
@@ -563,15 +566,15 @@ def check_kernels() -> dict[str, dict]:
     # The plain-MLP variant (no residual terms) of the pair-MLP kernel, and
     # the edge embedder with no distance bins (a model without the
     # self-conditioning distogram).
-    checks = [(f"pair_mlp residual=False bfloat16 B={B} N={N}", pair_mlp_mma, pair_mlp_plain,
+    checks = [(f"pair_mlp residual=False bfloat16 B={B} N={N}", pair_mlp, pair_mlp_plain,
                pair_mlp_inputs(B, N, torch.bfloat16, gen, residual=False), TOL[torch.bfloat16])
               for B, N in ((1, 17), (2, 200))]
     checks += [(f"pair_mlp_wg residual=False float32 B={B} N={N}", pair_mlp, pair_mlp_plain,
                 pair_mlp_inputs(B, N, torch.float32, gen, residual=False), TOL[torch.float32])
                for B, N in ((1, 17), (2, 200))]
-    checks += [(f"edge_embedder n_bins=0 {str(dtype)[6:]} B=2 N=200", edge_embedder_mma,
-                edge_embedder_plain, edge_embedder_inputs(2, 200, dtype, gen, n_bins=0), TOL[dtype])
-               for dtype in (torch.float32, torch.bfloat16)]
+    checks += [("edge_embedder n_bins=0 bfloat16 B=2 N=200", edge_embedder,
+                edge_embedder_plain, edge_embedder_inputs(2, 200, torch.bfloat16, gen, n_bins=0),
+                TOL[torch.bfloat16])]
     checks += [("edge_embedder_wg n_bins=0 float32 B=2 N=200", edge_embedder, edge_embedder_plain,
                 edge_embedder_inputs(2, 200, torch.float32, gen, n_bins=0), TOL[torch.float32])]
     for label, kernel, plain, args, tol in checks:
@@ -674,23 +677,80 @@ def check_wgmma_pieces(gen) -> None:
         f"the wrapper's: {same_out}")
     if not (same_split and same_out):
         raise AssertionError(f"wgmma backward's scratch or d_pair (cudaError_t {err})")
-    for name in ("pair_mlp_wg", "edge_embedder_wg", "pair_mlp_bwd_wg", "edge_embedder_bwd"):
+    # The float32 embedder backward's kernel A likewise: the forward's split,
+    # then the chain's, through its C entry.
+    args = edge_embedder_inputs(2, 17, torch.float32, gen)
+    *tensors, lower, upper = args
+    edges = emb._edges(lower, upper, torch.device("cuda"))
+    g = torch.randn(2, 17, 17, 128, generator=gen, device="cuda")
+    split = torch.full((2 * emb.WG_SPLIT_FLOATS,), float("nan"), device="cuda")
+    parts = emb.split_parts(2 * 17, 17)
+    ws = torch.empty(emb.split_workspace_floats(2 * 17 * 17, len(lower), torch.float32, parts),
+                     device="cuda")
+    sums = torch.zeros(emb.W_PART_FLOATS + 2 * 2 * 17 * emb.ROW_PART, device="cuda")
+    wred = sums.data_ptr()
+    ptrs = ([g.data_ptr()] + [t.data_ptr() for t in tensors[:10]]
+            + [edges[0].data_ptr(), edges[1].data_ptr()] + [t.data_ptr() for t in tensors[10:]])
+    err = emb._bwd_wg_kernel()(
+        *ptrs, ws.data_ptr(), ws.numel(), split.data_ptr(), wred, wred + 4 * emb.W_PART_FLOATS,
+        wred + 4 * (emb.W_PART_FLOATS + 2 * 17 * emb.ROW_PART), len(lower), 2, 17, 17, 0, 2 * 17,
+        None, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    cpu = [tensors[k].cpu() for k in (8, 11, 13)]
+    want = torch.cat([emb.wgmma_weight_split(*cpu), emb.chain_weight_split(*cpu)])
+    same_split = err == 0 and torch.equal(split.cpu().view(torch.int32), want.view(torch.int32))
+    got = emb.edge_embedder_bwd(g, *tensors, bins_lower=lower, bins_upper=upper)
+    same_out = err == 0 and torch.equal(sums[:emb.W_PART_FLOATS].view(-1)[:64 * 128],
+                                        got[8].reshape(-1))
+    log(f"wgmma embedder backward's first step: the forward's and the chain's TF32 weight parts "
+        f"equal wgmma_weight_split's and chain_weight_split's bit for bit: {same_split}; d_w_rel "
+        f"equals the wrapper's: {same_out}")
+    if not (same_split and same_out):
+        raise AssertionError(f"wgmma embedder backward's scratch or d_w_rel (cudaError_t {err})")
+    for name in ("pair_mlp_wg", "edge_embedder_wg", "pair_mlp_bwd_wg", "edge_embedder_bwd_wg"):
         counts = sass_counts(name, ("HGMMA", "UTMALDG"))
-        log(f"{name}: {counts['HGMMA']} HGMMA and {counts['UTMALDG']} UTMALDG instructions "
-            "(cuobjdump -sass)")
+        line = (f"{name}: {counts['HGMMA']} HGMMA and {counts['UTMALDG']} UTMALDG instructions "
+                "(cuobjdump -sass)")
+        if name.startswith("edge_embedder"):
+            kernel = "emb_bwd_tile_kernel" if "bwd" in name else "edge_embedder_wg_kernel"
+            generic = generic_ld_st(name, kernel)
+            line += (f"; {kernel}: {generic['LD']} generic LD and {generic['ST']} generic ST, "
+                     f"{generic['LDS']} LDS and {generic['STS']} STS")
+        log(line)
         if not (counts["HGMMA"] and counts["UTMALDG"]):
             raise AssertionError(f"the {name} library has no HGMMA or no UTMALDG")
+
+
+def library_sass(name: str) -> list[str]:
+    """The SASS of kernel library ``name`` (``cuobjdump -sass``), by line."""
+    from framedipt_tpu_torch.model.kernels import build
+
+    cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(build._lib_path(name))],
+                          capture_output=True, text=True, timeout=120).stdout.splitlines()
 
 
 def sass_counts(name: str, ops) -> dict[str, int]:
     """How many SASS instructions of each kind in ``ops`` kernel library
     ``name`` holds (``cuobjdump -sass``)."""
-    from framedipt_tpu_torch.model.kernels import build
-
-    cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build._lib_path(name))],
-                          capture_output=True, text=True, timeout=120).stdout.splitlines()
+    sass = library_sass(name)
     return {op: sum(op in line for line in sass) for op in ops}
+
+
+def generic_ld_st(name: str, kernel: str) -> dict[str, int]:
+    """The generic-address loads and stores (LD, ST: shared memory reached
+    through 64-bit generic addresses) beside the shared-memory ones (LDS,
+    STS) in the SASS of the functions of library ``name`` whose names hold
+    ``kernel``."""
+    counts = dict.fromkeys(("LD", "ST", "LDS", "STS"), 0)
+    inside = False
+    for line in library_sass(name):
+        if "Function : " in line:
+            inside = kernel in line
+        elif inside:
+            for op in counts:
+                counts[op] += re.search(rf"\s{op}(\.|\s)", line) is not None
+    return counts
 
 
 # The pair-MLP backward: kernel A (recompute and input-gradient chain) and
@@ -819,7 +879,7 @@ def check_pair_mlp_bwd() -> dict:
                      f"{4 * split_workspace_floats(max(b - a for a, b in chunks) * N, dtype)} bytes)")
             worst_rel, worst_abs = grad_errors(got, ref, label)
             # The forward that the training step launches (and differentiates).
-            fwd = pair_mlp(*args, needs_grad=True)
+            fwd = pair_mlp(*args)
             fwd_diff = float((rec["out"].float() - fwd.float()).abs().max())
             n_flips, flip_max = relu_flips(*_pre_norm(*args[:3], *args[5:11], *args[13:])[:2], rec)
             own_rel = grad_errors(got, pair_mlp_bwd_plain(g, *args), label)[0]
@@ -854,13 +914,18 @@ def check_pair_mlp_bwd() -> dict:
     return out
 
 
-# Float32 kernel B (csrc/wgrad_wg.cuh) at B=2 N=256 at each call site: its
-# products as (A's width, Bm's width) over the workspace's [P, width] rows,
-# and the floats a pair of the distinct rows it reads (the pair MLP: pair,
-# y0, y1, dy0, dy1, dx; the embedder: m, y0, y1, dy0, dy1, dx).
+# Kernel B at B=2 N=256 at each call site (float32: csrc/wgrad_wg.cuh in the
+# *_wg libraries; bf16: csrc/wgrad_tc.cuh): its products as (A's width, Bm's
+# width) over the workspace's [P, width] rows, and the values a pair of the
+# distinct rows it reads (the pair MLP: pair, y0, y1, dy0, dy1, dx; the
+# embedder: m, y0, y1, dy0, dy1, dx), 4 bytes each in float32, 2 in bf16.
 WGRAD_PRODUCTS = {"pair_mlp_bwd_wg": ((128, 384), (384, 384), (384, 128), (128, 128)),
-                  "edge_embedder_bwd": ((64, 128), (128, 128), (128, 128))}
-WGRAD_ROW_FLOATS = {"pair_mlp_bwd_wg": 2 * 128 + 4 * 384, "edge_embedder_bwd": 64 + 5 * 128}
+                  "edge_embedder_bwd_wg": ((64, 128), (128, 128), (128, 128))}
+WGRAD_PRODUCTS.update({"pair_mlp_bwd": WGRAD_PRODUCTS["pair_mlp_bwd_wg"],
+                       "edge_embedder_bwd": WGRAD_PRODUCTS["edge_embedder_bwd_wg"]})
+WGRAD_ROW_FLOATS = {"pair_mlp_bwd_wg": 2 * 128 + 4 * 384, "edge_embedder_bwd_wg": 64 + 5 * 128}
+WGRAD_ROW_FLOATS.update({"pair_mlp_bwd": WGRAD_ROW_FLOATS["pair_mlp_bwd_wg"],
+                         "edge_embedder_bwd": WGRAD_ROW_FLOATS["edge_embedder_bwd_wg"]})
 
 
 def check_wgrad() -> dict[str, dict]:
@@ -869,12 +934,14 @@ def check_wgrad() -> dict[str, dict]:
     partial step), a ragged chunk (80,000 pairs, the pair MLP's 384-wide
     operands, 8 slices) and the embedder's 64-row job (289 and 5,000 pairs,
     44 slices), each within 1e-4 of the product's max-abs, two launches
-    bit-identical. Then, for each call site at B=2 N=256, kernel B's bound
-    (3xTF32 operations or the distinct workspace rows' bytes) and the time of
-    the same products as ``torch.mm(a.t(), b)`` calls in float32 with TF32
-    off, the yardstick that the port never calls. Returns by kernel entry
-    the ``kernel_b_*`` numbers (kernel B's own ms come from the backwards'
-    profiles)."""
+    bit-identical. Then, for each call site at B=2 N=256 and each dtype
+    (WGRAD_PRODUCTS: float32 under the *_wg entries, bf16 under the others),
+    kernel B's bound (the larger of its operations on the tensor cores,
+    3xTF32 in float32, and the distinct workspace rows' bytes) and the time
+    of the same products as ``torch.mm(a.t(), b)`` calls in the dtype
+    (float32 with TF32 off), the yardstick that the port never calls.
+    Returns by kernel entry the ``kernel_b_*`` numbers (kernel B's own ms
+    come from the backwards' profiles)."""
     from framedipt_tpu_torch.model.kernels.wgrad import wgrad_f32
 
     if torch.backends.cuda.matmul.allow_tf32:
@@ -900,7 +967,10 @@ def check_wgrad() -> dict[str, dict]:
     out = {}
     P = 2 * 256 * 256
     for name, prods in WGRAD_PRODUCTS.items():
-        rows = {w: torch.randn(P, w, generator=gen, device="cuda") for p in prods for w in p}
+        dtype = torch.float32 if name.endswith("_wg") else torch.bfloat16
+        es = torch.tensor([], dtype=dtype).element_size()
+        rows = {w: torch.randn(P, w, generator=gen, device="cuda").to(dtype)
+                for p in prods for w in p}
 
         def products(prods=prods, rows=rows):
             for m, n in prods:
@@ -908,11 +978,15 @@ def check_wgrad() -> dict[str, dict]:
 
         library_ms = cuda_time_ms(products, 5)
         flops = sum(2 * P * m * n for m, n in prods)
-        bound_ms, bound_by = bound(flops, 4 * P * WGRAD_ROW_FLOATS[name],
-                                   TENSOR_CORE_FLOPS[torch.float32])
-        log(f"{name} kernel B at B=2 N=256: {flops / 1e9:.2f} GFLOP, bound {bound_ms:.4f} ms "
-            f"({bound_by}, 3xTF32; bytes {1e3 * 4 * P * WGRAD_ROW_FLOATS[name] / PEAK_BYTES:.4f} ms); "
-            f"the same products as torch.mm float32 (TF32 off) {library_ms:.4f} ms; {card_line()}")
+        nbytes = es * P * WGRAD_ROW_FLOATS[name]
+        bound_ms, bound_by = bound(flops, nbytes, TENSOR_CORE_FLOPS[dtype])
+        log(f"{name} kernel B {str(dtype)[6:]} at B=2 N=256: {flops / 1e9:.2f} GFLOP, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; operations "
+            f"{1e3 * flops / TENSOR_CORE_FLOPS[dtype]:.4f} ms"
+            f"{' as 3xTF32' if dtype == torch.float32 else ''}, bytes "
+            f"{1e3 * nbytes / PEAK_BYTES:.4f} ms); the same products as torch.mm "
+            f"{str(dtype)[6:]}{' (TF32 off)' if dtype == torch.float32 else ''} "
+            f"{library_ms:.4f} ms; {card_line()}")
         out[name] = {"kernel_b_bound_ms": bound_ms, "kernel_b_bound_by": bound_by,
                      "kernel_b_library_ms": library_ms, "kernel_b_max_abs_err": worst}
         del rows
@@ -925,9 +999,14 @@ def check_wgrad() -> dict[str, dict]:
 # 128); 245,760 in all.
 EMB_BWD_A_FLOP_PER_PAIR = 2 * (64 * 128 + 128 * 128 + 128 * 128) + 2 * (2 * 128 * 128 + 64 * 128)
 EMB_BWD_B_FLOP_PER_PAIR = 2 * (2 * 128 * 128 + 64 * 128)
-EMB_BWD_PARTS = (("A", "emb_split_tile_kernel"), ("B", "wgrad_wg_kernel"), ("B", "wgrad_kernel"),
-                 ("row/col sums", "_sums"),
-                 ("ordered reductions", "sum_partials"))
+EMB_BWD_PARTS = (("A", "emb_bwd_tile_kernel"), ("A", "emb_split_tile_kernel"),
+                 ("weight splits", "prepare_"), ("B", "wgrad_wg_kernel"), ("B", "wgrad_kernel"),
+                 ("row/col sums", "_sums"), ("ordered reductions", "sum_partials"))
+# Kernel A's bytes a pair: the cotangent read and the workspace written (m,
+# y0, y1, dx, dy1, dy0 in the dtype; dm and dem in float32); the row and
+# column sums read dy0 (the dtype), dm and dem (float32) twice.
+EMB_BWD_A_VALUES, EMB_BWD_A_F32 = 5 * 128 + 64, 64 + 1
+EMB_BWD_SUMS_VALUES, EMB_BWD_SUMS_F32 = 2 * 128, 2 * (64 + 1)
 
 
 def edge_embedder_bwd_cost(B, N, dtype, n_bins=22):
@@ -956,6 +1035,19 @@ def xla_emb_backward(g, args):
         return torch.autograd.grad(out, [t for t in ins if t.requires_grad], g)
 
 
+def edge_embedder_bwd_parts_bound(B, N, dtype) -> dict[str, tuple[float, str]]:
+    """(ms, "bytes" or "operations") of kernel A and of the row and column
+    sums of one embedder backward call: kernel A's operations on the tensor
+    cores (3xTF32 in float32) or its bytes (the cotangent read, the
+    workspace written), the sums' bytes (the workspace rows they read)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    pairs = B * N * N
+    a_bytes = pairs * (es * (128 + EMB_BWD_A_VALUES) + 4 * EMB_BWD_A_F32)
+    sums_bytes = pairs * (es * EMB_BWD_SUMS_VALUES + 4 * EMB_BWD_SUMS_F32)
+    return {"A": bound(pairs * EMB_BWD_A_FLOP_PER_PAIR, a_bytes, TENSOR_CORE_FLOPS[dtype]),
+            "row/col sums": bound(0.0, sums_bytes, TENSOR_CORE_FLOPS[dtype])}
+
+
 def check_edge_embedder_bwd() -> dict:
     """The embedder backward against its plain version on the card, in
     float32 and bf16: every gradient within tol of its own max-abs (float32
@@ -970,8 +1062,10 @@ def check_edge_embedder_bwd() -> dict:
     kernel's bit for bit, every site where the plain forward's relu falls on
     the other side of 0 must hold an activation within the dtype's rounding
     of 0 (tol), and the gradients are held against the plain backward
-    through the recompute's relu decisions. Returns the float32 numbers at
-    B=2 N=256 and the bf16 ones under "bf16"."""
+    through the recompute's relu decisions. Returns the numbers at B=2 N=256
+    by dtype (float32: kernel A on wgmma, csrc/edge_embedder_bwd_wg.cu; bf16:
+    csrc/edge_embedder_bwd.cu), kernel A's and the sums' ms and bounds
+    among them."""
     from framedipt_tpu_torch.model.kernels.edge_embedder import (
         BWD_WORKSPACE_CAP,
         _pre_norm,
@@ -979,15 +1073,17 @@ def check_edge_embedder_bwd() -> dict:
         edge_embedder_bwd,
         edge_embedder_bwd_plain,
         plan_bwd_chunks,
+        split_parts,
         split_workspace_floats,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        small_cap = 4 * split_workspace_floats(40 * 200, 22, dtype)  # 40 grid rows a chunk: 10 chunks
+        # 40 grid rows a chunk: 10 chunks.
+        small_cap = 4 * split_workspace_floats(40 * 200, 22, dtype, split_parts(40, 200, dtype))
         shapes = [(B, N, n_bins, None) for B, N in ((1, 1), (1, 17), (1, 256), (2, 200), (2, 256))
-                  for n_bins in (22, 0)] + [(2, 200, 22, small_cap)]
+                  for n_bins in (22, 0)] + [(2, 200, 22, small_cap), (1, 70, 22, None)]
         for B, N, n_bins, cap in shapes:
             kw_cap = {} if cap is None else {"workspace_cap": cap}
             args = edge_embedder_inputs(B, N, dtype, gen, n_bins=n_bins)
@@ -1002,12 +1098,14 @@ def check_edge_embedder_bwd() -> dict:
             torch.cuda.synchronize()
             same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
             chunks = plan_bwd_chunks(B, N, N, n_bins, cap or BWD_WORKSPACE_CAP, dtype)
-            ws_bytes = 4 * split_workspace_floats(max(b - a for a, b in chunks) * N, n_bins, dtype)
+            most = max(b - a for a, b in chunks)
+            ws_bytes = 4 * split_workspace_floats(most * N, n_bins, dtype,
+                                                  split_parts(most, N, dtype))
             label = (f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins} "
                      f"chunks={len(chunks)} (workspace {ws_bytes} bytes)")
             worst_rel, worst_abs = grad_errors(got, ref, label)
             fwd_diff = float((rec["out"].float()
-                              - edge_embedder(*args, needs_grad=True).float()).abs().max())
+                              - edge_embedder(*args).float()).abs().max())
             n_flips, flip_max = relu_flips(
                 *_pre_norm(*tensors[:6], *tensors[8:15], lower, upper)[2:4], rec)
             own_rel = grad_errors(got, edge_embedder_bwd_plain(g, *tensors, **kw), label)[0]
@@ -1029,6 +1127,7 @@ def check_edge_embedder_bwd() -> dict:
                 peak = TENSOR_CORE_FLOPS[dtype]
                 bound_ms, bound_by = bound(flops, nbytes, peak)
                 parts = bwd_parts_ms(lambda: edge_embedder_bwd(g, *tensors, **kw), EMB_BWD_PARTS)
+                own = edge_embedder_bwd_parts_bound(B, N, dtype)
                 line += (f"; call {ms:.4f} ms, plain {plain_ms:.4f} ms, xla backward "
                          f"{xla_ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s; bound {bound_ms:.4f} "
                          f"ms ({bound_by}, tensor cores"
@@ -1036,15 +1135,19 @@ def check_edge_embedder_bwd() -> dict:
                             if dtype == torch.float32 else "")
                          + "); device ms by part (profiler, one call): "
                          + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
-                         + f"; kernel A bound {1e3 * a_flops / peak:.4f} ms, kernel B bound "
+                         + f"; kernel A {parts.get('A', 0.0):.4f} ms beside its bound "
+                         f"{own['A'][0]:.4f} ms ({own['A'][1]}; operations "
+                         f"{1e3 * a_flops / peak:.4f} ms), the row/col sums "
+                         f"{parts.get('row/col sums', 0.0):.4f} ms beside their bound "
+                         f"{own['row/col sums'][0]:.4f} ms (bytes), kernel B bound by operations "
                          f"{1e3 * b_flops / peak:.4f} ms; {card_line()}")
-                numbers = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                           "kernel_b_ms": parts.get("B")}
-                if dtype == torch.float32:
-                    out.update(numbers)
-                else:
-                    out["bf16"] = numbers
+                out[dtype] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                              "kernel_a_ms": parts.get("A"), "kernel_a_bound_ms": own["A"][0],
+                              "kernel_a_bound_by": own["A"][1],
+                              "sums_ms": parts.get("row/col sums"),
+                              "sums_bound_ms": own["row/col sums"][0],
+                              "kernel_b_ms": parts.get("B")}
             log(line)
             if worst_rel > TOL[dtype] or not same:
                 raise AssertionError(f"{label}: error {worst_rel} over tolerance or "
@@ -1191,15 +1294,16 @@ def helix_pdb(n_res: int, seed: int) -> str:
 
 
 KERNEL_NAMES = ("edge_embedder", "edge_embedder_wg", "pair_mlp", "pair_mlp_wg", "ipa_attention",
-                "pair_mlp_bwd", "pair_mlp_bwd_wg", "edge_embedder_bwd")
+                "pair_mlp_bwd", "pair_mlp_bwd_wg", "edge_embedder_bwd", "edge_embedder_bwd_wg")
 
 
 class RouteLaunches:
     """An edge-stack wrapper's launches of one of its kernels
-    (``launches_mma``: csrc/pair_mlp.cu, csrc/pair_mlp_bwd.cu or
-    csrc/edge_embedder.cu; ``launches_wgmma``: csrc/pair_mlp_wg.cu,
-    csrc/pair_mlp_bwd_wg.cu or csrc/edge_embedder_wg.cu), read and set as a
-    wrapper's ``launches`` is."""
+    (``launches_mma``: csrc/pair_mlp.cu, csrc/pair_mlp_bwd.cu,
+    csrc/edge_embedder.cu or csrc/edge_embedder_bwd.cu; ``launches_wgmma``:
+    csrc/pair_mlp_wg.cu, csrc/pair_mlp_bwd_wg.cu, csrc/edge_embedder_wg.cu or
+    csrc/edge_embedder_bwd_wg.cu), read and set as a wrapper's ``launches``
+    is."""
 
     def __init__(self, wrapper, attr: str) -> None:
         self.wrapper, self.attr = wrapper, attr
@@ -1226,7 +1330,8 @@ def kernel_wrappers() -> dict:
             "pair_mlp_wg": RouteLaunches(pair_mlp, "launches_wgmma"), "ipa_attention": ipa_attention,
             "pair_mlp_bwd": RouteLaunches(pair_mlp_bwd, "launches_mma"),
             "pair_mlp_bwd_wg": RouteLaunches(pair_mlp_bwd, "launches_wgmma"),
-            "edge_embedder_bwd": edge_embedder_bwd}
+            "edge_embedder_bwd": RouteLaunches(edge_embedder_bwd, "launches_mma"),
+            "edge_embedder_bwd_wg": RouteLaunches(edge_embedder_bwd, "launches_wgmma")}
 
 
 def serve_requests(service, requests) -> dict[str, int]:
@@ -1278,6 +1383,7 @@ def serve_requests(service, requests) -> dict[str, int]:
                 "pair_mlp_bwd": 0,
                 "pair_mlp_bwd_wg": 0,
                 "edge_embedder_bwd": 0,
+                "edge_embedder_bwd_wg": 0,
             }
             if got_launches != want:
                 raise AssertionError(f"request {k}: launches {got_launches}, expected {want}")
@@ -1397,15 +1503,9 @@ def plain_versions_in_model():
     from framedipt_tpu_torch.model.kernels import pair_mlp as pm
     from framedipt_tpu_torch.model.kernels.ipa_attention import ipa_attention_plain
 
-    def pair_mlp_plain(*args):  # the wrapper's arguments: needs_grad last
-        return pm.pair_mlp_plain(*args[:16])
-
-    def edge_embedder_plain(*args):  # likewise, after the bin edges
-        return emb.edge_embedder_plain(*args[:19])
-
-    swaps = [(emb, "edge_embedder", edge_embedder_plain),
+    swaps = [(emb, "edge_embedder", emb.edge_embedder_plain),
              (emb, "edge_embedder_bwd", emb.edge_embedder_bwd_plain),
-             (pm, "pair_mlp", pair_mlp_plain), (pm, "pair_mlp_bwd", pm.pair_mlp_bwd_plain),
+             (pm, "pair_mlp", pm.pair_mlp_plain), (pm, "pair_mlp_bwd", pm.pair_mlp_bwd_plain),
              (ipa, "ipa_attention", ipa_attention_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -1546,18 +1646,17 @@ def step_launches(trainer, batch, seed: int) -> tuple[dict, dict[str, int]]:
 
 def expected_launches(self_conditioned: bool, emb_bwd_impl: str = "pallas",
                       bf16: bool = False) -> dict[str, int]:
-    """A train step's launches: the autograd forward's embedder on its
-    mma.sync kernel (the backward recomputes its bits), the coin's forward,
-    under no_grad, on the wgmma embedder in float32 and on mma.sync in bf16;
-    every pair-MLP forward and backward on the dtype's kernels (float32:
-    wgmma, the backward's kernel A recomputing the wgmma forward's bits;
-    bf16: mma.sync)."""
+    """A train step's launches: every embedder and pair-MLP forward (the
+    autograd forward's and the coin's, under no_grad) and backward on the
+    dtype's kernels (float32: wgmma, each backward's kernel A recomputing
+    the wgmma forward's bits; bf16: mma.sync)."""
     edge = NUM_BLOCKS - 1
     sc = int(self_conditioned)  # the coin's forward runs without gradients
     pair_fwd, pair_bwd = ("pair_mlp", "pair_mlp_bwd") if bf16 else ("pair_mlp_wg", "pair_mlp_bwd_wg")
-    launches = {"edge_embedder": 1 + (sc if bf16 else 0), "edge_embedder_wg": 0 if bf16 else sc,
-                "pair_mlp": 0, "pair_mlp_wg": 0, "ipa_attention": 0, "pair_mlp_bwd": 0,
-                "pair_mlp_bwd_wg": 0, "edge_embedder_bwd": int(emb_bwd_impl == "pallas")}
+    emb_fwd, emb_bwd = (("edge_embedder", "edge_embedder_bwd") if bf16
+                        else ("edge_embedder_wg", "edge_embedder_bwd_wg"))
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    launches[emb_fwd], launches[emb_bwd] = 1 + sc, int(emb_bwd_impl == "pallas")
     launches[pair_fwd], launches[pair_bwd] = edge + edge * sc, edge
     return launches
 
@@ -1807,6 +1906,10 @@ def check_train_step() -> dict[str, int]:
                     for n, ms in by_name.items() if "wgrad_" in n}
         log(f"  kernel B of the split backwards: {sum(kernel_b.values()):.3f} ms ("
             + ", ".join(f"{n} {ms:.3f}" for n, ms in kernel_b.items()) + ")")
+        embedder = {re.search(r"(emb|edge_embedder)\w*", n).group(0): ms
+                    for n, ms in by_name.items() if re.search(r"emb_|edge_embedder", n)}
+        log(f"  the edge embedder's kernels: {sum(embedder.values()):.3f} ms ("
+            + ", ".join(f"{n} {ms:.3f}" for n, ms in embedder.items()) + ")")
     return total
 
 
@@ -1872,7 +1975,7 @@ def check_training_cli() -> int:
             f"{ {k: round(v, 4) for k, v in losses.items()} }; launches {launches}")
         if not 14 <= first.steps_run <= 21 or not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"train run: {first.steps_run} steps, losses {losses}")
-        if launches["edge_embedder_bwd"] != first.steps_run or launches["pair_mlp_bwd_wg"] != (
+        if launches["edge_embedder_bwd_wg"] != first.steps_run or launches["pair_mlp_bwd_wg"] != (
                 NUM_BLOCKS - 1) * first.steps_run:
             raise AssertionError(f"train run: launches {launches} for {first.steps_run} steps")
         pdbs = sorted((root / "eval" / "chip_smoke" / "step_12").rglob("*.pdb"))
@@ -1924,7 +2027,7 @@ def check_training_cli() -> int:
         serve_requests(service, [(230, (100, 112), 25)])
         del service
     torch.cuda.empty_cache()
-    return launches["edge_embedder_bwd"]
+    return launches["edge_embedder_bwd_wg"]
 
 
 # -- phase 8: the batch inpainting CLI ----------------------------------------
@@ -2124,7 +2227,7 @@ def forward_launches(forwards: int) -> dict[str, int]:
     kernels) and with the IPA attention as einsums."""
     return {"edge_embedder": 0, "edge_embedder_wg": forwards, "pair_mlp": 0,
             "pair_mlp_wg": (NUM_BLOCKS - 1) * forwards, "ipa_attention": 0, "pair_mlp_bwd": 0,
-            "pair_mlp_bwd_wg": 0, "edge_embedder_bwd": 0}
+            "pair_mlp_bwd_wg": 0, "edge_embedder_bwd": 0, "edge_embedder_bwd_wg": 0}
 
 
 def check_inference_cli(root: pathlib.Path) -> tuple[dict[str, int], pathlib.Path]:
@@ -3345,10 +3448,9 @@ def check_row_blocks() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     f32, bf16 = (torch.float32,), (torch.bfloat16,)
-    kernels = {"pair_mlp": (lambda *a: pair_mlp(*a, needs_grad=True), pair_mlp_inputs, bf16),
+    kernels = {"pair_mlp": (pair_mlp, pair_mlp_inputs, bf16),
                "pair_mlp_wg": (pair_mlp, pair_mlp_inputs, f32),
-               "edge_embedder": (lambda *a: edge_embedder(*a, needs_grad=True),
-                                 edge_embedder_inputs, f32 + bf16),
+               "edge_embedder": (edge_embedder, edge_embedder_inputs, bf16),
                "edge_embedder_wg": (edge_embedder, edge_embedder_inputs, f32)}
     for n in ROW_BLOCK_NS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -3767,6 +3869,7 @@ def main() -> int:
     from framedipt_tpu_torch.tools.device import set_full_precision_matmul
 
     set_full_precision_matmul()
+    started = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -3786,41 +3889,44 @@ def main() -> int:
                 log(f"  {name} {fn}: {line.strip()}")
     torch.cuda.synchronize()
 
-    log("phase 3: kernels against their plain versions")
+    log(f"phase 3: kernels against their plain versions (at {time.perf_counter() - started:.0f} s)")
     serving = check_kernels()
     bwd = check_pair_mlp_bwd()
     serving["pair_mlp_bwd_wg"], serving["pair_mlp_bwd"] = bwd[torch.float32], bwd[torch.bfloat16]
-    serving["edge_embedder_bwd"] = check_edge_embedder_bwd()
+    emb_bwd = check_edge_embedder_bwd()
+    serving["edge_embedder_bwd_wg"] = emb_bwd[torch.float32]
+    serving["edge_embedder_bwd"] = emb_bwd[torch.bfloat16]
     for name, numbers in check_wgrad().items():
         serving[name].update(numbers)
     compare_ipa_branches()
-    log("phase 4: full-width forward against the recorded reference")
+    log(f"phase 4: full-width forward against the recorded reference (at {time.perf_counter() - started:.0f} s)")
     check_recorded_forward(use_pallas_ipa=False)
     check_recorded_forward(use_pallas_ipa=True)
-    log("phase 5: inpainting service")
+    log(f"phase 5: inpainting service (at {time.perf_counter() - started:.0f} s)")
     launches = drive_service()
-    log("phase 6: train step")
+    log(f"phase 6: train step (at {time.perf_counter() - started:.0f} s)")
     check_training_refusals()
     train_launches = check_train_step()
-    for name in ("pair_mlp_bwd", "pair_mlp_bwd_wg", "pair_mlp", "edge_embedder"):
+    for name in ("pair_mlp_bwd", "pair_mlp_bwd_wg", "pair_mlp", "edge_embedder",
+                 "edge_embedder_bwd"):
         launches[name] = train_launches[name]
-    log("phase 7: the training CLI")
-    launches["edge_embedder_bwd"] = check_training_cli()
+    log(f"phase 7: the training CLI (at {time.perf_counter() - started:.0f} s)")
+    launches["edge_embedder_bwd_wg"] = check_training_cli()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_infer_") as tmp:
         root = pathlib.Path(tmp)
-        log("phase 8: the batch inpainting CLI")
+        log(f"phase 8: the batch inpainting CLI (at {time.perf_counter() - started:.0f} s)")
         cli_launches, tree = check_inference_cli(root)
-        log("phase 9: the TCR evaluation CLI over phase 8's tree")
+        log(f"phase 9: the TCR evaluation CLI over phase 8's tree (at {time.perf_counter() - started:.0f} s)")
         check_tcr_eval(tree, root, cases=3, samples=2)
-        log("phase 10: de novo design at full width")
+        log(f"phase 10: de novo design at full width (at {time.perf_counter() - started:.0f} s)")
         check_recorded_denovo()
         mpnn_weights = check_recorded_mpnn()
         denovo_launches = check_denovo_cli(root, mpnn_weights)
-        log("phase 11: ProteinMPNN training at the published width")
+        log(f"phase 11: ProteinMPNN training at the published width (at {time.perf_counter() - started:.0f} s)")
         check_mpnn_train_step(mpnn_weights)
         check_mpnn_train_cli(root, mpnn_weights)
         time_mpnn_train_step()
-        log("phase 12: evaluation, host tools, the database flow, the CIF parser")
+        log(f"phase 12: evaluation, host tools, the database flow, the CIF parser (at {time.perf_counter() - started:.0f} s)")
         t12 = time.perf_counter()
         check_denovo_eval(root / "denovo", root)
         check_cg2all_eval(tree, root, rows=3 * 2)
@@ -3830,7 +3936,7 @@ def main() -> int:
         check_profiling_trace(root)
         check_cif_parse_speed()
         log(f"phase 12: {time.perf_counter() - t12:.2f} s")
-    log("phase 13: row blocks, the SP sampler, the DP step, the training CLI under torchrun")
+    log(f"phase 13: row blocks, the SP sampler, the DP step, the training CLI under torchrun (at {time.perf_counter() - started:.0f} s)")
     parallel_launches = check_parallel()
 
     replaces = {
@@ -3842,6 +3948,7 @@ def main() -> int:
         "pair_mlp_bwd": "framedipt_tpu/model/pallas/pair_mlp.py:349",
         "pair_mlp_bwd_wg": "framedipt_tpu/model/pallas/pair_mlp.py:349",
         "edge_embedder_bwd": "framedipt_tpu/model/pallas/edge_embedder.py:366",
+        "edge_embedder_bwd_wg": "framedipt_tpu/model/pallas/edge_embedder.py:366",
     }
     kernels = [
         {

@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Time the edge-embedder forward kernels, the float32 pair-MLP backward's
-kernel A and the float32 kernel B of both split backwards beside variants of
-their sources, on one CUDA card.
+"""Time the edge-embedder forward kernels, the float32 pair-MLP and
+edge-embedder backwards' kernel A and the float32 kernel B of both split
+backwards beside variants of their sources, on one CUDA card.
 
-    python3 chip_variants.py [--parent DIR] [--out FILE] [--only mma|wgmma|bwd|wgrad]
+    python3 chip_variants.py [--parent DIR] [--out FILE] [--only mma|wgmma|bwd|emb_bwd|wgrad]
 
 Each variant is this checkout's ``framedipt_tpu_torch/csrc`` with text
 patches applied to a copy, built by nvcc (one process per variant, all
 started together) and loaded in place of the library the wrapper
 ``edge_embedder`` calls: variants of ``edge_embedder.cu`` (the ``mma.sync``
-kernel, reached with ``needs_grad=True``, both dtypes) and of
-``edge_embedder_wg.cu`` (the wgmma kernel, the float32 forward without
-gradients), and of ``pair_mlp_bwd_wg.cu`` (the float32 pair-MLP backward,
+kernel, every bf16 forward) and of ``edge_embedder_wg.cu`` with its unit's
+header ``edge_embedder_wg.cuh`` (the wgmma kernel, every float32 forward),
+of ``edge_embedder_bwd_wg.cu`` (the float32 embedder backward, kernel A on
+wgmma: three ring stages, the relu decisions in registers, and one part
+removed at a time: the products, the workspace stores, the chain, the
+partial sums), the backward held and timed at B=2 N=256 by its call and by
+kernel A's device time beside the parent's float32 backward (with
+``--parent``), then this checkout's kernel A and its three-stage variant
+over six input draws of their own seeds and a copy of the first draw at
+other addresses, three rounds each, with the card's SM clock sampled every
+50 ms meanwhile (what one reading of kernel A is worth), and of ``pair_mlp_bwd_wg.cu`` (the float32 pair-MLP backward,
 kernel A on wgmma: its relu decisions read back from the workspace in place
 of registers, and one part removed at a time: the products, the workspace
 stores, the LayerNorm backward, the relu masks), the backward held and timed
@@ -29,21 +37,20 @@ what that part costs. With ``--parent`` (a tree unpacked from an earlier
 commit: ``git archive <rev> | tar -x -C DIR``), that tree's
 ``edge_embedder.cu`` is timed too and must give the same bits as this
 checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256 with and without
-distance bins in both dtypes (the forward's tile is shared with the embedder
+distance bins in bf16 (the forward's tile is shared with the bf16 embedder
 backward's recompute); its ``pair_mlp.cu`` and ``pair_mlp_bwd.cu`` (bf16),
-``pair_mlp_wg.cu`` (float32, with and without the residual terms; its tile
-is now shared with the float32 backward's kernel A),
-``edge_embedder_wg.cu`` (float32) and ``edge_embedder_bwd.cu`` (bf16)
-must give the same bits as this checkout's (the product code, the
-forward tiles and bf16's kernel B are shared), and they are timed beside
-this checkout's; the float32 pair-MLP and embedder backwards, whose kernel
-B (and the pair MLP's kernel A) this checkout runs on wgmma, are held
-against the plain version instead (1e-4 of each gradient's max-abs, through
-the recompute's relu decisions) and timed beside the parent's, by call and
-by kernel B's device ms, as is the differentiated float32 forward (this
-checkout's wgmma kernel, the parent's mma.sync one). The parent's wrappers
-run through that tree's own wrapper modules, which bind its C entries as
-it built them.
+``pair_mlp_wg.cu`` and ``pair_mlp_bwd_wg.cu`` (float32, with and without
+the residual terms), ``edge_embedder_wg.cu`` (float32, the forward without
+gradients: its unit is now shared with the float32 embedder backward's
+kernel A), ``edge_embedder_bwd.cu`` (bf16) and ``ipa_attention.cu`` (both
+dtypes) must give the same bits as this checkout's, and they are timed
+beside this checkout's; the float32 embedder backward, whose kernel A this
+checkout runs on wgmma, is held against the plain version instead (1e-4 of
+each gradient's max-abs, through the recompute's relu decisions) and timed
+beside the parent's, by call and by kernel A's and kernel B's device ms, as
+is the differentiated float32 embedder forward (this checkout's wgmma
+kernel, the parent's mma.sync one). The parent's wrappers run through that
+tree's own wrapper modules, which bind its C entries as it built them.
 
 Times: CUDA events over 20 launches at B=2 N=256 (the wgmma variants also at
 B=2 N=896) in float32 and, for the mma.sync kernel, bf16, every variant once
@@ -160,28 +167,30 @@ TILE128 = {
 }
 STAGES = "template <typename T> constexpr int kEmbStages = sizeof(T) == 4 ? 2 : 3;"
 EMB_WG = "edge_embedder_wg.cu"
-WG_MMA3 = """      wg::wgmma_m64n128k8_tf32(d, lo[kk], bh, kk > 0);
-      wg::wgmma_m64n128k8_tf32(d, hi[kk], bl, 1);
-      wg::wgmma_m64n128k8_tf32(d, hi[kk], bh, 1);
+EMB_WGH = "edge_embedder_wg.cuh"  # the unit's code, shared with the float32 backward's kernel A
+WG_MMA3 = """        wg::wgmma_m64n128k8_tf32(d, lo[kk], bh, kk > 0);
+        wg::wgmma_m64n128k8_tf32(d, hi[kk], bl, 1);
+        wg::wgmma_m64n128k8_tf32(d, hi[kk], bh, 1);
 """
-WG_SLICE_LOADS = """      wg::mbar_arrive_expect_tx(&sm.full[st], 2 * kSliceBytes);
+WG_MMA3_64 = WG_MMA3.replace("m64n128k8", "m64n64k8")
+WG_SLICE_LOADS = """      wg::mbar_arrive_expect_tx(&sm.full[st], 2 * lo_row * 32 * 4);
       wg::tma_load_2d(sm.hi[st], map, &sm.full[st], c_in, 0);
-      wg::tma_load_2d(sm.lo[st], map, &sm.full[st], c_in, C);
+      wg::tma_load_2d(sm.lo[st], map, &sm.full[st], c_in, lo_row);
 """
 WG_STORE = "      __stcs(reinterpret_cast<float2*>(out + ((size_t)un.prow * Nc + j[e]) * C + c),"
-WG_STAGES = "  if (smem_bytes<3>(n_bins) <= kSmemLimit) return launch_kernel<3>(FDK_ARGS);\n"
-WG_EPI1 = """      *y = make_float2(emb_y0<float>(acc[i], bn >= 0, wd.x, iv.x, jt.x, bb.x),
-                       emb_y0<float>(acc[i + 1], bn >= 0, wd.y, iv.y, jt.y, bb.y));
+WG_STAGES = "  if (smem_bytes<3, false>(n_bins) <= kSmemLimit) return launch_kernel<3>(FDK_ARGS);\n"
+WG_EPI1 = """    const float v0 = emb_y0<float>(acc[i], bn >= 0, wd.x, iv.x, jt.x, bb.x);
+    const float v1 = emb_y0<float>(acc[i + 1], bn >= 0, wd.y, iv.y, jt.y, bb.y);
 """
 # A second block of A fragments, loaded while the previous block's products
 # run (a hook between the slice's commit and its wait).
 WG_DOUBLE_BUFFER = [
-    ("""  template <bool FIRST>
+    ("""  template <bool FIRST, int NA>
   __device__ __forceinline__ void slice(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
-                                        float (&acc)[64]) {""",
-     """  template <bool FIRST, typename Next>
+                                        float (&acc)[NA]) {""",
+     """  template <bool FIRST, typename Next, int NA>
   __device__ __forceinline__ void slice(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
-                                        float (&acc)[64], Next next) {"""),
+                                        float (&acc)[NA], Next next) {"""),
     ("    wg::wgmma_commit();\n    wg::wgmma_wait<0>();",
      "    wg::wgmma_commit();\n    next();\n    wg::wgmma_wait<0>();"),
     ("""    uint32_t hi[4][4], lo[4][4];
@@ -204,6 +213,46 @@ WG_DOUBLE_BUFFER = [
 ]
 WG_REGS = [("    wg::setmaxnreg_dec<40>();", "    wg::setmaxnreg_dec<24>();"),
            ("    wg::setmaxnreg_inc<232>();", "    wg::setmaxnreg_inc<240>();")]
+# The float32 embedder backward's kernel A (edge_embedder_bwd_wg.cu, on the
+# forward's unit in edge_embedder_wg.cuh). name: (patches, checked against
+# the plain version): three ring stages (they fit up to 24 bins; checked at
+# 22 and 0), the relu decisions kept in registers for the chain (in place
+# of shared memory); one part removed at a time: the products (the
+# slices still stream), the workspace stores (the store warp still takes
+# each region over; dm not stored), the chain (its slices, products and
+# epilogues' inputs: the epilogues mask stale values), the partial sums
+# (d_b1, d_b2, d_ln_scale, d_ln_bias, d_w_dist).
+EMB_BWD_WG = "edge_embedder_bwd_wg.cu"
+EMB_BWD_CHAIN = "    ring.template product<kLayerSlices>(act, acc);\n"
+EMB_BWD_VARIANTS = {
+    "emb_bwd_three_stages": ({EMB_BWD_WG: [("constexpr int kStages = 2;",
+                                             "constexpr int kStages = 3;")]}, True),
+    "emb_bwd_relu_in_registers": ({EMB_BWD_WG: [
+        ("masked_store(A, acc, {bw.relu[w][1][0][tc], bw.relu[w][1][1][tc]});",
+         "masked_store(A, acc, hk.m1);"),
+        ("masked_store(A, acc, {bw.relu[w][0][0][tc], bw.relu[w][0][1][tc]});",
+         "masked_store(A, acc, hk.m0);")]}, True),
+    "emb_bwd_no_products": ({EMB_WGH: [(WG_MMA3, ""), (WG_MMA3_64, "")]}, False),
+    "emb_bwd_no_stores": ({EMB_BWD_WG: [
+        ("for (int idx = h; idx < cols[w] * (CP / 4); idx += 32 * kStoreWarps)",
+         "for (int idx = h; idx < 0; idx += 32 * kStoreWarps)"),
+        ("          __stcs(reinterpret_cast<float4*>(rows + r * C), v);",
+         "          if (r < 0) __stcs(reinterpret_cast<float4*>(rows + r * C), v);"),
+        ("      if (ok[e])\n        __stcs(", "      if (ok[e] && a.n_bins < 0)\n        __stcs(")]},
+        False),
+    "emb_bwd_no_chain": ({EMB_WGH: [("    if (BWD) slices(kTileSlices, kTileSlices + kChainSlices);\n",
+                                     "")],
+                          EMB_BWD_WG: [(EMB_BWD_CHAIN, ""),
+                                       ("    ring.template product<kLayerSlices>(act, dm);\n",
+                                        "    for (int i = 0; i < 32; ++i) dm[i] = acc[i];\n")]},
+                         False),
+    "emb_bwd_no_partials": ({EMB_BWD_WG: [
+        ("    warp_columns([&](int i) { return gv[i] * acc[i]; }, bw.red[w][warp][0]);", ""),
+        ("    warp_columns([&](int i) { return gv[i]; }, bw.red[w][warp][1]);", ""),
+        ("    if (valid) {\n      float* vp", "    if (a.n_bins < 0) {\n      float* vp"),
+        ("        if (i == 2 || i == 3) {", "        if (i < 0) {"),
+        ("        if (i == 4 && cols[w]) {", "        if (i < 0) {")]}, False),
+}
 # The float32 pair-MLP backward's kernel A (pair_mlp_bwd_wg.cu, on the
 # forward's tile code in pair_mlp_wg.cuh).
 BWD_WG = "pair_mlp_bwd_wg.cu"
@@ -291,18 +340,15 @@ WGRAD_VARIANTS = {
     "wgrad_no_tma": ({WGRAD: [WGRAD_NO_TMA]}, False),
     "wgrad_no_transform_no_products": ({WGRAD: [(WGRAD_TRANSFORM, ""), (WGRAD_MMA3, "")]}, False),
 }
-# The library each backward's kernel B is built into, and its source.
-WGRAD_LIBS = {"pair": ("pair_mlp_bwd_wg", BWD_WG), "emb": ("edge_embedder_bwd", "edge_embedder_bwd.cu")}
+# The library each backward's float32 kernel B is built into, and its source.
+WGRAD_LIBS = {"pair": ("pair_mlp_bwd_wg", BWD_WG), "emb": ("edge_embedder_bwd_wg", EMB_BWD_WG)}
 # name: (patches {file: [(old, new)]}, checked against the plain version);
 # the mma.sync kernel's (edge_embedder.cu)
 VARIANTS = {
-    "f32_three_stages_one_block": ({EMB_TC: [(STAGES, STAGES.replace("? 2 : 3", "? 3 : 3"))]},
-                                   True),
     "bf16_two_stages": ({EMB_TC: [(STAGES, STAGES.replace("? 2 : 3", "? 2 : 2"))]}, True),
     "tile128": (TILE128, True),
     "unbatched_loads": ({EMB_TC: [(BATCHED_FILL, PLAIN_FILL), (BATCHED_EPI1, PLAIN_EPI1)]}, True),
     "no_products": ({TC: [(MMA3, ""), (MMA_BF16, "")]}, False),
-    "one_tf32_product": ({TC: [(MMA3, MMA3.split("\n", 2)[2])]}, False),
     "no_layernorm_store": ({EMB: [
         ("  layer_norm_store<T>(et.X, L::LDX, *et.pt, p0, ln_scale, ln_bias, out);",
          "  if (n_bins == 12345) layer_norm_store<T>(et.X, L::LDX, *et.pt, p0, ln_scale, ln_bias, out);")]},
@@ -329,13 +375,13 @@ WG_NO_PRODUCTS = (WG_MMA3, "")
 WG_NO_TMA = (WG_SLICE_LOADS, "      wg::mbar_arrive(&sm.full[st]);\n")
 WG_VARIANTS = {
     "wg_two_stages": ({EMB_WG: [(WG_STAGES, "")]}, True),
-    "wg_double_buffer": ({EMB_WG: WG_DOUBLE_BUFFER}, True),
+    "wg_double_buffer": ({EMB_WGH: WG_DOUBLE_BUFFER}, True),
     "wg_regs_240": ({EMB_WG: WG_REGS}, True),
-    "wg_no_products": ({EMB_WG: [WG_NO_PRODUCTS]}, False),
-    "wg_one_tf32_product": ({EMB_WG: [(WG_MMA3, WG_MMA3.split("\n", 2)[2])]}, False),
-    "wg_no_weight_tma": ({EMB_WG: [WG_NO_TMA]}, False),
-    "wg_no_products_no_tma": ({EMB_WG: [WG_NO_PRODUCTS, WG_NO_TMA]}, False),
-    "wg_bare_epilogue1": ({EMB_WG: [(WG_EPI1, "      *y = make_float2(acc[i], acc[i + 1]);\n")]},
+    "wg_no_products": ({EMB_WGH: [WG_NO_PRODUCTS]}, False),
+    "wg_one_tf32_product": ({EMB_WGH: [(WG_MMA3, WG_MMA3.split("\n", 2)[2])]}, False),
+    "wg_no_weight_tma": ({EMB_WGH: [WG_NO_TMA]}, False),
+    "wg_no_products_no_tma": ({EMB_WGH: [WG_NO_PRODUCTS, WG_NO_TMA]}, False),
+    "wg_bare_epilogue1": ({EMB_WGH: [(WG_EPI1, "    const float v0 = acc[i], v1 = acc[i + 1];\n")]},
                           False),
     "wg_no_store": ({EMB_WG: [(WG_STORE, "      if (Nc == -1) " + WG_STORE.lstrip())]}, False),
 }
@@ -370,59 +416,79 @@ def parent_module(tree: pathlib.Path, name: str):
     return mod
 
 
-def time_beside_parent(cs, pmods, libs, new_libs, use, gen) -> dict:
-    """This checkout's pair-MLP forward and backward and embedder backward
-    (float32, bf16) beside the parent's, B=2 N=256, CUDA events over 20
-    calls, three rounds in alternating order; the backwards through each
-    tree's own wrapper (``pmods``: the parent's)."""
+def time_beside_parent(cs, pmods, libs, new_libs, use, gen, keep: dict) -> dict:
+    """This checkout's pair-MLP forward and backward and embedder forward
+    (differentiated) and backward (float32, bf16) beside the parent's, B=2
+    N=256, CUDA events over 20 calls, three rounds in alternating order; the
+    backwards through each tree's own wrapper (``pmods``: the parent's),
+    also by kernel A's and kernel B's device ms. The float32 embedder
+    backward's inputs go to ``keep``."""
     from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
     from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 
-    cases = {}  # label: (the parent's library kind, this checkout's call, the parent's call)
+    # label: (this checkout's library kind, the parent's, this checkout's
+    # call, the parent's call)
+    cases = {}
     parent_pair = pmods["pair_mlp"]
     for dtype in (torch.float32, torch.bfloat16):
         a = cs.pair_mlp_inputs(2, 256, dtype, gen)
         g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
-        # The forward autograd differentiates: this checkout's wgmma kernel
-        # in float32, the parent's mma.sync one; both mma.sync in bf16.
+        # The forward autograd differentiates: the wgmma kernel in float32
+        # in both trees, mma.sync in bf16 (the parent's wrapper still takes
+        # a needs_grad argument).
+        kind = "pair_mlp_wg" if dtype == torch.float32 else "pair_mlp"
         cases[f"pair_mlp {str(dtype)[6:]}, differentiated"] = (
-            "pair_mlp", lambda a=a: t_pair.pair_mlp(*a, needs_grad=True),
+            kind, kind, lambda a=a: t_pair.pair_mlp(*a),
             lambda a=a: parent_pair.pair_mlp(*a, needs_grad=True))
-        if dtype == torch.float32:
-            wg_fwd = lambda a=a: t_pair.pair_mlp(*a)  # noqa: E731
-            cases["pair_mlp_wg float32"] = ("pair_mlp_wg", wg_fwd, wg_fwd)
-        # Each dtype's backward through its library (float32's kernel B
-        # runs on wgmma in this checkout).
+        # Each dtype's backward through its library.
+        kind = "pair_mlp_bwd_wg" if dtype == torch.float32 else "pair_mlp_bwd"
         cases[f"pair_mlp_bwd {str(dtype)[6:]}"] = (
-            "pair_mlp_bwd_wg" if dtype == torch.float32 else "pair_mlp_bwd",
-            lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
+            kind, kind, lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
             lambda a=a, g=g: parent_pair.pair_mlp_bwd(g, *a))
     parent_emb = pmods["edge_embedder"]
     for dtype in (torch.float32, torch.bfloat16):
-        *e, lower, upper = cs.edge_embedder_inputs(2, 256, dtype, gen)
+        args = cs.edge_embedder_inputs(2, 256, dtype, gen)
+        *e, lower, upper = args
         g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
+        if dtype == torch.float32:
+            # The forward autograd differentiates: this checkout's wgmma
+            # kernel (the route of every float32 forward), the parent's
+            # mma.sync one (its wrapper's needs_grad).
+            cases["edge_embedder float32, differentiated"] = (
+                "edge_embedder_wg", "edge_embedder",
+                lambda a=args: t_emb.edge_embedder(*a),
+                lambda a=args: parent_emb.edge_embedder(*a, needs_grad=True))
+        if dtype == torch.float32:
+            keep["the parent comparison's inputs"] = (e, lower, upper, g)
+        # float32: this checkout's kernel A on wgmma (its own library), the
+        # parent's on mma.sync.
         cases[f"edge_embedder_bwd {str(dtype)[6:]}"] = (
+            "edge_embedder_bwd_wg" if dtype == torch.float32 else "edge_embedder_bwd",
             "edge_embedder_bwd",
             lambda e=e, g=g, lo=lower, up=upper: t_emb.edge_embedder_bwd(
                 g, *e, bins_lower=lo, bins_upper=up),
             lambda e=e, g=g, lo=lower, up=upper: parent_emb.edge_embedder_bwd(
                 g, *e, bins_lower=lo, bins_upper=up))
     times = {}
-    for label, (kind, new_fn, parent_fn) in cases.items():
+    for label, (kind, parent_kind, new_fn, parent_fn) in cases.items():
         t = {"new": [], "parent": []}
         for rnd in range(3):
             for who in (("new", "parent") if rnd % 2 == 0 else ("parent", "new")):
-                use(kind, new_libs[kind] if who == "new" else libs[f"parent_{kind}"])
-                t[who].append(cs.cuda_time_ms(new_fn if who == "new" else parent_fn, 20))
+                if who == "new":
+                    use(kind, new_libs[kind])
+                else:
+                    use(parent_kind, libs["parent" if parent_kind == "edge_embedder"
+                                          else f"parent_{parent_kind}"])
                 fn = new_fn if who == "new" else parent_fn
-                if kind.startswith("pair_mlp_bwd"):  # kernel A's and kernel B's device ms
-                    parts = cs.bwd_parts_ms(fn)
+                t[who].append(cs.cuda_time_ms(fn, 20))
+                if "_bwd" in kind:  # kernel A's and kernel B's device ms
+                    parts = cs.bwd_parts_ms(fn, cs.BWD_PARTS if kind.startswith("pair")
+                                            else cs.EMB_BWD_PARTS)
                     t.setdefault(f"{who} kernel A", []).append(parts.get("A", 0.0))
                     t.setdefault(f"{who} kernel B", []).append(parts.get("B", 0.0))
-                elif kind == "edge_embedder_bwd":
-                    t.setdefault(f"{who} kernel B", []).append(
-                        cs.bwd_parts_ms(fn, cs.EMB_BWD_PARTS).get("B", 0.0))
         use(kind, new_libs[kind])
+        if parent_kind != kind:
+            use(parent_kind, new_libs[parent_kind])
         log(f"{label} B=2 N=256: " + "; ".join(
             f"{'this checkout' if who.startswith('new') else 'the parent'}"
             f"{who[who.find(' '):] if ' ' in who else ''} " + ", ".join(f"{x:.4f}" for x in xs)
@@ -444,7 +510,7 @@ def pair_bwd_check(cs, label: str, a, g) -> bool:
     ref = t_pair.pair_mlp_bwd_plain(g, *a, relu_masks=(rec["y0"] > 0, rec["y1"] > 0))
     rel, err = cs.grad_errors(got, ref, label)
     same = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
-    fwd = torch.equal(rec["out"], t_pair.pair_mlp(*a, needs_grad=True))
+    fwd = torch.equal(rec["out"], t_pair.pair_mlp(*a))
     tol = cs.TOL[a[0].dtype]
     log(f"{label}: max err {err:.3e} abs, {rel:.3e} of the gradient's max-abs (tol {tol}), "
         f"two launches bit-identical: {same}, recompute equal to the forward: {fwd}")
@@ -527,6 +593,122 @@ def time_wgrad_variants(cs, libs, names, site: str, use, gen) -> dict:
     return t
 
 
+def time_emb_bwd_variants(cs, libs, names, use, gen, parent_fn=None) -> dict:
+    """The float32 embedder backward at B=2 N=256 through each library in
+    ``names`` (this checkout's "new_emb_bwd" and the variants), and with
+    ``parent_fn`` the parent's float32 backward (its kernel A on mma.sync):
+    CUDA events over 10 calls and kernel A's device ms (torch.profiler),
+    three rounds in alternating order."""
+    from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+
+    *e, lower, upper = cs.edge_embedder_inputs(2, 256, torch.float32, gen)
+    g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda")
+    calls = {n: (lambda: t_emb.edge_embedder_bwd(g, *e, bins_lower=lower, bins_upper=upper))
+             for n in names}
+    if parent_fn is not None:
+        calls["parent"] = lambda: parent_fn(g, *e, bins_lower=lower, bins_upper=upper)
+    order = list(calls)
+    t = {n: {"call": [], "A": []} for n in order}
+    for rnd in range(3):
+        for name in (order if rnd % 2 == 0 else order[::-1]):
+            if name == "parent":
+                use("edge_embedder_bwd", libs["parent_edge_embedder_bwd"])
+            else:
+                use("edge_embedder_bwd_wg", libs[name])
+            t[name]["call"].append(cs.cuda_time_ms(calls[name], 10))
+            t[name]["A"].append(cs.bwd_parts_ms(calls[name], cs.EMB_BWD_PARTS).get("A", 0.0))
+    use("edge_embedder_bwd_wg", libs["new_emb_bwd"])
+    for name in order:
+        log(f"{name} float32 edge_embedder_bwd B=2 N=256: call "
+            + ", ".join(f"{x:.4f}" for x in t[name]["call"]) + " ms; kernel A "
+            + ", ".join(f"{x:.4f}" for x in t[name]["A"]) + " ms")
+    return t
+
+
+def time_emb_bwd_spread(cs, libs, names, use, extra: dict, draws: int = 6) -> dict:
+    """Kernel A's device ms (torch.profiler) through each library in
+    ``names``, float32 B=2 N=256, three rounds a condition in alternating
+    order: ``draws`` input draws (seeds 1000 ..); the first draw's tensors
+    copied to other addresses; the first draw with the workspace allocated
+    anew after a block of 2, 64 or 256 MB (the allocator's cache emptied);
+    and each of ``extra``'s inputs (label: (tensors, lower, upper, g)) as
+    they are, copied, and with only the cotangent g or only the forward's
+    inputs copied, or after a block of 256 KB or 1 MB (the call's own
+    small buffers placed elsewhere). ``nvidia-smi`` samples the SM clock, the power
+    draw and the temperature every 50 ms meanwhile: the spread of one
+    reading and whether the values, the addresses or the clocks move it."""
+    from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+
+    def copies(e, g):
+        return [x.clone() if torch.is_tensor(x) else x for x in e], g.clone()
+
+    def conditions():
+        first = None
+        for d in range(draws):
+            gen = torch.Generator(device="cuda").manual_seed(1000 + d)
+            *e, lower, upper = cs.edge_embedder_inputs(2, 256, torch.float32, gen)
+            g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda")
+            first = first or (e, lower, upper, g)
+            yield f"seed {1000 + d}", (e, lower, upper, g)
+        e, lower, upper, g = first
+        e2, g2 = copies(e, g)
+        yield "seed 1000, copies", (e2, lower, upper, g2)
+        for mb in (2, 64, 256):
+            pad = torch.empty(mb << 20, dtype=torch.uint8, device="cuda")
+            torch.cuda.empty_cache()
+            yield f"seed 1000, workspace after {mb} MB", first
+            del pad
+        for label, (e, lower, upper, g) in extra.items():
+            yield label, (e, lower, upper, g)
+            e2, g2 = copies(e, g)
+            yield f"{label}, copies", (e2, lower, upper, g2)
+            yield f"{label}, the cotangent copied", (e, lower, upper, g2)
+            yield f"{label}, the forward's inputs copied", (e2, lower, upper, g)
+            del e2, g2
+            for kb in (256, 1024):
+                # The call's own small buffers (the weight splits, the bin
+                # edges, the reductions) land elsewhere.
+                pad = torch.empty(kb << 10, dtype=torch.uint8, device="cuda")
+                yield f"{label}, after a {kb} KB block", (e, lower, upper, g)
+                del pad
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    t = {n: {} for n in names}
+    try:
+        for label, (e, lower, upper, g) in conditions():
+            for rnd in range(3):
+                for name in (names if rnd % 2 == 0 else names[::-1]):
+                    use("edge_embedder_bwd_wg", libs[name])
+                    fn = (lambda e=e, g=g, lo=lower, up=upper: t_emb.edge_embedder_bwd(
+                        g, *e, bins_lower=lo, bins_upper=up))
+                    fn()
+                    t[name].setdefault(label, []).append(
+                        cs.bwd_parts_ms(fn, cs.EMB_BWD_PARTS).get("A", 0.0))
+    finally:
+        smi.terminate()
+        samples = smi.communicate(timeout=30)[0]
+    use("edge_embedder_bwd_wg", libs[names[0]])
+    for name in names:
+        every = sorted(x for xs in t[name].values() for x in xs)
+        log(f"{name} kernel A spread float32 B=2 N=256: min {every[0]:.4f} median "
+            f"{every[len(every) // 2]:.4f} max {every[-1]:.4f} ms over {len(every)}; "
+            + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in xs)
+                        for k, xs in t[name].items()))
+    rows = [[float(v) for v in line.split(",")] for line in samples.splitlines()
+            if line.count(",") == 2 and "N/A" not in line]
+    clock = {}
+    if rows:
+        for i, key in enumerate(("sm_mhz", "power_w", "temp_c")):
+            vals = sorted(r[i] for r in rows)
+            clock[key] = [vals[0], vals[len(vals) // 2], vals[-1]]
+        log(f"kernel A spread: {len(rows)} nvidia-smi samples, SM clock / power / temperature "
+            "min, median, max: " + "; ".join(f"{k} {v}" for k, v in clock.items()))
+    return {"A": t, "clock": clock}
+
+
 def time_bwd_variants(cs, libs, names, use, gen) -> dict:
     """The float32 pair-MLP backward at B=2 N=256 through each library in
     ``names`` (this checkout's "new_bwd" and the variants): CUDA events over
@@ -553,7 +735,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=pathlib.Path, default=None)
     ap.add_argument("--out", type=pathlib.Path, default=None)
-    ap.add_argument("--only", choices=("mma", "wgmma", "bwd", "wgrad"), default=None)
+    ap.add_argument("--only", choices=("mma", "wgmma", "bwd", "emb_bwd", "wgrad"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_variants: no CUDA device")
@@ -562,6 +744,7 @@ def main() -> int:
     import chip_smoke as cs
     from framedipt_tpu_torch.model.kernels import build
     from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+    from framedipt_tpu_torch.model.kernels import ipa_attention as t_ipa
     from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
     from framedipt_tpu_torch.model.kernels import wgrad as t_wgrad
     from framedipt_tpu_torch.tools.device import set_full_precision_matmul
@@ -579,6 +762,9 @@ def main() -> int:
     if args.only in (None, "bwd"):
         variants.update({n: (p, ok, "pair_mlp_bwd_wg", BWD_WG)
                          for n, (p, ok) in BWD_VARIANTS.items()})
+    if args.only in (None, "emb_bwd"):
+        variants.update({n: (p, ok, "edge_embedder_bwd_wg", EMB_BWD_WG)
+                         for n, (p, ok) in EMB_BWD_VARIANTS.items()})
     if args.only in (None, "wgrad"):
         for site, (_, source) in WGRAD_LIBS.items():
             variants.update({f"{n}_{site}": (p, ok, f"wgrad_{site}", source)
@@ -595,7 +781,8 @@ def main() -> int:
                             "parent_pair_mlp_wg": parent / "pair_mlp_wg.cu",
                             "parent_pair_mlp_bwd_wg": parent / "pair_mlp_bwd_wg.cu",
                             "parent_edge_embedder_wg": parent / EMB_WG,
-                            "parent_edge_embedder_bwd": parent / "edge_embedder_bwd.cu"})
+                            "parent_edge_embedder_bwd": parent / "edge_embedder_bwd.cu",
+                            "parent_ipa_attention": parent / "ipa_attention.cu"})
             kinds["parent"] = ("edge_embedder", False)
         procs = {name: subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(work / f"{name}.so"), str(src)],
@@ -604,8 +791,9 @@ def main() -> int:
         build.build_all()
         libs = {"new": build.library("edge_embedder"), "new_wg": build.library("edge_embedder_wg"),
                 "new_bwd": build.library("pair_mlp_bwd_wg"),
+                "new_emb_bwd": build.library("edge_embedder_bwd_wg"),
                 "new_wgrad_pair": build.library("pair_mlp_bwd_wg"),
-                "new_wgrad_emb": build.library("edge_embedder_bwd")}
+                "new_wgrad_emb": build.library("edge_embedder_bwd_wg")}
         fails = 0
         for name, proc in procs.items():
             out = proc.communicate()[0]
@@ -618,27 +806,27 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "C7512" in line:
                     log(f"  {name}: {line.strip()[:160]}")
         new_libs = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd", "pair_mlp_wg",
-                                                  "pair_mlp_bwd_wg", "edge_embedder_wg",
-                                                  "edge_embedder_bwd")}
+                                                  "pair_mlp_bwd_wg", "edge_embedder",
+                                                  "edge_embedder_wg", "edge_embedder_bwd",
+                                                  "edge_embedder_bwd_wg", "ipa_attention")}
         pmods = {} if parent is None else {
             n: parent_module(args.parent, n) for n in ("pair_mlp", "edge_embedder")}
 
         def use(kind: str, lib) -> None:
             build._libs[kind] = lib
-            for mod in (t_emb, t_pair, t_wgrad, *pmods.values()):
+            for mod in (t_emb, t_pair, t_wgrad, t_ipa, *pmods.values()):
                 for entry in ("_kernel", "_wg_kernel", "_split_kernel", "_bwd_kernel",
                               "_bwd_wg_kernel"):
                     if hasattr(mod, entry):
                         getattr(mod, entry).cache_clear()
 
         def call(name: str, a):
-            """The embedder through the kernel ``name`` stands in for: the
-            mma.sync kernel asked for with needs_grad=True."""
-            return t_emb.edge_embedder(*a, needs_grad=kinds[name][0] == "edge_embedder")
+            """The embedder through the kernel ``name`` stands in for (the
+            dtype picks it)."""
+            return t_emb.edge_embedder(*a)
 
         def dtypes(name: str):
-            f32_only = kinds[name][0] == "edge_embedder_wg"
-            return (torch.float32,) if f32_only else (torch.float32, torch.bfloat16)
+            return (torch.float32,) if kinds[name][0] == "edge_embedder_wg" else (torch.bfloat16,)
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         bwd_names = [n for n, (kind, _) in kinds.items() if kind == "pair_mlp_bwd_wg" and n in libs]
@@ -651,6 +839,18 @@ def main() -> int:
                     fails += not pair_bwd_check(
                         cs, f"{name} float32 B={B} N={N} residual={residual}", a, g)
             use("pair_mlp_bwd_wg", libs["new_bwd"])
+        emb_bwd_names = [n for n, (kind, _) in kinds.items()
+                         if kind == "edge_embedder_bwd_wg" and n in libs]
+        for name in [n for n in emb_bwd_names if kinds[n][1]]:
+            use("edge_embedder_bwd_wg", libs[name])
+            for B, N in ((1, 1), (1, 17), (2, 200)):
+                for n_bins in (22, 0):
+                    *tensors, lower, upper = cs.edge_embedder_inputs(B, N, torch.float32, gen,
+                                                                     n_bins=n_bins)
+                    g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
+                    fails += not emb_bwd_check(cs, f"{name} float32 B={B} N={N} n_bins={n_bins}",
+                                               tensors, lower, upper, g)
+            use("edge_embedder_bwd_wg", libs["new_emb_bwd"])
         wgrad_names = {site: [n for n, (kind, _) in kinds.items() if kind == f"wgrad_{site}"
                               and n in libs] for site in WGRAD_LIBS}
         for site, names in wgrad_names.items():
@@ -658,8 +858,8 @@ def main() -> int:
                 use(WGRAD_LIBS[site][0], libs[name])
                 fails += wgrad_checks(cs, name, site, gen)
             use(WGRAD_LIBS[site][0], libs[f"new_wgrad_{site}"])
-        kinds = {n: v for n, v in kinds.items()
-                 if v[0] != "pair_mlp_bwd_wg" and not v[0].startswith("wgrad_")}
+        kinds = {n: v for n, v in kinds.items() if v[0] not in ("pair_mlp_bwd_wg", "edge_embedder_bwd_wg")
+                 and not v[0].startswith("wgrad_")}
         emb_only = {None: None, "mma": "edge_embedder", "wgmma": "edge_embedder_wg"}.get(args.only, "")
         checked = [n for n, (kind, ok) in kinds.items() if ok and n in libs
                    and emb_only in (None, kind)]
@@ -676,7 +876,8 @@ def main() -> int:
                     fails += excess > 0 or not same
             use(kinds[name][0], libs["new" if kinds[name][0] == "edge_embedder" else "new_wg"])
         if "parent" in libs:
-            for dtype in (torch.float32, torch.bfloat16):
+            # The mma.sync forward is bf16's only now.
+            for dtype in (torch.bfloat16,):
                 for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
                     for n_bins in (22, 0):
                         a = cs.edge_embedder_inputs(B, N, dtype, gen, n_bins=n_bins)
@@ -697,7 +898,7 @@ def main() -> int:
                     outs = []
                     for lib in (new_libs["pair_mlp"], libs["parent_pair_mlp"]):
                         use("pair_mlp", lib)
-                        outs.append(t_pair.pair_mlp(*a, needs_grad=True))
+                        outs.append(t_pair.pair_mlp(*a))
                     same = torch.equal(*outs)
                     line = f"pair_mlp {str(dtype)[6:]} residual={residual}: the parent's bits {same}"
                     g = torch.randn(2, 200, 200, 128, generator=gen, device="cuda").to(dtype)
@@ -713,14 +914,24 @@ def main() -> int:
                     fails += not same
             use("pair_mlp", new_libs["pair_mlp"])
             use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
-            # float32: this checkout's kernel A runs on wgmma, so the
-            # backward is held against the plain version, not the parent.
+        if "parent_pair_mlp_bwd_wg" in libs:
+            # float32: the same kernels as the parent's, held against the
+            # plain version and against the parent's bits.
             for B, N in ((1, 17), (2, 200), (2, 256)):
                 for residual in (True, False):
                     a = cs.pair_mlp_inputs(B, N, torch.float32, gen, residual=residual)
                     g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
-                    fails += not pair_bwd_check(
-                        cs, f"pair_mlp_bwd float32 B={B} N={N} residual={residual}", a, g)
+                    label = f"pair_mlp_bwd float32 B={B} N={N} residual={residual}"
+                    fails += not pair_bwd_check(cs, label, a, g)
+                    grads = []
+                    for lib, wrapper in ((new_libs["pair_mlp_bwd_wg"], t_pair),
+                                         (libs["parent_pair_mlp_bwd_wg"], pmods["pair_mlp"])):
+                        use("pair_mlp_bwd_wg", lib)
+                        grads.append(wrapper.pair_mlp_bwd(g, *a))
+                    same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
+                    log(f"{label}: the parent's bits {same}")
+                    fails += not same
+            use("pair_mlp_bwd_wg", new_libs["pair_mlp_bwd_wg"])
         if "parent_pair_mlp_wg" in libs:
             for B, N in ((1, 17), (2, 200)):
                 for residual in (True, False):
@@ -747,8 +958,21 @@ def main() -> int:
                         f"bits {same}")
                     fails += not same
             use("edge_embedder_wg", new_libs["edge_embedder_wg"])
+        if "parent_ipa_attention" in libs:
+            for dtype in (torch.float32, torch.bfloat16):
+                for B, N in ((1, 17), (2, 256)):
+                    a = cs.ipa_attention_inputs(B, N, dtype, gen)
+                    outs = []
+                    for lib in (new_libs["ipa_attention"], libs["parent_ipa_attention"]):
+                        use("ipa_attention", lib)
+                        outs.append(t_ipa.ipa_attention(*a, no_heads=cs.IPA_H,
+                                                        no_v_points=cs.IPA_PV))
+                    same = all(torch.equal(x, y) for x, y in zip(*outs))
+                    log(f"ipa_attention {str(dtype)[6:]} B={B} N={N}: the parent's bits {same}")
+                    fails += not same
+            use("ipa_attention", new_libs["ipa_attention"])
         if "parent_edge_embedder_bwd" in libs:
-            # float32: this checkout's kernel B runs on wgmma, so the
+            # float32: this checkout's kernel A runs on wgmma, so the
             # backward is held against the plain version, not the parent.
             for B, N in ((1, 17), (2, 200), (2, 256)):
                 for n_bins in (22, 0):
@@ -776,12 +1000,19 @@ def main() -> int:
                             f"the parent's bits {same}")
                         fails += not same
             use("edge_embedder_bwd", new_libs["edge_embedder_bwd"])
-        times = {}
+        times, kept = {}, {}
         if parent is not None:
-            times["parent"] = time_beside_parent(cs, pmods, libs, new_libs, use, gen)
+            times["parent"] = time_beside_parent(cs, pmods, libs, new_libs, use, gen, kept)
         if bwd_names:
             times["pair_mlp_bwd float32 B=2 N=256"] = time_bwd_variants(
                 cs, libs, ["new_bwd"] + bwd_names, use, gen)
+        if emb_bwd_names:
+            times["edge_embedder_bwd float32 B=2 N=256"] = time_emb_bwd_variants(
+                cs, libs, ["new_emb_bwd"] + emb_bwd_names, use, gen,
+                pmods["edge_embedder"].edge_embedder_bwd if pmods else None)
+            if "emb_bwd_three_stages" in libs:
+                times["edge_embedder_bwd kernel A spread"] = time_emb_bwd_spread(
+                    cs, libs, ["new_emb_bwd", "emb_bwd_three_stages"], use, kept)
         for site, names in wgrad_names.items():
             if names:
                 times[f"kernel B {site} float32 B=2 N=256"] = time_wgrad_variants(

@@ -1,8 +1,10 @@
 // Fused embedder edge branch, for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/edge_embedder.py:76
-// (_edge_embedder_kernel, reached through fused_edge_embedder). Per pair
-// (i, j), from O(N) inputs only:
+// (_edge_embedder_kernel, reached through fused_edge_embedder) in bf16;
+// every float32 forward runs edge_embedder_wg.cu (wgmma and TMA), so the
+// float32 code below is reached by no entry (the C entry refuses it). Per
+// pair (i, j), from O(N) inputs only:
 //
 //   m  = G_i * H_j                                   [64]  rel-offset CP factors
 //   x  = m @ W_rel + W_dist[bin(|ca_i - ca_j|)] + i_term_i + j_term_j
@@ -126,9 +128,10 @@ cudaError_t launch(const void* g, const void* h, const float* pos_r, const float
 }  // namespace
 }  // namespace fdk
 
-// C interface. dtype: 0 = float32, 1 = bfloat16. Coordinates, bin edges and
-// LayerNorm parameters are float32; weights are row-major [in, out], 16-byte
-// aligned. Returns a cudaError_t (0 on success).
+// C interface. dtype: 1 = bfloat16; 0 (float32) is refused: every float32
+// forward is fdk_edge_embedder_wg's (edge_embedder_wg.cu). Coordinates, bin
+// edges and LayerNorm parameters are float32; weights are row-major [in,
+// out], 16-byte aligned. Returns a cudaError_t (0 on success).
 extern "C" int fdk_edge_embedder(int dtype, const void* g, const void* h, const float* pos_r,
                                  const float* pos_c, const void* i_term, const void* j_term,
                                  const void* row_mask, const void* col_mask, const void* w_rel,
@@ -141,7 +144,7 @@ extern "C" int fdk_edge_embedder(int dtype, const void* g, const void* h, const 
 #define FDK_ARGS                                                                      \
   g, h, pos_r, pos_c, i_term, j_term, row_mask, col_mask, w_rel, w_dist, lower, upper, \
       b0, w1, b1, w2, b2, ln_scale, ln_bias, out, n_bins, B, Nr, Nc, s
-  if (dtype == 0) return fdk::launch<float>(FDK_ARGS);
+  // float32 is edge_embedder_wg.cu's (wgmma and TMA).
   if (dtype == 1) return fdk::launch<__nv_bfloat16>(FDK_ARGS);
 #undef FDK_ARGS
   return (int)cudaErrorInvalidValue;

@@ -32,15 +32,18 @@
 //
 // Both element types: two kernels and fixed-order sums, per chunk of grid
 // rows (the wrapper plans the chunks so that the workspace stays under its
-// cap), as pair_mlp_bwd.cu.
+// cap), as pair_mlp_bwd.cu. This file holds bf16's kernel A and entry;
+// float32's kernel A runs on wgmma and TMA (edge_embedder_bwd_wg.cu), and
+// the rest of the split backward (the workspace, the row and column sums,
+// kernel B, the ordered sums) is edge_embedder_split.cuh, shared by both.
 // - Kernel A (emb_split_tile_kernel), one block per 64-pair tile of the
-//   chunk's flat pairs, in the forward kernel's shared-memory layout (float32
-//   104 KB, bf16 95 KB, and 2 KB of relu decisions; two blocks an SM). It
-//   recomputes the forward through the forward kernel's own code
-//   (edge_embedder_tc.cuh: emb_forward_tile; tc_product.cuh: mma.sync, 3xTF32
-//   in float32 and bf16 MMA in bf16), so the recompute equals
-//   edge_embedder.cu's output bit for bit and the relu decisions are the
-//   forward's; it keeps them as ballot words in shared memory. Then the mask
+//   chunk's flat pairs, in the forward kernel's shared-memory layout (bf16
+//   95 KB and 2 KB of relu decisions; two blocks an SM). It recomputes the
+//   forward through the forward kernel's own code (edge_embedder_tc.cuh:
+//   emb_forward_tile; tc_product.cuh: bf16 MMA on mma.sync), so the
+//   recompute equals edge_embedder.cu's output bit for bit and the relu
+//   decisions are the forward's; it keeps them as ballot words in shared
+//   memory. Then the mask
 //   and LayerNorm backward (one warp per 8 pairs), and the input-gradient
 //   chain through the same products on the transposed weights the wrapper
 //   lays out: dy1 = (dx W2^T) . [y1 > 0], dy0 = (dy1 W1^T) . [y0 > 0],
@@ -68,9 +71,9 @@
 // The float32 workspace round trip at B=2 N=256 (one chunk; 0.40 GB
 // written, 0.40 GB read back by kernel B and 0.20 GB by the sums) takes
 // 0.30 ms at the HBM rate. Measured on an H100 (NVIDIA H100 80GB HBM3,
-// 700 W, chip_smoke.py): the float32 call 1.11 ms (1.22 with kernel B on
-// mma.sync, the CUDA-core kernel's 1.90); kernel A 0.68, kernel B 0.15
-// (0.26 on mma.sync), the sums 0.18, the reductions 0.05.
+// 700 W, chip_smoke.py), before float32's kernel A moved to wgmma: the
+// float32 call 1.11 ms; kernel A 0.68, kernel B 0.15, the sums 0.18, the
+// reductions 0.05.
 //
 // bf16 follows the JAX kernel's rounding points (edge_embedder.py:433-530):
 // - the recompute is the bf16 forward kernel's: m = bf16(G_i * H_j), each
@@ -97,68 +100,12 @@
 // for the mask gradients and pass zero into the LayerNorm backward
 // (gm = g * emask).
 #include "edge_embedder_tc.cuh"
-#include "wgrad_tc.cuh"
-#include "wgrad_wg.cuh"
+#include "edge_embedder_split.cuh"
 
 namespace fdk {
 namespace {
 
 constexpr int kWarps = kThreads / 32;
-// Offsets of the grid-summed gradients (floats); mirrored in
-// model/kernels/edge_embedder.py (_W_PARTS).
-constexpr int OFF_WREL = 0, OFF_WDIST = OFF_WREL + CP * C, OFF_W1 = OFF_WDIST + MAX_BINS * C,
-              OFF_W2 = OFF_W1 + C * C, OFF_B1 = OFF_W2 + C * C, OFF_B2 = OFF_B1 + C,
-              OFF_LNS = OFF_B2 + C, OFF_LNB = OFF_LNS + C, kWParts = OFF_LNB + C;
-constexpr int kRowPart = CP + C + 1;  // d_g | d_i_term | d_mask (d_h | d_j_term | d_mask)
-constexpr int kGroup = 32;   // tile partials summed 32 at a time
-constexpr int kSlices = 44;  // K slices of kernel B: 3 jobs x 44 = 132 blocks
-constexpr int kBParts = CP * C + 2 * C * C;  // kernel B's partial set: d_w_rel | d_w1 | d_w2
-static_assert(OFF_W2 == OFF_W1 + C * C && OFF_LNB == OFF_B1 + 3 * C, "contiguous sums");
-
-// A tile's vector partial: d_b1 | d_b2 | d_ln_scale | d_ln_bias | d_w_dist.
-__host__ __device__ inline int vec_floats(int n_bins) { return (4 + n_bins) * C; }
-
-// A chunk's workspace, in this order: y0, y1 [P, 128], m [P, 64], dx (bf16:
-// dxd), dy1, dy0 [P, 128] as T; then float32: dm [P, 64], kernel B's
-// partials [kSlices, kBParts], the tiles' vector partials
-// [groups * kGroup, vec], their group sums [groups, vec], dem [P]. Every
-// array starts 16-byte aligned, and dx follows m (kernel B's 64-row job
-// reads past m's last row). Mirrored in model/kernels/edge_embedder.py
-// (split_workspace_floats).
-template <typename T>
-struct SplitWs {
-  T *y0, *y1, *m, *dx, *dy1, *dy0;
-  float *dm, *wpart, *vpart, *vmid, *dem;
-};
-
-inline long long split_tiles(long long P) { return (P + kRows - 1) / kRows; }
-inline long long split_groups(long long P) { return (split_tiles(P) + kGroup - 1) / kGroup; }
-
-constexpr int kActs = 5 * C + CP;  // T elements a pair
-static_assert(kActs * sizeof(__nv_bfloat16) % 16 == 0, "16-byte aligned float32 arrays after the T ones");
-
-template <typename T>
-long long split_ws_floats(long long P, int n_bins) {
-  return P * kActs * (long long)sizeof(T) / 4 + P * (CP + 1) + (long long)kSlices * kBParts +
-         (split_groups(P) * kGroup + split_groups(P)) * vec_floats(n_bins);
-}
-
-template <typename T>
-SplitWs<T> split_ws(float* ws, long long P, int n_bins) {
-  SplitWs<T> w;
-  w.y0 = reinterpret_cast<T*>(ws);
-  w.y1 = w.y0 + P * C;
-  w.m = w.y1 + P * C;
-  w.dx = w.m + P * CP;
-  w.dy1 = w.dx + P * C;
-  w.dy0 = w.dy1 + P * C;
-  w.dm = reinterpret_cast<float*>(w.dy0 + P * C);
-  w.wpart = w.dm + P * CP;
-  w.vpart = w.wpart + (long long)kSlices * kBParts;
-  w.vmid = w.vpart + split_groups(P) * kGroup * vec_floats(n_bins);
-  w.dem = w.vmid + split_groups(P) * vec_floats(n_bins);
-  return w;
-}
 
 // The input-gradient chain's weights in the order its products read them:
 // W2^T, W1^T, then W_rel^T padded to [128, 128] (4 slices each).
@@ -186,10 +133,6 @@ static_assert(sizeof(float) * kWarps * 3 * C <= sizeof(__nv_bfloat16) * 3 * kSta
               sizeof(float) * kWarps * 3 * C <= sizeof(float) * 2 * kStageElems,
               "channel sums in the ring");
 static_assert(MAX_BINS * C <= kRows * EmbSmem<float>::LDX, "d_w_dist in y1's tile");
-
-// A workspace value as float.
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // Kernel A over pairs q0 .. q0 + P - 1 of the flat [B * Nr * Nc] grid, one
 // 64-pair tile a block. With fwd_out, also the recompute's LayerNorm output,
@@ -387,69 +330,6 @@ emb_split_tile_kernel(const T* __restrict__ gout, const T* __restrict__ gf,
   }
 }
 
-// d_g | d_i_term | d_row_mask of the chunk's rows m0 .. m0 + rows - 1 (a row
-// lies in one chunk), each a sum over j in order.
-template <typename T>
-__global__ void emb_row_sums(const T* __restrict__ dy0, const float* __restrict__ dm,
-                             const float* __restrict__ dem, const T* __restrict__ hf,
-                             const T* __restrict__ col_mask, float* __restrict__ rowred,
-                             int m0, int rows, int Nr, int Nc) {
-  const long long total = (long long)rows * kRowPart;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const int lr = (int)(idx / kRowPart), c = (int)(idx - (long long)lr * kRowPart);
-    const int m = m0 + lr, b = m / Nr;
-    const size_t base = (size_t)lr * Nc;
-    // Unrolled so that several loads are in flight; the adds stay in order.
-    // Products unfused (__fmul_rn): the plain version rounds them.
-    float s = 0.f;
-    if (c < CP) {
-      const T* hb = hf + (size_t)b * Nc * CP + c;
-#pragma unroll 32
-      for (int j = 0; j < Nc; ++j) s += __fmul_rn(dm[(base + j) * CP + c], ld<T>(hb + (size_t)j * CP));
-    } else if (c < CP + C) {
-#pragma unroll 32
-      for (int j = 0; j < Nc; ++j) s += to_f(dy0[(base + j) * C + c - CP]);
-    } else {
-      for (int j = 0; j < Nc; ++j)
-        s += __fmul_rn(dem[base + j], ld<T>(col_mask + (size_t)b * Nc + j));
-    }
-    rowred[(size_t)m * kRowPart + c] = s;
-  }
-}
-
-// d_h | d_j_term | d_col_mask over the chunk's rows m0 .. m1 - 1 of the
-// batches b_lo .. b_lo + nb - 1, each a sum over i in order, added to colred
-// (the chunks run in order).
-template <typename T>
-__global__ void emb_col_sums(const T* __restrict__ dy0, const float* __restrict__ dm,
-                             const float* __restrict__ dem, const T* __restrict__ gf,
-                             const T* __restrict__ row_mask, float* __restrict__ colred,
-                             int m0, int m1, int b_lo, int nb, int Nr, int Nc) {
-  const long long total = (long long)nb * Nc * kRowPart;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const int bj = (int)(idx / kRowPart), c = (int)(idx - (long long)bj * kRowPart);
-    const int b = b_lo + bj / Nc, j = bj % Nc;
-    const int lo = max(m0, b * Nr), hi = min(m1, (b + 1) * Nr);
-    float s = 0.f;
-    const size_t p0 = (size_t)(lo - m0) * Nc + j;
-    if (c < CP) {
-#pragma unroll 32
-      for (int m = lo; m < hi; ++m)
-        s += __fmul_rn(dm[(p0 + (size_t)(m - lo) * Nc) * CP + c], ld<T>(gf + (size_t)m * CP + c));
-    } else if (c < CP + C) {
-#pragma unroll 32
-      for (int m = lo; m < hi; ++m) s += to_f(dy0[(p0 + (size_t)(m - lo) * Nc) * C + c - CP]);
-    } else {
-      for (int m = lo; m < hi; ++m)
-        s += __fmul_rn(dem[p0 + (size_t)(m - lo) * Nc], ld<T>(row_mask + m));
-    }
-    float* dst = colred + ((size_t)b * Nc + j) * kRowPart + c;
-    *dst += s;
-  }
-}
-
 // One chunk, rows m0 .. m1 - 1 of the flat [B * Nr] grid.
 template <typename T>
 cudaError_t launch_split(const T* grad, const T* g, const T* h, const float* pos_r,
@@ -464,9 +344,9 @@ cudaError_t launch_split(const T* grad, const T* g, const T* h, const float* pos
   if (n_bins < 0 || n_bins > MAX_BINS) return cudaErrorInvalidValue;
   if (m0 < 0 || m1 <= m0 || m1 > B * Nr || Nc <= 0) return cudaErrorInvalidValue;
   const long long q0 = (long long)m0 * Nc, P = (long long)(m1 - m0) * Nc;
-  if (split_ws_floats<T>(P, n_bins) > ws_floats) return cudaErrorInvalidValue;
-  const SplitWs<T> ws = split_ws<T>(wsp, P, n_bins);
-  const long long tiles = split_tiles(P), groups = split_groups(P);
+  const long long tiles = split_tiles(P), groups = split_groups(tiles);
+  if (split_ws_floats<T>(P, tiles, n_bins) > ws_floats) return cudaErrorInvalidValue;
+  const SplitWs<T> ws = split_ws<T>(wsp, P, tiles, n_bins);
   const int vec = vec_floats(n_bins);
   cudaError_t err;
 
@@ -484,62 +364,18 @@ cudaError_t launch_split(const T* grad, const T* g, const T* h, const float* pos
       upper, b0, w1, b1, w2, b2, ln_scale, ln_bias, w_relt, w1t, w2t, ws, q0, P, n_bins, Nr, Nc,
       fwd_out);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  // Row and column sums.
-  emb_row_sums<T><<<grid_of((long long)(m1 - m0) * kRowPart), kThreads, 0, stream>>>(
-      ws.dy0, ws.dm, ws.dem, h, col_mask, rowred, m0, m1 - m0, Nr, Nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int b_lo = m0 / Nr, nb = (m1 - 1) / Nr - b_lo + 1;
-  emb_col_sums<T><<<grid_of((long long)nb * Nc * kRowPart), kThreads, 0, stream>>>(
-      ws.dy0, ws.dm, ws.dem, g, row_mask, colred, m0, m1, b_lo, nb, Nr, Nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  // Kernel B: d_w_rel = m^T dy0 (64 rows), d_w1 = y0^T dy1, d_w2 = y1^T dx.
-  if constexpr (sizeof(T) == 2) {
-    WJobs<T> jobs;
-    jobs.job[0] = {ws.m, ws.dy0, CP, C, 0, C, CP};
-    jobs.job[1] = {ws.y0, ws.dy1, C, C, CP * C, C};
-    jobs.job[2] = {ws.y1, ws.dx, C, C, CP * C + C * C, C};
-    err = launch_wgrad(jobs, 3, kSlices, ws.wpart, kBParts, P, stream);
-  } else {
-    // Tensor maps: m, y0, y1, dy0, dy1, dx.
-    enum { kM, kY0, kY1, kDy0, kDy1, kDx };
-    WgradJobs jobs;
-    if (!wgrad_map(jobs, kM, ws.m, P, CP) || !wgrad_map(jobs, kY0, ws.y0, P, C) ||
-        !wgrad_map(jobs, kY1, ws.y1, P, C) || !wgrad_map(jobs, kDy0, ws.dy0, P, C) ||
-        !wgrad_map(jobs, kDy1, ws.dy1, P, C) || !wgrad_map(jobs, kDx, ws.dx, P, C))
-      return cudaErrorInvalidValue;
-    jobs.job[0] = {kM, 0, kDy0, 0, 0, C, CP};
-    jobs.job[1] = {kY0, 0, kDy1, 0, CP * C, C, 128};
-    jobs.job[2] = {kY1, 0, kDx, 0, CP * C + C * C, C, 128};
-    err = launch_wgrad_wg(jobs, 3, kSlices, ws.wpart, kBParts, P, stream);
-  }
-  if (err != cudaSuccess) return err;
-
-  // Fixed-order sums into the outputs.
-  if ((err = reduce_partials(ws.wpart, wred + OFF_WREL, 1, kSlices, CP * C, kBParts, stream,
-                             true)) != cudaSuccess)
-    return err;
-  if ((err = reduce_partials(ws.wpart + CP * C, wred + OFF_W1, 1, kSlices, 2 * C * C, kBParts,
-                             stream, true)) != cudaSuccess)
-    return err;
-  if ((err = reduce_partials(ws.vpart, ws.vmid, groups, kGroup, vec, vec, stream)) != cudaSuccess)
-    return err;
-  if ((err = reduce_partials(ws.vmid, wred + OFF_B1, 1, (int)groups, 4 * C, vec, stream, true)) !=
-      cudaSuccess)
-    return err;
-  if (n_bins == 0) return cudaSuccess;
-  return reduce_partials(ws.vmid + 4 * C, wred + OFF_WDIST, 1, (int)groups, n_bins * C, vec,
-                         stream, true);
+  return finish_split<T>(g, h, row_mask, col_mask, ws, tiles, wred, rowred, colred, n_bins, Nr,
+                         Nc, m0, m1, stream);
 }
 
 }  // namespace
 }  // namespace fdk
 
 // C interface, for one chunk: rows m0 .. m1 - 1 of the flat [B * Nr] grid
-// (pairs m0 * Nc ..). dtype: 0 = float32, 1 = bfloat16, the type of every
-// tensor but the coordinates, the bin edges and the LayerNorm parameters
-// (float32). Weights are row-major [in, out], 16-byte aligned; w1t / w2t
+// (pairs m0 * Nc ..). dtype: 1 = bfloat16, the type of every tensor but the
+// coordinates, the bin edges and the LayerNorm parameters (float32); 0
+// (float32) is refused: it is fdk_edge_embedder_bwd_wg's
+// (edge_embedder_bwd_wg.cu). Weights are row-major [in, out], 16-byte aligned; w1t / w2t
 // their transposes, w_relt W_rel^T padded with zero columns to [128, 128].
 // ws: the chunk's workspace of ws_floats floats (split_ws_floats of its
 // pairs at least). Adds the chunk's weight, bias and LayerNorm gradients to
@@ -564,7 +400,7 @@ extern "C" int fdk_edge_embedder_bwd_split(
       (const T*)b0, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, ln_scale, ln_bias, \
       (const T*)w_relt, (const T*)w1t, (const T*)w2t, ws, ws_floats, wred, rowred, colred,     \
       n_bins, B, Nr, Nc, m0, m1, (T*)fwd_out, s
-  if (dtype == 0) return fdk::launch_split<float>(FDK_ARGS(float));
+  // float32 is edge_embedder_bwd_wg.cu's (kernel A on wgmma).
   if (dtype == 1) return fdk::launch_split<__nv_bfloat16>(FDK_ARGS(__nv_bfloat16));
 #undef FDK_ARGS
   return (int)cudaErrorInvalidValue;

@@ -22,7 +22,6 @@ from framedipt_tpu_torch.model.kernels.edge_embedder import (
     expand_w_rel,
     rel_cp_factors,
 )
-from framedipt_tpu_torch.model.kernels.pair_mlp import autograd_records
 from framedipt_tpu_torch.model.layers import Linear, LayerNorm, mlp3_layer_norm
 from framedipt_tpu_torch.parallel import sp
 from framedipt_tpu_torch.tools.config import ModelConfig
@@ -145,11 +144,9 @@ class Embedder(nn.Module):
             w0[2 * c_t + n_rel :].contiguous(),
             b0, w1, b1, w2, b2, ln.weight, ln.bias,
         )
-        # Decided here, where grad mode is the caller's: a float32 forward
-        # that no gradient is taken through runs the wgmma kernel.
         edge_embed = EdgeEmbedderFunction.apply(
             self.conf.ipa.pallas_emb_bwd_impl,
             tuple(float(x) for x in lower), tuple(float(x) for x in upper),
-            *args, autograd_records(*args),
+            *args,
         )
         return node_embed, edge_embed

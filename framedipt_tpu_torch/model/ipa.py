@@ -30,7 +30,7 @@ from torch import nn
 
 from framedipt_tpu_torch.geometry.rigid import Rigid
 from framedipt_tpu_torch.model.kernels.ipa_attention import build_point_inputs, ipa_attention
-from framedipt_tpu_torch.model.kernels.pair_mlp import PairMLPFunction, autograd_records
+from framedipt_tpu_torch.model.kernels.pair_mlp import PairMLPFunction
 from framedipt_tpu_torch.model.layers import Linear, LayerNorm
 from framedipt_tpu_torch.parallel import sp
 from framedipt_tpu_torch.tools.config import IPAConfig, ModelConfig
@@ -259,9 +259,7 @@ class EdgeTransition(nn.Module):
             self.layer_norm.weight, self.layer_norm.bias,
             sp.local_rows(fi).contiguous(), fj.contiguous(), wf[:c_e].contiguous(),
         )
-        # Decided here, where grad mode is the caller's: a float32 forward
-        # that no gradient is taken through runs the wgmma kernel.
-        return PairMLPFunction.apply(*args, autograd_records(*args))
+        return PairMLPFunction.apply(*args)
 
 
 class _SelfAttention(nn.Module):

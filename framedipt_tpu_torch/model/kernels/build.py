@@ -23,6 +23,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "edge_embedder": "edge_embedder.cu",
     "edge_embedder_bwd": "edge_embedder_bwd.cu",
+    "edge_embedder_bwd_wg": "edge_embedder_bwd_wg.cu",
     "edge_embedder_wg": "edge_embedder_wg.cu",
     "ipa_attention": "ipa_attention.cu",
     "pair_mlp": "pair_mlp.cu",
@@ -31,7 +32,8 @@ SOURCES = {
     "pair_mlp_wg": "pair_mlp_wg.cu",
 }
 HEADERS = ("common.cuh", "mma.cuh", "tc_product.cuh", "pair_mlp_tc.cuh", "edge_embedder_tc.cuh",
-           "wgrad_tc.cuh", "wgrad_wg.cuh", "wgmma_tma.cuh", "pair_mlp_wg.cuh", "pair_mlp_split.cuh")
+           "wgrad_tc.cuh", "wgrad_wg.cuh", "wgmma_tma.cuh", "pair_mlp_wg.cuh", "pair_mlp_split.cuh",
+           "edge_embedder_wg.cuh", "edge_embedder_split.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

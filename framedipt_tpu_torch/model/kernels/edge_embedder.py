@@ -16,16 +16,13 @@ give no bin. Products accumulate in float32 and are rounded to the compute
 dtype; LayerNorm statistics are float32 (eps 1e-6).
 
 :func:`edge_embedder` takes :func:`edge_embedder_plain` for CPU tensors and
-one of two kernels for CUDA tensors, as :func:`forward_route` says: a
-float32 forward that autograd will not differentiate (every sampler, the service, the CLIs, a train step's
-self-conditioning forward) launches ``csrc/edge_embedder_wg.cu`` (wgmma and
-TMA, 3xTF32); a forward that will be differentiated, and every bf16 forward,
-launches ``csrc/edge_embedder.cu`` (``mma.sync``), whose tile code the
-backward's recompute shares bit for bit. The caller says which
-(``needs_grad``, from :func:`~.pair_mlp.autograd_records`, decided before
-:class:`EdgeEmbedderFunction` runs). The backward:
-:func:`edge_embedder_bwd` takes the backward kernels
-(``csrc/edge_embedder_bwd.cu``) for CUDA tensors and
+one of two kernels for CUDA tensors, as :func:`forward_route` says: every
+float32 forward, differentiated or not, launches ``csrc/edge_embedder_wg.cu``
+(wgmma and TMA, 3xTF32), every bf16 forward ``csrc/edge_embedder.cu``
+(``mma.sync``); each dtype's backward recomputes through that kernel's tile
+code bit for bit. The backward: :func:`edge_embedder_bwd` takes the backward
+kernels for CUDA tensors (float32: kernel A on wgmma and TMA,
+``csrc/edge_embedder_bwd_wg.cu``; bf16: ``csrc/edge_embedder_bwd.cu``) and
 :func:`edge_embedder_bwd_plain` for CPU tensors; both recompute the forward
 from the O(N) inputs and return every input gradient but the coordinates'.
 In both dtypes the kernels run per chunk of grid rows
@@ -224,6 +221,17 @@ def _kernel():
 
 
 @functools.cache
+def _bwd_wg_kernel():
+    """The C entry point of csrc/edge_embedder_bwd_wg.cu (one chunk, float32),
+    built and bound at first use."""
+    fn = library("edge_embedder_bwd_wg").fdk_edge_embedder_bwd_wg
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    return fn
+
+
+@functools.cache
 def _wg_kernel():
     """The C entry point of csrc/edge_embedder_wg.cu, built and bound at first
     use."""
@@ -245,6 +253,16 @@ def wgmma_weight_split(w_rel, w1, w2) -> torch.Tensor:
         hi = tf32_rna(wt)
         parts += [hi.flatten(), tf32_rna(wt - hi).flatten()]
     return torch.cat(parts)
+
+
+def chain_weight_split(w_rel, w1, w2) -> torch.Tensor:
+    """What the float32 backward's first step writes for its input-gradient
+    chain (``prepare_weights<false>`` in ``csrc/edge_embedder_wg.cuh``),
+    after the forward's split, in PyTorch: the chain's products are the
+    forward's on W_rel^T, W1^T and W2^T, whose K-major layout is each weight
+    as stored, so the forward's slots hold W_rel, W1 and W2 untransposed
+    ([n, k]), split into TF32 hi and lo. WG_SPLIT_FLOATS floats."""
+    return wgmma_weight_split(w_rel.t(), w1.t(), w2.t())
 
 
 def _check_inputs(fn_name, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
@@ -305,28 +323,28 @@ def _edges(bins_lower, bins_upper, dev) -> torch.Tensor:
     )
 
 
-def forward_route(dtype: torch.dtype, needs_grad: bool) -> str:
+def forward_route(dtype: torch.dtype) -> str:
     """Which kernel an embedder forward on CUDA tensors launches: "wgmma"
-    (``csrc/edge_embedder_wg.cu``) for a float32 forward that no gradient is
-    taken through, else "mma" (``csrc/edge_embedder.cu``): the backward's
-    recompute (``csrc/edge_embedder_bwd.cu``) runs that kernel's tile code
-    (``edge_embedder_tc.cuh``) in both dtypes, so a differentiated forward
-    takes it and its relu decisions are the backward's. The pair MLP has a
-    rule of its own (:func:`.pair_mlp.forward_route`)."""
-    return "wgmma" if dtype == torch.float32 and not needs_grad else "mma"
+    (``csrc/edge_embedder_wg.cu``) in float32 and "mma"
+    (``csrc/edge_embedder.cu``) in bf16, with or without gradients: each
+    dtype's backward recomputes through that kernel's
+    tile code (float32's kernel A in ``csrc/edge_embedder_bwd_wg.cu`` through
+    ``edge_embedder_wg.cuh``, bf16's in ``csrc/edge_embedder_bwd.cu`` through
+    ``edge_embedder_tc.cuh``), so a differentiated forward's relu decisions
+    are its backward's. The pair MLP's rule is the same, in a function of its
+    own (:func:`.pair_mlp.forward_route`)."""
+    return "wgmma" if dtype == torch.float32 else "mma"
 
 
 def edge_embedder(
     g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
     w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias,
-    bins_lower, bins_upper, needs_grad=False,
+    bins_lower, bins_upper,
 ):
     """Masked-LayerNorm embedder edge output, [B, Nr, Nc, C] in g's dtype.
 
     CPU tensors take :func:`edge_embedder_plain`; CUDA tensors launch the
-    kernel that :func:`forward_route` names for the dtype and
-    ``needs_grad`` (True where autograd will differentiate this forward), or
-    raise. Coordinates and ln_scale/ln_bias are float32, every other tensor
+    kernel that :func:`forward_route` names for the dtype, or raise. Coordinates and ln_scale/ln_bias are float32, every other tensor
     in the compute dtype; bins_lower/upper are tuples of floats, empty when
     the model embeds no self-conditioning distogram. Adds one to
     ``edge_embedder.launches`` per launch, and to
@@ -344,7 +362,7 @@ def edge_embedder(
         "edge_embedder", g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
         w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale, ln_bias, bins_lower, bins_upper,
     )
-    route = forward_route(g.dtype, needs_grad)
+    route = forward_route(g.dtype)
     _check_aligned("edge_embedder", w_rel, w1, w2, i_term, j_term, b0, b1, b2,
                    rows=(("g", g), ("h", h), ("i_term", i_term), ("j_term", j_term))
                    if route == "wgmma" else ())
@@ -399,12 +417,14 @@ def _w_parts(wred: torch.Tensor) -> dict[str, torch.Tensor]:
 
 ROW_PART = CP + C + 1  # d_g | d_i_term | d_row_mask per row sum (columns alike)
 
-# The backward (csrc/edge_embedder_bwd.cu, fdk_edge_embedder_bwd_split):
-# kernel A's tile of flat pairs; per pair in the workspace y0, y1, dx (bf16:
-# dxd), dy1, dy0 (C each) and m (CP) in the dtype, then float32 dm (CP) and
-# dem (1); kernel B's K slices, each a partial set of d_w_rel | d_w1 |
-# d_w2; one vector partial (d_b1 | d_b2 | d_ln_scale | d_ln_bias |
-# d_w_dist) per tile, summed SPLIT_GROUP at a time, then the groups.
+# The backward (csrc/edge_embedder_split.cuh's workspace, filled by kernel A:
+# float32 csrc/edge_embedder_bwd_wg.cu, bf16 csrc/edge_embedder_bwd.cu): per
+# pair y0, y1, dx (bf16: dxd), dy1, dy0 (C each) and m (CP) in the dtype,
+# then float32 dm (CP) and dem (1); kernel B's K slices, each a partial set
+# of d_w_rel | d_w1 | d_w2; kernel A's vector partials (d_b1 | d_b2 |
+# d_ln_scale | d_ln_bias | d_w_dist; float32: one a unit of one grid row
+# and SPLIT_TILE columns, bf16: one a tile of SPLIT_TILE flat pairs), summed
+# SPLIT_GROUP at a time, then the groups.
 SPLIT_TILE = 64
 SPLIT_PAIR_FLOATS = {torch.float32: 5 * C + 2 * CP + 1,
                      torch.bfloat16: (5 * C + CP) // 2 + CP + 1}
@@ -419,12 +439,24 @@ def split_vec_floats(n_bins: int) -> int:
     return (4 + n_bins) * C
 
 
-def split_workspace_floats(pairs: int, n_bins: int, dtype: torch.dtype = F32) -> int:
+def split_parts(rows: int, Nc: int, dtype: torch.dtype = F32) -> int:
+    """Kernel A's vector partials for a chunk of ``rows`` grid rows of Nc
+    pairs: float32 one a unit (a row's columns in runs of SPLIT_TILE, the
+    last ragged), bf16 one a tile of SPLIT_TILE of the chunk's flat pairs."""
+    if dtype == F32:
+        return rows * -(-Nc // SPLIT_TILE)
+    return -(-(rows * Nc) // SPLIT_TILE)
+
+
+def split_workspace_floats(pairs: int, n_bins: int, dtype: torch.dtype = F32,
+                           parts: int | None = None) -> int:
     """Float32 words of the backward's workspace for a chunk of ``pairs``
     pairs in ``dtype``: the per-pair activations and gradients, kernel B's
-    slice partials and the tiles' vector partials (mirrors
-    ``split_ws_floats`` in csrc/edge_embedder_bwd.cu)."""
-    groups = -(-(-(-pairs // SPLIT_TILE)) // SPLIT_GROUP)
+    slice partials and kernel A's ``parts`` vector partials
+    (:func:`split_parts`; by default one a tile of SPLIT_TILE flat pairs)
+    (mirrors ``split_ws_floats`` in csrc/edge_embedder_split.cuh)."""
+    parts = -(-pairs // SPLIT_TILE) if parts is None else parts
+    groups = -(-parts // SPLIT_GROUP)
     return (pairs * SPLIT_PAIR_FLOATS[dtype] + SPLIT_SLICES * SPLIT_B_PARTS
             + (groups * SPLIT_GROUP + groups) * split_vec_floats(n_bins))
 
@@ -435,9 +467,11 @@ def plan_bwd_chunks(B: int, Nr: int, Nc: int, n_bins: int, cap_bytes: int = BWD_
     the rows exactly, of near-equal size, each with a workspace in ``dtype``
     of at most ``cap_bytes`` (one row a chunk where even one row exceeds
     it)."""
-    return plan_row_chunks(B * Nr, Nc, cap_bytes,
-                           lambda pairs: split_workspace_floats(pairs, n_bins, dtype),
-                           SPLIT_PAIR_FLOATS[dtype])
+    return plan_row_chunks(
+        B * Nr, Nc, cap_bytes,
+        lambda pairs: split_workspace_floats(pairs, n_bins, dtype,
+                                             split_parts(pairs // Nc, Nc, dtype)),
+        SPLIT_PAIR_FLOATS[dtype])
 
 
 @functools.cache
@@ -461,7 +495,10 @@ def edge_embedder_bwd(
     order and dtypes.
 
     CPU tensors take :func:`edge_embedder_bwd_plain`; CUDA tensors launch
-    the backward kernels (or raise). The grid runs in the chunks of
+    the backward kernels (or raise): kernel A recomputes through the tile of
+    the forward that :func:`forward_route` gives a differentiated call, in
+    float32 ``csrc/edge_embedder_bwd_wg.cu`` (wgmma and TMA), in bf16
+    ``csrc/edge_embedder_bwd.cu`` (``mma.sync``). The grid runs in the chunks of
     :func:`plan_bwd_chunks` (each workspace at most ``workspace_cap``
     bytes); the grid-summed gradients are summed in float32 from partials in
     a fixed order (no atomics), the chunks' sums added in chunk order, so
@@ -470,7 +507,8 @@ def edge_embedder_bwd(
     kernel's code: "out" (the same bits as :func:`edge_embedder`), "y0" and
     "y1" ([B, Nr, Nc, 128] in g's dtype, the activations whose relu
     decisions the gradients take). Adds one to ``edge_embedder_bwd.launches``
-    per call."""
+    per call, and to ``edge_embedder_bwd.launches_wgmma`` or
+    ``edge_embedder_bwd.launches_mma`` by route."""
     if g.device.type == "cpu":
         return edge_embedder_bwd_plain(
             grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,
@@ -487,12 +525,21 @@ def edge_embedder_bwd(
     edges = _edges(bins_lower, bins_upper, dev)
     ptrs = [grad.data_ptr(), *(t.data_ptr() for t in args[:10]), edges[0].data_ptr(),
             edges[1].data_ptr(), *(t.data_ptr() for t in args[10:])]
-    _check_aligned("edge_embedder_bwd", w_rel, w1, w2, i_term, j_term, b0, b1, b2)
-    # The input-gradient chain reads W^T row-major; W_rel^T [C, CP] padded
-    # with zero columns to [C, C], the width of every product.
-    w_relt = torch.zeros(C, C, dtype=dtype, device=dev)
-    w_relt[:, :CP] = w_rel.t()
-    w1t, w2t = (w.t().contiguous() for w in (w1, w2))
+    route = forward_route(dtype)
+    _check_aligned("edge_embedder_bwd", w_rel, w1, w2, i_term, j_term, b0, b1, b2,
+                   rows=(("g", g), ("h", h), ("i_term", i_term), ("j_term", j_term))
+                   if route == "wgmma" else ())
+    if route == "wgmma":
+        # Kernel A's first step writes the weights' TF32 parts here: the
+        # forward's, then the chain's (chain_weight_split: the stored
+        # weights, untransposed).
+        weights = [torch.empty(2 * WG_SPLIT_FLOATS, dtype=F32, device=dev)]
+    else:
+        # bf16's input-gradient chain reads W^T row-major; W_rel^T [C, CP]
+        # padded with zero columns to [C, C], the width of every product.
+        w_relt = torch.zeros(C, C, dtype=dtype, device=dev)
+        w_relt[:, :CP] = w_rel.t()
+        weights = [w_relt, *(w.t().contiguous() for w in (w1, w2))]
     # Outputs zeroed: the chunks add to them in order.
     sums = torch.zeros(W_PART_FLOATS + (B * Nr + B * Nc) * ROW_PART, dtype=F32, device=dev)
     wred, rowred, colred = torch.split(sums, [W_PART_FLOATS, B * Nr * ROW_PART, B * Nc * ROW_PART])
@@ -503,24 +550,31 @@ def edge_embedder_bwd(
         fwd_out = recompute["out"].data_ptr()
     chunks = plan_bwd_chunks(B, Nr, Nc, n_bins, workspace_cap, dtype)
     if chunks:
-        n_ws = split_workspace_floats(max(m1 - m0 for m0, m1 in chunks) * Nc, n_bins, dtype)
+        most = max(m1 - m0 for m0, m1 in chunks)
+        n_ws = split_workspace_floats(most * Nc, n_bins, dtype, split_parts(most, Nc, dtype))
         ws = torch.empty(n_ws, dtype=F32, device=dev)
+        sums_ptrs = (wred.data_ptr(), rowred.data_ptr(), colred.data_ptr(), n_bins, B, Nr, Nc)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             for m0, m1 in chunks:
-                err = _split_kernel()(
-                    _DTYPE_CODE[dtype], *ptrs, w_relt.data_ptr(), w1t.data_ptr(),
-                    w2t.data_ptr(), ws.data_ptr(), n_ws, wred.data_ptr(), rowred.data_ptr(),
-                    colred.data_ptr(), n_bins, B, Nr, Nc, m0, m1, fwd_out, stream,
-                )
+                if route == "wgmma":
+                    err = _bwd_wg_kernel()(*ptrs, ws.data_ptr(), n_ws, weights[0].data_ptr(),
+                                           *sums_ptrs, m0, m1, fwd_out, stream)
+                else:
+                    err = _split_kernel()(
+                        _DTYPE_CODE[dtype], *ptrs, *(w.data_ptr() for w in weights),
+                        ws.data_ptr(), n_ws, *sums_ptrs, m0, m1, fwd_out, stream)
                 if err != 0:
-                    raise RuntimeError(f"edge_embedder_bwd kernel launch failed: cudaError_t {err}")
+                    raise RuntimeError(
+                        f"edge_embedder_bwd kernel launch failed ({route}): cudaError_t {err}")
                 if recompute is not None:  # the workspace starts with y0, then y1
                     n, acts = (m1 - m0) * Nc * C, ws.view(dtype)
                     for k, part in (("y0", acts[:n]), ("y1", acts[n:2 * n])):
                         recompute[k].view(-1, C)[m0 * Nc:m1 * Nc] = part.view(-1, C)
         del ws
         edge_embedder_bwd.launches += 1
+        edge_embedder_bwd.launches_wgmma += route == "wgmma"
+        edge_embedder_bwd.launches_mma += route == "mma"
 
     # The relu input is base + i_term + j_term + b0: d_b0 sums d_i_term.
     d_b0 = torch.sum(rowred.view(B, Nr, ROW_PART)[..., CP:-1], dim=(0, 1)).to(dtype)
@@ -539,17 +593,16 @@ def edge_embedder_bwd(
     )
 
 
-edge_embedder_bwd.launches = 0
+edge_embedder_bwd.launches = edge_embedder_bwd.launches_wgmma = 0
+edge_embedder_bwd.launches_mma = 0
 
 
 class EdgeEmbedderFunction(torch.autograd.Function):
     """:func:`edge_embedder` for autograd. Arguments: the backward setting
     (``model.ipa.pallas_emb_bwd_impl``), then :func:`edge_embedder`'s
     arguments with the bin edges first: ``(bwd_impl, bins_lower,
-    bins_upper, g, h, pos_rows, ..., ln_bias)``, then ``needs_grad``, the
-    caller's :func:`~.pair_mlp.autograd_records` of the tensor arguments,
-    which picks the forward's kernel (:func:`forward_route`); it
-    defaults to True, the route whose relu decisions the backward shares.
+    bins_upper, g, h, pos_rows, ..., ln_bias)`` (:func:`forward_route`
+    picks the kernel by dtype, whose relu decisions the backward shares).
 
     Saves only the O(N) inputs. "pallas" runs :func:`edge_embedder_bwd`
     (the backward kernel on CUDA tensors, its plain version on CPU tensors);
@@ -562,12 +615,12 @@ class EdgeEmbedderFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, bwd_impl, bins_lower, bins_upper, g, h, pos_rows, pos_cols, i_term,
                 j_term, row_mask, col_mask, w_rel, w_dist, b0, w1, b1, w2, b2, ln_scale,
-                ln_bias, needs_grad=True):
+                ln_bias):
         args = (g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask, w_rel, w_dist,
                 b0, w1, b1, w2, b2, ln_scale, ln_bias)
         ctx.bwd_impl, ctx.bins = bwd_impl, (bins_lower, bins_upper)
         ctx.save_for_backward(*args)
-        return edge_embedder(*args, bins_lower, bins_upper, needs_grad)
+        return edge_embedder(*args, bins_lower, bins_upper)
 
     @staticmethod
     def backward(ctx, grad):
@@ -576,8 +629,7 @@ class EdgeEmbedderFunction(torch.autograd.Function):
         if ctx.bwd_impl == "pallas":
             grads = edge_embedder_bwd(grad.contiguous(), *ctx.saved_tensors,
                                       bins_lower=ctx.bins[0], bins_upper=ctx.bins[1])
-            return ((None, None, None)
-                    + tuple(d if need else None for d, need in zip(grads, needs)) + (None,))
+            return (None, None, None) + tuple(d if need else None for d, need in zip(grads, needs))
         if ctx.bwd_impl != "xla":
             raise ValueError(
                 f"pallas_emb_bwd_impl must be 'xla' or 'pallas', got {ctx.bwd_impl!r}"
@@ -587,5 +639,4 @@ class EdgeEmbedderFunction(torch.autograd.Function):
             out = edge_embedder_plain(*inputs, *ctx.bins)
             wanted = [t for t, need in zip(inputs, needs) if need]
             got = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
-        return ((None, None, None) + tuple(next(got) if need else None for need in needs)
-                + (None,))
+        return (None, None, None) + tuple(next(got) if need else None for need in needs)

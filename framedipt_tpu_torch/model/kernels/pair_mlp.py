@@ -229,22 +229,15 @@ def _wg_kernel():
     return fn
 
 
-def forward_route(dtype: torch.dtype, needs_grad: bool) -> str:
+def forward_route(dtype: torch.dtype) -> str:
     """Which kernel a pair-MLP forward on CUDA tensors launches: "wgmma"
     (``csrc/pair_mlp_wg.cu``) in float32 and "mma" (``csrc/pair_mlp.cu``) in
-    bf16, with or without gradients (``needs_grad``): each dtype's backward
+    bf16, with or without gradients: each dtype's backward
     recomputes through that kernel's tile code (float32's kernel A in
     ``csrc/pair_mlp_bwd_wg.cu``, bf16's in ``csrc/pair_mlp_bwd.cu``), so a
     differentiated forward's relu decisions are its backward's. The edge
     embedder has a rule of its own (:func:`.edge_embedder.forward_route`)."""
     return "wgmma" if dtype == torch.float32 else "mma"
-
-
-def autograd_records(*tensors) -> bool:
-    """Whether autograd records a call on these inputs: grad mode on and an
-    input that requires a gradient (under ``torch.no_grad()`` a parameter
-    still requires one; under ``torch.inference_mode()`` grad mode is off)."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -383,14 +376,12 @@ def _check_aligned(fn_name, **tensors):
 def pair_mlp(
     pair, i_term, j_term, row_mask, col_mask,
     w0, b0, w1, b1, wf, bf, ln_scale, ln_bias,
-    fi=None, fj=None, wfe=None, needs_grad=False,
+    fi=None, fj=None, wfe=None,
 ):
     """Masked-LayerNorm pair MLP, [B, Nr, Nc, C_out] in pair's dtype.
 
     CPU tensors take :func:`pair_mlp_plain`; CUDA tensors launch the kernel
-    that :func:`forward_route` names for the dtype (``needs_grad``, True
-    where autograd will differentiate this forward, does not change it), or
-    raise. Weights are [in, out]; masks are in the compute dtype,
+    that :func:`forward_route` names for the dtype, or raise. Weights are [in, out]; masks are in the compute dtype,
     ln_scale/ln_bias float32.
     Adds one to ``pair_mlp.launches`` per launch, and to
     ``pair_mlp.launches_wgmma`` or ``pair_mlp.launches_mma`` by route."""
@@ -405,7 +396,7 @@ def pair_mlp(
         "pair_mlp", pair, i_term, j_term, row_mask, col_mask,
         w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj, wfe,
     )
-    route = forward_route(pair.dtype, needs_grad)
+    route = forward_route(pair.dtype)
     # The wgmma kernel brings the pair rows by TMA (16-byte aligned).
     _check_aligned("pair_mlp", w0=w0, w1=w1, wf=wf, wfe=wfe, i_term=i_term, j_term=j_term,
                    b0=b0, pair=pair if route == "wgmma" else None)
@@ -514,7 +505,7 @@ def pair_mlp_bwd(
     _check("g", g, (B, Nr, Nc, C_OUT), dtype, dev)
     _check_aligned("pair_mlp_bwd", w0=w0, w1=w1, wf=wf, wfe=wfe, pair=pair, i_term=i_term,
                    j_term=j_term, b0=b0)
-    route = forward_route(dtype, needs_grad=True)
+    route = forward_route(dtype)
     if route == "wgmma":
         # Kernel A's first step writes the weights' TF32 parts here: the
         # forward's, then the chain's (chain_weight_split: the stored
@@ -595,21 +586,18 @@ class PairMLPFunction(torch.autograd.Function):
     """:func:`pair_mlp` with :func:`pair_mlp_bwd` as its backward. Saves
     only the inputs (the backward recomputes the forward), never the
     [B, N, N, hidden] activations. Takes the arguments of :func:`pair_mlp`
-    positionally; ``fi``, ``fj``, ``wfe`` may be None. ``needs_grad``, the
-    caller's :func:`autograd_records` of the inputs, goes to the wrapper,
-    whose route (:func:`forward_route`) is the dtype's whichever it is; it
-    defaults to True."""
+    positionally; ``fi``, ``fj``, ``wfe`` may be None."""
 
     @staticmethod
     def forward(ctx, pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
-                ln_scale, ln_bias, fi=None, fj=None, wfe=None, needs_grad=True):
+                ln_scale, ln_bias, fi=None, fj=None, wfe=None):
         args = (pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf,
                 ln_scale, ln_bias, fi, fj, wfe)
         ctx.save_for_backward(*args)
-        return pair_mlp(*args, needs_grad)
+        return pair_mlp(*args)
 
     @staticmethod
     def backward(ctx, g):
         grads = pair_mlp_bwd(g.contiguous(), *ctx.saved_tensors)
-        # One gradient an input; None for needs_grad.
-        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad)) + (None,)
+        # One gradient an input.
+        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))

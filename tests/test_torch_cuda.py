@@ -1,8 +1,8 @@
-"""The CUDA kernels against their plain versions on the card (the edge
-embedder's two float32 forwards apart: the wgmma kernel without gradients,
-the mma.sync kernel with ``needs_grad=True``; every float32 pair-MLP
-forward on the wgmma kernel, its backward's kernel A on wgmma too; float32
-kernel B of both backwards, on wgmma, also alone against float64), and the
+"""The CUDA kernels against their plain versions on the card (every float32
+edge-embedder and pair-MLP forward on its wgmma kernel, differentiated or
+not, each backward's float32 kernel A on wgmma too; the mma.sync kernels in
+bf16; float32 kernel B of both backwards, on wgmma, also alone against
+float64), and the
 input builders that tests/test_torch_kernels.py shares; on the card also the de
 novo model's forward at N=500 through the kernels against their plain
 versions, and the port's ProteinMPNN and its train step against the
@@ -311,7 +311,7 @@ def kernel_relu_masks(g, args, tol, **kw):
     t_pair.pair_mlp_bwd(g, *args, recompute=rec, **kw)
     # The forward that autograd differentiates (float32: the wgmma kernel;
     # bf16: the mma.sync kernel).
-    assert torch.equal(rec["out"], t_pair.pair_mlp(*args, needs_grad=True))
+    assert torch.equal(rec["out"], t_pair.pair_mlp(*args))
     y0, y1, _ = t_pair._pre_norm(*args[:3], *args[5:11], *args[13:])
     for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
         flip = (plain_y > 0) != (kern_y > 0)
@@ -371,7 +371,7 @@ def test_cuda_pair_mlp_bwd_wgmma_kernel_a(B, N, residual, chunk_rows):
     several chunks and B=2 N=256: every gradient within 1e-4 of the plain
     version through the recompute's relu decisions, two launches
     bit-identical and counted on the wgmma route, the recompute equal to
-    ``pair_mlp(..., needs_grad=True)``, and the first step's TF32 weight
+    ``pair_mlp``'s output, and the first step's TF32 weight
     parts equal to wgmma_weight_split's and chain_weight_split's bit for
     bit."""
     if not torch.cuda.is_available():
@@ -496,27 +496,38 @@ def test_cuda_pair_mlp_function_matches_autograd_of_plain_version():
     assert_grads_close([a.cpu() for a in got], [b.cpu() for b in want], 1e-4)
 
 
+def emb_differentiated(args, bins):
+    """The edge-embedder forward as autograd records it:
+    EdgeEmbedderFunction on inputs that require gradients."""
+    with torch.enable_grad():
+        ins = [a.detach().requires_grad_() for a in args]
+        return t_emb.EdgeEmbedderFunction.apply("pallas", *bins, *ins).detach()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,n_bins", [(1, 1, 22), (1, 17, 22), (3, 75, 22), (3, 75, 0)])
 def test_cuda_edge_embedder_matches_plain_version(dtype, B, N, n_bins):
-    """On the card: the mma.sync edge-embedder forward kernel
-    (csrc/edge_embedder.cu, asked for with needs_grad=True) against its plain
-    version at one pair, one partial tile and a ragged grid, with and without
-    distance bins; two launches give the same bits; one launch counted per
-    call, on its route."""
+    """On the card: the edge-embedder forward (csrc/edge_embedder_wg.cu in
+    float32, csrc/edge_embedder.cu in bf16) against its plain version at one
+    pair, one partial tile and a ragged grid, with and without distance
+    bins; two launches give the same bits, and so does the forward autograd
+    records (the same kernel); one launch counted per call, on the dtype's
+    route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     args, bins = emb_args(np.random.default_rng(N + n_bins), B, N, 128, n_bins)
     args = [a.cuda() for a in emb_to_torch(args, dtype)]
-    before, mma = t_emb.edge_embedder.launches, t_emb.edge_embedder.launches_mma
-    got = t_emb.edge_embedder(*args, *bins, needs_grad=True)
-    again = t_emb.edge_embedder(*args, *bins, needs_grad=True)
+    route = "launches_wgmma" if dtype == torch.float32 else "launches_mma"
+    before, on_route = t_emb.edge_embedder.launches, getattr(t_emb.edge_embedder, route)
+    got = t_emb.edge_embedder(*args, *bins)
+    again = t_emb.edge_embedder(*args, *bins)
     assert t_emb.edge_embedder.launches == before + 2
-    assert t_emb.edge_embedder.launches_mma == mma + 2
+    assert getattr(t_emb.edge_embedder, route) == on_route + 2
     torch.testing.assert_close(got, t_emb.edge_embedder_plain(*args, *bins), atol=tol, rtol=tol)
     assert torch.equal(got, again)
+    assert torch.equal(got, emb_differentiated(args, bins))
 
 
 @pytest.mark.gpu
@@ -552,31 +563,36 @@ def test_cuda_edge_embedder_wgmma_matches_plain_version(B, N, n_bins):
 @pytest.mark.parametrize("needs_grad", [False, True])
 def test_cuda_edge_embedder_row_blocks_on_both_routes(needs_grad):
     """On the card: each rank's row block at sp=4 of a ragged N=230 (58 rows,
-    the last 56 and two padded) through the float32 wgmma kernel
-    (needs_grad=False) and the mma.sync kernel (True) against the same rows
-    of the full launch on that route, bit for bit, the padded rows 0."""
+    the last 56 and two padded) through the float32 forward without and with
+    autograd recording it (the wgmma kernel either way) against the same rows of the
+    full launch, bit for bit, the padded rows 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from framedipt_tpu_torch.parallel.sp import row_block
 
     args, bins = emb_args(np.random.default_rng(5), 2, 230, 128, 22)
     args = [a.cuda() for a in emb_to_torch(args, torch.float32)]
-    full = t_emb.edge_embedder(*args, *bins, needs_grad=needs_grad)
+    def forward(ins):
+        return emb_differentiated(ins, bins) if needs_grad else t_emb.edge_embedder(*ins, *bins)
+
+    full = forward(args)
     for index in range(4):
-        block = t_emb.edge_embedder(*[row_block(a, index, 4) if i in (0, 2, 4, 6) else a
-                                      for i, a in enumerate(args)], *bins, needs_grad=needs_grad)
+        block = forward([row_block(a, index, 4) if i in (0, 2, 4, 6) else a
+                         for i, a in enumerate(args)])
         valid = min(230, 58 * (index + 1)) - 58 * index
         assert block.shape == (2, 58, 230, 128)
         assert torch.equal(block[:, :valid], full[:, 58 * index:58 * index + valid])
         assert not block[:, valid:].any()
 
 
-# sha256 of the mma.sync edge_embedder's output bytes for
-# emb_args(default_rng(97), 3, 75, 128, 22), as the build before the
-# forward's tile became the backward's recompute (edge_embedder_tc.cuh) gave
-# them on an NVIDIA H100 80GB HBM3.
+# sha256 of the differentiated edge_embedder's output bytes for
+# emb_args(default_rng(97), 3, 75, 128, 22) on an NVIDIA H100 80GB HBM3:
+# bf16's (csrc/edge_embedder.cu) as the build before the forward's tile
+# became the backward's recompute (edge_embedder_tc.cuh) gave them; float32's
+# (csrc/edge_embedder_wg.cu) as the build before the wgmma forward's unit
+# became the float32 backward's recompute (edge_embedder_wg.cuh) gave them.
 EMB_FORWARD_SHA256 = {
-    torch.float32: "ffda01f5b1ae2b84e2a15f92f13ab42887f2567ad12ddc83232a6d5741671866",
+    torch.float32: "d6972038ded1d99485a3114e88a90464efa856be4a13b2d9d3c6e34301074a8a",
     torch.bfloat16: "d769df20453f7180def773a2a14e523e391f22a71d4e50b699bc69ddeec3caa8",
 }
 
@@ -584,27 +600,30 @@ EMB_FORWARD_SHA256 = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_edge_embedder_output_unchanged(dtype):
-    """On the card: the mma.sync forward kernel (csrc/edge_embedder.cu,
-    needs_grad=True) gives the same bits as before its tile's code was
-    shared with the backward's recompute."""
+    """On the card: the forward autograd records (float32 the wgmma kernel,
+    bf16 the mma.sync one) gives the same bits as before its code was
+    shared with the backward's recompute; so does the forward without
+    gradients."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args, bins = emb_args(np.random.default_rng(97), 3, 75, 128, 22)
-    out = t_emb.edge_embedder(*[a.cuda() for a in emb_to_torch(args, dtype)], *bins,
-                              needs_grad=True)
+    args = [a.cuda() for a in emb_to_torch(args, dtype)]
+    out = emb_differentiated(args, bins)
     as_int = out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
     assert hashlib.sha256(as_int.cpu().numpy().tobytes()).hexdigest() == EMB_FORWARD_SHA256[dtype]
+    assert torch.equal(out, t_emb.edge_embedder(*args, *bins))
 
 
 def emb_kernel_relu_masks(g, args, bins, tol, **kw):
     """The embedder backward kernels' relu decisions (y0 > 0, y1 > 0),
     after checking that their recompute equals the output of the forward
-    kernel whose code it shares (the mma.sync one, needs_grad=True) and that
-    every relu site where the plain forward decides otherwise holds an
-    activation within tol of 0."""
+    kernel whose code it shares (the dtype's route: the wgmma kernel in
+    float32, the mma.sync one in bf16) and that every relu
+    site where the plain forward decides otherwise holds an activation
+    within tol of 0."""
     rec = {}
     t_emb.edge_embedder_bwd(g, *args, bins_lower=bins[0], bins_upper=bins[1], recompute=rec, **kw)
-    assert torch.equal(rec["out"], t_emb.edge_embedder(*args, *bins, needs_grad=True))
+    assert torch.equal(rec["out"], t_emb.edge_embedder(*args, *bins))
     _, _, y0, y1, _ = t_emb._pre_norm(*args[:6], *args[8:15], *bins)
     for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):
         flip = (plain_y > 0) != (kern_y > 0)
@@ -617,14 +636,16 @@ def emb_kernel_relu_masks(g, args, bins, tol, **kw):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,n_bins,chunk_rows", [
     (2, 200, 22, None), (1, 256, 22, None), (2, 130, 0, None), (1, 1, 22, None),
-    (1, 17, 22, None), (1, 17, 0, None), (2, 130, 22, 60)])
+    (1, 17, 22, None), (1, 17, 0, None), (2, 130, 22, 60), (1, 70, 22, None)])
 def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins, chunk_rows):
-    """On the card: the embedder's backward kernels against their plain
-    version at a ragged shape with masked rows, at a serving shape, at one
-    pair and one partial tile, with and without distance bins, and with a
-    workspace cap that makes the wrapper run in several chunks (chunk_rows
-    grid rows each), every gradient; two launches give the same bits; one
-    launch counted per call. The kernels' recompute runs the forward
+    """On the card: the embedder's backward kernels (float32: kernel A on
+    wgmma, csrc/edge_embedder_bwd_wg.cu) against their plain version at a
+    ragged shape with masked rows, at a serving shape, at one pair and one
+    partial tile, with and without distance bins, at N=70 (two units a row,
+    the second ragged), and with a workspace cap that makes the wrapper run
+    in several chunks (chunk_rows grid rows each), every gradient; two
+    launches give the same bits; one launch counted per call, on the dtype's
+    route. The kernels' recompute runs the forward
     kernel's code: its output equals the forward kernel's, every relu site
     where the plain forward falls on the other side of 0 holds an activation
     within rounding of 0 (tol), and the gradients are held against the plain
@@ -639,13 +660,16 @@ def test_cuda_edge_embedder_bwd_matches_plain_version(dtype, B, N, n_bins, chunk
     kw = {"bins_lower": bins[0], "bins_upper": bins[1]}
     cap = {}
     if chunk_rows:
-        cap["workspace_cap"] = 4 * t_emb.split_workspace_floats(chunk_rows * N, n_bins, dtype)
+        cap["workspace_cap"] = 4 * t_emb.split_workspace_floats(
+            chunk_rows * N, n_bins, dtype, t_emb.split_parts(chunk_rows, N, dtype))
         assert len(t_emb.plan_bwd_chunks(B, N, N, n_bins, cap["workspace_cap"], dtype)) == -(
             -B * N // chunk_rows)
-    before = t_emb.edge_embedder_bwd.launches
+    route = "launches_wgmma" if dtype == torch.float32 else "launches_mma"
+    before, on_route = t_emb.edge_embedder_bwd.launches, getattr(t_emb.edge_embedder_bwd, route)
     got = t_emb.edge_embedder_bwd(g, *args, **kw, **cap)
     again = t_emb.edge_embedder_bwd(g, *args, **kw, **cap)
     assert t_emb.edge_embedder_bwd.launches == before + 2
+    assert getattr(t_emb.edge_embedder_bwd, route) == on_route + 2
     masks = emb_kernel_relu_masks(g, args, bins, tol, **cap)
     want = t_emb.edge_embedder_bwd_plain(g, *args, **kw, relu_masks=masks)
     assert_grads_close([None if a is None else a.cpu() for a in got],
@@ -668,12 +692,48 @@ def test_cuda_edge_embedder_bwd_chunks_agree(dtype, tol):
     args = [a.cuda() for a in emb_to_torch(args, dtype)]
     g = torch.as_tensor(rng.normal(size=(2, 130, 130, 128)).astype(np.float32)).to(dtype).cuda()
     kw = {"bins_lower": bins[0], "bins_upper": bins[1]}
-    cap = 4 * t_emb.split_workspace_floats(20 * 130, 22, dtype)
+    cap = 4 * t_emb.split_workspace_floats(20 * 130, 22, dtype, t_emb.split_parts(20, 130, dtype))
     assert len(t_emb.plan_bwd_chunks(2, 130, 130, 22, cap, dtype)) == 13
     one = t_emb.edge_embedder_bwd(g, *args, **kw)
     many = t_emb.edge_embedder_bwd(g, *args, **kw, workspace_cap=cap)
     assert_grads_close([None if a is None else a.cpu() for a in many],
                        [None if b is None else b.cpu() for b in one], tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", [(2, 200), (1, 17), (1, 70)])
+def test_cuda_edge_embedder_bwd_wgmma_kernel_a_scratch(B, N):
+    """On the card: the float32 backward's C entry (kernel A on wgmma) with
+    NaN-filled scratch writes the forward's and the chain's TF32 weight
+    parts (wgmma_weight_split, chain_weight_split) bit for bit, and its
+    d_w_rel equals the wrapper's; the wrapper counts its call on the wgmma
+    route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(B * N)
+    args, bins = emb_args(rng, B, N, 128, 22)
+    args = [a.cuda() for a in emb_to_torch(args, torch.float32)]
+    g = torch.as_tensor(rng.normal(size=(B, N, N, 128)).astype(np.float32)).cuda()
+    edges = t_emb._edges(*bins, args[0].device)
+    split = torch.full((2 * t_emb.WG_SPLIT_FLOATS,), float("nan"), device="cuda")
+    ws = torch.empty(t_emb.split_workspace_floats(B * N * N, 22, torch.float32,
+                                                  t_emb.split_parts(B * N, N)), device="cuda")
+    sums = torch.zeros(t_emb.W_PART_FLOATS + (B * N + B * N) * t_emb.ROW_PART, device="cuda")
+    base = sums.data_ptr()
+    ptrs = ([g.data_ptr()] + [a.data_ptr() for a in args[:10]]
+            + [edges[0].data_ptr(), edges[1].data_ptr()] + [a.data_ptr() for a in args[10:]])
+    err = t_emb._bwd_wg_kernel()(
+        *ptrs, ws.data_ptr(), ws.numel(), split.data_ptr(), base, base + 4 * t_emb.W_PART_FLOATS,
+        base + 4 * (t_emb.W_PART_FLOATS + B * N * t_emb.ROW_PART), 22, B, N, N, 0, B * N, None,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    w = [args[k].cpu() for k in (8, 11, 13)]
+    want = torch.cat([t_emb.wgmma_weight_split(*w), t_emb.chain_weight_split(*w)])
+    assert torch.equal(split.cpu().view(torch.int32), want.view(torch.int32))
+    wgmma = t_emb.edge_embedder_bwd.launches_wgmma
+    got = t_emb.edge_embedder_bwd(g, *args, bins_lower=bins[0], bins_upper=bins[1])
+    assert t_emb.edge_embedder_bwd.launches_wgmma == wgmma + 1
+    assert torch.equal(sums[:64 * 128].view(64, 128), got[8])
 
 
 @pytest.mark.gpu

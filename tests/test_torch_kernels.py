@@ -219,31 +219,29 @@ def test_model_reaches_the_kernels_only_through_the_wrappers(module, kernel_mod,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("needs_grad", [False, True])
 def test_forward_route(wrapper, dtype, needs_grad):
-    """Each wrapper's rule, the one its backward needs. The pair MLP: every
-    float32 forward, differentiated or not, takes the wgmma kernel (its
-    tile is the float32 backward's recompute), every bf16 one the mma.sync
-    kernel. The edge embedder: the wgmma kernel takes the float32 forwards
-    that no gradient is taken through; every differentiated forward and
-    every bf16 one takes the mma.sync kernel, whose code its backward's
-    recompute shares."""
-    if wrapper == "pair":
-        want = "wgmma" if dtype == torch.float32 else "mma"
-        assert t_pair.forward_route(dtype, needs_grad) == want
-    else:
-        want = "wgmma" if dtype == torch.float32 and not needs_grad else "mma"
-        assert t_emb.forward_route(dtype, needs_grad) == want
+    """Each wrapper's rule, the one its backward needs, the same for both:
+    every float32 forward, differentiated or not (grad mode on or off), takes
+    the wgmma kernel (its tile is the float32 backward's recompute:
+    csrc/pair_mlp_wg.cuh, csrc/edge_embedder_wg.cuh), every bf16 one the
+    mma.sync kernel, whose code the bf16 backward's recompute shares. The
+    rule takes the dtype alone."""
+    want = "wgmma" if dtype == torch.float32 else "mma"
+    route = t_pair.forward_route if wrapper == "pair" else t_emb.forward_route
+    assert list(inspect.signature(route).parameters) == ["dtype"]
+    with torch.set_grad_enabled(needs_grad):
+        assert route(dtype) == want
 
 
 def test_pair_mlp_routes_in_its_dispatch():
     """Read from the wrapper: after the CPU branch it asks forward_route once
-    for the dtype and ``needs_grad``, launches csrc/pair_mlp_wg.cu
+    for the dtype, launches csrc/pair_mlp_wg.cu
     (``_wg_kernel``) exactly when the route is "wgmma" and csrc/pair_mlp.cu
     (``_kernel``) otherwise, with no ``try`` and nothing read from the
     environment, and counts the launch in ``launches`` and in its route's
     count only after the C function returned 0."""
     fn = _wrapper_ast(t_pair.pair_mlp)
     assert [ast.unparse(c) for c in _calls(fn, "forward_route")] == [
-        "forward_route(pair.dtype, needs_grad)"]
+        "forward_route(pair.dtype)"]
     branch = [n for n in ast.walk(fn) if isinstance(n, ast.If)
               and ast.unparse(n.test) == "route == 'wgmma'"]
     assert len(branch) == 1
@@ -261,23 +259,26 @@ def test_pair_mlp_routes_in_its_dispatch():
 
 def test_edge_transition_passes_autograd_records_to_the_function():
     """Read from the model's code: the edge transition hands
-    ``PairMLPFunction.apply`` its arguments and, last, whether autograd
-    records the call (``autograd_records`` of the same arguments), and the
-    Function's forward hands that to the wrapper as ``needs_grad``."""
+    ``PairMLPFunction.apply`` its arguments and nothing else (whether
+    autograd records the call does not choose the kernel), and the
+    Function's forward hands them to the wrapper as they are; nothing in the
+    package asks whether autograd records a call."""
     tree = ast.parse(inspect.getsource(t_ipa_mod))
     (call,) = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
                and ast.unparse(n.func) == "PairMLPFunction.apply"]
-    assert ast.unparse(call) == "PairMLPFunction.apply(*args, autograd_records(*args))"
+    assert ast.unparse(call) == "PairMLPFunction.apply(*args)"
     fn_cls = next(c for c in ast.parse(inspect.getsource(t_pair)).body
                   if isinstance(c, ast.ClassDef) and c.name == "PairMLPFunction")
     fwd = next(f for f in fn_cls.body if isinstance(f, ast.FunctionDef) and f.name == "forward")
-    assert [ast.unparse(c) for c in _calls(fwd, "pair_mlp")] == ["pair_mlp(*args, needs_grad)"]
+    assert [ast.unparse(c) for c in _calls(fwd, "pair_mlp")] == ["pair_mlp(*args)"]
+    assert not hasattr(t_pair, "autograd_records")
+    assert "needs_grad" not in inspect.signature(t_pair.pair_mlp).parameters
 
 
 def test_edge_embedder_routes_in_its_dispatch():
     """Read from the wrapper: after the CPU branch it asks its own rule
     (``edge_embedder.forward_route``, defined in its module, not the pair
-    MLP's) once for the dtype and ``needs_grad``, launches
+    MLP's) once for the dtype, launches
     csrc/edge_embedder_wg.cu (``_wg_kernel``) exactly when the route is
     "wgmma" and csrc/edge_embedder.cu (``_kernel``) otherwise, with no
     ``try`` and nothing read from the environment, and counts the launch in
@@ -292,7 +293,7 @@ def test_edge_embedder_routes_in_its_dispatch():
                        for n in ast.walk(tree))
     fn = _wrapper_ast(t_emb.edge_embedder)
     assert [ast.unparse(c) for c in _calls(fn, "forward_route")] == [
-        "forward_route(g.dtype, needs_grad)"]
+        "forward_route(g.dtype)"]
     branch = [n for n in ast.walk(fn) if isinstance(n, ast.If)
               and ast.unparse(n.test) == "route == 'wgmma'"]
     assert len(branch) == 1
@@ -310,36 +311,42 @@ def test_edge_embedder_routes_in_its_dispatch():
 
 def test_embedder_passes_autograd_records_to_the_function():
     """Read from the model's code: the embedder hands
-    ``EdgeEmbedderFunction.apply`` its tensor arguments and, last, whether
-    autograd records the call (``autograd_records`` of the same arguments),
-    and the Function's forward hands that to the wrapper as ``needs_grad``."""
+    ``EdgeEmbedderFunction.apply`` its tensor arguments last and nothing
+    after them (whether autograd records the call does not choose the
+    kernel), and the Function's forward hands them to the wrapper with the
+    bin edges; neither takes a ``needs_grad``."""
     tree = ast.parse(inspect.getsource(t_embed_mod))
     (call,) = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
                and ast.unparse(n.func) == "EdgeEmbedderFunction.apply"]
-    assert [ast.unparse(a) for a in call.args[-2:]] == ["*args", "autograd_records(*args)"]
+    assert ast.unparse(call.args[-1]) == "*args"
+    assert "autograd_records" not in inspect.getsource(t_embed_mod)
     fn_cls = next(c for c in ast.parse(inspect.getsource(t_emb)).body
                   if isinstance(c, ast.ClassDef) and c.name == "EdgeEmbedderFunction")
     fwd = next(f for f in fn_cls.body if isinstance(f, ast.FunctionDef) and f.name == "forward")
     assert [ast.unparse(c) for c in _calls(fwd, "edge_embedder")] == [
-        "edge_embedder(*args, bins_lower, bins_upper, needs_grad)"]
-    assert fwd.args.args[-1].arg == "needs_grad" and ast.unparse(fwd.args.defaults[-1]) == "True"
+        "edge_embedder(*args, bins_lower, bins_upper)"]
+    assert fwd.args.args[-1].arg == "ln_bias" and not fwd.args.defaults
+    assert "needs_grad" not in inspect.signature(t_emb.edge_embedder).parameters
 
 
 @pytest.mark.parametrize("mode,want", [("inference_mode", False), ("no_grad", False),
                                        ("autograd", True)])
 def test_embedder_asks_for_the_route(monkeypatch, mode, want):
     """On the CPU, the wrapper spied on: under ``torch.inference_mode()`` and
-    ``torch.no_grad()`` (the samplers, the self-conditioning forward) the
-    embedder asks for the forward with ``needs_grad=False``, the wgmma route
-    in float32; under autograd with parameters that need gradients,
-    ``needs_grad=True``, the route the backward recomputes."""
+    ``torch.no_grad()`` (the samplers, the self-conditioning forward) and
+    under autograd with parameters that need gradients, the embedder calls
+    the wrapper once with the same arguments (the 17 tensors and the bin
+    edges), so the route is the dtype's whichever: the wgmma kernel in
+    float32 (the float32 backward's kernel A recomputes through its unit),
+    the mma.sync one in bf16; only under autograd does the output require a
+    gradient."""
     from framedipt_tpu_torch.tools.config import Config
 
     seen = []
     wrapper = t_emb.edge_embedder
 
     def spy(*args):
-        seen.append(args[19])
+        seen.append(len(args))
         return wrapper(*args)
 
     monkeypatch.setattr(t_emb, "edge_embedder", spy)
@@ -356,8 +363,9 @@ def test_embedder_asks_for_the_route(monkeypatch, mode, want):
            "autograd": torch.enable_grad}[mode]
     with ctx():
         _, edge = emb(*inputs)
-    assert seen == [want]
-    assert t_emb.forward_route(torch.float32, seen[0]) == ("mma" if want else "wgmma")
+    assert seen == [19]
+    assert t_emb.forward_route(torch.float32) == "wgmma"
+    assert t_emb.forward_route(torch.bfloat16) == "mma"
     assert edge.requires_grad == want
     if want:
         edge.sum().backward()
@@ -381,17 +389,17 @@ def _edge_inputs(dtype=torch.float32):
                                        ("autograd", True)])
 def test_edge_transition_asks_for_the_route(monkeypatch, mode, want):
     """On the CPU, the wrapper spied on: under ``torch.inference_mode()`` and
-    ``torch.no_grad()`` (the samplers, the self-conditioning forward) the
-    edge transition asks for the forward with ``needs_grad=False``; under
-    autograd with parameters that need gradients, ``needs_grad=True``.
-    Either way the pair MLP's route is the dtype's: the wgmma kernel in
-    float32 (the float32 backward recomputes through its tile), the mma.sync
-    one in bf16."""
+    ``torch.no_grad()`` (the samplers, the self-conditioning forward) and
+    under autograd with parameters that need gradients, the edge transition
+    calls the wrapper once with the same 16 arguments, so the pair MLP's
+    route is the dtype's whichever: the wgmma kernel in float32 (the float32
+    backward recomputes through its tile), the mma.sync one in bf16; only
+    under autograd does the output require a gradient."""
     seen = []
     wrapper = t_pair.pair_mlp
 
     def spy(*args):
-        seen.append(args[16])
+        seen.append(len(args))
         return wrapper(*args)
 
     monkeypatch.setattr(t_pair, "pair_mlp", spy)
@@ -401,9 +409,9 @@ def test_edge_transition_asks_for_the_route(monkeypatch, mode, want):
            "autograd": torch.enable_grad}[mode]
     with ctx():
         out = layer(node, edge, mask)
-    assert seen == [want]
-    assert t_pair.forward_route(torch.float32, seen[0]) == "wgmma"
-    assert t_pair.forward_route(torch.bfloat16, seen[0]) == "mma"
+    assert seen == [16]
+    assert t_pair.forward_route(torch.float32) == "wgmma"
+    assert t_pair.forward_route(torch.bfloat16) == "mma"
     assert out.requires_grad == want
     if want:
         out.sum().backward()

@@ -151,7 +151,7 @@ def test_chain_weight_split_laid_back_gives_each_stored_weight():
 
 def test_float32_backward_launches_the_wgmma_kernel_a_or_raises():
     """Read from the wrapper: after the CPU branch ``pair_mlp_bwd`` asks
-    ``forward_route(dtype, needs_grad=True)`` once; the "wgmma" route (float32)
+    ``forward_route(dtype)`` once; the "wgmma" route (float32)
     calls csrc/pair_mlp_bwd_wg.cu's entry (``_bwd_wg_kernel``) and nothing
     else, the other route csrc/pair_mlp_bwd.cu's (``_split_kernel``); no
     ``try``. And the C sources: pair_mlp_bwd.cu's entry no longer
@@ -159,8 +159,8 @@ def test_float32_backward_launches_the_wgmma_kernel_a_or_raises():
     fn = ast.parse(inspect.getsource(t_pair.pair_mlp_bwd)).body[0]
     calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)]
     routes = [c for c in calls if ast.unparse(c.func) == "forward_route"]
-    assert [ast.unparse(c) for c in routes] == ["forward_route(dtype, needs_grad=True)"]
-    assert t_pair.forward_route(torch.float32, True) == "wgmma"
+    assert [ast.unparse(c) for c in routes] == ["forward_route(dtype)"]
+    assert t_pair.forward_route(torch.float32) == "wgmma"
     branches = [n for n in ast.walk(fn) if isinstance(n, ast.If)
                 and ast.unparse(n.test) == "route == 'wgmma'"]
     assert len(branches) == 2  # the scratch, then the launch

@@ -346,11 +346,12 @@ def test_embedder_decomposition_in_either_order_matches_jax(order):
 
 def test_float32_call_sites_launch_the_wgmma_kernel_b():
     """Read from the C sources: both split backwards' float32 branch builds
-    tensor maps and launches launch_wgrad_wg, the bf16 branch launch_wgrad;
+    tensor maps and launches launch_wgrad_wg, the bf16 branch launch_wgrad
+    (each backward's split rest: pair_mlp_split.cuh, edge_embedder_split.cuh);
     wgrad_tc.cuh's kernel refuses any type but bf16 at compile time; the
     build hashes wgrad_wg.cuh with every library that includes it."""
     split = (build.CSRC / "pair_mlp_split.cuh").read_text()
-    emb = (build.CSRC / "edge_embedder_bwd.cu").read_text()
+    emb = (build.CSRC / "edge_embedder_split.cuh").read_text()
     for src, bf16_test in ((split, "if constexpr (kBf16<T>) {"),
                            (emb, "if constexpr (sizeof(T) == 2) {")):
         assert '#include "wgrad_wg.cuh"' in src
