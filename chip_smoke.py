@@ -31,7 +31,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    float32 backward's two splits (``wgmma_weight_split``,
    ``chain_weight_split``) likewise, and the HGMMA and UTMALDG instruction
    counts of the wgmma libraries, both backwards' included (float32 kernel B
-   is ``csrc/wgrad_wg.cuh`` in each) (``cuobjdump -sass``); the edge
+   is ``csrc/wgrad_wg.cuh`` in each) (``cuobjdump -sass``), and of bf16
+   kernel B (``csrc/wgrad_bf16.cuh``'s ``wgrad_bf16_kernel``) in both bf16
+   backwards' libraries, with its generic LD/ST (0); the edge
    embedder's two forwards likewise, each at every shape: the wgmma kernel
    (``csrc/edge_embedder_wg.cu``, every float32 forward, differentiated or
    not: both give the same bits) and the mma.sync kernel
@@ -221,18 +223,19 @@ with 22 and 0 distance bins; B=2 N=200 also in 10 chunks under a small
 workspace cap), checks that two launches give the same bits, and times them
 at B=2 N=256 in both dtypes, also by part: kernel A (in float32 on wgmma
 and TMA, ``csrc/pair_mlp_bwd_wg.cu`` and ``csrc/edge_embedder_bwd_wg.cu``),
-its weight splits, kernel B (float32: ``csrc/wgrad_wg.cuh`` on wgmma and
-TMA; bf16: ``csrc/wgrad_tc.cuh``), the row/column sums, the ordered
-reductions, under torch.profiler, with the chunk count, workspace bytes and
+its weight splits, kernel B (on wgmma and TMA; float32:
+``csrc/wgrad_wg.cuh``, bf16: ``csrc/wgrad_bf16.cuh``), the row/column sums,
+the ordered reductions, under torch.profiler, with the chunk count, workspace bytes and
 each kernel's bound on the tensor cores (the embedder's kernel A and sums
 also by their bytes); the embedder's also beside the ``xla`` setting's
-backward, the VJP of its plain forward. Float32 kernel B also runs alone
-(``wgrad_f32``) against float64 at one pair, 289 pairs, a ragged
-80,000-pair chunk and the embedder's 64-row job, two launches
+backward, the VJP of its plain forward. Kernel B also runs alone
+(``wgrad_f32``, ``wgrad_bf16``) against float64 at one pair, 289 pairs, a
+ragged 80,000-pair chunk and the embedder's 64-row job, two launches
 bit-identical, and its bound at each call site (float32 and bf16: the
 larger of its operations and its distinct workspace rows' bytes) is printed
 beside the same products as ``torch.mm`` calls in the dtype (float32 with
-TF32 off). The
+TF32 off; their device time under torch.profiler, comparable with kernel
+B's, and their CUDA-event time, each the median of five rounds). The
 backwards' recompute must equal the forward kernel's output bit for bit,
 and their gradients are held against the plain backward through the
 recompute's relu decisions, after every relu site where the plain forward
@@ -596,7 +599,8 @@ def check_wgmma_pieces(gen) -> None:
     the kernels hand it TF32 values, so either reading gives their bits), the
     weights' TF32 parts each kernel's first step writes (equal to its
     module's wgmma_weight_split, bit for bit), and the HGMMA and UTMALDG
-    instructions in each library."""
+    instructions in each library and in the bf16 libraries' kernel B, which
+    has no generic load or store."""
     from framedipt_tpu_torch.model.kernels import edge_embedder as emb
     from framedipt_tpu_torch.model.kernels import pair_mlp as pm
 
@@ -719,6 +723,15 @@ def check_wgmma_pieces(gen) -> None:
         log(line)
         if not (counts["HGMMA"] and counts["UTMALDG"]):
             raise AssertionError(f"the {name} library has no HGMMA or no UTMALDG")
+    for name in ("pair_mlp_bwd", "edge_embedder_bwd"):
+        c = function_counts(name, "wgrad_bf16_kernel",
+                            ("HGMMA", "UTMALDG", "LD", "ST", "LDS", "STS"))
+        log(f"{name}: bf16 kernel B (wgrad_bf16_kernel) {c['HGMMA']} HGMMA and {c['UTMALDG']} "
+            f"UTMALDG instructions, {c['LD']} generic LD and {c['ST']} generic ST, {c['LDS']} "
+            f"LDS and {c['STS']} STS (cuobjdump -sass)")
+        if not (c["HGMMA"] and c["UTMALDG"]) or c["LD"] or c["ST"]:
+            raise AssertionError(f"{name}: wgrad_bf16_kernel lacks HGMMA or UTMALDG, or has "
+                                 "generic loads or stores")
 
 
 def library_sass(name: str) -> list[str]:
@@ -737,12 +750,11 @@ def sass_counts(name: str, ops) -> dict[str, int]:
     return {op: sum(op in line for line in sass) for op in ops}
 
 
-def generic_ld_st(name: str, kernel: str) -> dict[str, int]:
-    """The generic-address loads and stores (LD, ST: shared memory reached
-    through 64-bit generic addresses) beside the shared-memory ones (LDS,
-    STS) in the SASS of the functions of library ``name`` whose names hold
-    ``kernel``."""
-    counts = dict.fromkeys(("LD", "ST", "LDS", "STS"), 0)
+def function_counts(name: str, kernel: str, ops) -> dict[str, int]:
+    """How many SASS instructions of each opcode in ``ops`` (with any
+    modifiers) the functions of library ``name`` whose names hold ``kernel``
+    hold."""
+    counts = dict.fromkeys(ops, 0)
     inside = False
     for line in library_sass(name):
         if "Function : " in line:
@@ -753,16 +765,25 @@ def generic_ld_st(name: str, kernel: str) -> dict[str, int]:
     return counts
 
 
+def generic_ld_st(name: str, kernel: str) -> dict[str, int]:
+    """The generic-address loads and stores (LD, ST: shared memory reached
+    through 64-bit generic addresses) beside the shared-memory ones (LDS,
+    STS) in the SASS of the functions of library ``name`` whose names hold
+    ``kernel``."""
+    return function_counts(name, kernel, ("LD", "ST", "LDS", "STS"))
+
+
 # The pair-MLP backward: kernel A (recompute and input-gradient chain) and
 # kernel B (weight gradients) run their products on the tensor cores, as
 # 3xTF32 in float32 and bf16 MMA in bf16. Its CUDA kernels by name: kernel A
 # (float32: csrc/pair_mlp_bwd_wg.cu on wgmma; bf16: csrc/pair_mlp_bwd.cu),
-# float32's weight splits (kernel A's first step), kernel B (float32:
-# csrc/wgrad_wg.cuh's wgrad_wg_kernel on wgmma; bf16: csrc/wgrad_tc.cuh's
-# wgrad_kernel), the sums.
+# float32's weight splits (kernel A's first step), kernel B (on wgmma and
+# TMA; float32: csrc/wgrad_wg.cuh's wgrad_wg_kernel, bf16:
+# csrc/wgrad_bf16.cuh's wgrad_bf16_kernel), the sums.
 BWD_PARTS = (("A", "bwd_tile_kernel"), ("A", "split_tile_kernel"),
-             ("weight splits", "prepare_weights"), ("B", "wgrad_wg_kernel"), ("B", "wgrad_kernel"),
-             ("row/col sums", "_sums"), ("ordered reductions", "sum_partials"))
+             ("weight splits", "prepare_weights"), ("B", "wgrad_wg_kernel"),
+             ("B", "wgrad_bf16_kernel"), ("row/col sums", "_sums"),
+             ("ordered reductions", "sum_partials"))
 
 
 def pair_mlp_bwd_cost(B, N, dtype):
@@ -915,81 +936,103 @@ def check_pair_mlp_bwd() -> dict:
 
 
 # Kernel B at B=2 N=256 at each call site (float32: csrc/wgrad_wg.cuh in the
-# *_wg libraries; bf16: csrc/wgrad_tc.cuh): its products as (A's width, Bm's
-# width) over the workspace's [P, width] rows, and the values a pair of the
-# distinct rows it reads (the pair MLP: pair, y0, y1, dy0, dy1, dx; the
-# embedder: m, y0, y1, dy0, dy1, dx), 4 bytes each in float32, 2 in bf16.
-WGRAD_PRODUCTS = {"pair_mlp_bwd_wg": ((128, 384), (384, 384), (384, 128), (128, 128)),
-                  "edge_embedder_bwd_wg": ((64, 128), (128, 128), (128, 128))}
-WGRAD_PRODUCTS.update({"pair_mlp_bwd": WGRAD_PRODUCTS["pair_mlp_bwd_wg"],
-                       "edge_embedder_bwd": WGRAD_PRODUCTS["edge_embedder_bwd_wg"]})
-WGRAD_ROW_FLOATS = {"pair_mlp_bwd_wg": 2 * 128 + 4 * 384, "edge_embedder_bwd_wg": 64 + 5 * 128}
-WGRAD_ROW_FLOATS.update({"pair_mlp_bwd": WGRAD_ROW_FLOATS["pair_mlp_bwd_wg"],
-                         "edge_embedder_bwd": WGRAD_ROW_FLOATS["edge_embedder_bwd_wg"]})
+# *_wg libraries; bf16: csrc/wgrad_bf16.cuh): the workspace's [P, width]
+# arrays it reads, each once (its distinct rows: 4 bytes a value in float32,
+# 2 in bf16), and its products as (A, Bm) of those arrays.
+WGRAD_WIDTHS = {
+    "pair_mlp_bwd_wg": {"pair": 128, "y0": 384, "y1": 384, "dy0": 384, "dy1": 384, "dx": 128},
+    "edge_embedder_bwd_wg": {"m": 64, "y0": 128, "y1": 128, "dy0": 128, "dy1": 128, "dx": 128}}
+WGRAD_PRODUCTS = {"pair_mlp_bwd_wg": (("pair", "dy0"), ("y0", "dy1"), ("y1", "dx"), ("pair", "dx")),
+                  "edge_embedder_bwd_wg": (("m", "dy0"), ("y0", "dy1"), ("y1", "dx"))}
+for _table in (WGRAD_WIDTHS, WGRAD_PRODUCTS):
+    _table.update({"pair_mlp_bwd": _table["pair_mlp_bwd_wg"],
+                   "edge_embedder_bwd": _table["edge_embedder_bwd_wg"]})
+
+
+def wgrad_products(name: str, dtype, gen):
+    """A call of the same products as kernel B of call site ``name`` at
+    B=2 N=256, as ``torch.mm(a.t(), b)`` in ``dtype`` over arrays of the
+    workspace's shapes, one random array per workspace array (so they read
+    its distinct rows, as the kernel does); the yardstick that the port
+    never calls."""
+    P = 2 * 256 * 256
+    arrays = {a: torch.randn(P, w, generator=gen, device="cuda").to(dtype)
+              for a, w in WGRAD_WIDTHS[name].items()}
+
+    def products():
+        for a, b in WGRAD_PRODUCTS[name]:
+            torch.mm(arrays[a].t(), arrays[b])
+
+    return products
 
 
 def check_wgrad() -> dict[str, dict]:
-    """Float32 kernel B alone (``csrc/wgrad_wg.cuh`` through the
-    ``wgrad_f32`` wrapper) against float64 a^T b: one pair, 289 pairs (a
-    partial step), a ragged chunk (80,000 pairs, the pair MLP's 384-wide
-    operands, 8 slices) and the embedder's 64-row job (289 and 5,000 pairs,
-    44 slices), each within 1e-4 of the product's max-abs, two launches
-    bit-identical. Then, for each call site at B=2 N=256 and each dtype
-    (WGRAD_PRODUCTS: float32 under the *_wg entries, bf16 under the others),
-    kernel B's bound (the larger of its operations on the tensor cores,
-    3xTF32 in float32, and the distinct workspace rows' bytes) and the time
-    of the same products as ``torch.mm(a.t(), b)`` calls in the dtype
-    (float32 with TF32 off), the yardstick that the port never calls.
-    Returns by kernel entry the ``kernel_b_*`` numbers (kernel B's own ms
-    come from the backwards' profiles)."""
-    from framedipt_tpu_torch.model.kernels.wgrad import wgrad_f32
+    """Kernel B alone in both dtypes (float32: ``csrc/wgrad_wg.cuh`` through
+    the ``wgrad_f32`` wrapper; bf16: ``csrc/wgrad_bf16.cuh`` through
+    ``wgrad_bf16``) against float64 a^T b of the same operands: one pair, 289
+    pairs (a partial step), a ragged chunk (80,000 pairs, the pair MLP's
+    384-wide operands, 8 slices) and the embedder's 64-row job (289 and 5,000
+    pairs, 44 slices), each within 1e-4 of the product's max-abs, two
+    launches bit-identical. Then, for each call site at B=2 N=256 and each
+    dtype (WGRAD_WIDTHS: float32 under the *_wg entries, bf16 under the
+    others), kernel B's bound (the larger of its operations on the tensor
+    cores, 3xTF32 in float32, and the distinct workspace rows' bytes) and the
+    time of the same products as ``torch.mm(a.t(), b)`` calls in the dtype
+    (float32 with TF32 off; the median of five rounds, the spread printed),
+    the yardstick that the port never calls: its device ms under
+    torch.profiler (kernel B's own ms are device ms from the backwards'
+    profiles) and its CUDA-event ms, which hold the host's launch gaps too.
+    Returns by kernel entry the ``kernel_b_*`` numbers."""
+    from framedipt_tpu_torch.model.kernels.wgrad import wgrad_bf16, wgrad_f32
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the torch.mm yardstick needs TF32 off")
     gen = torch.Generator(device="cuda").manual_seed(24)
-    worst = 0.0
-    for P, M, N, slices in ((1, 128, 128, 8), (289, 384, 384, 8), (80_000, 384, 384, 8),
-                            (289, 64, 128, 44), (5_000, 64, 128, 44)):
-        a = torch.randn(P, M, generator=gen, device="cuda")
-        b = torch.randn(P, N, generator=gen, device="cuda")
-        got, again = wgrad_f32(a, b, slices), wgrad_f32(a, b, slices)
-        ref = a.double().t() @ b.double()
-        torch.cuda.synchronize()
-        err = float((got.double() - ref).abs().max())
-        rel = err / max(float(ref.abs().max()), 1e-30)
-        same = torch.equal(got, again)
-        worst = max(worst, err)
-        log(f"wgrad_f32 P={P} M={M} N={N} slices={slices}: max err {err:.3e} abs, {rel:.3e} of the "
-            f"product's max-abs against float64 (tol {TOL[torch.float32]}); two launches "
-            f"bit-identical: {same}")
-        if rel > TOL[torch.float32] or not same:
-            raise AssertionError(f"wgrad_f32 P={P} M={M} N={N}: error {rel} or not deterministic")
+    worst = {}
+    for dtype, fn in ((torch.float32, wgrad_f32), (torch.bfloat16, wgrad_bf16)):
+        worst[dtype] = 0.0
+        for P, M, N, slices in ((1, 128, 128, 8), (289, 384, 384, 8), (80_000, 384, 384, 8),
+                                (289, 64, 128, 44), (5_000, 64, 128, 44)):
+            a = torch.randn(P, M, generator=gen, device="cuda").to(dtype)
+            b = torch.randn(P, N, generator=gen, device="cuda").to(dtype)
+            got, again = fn(a, b, slices), fn(a, b, slices)
+            ref = a.double().t() @ b.double()
+            torch.cuda.synchronize()
+            err = float((got.double() - ref).abs().max())
+            rel = err / max(float(ref.abs().max()), 1e-30)
+            same = torch.equal(got, again)
+            worst[dtype] = max(worst[dtype], err)
+            log(f"{fn.__name__} P={P} M={M} N={N} slices={slices}: max err {err:.3e} abs, "
+                f"{rel:.3e} of the product's max-abs against float64 of the same "
+                f"{str(dtype)[6:]} operands (tol {TOL[torch.float32]}); two launches "
+                f"bit-identical: {same}")
+            if rel > TOL[torch.float32] or not same:
+                raise AssertionError(f"{fn.__name__} P={P} M={M} N={N}: error {rel} or not "
+                                     "deterministic")
     out = {}
     P = 2 * 256 * 256
-    for name, prods in WGRAD_PRODUCTS.items():
+    for name, widths in WGRAD_WIDTHS.items():
         dtype = torch.float32 if name.endswith("_wg") else torch.bfloat16
         es = torch.tensor([], dtype=dtype).element_size()
-        rows = {w: torch.randn(P, w, generator=gen, device="cuda").to(dtype)
-                for p in prods for w in p}
-
-        def products(prods=prods, rows=rows):
-            for m, n in prods:
-                torch.mm(rows[m].t(), rows[n])
-
-        library_ms = cuda_time_ms(products, 5)
-        flops = sum(2 * P * m * n for m, n in prods)
-        nbytes = es * P * WGRAD_ROW_FLOATS[name]
+        products = wgrad_products(name, dtype, gen)
+        events = sorted(cuda_time_ms(products, 5) for _ in range(5))
+        device = sorted(device_time(products)[0] for _ in range(5))
+        library_ms = device[2]
+        flops = sum(2 * P * widths[a] * widths[b] for a, b in WGRAD_PRODUCTS[name])
+        nbytes = es * P * sum(widths.values())
         bound_ms, bound_by = bound(flops, nbytes, TENSOR_CORE_FLOPS[dtype])
         log(f"{name} kernel B {str(dtype)[6:]} at B=2 N=256: {flops / 1e9:.2f} GFLOP, bound "
             f"{bound_ms:.4f} ms ({bound_by}; operations "
             f"{1e3 * flops / TENSOR_CORE_FLOPS[dtype]:.4f} ms"
             f"{' as 3xTF32' if dtype == torch.float32 else ''}, bytes "
             f"{1e3 * nbytes / PEAK_BYTES:.4f} ms); the same products as torch.mm "
-            f"{str(dtype)[6:]}{' (TF32 off)' if dtype == torch.float32 else ''} "
-            f"{library_ms:.4f} ms; {card_line()}")
+            f"{str(dtype)[6:]}{' (TF32 off)' if dtype == torch.float32 else ''}: "
+            f"{library_ms:.4f} ms of device time (median of five rounds, {device[0]:.4f}-"
+            f"{device[-1]:.4f}), {events[2]:.4f} ms by CUDA events ({events[0]:.4f}-"
+            f"{events[-1]:.4f}); {card_line()}")
         out[name] = {"kernel_b_bound_ms": bound_ms, "kernel_b_bound_by": bound_by,
-                     "kernel_b_library_ms": library_ms, "kernel_b_max_abs_err": worst}
-        del rows
+                     "kernel_b_library_ms": library_ms, "kernel_b_max_abs_err": worst[dtype]}
+        del products
     return out
 
 
@@ -1000,8 +1043,9 @@ def check_wgrad() -> dict[str, dict]:
 EMB_BWD_A_FLOP_PER_PAIR = 2 * (64 * 128 + 128 * 128 + 128 * 128) + 2 * (2 * 128 * 128 + 64 * 128)
 EMB_BWD_B_FLOP_PER_PAIR = 2 * (2 * 128 * 128 + 64 * 128)
 EMB_BWD_PARTS = (("A", "emb_bwd_tile_kernel"), ("A", "emb_split_tile_kernel"),
-                 ("weight splits", "prepare_"), ("B", "wgrad_wg_kernel"), ("B", "wgrad_kernel"),
-                 ("row/col sums", "_sums"), ("ordered reductions", "sum_partials"))
+                 ("weight splits", "prepare_"), ("B", "wgrad_wg_kernel"),
+                 ("B", "wgrad_bf16_kernel"), ("row/col sums", "_sums"),
+                 ("ordered reductions", "sum_partials"))
 # Kernel A's bytes a pair: the cotangent read and the workspace written (m,
 # y0, y1, dx, dy1, dy0 in the dtype; dm and dem in float32); the row and
 # column sums read dy0 (the dtype), dm and dem (float32) twice.

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the edge-embedder forward kernels, the float32 pair-MLP and
-edge-embedder backwards' kernel A and the float32 kernel B of both split
-backwards beside variants of their sources, on one CUDA card.
+edge-embedder backwards' kernel A and kernel B of both split backwards (both
+dtypes) beside variants of their sources, on one CUDA card.
 
     python3 chip_variants.py [--parent DIR] [--out FILE] [--only mma|wgmma|bwd|emb_bwd|wgrad]
 
@@ -28,8 +28,16 @@ and of ``wgrad_wg.cuh`` (float32 kernel B, built into both backwards'
 libraries: A through the transform too, two ring stages, and one part
 removed at a time: the transform, the products, two of the three TF32
 products, the TMA loads), each backward timed at B=2 N=256 by its call and
-by kernel B's device time. ``--only`` builds and times one kernel's
-variants. Variants that
+by kernel B's device time, and of ``wgrad_bf16.cuh`` (bf16 kernel B, built
+into both bf16 backwards' libraries: 32-pair steps, five and six ring
+stages, and one part removed at a time: the products, the TMA loads; and
+every block loading one job's rows of slice 0, which stay in L2), likewise
+in bf16; then bf16 kernel B's device ms inside both bf16 backwards over six
+placements of the call's memory (PLACEMENT_PADS_MB), three rounds each,
+beside the same products as ``torch.mm`` in bf16 and, with ``--parent``,
+the parent's ``mma.sync`` kernel B, with each one's median and spread.
+``--only`` builds and times one kernel's variants (``wgrad``: both dtypes'
+kernel B). Variants that
 change how a kernel works are held against the plain version (float32 1e-4,
 bf16 5e-2) at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256; variants that
 remove a part of the work give wrong outputs and are only timed, to show
@@ -40,17 +48,17 @@ checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256 with and without
 distance bins in bf16 (the forward's tile is shared with the bf16 embedder
 backward's recompute); its ``pair_mlp.cu`` and ``pair_mlp_bwd.cu`` (bf16),
 ``pair_mlp_wg.cu`` and ``pair_mlp_bwd_wg.cu`` (float32, with and without
-the residual terms), ``edge_embedder_wg.cu`` (float32, the forward without
-gradients: its unit is now shared with the float32 embedder backward's
-kernel A), ``edge_embedder_bwd.cu`` (bf16) and ``ipa_attention.cu`` (both
-dtypes) must give the same bits as this checkout's, and they are timed
-beside this checkout's; the float32 embedder backward, whose kernel A this
-checkout runs on wgmma, is held against the plain version instead (1e-4 of
-each gradient's max-abs, through the recompute's relu decisions) and timed
-beside the parent's, by call and by kernel A's and kernel B's device ms, as
-is the differentiated float32 embedder forward (this checkout's wgmma
-kernel, the parent's mma.sync one). The parent's wrappers run through that
-tree's own wrapper modules, which bind its C entries as it built them.
+the residual terms), ``edge_embedder_wg.cu`` (float32),
+``edge_embedder_bwd_wg.cu`` (float32, also held against the plain version),
+``edge_embedder_bwd.cu`` (bf16) and ``ipa_attention.cu`` (both dtypes) must
+give the same bits as this checkout's (the bf16 backwards: every gradient
+but kernel B's, whose bits moved with its step; those are held against the
+plain version, the dtype's tolerance of each gradient's max-abs through the
+recompute's relu decisions), and the forwards (differentiated) and both
+backwards in both dtypes are timed beside the parent's, the backwards by
+call and by kernel A's and kernel B's device ms. The parent's wrappers run
+through that tree's own wrapper modules (which must take this checkout's
+signatures), and they bind its C entries as it built them.
 
 Times: CUDA events over 20 launches at B=2 N=256 (the wgmma variants also at
 B=2 N=896) in float32 and, for the mma.sync kernel, bf16, every variant once
@@ -342,6 +350,57 @@ WGRAD_VARIANTS = {
 }
 # The library each backward's float32 kernel B is built into, and its source.
 WGRAD_LIBS = {"pair": ("pair_mlp_bwd_wg", BWD_WG), "emb": ("edge_embedder_bwd_wg", EMB_BWD_WG)}
+# bf16 kernel B (wgrad_bf16.cuh), built into both bf16 backwards' libraries.
+WGRAD_BF16 = "wgrad_bf16.cuh"
+WB_STEP = "constexpr int kWbStep = 64;"
+WB_STAGES = "constexpr int kWbStages = 4;"
+WB_MMA = """#pragma unroll
+  for (int kk = 0; kk < kWbStep / 16; ++kk)
+    wgmma_m64n128k16_bf16_mn(part, wg::desc_mn_sw128(as + kk * 16 * 64, kWbBoxBytes),
+                             wg::desc_mn_sw128(bs + kk * 16 * 64, kWbBoxBytes), kk > 0);
+"""
+WB_TMA = """        wg::mbar_arrive_expect_tx(&sm.full[st], bytes);
+        for (int b = 0; b < jb.rows / 64; ++b)
+          wg::tma_load_2d(sm.a[st][b], am, &sm.full[st], jb.a_col + 64 * b, row);
+        for (int b = 0; b < 2; ++b)
+          wg::tma_load_2d(sm.b[st][b], bm, &sm.full[st], jb.b_col + 64 * b, row);
+"""
+# Every block loads the rows of the launch's last job (128 rows of A) and of
+# slice 0, so the blocks' 1.07 GB of reads (the pair MLP) come from 8 MB that
+# stay in L2; each block still runs its own job's step count.
+WB_L2_RESIDENT = [
+    ("      const CUtensorMap* am = &jobs.map[jb.a_map];\n"
+     "      const CUtensorMap* bm = &jobs.map[jb.b_map];",
+     "      const WgradJob& lj = jobs.job[gridDim.x - 1];\n"
+     "      const CUtensorMap* am = &jobs.map[lj.a_map];\n"
+     "      const CUtensorMap* bm = &jobs.map[lj.b_map];"),
+    ("const int row = (int)(k_begin + (long long)it * kWbStep);",
+     "const int row = it * kWbStep;"),
+    ("am, &sm.full[st], jb.a_col + 64 * b, row)", "am, &sm.full[st], lj.a_col + 64 * b, row)"),
+    ("bm, &sm.full[st], jb.b_col + 64 * b, row)", "bm, &sm.full[st], lj.b_col + 64 * b, row)"),
+]
+# name: (patches, checked against the plain version): 32-pair steps; five
+# and six ring stages; one part removed at a time: the products, the TMA
+# loads (the full barriers arrive at once); every block on one job's rows
+# held in L2 (does L2 or HBM feed the operands?).
+WGRAD_BF16_VARIANTS = {
+    "wgrad_bf16_step32": ({WGRAD_BF16: [(WB_STEP, WB_STEP.replace("64", "32"))]}, True),
+    "wgrad_bf16_stages5": ({WGRAD_BF16: [(WB_STAGES, WB_STAGES.replace("4", "5"))]}, True),
+    "wgrad_bf16_stages6": ({WGRAD_BF16: [(WB_STAGES, WB_STAGES.replace("4", "6"))]}, True),
+    "wgrad_bf16_no_products": ({WGRAD_BF16: [(WB_MMA, "")]}, False),
+    "wgrad_bf16_no_tma": ({WGRAD_BF16: [(WB_TMA, "        wg::mbar_arrive(&sm.full[st]);\n")]},
+                          False),
+    "wgrad_bf16_l2_resident": ({WGRAD_BF16: WB_L2_RESIDENT}, False),
+}
+WGRAD_BF16_LIBS = {"pair": ("pair_mlp_bwd", "pair_mlp_bwd.cu"),
+                   "emb": ("edge_embedder_bwd", "edge_embedder_bwd.cu")}
+# The gradients kernel B makes, by index of each backward's outputs: d_w0,
+# d_w1, d_wf, d_wfe; d_w_rel, d_w1, d_w2.
+PAIR_KERNEL_B_GRADS = (5, 7, 9, 15)
+EMB_KERNEL_B_GRADS = (8, 11, 13)
+# Blocks allocated first (MB) in the placements over which bf16 kernel B is
+# timed beside the parent's and torch.mm.
+PLACEMENT_PADS_MB = (0, 1, 3, 17, 65, 257)
 # name: (patches {file: [(old, new)]}, checked against the plain version);
 # the mma.sync kernel's (edge_embedder.cu)
 VARIANTS = {
@@ -434,12 +493,10 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen, keep: dict) -> dict:
         a = cs.pair_mlp_inputs(2, 256, dtype, gen)
         g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
         # The forward autograd differentiates: the wgmma kernel in float32
-        # in both trees, mma.sync in bf16 (the parent's wrapper still takes
-        # a needs_grad argument).
+        # in both trees, mma.sync in bf16.
         kind = "pair_mlp_wg" if dtype == torch.float32 else "pair_mlp"
         cases[f"pair_mlp {str(dtype)[6:]}, differentiated"] = (
-            kind, kind, lambda a=a: t_pair.pair_mlp(*a),
-            lambda a=a: parent_pair.pair_mlp(*a, needs_grad=True))
+            kind, kind, lambda a=a: t_pair.pair_mlp(*a), lambda a=a: parent_pair.pair_mlp(*a))
         # Each dtype's backward through its library.
         kind = "pair_mlp_bwd_wg" if dtype == torch.float32 else "pair_mlp_bwd"
         cases[f"pair_mlp_bwd {str(dtype)[6:]}"] = (
@@ -451,20 +508,18 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen, keep: dict) -> dict:
         *e, lower, upper = args
         g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
         if dtype == torch.float32:
-            # The forward autograd differentiates: this checkout's wgmma
-            # kernel (the route of every float32 forward), the parent's
-            # mma.sync one (its wrapper's needs_grad).
+            # The forward autograd differentiates: the wgmma kernel (the
+            # route of every float32 forward) in both trees.
             cases["edge_embedder float32, differentiated"] = (
-                "edge_embedder_wg", "edge_embedder",
+                "edge_embedder_wg", "edge_embedder_wg",
                 lambda a=args: t_emb.edge_embedder(*a),
-                lambda a=args: parent_emb.edge_embedder(*a, needs_grad=True))
-        if dtype == torch.float32:
+                lambda a=args: parent_emb.edge_embedder(*a))
             keep["the parent comparison's inputs"] = (e, lower, upper, g)
-        # float32: this checkout's kernel A on wgmma (its own library), the
-        # parent's on mma.sync.
+        # Each dtype's backward through its library (float32: kernel A on
+        # wgmma in both trees).
+        kind = "edge_embedder_bwd_wg" if dtype == torch.float32 else "edge_embedder_bwd"
         cases[f"edge_embedder_bwd {str(dtype)[6:]}"] = (
-            "edge_embedder_bwd_wg" if dtype == torch.float32 else "edge_embedder_bwd",
-            "edge_embedder_bwd",
+            kind, kind,
             lambda e=e, g=g, lo=lower, up=upper: t_emb.edge_embedder_bwd(
                 g, *e, bins_lower=lo, bins_upper=up),
             lambda e=e, g=g, lo=lower, up=upper: parent_emb.edge_embedder_bwd(
@@ -482,8 +537,9 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen, keep: dict) -> dict:
                 fn = new_fn if who == "new" else parent_fn
                 t[who].append(cs.cuda_time_ms(fn, 20))
                 if "_bwd" in kind:  # kernel A's and kernel B's device ms
-                    parts = cs.bwd_parts_ms(fn, cs.BWD_PARTS if kind.startswith("pair")
-                                            else cs.EMB_BWD_PARTS)
+                    # The parent's bf16 kernel B is the mma.sync wgrad_kernel.
+                    parts = cs.bwd_parts_ms(fn, (cs.BWD_PARTS if kind.startswith("pair")
+                                                 else cs.EMB_BWD_PARTS) + (("B", "wgrad_kernel"),))
                     t.setdefault(f"{who} kernel A", []).append(parts.get("A", 0.0))
                     t.setdefault(f"{who} kernel B", []).append(parts.get("B", 0.0))
         use(kind, new_libs[kind])
@@ -538,45 +594,60 @@ def emb_bwd_check(cs, label: str, tensors, lower, upper, g) -> bool:
     return rel <= tol and same
 
 
-def wgrad_checks(cs, name: str, site: str, gen) -> int:
+def wgrad_checks(cs, name: str, site: str, gen, dtype=torch.float32) -> int:
     """A kernel B variant that should still be right (``name``, built into
-    ``site``'s library and in use) held through its backward against the
-    plain version; returns the failures."""
+    ``site``'s library of ``dtype`` and in use) held through its backward
+    against the plain version, and in bf16 at the pair MLP's site also alone
+    (``wgrad_bf16``) against float64 at a ragged 80,000-pair chunk and the
+    64-row job, 1e-4 of the max-abs; returns the failures."""
+    from framedipt_tpu_torch.model.kernels import wgrad as t_wgrad
+
     fails = 0
+    d = str(dtype)[6:]
     if site == "pair":
         for B, N in ((1, 1), (1, 17), (2, 200)):
             for residual in (True, False):
-                a = cs.pair_mlp_inputs(B, N, torch.float32, gen, residual=residual)
-                g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
+                a = cs.pair_mlp_inputs(B, N, dtype, gen, residual=residual)
+                g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
                 fails += not pair_bwd_check(
-                    cs, f"{name} float32 B={B} N={N} residual={residual}", a, g)
+                    cs, f"{name} {d} B={B} N={N} residual={residual}", a, g)
+        if dtype == torch.float32:
+            return fails
+        for P, M, N, slices in ((80_000, 384, 384, 8), (5_000, 64, 128, 44)):
+            a = torch.randn(P, M, generator=gen, device="cuda").to(dtype)
+            b = torch.randn(P, N, generator=gen, device="cuda").to(dtype)
+            ref = a.double().t() @ b.double()
+            err = float((t_wgrad.wgrad_bf16(a, b, slices).double() - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            log(f"{name} wgrad_bf16 P={P} M={M} N={N} slices={slices}: {rel:.3e} of the "
+                "product's max-abs against float64 (tol 1e-4)")
+            fails += rel > 1e-4
     else:
         for B, N in ((1, 1), (1, 17), (2, 200)):
             for n_bins in (22, 0):
-                *tensors, lower, upper = cs.edge_embedder_inputs(B, N, torch.float32, gen,
-                                                                 n_bins=n_bins)
-                g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
-                fails += not emb_bwd_check(cs, f"{name} float32 B={B} N={N} n_bins={n_bins}",
+                *tensors, lower, upper = cs.edge_embedder_inputs(B, N, dtype, gen, n_bins=n_bins)
+                g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(dtype)
+                fails += not emb_bwd_check(cs, f"{name} {d} B={B} N={N} n_bins={n_bins}",
                                            tensors, lower, upper, g)
     return fails
 
 
-def time_wgrad_variants(cs, libs, names, site: str, use, gen) -> dict:
+def time_wgrad_variants(cs, libs, names, site: str, use, gen, dtype=torch.float32) -> dict:
     """Kernel B's device ms (torch.profiler) and the whole call's ms (CUDA
-    events over 10 calls) of the float32 backward of ``site`` ("pair": the
+    events over 10 calls) of the ``dtype`` backward of ``site`` ("pair": the
     pair MLP, "emb": the embedder) at B=2 N=256 through each library in
     ``names`` (this checkout's first), three rounds in alternating order."""
     from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
     from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 
-    lib_name = WGRAD_LIBS[site][0]
+    lib_name = (WGRAD_LIBS if dtype == torch.float32 else WGRAD_BF16_LIBS)[site][0]
     if site == "pair":
-        a = cs.pair_mlp_inputs(2, 256, torch.float32, gen)
-        g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda")
+        a = cs.pair_mlp_inputs(2, 256, dtype, gen)
+        g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
         fn, kinds = (lambda: t_pair.pair_mlp_bwd(g, *a)), cs.BWD_PARTS
     else:
-        *e, lower, upper = cs.edge_embedder_inputs(2, 256, torch.float32, gen)
-        g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda")
+        *e, lower, upper = cs.edge_embedder_inputs(2, 256, dtype, gen)
+        g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
         fn = lambda: t_emb.edge_embedder_bwd(g, *e, bins_lower=lower, bins_upper=upper)  # noqa: E731
         kinds = cs.EMB_BWD_PARTS
     t = {n: {"call": [], "B": []} for n in names}
@@ -587,9 +658,81 @@ def time_wgrad_variants(cs, libs, names, site: str, use, gen) -> dict:
             t[name]["B"].append(cs.bwd_parts_ms(fn, kinds).get("B", 0.0))
     use(lib_name, libs[names[0]])
     for name in names:
-        log(f"{name} float32 {'pair_mlp_bwd' if site == 'pair' else 'edge_embedder_bwd'} B=2 "
-            "N=256: call " + ", ".join(f"{x:.4f}" for x in t[name]["call"]) + " ms; kernel B "
+        log(f"{name} {str(dtype)[6:]} {'pair_mlp_bwd' if site == 'pair' else 'edge_embedder_bwd'} "
+            "B=2 N=256: call " + ", ".join(f"{x:.4f}" for x in t[name]["call"]) + " ms; kernel B "
             + ", ".join(f"{x:.4f}" for x in t[name]["B"]) + " ms")
+    return t
+
+
+def spread(xs) -> str:
+    """median [min, max] of the readings xs."""
+    v = sorted(xs)
+    return f"median {v[len(v) // 2]:.4f} [{v[0]:.4f}, {v[-1]:.4f}] over {len(v)}"
+
+
+def time_wgrad_bf16_placements(cs, libs, new_libs, use, gen, pmods) -> dict:
+    """bf16 kernel B's device ms (torch.profiler, one call) inside each bf16
+    backward at B=2 N=256 over the placements PLACEMENT_PADS_MB (torch's
+    cache emptied, a block of that many MB allocated first, the inputs copied
+    after it, so that the call's workspace lands elsewhere), three rounds a
+    placement in alternating order: this checkout's kernel, with ``pmods``
+    the parent's (its mma.sync kernel B through its own wrapper and library),
+    and the same products as torch.mm calls in bf16 on arrays of the
+    workspace's shapes placed likewise (``chip_smoke.wgrad_products``; device
+    ms under torch.profiler, and CUDA events over 5 calls). Logs each
+    placement's readings, then each one's median and spread."""
+    from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    pair_in = cs.pair_mlp_inputs(2, 256, torch.bfloat16, gen)
+    emb_in = cs.edge_embedder_inputs(2, 256, torch.bfloat16, gen)
+    g0 = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    old_kinds = {"pair": cs.BWD_PARTS + (("B", "wgrad_kernel"),),
+                 "emb": cs.EMB_BWD_PARTS + (("B", "wgrad_kernel"),)}
+    t = {}
+    for pad_mb in PLACEMENT_PADS_MB:
+        torch.cuda.empty_cache()
+        pad = torch.empty(max(pad_mb << 20, 1), dtype=torch.uint8, device="cuda")
+        a = [x.clone() if torch.is_tensor(x) else x for x in pair_in]
+        *e, lo, up = [x.clone() if torch.is_tensor(x) else x for x in emb_in]
+        g = g0.clone()
+        mm = {site: cs.wgrad_products(f"{lib}_bwd", torch.bfloat16, gen)
+              for site, lib in (("pair", "pair_mlp"), ("emb", "edge_embedder"))}
+        calls = {
+            "this checkout pair": ("pair_mlp_bwd", new_libs["pair_mlp_bwd"],
+                                   lambda: t_pair.pair_mlp_bwd(g, *a), cs.BWD_PARTS),
+            "this checkout emb": ("edge_embedder_bwd", new_libs["edge_embedder_bwd"],
+                                  lambda: t_emb.edge_embedder_bwd(g, *e, bins_lower=lo,
+                                                                  bins_upper=up),
+                                  cs.EMB_BWD_PARTS)}
+        if pmods:
+            calls["the parent pair"] = (
+                "pair_mlp_bwd", libs["parent_pair_mlp_bwd"],
+                lambda: pmods["pair_mlp"].pair_mlp_bwd(g, *a), old_kinds["pair"])
+            calls["the parent emb"] = (
+                "edge_embedder_bwd", libs["parent_edge_embedder_bwd"],
+                lambda: pmods["edge_embedder"].edge_embedder_bwd(g, *e, bins_lower=lo,
+                                                                 bins_upper=up),
+                old_kinds["emb"])
+        here = {}
+        for rnd in range(3):
+            for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
+                kind, lib, fn, kinds = calls[key]
+                use(kind, lib)
+                here.setdefault(key, []).append(cs.bwd_parts_ms(fn, kinds).get("B", 0.0))
+            for site, fn in mm.items():
+                here.setdefault(f"torch.mm {site}", []).append(cs.device_time(fn)[0])
+                here.setdefault(f"torch.mm {site} (events)", []).append(cs.cuda_time_ms(fn, 5))
+        use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
+        use("edge_embedder_bwd", new_libs["edge_embedder_bwd"])
+        log(f"bf16 kernel B B=2 N=256, {pad_mb} MB allocated first: " + "; ".join(
+            f"{k} " + ", ".join(f"{x:.4f}" for x in v) + " ms" for k, v in here.items()))
+        for k, v in here.items():
+            t.setdefault(k, []).extend(v)
+        del pad, a, e, g, mm
+    for k, v in t.items():
+        log(f"bf16 kernel B B=2 N=256 over {len(PLACEMENT_PADS_MB)} placements, {k}: "
+            f"{spread(v)} ms")
     return t
 
 
@@ -769,6 +912,9 @@ def main() -> int:
         for site, (_, source) in WGRAD_LIBS.items():
             variants.update({f"{n}_{site}": (p, ok, f"wgrad_{site}", source)
                              for n, (p, ok) in WGRAD_VARIANTS.items()})
+        for site, (_, source) in WGRAD_BF16_LIBS.items():
+            variants.update({f"{n}_{site}": (p, ok, f"wgrad_bf16_{site}", source)
+                             for n, (p, ok) in WGRAD_BF16_VARIANTS.items()})
     kinds.update({n: (kind, ok) for n, (_, ok, kind, _) in variants.items()})
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_variants_"))
     try:
@@ -782,6 +928,7 @@ def main() -> int:
                             "parent_pair_mlp_bwd_wg": parent / "pair_mlp_bwd_wg.cu",
                             "parent_edge_embedder_wg": parent / EMB_WG,
                             "parent_edge_embedder_bwd": parent / "edge_embedder_bwd.cu",
+                            "parent_edge_embedder_bwd_wg": parent / "edge_embedder_bwd_wg.cu",
                             "parent_ipa_attention": parent / "ipa_attention.cu"})
             kinds["parent"] = ("edge_embedder", False)
         procs = {name: subprocess.Popen(
@@ -793,7 +940,9 @@ def main() -> int:
                 "new_bwd": build.library("pair_mlp_bwd_wg"),
                 "new_emb_bwd": build.library("edge_embedder_bwd_wg"),
                 "new_wgrad_pair": build.library("pair_mlp_bwd_wg"),
-                "new_wgrad_emb": build.library("edge_embedder_bwd_wg")}
+                "new_wgrad_emb": build.library("edge_embedder_bwd_wg"),
+                "new_wgrad_bf16_pair": build.library("pair_mlp_bwd"),
+                "new_wgrad_bf16_emb": build.library("edge_embedder_bwd")}
         fails = 0
         for name, proc in procs.items():
             out = proc.communicate()[0]
@@ -816,7 +965,7 @@ def main() -> int:
             build._libs[kind] = lib
             for mod in (t_emb, t_pair, t_wgrad, t_ipa, *pmods.values()):
                 for entry in ("_kernel", "_wg_kernel", "_split_kernel", "_bwd_kernel",
-                              "_bwd_wg_kernel"):
+                              "_bwd_wg_kernel", "_bf16_kernel"):
                     if hasattr(mod, entry):
                         getattr(mod, entry).cache_clear()
 
@@ -858,6 +1007,14 @@ def main() -> int:
                 use(WGRAD_LIBS[site][0], libs[name])
                 fails += wgrad_checks(cs, name, site, gen)
             use(WGRAD_LIBS[site][0], libs[f"new_wgrad_{site}"])
+        wgrad_bf16_names = {site: [n for n, (kind, _) in kinds.items()
+                                   if kind == f"wgrad_bf16_{site}" and n in libs]
+                            for site in WGRAD_BF16_LIBS}
+        for site, names in wgrad_bf16_names.items():
+            for name in [n for n in names if kinds[n][1]]:
+                use(WGRAD_BF16_LIBS[site][0], libs[name])
+                fails += wgrad_checks(cs, name, site, gen, torch.bfloat16)
+            use(WGRAD_BF16_LIBS[site][0], libs[f"new_wgrad_bf16_{site}"])
         kinds = {n: v for n, v in kinds.items() if v[0] not in ("pair_mlp_bwd_wg", "edge_embedder_bwd_wg")
                  and not v[0].startswith("wgrad_")}
         emb_only = {None: None, "mma": "edge_embedder", "wgmma": "edge_embedder_wg"}.get(args.only, "")
@@ -907,10 +1064,15 @@ def main() -> int:
                                          (libs["parent_pair_mlp_bwd"], pmods["pair_mlp"])):
                         use("pair_mlp_bwd", lib)
                         grads.append(wrapper.pair_mlp_bwd(g, *a))
-                    bwd_same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
-                    line += f"; backward (kernel A's recompute inside) {bwd_same}"
-                    same = same and bwd_same
+                    bwd_same = all(x is None or torch.equal(x, y) for i, (x, y)
+                                   in enumerate(zip(*grads)) if i not in PAIR_KERNEL_B_GRADS)
+                    line += (f"; backward's gradients but kernel B's (kernel A's recompute "
+                             f"inside) {bwd_same}")
                     log(line)
+                    # Kernel B's gradients (its bits moved) against the plain version.
+                    use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
+                    same = (same and bwd_same and pair_bwd_check(
+                        cs, f"pair_mlp_bwd bf16 B=2 N=200 residual={residual}", a, g))
                     fails += not same
             use("pair_mlp", new_libs["pair_mlp"])
             use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
@@ -971,17 +1133,28 @@ def main() -> int:
                     log(f"ipa_attention {str(dtype)[6:]} B={B} N={N}: the parent's bits {same}")
                     fails += not same
             use("ipa_attention", new_libs["ipa_attention"])
-        if "parent_edge_embedder_bwd" in libs:
-            # float32: this checkout's kernel A runs on wgmma, so the
-            # backward is held against the plain version, not the parent.
+        if "parent_edge_embedder_bwd_wg" in libs:
+            # float32 (kernel A on wgmma in both trees): against the plain
+            # version and the parent's bits.
             for B, N in ((1, 17), (2, 200), (2, 256)):
                 for n_bins in (22, 0):
                     *tensors, lower, upper = cs.edge_embedder_inputs(B, N, torch.float32, gen,
                                                                      n_bins=n_bins)
                     g = torch.randn(B, N, N, 128, generator=gen, device="cuda")
-                    fails += not emb_bwd_check(
-                        cs, f"edge_embedder_bwd float32 B={B} N={N} n_bins={n_bins}", tensors,
-                        lower, upper, g)
+                    label = f"edge_embedder_bwd float32 B={B} N={N} n_bins={n_bins}"
+                    fails += not emb_bwd_check(cs, label, tensors, lower, upper, g)
+                    grads = []
+                    for lib, wrapper in ((new_libs["edge_embedder_bwd_wg"], t_emb),
+                                         (libs["parent_edge_embedder_bwd_wg"],
+                                          pmods["edge_embedder"])):
+                        use("edge_embedder_bwd_wg", lib)
+                        grads.append(wrapper.edge_embedder_bwd(g, *tensors, bins_lower=lower,
+                                                               bins_upper=upper))
+                    same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
+                    log(f"{label}: the parent's bits {same}")
+                    fails += not same
+            use("edge_embedder_bwd_wg", new_libs["edge_embedder_bwd_wg"])
+        if "parent_edge_embedder_bwd" in libs:
             for dtype in (torch.bfloat16,):
                 for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
                     for n_bins in (22, 0):
@@ -995,9 +1168,14 @@ def main() -> int:
                             use("edge_embedder_bwd", lib)
                             grads.append(wrapper.edge_embedder_bwd(g, *tensors, bins_lower=lower,
                                                                    bins_upper=upper))
-                        same = all(x is None or torch.equal(x, y) for x, y in zip(*grads))
+                        same = all(x is None or torch.equal(x, y) for i, (x, y)
+                                   in enumerate(zip(*grads)) if i not in EMB_KERNEL_B_GRADS)
                         log(f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins}: "
-                            f"the parent's bits {same}")
+                            f"the parent's bits in every gradient but kernel B's {same}")
+                        use("edge_embedder_bwd", new_libs["edge_embedder_bwd"])
+                        same = same and emb_bwd_check(
+                            cs, f"edge_embedder_bwd {str(dtype)[6:]} B={B} N={N} n_bins={n_bins}",
+                            tensors, lower, upper, g)
                         fails += not same
             use("edge_embedder_bwd", new_libs["edge_embedder_bwd"])
         times, kept = {}, {}
@@ -1017,6 +1195,13 @@ def main() -> int:
             if names:
                 times[f"kernel B {site} float32 B=2 N=256"] = time_wgrad_variants(
                     cs, libs, [f"new_wgrad_{site}"] + names, site, use, gen)
+        for site, names in wgrad_bf16_names.items():
+            if names:
+                times[f"kernel B {site} bf16 B=2 N=256"] = time_wgrad_variants(
+                    cs, libs, [f"new_wgrad_bf16_{site}"] + names, site, use, gen, torch.bfloat16)
+        if args.only in (None, "wgrad"):
+            times["bf16 kernel B placements"] = time_wgrad_bf16_placements(
+                cs, libs, new_libs, use, gen, pmods)
         timed = [n for n in libs if n in kinds and emb_only != "" and (
             args.only is None or n in ("new", "new_wg", "parent") or kinds[n][0] == emb_only)]
         for dtype, B, N in ((torch.float32, 2, 256), (torch.bfloat16, 2, 256),

@@ -1,7 +1,7 @@
 // Shared pieces of the edge-stack kernels: element-type conversion, the pair
 // MLP's and the edge embedder's epilogues, the distance bin, the 64-pair
 // tile's bookkeeping, the fused LayerNorm + edge-mask epilogue, and the
-// backward kernels' ordered partial sums.
+// backward kernels' ordered partial sums and grid-stride launch size.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -212,6 +212,12 @@ __global__ void sum_partials(const float* __restrict__ part, float* __restrict__
     for (int k = 0; k < S; ++k) s += p[(size_t)k * ld];
     out[m * ld + c] = accumulate ? out[m * ld + c] + s : s;
   }
+}
+
+// Blocks of kThreads for a grid-stride loop over `total` items (at most 4096).
+int grid_of(long long total) {
+  const long long want = (total + kThreads - 1) / kThreads;
+  return (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
 }
 
 cudaError_t reduce_partials(const float* part, float* out, long long M, int S, int C, int ld,

@@ -60,11 +60,10 @@
 // - Kernel B, shared with the pair MLP: d_w_rel = m^T dy0 (a 64-row job),
 //   d_w1 = y0^T dy1, d_w2 = y1^T dx as one split-K GEMM, the chunk's pairs
 //   in kSlices = 44 slices: 3 x 44 = 132 blocks, one wave on 132 SMs. In
-//   float32 wgrad_wg.cuh's kernel (wgmma and TMA, 3xTF32; the 64-row job
-//   runs one m64 half). In bf16 wgrad_tc.cuh's (bf16 mma.sync): its 64-row
-//   job stages 128 columns from m's rows, so the staged columns 64-127 are
-//   the next pair's m, and the workspace keeps dx after m so that the last
-//   pair's are readable; rows 64-127 are not stored.
+//   float32 wgrad_wg.cuh's kernel (wgmma and TMA, 3xTF32), in bf16
+//   wgrad_bf16.cuh's (bf16 wgmma on the TMA-staged rows, both operands
+//   MN-major); in both the 64-row job runs one m64 half and loads m's 64
+//   columns only.
 // - Then common.cuh's sum_partials adds the slices' partials in slice order,
 //   and the tiles' vector partials in tile order (32 at a time, then the
 //   groups), to the outputs, chunk after chunk.

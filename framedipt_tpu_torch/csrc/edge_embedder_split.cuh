@@ -2,15 +2,14 @@
 // (sm_90a), shared by the float32 backward (edge_embedder_bwd_wg.cu, kernel
 // A on wgmma) and the bf16 one (edge_embedder_bwd.cu, kernel A on mma.sync):
 // the chunk's workspace layout that kernel A fills, the row and column sums,
-// kernel B's jobs (float32: wgrad_wg.cuh, on wgmma and TMA; bf16:
-// wgrad_tc.cuh) and the ordered sums into the outputs (finish_split).
+// kernel B's jobs (on wgmma and TMA; float32: wgrad_wg.cuh, bf16:
+// wgrad_bf16.cuh) and the ordered sums into the outputs (finish_split).
 // Include it after the tile header (edge_embedder_wg.cuh or
 // edge_embedder_tc.cuh), which gives CP, C and MAX_BINS.
 // edge_embedder_bwd.cu's header describes the whole backward.
 #pragma once
 
-#include "wgrad_tc.cuh"
-#include "wgrad_wg.cuh"
+#include "wgrad_bf16.cuh"
 
 namespace fdk {
 namespace {
@@ -37,9 +36,9 @@ __host__ __device__ inline int vec_floats(int n_bins) { return (4 + n_bins) * C;
 // partials [kSlices, kBParts], kernel A's `parts` vector partials (float32:
 // one a unit of one grid row and 64 columns; bf16: one a 64-pair tile of the
 // chunk's flat pairs) as [groups * kGroup, vec], their group sums [groups,
-// vec], dem [P]. Every array starts 16-byte aligned, and dx follows m (bf16
-// kernel B's 64-row job reads past m's last row). Mirrored in
-// model/kernels/edge_embedder.py (split_workspace_floats).
+// vec], dem [P]. Every array starts 16-byte aligned (kernel B's tensor maps
+// need it). Mirrored in model/kernels/edge_embedder.py
+// (split_workspace_floats).
 template <typename T>
 struct SplitWs {
   T *y0, *y1, *m, *dx, *dy1, *dy0;
@@ -164,26 +163,22 @@ cudaError_t finish_split(const T* g, const T* h, const T* row_mask, const T* col
       ws.dy0, ws.dm, ws.dem, g, row_mask, colred, m0, m1, b_lo, nb, Nr, Nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // Kernel B: d_w_rel = m^T dy0 (64 rows), d_w1 = y0^T dy1, d_w2 = y1^T dx.
-  if constexpr (sizeof(T) == 2) {
-    WJobs<T> jobs;
-    jobs.job[0] = {ws.m, ws.dy0, CP, C, 0, C, CP};
-    jobs.job[1] = {ws.y0, ws.dy1, C, C, CP * C, C};
-    jobs.job[2] = {ws.y1, ws.dx, C, C, CP * C + C * C, C};
-    err = launch_wgrad(jobs, 3, kSlices, ws.wpart, kBParts, P, stream);
-  } else {
-    // Tensor maps: m, y0, y1, dy0, dy1, dx.
-    enum { kM, kY0, kY1, kDy0, kDy1, kDx };
-    WgradJobs jobs;
-    if (!wgrad_map(jobs, kM, ws.m, P, CP) || !wgrad_map(jobs, kY0, ws.y0, P, C) ||
-        !wgrad_map(jobs, kY1, ws.y1, P, C) || !wgrad_map(jobs, kDy0, ws.dy0, P, C) ||
-        !wgrad_map(jobs, kDy1, ws.dy1, P, C) || !wgrad_map(jobs, kDx, ws.dx, P, C))
-      return cudaErrorInvalidValue;
-    jobs.job[0] = {kM, 0, kDy0, 0, 0, C, CP};
-    jobs.job[1] = {kY0, 0, kDy1, 0, CP * C, C, 128};
-    jobs.job[2] = {kY1, 0, kDx, 0, CP * C + C * C, C, 128};
+  // Kernel B: d_w_rel = m^T dy0 (64 rows), d_w1 = y0^T dy1, d_w2 = y1^T dx,
+  // over tensor maps of m, y0, y1, dy0, dy1 and dx (bf16: dxd), in T
+  // (wgrad_map's overloads).
+  enum { kM, kY0, kY1, kDy0, kDy1, kDx };
+  WgradJobs jobs;
+  if (!wgrad_map(jobs, kM, ws.m, P, CP) || !wgrad_map(jobs, kY0, ws.y0, P, C) ||
+      !wgrad_map(jobs, kY1, ws.y1, P, C) || !wgrad_map(jobs, kDy0, ws.dy0, P, C) ||
+      !wgrad_map(jobs, kDy1, ws.dy1, P, C) || !wgrad_map(jobs, kDx, ws.dx, P, C))
+    return cudaErrorInvalidValue;
+  jobs.job[0] = {kM, 0, kDy0, 0, 0, C, CP};
+  jobs.job[1] = {kY0, 0, kDy1, 0, CP * C, C, 128};
+  jobs.job[2] = {kY1, 0, kDx, 0, CP * C + C * C, C, 128};
+  if constexpr (sizeof(T) == 2)
+    err = launch_wgrad_bf16<T>(jobs, 3, kSlices, ws.wpart, kBParts, P, stream);
+  else
     err = launch_wgrad_wg(jobs, 3, kSlices, ws.wpart, kBParts, P, stream);
-  }
   if (err != cudaSuccess) return err;
 
   // Fixed-order sums into the outputs.

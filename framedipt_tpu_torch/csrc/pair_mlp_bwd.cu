@@ -47,7 +47,8 @@
 // - Kernel B, shared with the embedder's backward: the four weight
 //   gradients as one split-K GEMM on the tensor cores, in float32
 //   wgrad_wg.cuh's wgmma kernel (3xTF32, operands by TMA, Bm turned K-major
-//   in shared memory), in bf16 wgrad_tc.cuh's mma.sync one (bf16 MMA). The
+//   in shared memory), in bf16 wgrad_bf16.cuh's (bf16 wgmma reading both
+//   operands MN-major from the TMA-staged rows). The
 //   outputs are cut into 128 x 128 tiles (3 of d_w0, 9 of d_w1, 3 of d_wf,
 //   1 of d_wfe) and the chunk's pairs into kSlices contiguous slices: 16 x
 //   8 = 128 blocks, one wave on 132 SMs. Bound: 3 x 68.7 GFLOP / 495
@@ -353,4 +354,26 @@ extern "C" int fdk_pair_mlp_bwd_split(int dtype, int residual, const void* g, co
                     : fdk::launch_split<__nv_bfloat16, false>(FDK_ARGS(__nv_bfloat16));
 #undef FDK_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// C interface of bf16 kernel B alone (wgrad_bf16.cuh), for its tests: out
+// [M, Nb] = A^T Bm over P pairs, A [P, M] and Bm [P, Nb] row-major bf16
+// (16-byte aligned), M = 64 or a multiple of 128, Nb a multiple of 128, at
+// most 16 output tiles; `slices` K slices, their float32 partials in wpart
+// [slices, M * Nb], then summed in slice order into out (float32). Returns a
+// cudaError_t.
+extern "C" int fdk_wgrad_bf16(const void* a, int M, const void* b, int Nb, long long P,
+                              int slices, float* wpart, float* out, void* stream) {
+  using namespace fdk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  WgradJobs jobs;
+  const int n = wgrad_alone_jobs(jobs, M, Nb);
+  if (n == 0 || P < 1 || slices < 1 ||
+      !wgrad_map(jobs, 0, static_cast<const __nv_bfloat16*>(a), P, M) ||
+      !wgrad_map(jobs, 1, static_cast<const __nv_bfloat16*>(b), P, Nb))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      launch_wgrad_bf16<__nv_bfloat16>(jobs, n, slices, wpart, (long long)M * Nb, P, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce_partials(wpart, out, 1, slices, M * Nb, M * Nb, s);
 }

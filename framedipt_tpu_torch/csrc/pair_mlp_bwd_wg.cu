@@ -530,16 +530,11 @@ extern "C" int fdk_wgrad_f32(const float* a, int M, const float* b, int Nb, long
                              int slices, float* wpart, float* out, void* stream) {
   using namespace fdk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P < 1 || slices < 1 || Nb < 128 || Nb % 128 || (M != 64 && (M < 128 || M % 128)) ||
-      (M == 64 ? 1 : M / 128) * (Nb / 128) > kWgradMaxJobs)
-    return (int)cudaErrorInvalidValue;
   WgradJobs jobs;
-  if (!wgrad_map(jobs, 0, a, P, M) || !wgrad_map(jobs, 1, b, P, Nb))
+  const int n = wgrad_alone_jobs(jobs, M, Nb);
+  if (n == 0 || P < 1 || slices < 1 || !wgrad_map(jobs, 0, a, P, M) ||
+      !wgrad_map(jobs, 1, b, P, Nb))
     return (int)cudaErrorInvalidValue;
-  int n = 0;
-  for (int r = 0; r < M; r += 128)
-    for (int c = 0; c < Nb; c += 128)
-      jobs.job[n++] = {0, r, 1, c, r * Nb + c, Nb, M - r < 128 ? M - r : 128};
   cudaError_t err = launch_wgrad_wg(jobs, n, slices, wpart, (long long)M * Nb, P, s);
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_partials(wpart, out, 1, slices, M * Nb, M * Nb, s);

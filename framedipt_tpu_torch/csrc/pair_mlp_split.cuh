@@ -2,15 +2,14 @@
 // shared by the float32 backward (pair_mlp_bwd_wg.cu, kernel A on wgmma)
 // and the bf16 one (pair_mlp_bwd.cu, kernel A on mma.sync): the chunk's
 // workspace layout that kernel A fills, the row and column sums, kernel B's
-// jobs (float32: wgrad_wg.cuh, on wgmma and TMA; bf16: wgrad_tc.cuh) and the
-// ordered sums into the outputs (finish_split).
+// jobs (on wgmma and TMA; float32: wgrad_wg.cuh, bf16: wgrad_bf16.cuh) and
+// the ordered sums into the outputs (finish_split).
 // Include it after the tile header (pair_mlp_wg.cuh or pair_mlp_tc.cuh),
 // which gives C_IN, HID and C_OUT. pair_mlp_bwd.cu's header describes the
 // whole backward.
 #pragma once
 
-#include "wgrad_tc.cuh"
-#include "wgrad_wg.cuh"
+#include "wgrad_bf16.cuh"
 
 namespace fdk {
 namespace {
@@ -161,40 +160,28 @@ cudaError_t finish_split(const T* pair, const T* row_mask, const T* col_mask,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // Kernel B: d_w0 = pair^T dy0, d_w1 = y0^T dy1, d_wf = y1^T dxd, d_wfe =
-  // pair^T dxd, as 128 x 128 tiles.
+  // pair^T dxd, as 128 x 128 tiles over tensor maps of pair, y0, y1, dy0,
+  // dy1 and dxd (float32: dx), in T (wgrad_map's overloads).
   const T* pc = pair + q0 * C_IN;
-  if constexpr (kBf16<T>) {
-    WJobs<T> jobs;
-    int n = 0;
+  enum { kPair, kY0, kY1, kDy0, kDy1, kDxd };
+  WgradJobs jobs;
+  if (!wgrad_map(jobs, kPair, pc, P, C_IN) || !wgrad_map(jobs, kY0, ws.y0, P, HID) ||
+      !wgrad_map(jobs, kY1, ws.y1, P, HID) || !wgrad_map(jobs, kDy0, ws.dy0, P, HID) ||
+      !wgrad_map(jobs, kDy1, ws.dy1, P, HID) || !wgrad_map(jobs, kDxd, ws.dxd, P, C_OUT))
+    return cudaErrorInvalidValue;
+  int n = 0;
+  for (int c = 0; c < HID / 128; ++c)
+    jobs.job[n++] = {kPair, 0, kDy0, c * 128, OFF_W0 + c * 128, HID, 128};
+  for (int r = 0; r < HID / 128; ++r)
     for (int c = 0; c < HID / 128; ++c)
-      jobs.job[n++] = {pc, ws.dy0 + c * 128, C_IN, HID, OFF_W0 + c * 128, HID};
-    for (int r = 0; r < HID / 128; ++r)
-      for (int c = 0; c < HID / 128; ++c)
-        jobs.job[n++] = {ws.y0 + r * 128, ws.dy1 + c * 128, HID, HID,
-                         OFF_W1 + r * 128 * HID + c * 128, HID};
-    for (int r = 0; r < HID / 128; ++r)
-      jobs.job[n++] = {ws.y1 + r * 128, ws.dxd, HID, C_OUT, OFF_WF + r * 128 * C_OUT, C_OUT};
-    if (RESIDUAL) jobs.job[n++] = {pc, ws.dxd, C_IN, C_OUT, OFF_WFE, C_OUT};
-    err = launch_wgrad(jobs, n, kSlices, ws.wpart, kWParts, P, stream);
-  } else {
-    // Tensor maps: pair, y0, y1, dy0, dy1, dx.
-    enum { kPair, kY0, kY1, kDy0, kDy1, kDx };
-    WgradJobs jobs;
-    if (!wgrad_map(jobs, kPair, pc, P, C_IN) || !wgrad_map(jobs, kY0, ws.y0, P, HID) ||
-        !wgrad_map(jobs, kY1, ws.y1, P, HID) || !wgrad_map(jobs, kDy0, ws.dy0, P, HID) ||
-        !wgrad_map(jobs, kDy1, ws.dy1, P, HID) || !wgrad_map(jobs, kDx, ws.dx, P, C_OUT))
-      return cudaErrorInvalidValue;
-    int n = 0;
-    for (int c = 0; c < HID / 128; ++c)
-      jobs.job[n++] = {kPair, 0, kDy0, c * 128, OFF_W0 + c * 128, HID, 128};
-    for (int r = 0; r < HID / 128; ++r)
-      for (int c = 0; c < HID / 128; ++c)
-        jobs.job[n++] = {kY0, r * 128, kDy1, c * 128, OFF_W1 + r * 128 * HID + c * 128, HID, 128};
-    for (int r = 0; r < HID / 128; ++r)
-      jobs.job[n++] = {kY1, r * 128, kDx, 0, OFF_WF + r * 128 * C_OUT, C_OUT, 128};
-    if (RESIDUAL) jobs.job[n++] = {kPair, 0, kDx, 0, OFF_WFE, C_OUT, 128};
+      jobs.job[n++] = {kY0, r * 128, kDy1, c * 128, OFF_W1 + r * 128 * HID + c * 128, HID, 128};
+  for (int r = 0; r < HID / 128; ++r)
+    jobs.job[n++] = {kY1, r * 128, kDxd, 0, OFF_WF + r * 128 * C_OUT, C_OUT, 128};
+  if (RESIDUAL) jobs.job[n++] = {kPair, 0, kDxd, 0, OFF_WFE, C_OUT, 128};
+  if constexpr (kBf16<T>)
+    err = launch_wgrad_bf16<T>(jobs, n, kSlices, ws.wpart, kWParts, P, stream);
+  else
     err = launch_wgrad_wg(jobs, n, kSlices, ws.wpart, kWParts, P, stream);
-  }
   if (err != cudaSuccess) return err;
 
   // Fixed-order sums into the outputs.

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) pieces for kernels built on the tensor memory accelerator
 // and warpgroup products: mbarriers, TMA tile loads through tensor maps made
-// on the host, wgmma shared-memory descriptors, the TF32 wgmma with A in
-// registers, and the 128-byte swizzle of the tiles they read.
+// on the host (float32 and bf16), wgmma shared-memory descriptors (K-major,
+// and MN-major for bf16), the TF32 wgmma with A in registers, and the
+// 128-byte swizzle of the tiles they read.
 //
 // Tile layout (the one TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): a tile of
 // `rows` x `cols` floats is kept as cols / 32 column blocks of rows x 32
@@ -136,6 +137,20 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
          (uint64_t(1) << 62);
 }
 
+// Descriptor of an MN-major bf16 operand in shared memory with the 128-byte
+// swizzle (the PTX ISA's canonical MN-major layout): along M or N, atoms of
+// 64 elements (one 128-byte row each) `lbo` bytes apart (the leading byte
+// offset); along K, rows 128 bytes apart and 8-row groups 1024 bytes apart
+// (the stride byte offset). That is a TMA box of 64 columns as
+// bf16_sw128_map stages it, K running down its rows, the next 64 columns
+// the next box. `p` is the first element of the k step (its box 1024-byte
+// aligned; a k step starts a whole number of 8-row groups into it).
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -247,6 +262,25 @@ inline bool f32_sw128_map(CUtensorMap* map, const void* base, uint64_t rows, uin
   const cuuint32_t box[2] = {32, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map over a row-major bf16 matrix [rows][cols] (cols * 2 a
+// multiple of 16 bytes, base 16-byte aligned) whose boxes are box_rows x 64
+// elements (128-byte rows), written to shared memory with the 128-byte
+// swizzle; reads past the matrix fill zeros. Returns false if
+// cuTensorMapEncodeTiled refuses it.
+inline bool bf16_sw128_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                           uint32_t box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

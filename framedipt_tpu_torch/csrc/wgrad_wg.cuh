@@ -2,7 +2,8 @@
 // (sm_90a): the weight gradients G = A^T Bm summed over the pairs of a
 // chunk, as one split-K GEMM, 3xTF32. Launched by the pair MLP's float32
 // backward (pair_mlp_split.cuh's finish_split, from pair_mlp_bwd_wg.cu) and
-// the edge embedder's (edge_embedder_bwd.cu); bf16 keeps wgrad_tc.cuh.
+// the edge embedder's (edge_embedder_bwd_wg.cu); bf16 runs wgrad_bf16.cuh's
+// kernel, which shares the jobs, their tensor maps and the epilogue.
 // It replaces the weight-gradient products inside the Pallas TPU kernels
 // framedipt_tpu/model/pallas/pair_mlp.py:349 (_pair_mlp_bwd_kernel: lines
 // 491, 494, 504, 509) and edge_embedder.py:366 (_edge_embedder_bwd_kernel:
@@ -93,7 +94,7 @@ struct WgradJob {
   int a_map, a_col, b_map, b_col, out_off, out_ld, rows;
 };
 struct WgradJobs {
-  CUtensorMap map[kWgradMaxMaps];  // [P, width] float32, 32 x 32 boxes
+  CUtensorMap map[kWgradMaxMaps];  // [P, width]: float32 32 x 32 boxes, bf16 64 x 64
   WgradJob job[kWgradMaxJobs];
 };
 
@@ -231,6 +232,23 @@ __device__ __forceinline__ void wgrad_step(const WgradSmem& sm, int st, int grou
   for (int i = 0; i < 64; ++i) wg::fence_operand(part[i]);
 }
 
+// Consumer warpgroup `group`'s 64 rows of job jb's tile from its m64n128
+// accumulators (rows g, g + 8 of the warp's 16, columns 8 j + 2 t, + 1) into
+// its slice's partial set at part.
+__device__ __forceinline__ void wgrad_store(const float (&acc)[64], const WgradJob& jb,
+                                            float* part, int group) {
+  const int lane = threadIdx.x & 31;
+  const int r = 64 * group + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  float* out = part + jb.out_off + (size_t)r * jb.out_ld;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(out + c) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)8 * jb.out_ld + c) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
 __global__ void __launch_bounds__(kWgradThreads, 1)
 wgrad_wg_kernel(const __grid_constant__ WgradJobs jobs, float* __restrict__ wpart,
                 long long part_ld, long long P, long long k_slice) {
@@ -318,18 +336,7 @@ wgrad_wg_kernel(const __grid_constant__ WgradJobs jobs, float* __restrict__ wpar
     }
   }
   if (!active) return;
-
-  // acc: rows g, g + 8 of the warp's 16, columns 8 j + 2 t, + 1.
-  const int lane = threadIdx.x & 31;
-  const int r = 64 * group + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
-  float* out = wpart + (size_t)blockIdx.y * part_ld + jb.out_off + (size_t)r * jb.out_ld;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int c = 8 * j + 2 * (lane & 3);
-    *reinterpret_cast<float2*>(out + c) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(out + (size_t)8 * jb.out_ld + c) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
+  wgrad_store(acc, jb, wpart + (size_t)blockIdx.y * part_ld, group);
 }
 
 // Jobs 0 .. n - 1 over P pairs in `slices` K slices of whole steps; partial
@@ -345,6 +352,21 @@ inline cudaError_t launch_wgrad_wg(const WgradJobs& jobs, int n, int slices, flo
   wgrad_wg_kernel<<<dim3(n, slices), kWgradThreads, kWgradSmemBytes, stream>>>(
       jobs, wpart, part_ld, P, k_slice);
   return cudaGetLastError();
+}
+
+// The jobs of kernel B alone (its tests' C entries): G [M, Nb] = A^T Bm, A
+// behind tensor map 0 and Bm behind map 1, M = 64 or a multiple of 128, Nb
+// a multiple of 128, at most kWgradMaxJobs tiles. Returns their number, 0
+// for widths it refuses.
+inline int wgrad_alone_jobs(WgradJobs& jobs, int M, int Nb) {
+  if (Nb < 128 || Nb % 128 || (M != 64 && (M < 128 || M % 128)) ||
+      (M == 64 ? 1 : M / 128) * (Nb / 128) > kWgradMaxJobs)
+    return 0;
+  int n = 0;
+  for (int r = 0; r < M; r += 128)
+    for (int c = 0; c < Nb; c += 128)
+      jobs.job[n++] = {0, r, 1, c, r * Nb + c, Nb, M - r < 128 ? M - r : 128};
+  return n;
 }
 
 // Tensor map `i` of jobs: the [rows, cols] float32 array at base.

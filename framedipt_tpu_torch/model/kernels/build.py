@@ -32,7 +32,7 @@ SOURCES = {
     "pair_mlp_wg": "pair_mlp_wg.cu",
 }
 HEADERS = ("common.cuh", "mma.cuh", "tc_product.cuh", "pair_mlp_tc.cuh", "edge_embedder_tc.cuh",
-           "wgrad_tc.cuh", "wgrad_wg.cuh", "wgmma_tma.cuh", "pair_mlp_wg.cuh", "pair_mlp_split.cuh",
+           "wgrad_wg.cuh", "wgrad_bf16.cuh", "wgmma_tma.cuh", "pair_mlp_wg.cuh", "pair_mlp_split.cuh",
            "edge_embedder_wg.cuh", "edge_embedder_split.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -445,11 +445,36 @@ def test_cuda_wgrad_f32_matches_float64(P, M, N, slices):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("P,M,N,slices", [(1, 128, 128, 8), (289, 384, 384, 8),
+                                          (2 * 200 * 200, 128, 384, 8), (289, 64, 128, 44),
+                                          (5_000, 64, 128, 44)])
+def test_cuda_wgrad_bf16_matches_float64(P, M, N, slices):
+    """On the card: bf16 kernel B alone (csrc/wgrad_bf16.cuh through
+    ``wgrad_bf16``) against float64 a^T b of the same bf16 operands within
+    1e-4 of its max-abs: one pair, one partial step, a ragged chunk of
+    80,000 pairs, the embedder's 64-row job; two launches give the same
+    bits; one launch counted each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(P + M + 1)
+    a = torch.as_tensor(np.maximum(rng.normal(size=(P, M)), 0.0)).to(torch.bfloat16).cuda()
+    b = torch.as_tensor(rng.normal(size=(P, N))).to(torch.bfloat16).cuda()
+    before = t_wgrad.wgrad_bf16.launches
+    got = t_wgrad.wgrad_bf16(a, b, slices)
+    again = t_wgrad.wgrad_bf16(a, b, slices)
+    assert t_wgrad.wgrad_bf16.launches == before + 2
+    want = a.double().t() @ b.double()
+    assert float((got.double() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
 def test_cuda_float32_backwards_launch_the_wgmma_kernel_b():
     """On the card, read from torch.profiler: a float32 pair-MLP backward and
     a float32 embedder backward each launch kernel B as
-    ``wgrad_wg_kernel`` (csrc/wgrad_wg.cuh) once a chunk and never the
-    bf16 ``wgrad_kernel``; a bf16 pair-MLP backward the other way round."""
+    ``wgrad_wg_kernel`` (csrc/wgrad_wg.cuh) once a chunk and never bf16's
+    ``wgrad_bf16_kernel`` (csrc/wgrad_bf16.cuh); a bf16 pair-MLP backward
+    and a bf16 embedder backward the other way round."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -467,14 +492,16 @@ def test_cuda_float32_backwards_launch_the_wgmma_kernel_b():
                 for a in pair_to_torch(pair_args(rng, 1, 40, 128, 384, 128, True), dtype)]
         g = torch.as_tensor(rng.normal(size=(1, 40, 40, 128)).astype(np.float32)).to(dtype).cuda()
         got = names(lambda: t_pair.pair_mlp_bwd(g, *args))
-        want = "wgrad_wg_kernel" if dtype == torch.float32 else "wgrad_kernel"
+        want = "wgrad_wg_kernel" if dtype == torch.float32 else "wgrad_bf16_kernel"
         assert len(got) == 1 and want in got[0], got
-    eargs, bins = emb_args(rng, 1, 40, 128, 22)
-    eargs = [a.cuda() for a in emb_to_torch(eargs, torch.float32)]
-    g = torch.as_tensor(rng.normal(size=(1, 40, 40, 128)).astype(np.float32)).cuda()
-    got = names(lambda: t_emb.edge_embedder_bwd(g, *eargs, bins_lower=bins[0],
-                                                bins_upper=bins[1]))
-    assert len(got) == 1 and "wgrad_wg_kernel" in got[0], got
+    raw, bins = emb_args(rng, 1, 40, 128, 22)
+    for dtype in (torch.float32, torch.bfloat16):
+        eargs = [a.cuda() for a in emb_to_torch(raw, dtype)]
+        g = torch.as_tensor(rng.normal(size=(1, 40, 40, 128)).astype(np.float32)).to(dtype).cuda()
+        got = names(lambda: t_emb.edge_embedder_bwd(g, *eargs, bins_lower=bins[0],
+                                                    bins_upper=bins[1]))
+        want = "wgrad_wg_kernel" if dtype == torch.float32 else "wgrad_bf16_kernel"
+        assert len(got) == 1 and want in got[0], got
 
 
 @pytest.mark.gpu

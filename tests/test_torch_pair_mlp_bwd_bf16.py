@@ -10,9 +10,9 @@ dy0 likewise, d_pair = bf16(bf16(dy0 W0^T) + bf16(dxd Wfe^T)); the tiles'
 vector partials (d_b1 from the bf16 dy1, d_bf from the float32 dx); the row
 and column sums in index order (dy0's bf16 values and dx in float32); kernel
 B's weight gradients as split-K sums of bf16 operands (``SPLIT_SLICES``
-slices, each a chain of 32-pair steps, each step two 16-deep bf16 products
-summed exactly and rounded once to float32 into a zeroed fragment, added to
-the slice's sum); then the partials summed in order, chunk after chunk. It
+slices, each a chain of 64-pair steps, each step four 16-deep bf16 products
+summed exactly and rounded once to float32 into a zeroed accumulator, added
+to the slice's sum); then the partials summed in order, chunk after chunk. It
 is held against the JAX backward kernel in bf16 (interpret mode) and the
 port's plain backward in bf16, every gradient within 5e-2 of its own
 max-abs, residual and not, with the planner forced to 5 chunks. The kernels
@@ -39,19 +39,19 @@ TOL = 5e-2
 
 def split_k_bf16(a: torch.Tensor, b: torch.Tensor, slices: int = t_pair.SPLIT_SLICES) -> torch.Tensor:
     """a^T b over the rows of a chunk (bf16 operands), as the bf16 kernel B
-    sums it: ``slices`` slices of whole 32-row steps (zero rows past the
-    chunk); per step two 16-deep products, each summed exactly and rounded
-    to float32 into the step's zeroed sum; the step sums added in order;
-    then the slices added in order."""
+    (csrc/wgrad_bf16.cuh) sums it: ``slices`` slices of whole 64-row steps
+    (zero rows past the chunk); per step four 16-deep products, each summed
+    exactly and rounded to float32 into the step's zeroed sum; the step sums
+    added in order; then the slices added in order."""
     P = a.shape[0]
-    k_slice = -(-(-(-P // slices)) // 32) * 32
+    k_slice = -(-(-(-P // slices)) // 64) * 64
     pad = slices * k_slice - P
-    a = torch.cat([a, a.new_zeros(pad, a.shape[1])]).double().view(slices, -1, 32, a.shape[1])
-    b = torch.cat([b, b.new_zeros(pad, b.shape[1])]).double().view(slices, -1, 32, b.shape[1])
+    a = torch.cat([a, a.new_zeros(pad, a.shape[1])]).double().view(slices, -1, 64, a.shape[1])
+    b = torch.cat([b, b.new_zeros(pad, b.shape[1])]).double().view(slices, -1, 64, b.shape[1])
     acc = torch.zeros(slices, a.shape[-1], b.shape[-1])
     for step in range(a.shape[1]):
         part = torch.zeros_like(acc)
-        for k in (0, 16):
+        for k in range(0, 64, 16):
             part = (part.double() + a[:, step, k:k + 16].transpose(1, 2) @ b[:, step, k:k + 16]).float()
         acc = acc + part
     return in_order(acc, 0)

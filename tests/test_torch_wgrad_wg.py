@@ -17,10 +17,10 @@ Python and checked on the CPU:
   of a step's pairs and in the rows' own order, against float64 A^T Bm, and
   both backwards' decompositions with it against the JAX backward kernels
   in interpret mode;
-- the C sources: both float32 call sites launch the wgmma kernel, bf16 the
-  ``mma.sync`` one, which takes bf16 only; and the wrapper of the kernel
-  alone (``wgrad_f32``): the plain version on the CPU, the kernel or an
-  error on the card.
+- the C sources: both float32 call sites launch the wgmma kernel, bf16
+  ``csrc/wgrad_bf16.cuh``'s (``tests/test_torch_wgrad_bf16.py``), which
+  takes bf16 only; and the wrapper of the kernel alone (``wgrad_f32``): the
+  plain version on the CPU, the kernel or an error on the card.
 
 The kernel itself is held against float64 on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3).
@@ -345,29 +345,34 @@ def test_embedder_decomposition_in_either_order_matches_jax(order):
 
 
 def test_float32_call_sites_launch_the_wgmma_kernel_b():
-    """Read from the C sources: both split backwards' float32 branch builds
-    tensor maps and launches launch_wgrad_wg, the bf16 branch launch_wgrad
-    (each backward's split rest: pair_mlp_split.cuh, edge_embedder_split.cuh);
-    wgrad_tc.cuh's kernel refuses any type but bf16 at compile time; the
-    build hashes wgrad_wg.cuh with every library that includes it."""
+    """Read from the C sources: both split backwards (pair_mlp_split.cuh,
+    edge_embedder_split.cuh) build kernel B's tensor maps through wgrad_map
+    (float32 maps for float32 arrays, wgrad_wg.cuh's overload) and launch
+    launch_wgrad_wg in float32 and wgrad_bf16.cuh's launch_wgrad_bf16 in
+    bf16, both kernels on wgmma and TMA; the float32 kernel splits its
+    operands into TF32 parts, the bf16 one has no transform; the build
+    hashes both headers with every library that includes them."""
     split = (build.CSRC / "pair_mlp_split.cuh").read_text()
     emb = (build.CSRC / "edge_embedder_split.cuh").read_text()
-    for src, bf16_test in ((split, "if constexpr (kBf16<T>) {"),
-                           (emb, "if constexpr (sizeof(T) == 2) {")):
-        assert '#include "wgrad_wg.cuh"' in src
+    for src, bf16_test in ((split, "if constexpr (kBf16<T>)"),
+                           (emb, "if constexpr (sizeof(T) == 2)")):
+        assert '#include "wgrad_bf16.cuh"' in src
         kernel_b = src[src.index("  // Kernel B:"):]
+        kernel_b = kernel_b[:kernel_b.index("if (err != cudaSuccess) return err;")]
+        assert "wgrad_map(jobs, " in kernel_b
         branch = kernel_b[kernel_b.index(bf16_test):]
-        bf16_part, f32_part = branch.split("} else {", 1)
-        assert "launch_wgrad(" in bf16_part and "launch_wgrad_wg(" not in bf16_part
-        f32_part = f32_part[:f32_part.index("if (err != cudaSuccess) return err;")]
-        assert "launch_wgrad_wg(" in f32_part and "launch_wgrad(" not in f32_part
-        assert "wgrad_map(" in f32_part
-    tc = (build.CSRC / "wgrad_tc.cuh").read_text()
-    assert 'static_assert(sizeof(T) == 2, "bf16 only' in tc
-    assert "split_tf32" not in tc and "mma_tf32" not in tc
+        bf16_part, f32_part = branch.split("else", 1)
+        assert "launch_wgrad_bf16<T>(" in bf16_part and "launch_wgrad_wg(" not in bf16_part
+        assert "launch_wgrad_wg(" in f32_part and "launch_wgrad_bf16" not in f32_part
+    wb = (build.CSRC / "wgrad_bf16.cuh").read_text()
+    assert '#include "wgrad_wg.cuh"' in wb
+    assert 'static_assert(sizeof(T) == 2, "bf16 only' in wb
+    assert "split_tf32" not in wb and "mma_tf32" not in wb and "transpose_split" not in wb
+    assert "m64n128k16.f32.bf16.bf16" in wb and "tma_load_2d(" in wb
     wg = (build.CSRC / "wgrad_wg.cuh").read_text()
     assert "wgmma_m64n128k8_tf32(" in wg and "tma_load_2d(" in wg and "split_tf32(" in wg
-    assert "wgrad_wg.cuh" in build.HEADERS
+    assert "inline bool wgrad_map(WgradJobs& jobs, int i, const float* base" in wg
+    assert "wgrad_wg.cuh" in build.HEADERS and "wgrad_bf16.cuh" in build.HEADERS
     assert "extern \"C\" int fdk_wgrad_f32(" in (build.CSRC / "pair_mlp_bwd_wg.cu").read_text()
 
 
