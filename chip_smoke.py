@@ -25,7 +25,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernel: pair projection, attention, the splits merged with o_pair); the
    pair MLP's two forwards, each at every shape: the wgmma kernel
    (``csrc/pair_mlp_wg.cu``, every float32 forward, differentiated or not)
-   and the mma.sync kernel (``csrc/pair_mlp.cu``, every bf16 one); how the
+   and the bf16 wgmma kernel (``csrc/pair_mlp_wg_bf16.cu``, every bf16
+   forward, differentiated or not; with and without the residual terms, its
+   time beside its bound at B=2 N=256, N=896 and B=1 N=100, its SASS's
+   HGMMA, UTMALDG, generic and local LD/ST counts and ptxas's spill report:
+   a gate); how the
    tensor cores read a raw float32 operand as TF32 (a probe), the wgmma
    kernel's weight split against ``wgmma_weight_split`` bit for bit, the
    float32 backward's two splits (``wgmma_weight_split``,
@@ -65,7 +69,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    at the serving shape with the IPA
    kernel off, on, and on with every kernel's plain version, and profile a
    short sampler run with the IPA kernel off and on (device busy share, the
-   kernels that take the device's time);
+   kernels that take the device's time); then a bf16 service
+   (``model.compute_dtype=bfloat16``): one request (bucket 256, num_t=100),
+   every pair-MLP launch on ``csrc/pair_mlp_wg_bf16.cu``, and a short bf16
+   sampler run profiled;
 6. the train step at the full default width (float32, inpainting, the
    default ``model.ipa.pallas_emb_bwd_impl=pallas``: the embedder's
    backward kernel; the test fixtures' weights, whose final layers are
@@ -78,7 +85,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernels (``csrc/pair_mlp_wg.cu``, ``csrc/pair_mlp_bwd_wg.cu``,
    ``csrc/edge_embedder_wg.cu``, ``csrc/edge_embedder_bwd_wg.cu``), the
    autograd forward's and the self-conditioning forward's alike); the same step
-   in bf16 (``model.compute_dtype=bfloat16``; the mma.sync kernels): its
+   in bf16 (``model.compute_dtype=bfloat16``; the pair-MLP forwards on the
+   bf16 wgmma kernel, the rest on the mma.sync kernels): its
    first step's loss within 5e-2 of the plain-version bf16 step's, each
    gradient's error against its max-abs printed, then 3 steps (finite, the
    same launches); the step time, examples/s and peak memory of the three
@@ -193,9 +201,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     two ranks on the one card), each part spawned under a time limit of its
     own: (a) in one process, each rank's row block at sp 2 and 4 (B=2, N=896
     and the ragged N=230, float32 and bf16) through the pair-MLP kernels
-    and edge-embedder kernels (the wgmma ones in float32, the mma.sync ones
-    in bf16)
-    against the same rows of the full launch (largest
+    and edge-embedder kernels (the wgmma ones in float32; in bf16 the
+    pair MLP's wgmma kernel, as the samplers run it, and the embedder's
+    mma.sync one) against the same rows of the full launch (largest
     difference within the kernel tolerance, bits equal or not, padded rows
     0), each block timed beside the full launch; (b) the sequence-parallel
     sampler, two ranks at sp=2, full width, B=2, N=896, num_t 10, the test
@@ -246,7 +254,7 @@ largest there are printed).
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` from the path that runs it first: phases 5, 6 and 7, the
 pair MLP's backwards (float32 ``pair_mlp_bwd_wg``, bf16 ``pair_mlp_bwd``),
-its bf16 forward, the edge embedder's mma.sync kernel and its bf16 backward
+the edge embedder's mma.sync kernel and its bf16 backward
 ``edge_embedder_bwd`` from phase 6's steps, the float32 embedder backward
 ``edge_embedder_bwd_wg`` from phase 7's;
 ``inference_cli_launches`` from phase 8's batched run,
@@ -281,8 +289,8 @@ PEAK_BYTES = 3.35e12
 # A kernel whose float32 products run on the tensor cores as 3xTF32 does
 # three TF32 products (495 TFLOP/s) for each float32 one.
 TENSOR_CORE_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-TENSOR_CORE_KERNELS = ("pair_mlp", "pair_mlp_wg", "ipa_attention", "edge_embedder",
-                       "edge_embedder_wg")
+TENSOR_CORE_KERNELS = ("pair_mlp_wg", "pair_mlp_wg_bf16", "ipa_attention",
+                       "edge_embedder", "edge_embedder_wg")
 # The IPA attention's CUDA kernels by name: kernel P (pair projection),
 # kernel S (attention), kernel F (the key splits merged, o_pair).
 IPA_PARTS = (("P", "pair_proj_kernel"), ("S", "attend_kernel"), ("F", "finish_kernel"))
@@ -502,11 +510,11 @@ def check_kernels() -> dict[str, dict]:
                           edge_embedder_cost, edge_shapes, (torch.bfloat16,)),
         "edge_embedder_wg": (edge_embedder, edge_embedder_plain, edge_embedder_inputs,
                              edge_embedder_cost, edge_shapes, (torch.float32,)),
-        # The pair MLP's two forwards: csrc/pair_mlp.cu (mma.sync; every bf16
-        # forward) and csrc/pair_mlp_wg.cu (wgmma; every float32 forward,
-        # differentiated or not), each as pair_mlp's route picks it.
-        "pair_mlp": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, edge_shapes,
-                     (torch.bfloat16,)),
+        # The pair MLP's two forwards: csrc/pair_mlp_wg_bf16.cu (wgmma;
+        # every bf16 forward) and csrc/pair_mlp_wg.cu (wgmma; every float32
+        # forward), differentiated or not, each as pair_mlp's route picks it.
+        "pair_mlp_wg_bf16": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost,
+                             edge_shapes, (torch.bfloat16,)),
         "pair_mlp_wg": (pair_mlp, pair_mlp_plain, pair_mlp_inputs, pair_mlp_cost, edge_shapes,
                         (torch.float32,)),
         "ipa_attention": (lambda *a: ipa_attention(*a, **ipa_kw),
@@ -547,6 +555,8 @@ def check_kernels() -> dict[str, dict]:
                 if tensor_cores and dtype == torch.float32:
                     line += (f"; 3xTF32 bound, CUDA-core bound "
                              f"{bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms")
+                if name == "pair_mlp_wg_bf16" and (B, N) in ((2, 256), (2, 896), (1, 100)):
+                    line += f"; {ms / bound_ms:.2f}x the bound; {card_line()}"
                 if name == "edge_embedder_wg":
                     # The differentiated float32 forward is the same kernel.
                     if not torch.equal(got, edge_embedder_differentiated(*args)):
@@ -569,9 +579,9 @@ def check_kernels() -> dict[str, dict]:
     # The plain-MLP variant (no residual terms) of the pair-MLP kernel, and
     # the edge embedder with no distance bins (a model without the
     # self-conditioning distogram).
-    checks = [(f"pair_mlp residual=False bfloat16 B={B} N={N}", pair_mlp, pair_mlp_plain,
-               pair_mlp_inputs(B, N, torch.bfloat16, gen, residual=False), TOL[torch.bfloat16])
-              for B, N in ((1, 17), (2, 200))]
+    checks = [(f"pair_mlp_wg_bf16 residual=False bfloat16 B={B} N={N}", pair_mlp,
+                pair_mlp_plain, pair_mlp_inputs(B, N, torch.bfloat16, gen, residual=False),
+                TOL[torch.bfloat16]) for B, N in edge_shapes]
     checks += [(f"pair_mlp_wg residual=False float32 B={B} N={N}", pair_mlp, pair_mlp_plain,
                 pair_mlp_inputs(B, N, torch.float32, gen, residual=False), TOL[torch.float32])
                for B, N in ((1, 17), (2, 200))]
@@ -590,7 +600,32 @@ def check_kernels() -> dict[str, dict]:
             raise AssertionError(f"{label}: two launches differ")
     torch.cuda.synchronize()
     check_wgmma_pieces(gen)
+    check_bf16_forward_build()
     return serving
+
+
+def check_bf16_forward_build() -> None:
+    """The bf16 forward's kernel (pair_mlp_wg_bf16_kernel) as built: HGMMA
+    and UTMALDG instructions, no generic load or store, and no spill in
+    ptxas's report of either instance."""
+    from framedipt_tpu_torch.model.kernels import build
+
+    c = function_counts("pair_mlp_wg_bf16", "pair_mlp_wg_bf16_kernel",
+                        ("HGMMA", "UTMALDG", "LD", "ST", "LDS", "STS", "LDL", "STL"))
+    report, fn = [], ""
+    for line in build.build_log.get("pair_mlp_wg_bf16", {}).get("log", "").splitlines():
+        if "Function properties for" in line:
+            fn = line.split()[-1]
+        elif "spill" in line and "pair_mlp_wg_bf16_kernel" in fn:
+            report.append(line.strip())
+    spilled = [r for r in report if "0 bytes spill stores, 0 bytes spill loads" not in r]
+    log(f"pair_mlp_wg_bf16: pair_mlp_wg_bf16_kernel {c['HGMMA']} HGMMA and {c['UTMALDG']} UTMALDG "
+        f"instructions, {c['LD']} generic LD and {c['ST']} generic ST, {c['LDS']} LDS and "
+        f"{c['STS']} STS, {c['LDL']} LDL and {c['STL']} STL (cuobjdump -sass); ptxas: "
+        + ("; ".join(report) or "no report (the library was built before this run)"))
+    if not (c["HGMMA"] and c["UTMALDG"]) or c["LD"] or c["ST"] or c["LDL"] or c["STL"] or spilled:
+        raise AssertionError("pair_mlp_wg_bf16_kernel lacks HGMMA or UTMALDG, has generic or "
+                             f"local loads or stores, or spills: {spilled}")
 
 
 def check_wgmma_pieces(gen) -> None:
@@ -1337,17 +1372,18 @@ def helix_pdb(n_res: int, seed: int) -> str:
     ))
 
 
-KERNEL_NAMES = ("edge_embedder", "edge_embedder_wg", "pair_mlp", "pair_mlp_wg", "ipa_attention",
-                "pair_mlp_bwd", "pair_mlp_bwd_wg", "edge_embedder_bwd", "edge_embedder_bwd_wg")
+KERNEL_NAMES = ("edge_embedder", "edge_embedder_wg", "pair_mlp_wg", "pair_mlp_wg_bf16",
+                "ipa_attention", "pair_mlp_bwd", "pair_mlp_bwd_wg", "edge_embedder_bwd",
+                "edge_embedder_bwd_wg")
 
 
 class RouteLaunches:
     """An edge-stack wrapper's launches of one of its kernels
-    (``launches_mma``: csrc/pair_mlp.cu, csrc/pair_mlp_bwd.cu,
-    csrc/edge_embedder.cu or csrc/edge_embedder_bwd.cu; ``launches_wgmma``:
+    (``launches_mma``: csrc/pair_mlp_bwd.cu, csrc/edge_embedder.cu or
+    csrc/edge_embedder_bwd.cu; ``launches_wgmma``:
     csrc/pair_mlp_wg.cu, csrc/pair_mlp_bwd_wg.cu, csrc/edge_embedder_wg.cu or
-    csrc/edge_embedder_bwd_wg.cu), read and set as a wrapper's ``launches``
-    is."""
+    csrc/edge_embedder_bwd_wg.cu; ``launches_wgmma_bf16``:
+    csrc/pair_mlp_wg_bf16.cu), read and set as a wrapper's ``launches`` is."""
 
     def __init__(self, wrapper, attr: str) -> None:
         self.wrapper, self.attr = wrapper, attr
@@ -1370,8 +1406,9 @@ def kernel_wrappers() -> dict:
 
     return {"edge_embedder": RouteLaunches(edge_embedder, "launches_mma"),
             "edge_embedder_wg": RouteLaunches(edge_embedder, "launches_wgmma"),
-            "pair_mlp": RouteLaunches(pair_mlp, "launches_mma"),
-            "pair_mlp_wg": RouteLaunches(pair_mlp, "launches_wgmma"), "ipa_attention": ipa_attention,
+            "pair_mlp_wg": RouteLaunches(pair_mlp, "launches_wgmma"),
+            "pair_mlp_wg_bf16": RouteLaunches(pair_mlp, "launches_wgmma_bf16"),
+            "ipa_attention": ipa_attention,
             "pair_mlp_bwd": RouteLaunches(pair_mlp_bwd, "launches_mma"),
             "pair_mlp_bwd_wg": RouteLaunches(pair_mlp_bwd, "launches_wgmma"),
             "edge_embedder_bwd": RouteLaunches(edge_embedder_bwd, "launches_mma"),
@@ -1390,6 +1427,7 @@ def serve_requests(service, requests) -> dict[str, int]:
 
     wrappers = kernel_wrappers()
     ipa_on = bool(service.cfg.model.ipa.use_pallas_ipa)
+    bf16 = service.cfg.model.compute_dtype == "bfloat16"
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1417,12 +1455,14 @@ def serve_requests(service, requests) -> dict[str, int]:
             if "samples" not in reply:
                 raise AssertionError(f"request {k} failed: {reply}")
             got_launches = {name: fn.launches - before[name] for name, fn in wrappers.items()}
+            edge = (NUM_BLOCKS - 1) * (num_t + 1)
             want = {
-                # every float32 forward without gradients: the wgmma kernels
-                "edge_embedder": 0,
-                "edge_embedder_wg": num_t + 1,
-                "pair_mlp": 0,
-                "pair_mlp_wg": (NUM_BLOCKS - 1) * (num_t + 1),
+                # every forward without gradients: the wgmma kernels, but the
+                # bf16 embedder's (mma.sync)
+                "edge_embedder": num_t + 1 if bf16 else 0,
+                "edge_embedder_wg": 0 if bf16 else num_t + 1,
+                "pair_mlp_wg": 0 if bf16 else edge,
+                "pair_mlp_wg_bf16": edge if bf16 else 0,
                 "ipa_attention": NUM_BLOCKS * (num_t + 1) if ipa_on else 0,
                 "pair_mlp_bwd": 0,
                 "pair_mlp_bwd_wg": 0,
@@ -1446,7 +1486,8 @@ def serve_requests(service, requests) -> dict[str, int]:
                 if not ca_err <= 1e-3 + 1e-9:
                     raise AssertionError(f"request {k} sample {s}: fixed CA moved {ca_err} A")
             log(
-                f"request {k} (use_pallas_ipa={ipa_on}): N={n_res} "
+                f"request {k} (use_pallas_ipa={ipa_on}, {service.cfg.model.compute_dtype}): "
+                f"N={n_res} "
                 f"(bucket {256 if n_res > 128 else 128}), samples=2, num_t={num_t}: "
                 f"{took:.3f} s (server {reply['seconds']:.3f} s), launches "
                 + " ".join(f"{name}={n}" for name, n in got_launches.items())
@@ -1462,8 +1503,9 @@ def serve_requests(service, requests) -> dict[str, int]:
 
 def drive_service() -> dict[str, int]:
     """Phase 5: the default service, then one with the IPA attention kernel
-    on. Returns each kernel's launches on the path that runs it (the edge
-    kernels' from the default service, the IPA kernel's from the second)."""
+    on, then one in bf16. Returns each kernel's launches on the path that
+    runs it (the float32 edge kernels' from the default service, the IPA
+    kernel's from the second, the bf16 pair MLP's from the third)."""
     from framedipt_tpu_torch.experiments.serve import InpaintingService
     from framedipt_tpu_torch.tools.config import Config, load_config
 
@@ -1495,7 +1537,23 @@ def drive_service() -> dict[str, int]:
     for on in (False, True):
         with ipa_kernel(service.model, on):
             profile_sampler(service.model, service.diffuser)
+    del service
+    torch.cuda.empty_cache()
+
+    # bf16 serving (model.compute_dtype=bfloat16): the pair MLP's forwards
+    # on csrc/pair_mlp_wg_bf16.cu.
+    cfg_bf16 = load_config(["model.compute_dtype=bfloat16"])
+    cfg_bf16.inference.weights_path = ""
+    t0 = time.perf_counter()
+    service_bf16 = InpaintingService(cfg_bf16, device="cuda")
+    log(f"service (model.compute_dtype=bfloat16) up in {time.perf_counter() - t0:.2f} s")
+    bf16 = serve_requests(service_bf16, [(230, (100, 112), 100)])
+    log(f"bf16 service launches: {bf16}")
+    profile_sampler(service_bf16.model, service_bf16.diffuser)
+    del service_bf16
+    torch.cuda.empty_cache()
     return {"edge_embedder_wg": default["edge_embedder_wg"], "pair_mlp_wg": default["pair_mlp_wg"],
+            "pair_mlp_wg_bf16": bf16["pair_mlp_wg_bf16"],
             "ipa_attention": with_ipa["ipa_attention"]}
 
 
@@ -1549,7 +1607,8 @@ def plain_versions_in_model():
 
     swaps = [(emb, "edge_embedder", emb.edge_embedder_plain),
              (emb, "edge_embedder_bwd", emb.edge_embedder_bwd_plain),
-             (pm, "pair_mlp", pm.pair_mlp_plain), (pm, "pair_mlp_bwd", pm.pair_mlp_bwd_plain),
+             (pm, "pair_mlp", pm.pair_mlp_plain),
+             (pm, "pair_mlp_bwd", pm.pair_mlp_bwd_plain),
              (ipa, "ipa_attention", ipa_attention_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -1584,7 +1643,7 @@ def profile_sampler(model: torch.nn.Module, diffuser, num_t: int = 10) -> None:
     """A short sampler run at the serving shape: its wall time, the device
     time of every kernel in a second run under torch.profiler, and the
     device's busy share (summed device time / unprofiled wall time)."""
-    from framedipt_tpu_torch.model.ipa import InvariantPointAttention
+    from framedipt_tpu_torch.model.ipa import EdgeTransition, InvariantPointAttention
     from framedipt_tpu_torch.sampling import sample
 
     ipa_on = any(m.use_kernel for m in model.modules() if isinstance(m, InvariantPointAttention))
@@ -1601,7 +1660,9 @@ def profile_sampler(model: torch.nn.Module, diffuser, num_t: int = 10) -> None:
     if not by_name:
         log("sampler profile: torch.profiler recorded no device time (busy share not measured)")
         return
-    log(f"sampler B=2 N=256 num_t={num_t} ({num_t + 1} forwards, use_pallas_ipa={ipa_on}): "
+    dtype = next(m.dtype for m in model.modules() if isinstance(m, EdgeTransition))
+    log(f"sampler B=2 N=256 num_t={num_t} ({num_t + 1} forwards, use_pallas_ipa={ipa_on}, "
+        f"{str(dtype)[6:]}): "
         f"{wall:.1f} ms wall, "
         f"{busy:.1f} ms of device time, busy share {busy / wall:.3f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -1693,15 +1754,17 @@ def expected_launches(self_conditioned: bool, emb_bwd_impl: str = "pallas",
     """A train step's launches: every embedder and pair-MLP forward (the
     autograd forward's and the coin's, under no_grad) and backward on the
     dtype's kernels (float32: wgmma, each backward's kernel A recomputing
-    the wgmma forward's bits; bf16: mma.sync)."""
+    the wgmma forward's bits; bf16: the pair-MLP forwards on
+    csrc/pair_mlp_wg_bf16.cu, the rest on mma.sync)."""
     edge = NUM_BLOCKS - 1
     sc = int(self_conditioned)  # the coin's forward runs without gradients
-    pair_fwd, pair_bwd = ("pair_mlp", "pair_mlp_bwd") if bf16 else ("pair_mlp_wg", "pair_mlp_bwd_wg")
+    pair_fwd, pair_bwd = (("pair_mlp_wg_bf16", "pair_mlp_bwd") if bf16
+                          else ("pair_mlp_wg", "pair_mlp_bwd_wg"))
     emb_fwd, emb_bwd = (("edge_embedder", "edge_embedder_bwd") if bf16
                         else ("edge_embedder_wg", "edge_embedder_bwd_wg"))
     launches = dict.fromkeys(KERNEL_NAMES, 0)
     launches[emb_fwd], launches[emb_bwd] = 1 + sc, int(emb_bwd_impl == "pallas")
-    launches[pair_fwd], launches[pair_bwd] = edge + edge * sc, edge
+    launches[pair_fwd], launches[pair_bwd] = edge * (1 + sc), edge
     return launches
 
 
@@ -2269,9 +2332,10 @@ def forward_launches(forwards: int) -> dict[str, int]:
     """Each kernel's launches over ``forwards`` float32 model forwards
     without gradients (the edge embedder and the pair MLP on their wgmma
     kernels) and with the IPA attention as einsums."""
-    return {"edge_embedder": 0, "edge_embedder_wg": forwards, "pair_mlp": 0,
-            "pair_mlp_wg": (NUM_BLOCKS - 1) * forwards, "ipa_attention": 0, "pair_mlp_bwd": 0,
-            "pair_mlp_bwd_wg": 0, "edge_embedder_bwd": 0, "edge_embedder_bwd_wg": 0}
+    return {"edge_embedder": 0, "edge_embedder_wg": forwards,
+            "pair_mlp_wg": (NUM_BLOCKS - 1) * forwards, "pair_mlp_wg_bf16": 0, "ipa_attention": 0,
+            "pair_mlp_bwd": 0, "pair_mlp_bwd_wg": 0, "edge_embedder_bwd": 0,
+            "edge_embedder_bwd_wg": 0}
 
 
 def check_inference_cli(root: pathlib.Path) -> tuple[dict[str, int], pathlib.Path]:
@@ -3403,7 +3467,8 @@ def check_profiling_trace(root: pathlib.Path) -> None:
         if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel":
             kernels[e["name"]] = kernels.get(e["name"], 0) + 1
     found = {k: sum(n for name, n in kernels.items() if f"{k}_kernel" in name)
-             for k in ("pair_mlp", "pair_mlp_wg", "edge_embedder", "edge_embedder_wg")}
+             for k in ("pair_mlp_wg", "pair_mlp_wg_bf16", "edge_embedder",
+                       "edge_embedder_wg")}
     want = forward_launches(3 + 1)  # the sampler's forwards: num_t + 1
     if found != {k: want[k] for k in found}:
         raise AssertionError(f"trace: kernel events {found}; names {sorted(kernels)[:10]}")
@@ -3451,7 +3516,8 @@ def check_cif_parse_speed(repeats: int = 5) -> None:
 ROW_BLOCK_NS = (896, 230)
 # The wrappers' row-side arguments: pair, i_term, row_mask, fi of the pair
 # MLP; g, pos_rows, i_term, row_mask of the edge embedder.
-ROW_ARGS = {"pair_mlp": (0, 1, 3, 13), "pair_mlp_wg": (0, 1, 3, 13), "edge_embedder": (0, 2, 4, 6),
+ROW_ARGS = {"pair_mlp_wg_bf16": (0, 1, 3, 13), "pair_mlp_wg": (0, 1, 3, 13),
+            "edge_embedder": (0, 2, 4, 6),
             "edge_embedder_wg": (0, 2, 4, 6)}
 # (b) The SP sampler against the one-process sampler on the card: the JAX
 # package's SP test's tolerances (tests/unit/test_sequence_parallel.py).
@@ -3482,8 +3548,9 @@ def parallel_backend(world: int) -> str:
 
 def check_row_blocks() -> None:
     """(a) One process, no collective: each rank's row block at sp 2 and 4
-    through the pair-MLP kernels (the wgmma one in float32, the mma.sync one
-    in bf16) and the edge-embedder kernels (both routes in float32) against
+    through the pair-MLP kernels (the wgmma ones in float32 and bf16, as the
+    samplers run them: without gradients) and the edge-embedder kernels
+    (both routes) against
     the same rows of the full launch (bits, largest difference), each block
     timed beside the full launch."""
     from framedipt_tpu_torch.model.kernels.edge_embedder import edge_embedder
@@ -3492,7 +3559,7 @@ def check_row_blocks() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     f32, bf16 = (torch.float32,), (torch.bfloat16,)
-    kernels = {"pair_mlp": (pair_mlp, pair_mlp_inputs, bf16),
+    kernels = {"pair_mlp_wg_bf16": (pair_mlp, pair_mlp_inputs, bf16),
                "pair_mlp_wg": (pair_mlp, pair_mlp_inputs, f32),
                "edge_embedder": (edge_embedder, edge_embedder_inputs, bf16),
                "edge_embedder_wg": (edge_embedder, edge_embedder_inputs, f32)}
@@ -3721,7 +3788,8 @@ def check_sp_sampler(work: pathlib.Path) -> dict[str, int]:
     if not np.array_equal(ranks[0]["final_rigids"], ranks[1]["final_rigids"]):
         raise AssertionError("SP sampler: the ranks' final_rigids differ")
     expect = {"edge_embedder_wg": SP_NUM_T + 1, "edge_embedder": 0,
-              "pair_mlp_wg": (NUM_BLOCKS - 1) * (SP_NUM_T + 1), "pair_mlp": 0, "ipa_attention": 0}
+              "pair_mlp_wg": (NUM_BLOCKS - 1) * (SP_NUM_T + 1), "pair_mlp_wg_bf16": 0,
+              "ipa_attention": 0}
     for r, res in enumerate(ranks):
         if any(res["launches"][k] != v for k, v in expect.items()):
             raise AssertionError(f"SP sampler rank {r}: launches {res['launches']}")
@@ -3951,8 +4019,7 @@ def main() -> int:
     log(f"phase 6: train step (at {time.perf_counter() - started:.0f} s)")
     check_training_refusals()
     train_launches = check_train_step()
-    for name in ("pair_mlp_bwd", "pair_mlp_bwd_wg", "pair_mlp", "edge_embedder",
-                 "edge_embedder_bwd"):
+    for name in ("pair_mlp_bwd", "pair_mlp_bwd_wg", "edge_embedder", "edge_embedder_bwd"):
         launches[name] = train_launches[name]
     log(f"phase 7: the training CLI (at {time.perf_counter() - started:.0f} s)")
     launches["edge_embedder_bwd_wg"] = check_training_cli()
@@ -3986,8 +4053,8 @@ def main() -> int:
     replaces = {
         "edge_embedder": "framedipt_tpu/model/pallas/edge_embedder.py:76",
         "edge_embedder_wg": "framedipt_tpu/model/pallas/edge_embedder.py:76",
-        "pair_mlp": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "pair_mlp_wg": "framedipt_tpu/model/pallas/pair_mlp.py:78",
+        "pair_mlp_wg_bf16": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "ipa_attention": "framedipt_tpu/model/pallas/ipa_attention.py:65",
         "pair_mlp_bwd": "framedipt_tpu/model/pallas/pair_mlp.py:349",
         "pair_mlp_bwd_wg": "framedipt_tpu/model/pallas/pair_mlp.py:349",

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time the edge-embedder forward kernels, the float32 pair-MLP and
-edge-embedder backwards' kernel A and kernel B of both split backwards (both
-dtypes) beside variants of their sources, on one CUDA card.
+"""Time the edge-embedder forward kernels, the bf16 pair-MLP forward on
+wgmma, the float32 pair-MLP and edge-embedder backwards' kernel A and kernel
+B of both split backwards (both dtypes) beside variants of their sources, on
+one CUDA card.
 
-    python3 chip_variants.py [--parent DIR] [--out FILE] [--only mma|wgmma|bwd|emb_bwd|wgrad]
+    python3 chip_variants.py [--parent DIR] [--out FILE]
+                             [--only mma|wgmma|bwd|emb_bwd|wgrad|bf16_fwd]
 
 Each variant is this checkout's ``framedipt_tpu_torch/csrc`` with text
 patches applied to a copy, built by nvcc (one process per variant, all
@@ -35,9 +37,17 @@ every block loading one job's rows of slice 0, which stay in L2), likewise
 in bf16; then bf16 kernel B's device ms inside both bf16 backwards over six
 placements of the call's memory (PLACEMENT_PADS_MB), three rounds each,
 beside the same products as ``torch.mm`` in bf16 and, with ``--parent``,
-the parent's ``mma.sync`` kernel B, with each one's median and spread.
+the parent's ``mma.sync`` kernel B, with each one's median and spread; and
+of ``pair_mlp_wg_bf16.cuh`` (the bf16 pair-MLP forward on wgmma: its slice
+loop rolled, a ring of two stages, and one part removed at a time: the
+products, the epilogues' loads from device memory, the weights' TMA loads),
+each variant held or timed at FWD_SHAPES beside, with ``--parent``, the
+parent's bf16 forward (``pair_mlp.cu``, mma.sync), then this checkout's
+kernel and the parent's at FWD_SHAPES over six placements of the inputs
+(PLACEMENT_PADS_MB), three rounds each, by device ms of one call
+(torch.profiler) and CUDA events, median and spread.
 ``--only`` builds and times one kernel's variants (``wgrad``: both dtypes'
-kernel B). Variants that
+kernel B; ``bf16_fwd``: the bf16 pair-MLP forward). Variants that
 change how a kernel works are held against the plain version (float32 1e-4,
 bf16 5e-2) at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256; variants that
 remove a part of the work give wrong outputs and are only timed, to show
@@ -46,7 +56,8 @@ commit: ``git archive <rev> | tar -x -C DIR``), that tree's
 ``edge_embedder.cu`` is timed too and must give the same bits as this
 checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256 with and without
 distance bins in bf16 (the forward's tile is shared with the bf16 embedder
-backward's recompute); its ``pair_mlp.cu`` and ``pair_mlp_bwd.cu`` (bf16),
+backward's recompute); its bf16 pair-MLP forward (``pair_mlp.cu``, against
+this checkout's ``pair_mlp_wg_bf16.cu``) and ``pair_mlp_bwd.cu`` (bf16),
 ``pair_mlp_wg.cu`` and ``pair_mlp_bwd_wg.cu`` (float32, with and without
 the residual terms), ``edge_embedder_wg.cu`` (float32),
 ``edge_embedder_bwd_wg.cu`` (float32, also held against the plain version),
@@ -446,6 +457,43 @@ WG_VARIANTS = {
 }
 
 
+# The bf16 pair-MLP forward on wgmma (csrc/pair_mlp_wg_bf16.cu, tile code
+# pair_mlp_wg_bf16.cuh): each product's slice loop rolled (ptxas then copies
+# a second accumulator set through local memory), its ring one stage
+# shorter (a fourth stage does not fit: 233,824 bytes of shared memory
+# against 232,448), and one part removed
+# at a time: the products, the epilogues' loads from device memory (i_term,
+# j_term, fi, fj), the weights' TMA loads (the stage's barrier completed by
+# a plain arrival).
+FWD = "pair_mlp_wg_bf16.cu"
+FWD_H = "pair_mlp_wg_bf16.cuh"
+FWD_TMA = """      wg::mbar_arrive_expect_tx(&sm.full[st], 2 * kBoxBytes);
+      wg::tma_load_2d(sm.w[st][0], map, &sm.full[st], col, row);
+      wg::tma_load_2d(sm.w[st][1], map, &sm.full[st], col + 64, row);"""
+FWD_VARIANTS = {
+    "fwd_rolled_slices": ({FWD_H: [("#pragma unroll\n    for (int s = 0; s < S; ++s) {",
+                                    "#pragma unroll 1\n    for (int s = 0; s < S; ++s) {")]}, True),
+    "fwd_two_stages": ({FWD_H: [("constexpr int kStages = 3;", "constexpr int kStages = 2;")]},
+                       True),
+    "fwd_no_products": ({FWD_H: [("        wgmma_m64n128k16(acc, wg::desc_sw128(a + 16 * kk),",
+                                  "        if (kk < 0) wgmma_m64n128k16(acc, wg::desc_sw128(a + 16 * kk),")]},
+                        False),
+    "fwd_no_epilogue_loads": ({FWD_H: [
+        ("        it[i / 2] = ld_pair(i_term + (size_t)max(pt.row[r], 0) * HID + c);",
+         "        it[i / 2] = 0u;"),
+        ("        jt[i / 2] = ld_pair(j_term + (size_t)pt.col[r] * HID + c);", "        jt[i / 2] = 0u;"),
+        ("        fiv[i / 2] = ld_pair(fi + (size_t)max(pt.row[r], 0) * C_OUT + c);",
+         "        fiv[i / 2] = 0u;"),
+        ("        fjv[i / 2] = ld_pair(fj + (size_t)pt.col[r] * C_OUT + c);", "        fjv[i / 2] = 0u;")]},
+        False),
+    "fwd_no_weight_tma": ({FWD_H: [(FWD_TMA, "      (void)map;\n      wg::mbar_arrive(&sm.full[st]);")]},
+                          False),
+}
+# The shapes the bf16 forward is timed at: the serving shape, the CLI's
+# bucket, a de novo structure below one wave of tiles.
+FWD_SHAPES = ((2, 256), (2, 896), (1, 100))
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -493,10 +541,12 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen, keep: dict) -> dict:
         a = cs.pair_mlp_inputs(2, 256, dtype, gen)
         g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
         # The forward autograd differentiates: the wgmma kernel in float32
-        # in both trees, mma.sync in bf16.
-        kind = "pair_mlp_wg" if dtype == torch.float32 else "pair_mlp"
+        # in both trees; in bf16 the bf16 wgmma kernel, the parent's mma.sync.
+        kind, parent_kind = (("pair_mlp_wg", "pair_mlp_wg") if dtype == torch.float32
+                             else ("pair_mlp_wg_bf16", "pair_mlp"))
         cases[f"pair_mlp {str(dtype)[6:]}, differentiated"] = (
-            kind, kind, lambda a=a: t_pair.pair_mlp(*a), lambda a=a: parent_pair.pair_mlp(*a))
+            kind, parent_kind, lambda a=a: t_pair.pair_mlp(*a),
+            lambda a=a: parent_pair.pair_mlp(*a))
         # Each dtype's backward through its library.
         kind = "pair_mlp_bwd_wg" if dtype == torch.float32 else "pair_mlp_bwd"
         cases[f"pair_mlp_bwd {str(dtype)[6:]}"] = (
@@ -543,7 +593,7 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen, keep: dict) -> dict:
                     t.setdefault(f"{who} kernel A", []).append(parts.get("A", 0.0))
                     t.setdefault(f"{who} kernel B", []).append(parts.get("B", 0.0))
         use(kind, new_libs[kind])
-        if parent_kind != kind:
+        if parent_kind != kind and parent_kind in new_libs:
             use(parent_kind, new_libs[parent_kind])
         log(f"{label} B=2 N=256: " + "; ".join(
             f"{'this checkout' if who.startswith('new') else 'the parent'}"
@@ -874,11 +924,108 @@ def time_bwd_variants(cs, libs, names, use, gen) -> dict:
     return t
 
 
+def fwd_checks(cs, name: str, gen, reference=None) -> int:
+    """The bf16 forward through the library ``name`` stands in for against
+    the plain version (5e-2 abs+rel) at B=1 N=1, B=1 N=17, B=2 N=200 and
+    B=2 N=256 with and without the residual terms, two launches
+    bit-identical, and, given ``reference`` (a function of the inputs), its
+    bits equal to it; logs one line each, returns the failures."""
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    fails = 0
+    for B, N in ((1, 1), (1, 17), (2, 200), (2, 256)):
+        for residual in (True, False):
+            a = cs.pair_mlp_inputs(B, N, torch.bfloat16, gen, residual=residual)
+            got = t_pair.pair_mlp(*a)
+            err, excess = cs.max_violation(got, t_pair.pair_mlp_plain(*a), cs.TOL[torch.bfloat16])
+            same = torch.equal(got, t_pair.pair_mlp(*a))
+            line = (f"{name} bfloat16 B={B} N={N} residual={residual}: max_abs_err={err:.3e} "
+                    f"(tol {cs.TOL[torch.bfloat16]} abs+rel), two launches bit-identical: {same}")
+            ok = excess <= 0 and same
+            if reference is not None:
+                ref_same = torch.equal(got, reference(a))
+                line += f", this checkout's bits {ref_same}"
+                ok = ok and ref_same
+            log(line)
+            fails += not ok
+    return fails
+
+
+def time_fwd(cs, libs, names, use, gen, pmods) -> dict:
+    """The bf16 forward at FWD_SHAPES (residual), CUDA events over 20
+    launches, three rounds in alternating order: this checkout's kernel
+    (``new_fwd``) and its variants (``names``) and, with ``pmods``, the
+    parent's bf16 forward (pair_mlp.cu) through its own wrapper and
+    library."""
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    times = {}
+    for B, N in FWD_SHAPES:
+        a = cs.pair_mlp_inputs(B, N, torch.bfloat16, gen)
+        calls = {n: ("pair_mlp_wg_bf16", libs[n], lambda: t_pair.pair_mlp(*a)) for n in names}
+        if pmods:
+            calls["the parent's pair_mlp.cu"] = ("pair_mlp", libs["parent_pair_mlp"],
+                                                 lambda: pmods["pair_mlp"].pair_mlp(*a))
+        t = {k: [] for k in calls}
+        for rnd in range(3):
+            for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
+                kind, lib, fn = calls[key]
+                use(kind, lib)
+                t[key].append(cs.cuda_time_ms(fn, 20))
+        use("pair_mlp_wg_bf16", libs["new_fwd"])
+        flops, nbytes = cs.pair_mlp_cost(B, N, torch.bfloat16)
+        bound_ms, by = cs.bound(flops, nbytes, cs.TENSOR_CORE_FLOPS[torch.bfloat16])
+        for key, xs in t.items():
+            log(f"bf16 pair-MLP forward B={B} N={N}, {key}: " + ", ".join(f"{x:.4f}" for x in xs)
+                + f" ms (bound {bound_ms:.4f} ms, {by})")
+        times[f"B={B} N={N}"] = t
+    return times
+
+
+def time_fwd_placements(cs, libs, use, gen, pmods) -> dict:
+    """This checkout's bf16 forward (csrc/pair_mlp_wg_bf16.cu) and, with
+    ``pmods``, the parent's (pair_mlp.cu) at FWD_SHAPES over the placements PLACEMENT_PADS_MB (torch's cache
+    emptied, a block of that many MB allocated first, the inputs copied
+    after it), three rounds a placement in alternating order: device ms of
+    one call (torch.profiler) and CUDA events over 20 calls. Logs each
+    placement's readings, then each one's median and spread."""
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    t = {}
+    if pmods:
+        use("pair_mlp", libs["parent_pair_mlp"])
+    for B, N in FWD_SHAPES:
+        inputs = cs.pair_mlp_inputs(B, N, torch.bfloat16, gen)
+        for pad_mb in PLACEMENT_PADS_MB:
+            torch.cuda.empty_cache()
+            pad = torch.empty(max(pad_mb << 20, 1), dtype=torch.uint8, device="cuda")
+            a = [x.clone() if torch.is_tensor(x) else x for x in inputs]
+            calls = {"pair_mlp_wg_bf16": lambda: t_pair.pair_mlp(*a)}
+            if pmods:
+                calls["the parent's pair_mlp.cu"] = lambda: pmods["pair_mlp"].pair_mlp(*a)
+            here = {}
+            for rnd in range(3):
+                for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
+                    device = cs.device_time(calls[key])[0]
+                    if device > 0:  # 0: the profiler recorded no device time this call
+                        here.setdefault(f"{key} device", []).append(device)
+                    here.setdefault(f"{key} events", []).append(cs.cuda_time_ms(calls[key], 20))
+            log(f"bf16 pair-MLP forward B={B} N={N}, {pad_mb} MB allocated first: " + "; ".join(
+                f"{k} " + ", ".join(f"{x:.4f}" for x in v) + " ms" for k, v in here.items()))
+            for k, v in here.items():
+                t.setdefault(f"B={B} N={N} {k}", []).extend(v)
+            del pad, a
+    for k, v in t.items():
+        log(f"bf16 pair-MLP forward over {len(PLACEMENT_PADS_MB)} placements, {k}: {spread(v)} ms")
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=pathlib.Path, default=None)
     ap.add_argument("--out", type=pathlib.Path, default=None)
-    ap.add_argument("--only", choices=("mma", "wgmma", "bwd", "emb_bwd", "wgrad"), default=None)
+    ap.add_argument("--only", choices=("mma", "wgmma", "bwd", "emb_bwd", "wgrad", "bf16_fwd"),
+                    default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_variants: no CUDA device")
@@ -915,6 +1062,8 @@ def main() -> int:
         for site, (_, source) in WGRAD_BF16_LIBS.items():
             variants.update({f"{n}_{site}": (p, ok, f"wgrad_bf16_{site}", source)
                              for n, (p, ok) in WGRAD_BF16_VARIANTS.items()})
+    if args.only in (None, "bf16_fwd"):
+        variants.update({n: (p, ok, "pair_mlp_wg_bf16", FWD) for n, (p, ok) in FWD_VARIANTS.items()})
     kinds.update({n: (kind, ok) for n, (_, ok, kind, _) in variants.items()})
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_variants_"))
     try:
@@ -942,7 +1091,8 @@ def main() -> int:
                 "new_wgrad_pair": build.library("pair_mlp_bwd_wg"),
                 "new_wgrad_emb": build.library("edge_embedder_bwd_wg"),
                 "new_wgrad_bf16_pair": build.library("pair_mlp_bwd"),
-                "new_wgrad_bf16_emb": build.library("edge_embedder_bwd")}
+                "new_wgrad_bf16_emb": build.library("edge_embedder_bwd"),
+                "new_fwd": build.library("pair_mlp_wg_bf16")}
         fails = 0
         for name, proc in procs.items():
             out = proc.communicate()[0]
@@ -954,7 +1104,7 @@ def main() -> int:
             for line in out.splitlines():
                 if "registers" in line or "spill" in line or "C7512" in line:
                     log(f"  {name}: {line.strip()[:160]}")
-        new_libs = {n: build.library(n) for n in ("pair_mlp", "pair_mlp_bwd", "pair_mlp_wg",
+        new_libs = {n: build.library(n) for n in ("pair_mlp_wg_bf16", "pair_mlp_bwd", "pair_mlp_wg",
                                                   "pair_mlp_bwd_wg", "edge_embedder",
                                                   "edge_embedder_wg", "edge_embedder_bwd",
                                                   "edge_embedder_bwd_wg", "ipa_attention")}
@@ -965,7 +1115,7 @@ def main() -> int:
             build._libs[kind] = lib
             for mod in (t_emb, t_pair, t_wgrad, t_ipa, *pmods.values()):
                 for entry in ("_kernel", "_wg_kernel", "_split_kernel", "_bwd_kernel",
-                              "_bwd_wg_kernel", "_bf16_kernel"):
+                              "_bwd_wg_kernel", "_bf16_kernel", "_wg_bf16_kernel"):
                     if hasattr(mod, entry):
                         getattr(mod, entry).cache_clear()
 
@@ -1015,7 +1165,15 @@ def main() -> int:
                 use(WGRAD_BF16_LIBS[site][0], libs[name])
                 fails += wgrad_checks(cs, name, site, gen, torch.bfloat16)
             use(WGRAD_BF16_LIBS[site][0], libs[f"new_wgrad_bf16_{site}"])
-        kinds = {n: v for n, v in kinds.items() if v[0] not in ("pair_mlp_bwd_wg", "edge_embedder_bwd_wg")
+        fwd_names = [n for n, (kind, _) in kinds.items() if kind == "pair_mlp_wg_bf16" and n in libs]
+        for name in [n for n in fwd_names if kinds[n][1]]:
+            use("pair_mlp_wg_bf16", libs[name])
+            fails += fwd_checks(cs, name, gen)
+        use("pair_mlp_wg_bf16", libs["new_fwd"])
+        if args.only in (None, "bf16_fwd"):
+            fails += fwd_checks(cs, "pair_mlp_wg_bf16", gen)
+        kinds = {n: v for n, v in kinds.items()
+                 if v[0] not in ("pair_mlp_bwd_wg", "edge_embedder_bwd_wg", "pair_mlp_wg_bf16")
                  and not v[0].startswith("wgrad_")}
         emb_only = {None: None, "mma": "edge_embedder", "wgmma": "edge_embedder_wg"}.get(args.only, "")
         checked = [n for n, (kind, ok) in kinds.items() if ok and n in libs
@@ -1048,14 +1206,13 @@ def main() -> int:
                         fails += not same
             use("edge_embedder", libs["new"])
         if "parent_pair_mlp" in libs and "parent_pair_mlp_bwd" in libs:
-            # The mma.sync kernels are bf16's only now.
+            # bf16: this checkout's forward (the wgmma kernel) against the
+            # parent's (pair_mlp.cu, mma.sync), and the backward.
+            use("pair_mlp", libs["parent_pair_mlp"])
             for dtype in (torch.bfloat16,):
                 for residual in (True, False):
                     a = cs.pair_mlp_inputs(2, 200, dtype, gen, residual=residual)
-                    outs = []
-                    for lib in (new_libs["pair_mlp"], libs["parent_pair_mlp"]):
-                        use("pair_mlp", lib)
-                        outs.append(t_pair.pair_mlp(*a))
+                    outs = [t_pair.pair_mlp(*a), pmods["pair_mlp"].pair_mlp(*a)]
                     same = torch.equal(*outs)
                     line = f"pair_mlp {str(dtype)[6:]} residual={residual}: the parent's bits {same}"
                     g = torch.randn(2, 200, 200, 128, generator=gen, device="cuda").to(dtype)
@@ -1074,7 +1231,6 @@ def main() -> int:
                     same = (same and bwd_same and pair_bwd_check(
                         cs, f"pair_mlp_bwd bf16 B=2 N=200 residual={residual}", a, g))
                     fails += not same
-            use("pair_mlp", new_libs["pair_mlp"])
             use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
         if "parent_pair_mlp_bwd_wg" in libs:
             # float32: the same kernels as the parent's, held against the
@@ -1202,6 +1358,11 @@ def main() -> int:
         if args.only in (None, "wgrad"):
             times["bf16 kernel B placements"] = time_wgrad_bf16_placements(
                 cs, libs, new_libs, use, gen, pmods)
+        if args.only in (None, "bf16_fwd"):
+            times["bf16 pair-MLP forward"] = time_fwd(cs, libs, ["new_fwd"] + fwd_names, use, gen,
+                                                      pmods)
+            times["bf16 pair-MLP forward placements"] = time_fwd_placements(cs, libs, use, gen,
+                                                                            pmods)
         timed = [n for n in libs if n in kinds and emb_only != "" and (
             args.only is None or n in ("new", "new_wg", "parent") or kinds[n][0] == emb_only)]
         for dtype, B, N in ((torch.float32, 2, 256), (torch.bfloat16, 2, 256),

@@ -43,8 +43,7 @@ template <typename T> __device__ __forceinline__ T st(float x) {
 }
 
 // The pair MLP's epilogues, in the one addition order that its forward
-// kernel (pair_mlp.cu), its backward kernel's recompute (pair_mlp_bwd.cu)
-// and the plain version share: b0 and bf are not folded, and each sum rounds
+// kernels, its backward kernels' recompute and the plain version share: b0 and bf are not folded, and each sum rounds
 // to T, so in bf16 another order could flip a relu mask. acc is the float32
 // accumulator of the epilogue's product.
 // y0 = relu(pair @ W0 + i_term + j_term + b0)
@@ -64,18 +63,25 @@ __device__ __forceinline__ float pair_y1(float acc, float b1) {
 }
 
 // Pre-norm output: y1 @ Wf (+ pair @ Wfe, whose accumulator is res, + fi + fj)
-// + bf, for output channel c of row prow and column pcol (fi, fj: [.., 128]).
+// + bf, on the values of fi and fj (unread without RESIDUAL).
+template <typename T, bool RESIDUAL>
+__device__ __forceinline__ float pair_out_v(float acc, float res, float fi, float fj, float bf) {
+  float v = rnd<T>(acc);
+  if (RESIDUAL) {
+    v = rnd<T>(v + rnd<T>(res));
+    v = rnd<T>(v + fi);
+    v = rnd<T>(v + fj);
+  }
+  return rnd<T>(v + bf);
+}
+
+// The same for output channel c of row prow and column pcol (fi, fj: [.., 128]).
 template <typename T, bool RESIDUAL>
 __device__ __forceinline__ float pair_out(float acc, float res, const T* __restrict__ fi,
                                           const T* __restrict__ fj, int prow, int pcol, int c,
                                           float bf) {
-  float v = rnd<T>(acc);
-  if (RESIDUAL) {
-    v = rnd<T>(v + rnd<T>(res));
-    v = rnd<T>(v + ld<T>(fi + (size_t)prow * 128 + c));
-    v = rnd<T>(v + ld<T>(fj + (size_t)pcol * 128 + c));
-  }
-  return rnd<T>(v + bf);
+  return pair_out_v<T, RESIDUAL>(acc, res, RESIDUAL ? ld<T>(fi + (size_t)prow * 128 + c) : 0.f,
+                                 RESIDUAL ? ld<T>(fj + (size_t)pcol * 128 + c) : 0.f, bf);
 }
 
 // The edge embedder's epilogues, shared by its forward kernel
@@ -127,12 +133,12 @@ struct PairTile {
   float mask[kRows];
 };
 
-// Fill the tile's rows (threads 0..63); the caller synchronizes.
+// Fill the tile's rows, row r by the thread that passes r (r < kRows; the
+// others pass r >= kRows and do nothing); the caller synchronizes.
 template <typename T>
 __device__ __forceinline__ void load_pair_tile(PairTile& pt, long long p0, long long total,
                                                int Nr, int Nc, const T* __restrict__ row_mask,
-                                               const T* __restrict__ col_mask) {
-  const int r = threadIdx.x;
+                                               const T* __restrict__ col_mask, int r) {
   if (r < kRows) {
     const long long p = p0 + r;
     if (p < total) {
@@ -150,6 +156,14 @@ __device__ __forceinline__ void load_pair_tile(PairTile& pt, long long p0, long 
       pt.mask[r] = 0.f;
     }
   }
+}
+
+// The same, row r by thread r (threads 0..63).
+template <typename T>
+__device__ __forceinline__ void load_pair_tile(PairTile& pt, long long p0, long long total,
+                                               int Nr, int Nc, const T* __restrict__ row_mask,
+                                               const T* __restrict__ col_mask) {
+  load_pair_tile<T>(pt, p0, total, Nr, Nc, row_mask, col_mask, (int)threadIdx.x);
 }
 
 // LayerNorm over the C = 128 channels of each tile row of O (float, row

@@ -27,9 +27,9 @@
 // on wgmma and TMA in pair_mlp_bwd_wg.cu, and both share the rest
 // (pair_mlp_split.cuh: the workspace, the sums, kernel B).
 // - Kernel A, per 64-pair tile of the chunk's flat pairs, recomputes the
-//   forward through the forward kernel's own tile code, so the recompute
-//   equals the forward's output bit for bit and the relu masks are the
-//   forward's; then the mask and LayerNorm backward, and the input-gradient
+//   forward through pair_mlp_tc.cuh's tile code, whose sums run in the bf16
+//   forward's order (pair_mlp_wg_bf16.cu), so the recompute equals the
+//   forward's output bit for bit and the relu masks are the forward's; then the mask and LayerNorm backward, and the input-gradient
 //   chain dy1 = (dx Wf^T) . [y1 > 0], dy0 = (dy1 W1^T) . [y0 > 0] by
 //   128-column chunk, d_pair = dy0 W0^T (+ dx Wfe^T), through the same
 //   products on the transposed weights, which have the forward weights'
@@ -100,7 +100,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 // Kernel A over pairs q0 .. q0 + P - 1 of the flat [B * Nr * Nc] grid, one
-// 64-pair tile a block, in the forward kernel's shared-memory layout. With
+// 64-pair tile a block, in pair_mlp_tc.cuh's shared-memory layout. With
 // fwd_out, also the recompute's LayerNorm output, as the forward writes it.
 template <typename T, bool RESIDUAL>
 __global__ void __launch_bounds__(kBlock, 1)
@@ -137,9 +137,9 @@ split_tile_kernel(const T* __restrict__ g, const T* __restrict__ pair,
     X[r * L::LDX + c] = p0 + r < end ? ld<T>(pair + (size_t)(p0 + r) * C_IN + c) : 0.f;
   }
 
-  // ---- the forward kernel's recompute; y0 and y1 to the workspace -------
-  forward_tile<T, RESIDUAL, true, T>(X, Y0, Y1, pt, fwd, i_term, j_term, fi, fj, b0, b1, bf,
-                                     ws.y0 + lp0 * HID, ws.y1 + lp0 * HID, M0, M1);
+  // ---- the forward's recompute; y0 and y1 to the workspace --------------
+  forward_tile<T, RESIDUAL>(X, Y0, Y1, pt, fwd, i_term, j_term, fi, fj, b0, b1, bf,
+                            ws.y0 + lp0 * HID, ws.y1 + lp0 * HID, M0, M1);
   __syncthreads();
   if (fwd_out) {
     layer_norm_store<T>(X, L::LDX, pt, p0, ln_scale, ln_bias, fwd_out);
@@ -329,7 +329,7 @@ cudaError_t launch_split(const T* g, const T* pair, const T* i_term, const T* j_
 // 513] (float32, both zeroed before the first chunk), writes its rows of
 // rowred [B, Nr, 513] and of d_pair [B, Nr, Nc, 128]. fwd_out (or null):
 // [B, Nr, Nc, 128], receives the recompute's LayerNorm output of the chunk's
-// pairs, as pair_mlp.cu writes it. Returns a cudaError_t (0 on success).
+// pairs, as the bf16 forward (pair_mlp_wg_bf16.cu) writes it. Returns a cudaError_t (0 on success).
 extern "C" int fdk_pair_mlp_bwd_split(int dtype, int residual, const void* g, const void* pair,
                                       const void* i_term, const void* j_term, const void* fi,
                                       const void* fj, const void* row_mask,

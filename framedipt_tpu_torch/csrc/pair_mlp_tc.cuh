@@ -1,9 +1,10 @@
-// The pair MLP's tensor-core pieces for Hopper (sm_90a), shared by the
-// forward kernel (pair_mlp.cu) and the backward's kernel A in both dtypes
-// (pair_mlp_bwd.cu): the 64-pair tile's shared-memory layout, the weight
+// The pair MLP's tensor-core pieces for Hopper (sm_90a), for the bf16
+// backward's kernel A (pair_mlp_bwd.cu): the 64-pair tile's shared-memory layout, the weight
 // stream's slice map, the walk of one tile through the MLP's five products (mlp_products) and the
-// forward of a tile up to its pre-norm output (forward_tile). Both kernels
-// run this code, so the backward's recompute equals the forward bit for bit.
+// forward of a tile up to its pre-norm output (forward_tile). Its sums run
+// in the bf16 forward's order (pair_mlp_wg_bf16.cu: each product's whole K
+// in one float32 accumulator by 16-deep steps), so the backward's recompute
+// equals the forward bit for bit.
 //
 // - Products and weight stream: tc_product.cuh (mma.sync, 3xTF32 in
 //   float32, bf16 MMA in bf16; weight slices by cp.async through a ring of
@@ -105,21 +106,20 @@ __device__ __forceinline__ void mlp_products(const float* __restrict__ A0, const
   if (RESIDUAL) product(A0, L::LDX, C_IN, ws, s, res);
 }
 
-// The forward of a 64-pair tile, pair tile in X, up to the pre-norm output,
-// which it leaves in X (every row; rows past the grid hold no pair). With
-// STORE (a backward's recompute), each valid row's y0 and y1 also go to y0s
-// and y1s as A (float, or bf16: the values are T's already; row r at
-// r * HID, whole rows from shared memory once a tile or chunk is complete),
-// and their relu decisions (y > 0) to m0s and m1s (mask_word order, HID / NC
-// chunks each).
-template <typename T, bool RESIDUAL, bool STORE, typename A>
+// The backward's recompute of a 64-pair tile, pair tile in X, up to the
+// pre-norm output, which it leaves in X (every row; rows past the grid hold
+// no pair). Each valid row's y0 and y1 also go to y0s and y1s (T's values
+// already; row r at r * HID, whole rows from shared memory once a tile or
+// chunk is complete), and their relu decisions (y > 0) to m0s and m1s
+// (mask_word order, HID / NC chunks each).
+template <typename T, bool RESIDUAL>
 __device__ __forceinline__ void forward_tile(float* X, float* Y0, float* Y1, const PairTile& pt,
                                              const MlpStream<T>& ws,
                                              const T* __restrict__ i_term,
                                              const T* __restrict__ j_term,
                                              const T* __restrict__ fi, const T* __restrict__ fj,
                                              const T* __restrict__ b0, const T* __restrict__ b1,
-                                             const T* __restrict__ bf, A* y0s, A* y1s,
+                                             const T* __restrict__ bf, T* y0s, T* y1s,
                                              uint32_t* m0s, uint32_t* m1s) {
   using L = Smem<T>;
   float acc_out[2][kNi][4] = {}, res[2][kNi][4] = {};
@@ -139,7 +139,7 @@ __device__ __forceinline__ void forward_tile(float* X, float* Y0, float* Y1, con
           const float v1 = pair_y0<T>(acc[mi][ni][q + 1], it.y, jt.y, bb.y);
           Y0[r * L::LDY0 + c] = v0;
           Y0[r * L::LDY0 + c + 1] = v1;
-          if (STORE) store_relu_bits(m0s, cb, mi, ni, q, v0, v1);
+          store_relu_bits(m0s, cb, mi, ni, q, v0, v1);
         });
       },
       // y1_c = relu(y0 @ W1[:, c] + b1[c])
@@ -150,15 +150,13 @@ __device__ __forceinline__ void forward_tile(float* X, float* Y0, float* Y1, con
           const float v1 = pair_y1<T>(acc1[mi][ni][q + 1], ld<T>(b1 + hc * NC + c + 1));
           Y1[r * L::LDY1 + c] = v0;
           Y1[r * L::LDY1 + c + 1] = v1;
-          if (STORE) store_relu_bits(m1s, hc, mi, ni, q, v0, v1);
+          store_relu_bits(m1s, hc, mi, ni, q, v0, v1);
         });
       },
-      [&](int hc) {
-        if (STORE) store_rows(Y1, L::LDY1, NC, pt, y1s + hc * NC, HID);
-      },
+      [&](int hc) { store_rows(Y1, L::LDY1, NC, pt, y1s + hc * NC, HID); },
       acc_out, res);
   __syncthreads();  // every warp has finished reading X: it takes the pre-norm output
-  if (STORE) store_rows(Y0, L::LDY0, HID, pt, y0s, HID);
+  store_rows(Y0, L::LDY0, HID, pt, y0s, HID);
   for_each_elem([&](int r, int c, int mi, int ni, int q) {
     const int prow = max(pt.row[r], 0), pcol = pt.col[r];
     X[r * L::LDX + c] = pair_out<T, RESIDUAL>(acc_out[mi][ni][q], res[mi][ni][q], fi, fj, prow,

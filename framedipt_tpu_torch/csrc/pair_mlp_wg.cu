@@ -3,8 +3,8 @@
 // the service, the CLIs, a train step's forwards).
 //
 // Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/pair_mlp.py:78
-// (_pair_mlp_kernel, reached through fused_pair_mlp), as pair_mlp.cu does,
-// and computes what pair_mlp.cu computes in float32: per pair (i, j)
+// (_pair_mlp_kernel, reached through fused_pair_mlp) in float32: per pair
+// (i, j)
 //
 //   y0  = relu(pair @ W0 + i_term_i + j_term_j + b0)          [384]
 //   y1  = relu(y0 @ W1 + b1)                                  [384]
@@ -13,8 +13,8 @@
 //   out = LayerNorm(out) * row_mask_i * col_mask_j
 //
 // with common.cuh's epilogues and LayerNorm, in the plain version's addition
-// order; only the order of each k-sum differs from pair_mlp.cu (now bf16
-// only). The tile's code is pair_mlp_wg.cuh's, which the float32 backward's
+// order; only the order of each k-sum differs from the plain version. The
+// tile's code is pair_mlp_wg.cuh's, which the float32 backward's
 // kernel A (pair_mlp_bwd_wg.cu) recomputes through, so a differentiated
 // forward's relu decisions are the backward's (model/kernels/pair_mlp.py,
 // forward_route).
@@ -218,7 +218,7 @@ __global__ void __launch_bounds__(128) tf32_probe_kernel(const float* __restrict
 
 // C interface. residual: 1 for the edge transition (fi, fj, wfe given), 0
 // for the plain MLP (they are ignored). Float32 only. Weights are row-major
-// [in, out], as pair_mlp.cu takes them; pair 16-byte aligned, i_term,
+// [in, out]; pair 16-byte aligned, i_term,
 // j_term and b0 8-byte aligned. split: 524,288 floats of device scratch,
 // 16-byte aligned, for the weights' TF32 parts.
 // Returns a cudaError_t (0 on success).

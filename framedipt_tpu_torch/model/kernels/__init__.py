@@ -7,7 +7,7 @@
   (``csrc/edge_embedder_bwd.cu``), once per train step.
 - :func:`pair_mlp.pair_mlp` — edge-transition pair MLP, once per trunk
   block but the last (``csrc/pair_mlp_wg.cu`` in float32,
-  ``csrc/pair_mlp.cu`` in bf16: :func:`pair_mlp.forward_route`); its
+  ``csrc/pair_mlp_wg_bf16.cu`` in bf16: :func:`pair_mlp.forward_route`); its
   backward :func:`pair_mlp.pair_mlp_bwd` (``csrc/pair_mlp_bwd_wg.cu`` in
   float32, ``csrc/pair_mlp_bwd.cu`` in bf16).
 - :func:`ipa_attention.ipa_attention` — fused IPA attention

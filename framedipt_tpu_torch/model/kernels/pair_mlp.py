@@ -15,9 +15,12 @@ fi/fj/wfe) is the plain MLP variant.
 for the tests, and one of two kernels for CUDA tensors, as
 :func:`forward_route` says: every float32 forward, differentiated or not,
 launches ``csrc/pair_mlp_wg.cu`` (wgmma and TMA, 3xTF32), and every bf16
-forward ``csrc/pair_mlp.cu`` (``mma.sync``, bf16 MMA). Each is the tile code
-that its dtype's backward recomputes through bit for bit, so the backward's
-relu decisions are the forward's.
+forward ``csrc/pair_mlp_wg_bf16.cu`` (wgmma and TMA, bf16). Each dtype's
+backward recomputes the forward's bits (float32 through the same tile code;
+bf16 through ``csrc/pair_mlp_tc.cuh``'s ``mma.sync`` tile, which gives the
+bf16 wgmma kernel's bits: both sum each product's whole K in one float32
+accumulator by 16-deep tensor-core steps), so the backward's relu decisions
+are the forward's.
 
 The backward: :func:`pair_mlp_bwd` takes the backward kernels for CUDA
 tensors (float32: ``csrc/pair_mlp_bwd_wg.cu``, kernel A on wgmma and TMA;
@@ -208,17 +211,6 @@ WG_SPLIT_FLOATS = 2 * (C_IN * HIDDEN + HIDDEN * HIDDEN + HIDDEN * C_OUT + C_IN *
 
 
 @functools.cache
-def _kernel():
-    """The C entry point of csrc/pair_mlp.cu, built and bound at first use."""
-    fn = library("pair_mlp").fdk_pair_mlp
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 17 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    return fn
-
-
-@functools.cache
 def _wg_kernel():
     """The C entry point of csrc/pair_mlp_wg.cu, built and bound at first use."""
     fn = library("pair_mlp_wg").fdk_pair_mlp_wg
@@ -229,15 +221,24 @@ def _wg_kernel():
     return fn
 
 
+@functools.cache
+def _wg_bf16_kernel():
+    """The C entry point of csrc/pair_mlp_wg_bf16.cu, built and bound at
+    first use."""
+    fn = library("pair_mlp_wg_bf16").fdk_pair_mlp_wg_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 17 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    return fn
+
+
 def forward_route(dtype: torch.dtype) -> str:
-    """Which kernel a pair-MLP forward on CUDA tensors launches: "wgmma"
-    (``csrc/pair_mlp_wg.cu``) in float32 and "mma" (``csrc/pair_mlp.cu``) in
-    bf16, with or without gradients: each dtype's backward
-    recomputes through that kernel's tile code (float32's kernel A in
-    ``csrc/pair_mlp_bwd_wg.cu``, bf16's in ``csrc/pair_mlp_bwd.cu``), so a
-    differentiated forward's relu decisions are its backward's. The edge
-    embedder has a rule of its own (:func:`.edge_embedder.forward_route`)."""
-    return "wgmma" if dtype == torch.float32 else "mma"
+    """Which kernel a pair-MLP forward on CUDA tensors launches, with or
+    without gradients: "wgmma" (``csrc/pair_mlp_wg.cu``) in float32,
+    "wgmma_bf16" (``csrc/pair_mlp_wg_bf16.cu``) in bf16. The edge embedder
+    has a rule of its own (:func:`.edge_embedder.forward_route`)."""
+    return "wgmma" if dtype == torch.float32 else "wgmma_bf16"
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -363,8 +364,9 @@ def _ptr(t):
 
 # The kernels stream the weights (and the backward's kernel B the pair
 # tensor) 16 bytes at a time, and read the first layer's terms two elements
-# at a time.
-_ALIGN = {"w0": 16, "w1": 16, "wf": 16, "wfe": 16, "pair": 16, "i_term": 8, "j_term": 8, "b0": 8}
+# at a time; the wgmma kernels read the residual terms two at a time.
+_ALIGN = {"w0": 16, "w1": 16, "wf": 16, "wfe": 16, "pair": 16, "i_term": 8, "j_term": 8, "b0": 8,
+          "fi": 4, "fj": 4}
 
 
 def _check_aligned(fn_name, **tensors):
@@ -381,10 +383,11 @@ def pair_mlp(
     """Masked-LayerNorm pair MLP, [B, Nr, Nc, C_out] in pair's dtype.
 
     CPU tensors take :func:`pair_mlp_plain`; CUDA tensors launch the kernel
-    that :func:`forward_route` names for the dtype, or raise. Weights are [in, out]; masks are in the compute dtype,
-    ln_scale/ln_bias float32.
+    that :func:`forward_route` names for the dtype, or raise. Weights are
+    [in, out]; masks are in the compute dtype, ln_scale/ln_bias float32.
     Adds one to ``pair_mlp.launches`` per launch, and to
-    ``pair_mlp.launches_wgmma`` or ``pair_mlp.launches_mma`` by route."""
+    ``pair_mlp.launches_wgmma`` or ``pair_mlp.launches_wgmma_bf16`` by
+    route."""
     if pair.device.type == "cpu":
         return pair_mlp_plain(
             pair, i_term, j_term, row_mask, col_mask,
@@ -397,9 +400,9 @@ def pair_mlp(
         w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj, wfe,
     )
     route = forward_route(pair.dtype)
-    # The wgmma kernel brings the pair rows by TMA (16-byte aligned).
+    # The kernels bring the pair rows by TMA (16-byte aligned).
     _check_aligned("pair_mlp", w0=w0, w1=w1, wf=wf, wfe=wfe, i_term=i_term, j_term=j_term,
-                   b0=b0, pair=pair if route == "wgmma" else None)
+                   b0=b0, pair=pair, fi=fi, fj=fj)
     dev = pair.device
     out = torch.empty((B, Nr, Nc, C_OUT), dtype=pair.dtype, device=dev)
     ptrs = (_ptr(pair), _ptr(i_term), _ptr(j_term), _ptr(fi), _ptr(fj),
@@ -416,16 +419,16 @@ def pair_mlp(
             split = torch.empty(WG_SPLIT_FLOATS, dtype=F32, device=dev)
             err = _wg_kernel()(int(residual), *ptrs, _ptr(split), B, Nr, Nc, stream)
         else:
-            err = _kernel()(_DTYPE_CODE[pair.dtype], int(residual), *ptrs, B, Nr, Nc, stream)
+            err = _wg_bf16_kernel()(int(residual), *ptrs, B, Nr, Nc, stream)
     if err != 0:
         raise RuntimeError(f"pair_mlp kernel launch failed ({route}): cudaError_t {err}")
     pair_mlp.launches += 1
     pair_mlp.launches_wgmma += route == "wgmma"
-    pair_mlp.launches_mma += route == "mma"
+    pair_mlp.launches_wgmma_bf16 += route == "wgmma_bf16"
     return out
 
 
-pair_mlp.launches = pair_mlp.launches_wgmma = pair_mlp.launches_mma = 0
+pair_mlp.launches = pair_mlp.launches_wgmma = pair_mlp.launches_wgmma_bf16 = 0
 
 
 def split_workspace_floats(pairs: int, dtype: torch.dtype = F32) -> int:
@@ -476,10 +479,9 @@ def pair_mlp_bwd(
     :func:`pair_mlp_bwd_plain`'s order and dtypes.
 
     CPU tensors take :func:`pair_mlp_bwd_plain`; CUDA tensors launch the
-    backward kernels (or raise): kernel A recomputes through the tile of the
-    forward that :func:`forward_route` gives a differentiated call, in
-    float32 ``csrc/pair_mlp_bwd_wg.cu`` (wgmma and TMA), in bf16
-    ``csrc/pair_mlp_bwd.cu`` (``mma.sync``). The grid runs in the chunks of
+    backward kernels (or raise): kernel A recomputes the forward, in float32
+    ``csrc/pair_mlp_bwd_wg.cu`` (wgmma and TMA, the float32 forward's tile),
+    in bf16 ``csrc/pair_mlp_bwd.cu`` (``mma.sync``). The grid runs in the chunks of
     :func:`plan_bwd_chunks` (each workspace at most ``workspace_cap``
     bytes); the grid-reduced gradients are summed in float32 from partials
     in a fixed order (no atomics), the chunks' sums added in chunk order, so
@@ -505,7 +507,7 @@ def pair_mlp_bwd(
     _check("g", g, (B, Nr, Nc, C_OUT), dtype, dev)
     _check_aligned("pair_mlp_bwd", w0=w0, w1=w1, wf=wf, wfe=wfe, pair=pair, i_term=i_term,
                    j_term=j_term, b0=b0)
-    route = forward_route(dtype)
+    route = "wgmma" if dtype == F32 else "mma"
     if route == "wgmma":
         # Kernel A's first step writes the weights' TF32 parts here: the
         # forward's, then the chain's (chain_weight_split: the stored

@@ -78,7 +78,7 @@ class IPAConfig:
     seq_tfmr_num_layers: int = 2
     num_blocks: int = 4
     coordinate_scaling: float = 0.1
-    # Edge transitions through the pair-MLP CUDA kernel (csrc/pair_mlp.cu).
+    # Edge transitions through the pair-MLP CUDA kernels (csrc/pair_mlp_wg*.cu).
     use_pallas_kernel: bool | None = None
     # Embedder edge branch through the edge-embedder CUDA kernel
     # (csrc/edge_embedder.cu).

@@ -28,6 +28,8 @@ from tests.test_torch_cuda import (
     pair_args,
     pair_to_torch,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 NAMES = ("d_pair", "d_i_term", "d_j_term", "d_row_mask", "d_col_mask", "d_w0", "d_b0",
          "d_w1", "d_b1", "d_wf", "d_bf", "d_ln_scale", "d_ln_bias", "d_fi", "d_fj", "d_wfe")

@@ -35,6 +35,8 @@ from framedipt_tpu_torch.sampling.confidence import logp_confidence_score as t_c
 from tests.parity import fixture_lib
 from tests.test_torch_diffusion import _diffusers
 from tests.test_torch_model import make_feats, tiny_configs
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 T = torch.as_tensor
 REL = 1e-4

@@ -1,10 +1,10 @@
 """The CUDA kernels against their plain versions on the card (every float32
 edge-embedder and pair-MLP forward on its wgmma kernel, differentiated or
-not, each backward's float32 kernel A on wgmma too; the mma.sync kernels in
-bf16; float32 kernel B of both backwards, on wgmma, also alone against
-float64), and the
-input builders that tests/test_torch_kernels.py shares; on the card also the de
-novo model's forward at N=500 through the kernels against their plain
+not, each backward's float32 kernel A on wgmma too; every bf16 pair-MLP
+forward on its wgmma kernel; the mma.sync kernels in bf16 otherwise;
+float32 kernel B of both backwards, on wgmma, also alone against float64),
+and the input builders that tests/test_torch_kernels.py shares; on the card
+also the de novo model's forward at N=500 through the kernels against their plain
 versions, and the port's ProteinMPNN and its train step against the
 recorded reference.
 
@@ -199,6 +199,58 @@ def test_cuda_row_blocks_match_the_full_launch(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,N", [(1, 1), (1, 17), (2, 200), (2, 256), (1, 100), (1, 500),
+                                 (2, 896)])
+@pytest.mark.parametrize("residual", [True, False])
+def test_cuda_pair_mlp_wgmma_bf16_matches_plain_version(B, N, residual):
+    """On the card: the bf16 forward (csrc/pair_mlp_wg_bf16.cu, wgmma and
+    TMA) at the pair-MLP shapes of chip_smoke.py's phase 3 against the plain
+    version within 5e-2, two launches bit-identical, each counted on its
+    route; the bf16 backward's recompute (csrc/pair_mlp_bwd.cu's kernel A)
+    gives its bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(B * 1000 + N)
+    args = pair_args(rng, B, N, 128, 384, 128, residual, zero_rows=min(3, N - 1))
+    args = [None if a is None else a.cuda() for a in pair_to_torch(args, torch.bfloat16)]
+    counts = lambda: (t_pair.pair_mlp.launches, t_pair.pair_mlp.launches_wgmma,  # noqa: E731
+                      t_pair.pair_mlp.launches_wgmma_bf16)
+    before = counts()
+    got = t_pair.pair_mlp(*args)
+    torch.testing.assert_close(got, t_pair.pair_mlp_plain(*args), atol=5e-2, rtol=5e-2)
+    assert torch.equal(got, t_pair.pair_mlp(*args))
+    assert counts() == (before[0] + 2, before[1], before[2] + 2)
+    rec = {}
+    t_pair.pair_mlp_bwd(torch.zeros_like(got), *args, recompute=rec)
+    assert torch.equal(rec["out"], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "autograd"])
+def test_cuda_bf16_edge_transition_counts_by_grad_mode(mode):
+    """On the card: the bf16 edge transition launches csrc/pair_mlp_wg_bf16.cu
+    once, and nothing else, under ``torch.inference_mode()``,
+    ``torch.no_grad()`` and autograd alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from framedipt_tpu_torch.model.ipa import EdgeTransition
+
+    torch.manual_seed(0)
+    layer = EdgeTransition(256, 128, 128, torch.bfloat16).cuda()
+    node = torch.randn(2, 40, 256, device="cuda").to(torch.bfloat16)
+    edge = torch.randn(2, 40, 40, 128, device="cuda").to(torch.bfloat16)
+    ctx = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad,
+           "autograd": torch.enable_grad}[mode]
+    before = (t_pair.pair_mlp.launches, t_pair.pair_mlp.launches_wgmma_bf16)
+    with ctx():
+        out = layer(node, edge, torch.ones(2, 40, device="cuda"))
+    torch.cuda.synchronize()
+    assert (t_pair.pair_mlp.launches, t_pair.pair_mlp.launches_wgmma_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert out.requires_grad == (mode == "autograd")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,N,residual", [(2, 200, True), (2, 200, False), (1, 17, True),
                                           (1, 17, False)])
 def test_cuda_pair_mlp_wgmma_matches_plain_version(B, N, residual):
@@ -211,13 +263,13 @@ def test_cuda_pair_mlp_wgmma_matches_plain_version(B, N, residual):
     rng = np.random.default_rng(11)
     args = pair_args(rng, B, N, 128, 384, 128, residual, zero_rows=min(3, N - 1))
     args = [None if a is None else a.cuda() for a in pair_to_torch(args, torch.float32)]
-    total, wgmma, mma = (t_pair.pair_mlp.launches, t_pair.pair_mlp.launches_wgmma,
-                         t_pair.pair_mlp.launches_mma)
+    total, wgmma, wgmma_bf16 = (t_pair.pair_mlp.launches, t_pair.pair_mlp.launches_wgmma,
+                                t_pair.pair_mlp.launches_wgmma_bf16)
     got = t_pair.pair_mlp(*args)
     torch.testing.assert_close(got, t_pair.pair_mlp_plain(*args), atol=1e-4, rtol=1e-4)
     assert torch.equal(got, t_pair.pair_mlp(*args))
     assert (t_pair.pair_mlp.launches, t_pair.pair_mlp.launches_wgmma,
-            t_pair.pair_mlp.launches_mma) == (total + 2, wgmma + 2, mma)
+            t_pair.pair_mlp.launches_wgmma_bf16) == (total + 2, wgmma + 2, wgmma_bf16)
     (pair, i_term, j_term, row_mask, col_mask, w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, fi, fj,
      wfe) = args
     split = torch.full((t_pair.WG_SPLIT_FLOATS,), float("nan"), device="cuda")
@@ -267,12 +319,12 @@ def test_cuda_edge_transition_route(mode):
     node = torch.as_tensor(rng.normal(size=(2, 40, 256)).astype(np.float32)).cuda()
     edge = torch.as_tensor(rng.normal(size=(2, 40, 40, 128)).astype(np.float32)).cuda()
     mask = torch.ones(2, 40, device="cuda")
-    wgmma, mma = t_pair.pair_mlp.launches_wgmma, t_pair.pair_mlp.launches_mma
+    wgmma, launches = t_pair.pair_mlp.launches_wgmma, t_pair.pair_mlp.launches
     ctx = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad,
            "autograd": torch.enable_grad}[mode]
     with ctx():
         out = layer(node, edge, mask)
-    assert (t_pair.pair_mlp.launches_wgmma - wgmma, t_pair.pair_mlp.launches_mma - mma) == (1, 0)
+    assert (t_pair.pair_mlp.launches_wgmma - wgmma, t_pair.pair_mlp.launches - launches) == (1, 1)
     if mode == "autograd":
         bwd = t_pair.pair_mlp_bwd.launches_wgmma
         out.sum().backward()
@@ -309,8 +361,7 @@ def kernel_relu_masks(g, args, tol, **kw):
     within tol of 0 (the two forwards round differently)."""
     rec = {}
     t_pair.pair_mlp_bwd(g, *args, recompute=rec, **kw)
-    # The forward that autograd differentiates (float32: the wgmma kernel;
-    # bf16: the mma.sync kernel).
+    # The forward (float32: the wgmma kernel; bf16: the bf16 wgmma kernel).
     assert torch.equal(rec["out"], t_pair.pair_mlp(*args))
     y0, y1, _ = t_pair._pre_norm(*args[:3], *args[5:11], *args[13:])
     for plain_y, kern_y in ((y0, rec["y0"]), (y1, rec["y1"])):

@@ -49,19 +49,10 @@ from framedipt_tpu_torch.tools.log import get_logger
 from tests.parity import fixture_lib
 from tests.test_torch_inference import COORD_TOL, _atoms, _files
 from tests.test_torch_model import TINY, rel_err, tiny_configs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LENGTHS = (12, 16)
 SEQS = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _configs(out_dir: pathlib.Path, name: str):

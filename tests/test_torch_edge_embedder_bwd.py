@@ -19,6 +19,8 @@ from framedipt_tpu.model.pallas import edge_embedder as j_emb
 from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
 
 from tests.test_torch_cuda import assert_grads_close, emb_args, emb_to_torch
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 NAMES = ("d_g", "d_h", "d_pos_rows", "d_pos_cols", "d_i_term", "d_j_term", "d_row_mask",
          "d_col_mask", "d_w_rel", "d_w_dist", "d_b0", "d_w1", "d_b1", "d_w2", "d_b2",

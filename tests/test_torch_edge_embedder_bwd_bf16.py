@@ -33,6 +33,8 @@ from tests.test_torch_cuda import emb_args, emb_to_torch
 from tests.test_torch_edge_embedder_bwd import NAMES, _jax_args, _without_coords
 from tests.test_torch_edge_embedder_bwd_split import emulate_split_bwd, rows_cap
 from tests.test_torch_pair_mlp_bwd_bf16 import assert_within_max_abs
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 F32, BF16 = torch.float32, torch.bfloat16
 C, CP = t_emb.C, t_emb.CP

@@ -37,19 +37,10 @@ from tests.test_torch_cuda import assert_grads_close, emb_args, emb_to_torch
 from tests.test_torch_edge_embedder_bwd import NAMES, _jax_args, _without_coords
 from tests.test_torch_pair_mlp_bwd_bf16 import split_k_bf16
 from tests.test_torch_pair_mlp_bwd_split import KERNEL_B_ORDER, in_order, split_k, tile_partials
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F32, BF16 = torch.float32, torch.bfloat16
 C, CP = t_emb.C, t_emb.CP
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def emulate_split_bwd(grad, g, h, pos_rows, pos_cols, i_term, j_term, row_mask, col_mask,

@@ -42,19 +42,10 @@ from tests.test_torch_cuda import assert_grads_close, emb_args, emb_to_torch
 from tests.test_torch_edge_embedder_bwd import NAMES, _jax_args, _without_coords
 from tests.test_torch_edge_embedder_tc import product_wgmma_slices, wgmma_parts
 from tests.test_torch_pair_mlp_bwd_split import KERNEL_B_ORDER, in_order, split_k
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F32 = torch.float32
 C, CP, UNIT, GROUP = t_emb.C, t_emb.CP, t_emb.SPLIT_TILE, t_emb.SPLIT_GROUP
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def chain_parts(w_rel, w1, w2):

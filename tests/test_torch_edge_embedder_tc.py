@@ -41,6 +41,8 @@ from framedipt_tpu_torch.model.kernels import build
 from framedipt_tpu_torch.model.kernels import edge_embedder as t_emb
 from tests.test_torch_cuda import emb_args, emb_to_torch
 from tests.test_torch_pair_mlp_tc import f32_toward_zero, product_fma_chain, split
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 SLICE = 32  # rows of one staged weight slice: the kernel's kKc
 

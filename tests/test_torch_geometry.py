@@ -25,6 +25,8 @@ from framedipt_tpu_torch.geometry import so3 as t_so3
 from framedipt_tpu_torch.geometry.rigid import Rigid as TRigid
 
 from tests.unit.geom_helpers import nerf_backbone
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 ATOL = 1e-5
 

@@ -40,6 +40,8 @@ from framedipt_tpu_torch.tools.log import get_logger
 
 from tests.parity import fixture_lib
 from tests.test_torch_model import tiny_configs
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CIF_DIR = REPO / "tests" / "data" / "cifs"

@@ -27,6 +27,7 @@ from framedipt_tpu_torch.tools.config import Config as TConfig
 from framedipt_tpu_torch.tools.config import SO3Config as TSO3Config
 
 from tests.test_torch_model import make_feats, tiny_configs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def full_configs():

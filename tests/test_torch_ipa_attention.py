@@ -14,6 +14,9 @@ on unmasked rows atol 2e-4 rtol 1e-3 (tests/unit/test_pallas_kernels.py);
 ScoreNetwork 1e-4 relative on max(1, |ref|) (tests/test_torch_model.py);
 sampler CA-RMSD 0.01 A (tests/test_torch_sampling.py)."""
 import dataclasses
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -55,6 +58,8 @@ from tests.test_torch_model import (
     tiny_configs,
 )
 from tests.test_torch_serve import TINY_OVERRIDES, _helix_pdb
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 H, C, PQ, PV, CZ = 2, 16, 4, 4, 16
 
@@ -145,7 +150,7 @@ def test_ipa_module_with_kernel_matches_jax(jax_params_and_models):  # noqa: F81
     jargs = (jnp.asarray(s), jnp.asarray(z), JRigid(jnp.asarray(qs), jnp.asarray(tr)),
              jnp.asarray(mask))
     with pltpu.force_tpu_interpret_mode():
-        want_pallas = np.asarray(JIPA(jc.model.ipa, use_pallas=True).apply(p, *jargs))
+        want_pallas = np.asarray(one_dispatch(JIPA(jc.model.ipa, use_pallas=True).apply, p, *jargs))
     want_xla = np.asarray(JIPA(jc.model.ipa, use_pallas=False).apply(p, *jargs))
     np.testing.assert_allclose(got, want_pallas, atol=1e-5, rtol=0)
     m = mask[..., None]
@@ -162,12 +167,23 @@ def test_ipa_module_with_kernel_matches_jax_bf16(jax_params_and_models):  # noqa
                   TRigid(torch.as_tensor(qs), torch.as_tensor(tr)), torch.as_tensor(mask))
     p = {"params": params["params"]["score_model"]["ipa_0"]}
     with pltpu.force_tpu_interpret_mode():
-        want = JIPA(jc.model.ipa, dtype=jnp.bfloat16, use_pallas=True).apply(
+        want = one_dispatch(
+            JIPA(jc.model.ipa, dtype=jnp.bfloat16, use_pallas=True).apply,
             p, jnp.asarray(s, jnp.bfloat16), jnp.asarray(z, jnp.bfloat16),
             JRigid(jnp.asarray(qs), jnp.asarray(tr)), jnp.asarray(mask))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                atol=5e-2, rtol=5e-2)
+
+
+def one_dispatch(fn, *args):
+    """``fn(*args)`` as one jitted call, its result ready. Run op by op, a
+    JAX module's operations after a Pallas kernel in interpret mode can queue
+    behind the kernel, whose callbacks dispatch JAX operations from another
+    thread: under the CPU client's asynchronous dispatch the two threads can
+    wait on each other for good. The arguments are closed over, so they need
+    not be pytrees."""
+    return jax.block_until_ready(jax.jit(lambda: fn(*args))())
 
 
 def _kernel_configs(self_conditioning=True):
@@ -183,20 +199,64 @@ def _synth_weights(tc):
     return tnet, sd
 
 
-def test_score_network_with_kernel_matches_jax():
-    """A ScoreNetwork forward with use_pallas_ipa on in both packages (the
-    JAX one op by op, its Pallas kernel in interpret mode), from one
-    torch-layout state_dict."""
+# The score network's JAX reference runs op by op (jitted, XLA's fusions move
+# the trunk's outputs past this test's 1e-4), its Pallas kernel in interpret
+# mode, whose callbacks dispatch JAX operations from another thread: under
+# the CPU client's asynchronous dispatch the main thread and the callback's
+# can wait on each other for good (the parallel test suite stalled so). So it
+# runs in a child process that turns jax_cpu_enable_async_dispatch off before
+# its CPU client is made, as tests/test_torch_train.py's reference does,
+# under a time limit, its output to a log file.
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SCORE_OUTPUTS = ("psi", "rot_score", "trans_score", "atom37", "rigids")
+_SCORE_CHILD = """
+import sys
+import jax
+jax.config.update("jax_cpu_enable_async_dispatch", False)
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_default_device", jax.devices("cpu")[0])
+from tests.test_torch_ipa_attention import write_score_network_reference
+write_score_network_reference(sys.argv[1])
+"""
+SCORE_CHILD_TIMEOUT_S = 300
+
+
+def write_score_network_reference(path) -> None:
+    """The JAX ScoreNetwork forward with use_pallas_ipa on (op by op, the
+    kernel in interpret mode) on make_feats(7), from _synth_weights's
+    state_dict; its SCORE_OUTPUTS to the .npz file ``path``."""
     jc, tc = _kernel_configs()
-    tnet, sd = _synth_weights(tc)
-    assert all(tnet.score_model.trunk[f"ipa_{b}"].use_kernel for b in range(2))
+    _, sd = _synth_weights(tc)
     jnet = JNet(jc.model, JSE3(jc.diffuser), inpainting=True)
     feats = make_feats(7)
     with pltpu.force_tpu_interpret_mode():
         want = jnet.apply(convert_state_dict(sd, num_blocks=2, seq_tfmr_layers=1),
                           {k: jnp.asarray(v) for k, v in feats.items()})
-    with torch.no_grad():
-        got = tnet({k: torch.as_tensor(v) for k, v in feats.items()})
+    np.savez(path, **{k: np.asarray(want[k]) for k in SCORE_OUTPUTS})
+
+
+def test_score_network_with_kernel_matches_jax(tmp_path):
+    """A ScoreNetwork forward with use_pallas_ipa on in both packages (the
+    JAX one op by op, its Pallas kernel in interpret mode, in a child
+    process), from one torch-layout state_dict."""
+    ref, log = tmp_path / "score_network.npz", tmp_path / "score_network.log"
+    with open(log, "w") as f:
+        child = subprocess.Popen([sys.executable, "-c", _SCORE_CHILD, str(ref)], cwd=REPO,
+                                 stdout=f, stderr=subprocess.STDOUT)
+    try:
+        jc, tc = _kernel_configs()
+        tnet, _ = _synth_weights(tc)
+        assert all(tnet.score_model.trunk[f"ipa_{b}"].use_kernel for b in range(2))
+        with torch.no_grad():
+            got = tnet({k: torch.as_tensor(v) for k, v in make_feats(7).items()})
+        child.wait(timeout=SCORE_CHILD_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+    assert child.returncode == 0, log.read_text()[-4000:]
+    with np.load(ref) as f:
+        want = dict(f)
     _assert_outputs_close(got, want)
 
 

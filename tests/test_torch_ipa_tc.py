@@ -26,6 +26,8 @@ from framedipt_tpu.model.pallas import ipa_attention as j_ipa
 from framedipt_tpu_torch.model.kernels import ipa_attention as t_ipa
 from tests.test_torch_cuda import ipa_args, ipa_to_torch
 from tests.test_torch_pair_mlp_tc import product_1xtf32, product_3xtf32
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 H, C, PQ, PV, CZ = 2, 16, 4, 4, 16
 

@@ -35,6 +35,7 @@ from tests.test_torch_cuda import (
     pair_args,
     pair_to_torch,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _to_jax(args, dtype):
@@ -219,13 +220,16 @@ def test_model_reaches_the_kernels_only_through_the_wrappers(module, kernel_mod,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("needs_grad", [False, True])
 def test_forward_route(wrapper, dtype, needs_grad):
-    """Each wrapper's rule, the one its backward needs, the same for both:
-    every float32 forward, differentiated or not (grad mode on or off), takes
-    the wgmma kernel (its tile is the float32 backward's recompute:
-    csrc/pair_mlp_wg.cuh, csrc/edge_embedder_wg.cuh), every bf16 one the
-    mma.sync kernel, whose code the bf16 backward's recompute shares. The
-    rule takes the dtype alone."""
-    want = "wgmma" if dtype == torch.float32 else "mma"
+    """Each wrapper's rule, the one its backward needs: every float32
+    forward, differentiated or not (grad mode on or off), takes the wgmma
+    kernel (its tile is the float32 backward's recompute:
+    csrc/pair_mlp_wg.cuh, csrc/edge_embedder_wg.cuh); every bf16 embedder
+    forward the mma.sync kernel, whose code the bf16 backward's recompute
+    shares, and every bf16 pair-MLP forward the bf16 wgmma kernel, whose
+    bits the bf16 backward's recompute gives. The rule takes the dtype
+    alone."""
+    want = ("wgmma" if dtype == torch.float32 else "mma" if wrapper == "emb"
+            else "wgmma_bf16")
     route = t_pair.forward_route if wrapper == "pair" else t_emb.forward_route
     assert list(inspect.signature(route).parameters) == ["dtype"]
     with torch.set_grad_enabled(needs_grad):
@@ -235,8 +239,8 @@ def test_forward_route(wrapper, dtype, needs_grad):
 def test_pair_mlp_routes_in_its_dispatch():
     """Read from the wrapper: after the CPU branch it asks forward_route once
     for the dtype, launches csrc/pair_mlp_wg.cu
-    (``_wg_kernel``) exactly when the route is "wgmma" and csrc/pair_mlp.cu
-    (``_kernel``) otherwise, with no ``try`` and nothing read from the
+    (``_wg_kernel``) exactly when the route is "wgmma" and
+    csrc/pair_mlp_wg_bf16.cu (``_wg_bf16_kernel``) otherwise, with no ``try`` and nothing read from the
     environment, and counts the launch in ``launches`` and in its route's
     count only after the C function returned 0."""
     fn = _wrapper_ast(t_pair.pair_mlp)
@@ -246,14 +250,15 @@ def test_pair_mlp_routes_in_its_dispatch():
               and ast.unparse(n.test) == "route == 'wgmma'"]
     assert len(branch) == 1
     assert len(_calls(ast.Module(branch[0].body, []), "_wg_kernel")) == 1
-    assert not _calls(ast.Module(branch[0].body, []), "_kernel")
-    assert len(_calls(ast.Module(branch[0].orelse, []), "_kernel")) == 1
+    assert not _calls(ast.Module(branch[0].body, []), "_wg_bf16_kernel")
+    assert len(_calls(ast.Module(branch[0].orelse, []), "_wg_bf16_kernel")) == 1
     assert not _calls(ast.Module(branch[0].orelse, []), "_wg_kernel")
-    assert len(_calls(fn, "_wg_kernel")) == len(_calls(fn, "_kernel")) == 1
+    assert len(_calls(fn, "_wg_kernel")) == len(_calls(fn, "_wg_bf16_kernel")) == 1
+    assert not _calls(fn, "_kernel") and not hasattr(t_pair, "_kernel")
     src = ast.unparse(fn)
     assert "environ" not in src and "getenv" not in src
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
-    for count in (".launches += 1", ".launches_wgmma += ", ".launches_mma += "):
+    for count in (".launches += 1", ".launches_wgmma += ", ".launches_wgmma_bf16 += "):
         assert src.index("if err != 0") < src.index(count)
 
 
@@ -393,8 +398,8 @@ def test_edge_transition_asks_for_the_route(monkeypatch, mode, want):
     under autograd with parameters that need gradients, the edge transition
     calls the wrapper once with the same 16 arguments, so the pair MLP's
     route is the dtype's whichever: the wgmma kernel in float32 (the float32
-    backward recomputes through its tile), the mma.sync one in bf16; only
-    under autograd does the output require a gradient."""
+    backward recomputes through its tile), the bf16 wgmma kernel in bf16;
+    only under autograd does the output require a gradient."""
     seen = []
     wrapper = t_pair.pair_mlp
 
@@ -411,7 +416,7 @@ def test_edge_transition_asks_for_the_route(monkeypatch, mode, want):
         out = layer(node, edge, mask)
     assert seen == [16]
     assert t_pair.forward_route(torch.float32) == "wgmma"
-    assert t_pair.forward_route(torch.bfloat16) == "mma"
+    assert t_pair.forward_route(torch.bfloat16) == "wgmma_bf16"
     assert out.requires_grad == want
     if want:
         out.sum().backward()

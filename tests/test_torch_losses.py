@@ -23,6 +23,7 @@ from framedipt_tpu_torch.tools.config import Config as TConfig
 from framedipt_tpu_torch.tools.config import SO3Config as TSO3Config
 from framedipt_tpu_torch.train.losses import score_matching_losses as t_losses
 from framedipt_tpu_torch.train.losses import t_stratified_metrics as t_strat
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def diffusers():

@@ -35,6 +35,8 @@ from framedipt_tpu_torch.tools.config import Config as TConfig
 from framedipt_tpu_torch.tools.config import SO3Config as TSO3Config
 
 from tests.parity import fixture_lib
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 TINY = {
     "node_embed_size": 32, "edge_embed_size": 16,

@@ -35,6 +35,7 @@ from framedipt_tpu.model import mpnn as J
 
 from framedipt_tpu_torch.model import mpnn as T
 from framedipt_tpu_torch.model.weights import synth_value
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURES = pathlib.Path(__file__).parent / "parity" / "fixtures"
 LP_TOL = 2e-4
@@ -48,16 +49,6 @@ j_encode = jax.jit(J.mpnn_encode, **_static)
 j_orientations = jax.jit(J._orientations_coarse)
 j_log_probs = jax.jit(J.mpnn_log_probs, **_static)
 j_unconditional = jax.jit(J.mpnn_unconditional_log_probs, **_static)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _load(fixture: str, ca_only: bool):

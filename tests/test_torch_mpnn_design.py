@@ -38,6 +38,7 @@ from framedipt_tpu_torch.tools import mpnn_restraints as t_res
 from framedipt_tpu_torch.tools.external import ToolUnavailable
 
 from tests.unit.geom_helpers import nerf_backbone
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 L = 20
 K = 12
@@ -45,16 +46,6 @@ SEED = 38
 NUM = 2
 TEMP = 1e-4
 NUMBER = re.compile(r"(score|global_score|seq_recovery)=(-?[\d.]+)")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _pdb_text(chain_lengths: list[int], seed: int) -> str:

@@ -31,21 +31,12 @@ from framedipt_tpu.train import mpnn_train as JT
 from framedipt_tpu_torch.model import mpnn as T
 from framedipt_tpu_torch.train import mpnn_train as TT
 from tests.unit.mpnn_helpers import synth_structure
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(hidden_dim=32, num_encoder_layers=1, num_decoder_layers=1, k_neighbors=8)
 GRAD_TOL = 1e-5
 # Compiled whole: eager JAX compiles a program for every op it meets.
 j_log_probs = jax.jit(J.mpnn_log_probs, static_argnames=("cfg",))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _batch_np() -> dict[str, np.ndarray]:

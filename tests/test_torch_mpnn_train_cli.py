@@ -35,21 +35,12 @@ from framedipt_tpu_torch.experiments import train_mpnn as TC
 from framedipt_tpu_torch.model import mpnn as T
 from framedipt_tpu_torch.tools import mpnn_design as TD
 from framedipt_tpu_torch.tools.config import FilteringConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CIF_DIR = pathlib.Path(__file__).parent / "data" / "cifs"
 SMALL_FLAGS = ["--hidden_dim", "32", "--num_layers", "1", "--k_neighbors", "8"]
 # Compiled whole: eager JAX compiles a program for every op it meets.
 j_log_probs = jax.jit(J.mpnn_log_probs, static_argnames=("cfg",))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

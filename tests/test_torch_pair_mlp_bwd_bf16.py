@@ -32,6 +32,8 @@ from framedipt_tpu_torch.model.layers import matmul_f32
 
 from tests.test_torch_cuda import pair_args, pair_to_torch
 from tests.test_torch_pair_mlp_bwd_split import NAMES, in_order, rows_cap, tile_partials
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 F32, BF16 = torch.float32, torch.bfloat16
 TOL = 5e-2

@@ -32,6 +32,7 @@ from framedipt_tpu_torch.model.layers import matmul_f32
 
 from tests.test_torch_cuda import assert_grads_close, pair_args, pair_to_torch
 from tests.test_torch_pair_mlp_tc import split
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F32 = torch.float32
 NAMES = ("d_pair", "d_i_term", "d_j_term", "d_row_mask", "d_col_mask", "d_w0", "d_b0",
@@ -40,16 +41,6 @@ WARPS = 8  # kernel A's warps; each takes SPLIT_TILE / WARPS rows of the LayerNo
 # The pair of a step at each k position 4 c + r of float32 kernel B's tiles
 # (csrc/wgrad_wg.cuh's step_pair).
 KERNEL_B_ORDER = tuple(8 * r + (c ^ (2 * r)) for c in range(8) for r in range(4))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def in_order(x: torch.Tensor, dim: int) -> torch.Tensor:

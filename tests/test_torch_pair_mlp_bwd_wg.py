@@ -150,16 +150,17 @@ def test_chain_weight_split_laid_back_gives_each_stored_weight():
 
 
 def test_float32_backward_launches_the_wgmma_kernel_a_or_raises():
-    """Read from the wrapper: after the CPU branch ``pair_mlp_bwd`` asks
-    ``forward_route(dtype)`` once; the "wgmma" route (float32)
-    calls csrc/pair_mlp_bwd_wg.cu's entry (``_bwd_wg_kernel``) and nothing
-    else, the other route csrc/pair_mlp_bwd.cu's (``_split_kernel``); no
-    ``try``. And the C sources: pair_mlp_bwd.cu's entry no longer
-    instantiates a float32 kernel A, pair_mlp.cu's no float32 forward."""
+    """Read from the wrapper: after the CPU branch ``pair_mlp_bwd`` takes
+    its route from the dtype once, "wgmma" for float32 (the forward's route
+    too); the "wgmma" route calls csrc/pair_mlp_bwd_wg.cu's entry
+    (``_bwd_wg_kernel``) and nothing else, the other route
+    csrc/pair_mlp_bwd.cu's (``_split_kernel``); no ``try``. And the C
+    sources: pair_mlp_bwd.cu's entry no longer instantiates a float32
+    kernel A, and the bf16 forward's entry takes bf16 only."""
     fn = ast.parse(inspect.getsource(t_pair.pair_mlp_bwd)).body[0]
-    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)]
-    routes = [c for c in calls if ast.unparse(c.func) == "forward_route"]
-    assert [ast.unparse(c) for c in routes] == ["forward_route(dtype)"]
+    routes = [n for n in ast.walk(fn) if isinstance(n, ast.Assign)
+              and [ast.unparse(t) for t in n.targets] == ["route"]]
+    assert [ast.unparse(n.value) for n in routes] == ["'wgmma' if dtype == F32 else 'mma'"]
     assert t_pair.forward_route(torch.float32) == "wgmma"
     branches = [n for n in ast.walk(fn) if isinstance(n, ast.If)
                 and ast.unparse(n.test) == "route == 'wgmma'"]
@@ -177,8 +178,9 @@ def test_float32_backward_launches_the_wgmma_kernel_a_or_raises():
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     bwd = (build.CSRC / "pair_mlp_bwd.cu").read_text()
     assert "launch_split<float" not in bwd and "launch_split<__nv_bfloat16" in bwd
-    fwd = (build.CSRC / "pair_mlp.cu").read_text()
-    assert "launch<float" not in fwd and "launch<__nv_bfloat16" in fwd
+    fwd = (build.CSRC / "pair_mlp_wg_bf16.cu").read_text()
+    assert 'extern "C" int fdk_pair_mlp_wg_bf16(int residual, const void* pair' in fwd
+    assert "int dtype" not in fwd
 
 
 def test_build_names_the_wgmma_backward_source():

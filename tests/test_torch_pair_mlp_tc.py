@@ -1,5 +1,5 @@
-"""The arithmetic of the pair-MLP forward kernel's float32 products
-(``csrc/pair_mlp.cu``, 3xTF32 on the tensor cores), emulated in torch on the
+"""The arithmetic of the pair-MLP mma.sync tile's float32 products
+(``csrc/pair_mlp_tc.cuh``, 3xTF32 on the tensor cores), emulated in torch on the
 CPU: each operand x splits into hi = tf32(x) and lo = tf32(x - hi)
 (``cvt.rna.tf32.f32``: round to nearest, ties away from zero, to 10 mantissa
 bits), and each k step of 8 adds a_lo b_hi, then a_hi b_lo, then a_hi b_hi
@@ -23,6 +23,7 @@ import torch
 
 from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 from tests.test_torch_cuda import pair_args, pair_to_torch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:

@@ -63,6 +63,7 @@ from framedipt_tpu_torch.train.checkpoints import (
     save_checkpoint,
 )
 from framedipt_tpu_torch.train.loop import make_trainer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 NUM_T, MIN_T = 5, 0.01
@@ -236,7 +237,7 @@ def wait_ranks(procs: list[subprocess.Popen], work: pathlib.Path, world: int) ->
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(timeout=30)
     for r, p in enumerate(procs):
         log = (work / f"rank{r}_w{world}.log").read_text()[-4000:]
         assert p.returncode == 0, f"rank {r} of {world}: rc {p.returncode}\n{log}"
@@ -374,16 +375,6 @@ def _sampler_feats(n: int) -> dict[str, np.ndarray]:
     return feats
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread here too: beside the ranks and the suite's other
-    workers, OpenMP's threads would spin for cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every rank's results (world 2 and world 4), the JAX references and
@@ -406,9 +397,13 @@ def runs(tmp_path_factory):
     torch.save(_train_weights(tc), work / "train_sd.pt")
     np.savez(work / "train_batch.npz", **{k: np.asarray(v) for k, v in make_batch(B=4).items()})
 
-    jax_child = subprocess.Popen([sys.executable, "-c", _JAX_CHILD, str(work / "jax_dp2.npz")],
-                                 cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                 text=True)
+    # Its output to a file: a pipe that nobody reads while the port runs
+    # below could fill and stop the child.
+    jax_log = work / "jax_dp2.log"
+    with open(jax_log, "w") as f:
+        jax_child = subprocess.Popen([sys.executable, "-c", _JAX_CHILD, str(work / "jax_dp2.npz")],
+                                     cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
+    jax_deadline = time.monotonic() + JAX_TIMEOUT_S
     try:
         world4 = start_ranks(4, work)
         # The port in one process meanwhile: the sampler, two steps, a
@@ -435,12 +430,12 @@ def runs(tmp_path_factory):
         single["cli"] = train(_cli_config(work, data_dir, 1), device="cpu")
         wait_ranks(world4, work, 4)
 
-        out, _ = jax_child.communicate(timeout=JAX_TIMEOUT_S)
-        assert jax_child.returncode == 0, out[-4000:]
+        jax_child.wait(timeout=max(1.0, jax_deadline - time.monotonic()))
+        assert jax_child.returncode == 0, jax_log.read_text()[-4000:]
     finally:
         if jax_child.poll() is None:
             jax_child.kill()
-            jax_child.wait()
+            jax_child.wait(timeout=30)
     with np.load(work / "jax_dp2.npz") as f:
         jref = dict(f)
     torch.save(params_from_jax(_nested(jref, "params"), num_blocks=2, seq_tfmr_layers=1),

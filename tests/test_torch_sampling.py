@@ -19,6 +19,7 @@ from framedipt_tpu_torch.sampling import sample
 
 from tests.parity import fixture_lib
 from tests.test_torch_model import make_feats, tiny_configs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _ca_rmsd(a, b):

@@ -66,7 +66,7 @@ def http_service():
         thread.join(timeout=30)
 
 
-def _post(base, payload, timeout=300):
+def _post(base, payload, timeout=120):
     req = urllib.request.Request(base + "/inpaint", data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=timeout) as r:

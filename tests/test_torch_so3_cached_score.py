@@ -18,6 +18,8 @@ from framedipt_tpu_torch.diffusion.so3_diffuser import SO3Diffuser as TSO3Diffus
 from framedipt_tpu_torch.tools.config import Config, merge_checkpoint_config
 from framedipt_tpu_torch.tools.config import SO3Config as TSO3Config
 from framedipt_tpu_torch.tools.log import get_logger
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 GRID = dict(num_omega=100, num_sigma=100, cache_dir=None)
 

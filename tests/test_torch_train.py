@@ -7,7 +7,7 @@ in interpret mode, the embedder through its Pallas forward with, as the
 port's step, either backward: its Pallas backward kernel in interpret mode
 (``pallas_emb_bwd_impl="pallas"``, the default) or the XLA twin's VJP
 ("xla"); two IPA blocks (one edge transition), ``make_batch()``'s batch with
-fixed t, op by op (not under jit), in a child process (``jax_reference``).
+fixed t, op by op (not under jit), in child processes (``jax_reference``).
 Its parameters are flax-initialized and perturbed (every leaf non-zero) and
 carried to the port with ``params_from_jax``, which maps JAX's gradients
 onto the port's parameter names too. The randomness is JAX's: the test
@@ -24,6 +24,7 @@ whatever the gradient's size)."""
 import pathlib
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,8 @@ from framedipt_tpu_torch.train.loop import make_trainer
 from tests.test_torch_losses import jax_noise
 from tests.test_torch_model import perturbed, tiny_configs
 from tests.unit.test_train import make_batch, tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 T_FIXED = np.asarray([0.15, 0.6], np.float32)  # one sample under the aux-loss filters
@@ -161,11 +164,15 @@ def write_jax_reference(impl: str, path: str) -> None:
 # The JAX reference runs op by op with the Pallas kernels in interpret mode,
 # whose callbacks dispatch JAX operations from another thread; with the CPU
 # client's asynchronous dispatch on, that can deadlock with the main thread.
-# So it runs in a child process that turns jax_cpu_enable_async_dispatch off
-# before its CPU client is made (JAX reads the flag then; its environment
+# So it runs in child processes that turn jax_cpu_enable_async_dispatch off
+# before their CPU client is made (JAX reads the flag then; its environment
 # variable is not read), pinned to the CPU as tests/conftest.py pins this
-# process, under a time limit of its own. One child computes both settings
-# (the second reuses the first's compiled operations).
+# process, each under a time limit of its own: one child a setting, both
+# started when the module's first test starts, so they compute while the
+# tests that need no reference run (the file's tests that take the
+# reference come last). On an idle 8-core host a child takes ~150 s beside
+# the other (the two in one process, one after the other: ~205 s); in the
+# tier-1 run beside its other workers, ~400 s.
 EMB_BWD_IMPLS = ("xla", "pallas")
 _CHILD = """
 import sys
@@ -180,21 +187,45 @@ for impl in sys.argv[2:]:
 REFERENCE_TIMEOUT_S = 600
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_reference_children(tmp_path_factory):
+    """{setting: (child process, its log, the time its limit ends)}: one
+    child a setting writing :func:`write_jax_reference`'s file, started with
+    the module's first test, its output to a log file (a pipe nobody reads
+    until the end could fill and stop it). Any child still running when the
+    module ends is killed."""
+    out_dir = tmp_path_factory.mktemp("jax_reference")
+    children = {}
+    for impl in EMB_BWD_IMPLS:
+        log = out_dir / f"{impl}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-c", _CHILD, str(out_dir), impl], cwd=REPO,
+                                    stdout=f, stderr=subprocess.STDOUT)
+        children[impl] = (proc, log, time.monotonic() + REFERENCE_TIMEOUT_S)
+    yield out_dir, children
+    for proc, _, _ in children.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
 @pytest.fixture(scope="module", params=EMB_BWD_IMPLS, ids=lambda p: f"emb_bwd_{p}")
-def jax_reference(request, tmp_path_factory):
+def jax_reference(request, jax_reference_children):
     """The embedder's backward setting, perturbed JAX params, the batch, and
     for each coin the noise of the JAX key's draw, the loss, grad norm,
     gradients and the parameters after one make_optimizer step, computed by
-    :func:`write_jax_reference` in a child process (once for both settings;
-    a child that failed or ran out of time is not started again)."""
+    :func:`write_jax_reference` in the setting's child process (waited for
+    until its time limit, then killed)."""
     impl = request.param
-    out_dir = tmp_path_factory.getbasetemp() / "jax_reference"
-    if not out_dir.exists():
-        out_dir.mkdir()
-        proc = subprocess.run([sys.executable, "-c", _CHILD, str(out_dir), *EMB_BWD_IMPLS],
-                              cwd=REPO, capture_output=True, text=True,
-                              timeout=REFERENCE_TIMEOUT_S)
-        assert proc.returncode == 0, proc.stderr[-4000:]
+    out_dir, children = jax_reference_children
+    proc, log, deadline = children[impl]
+    try:
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+    assert proc.returncode == 0, f"the JAX reference ({impl}): rc {proc.returncode}\n" + (
+        log.read_text()[-4000:])
     path = out_dir / f"{impl}.npz"
     assert path.exists(), "the JAX reference's child process failed"
     with np.load(path) as f:
@@ -232,59 +263,6 @@ def _close(got, want, tol, name, floor=0.0):
     scale = max(float(np.abs(want).max(initial=0.0)), floor)
     err = float(np.abs(np.asarray(got, np.float32) - want).max(initial=0.0))
     assert err <= tol * scale, f"{name}: max err {err} > {tol} * {scale}"
-
-
-@pytest.mark.parametrize("coin", [False, True], ids=["sc_off", "sc_on"])
-def test_train_step_matches_jax(jax_reference, coin):
-    """Loss, gradient norm, every parameter gradient (after clipping, which
-    the optimizer applies to .grad) and every parameter after one Adam
-    step, with self-conditioning off and on, for each embedder backward
-    (on the CPU "pallas" is the backward kernel's plain version)."""
-    impl, params, batch, runs = jax_reference
-    ref = runs[coin]
-    tr, metrics = port_step(impl, params, batch, ref["noise"], coin)
-    np.testing.assert_allclose(float(metrics["loss"]), ref["loss"], rtol=1e-5)
-    np.testing.assert_allclose(float(metrics["grad_norm"]), ref["grad_norm"], rtol=1e-5)
-    want_grads = params_from_jax(ref["clipped"], num_blocks=2, seq_tfmr_layers=1)
-    want_params = params_from_jax(ref["new_params"], num_blocks=2, seq_tfmr_layers=1)
-    # The port's own (clipped) gradients through make_optimizer +
-    # optax.apply_updates: the port's Adam step is optax's.
-    start = params_from_jax(params, num_blocks=2, seq_tfmr_layers=1)
-    named = dict(tr.model.named_parameters())
-    trained = {n: p for n, p in named.items() if p.grad is not None}
-    _, optax_params = adam_step({n: p.grad.numpy() for n, p in trained.items()},
-                                {n: start[n].numpy() for n in trained})
-    largest = max(float(g.abs().max()) for g in want_grads.values())
-    for name, p in named.items():
-        if name not in trained:  # never read by the forward (linear_rbf, linear_3)
-            assert not want_grads[name].any(), name
-            continue
-        got, want = p.grad.numpy(), want_grads[name].numpy()
-        # linear_b's bias cancels in the softmax: its gradient is 0 up to
-        # float32 noise in both, so errors are measured on the scale of the
-        # largest gradient too.
-        floor = 1e-3 * largest
-        _close(got, want, 1e-4, name, floor=floor)
-        new = p.detach().numpy()
-        np.testing.assert_allclose(new, np.asarray(optax_params[name]), atol=1e-7, err_msg=name)
-        # Adam's first step is lr * g / (|g| + eps): insensitive to the
-        # gradient's error except where the gradient itself is near 0.
-        firm = np.abs(want) >= 1e-3 * max(np.abs(want).max(), floor)
-        np.testing.assert_allclose(new[firm], want_params[name].numpy()[firm], atol=1e-5,
-                                   err_msg=name)
-    assert len(trained) == len(named) - 6
-
-
-def test_every_parameter_jax_trains_gets_a_gradient(jax_reference):
-    """Guard: after one port step, every parameter whose JAX gradient is
-    non-zero has a non-zero .grad, so no gradient stops silently at a
-    kernel's output."""
-    impl, params, batch, runs = jax_reference
-    tr, _ = port_step(impl, params, batch, runs[True]["noise"], True)
-    want = params_from_jax(runs[True]["grads"], num_blocks=2, seq_tfmr_layers=1)
-    for name, p in tr.model.named_parameters():
-        if want[name].abs().max() > 0:
-            assert p.grad is not None and p.grad.abs().max() > 0, name
 
 
 def test_loss_decreases():
@@ -368,3 +346,60 @@ def test_ipa_kernel_branch_refuses_gradients():
     with torch.no_grad():
         heads = ipa.project(s, rigids.rot_mats(), rigids.trans)
         ipa.attend_kernel(*heads, z, torch.ones(B, N))
+
+
+# The tests that take the JAX reference, last: its children compute while the
+# tests above run.
+
+
+@pytest.mark.parametrize("coin", [False, True], ids=["sc_off", "sc_on"])
+def test_train_step_matches_jax(jax_reference, coin):
+    """Loss, gradient norm, every parameter gradient (after clipping, which
+    the optimizer applies to .grad) and every parameter after one Adam
+    step, with self-conditioning off and on, for each embedder backward
+    (on the CPU "pallas" is the backward kernel's plain version)."""
+    impl, params, batch, runs = jax_reference
+    ref = runs[coin]
+    tr, metrics = port_step(impl, params, batch, ref["noise"], coin)
+    np.testing.assert_allclose(float(metrics["loss"]), ref["loss"], rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]), ref["grad_norm"], rtol=1e-5)
+    want_grads = params_from_jax(ref["clipped"], num_blocks=2, seq_tfmr_layers=1)
+    want_params = params_from_jax(ref["new_params"], num_blocks=2, seq_tfmr_layers=1)
+    # The port's own (clipped) gradients through make_optimizer +
+    # optax.apply_updates: the port's Adam step is optax's.
+    start = params_from_jax(params, num_blocks=2, seq_tfmr_layers=1)
+    named = dict(tr.model.named_parameters())
+    trained = {n: p for n, p in named.items() if p.grad is not None}
+    _, optax_params = adam_step({n: p.grad.numpy() for n, p in trained.items()},
+                                {n: start[n].numpy() for n in trained})
+    largest = max(float(g.abs().max()) for g in want_grads.values())
+    for name, p in named.items():
+        if name not in trained:  # never read by the forward (linear_rbf, linear_3)
+            assert not want_grads[name].any(), name
+            continue
+        got, want = p.grad.numpy(), want_grads[name].numpy()
+        # linear_b's bias cancels in the softmax: its gradient is 0 up to
+        # float32 noise in both, so errors are measured on the scale of the
+        # largest gradient too.
+        floor = 1e-3 * largest
+        _close(got, want, 1e-4, name, floor=floor)
+        new = p.detach().numpy()
+        np.testing.assert_allclose(new, np.asarray(optax_params[name]), atol=1e-7, err_msg=name)
+        # Adam's first step is lr * g / (|g| + eps): insensitive to the
+        # gradient's error except where the gradient itself is near 0.
+        firm = np.abs(want) >= 1e-3 * max(np.abs(want).max(), floor)
+        np.testing.assert_allclose(new[firm], want_params[name].numpy()[firm], atol=1e-5,
+                                   err_msg=name)
+    assert len(trained) == len(named) - 6
+
+
+def test_every_parameter_jax_trains_gets_a_gradient(jax_reference):
+    """Guard: after one port step, every parameter whose JAX gradient is
+    non-zero has a non-zero .grad, so no gradient stops silently at a
+    kernel's output."""
+    impl, params, batch, runs = jax_reference
+    tr, _ = port_step(impl, params, batch, runs[True]["noise"], True)
+    want = params_from_jax(runs[True]["grads"], num_blocks=2, seq_tfmr_layers=1)
+    for name, p in tr.model.named_parameters():
+        if want[name].abs().max() > 0:
+            assert p.grad is not None and p.grad.abs().max() > 0, name

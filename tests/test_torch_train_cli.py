@@ -44,6 +44,8 @@ from framedipt_tpu_torch.train.prefetch import prefetch
 
 from tests.test_torch_model import TINY, _assert_outputs_close, make_feats, tiny_configs
 from tests.unit.geom_helpers import nerf_backbone
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 CIF_DIR = pathlib.Path(__file__).resolve().parent / "data" / "cifs"
 

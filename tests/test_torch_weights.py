@@ -23,6 +23,8 @@ from framedipt_tpu_torch.tools.config import Config as TConfig
 
 from tests.parity import fixture_lib
 from tests.test_torch_model import make_feats, tiny_configs
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 UNREAD = ("linear_rbf", "torsion_pred.linear_3")
 

@@ -35,22 +35,13 @@ from framedipt_tpu_torch.model.kernels import wgrad
 
 from tests.test_torch_pair_mlp_bwd_bf16 import split_k_bf16
 from tests.test_torch_pair_mlp_tc import f32_toward_zero
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STEP = 64        # pairs a step (kWbStep)
 STAGES = 4       # ring stages (kWbStages)
 BOX = STEP * 64  # bf16 elements of one TMA box
 BOX_BYTES = 2 * BOX
 SRC = build.CSRC / "wgrad_bf16.cuh"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def test_constants_are_the_kernels():

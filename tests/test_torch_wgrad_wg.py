@@ -52,20 +52,11 @@ from tests.test_torch_edge_embedder_bwd_split import rows_cap as emb_rows_cap
 from tests.test_torch_pair_mlp_bwd_split import (KERNEL_B_ORDER, NAMES, emulate_split_bwd,
                                                   rows_cap)
 from tests.test_torch_pair_mlp_tc import f32_toward_zero, split
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STEP = 32  # pairs a step (kWgradStep)
 KERNEL = KERNEL_B_ORDER
 ORDERS = {"kernel": KERNEL, "rows": tuple(range(STEP))}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the many small ops here, beside the suite's other
-    workers, lose more to OpenMP threads spinning for a core than they gain."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def step_pair(c: int, r: int) -> int:
