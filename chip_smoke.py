@@ -85,8 +85,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernels (``csrc/pair_mlp_wg.cu``, ``csrc/pair_mlp_bwd_wg.cu``,
    ``csrc/edge_embedder_wg.cu``, ``csrc/edge_embedder_bwd_wg.cu``), the
    autograd forward's and the self-conditioning forward's alike); the same step
-   in bf16 (``model.compute_dtype=bfloat16``; the pair-MLP forwards on the
-   bf16 wgmma kernel, the rest on the mma.sync kernels): its
+   in bf16 (``model.compute_dtype=bfloat16``; the pair-MLP forwards and
+   backwards on the bf16 wgmma kernels, ``csrc/pair_mlp_wg_bf16.cu`` and
+   ``csrc/pair_mlp_bwd_wg_bf16.cu``, the embedder's on mma.sync): its
    first step's loss within 5e-2 of the plain-version bf16 step's, each
    gradient's error against its max-abs printed, then 3 steps (finite, the
    same launches); the step time, examples/s and peak memory of the three
@@ -229,8 +230,10 @@ Phase 3 also holds the two backward kernels against their plain versions
 with masked rows, B=2 N=256; the pair MLP residual and not, the embedder
 with 22 and 0 distance bins; B=2 N=200 also in 10 chunks under a small
 workspace cap), checks that two launches give the same bits, and times them
-at B=2 N=256 in both dtypes, also by part: kernel A (in float32 on wgmma
-and TMA, ``csrc/pair_mlp_bwd_wg.cu`` and ``csrc/edge_embedder_bwd_wg.cu``),
+at B=2 N=256 in both dtypes, also by part: kernel A (on wgmma and TMA:
+``csrc/pair_mlp_bwd_wg.cu``, ``csrc/pair_mlp_bwd_wg_bf16.cu`` and
+``csrc/edge_embedder_bwd_wg.cu``; the pair MLP's bound by the larger of
+its operations and its bytes, the workspace it writes included),
 its weight splits, kernel B (on wgmma and TMA; float32:
 ``csrc/wgrad_wg.cuh``, bf16: ``csrc/wgrad_bf16.cuh``), the row/column sums,
 the ordered reductions, under torch.profiler, with the chunk count, workspace bytes and
@@ -253,10 +256,12 @@ largest there are printed).
 
 The last two lines are a JSON object with one entry per kernel (its
 ``launches`` from the path that runs it first: phases 5, 6 and 7, the
-pair MLP's backwards (float32 ``pair_mlp_bwd_wg``, bf16 ``pair_mlp_bwd``),
-the edge embedder's mma.sync kernel and its bf16 backward
-``edge_embedder_bwd`` from phase 6's steps, the float32 embedder backward
-``edge_embedder_bwd_wg`` from phase 7's;
+pair MLP's backwards (float32 ``pair_mlp_bwd_wg``, bf16
+``pair_mlp_bwd_wg_bf16``) and the bf16 embedder backward
+``edge_embedder_bwd`` from phase 6's steps, the edge embedder's mma.sync
+kernel from phase 5's bf16 request, the float32 embedder backward
+``edge_embedder_bwd_wg`` from phase 7's; ``train_launches`` from phase 6's
+float32 and bf16 steps;
 ``inference_cli_launches`` from phase 8's batched run,
 ``denovo_cli_launches`` from phase 10's de novo run,
 ``database_cli_launches`` from phase 12's database flow, ``sp_launches``
@@ -758,7 +763,7 @@ def check_wgmma_pieces(gen) -> None:
         log(line)
         if not (counts["HGMMA"] and counts["UTMALDG"]):
             raise AssertionError(f"the {name} library has no HGMMA or no UTMALDG")
-    for name in ("pair_mlp_bwd", "edge_embedder_bwd"):
+    for name in ("pair_mlp_bwd_wg_bf16", "edge_embedder_bwd"):
         c = function_counts(name, "wgrad_bf16_kernel",
                             ("HGMMA", "UTMALDG", "LD", "ST", "LDS", "STS"))
         log(f"{name}: bf16 kernel B (wgrad_bf16_kernel) {c['HGMMA']} HGMMA and {c['UTMALDG']} "
@@ -767,6 +772,16 @@ def check_wgmma_pieces(gen) -> None:
         if not (c["HGMMA"] and c["UTMALDG"]) or c["LD"] or c["ST"]:
             raise AssertionError(f"{name}: wgrad_bf16_kernel lacks HGMMA or UTMALDG, or has "
                                  "generic loads or stores")
+    # bf16 kernel A (csrc/pair_mlp_bwd_wg_bf16.cu): wgmma and TMA, no mma.sync;
+    # its local-memory traffic (LDL, STL: spills) printed beside ptxas's lines.
+    c = function_counts("pair_mlp_bwd_wg_bf16", "bf16_bwd_tile_kernel",
+                        ("HGMMA", "HMMA", "UTMALDG", "UTMASTG", "LD", "ST", "LDL", "STL", "LDS",
+                         "STS"))
+    log("pair_mlp_bwd_wg_bf16: bf16 kernel A (bf16_bwd_tile_kernel) " + ", ".join(
+        f"{v} {k}" for k, v in c.items()) + " (cuobjdump -sass; LD/ST generic)")
+    if not (c["HGMMA"] and c["UTMALDG"]) or c["HMMA"] or c["LD"] or c["ST"]:
+        raise AssertionError("bf16_bwd_tile_kernel lacks HGMMA or UTMALDG, or has mma.sync or "
+                             "generic loads or stores")
 
 
 def library_sass(name: str) -> list[str]:
@@ -811,12 +826,11 @@ def generic_ld_st(name: str, kernel: str) -> dict[str, int]:
 # The pair-MLP backward: kernel A (recompute and input-gradient chain) and
 # kernel B (weight gradients) run their products on the tensor cores, as
 # 3xTF32 in float32 and bf16 MMA in bf16. Its CUDA kernels by name: kernel A
-# (float32: csrc/pair_mlp_bwd_wg.cu on wgmma; bf16: csrc/pair_mlp_bwd.cu),
+# (on wgmma; float32: csrc/pair_mlp_bwd_wg.cu, bf16: csrc/pair_mlp_bwd_wg_bf16.cu),
 # float32's weight splits (kernel A's first step), kernel B (on wgmma and
 # TMA; float32: csrc/wgrad_wg.cuh's wgrad_wg_kernel, bf16:
 # csrc/wgrad_bf16.cuh's wgrad_bf16_kernel), the sums.
-BWD_PARTS = (("A", "bwd_tile_kernel"), ("A", "split_tile_kernel"),
-             ("weight splits", "prepare_weights"), ("B", "wgrad_wg_kernel"),
+BWD_PARTS = (("A", "bwd_tile_kernel"), ("weight splits", "prepare_weights"), ("B", "wgrad_wg_kernel"),
              ("B", "wgrad_bf16_kernel"), ("row/col sums", "_sums"),
              ("ordered reductions", "sum_partials"))
 
@@ -842,18 +856,52 @@ def pair_mlp_bwd_bound(B, N, dtype) -> tuple[float, str]:
     return bound(a_flops + b_flops, nbytes, TENSOR_CORE_FLOPS[dtype])
 
 
-def bwd_parts_ms(fn, kinds=BWD_PARTS) -> dict[str, float]:
+def pair_mlp_bwd_a_bound(B, N, dtype) -> tuple[float, str]:
+    """Kernel A's least ms: its operations (the recompute and the chain)
+    over the tensor cores' rate for the dtype (3xTF32 in float32), or its
+    bytes over the HBM rate, the larger. Its bytes a pair: the workspace it
+    writes (split_workspace_floats' per-pair part: float32 6,660, bf16
+    3,844), d_pair written, pair and g read."""
+    from framedipt_tpu_torch.model.kernels.pair_mlp import SPLIT_PAIR_FLOATS
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    a_flops, _, _ = pair_mlp_bwd_cost(B, N, dtype)
+    nbytes = B * N * N * (4 * SPLIT_PAIR_FLOATS[dtype] + 3 * 128 * es)
+    return bound(a_flops, nbytes, TENSOR_CORE_FLOPS[dtype])
+
+
+def bwd_parts_ms(fn, kinds=BWD_PARTS) -> dict[str, float | None]:
     """Device ms of one call of ``fn`` by part of a split backward (its
-    CUDA kernels by name: ``kinds``; torch.profiler; {} if it records no
-    device time)."""
+    CUDA kernels by name: ``kinds``; torch.profiler): None for a part of
+    which the profile holds no kernel (a route without it, or a record the
+    profiler lost); {} if it records no device time."""
     _, by_name = device_time(fn)
-    parts = {label: 0.0 for label, _ in kinds}
-    parts["wrapper (transposes, zeroing, d_b0)"] = 0.0
+    parts: dict[str, float | None] = {label: None for label, _ in kinds}
+    parts["wrapper (transposes, zeroing, d_b0)"] = None
     for name, ms in by_name.items():
         label = next((lab for lab, key in kinds if key in name),
                      "wrapper (transposes, zeroing, d_b0)")
-        parts[label] += ms
+        parts[label] = (parts[label] or 0.0) + ms
     return parts if by_name else {}
+
+
+def ms_text(ms: float | None) -> str:
+    """A part's ms as text, a missing part as "not recorded"."""
+    return "not recorded" if ms is None else f"{ms:.4f}"
+
+
+def parts_text(parts: dict) -> str:
+    """bwd_parts_ms's parts as text."""
+    return ", ".join(f"{k} {ms_text(v)}" for k, v in parts.items()) or "not measured"
+
+
+def part_ms(parts: dict, key: str, label: str) -> float:
+    """Part ``key``'s ms of bwd_parts_ms's ``parts``; raises if the profile
+    holds none of its kernels (a lost record or a launch on another route),
+    so that no missing part is reported as measured."""
+    if not parts.get(key):
+        raise AssertionError(f"{label}: the profile holds no {key} ({parts_text(parts)})")
+    return parts[key]
 
 
 def grad_errors(got, ref, label: str) -> tuple[float, float]:
@@ -901,7 +949,7 @@ def check_pair_mlp_bwd() -> dict:
     are held against the plain backward through the recompute's relu
     decisions (the gradient jumps at such a site; without them the error is
     printed too). Returns the numbers at B=2 N=256 by dtype (float32: kernel
-    A on wgmma, csrc/pair_mlp_bwd_wg.cu; bf16: csrc/pair_mlp_bwd.cu)."""
+    A on wgmma, csrc/pair_mlp_bwd_wg.cu; bf16: csrc/pair_mlp_bwd_wg_bf16.cu)."""
     from framedipt_tpu_torch.model.kernels.pair_mlp import (
         BWD_WORKSPACE_CAP,
         _pre_norm,
@@ -953,17 +1001,20 @@ def check_pair_mlp_bwd() -> dict:
                 plain_ms = cuda_time_ms(lambda: pair_mlp_bwd_plain(g, *args), 5)
                 a_flops, b_flops, _ = pair_mlp_bwd_cost(B, N, dtype)
                 bound_ms, bound_by = pair_mlp_bwd_bound(B, N, dtype)
+                a_bound_ms, a_bound_by = pair_mlp_bwd_a_bound(B, N, dtype)
                 parts = bwd_parts_ms(lambda: pair_mlp_bwd(g, *args))
+                part_ms(parts, "A", label)  # each route's own kernel A
                 peak = TENSOR_CORE_FLOPS[dtype]
                 line += (f"; call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                          f"({bound_by}), {(a_flops + b_flops) / ms / 1e9:.2f} TFLOP/s; device ms "
-                         "by part (profiler, one call): "
-                         + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
-                         + f"; kernel A bound {1e3 * a_flops / peak:.4f} ms, kernel B bound "
-                         f"{1e3 * b_flops / peak:.4f} ms; {card_line()}")
+                         "by part (profiler, one call): " + parts_text(parts)
+                         + f"; kernel A bound {a_bound_ms:.4f} ms ({a_bound_by}; operations "
+                         f"{1e3 * a_flops / peak:.4f} ms), kernel B bound "
+                         f"{1e3 * b_flops / peak:.4f} ms (operations); {card_line()}")
                 out[dtype] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                              "kernel_b_ms": parts.get("B")}
+                              "kernel_a_ms": parts.get("A"), "kernel_a_bound_ms": a_bound_ms,
+                              "kernel_a_bound_by": a_bound_by, "kernel_b_ms": parts.get("B")}
             log(line)
             if worst_rel > TOL[dtype] or not same:
                 raise AssertionError(f"{label}: error {worst_rel} over tolerance or not deterministic")
@@ -980,7 +1031,7 @@ WGRAD_WIDTHS = {
 WGRAD_PRODUCTS = {"pair_mlp_bwd_wg": (("pair", "dy0"), ("y0", "dy1"), ("y1", "dx"), ("pair", "dx")),
                   "edge_embedder_bwd_wg": (("m", "dy0"), ("y0", "dy1"), ("y1", "dx"))}
 for _table in (WGRAD_WIDTHS, WGRAD_PRODUCTS):
-    _table.update({"pair_mlp_bwd": _table["pair_mlp_bwd_wg"],
+    _table.update({"pair_mlp_bwd_wg_bf16": _table["pair_mlp_bwd_wg"],
                    "edge_embedder_bwd": _table["edge_embedder_bwd_wg"]})
 
 
@@ -1206,18 +1257,18 @@ def check_edge_embedder_bwd() -> dict:
                 peak = TENSOR_CORE_FLOPS[dtype]
                 bound_ms, bound_by = bound(flops, nbytes, peak)
                 parts = bwd_parts_ms(lambda: edge_embedder_bwd(g, *tensors, **kw), EMB_BWD_PARTS)
+                part_ms(parts, "A", label)  # each route's own kernel A
                 own = edge_embedder_bwd_parts_bound(B, N, dtype)
                 line += (f"; call {ms:.4f} ms, plain {plain_ms:.4f} ms, xla backward "
                          f"{xla_ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s; bound {bound_ms:.4f} "
                          f"ms ({bound_by}, tensor cores"
                          + (f", 3xTF32; CUDA cores {bound(flops, nbytes, PEAK_FLOPS[dtype])[0]:.4f} ms"
                             if dtype == torch.float32 else "")
-                         + "); device ms by part (profiler, one call): "
-                         + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured")
-                         + f"; kernel A {parts.get('A', 0.0):.4f} ms beside its bound "
+                         + "); device ms by part (profiler, one call): " + parts_text(parts)
+                         + f"; kernel A {parts['A']:.4f} ms beside its bound "
                          f"{own['A'][0]:.4f} ms ({own['A'][1]}; operations "
                          f"{1e3 * a_flops / peak:.4f} ms), the row/col sums "
-                         f"{parts.get('row/col sums', 0.0):.4f} ms beside their bound "
+                         f"{ms_text(parts['row/col sums'])} ms beside their bound "
                          f"{own['row/col sums'][0]:.4f} ms (bytes), kernel B bound by operations "
                          f"{1e3 * b_flops / peak:.4f} ms; {card_line()}")
                 out[dtype] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
@@ -1373,17 +1424,18 @@ def helix_pdb(n_res: int, seed: int) -> str:
 
 
 KERNEL_NAMES = ("edge_embedder", "edge_embedder_wg", "pair_mlp_wg", "pair_mlp_wg_bf16",
-                "ipa_attention", "pair_mlp_bwd", "pair_mlp_bwd_wg", "edge_embedder_bwd",
+                "ipa_attention", "pair_mlp_bwd_wg_bf16", "pair_mlp_bwd_wg", "edge_embedder_bwd",
                 "edge_embedder_bwd_wg")
 
 
 class RouteLaunches:
     """An edge-stack wrapper's launches of one of its kernels
-    (``launches_mma``: csrc/pair_mlp_bwd.cu, csrc/edge_embedder.cu or
-    csrc/edge_embedder_bwd.cu; ``launches_wgmma``:
-    csrc/pair_mlp_wg.cu, csrc/pair_mlp_bwd_wg.cu, csrc/edge_embedder_wg.cu or
-    csrc/edge_embedder_bwd_wg.cu; ``launches_wgmma_bf16``:
-    csrc/pair_mlp_wg_bf16.cu), read and set as a wrapper's ``launches`` is."""
+    (``launches_mma``: csrc/edge_embedder.cu or csrc/edge_embedder_bwd.cu;
+    ``launches_wgmma``: csrc/pair_mlp_wg.cu, csrc/pair_mlp_bwd_wg.cu,
+    csrc/edge_embedder_wg.cu or csrc/edge_embedder_bwd_wg.cu;
+    ``launches_wgmma_bf16``: csrc/pair_mlp_wg_bf16.cu or
+    csrc/pair_mlp_bwd_wg_bf16.cu), read and set as a wrapper's ``launches``
+    is."""
 
     def __init__(self, wrapper, attr: str) -> None:
         self.wrapper, self.attr = wrapper, attr
@@ -1409,7 +1461,7 @@ def kernel_wrappers() -> dict:
             "pair_mlp_wg": RouteLaunches(pair_mlp, "launches_wgmma"),
             "pair_mlp_wg_bf16": RouteLaunches(pair_mlp, "launches_wgmma_bf16"),
             "ipa_attention": ipa_attention,
-            "pair_mlp_bwd": RouteLaunches(pair_mlp_bwd, "launches_mma"),
+            "pair_mlp_bwd_wg_bf16": RouteLaunches(pair_mlp_bwd, "launches_wgmma_bf16"),
             "pair_mlp_bwd_wg": RouteLaunches(pair_mlp_bwd, "launches_wgmma"),
             "edge_embedder_bwd": RouteLaunches(edge_embedder_bwd, "launches_mma"),
             "edge_embedder_bwd_wg": RouteLaunches(edge_embedder_bwd, "launches_wgmma")}
@@ -1464,7 +1516,7 @@ def serve_requests(service, requests) -> dict[str, int]:
                 "pair_mlp_wg": 0 if bf16 else edge,
                 "pair_mlp_wg_bf16": edge if bf16 else 0,
                 "ipa_attention": NUM_BLOCKS * (num_t + 1) if ipa_on else 0,
-                "pair_mlp_bwd": 0,
+                "pair_mlp_bwd_wg_bf16": 0,
                 "pair_mlp_bwd_wg": 0,
                 "edge_embedder_bwd": 0,
                 "edge_embedder_bwd_wg": 0,
@@ -1505,7 +1557,8 @@ def drive_service() -> dict[str, int]:
     """Phase 5: the default service, then one with the IPA attention kernel
     on, then one in bf16. Returns each kernel's launches on the path that
     runs it (the float32 edge kernels' from the default service, the IPA
-    kernel's from the second, the bf16 pair MLP's from the third)."""
+    kernel's from the second, the bf16 pair MLP's and embedder's from the
+    third)."""
     from framedipt_tpu_torch.experiments.serve import InpaintingService
     from framedipt_tpu_torch.tools.config import Config, load_config
 
@@ -1553,7 +1606,7 @@ def drive_service() -> dict[str, int]:
     del service_bf16
     torch.cuda.empty_cache()
     return {"edge_embedder_wg": default["edge_embedder_wg"], "pair_mlp_wg": default["pair_mlp_wg"],
-            "pair_mlp_wg_bf16": bf16["pair_mlp_wg_bf16"],
+            "pair_mlp_wg_bf16": bf16["pair_mlp_wg_bf16"], "edge_embedder": bf16["edge_embedder"],
             "ipa_attention": with_ipa["ipa_attention"]}
 
 
@@ -1755,10 +1808,11 @@ def expected_launches(self_conditioned: bool, emb_bwd_impl: str = "pallas",
     autograd forward's and the coin's, under no_grad) and backward on the
     dtype's kernels (float32: wgmma, each backward's kernel A recomputing
     the wgmma forward's bits; bf16: the pair-MLP forwards on
-    csrc/pair_mlp_wg_bf16.cu, the rest on mma.sync)."""
+    csrc/pair_mlp_wg_bf16.cu and csrc/pair_mlp_bwd_wg_bf16.cu, the embedder's
+    on mma.sync)."""
     edge = NUM_BLOCKS - 1
     sc = int(self_conditioned)  # the coin's forward runs without gradients
-    pair_fwd, pair_bwd = (("pair_mlp_wg_bf16", "pair_mlp_bwd") if bf16
+    pair_fwd, pair_bwd = (("pair_mlp_wg_bf16", "pair_mlp_bwd_wg_bf16") if bf16
                           else ("pair_mlp_wg", "pair_mlp_bwd_wg"))
     emb_fwd, emb_bwd = (("edge_embedder", "edge_embedder_bwd") if bf16
                         else ("edge_embedder_wg", "edge_embedder_bwd_wg"))
@@ -1860,22 +1914,57 @@ def wall_ms(fn) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
+# Each profiler session opens with PROFILE_LEAD spin kernels of
+# PROFILE_LEAD_CYCLES each (about 1.3 ms at the H100's 1.98 GHz, 80 ms in
+# all), left out of the times. Once a process has run a few profiles, kineto
+# drops the first kernel records of each session as out of its window
+# ("Record counts: Out-of-range = N" in its log at KINETO_LOG_LEVEL=1; N grows
+# over the run and with a session's size): without the lead, phase 3 lost
+# bf16 kernel A, the first kernel of its backward after a fill (PERF.md
+# section 7). A session that loses every lead kernel may have lost
+# some of its own; such sessions are counted and printed.
+PROFILE_LEAD = 64
+PROFILE_LEAD_CYCLES = 2_500_000
+# Over this run: profiler sessions, those that lost lead kernels, lead
+# kernels lost, sessions that lost all of them (printed at the end).
+PROFILE_LEAD_LOST = {"sessions": 0, "sessions losing lead kernels": 0, "lead kernels lost": 0,
+                     "sessions losing every lead kernel": 0}
+
+
 def device_time(fn) -> tuple[float, dict[str, float]]:
     """(device ms, device ms by kernel name) of one call of ``fn`` under
-    torch.profiler; 0 and {} if the profiler records no device time."""
+    torch.profiler, after the PROFILE_LEAD spin kernels; 0 and {} if the
+    profiler records no device time. A session that lost every lead kernel
+    (and so perhaps some of fn's) is logged and counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
+    lead = 0
     for e in prof.events():
         # Kernels and copies only: the optimizer's record_function range
         # also lands on the device timeline.
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        if "spin_kernel" in e.name:
+            lead += 1
+        else:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if by_name:
+        PROFILE_LEAD_LOST["sessions"] += 1
+        PROFILE_LEAD_LOST["sessions losing lead kernels"] += lead < PROFILE_LEAD
+        PROFILE_LEAD_LOST["lead kernels lost"] += PROFILE_LEAD - lead
+        if lead == 0:
+            PROFILE_LEAD_LOST["sessions losing every lead kernel"] += 1
+            log(f"torch.profiler lost all {PROFILE_LEAD} lead kernels of a session: its own "
+                "first kernels may be missing from its times")
     return sum(by_name.values()), by_name
 
 
@@ -2334,7 +2423,7 @@ def forward_launches(forwards: int) -> dict[str, int]:
     kernels) and with the IPA attention as einsums."""
     return {"edge_embedder": 0, "edge_embedder_wg": forwards,
             "pair_mlp_wg": (NUM_BLOCKS - 1) * forwards, "pair_mlp_wg_bf16": 0, "ipa_attention": 0,
-            "pair_mlp_bwd": 0, "pair_mlp_bwd_wg": 0, "edge_embedder_bwd": 0,
+            "pair_mlp_bwd_wg_bf16": 0, "pair_mlp_bwd_wg": 0, "edge_embedder_bwd": 0,
             "edge_embedder_bwd_wg": 0}
 
 
@@ -4004,7 +4093,8 @@ def main() -> int:
     log(f"phase 3: kernels against their plain versions (at {time.perf_counter() - started:.0f} s)")
     serving = check_kernels()
     bwd = check_pair_mlp_bwd()
-    serving["pair_mlp_bwd_wg"], serving["pair_mlp_bwd"] = bwd[torch.float32], bwd[torch.bfloat16]
+    serving["pair_mlp_bwd_wg"] = bwd[torch.float32]
+    serving["pair_mlp_bwd_wg_bf16"] = bwd[torch.bfloat16]
     emb_bwd = check_edge_embedder_bwd()
     serving["edge_embedder_bwd_wg"] = emb_bwd[torch.float32]
     serving["edge_embedder_bwd"] = emb_bwd[torch.bfloat16]
@@ -4019,7 +4109,7 @@ def main() -> int:
     log(f"phase 6: train step (at {time.perf_counter() - started:.0f} s)")
     check_training_refusals()
     train_launches = check_train_step()
-    for name in ("pair_mlp_bwd", "pair_mlp_bwd_wg", "edge_embedder", "edge_embedder_bwd"):
+    for name in ("pair_mlp_bwd_wg_bf16", "pair_mlp_bwd_wg", "edge_embedder_bwd"):
         launches[name] = train_launches[name]
     log(f"phase 7: the training CLI (at {time.perf_counter() - started:.0f} s)")
     launches["edge_embedder_bwd_wg"] = check_training_cli()
@@ -4056,7 +4146,7 @@ def main() -> int:
         "pair_mlp_wg": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "pair_mlp_wg_bf16": "framedipt_tpu/model/pallas/pair_mlp.py:78",
         "ipa_attention": "framedipt_tpu/model/pallas/ipa_attention.py:65",
-        "pair_mlp_bwd": "framedipt_tpu/model/pallas/pair_mlp.py:349",
+        "pair_mlp_bwd_wg_bf16": "framedipt_tpu/model/pallas/pair_mlp.py:349",
         "pair_mlp_bwd_wg": "framedipt_tpu/model/pallas/pair_mlp.py:349",
         "edge_embedder_bwd": "framedipt_tpu/model/pallas/edge_embedder.py:366",
         "edge_embedder_bwd_wg": "framedipt_tpu/model/pallas/edge_embedder.py:366",
@@ -4067,6 +4157,7 @@ def main() -> int:
             "source": f"framedipt_tpu_torch/csrc/{name}.cu",
             "sources": [f"framedipt_tpu_torch/csrc/{f}" for f in kernel_sources(name)],
             "replaces": replaces[name], "launches": launches[name],
+            "train_launches": train_launches[name],
             "inference_cli_launches": cli_launches[name],
             "denovo_cli_launches": denovo_launches[name],
             "database_cli_launches": database_launches[name],
@@ -4076,6 +4167,7 @@ def main() -> int:
         }
         for name in KERNEL_NAMES
     ]
+    log(f"torch.profiler over this run: {PROFILE_LEAD_LOST} ({PROFILE_LEAD} lead kernels a session)")
     log(card_line())  # name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time the edge-embedder forward kernels, the bf16 pair-MLP forward on
-wgmma, the float32 pair-MLP and edge-embedder backwards' kernel A and kernel
-B of both split backwards (both dtypes) beside variants of their sources, on
-one CUDA card.
+wgmma, the pair-MLP backward's kernel A (float32 and bf16), the float32
+edge-embedder backward's kernel A and kernel B of both split backwards
+(both dtypes) beside variants of their sources, on one CUDA card.
 
     python3 chip_variants.py [--parent DIR] [--out FILE]
-                             [--only mma|wgmma|bwd|emb_bwd|wgrad|bf16_fwd]
+                             [--only mma|wgmma|bwd|emb_bwd|wgrad|bf16_fwd|bf16_bwd]
 
 Each variant is this checkout's ``framedipt_tpu_torch/csrc`` with text
 patches applied to a copy, built by nvcc (one process per variant, all
@@ -42,30 +42,39 @@ of ``pair_mlp_wg_bf16.cuh`` (the bf16 pair-MLP forward on wgmma: its slice
 loop rolled, a ring of two stages, and one part removed at a time: the
 products, the epilogues' loads from device memory, the weights' TMA loads),
 each variant held or timed at FWD_SHAPES beside, with ``--parent``, the
-parent's bf16 forward (``pair_mlp.cu``, mma.sync), then this checkout's
-kernel and the parent's at FWD_SHAPES over six placements of the inputs
-(PLACEMENT_PADS_MB), three rounds each, by device ms of one call
-(torch.profiler) and CUDA events, median and spread.
+parent's bf16 forward, then this checkout's kernel and the parent's at
+FWD_SHAPES over six placements of the inputs (PLACEMENT_PADS_MB), three
+rounds each, by device ms of one call (torch.profiler) and CUDA events,
+median and spread; and of ``pair_mlp_bwd_wg_bf16.cu`` (the bf16 pair-MLP
+backward's kernel A on wgmma: the relu decisions read back from the
+workspace, TMA stores, and one part removed at a time: the chain's
+products, every product, the workspace stores, the LayerNorm backward),
+held against the plain version (B=1 N=1, N=17, B=2 N=200, also in 10
+chunks) and timed by kernel A's device ms and the call at B=2 N=256, then
+this checkout's kernel A over six placements beside, with ``--parent``,
+the parent's (``pair_mlp_bwd.cu``, mma.sync, in a tree that has it).
 ``--only`` builds and times one kernel's variants (``wgrad``: both dtypes'
-kernel B; ``bf16_fwd``: the bf16 pair-MLP forward). Variants that
+kernel B; ``bf16_fwd``: the bf16 pair-MLP forward; ``bf16_bwd``: the bf16
+pair-MLP backward's kernel A). Variants that
 change how a kernel works are held against the plain version (float32 1e-4,
 bf16 5e-2) at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256; variants that
 remove a part of the work give wrong outputs and are only timed, to show
 what that part costs. With ``--parent`` (a tree unpacked from an earlier
-commit: ``git archive <rev> | tar -x -C DIR``), that tree's
-``edge_embedder.cu`` is timed too and must give the same bits as this
-checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and B=2 N=256 with and without
-distance bins in bf16 (the forward's tile is shared with the bf16 embedder
-backward's recompute); its bf16 pair-MLP forward (``pair_mlp.cu``, against
-this checkout's ``pair_mlp_wg_bf16.cu``) and ``pair_mlp_bwd.cu`` (bf16),
-``pair_mlp_wg.cu`` and ``pair_mlp_bwd_wg.cu`` (float32, with and without
-the residual terms), ``edge_embedder_wg.cu`` (float32),
-``edge_embedder_bwd_wg.cu`` (float32, also held against the plain version),
-``edge_embedder_bwd.cu`` (bf16) and ``ipa_attention.cu`` (both dtypes) must
-give the same bits as this checkout's (the bf16 backwards: every gradient
-but kernel B's, whose bits moved with its step; those are held against the
-plain version, the dtype's tolerance of each gradient's max-abs through the
-recompute's relu decisions), and the forwards (differentiated) and both
+commit: ``git archive <rev> | tar -x -C DIR``; the parent's sources that
+exist are built), that tree's ``edge_embedder.cu`` is timed too and must
+give the same bits as this checkout's at B=1 N=1, B=1 N=17, B=2 N=200 and
+B=2 N=256 with and without distance bins in bf16 (the forward's tile is
+shared with the bf16 embedder backward's recompute); its
+``pair_mlp_wg_bf16.cu`` (bf16), ``pair_mlp_wg.cu`` and ``pair_mlp_bwd_wg.cu``
+(float32, with and without the residual terms), ``edge_embedder_wg.cu``
+(float32), ``edge_embedder_bwd_wg.cu`` (float32, also held against the
+plain version), ``edge_embedder_bwd.cu`` (bf16: every gradient but kernel
+B's) and ``ipa_attention.cu`` (both dtypes) must give the same bits as this
+checkout's; its bf16 pair-MLP backward (``pair_mlp_bwd.cu``) is compared
+gradient by gradient, the ones that keep its bits named, this checkout's
+held against the plain version (the dtype's tolerance of each gradient's
+max-abs through the recompute's relu decisions); and the forwards
+(differentiated) and both
 backwards in both dtypes are timed beside the parent's, the backwards by
 call and by kernel A's and kernel B's device ms. The parent's wrappers run
 through that tree's own wrapper modules (which must take this checkout's
@@ -95,6 +104,10 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent
 
+# A parent tree's backward kernels that this checkout no longer has: bf16
+# kernel A of csrc/pair_mlp_bwd.cu (PR 27 and before) and the mma.sync
+# kernel B (PR 25 and before), for bwd_parts_ms's kinds.
+PARENT_PARTS = (("A", "split_tile_kernel"), ("B", "wgrad_kernel"))
 EMB = "edge_embedder.cu"
 EMB_TC = "edge_embedder_tc.cuh"
 TC = "tc_product.cuh"
@@ -403,11 +416,14 @@ WGRAD_BF16_VARIANTS = {
                           False),
     "wgrad_bf16_l2_resident": ({WGRAD_BF16: WB_L2_RESIDENT}, False),
 }
-WGRAD_BF16_LIBS = {"pair": ("pair_mlp_bwd", "pair_mlp_bwd.cu"),
+WGRAD_BF16_LIBS = {"pair": ("pair_mlp_bwd_wg_bf16", "pair_mlp_bwd_wg_bf16.cu"),
                    "emb": ("edge_embedder_bwd", "edge_embedder_bwd.cu")}
-# The gradients kernel B makes, by index of each backward's outputs: d_w0,
-# d_w1, d_wf, d_wfe; d_w_rel, d_w1, d_w2.
-PAIR_KERNEL_B_GRADS = (5, 7, 9, 15)
+# The pair-MLP backward's gradients in the wrapper's order.
+PAIR_GRAD_NAMES = ("d_pair", "d_i_term", "d_j_term", "d_row_mask", "d_col_mask", "d_w0", "d_b0",
+                   "d_w1", "d_b1", "d_wf", "d_bf", "d_ln_scale", "d_ln_bias", "d_fi", "d_fj",
+                   "d_wfe")
+# The gradients the embedder's kernel B makes, by index of its backward's
+# outputs: d_w_rel, d_w1, d_w2.
 EMB_KERNEL_B_GRADS = (8, 11, 13)
 # Blocks allocated first (MB) in the placements over which bf16 kernel B is
 # timed beside the parent's and torch.mm.
@@ -470,14 +486,14 @@ FWD_H = "pair_mlp_wg_bf16.cuh"
 FWD_TMA = """      wg::mbar_arrive_expect_tx(&sm.full[st], 2 * kBoxBytes);
       wg::tma_load_2d(sm.w[st][0], map, &sm.full[st], col, row);
       wg::tma_load_2d(sm.w[st][1], map, &sm.full[st], col + 64, row);"""
+FWD_MMA = "          wgmma_m64n128k16(acc, wg::desc_sw128(a + 16 * kk),"
+FWD_NO_PRODUCTS = (FWD_MMA, FWD_MMA.replace("wgmma_m64n128k16(", "if (kk < 0) wgmma_m64n128k16("))
 FWD_VARIANTS = {
     "fwd_rolled_slices": ({FWD_H: [("#pragma unroll\n    for (int s = 0; s < S; ++s) {",
                                     "#pragma unroll 1\n    for (int s = 0; s < S; ++s) {")]}, True),
     "fwd_two_stages": ({FWD_H: [("constexpr int kStages = 3;", "constexpr int kStages = 2;")]},
                        True),
-    "fwd_no_products": ({FWD_H: [("        wgmma_m64n128k16(acc, wg::desc_sw128(a + 16 * kk),",
-                                  "        if (kk < 0) wgmma_m64n128k16(acc, wg::desc_sw128(a + 16 * kk),")]},
-                        False),
+    "fwd_no_products": ({FWD_H: [FWD_NO_PRODUCTS]}, False),
     "fwd_no_epilogue_loads": ({FWD_H: [
         ("        it[i / 2] = ld_pair(i_term + (size_t)max(pt.row[r], 0) * HID + c);",
          "        it[i / 2] = 0u;"),
@@ -492,6 +508,124 @@ FWD_VARIANTS = {
 # The shapes the bf16 forward is timed at: the serving shape, the CLI's
 # bucket, a de novo structure below one wave of tiles.
 FWD_SHAPES = ((2, 256), (2, 896), (1, 100))
+# The bf16 pair-MLP backward's kernel A on wgmma (csrc/pair_mlp_bwd_wg_bf16.cu,
+# on the bf16 forward's tile): the relu decisions read back from the
+# workspace in place of shared memory (BF16_BWD_MASKS_RELOAD); the workspace
+# stored by TMA bulk stores from the store warps' lane 0 in place of their
+# 16-byte stores (BF16_BWD_TMA_STORES); and one part removed at a time: the
+# chain's products, every product, the workspace stores (the store warps
+# still take each region over), the LayerNorm backward (dxd is X's old
+# contents); and a build that reads its phases' cycles (BF16_BWD_TIMELINE).
+BF16_BWD = "pair_mlp_bwd_wg_bf16.cu"
+BF16_BWD_MASKS_GET = """  __device__ __forceinline__ void get(int which, int chunk, uint32_t (&m)[2]) const {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) m[w] = bs.masks[(which * (HID / NC) + chunk) * 2 + w][threadIdx.x];
+  }
+"""
+BF16_BWD_MASKS_RELOAD = [
+    ("  uint32_t masks[kMaskWords][kConsumers];", "  uint32_t masks[1][kConsumers];"),
+    ("void record(int which, int chunk, int i, float v0, float v1) {\n",
+     "void record(int which, int chunk, int i, float v0, float v1) {\n    return;\n"),
+    # The chunk's words from the values the store warps wrote to the
+    # warpgroup's rows (plain loads: this block wrote them).
+    (BF16_BWD_MASKS_GET, """  __device__ __forceinline__ void get(int which, int chunk, const bf16* rows,
+                                      const PairTile& pt, uint32_t (&m)[2]) const {
+    m[0] = m[1] = 0u;
+    for_each_pair([&](int r, int c, int i) {
+      if (pt.row[r] < 0) return;
+      const int k = i >> 1;
+      m[k >> 4] |= relu_pair(*reinterpret_cast<const uint32_t*>(rows + (size_t)r * HID + c)) >>
+                   (15 - (k & 15));
+    });
+  }
+"""),
+    ("m.get(1, cb, mw);", "m.get(1, cb, a.ws.y1 + lp0 * HID + cb * NC, pt, mw);"),
+    ("m.get(0, hc, mw);", "m.get(0, hc, a.ws.y0 + lp0 * HID + hc * NC, pt, mw);")]
+BF16_BWD_TMA_STORES = {
+    "wgmma_tma.cuh": [("__device__ __forceinline__ void prefetch_tensor_map(", """\
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_tensor_map(""")],
+    BF16_BWD: [
+        # The workspace arrays' tensor maps (boxes of 64 rows x 64 columns).
+        ("  int Nr, Nc;\n};", "  int Nr, Nc;\n  CUtensorMap wsm[5];  // y0, y1, dy1, dy0, dxd\n};"),
+        ("  const BwdArgs a{", "  BwdArgs a{"),
+        (" tiles, Nr, Nc};\n", """ tiles, Nr, Nc};
+  const bf16* arrays[5] = {ws.y0, ws.y1, ws.dy1, ws.dy0, ws.dxd};
+  for (int i = 0; i < 5; ++i)
+    if (!wg::bf16_sw128_map(&a.wsm[i], arrays[i], P, i < 4 ? HID : C_OUT, kHalf))
+      return cudaErrorInvalidValue;
+"""),
+        # Lane 0 of store warp 0 issues the region's bulk stores; they have
+        # read shared memory before the region is released.
+        ("  // A row's 16-byte chunks lie side by side in device memory.\n", """\
+  if (me == 0 && rows > 0) {
+    for (int b = 0; b < blocks; ++b)
+      wg::tma_store_2d(&a.wsm[arr], S + b * kBlock, c0 + 64 * b, (int)lp0);
+    wg::bulk_commit();
+    wg::bulk_wait_read();
+  }
+  if (me >= 0) return;
+"""),
+        ("      t0 = 0;\n    }\n  }\n}\n",
+         "      t0 = 0;\n    }\n  }\n  if (w == 0 && lane == 0) wg::bulk_wait();  // the last stores done\n}\n")]}
+BF16_BWD_CHAIN_MMA = ("          wgmma_m64n128k16_kb(acc, wg::desc_sw128(a + 16 * kk), "
+                      "wg::desc_sw128(b + 16 * kk),")
+BF16_BWD_NO_CHAIN_PRODUCTS = (BF16_BWD_CHAIN_MMA, BF16_BWD_CHAIN_MMA.replace(
+    "wgmma_m64n128k16_kb(", "if (kk < 0) wgmma_m64n128k16_kb("))
+# Kernel A's phases in cycles: clock64() read by thread 0 of each consumer
+# warpgroup of block 0 after each phase of its first 16 tiles (a build of its
+# own, timed apart), read back through a C entry of the patched copy.
+BF16_BWD_PHASES = ("X loaded", "recompute", "LayerNorm backward", "dxd handed over",
+                   "channel sums", "dy1", "dy1 handed over", "dy0 and W0^T", "Wfe^T, d_pair")
+BF16_BWD_MARKS = ("    wg::mbar_wait(&sm.xfull, k & 1);\n",
+                  "    forward_tile<RESIDUAL>(sm, ring, pt, a.i_term, a.j_term, a.fi, a.fj, h);\n",
+                  "a.ws.dx + lp0 * C_OUT, a.ws.dem + lp0);\n",
+                  "    ho.hand();            // dxd\n",
+                  "    wg::bar_sync(1 + group, 128);  // the channel sums read: Y0 takes dy1\n",
+                  "    tile_written(group);  // dy1 whole\n",
+                  "    ho.hand();            // dy1 (dxd copied first)\n",
+                  "      ring.product<NC, true>(sm.y1[0], acc_dp, hc == 0);\n    }\n",
+                  "    wg::bar_sync(1 + group, 128);  // the tile's bookkeeping read\n")
+BF16_BWD_TIMELINE = [(m, m + f"    PHASE_MARK({i + 1});\n") for i, m in enumerate(BF16_BWD_MARKS)] + [
+    ("static_assert(kHalf == kRows,",
+     "__device__ long long phase_clock[2][16][12];\n"
+     "#define PHASE_MARK(i) do { if (blockIdx.x == 0 && (threadIdx.x & 127) == 0 && k < 16) "
+     "phase_clock[group][k][i] = clock64(); } while (0)\nstatic_assert(kHalf == kRows,"),
+    ("    wg::bar_sync(1 + group, 128);  // the warpgroup's bookkeeping\n",
+     "    wg::bar_sync(1 + group, 128);  // the warpgroup's bookkeeping\n    PHASE_MARK(0);\n"),
+    ("// C interface, for one chunk: rows m0",
+     'extern "C" int fdk_phase_clock(void* out) {\n  return (int)cudaMemcpyFromSymbol('
+     "out, fdk::wgb::phase_clock, sizeof(fdk::wgb::phase_clock));\n}\n\n"
+     "// C interface, for one chunk: rows m0")]
+BF16_BWD_VARIANTS = {
+    "bf16_bwd_timeline": ({BF16_BWD: BF16_BWD_TIMELINE}, False),
+    "bf16_bwd_masks_reload": ({BF16_BWD: BF16_BWD_MASKS_RELOAD}, True),
+    "bf16_bwd_tma_stores": (BF16_BWD_TMA_STORES, True),
+    "bf16_bwd_no_chain_products": ({FWD_H: [BF16_BWD_NO_CHAIN_PRODUCTS]}, False),
+    "bf16_bwd_no_products": ({FWD_H: [BF16_BWD_NO_CHAIN_PRODUCTS, FWD_NO_PRODUCTS]}, False),
+    "bf16_bwd_no_stores": ({BF16_BWD: [("per_row = 8 * blocks, n = rows * per_row;",
+                                        "per_row = 8 * blocks, n = ld < 0 ? rows : 0;")]},
+                           False),
+    "bf16_bwd_no_layernorm": ({BF16_BWD: [("    layer_norm_backward(sm, group, pt, ",
+                                           "    if (a.Nr < 0) layer_norm_backward(sm, group, pt, ")]},
+                              False),
+}
 
 
 def log(msg: str) -> None:
@@ -540,17 +674,18 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen, keep: dict) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         a = cs.pair_mlp_inputs(2, 256, dtype, gen)
         g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(dtype)
-        # The forward autograd differentiates: the wgmma kernel in float32
-        # in both trees; in bf16 the bf16 wgmma kernel, the parent's mma.sync.
-        kind, parent_kind = (("pair_mlp_wg", "pair_mlp_wg") if dtype == torch.float32
-                             else ("pair_mlp_wg_bf16", "pair_mlp"))
+        # The forward autograd differentiates: the wgmma kernels in both
+        # trees.
+        kind = parent_kind = "pair_mlp_wg" if dtype == torch.float32 else "pair_mlp_wg_bf16"
         cases[f"pair_mlp {str(dtype)[6:]}, differentiated"] = (
             kind, parent_kind, lambda a=a: t_pair.pair_mlp(*a),
             lambda a=a: parent_pair.pair_mlp(*a))
-        # Each dtype's backward through its library.
-        kind = "pair_mlp_bwd_wg" if dtype == torch.float32 else "pair_mlp_bwd"
+        # Each dtype's backward through its library (the parent's bf16 one
+        # is pair_mlp_bwd.cu, kernel A on mma.sync).
+        kind, parent_kind = (("pair_mlp_bwd_wg", "pair_mlp_bwd_wg") if dtype == torch.float32
+                             else ("pair_mlp_bwd_wg_bf16", "pair_mlp_bwd"))
         cases[f"pair_mlp_bwd {str(dtype)[6:]}"] = (
-            kind, kind, lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
+            kind, parent_kind, lambda a=a, g=g: t_pair.pair_mlp_bwd(g, *a),
             lambda a=a, g=g: parent_pair.pair_mlp_bwd(g, *a))
     parent_emb = pmods["edge_embedder"]
     for dtype in (torch.float32, torch.bfloat16):
@@ -589,9 +724,9 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen, keep: dict) -> dict:
                 if "_bwd" in kind:  # kernel A's and kernel B's device ms
                     # The parent's bf16 kernel B is the mma.sync wgrad_kernel.
                     parts = cs.bwd_parts_ms(fn, (cs.BWD_PARTS if kind.startswith("pair")
-                                                 else cs.EMB_BWD_PARTS) + (("B", "wgrad_kernel"),))
-                    t.setdefault(f"{who} kernel A", []).append(parts.get("A", 0.0))
-                    t.setdefault(f"{who} kernel B", []).append(parts.get("B", 0.0))
+                                                 else cs.EMB_BWD_PARTS) + PARENT_PARTS)
+                    t.setdefault(f"{who} kernel A", []).append(cs.part_ms(parts, "A", who))
+                    t.setdefault(f"{who} kernel B", []).append(cs.part_ms(parts, "B", who))
         use(kind, new_libs[kind])
         if parent_kind != kind and parent_kind in new_libs:
             use(parent_kind, new_libs[parent_kind])
@@ -603,16 +738,17 @@ def time_beside_parent(cs, pmods, libs, new_libs, use, gen, keep: dict) -> dict:
     return times
 
 
-def pair_bwd_check(cs, label: str, a, g) -> bool:
-    """The pair-MLP backward on ``a``, ``g`` against the plain version through
-    its recompute's relu decisions (the dtype's tolerance of each gradient's
-    max-abs), two launches bit-identical, the recompute equal to the forward
-    autograd differentiates; logs one line, returns whether it passed."""
+def pair_bwd_check(cs, label: str, a, g, **kw) -> bool:
+    """The pair-MLP backward on ``a``, ``g`` (``kw``: the wrapper's keywords)
+    against the plain version through its recompute's relu decisions (the
+    dtype's tolerance of each gradient's max-abs), two launches
+    bit-identical, the recompute equal to the forward autograd
+    differentiates; logs one line, returns whether it passed."""
     from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 
     rec = {}
-    got = t_pair.pair_mlp_bwd(g, *a, recompute=rec)
-    again = t_pair.pair_mlp_bwd(g, *a)
+    got = t_pair.pair_mlp_bwd(g, *a, recompute=rec, **kw)
+    again = t_pair.pair_mlp_bwd(g, *a, **kw)
     ref = t_pair.pair_mlp_bwd_plain(g, *a, relu_masks=(rec["y0"] > 0, rec["y1"] > 0))
     rel, err = cs.grad_errors(got, ref, label)
     same = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
@@ -705,7 +841,7 @@ def time_wgrad_variants(cs, libs, names, site: str, use, gen, dtype=torch.float3
         for name in (names if rnd % 2 == 0 else names[::-1]):
             use(lib_name, libs[name])
             t[name]["call"].append(cs.cuda_time_ms(fn, 10))
-            t[name]["B"].append(cs.bwd_parts_ms(fn, kinds).get("B", 0.0))
+            t[name]["B"].append(cs.part_ms(cs.bwd_parts_ms(fn, kinds + PARENT_PARTS), "B", name))
     use(lib_name, libs[names[0]])
     for name in names:
         log(f"{name} {str(dtype)[6:]} {'pair_mlp_bwd' if site == 'pair' else 'edge_embedder_bwd'} "
@@ -746,10 +882,10 @@ def time_wgrad_bf16_placements(cs, libs, new_libs, use, gen, pmods) -> dict:
         a = [x.clone() if torch.is_tensor(x) else x for x in pair_in]
         *e, lo, up = [x.clone() if torch.is_tensor(x) else x for x in emb_in]
         g = g0.clone()
-        mm = {site: cs.wgrad_products(f"{lib}_bwd", torch.bfloat16, gen)
-              for site, lib in (("pair", "pair_mlp"), ("emb", "edge_embedder"))}
+        mm = {site: cs.wgrad_products(lib, torch.bfloat16, gen)
+              for site, lib in (("pair", "pair_mlp_bwd_wg_bf16"), ("emb", "edge_embedder_bwd"))}
         calls = {
-            "this checkout pair": ("pair_mlp_bwd", new_libs["pair_mlp_bwd"],
+            "this checkout pair": ("pair_mlp_bwd_wg_bf16", new_libs["pair_mlp_bwd_wg_bf16"],
                                    lambda: t_pair.pair_mlp_bwd(g, *a), cs.BWD_PARTS),
             "this checkout emb": ("edge_embedder_bwd", new_libs["edge_embedder_bwd"],
                                   lambda: t_emb.edge_embedder_bwd(g, *e, bins_lower=lo,
@@ -769,11 +905,12 @@ def time_wgrad_bf16_placements(cs, libs, new_libs, use, gen, pmods) -> dict:
             for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
                 kind, lib, fn, kinds = calls[key]
                 use(kind, lib)
-                here.setdefault(key, []).append(cs.bwd_parts_ms(fn, kinds).get("B", 0.0))
+                here.setdefault(key, []).append(
+                    cs.part_ms(cs.bwd_parts_ms(fn, kinds + PARENT_PARTS), "B", key))
             for site, fn in mm.items():
                 here.setdefault(f"torch.mm {site}", []).append(cs.device_time(fn)[0])
                 here.setdefault(f"torch.mm {site} (events)", []).append(cs.cuda_time_ms(fn, 5))
-        use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
+        use("pair_mlp_bwd_wg_bf16", new_libs["pair_mlp_bwd_wg_bf16"])
         use("edge_embedder_bwd", new_libs["edge_embedder_bwd"])
         log(f"bf16 kernel B B=2 N=256, {pad_mb} MB allocated first: " + "; ".join(
             f"{k} " + ", ".join(f"{x:.4f}" for x in v) + " ms" for k, v in here.items()))
@@ -809,7 +946,7 @@ def time_emb_bwd_variants(cs, libs, names, use, gen, parent_fn=None) -> dict:
             else:
                 use("edge_embedder_bwd_wg", libs[name])
             t[name]["call"].append(cs.cuda_time_ms(calls[name], 10))
-            t[name]["A"].append(cs.bwd_parts_ms(calls[name], cs.EMB_BWD_PARTS).get("A", 0.0))
+            t[name]["A"].append(cs.part_ms(cs.bwd_parts_ms(calls[name], cs.EMB_BWD_PARTS), "A", name))
     use("edge_embedder_bwd_wg", libs["new_emb_bwd"])
     for name in order:
         log(f"{name} float32 edge_embedder_bwd B=2 N=256: call "
@@ -879,7 +1016,7 @@ def time_emb_bwd_spread(cs, libs, names, use, extra: dict, draws: int = 6) -> di
                         g, *e, bins_lower=lo, bins_upper=up))
                     fn()
                     t[name].setdefault(label, []).append(
-                        cs.bwd_parts_ms(fn, cs.EMB_BWD_PARTS).get("A", 0.0))
+                        cs.part_ms(cs.bwd_parts_ms(fn, cs.EMB_BWD_PARTS), "A", name))
     finally:
         smi.terminate()
         samples = smi.communicate(timeout=30)[0]
@@ -916,7 +1053,9 @@ def time_bwd_variants(cs, libs, names, use, gen) -> dict:
         for name in (names if rnd % 2 == 0 else names[::-1]):
             use("pair_mlp_bwd_wg", libs[name])
             t[name]["call"].append(cs.cuda_time_ms(lambda: t_pair.pair_mlp_bwd(g, *a), 10))
-            t[name]["A"].append(cs.bwd_parts_ms(lambda: t_pair.pair_mlp_bwd(g, *a)).get("A", 0.0))
+            t[name]["A"].append(cs.part_ms(
+                cs.bwd_parts_ms(lambda: t_pair.pair_mlp_bwd(g, *a), cs.BWD_PARTS + PARENT_PARTS),
+                "A", name))
     use("pair_mlp_bwd_wg", libs["new_bwd"])
     for name in names:
         log(f"{name} float32 B=2 N=256: call " + ", ".join(f"{x:.4f}" for x in t[name]["call"])
@@ -955,8 +1094,7 @@ def time_fwd(cs, libs, names, use, gen, pmods) -> dict:
     """The bf16 forward at FWD_SHAPES (residual), CUDA events over 20
     launches, three rounds in alternating order: this checkout's kernel
     (``new_fwd``) and its variants (``names``) and, with ``pmods``, the
-    parent's bf16 forward (pair_mlp.cu) through its own wrapper and
-    library."""
+    parent's bf16 forward through its own wrapper and library."""
     from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 
     times = {}
@@ -964,8 +1102,8 @@ def time_fwd(cs, libs, names, use, gen, pmods) -> dict:
         a = cs.pair_mlp_inputs(B, N, torch.bfloat16, gen)
         calls = {n: ("pair_mlp_wg_bf16", libs[n], lambda: t_pair.pair_mlp(*a)) for n in names}
         if pmods:
-            calls["the parent's pair_mlp.cu"] = ("pair_mlp", libs["parent_pair_mlp"],
-                                                 lambda: pmods["pair_mlp"].pair_mlp(*a))
+            calls["the parent's"] = ("pair_mlp_wg_bf16", libs["parent_pair_mlp_wg_bf16"],
+                                     lambda: pmods["pair_mlp"].pair_mlp(*a))
         t = {k: [] for k in calls}
         for rnd in range(3):
             for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
@@ -984,7 +1122,7 @@ def time_fwd(cs, libs, names, use, gen, pmods) -> dict:
 
 def time_fwd_placements(cs, libs, use, gen, pmods) -> dict:
     """This checkout's bf16 forward (csrc/pair_mlp_wg_bf16.cu) and, with
-    ``pmods``, the parent's (pair_mlp.cu) at FWD_SHAPES over the placements PLACEMENT_PADS_MB (torch's cache
+    ``pmods``, the parent's at FWD_SHAPES over the placements PLACEMENT_PADS_MB (torch's cache
     emptied, a block of that many MB allocated first, the inputs copied
     after it), three rounds a placement in alternating order: device ms of
     one call (torch.profiler) and CUDA events over 20 calls. Logs each
@@ -992,31 +1130,151 @@ def time_fwd_placements(cs, libs, use, gen, pmods) -> dict:
     from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
 
     t = {}
-    if pmods:
-        use("pair_mlp", libs["parent_pair_mlp"])
     for B, N in FWD_SHAPES:
         inputs = cs.pair_mlp_inputs(B, N, torch.bfloat16, gen)
         for pad_mb in PLACEMENT_PADS_MB:
             torch.cuda.empty_cache()
             pad = torch.empty(max(pad_mb << 20, 1), dtype=torch.uint8, device="cuda")
             a = [x.clone() if torch.is_tensor(x) else x for x in inputs]
-            calls = {"pair_mlp_wg_bf16": lambda: t_pair.pair_mlp(*a)}
+            calls = {"pair_mlp_wg_bf16": (libs["new_fwd"], lambda: t_pair.pair_mlp(*a))}
             if pmods:
-                calls["the parent's pair_mlp.cu"] = lambda: pmods["pair_mlp"].pair_mlp(*a)
+                calls["the parent's"] = (libs["parent_pair_mlp_wg_bf16"],
+                                         lambda: pmods["pair_mlp"].pair_mlp(*a))
             here = {}
             for rnd in range(3):
                 for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
-                    device = cs.device_time(calls[key])[0]
+                    use("pair_mlp_wg_bf16", calls[key][0])
+                    fn = calls[key][1]
+                    device = cs.device_time(fn)[0]
                     if device > 0:  # 0: the profiler recorded no device time this call
                         here.setdefault(f"{key} device", []).append(device)
-                    here.setdefault(f"{key} events", []).append(cs.cuda_time_ms(calls[key], 20))
+                    here.setdefault(f"{key} events", []).append(cs.cuda_time_ms(fn, 20))
             log(f"bf16 pair-MLP forward B={B} N={N}, {pad_mb} MB allocated first: " + "; ".join(
                 f"{k} " + ", ".join(f"{x:.4f}" for x in v) + " ms" for k, v in here.items()))
             for k, v in here.items():
                 t.setdefault(f"B={B} N={N} {k}", []).extend(v)
             del pad, a
+    use("pair_mlp_wg_bf16", libs["new_fwd"])
     for k, v in t.items():
         log(f"bf16 pair-MLP forward over {len(PLACEMENT_PADS_MB)} placements, {k}: {spread(v)} ms")
+    return t
+
+
+def bf16_bwd_checks(cs, name: str, gen) -> int:
+    """The bf16 pair-MLP backward through the library ``name`` stands in for
+    (in use) held by ``pair_bwd_check`` at B=1 N=1, B=1 N=17, B=2 N=200 and
+    B=2 N=200 in 10 chunks, with and without the residual terms; returns
+    the failures."""
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    fails = 0
+    for B, N, chunks in ((1, 1, None), (1, 17, None), (2, 200, None), (2, 200, 40)):
+        for residual in (True, False):
+            a = cs.pair_mlp_inputs(B, N, torch.bfloat16, gen, residual=residual)
+            g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(torch.bfloat16)
+            label = f"{name} bfloat16 B={B} N={N} residual={residual}"
+            if chunks is None:
+                fails += not pair_bwd_check(cs, label, a, g)
+            else:
+                cap = 4 * t_pair.split_workspace_floats(chunks * N, torch.bfloat16)
+                fails += not pair_bwd_check(cs, label + f" in chunks of {chunks} rows", a, g,
+                                            workspace_cap=cap)
+    return fails
+
+
+def time_bf16_bwd(cs, libs, names, use, gen) -> dict:
+    """The bf16 pair-MLP backward at B=2 N=256 through each library in
+    ``names`` (this checkout's "new_bf16_bwd" first, then its variants): kernel
+    A's device ms (torch.profiler, one call) and the call's ms (CUDA events
+    over 10 calls), three rounds in alternating order."""
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    a = cs.pair_mlp_inputs(2, 256, torch.bfloat16, gen)
+    g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    t = {n: {"call": [], "A": []} for n in names}
+    for rnd in range(3):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            use("pair_mlp_bwd_wg_bf16", libs[name])
+            t[name]["call"].append(cs.cuda_time_ms(lambda: t_pair.pair_mlp_bwd(g, *a), 10))
+            t[name]["A"].append(cs.part_ms(
+                cs.bwd_parts_ms(lambda: t_pair.pair_mlp_bwd(g, *a), cs.BWD_PARTS + PARENT_PARTS),
+                "A", name))
+    use("pair_mlp_bwd_wg_bf16", libs[names[0]])
+    for name in names:
+        log(f"{name} bf16 B=2 N=256: kernel A " + ", ".join(f"{x:.4f}" for x in t[name]["A"])
+            + " ms; call " + ", ".join(f"{x:.4f}" for x in t[name]["call"]) + " ms")
+    return t
+
+
+def bf16_bwd_phases(cs, lib, use, gen) -> dict:
+    """Kernel A's cycles by phase (BF16_BWD_PHASES) at B=2 N=256 from the
+    ``bf16_bwd_timeline`` build ``lib``: the mean over block 0's first
+    tiles (up to 16) and both consumer warpgroups, after three calls."""
+    import numpy as np
+
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    a = cs.pair_mlp_inputs(2, 256, torch.bfloat16, gen)
+    g = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    use("pair_mlp_bwd_wg_bf16", lib)
+    for _ in range(3):
+        t_pair.pair_mlp_bwd(g, *a)
+    torch.cuda.synchronize()
+    clocks = np.zeros((2, 16, 12), np.int64)
+    lib.fdk_phase_clock.argtypes = [ctypes.c_void_p]
+    if lib.fdk_phase_clock(clocks.ctypes.data) != 0:
+        raise RuntimeError("fdk_phase_clock failed")
+    tiles = -(-2 * 256 * 256 // 128)
+    seen = min(16, -(-tiles // torch.cuda.get_device_properties(0).multi_processor_count))
+    d = np.diff(clocks[:, :seen, :len(BF16_BWD_PHASES) + 1], axis=-1).mean(axis=(0, 1))
+    out = {name: float(x) for name, x in zip(BF16_BWD_PHASES, d)}
+    log(f"bf16 kernel A B=2 N=256, cycles a tile by phase (block 0, {seen} tiles, both "
+        "warpgroups): " + ", ".join(f"{k} {v:.0f}" for k, v in out.items())
+        + f"; the tile {sum(out.values()):.0f}")
+    return out
+
+
+def time_bf16_bwd_placements(cs, libs, use, gen, pmods) -> dict:
+    """bf16 kernel A's device ms (torch.profiler, one call) and the whole
+    call's (CUDA events over 10 calls) at B=2 N=256 over the placements
+    PLACEMENT_PADS_MB (torch's cache emptied, a block of that many MB
+    allocated first, the inputs copied after it), three rounds a placement
+    in alternating order: this checkout's kernel A and, with ``pmods``, the
+    parent's (its mma.sync kernel A, pair_mlp_bwd.cu, through its own
+    wrapper and library) in the same process. Logs each placement's
+    readings, then each one's median and spread."""
+    from framedipt_tpu_torch.model.kernels import pair_mlp as t_pair
+
+    inputs = cs.pair_mlp_inputs(2, 256, torch.bfloat16, gen)
+    g0 = torch.randn(2, 256, 256, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    t = {}
+    for pad_mb in PLACEMENT_PADS_MB:
+        torch.cuda.empty_cache()
+        pad = torch.empty(max(pad_mb << 20, 1), dtype=torch.uint8, device="cuda")
+        a = [x.clone() if torch.is_tensor(x) else x for x in inputs]
+        g = g0.clone()
+        calls = {"this checkout": ("pair_mlp_bwd_wg_bf16", libs["new_bf16_bwd"],
+                                   lambda: t_pair.pair_mlp_bwd(g, *a))}
+        if pmods:
+            calls["the parent"] = ("pair_mlp_bwd", libs["parent_pair_mlp_bwd"],
+                                   lambda: pmods["pair_mlp"].pair_mlp_bwd(g, *a))
+        here = {}
+        for rnd in range(3):
+            for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
+                kind, lib, fn = calls[key]
+                use(kind, lib)
+                here.setdefault(f"{key} kernel A", []).append(
+                    cs.part_ms(cs.bwd_parts_ms(fn, cs.BWD_PARTS + PARENT_PARTS), "A", key))
+                here.setdefault(f"{key} call", []).append(cs.cuda_time_ms(fn, 10))
+        log(f"bf16 pair-MLP backward B=2 N=256, {pad_mb} MB allocated first: " + "; ".join(
+            f"{k} " + ", ".join(f"{x:.4f}" for x in v) + " ms" for k, v in here.items()))
+        for k, v in here.items():
+            t.setdefault(k, []).extend(v)
+        del pad, a, g
+    use("pair_mlp_bwd_wg_bf16", libs["new_bf16_bwd"])
+    for k, v in t.items():
+        log(f"bf16 pair-MLP backward B=2 N=256 over {len(PLACEMENT_PADS_MB)} placements, {k}: "
+            f"{spread(v)} ms")
     return t
 
 
@@ -1024,8 +1282,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=pathlib.Path, default=None)
     ap.add_argument("--out", type=pathlib.Path, default=None)
-    ap.add_argument("--only", choices=("mma", "wgmma", "bwd", "emb_bwd", "wgrad", "bf16_fwd"),
-                    default=None)
+    ap.add_argument("--only", choices=("mma", "wgmma", "bwd", "emb_bwd", "wgrad", "bf16_fwd",
+                                       "bf16_bwd"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_variants: no CUDA device")
@@ -1064,6 +1322,9 @@ def main() -> int:
                              for n, (p, ok) in WGRAD_BF16_VARIANTS.items()})
     if args.only in (None, "bf16_fwd"):
         variants.update({n: (p, ok, "pair_mlp_wg_bf16", FWD) for n, (p, ok) in FWD_VARIANTS.items()})
+    if args.only in (None, "bf16_bwd"):
+        variants.update({n: (p, ok, "pair_mlp_bwd_wg_bf16", BF16_BWD)
+                         for n, (p, ok) in BF16_BWD_VARIANTS.items()})
     kinds.update({n: (kind, ok) for n, (_, ok, kind, _) in variants.items()})
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_variants_"))
     try:
@@ -1071,26 +1332,36 @@ def main() -> int:
                    for name, (patches, _, _, source) in variants.items()}
         parent = None if args.parent is None else args.parent / "framedipt_tpu_torch" / "csrc"
         if parent is not None:
-            sources.update({"parent": parent / EMB, "parent_pair_mlp": parent / "pair_mlp.cu",
+            # The parent's sources as it has them (an earlier tree may lack
+            # some): its bf16 kernel A is pair_mlp_bwd.cu's.
+            sources.update({k: v for k, v in {
+                            "parent": parent / EMB,
+                            "parent_pair_mlp_wg_bf16": parent / "pair_mlp_wg_bf16.cu",
                             "parent_pair_mlp_bwd": parent / "pair_mlp_bwd.cu",
                             "parent_pair_mlp_wg": parent / "pair_mlp_wg.cu",
                             "parent_pair_mlp_bwd_wg": parent / "pair_mlp_bwd_wg.cu",
                             "parent_edge_embedder_wg": parent / EMB_WG,
                             "parent_edge_embedder_bwd": parent / "edge_embedder_bwd.cu",
                             "parent_edge_embedder_bwd_wg": parent / "edge_embedder_bwd_wg.cu",
-                            "parent_ipa_attention": parent / "ipa_attention.cu"})
+                            "parent_ipa_attention": parent / "ipa_attention.cu"}.items()
+                            if v.exists()})
             kinds["parent"] = ("edge_embedder", False)
         procs = {name: subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(work / f"{name}.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for name, src in sources.items()}
         build.build_all()
+        if args.only in (None, "bf16_bwd"):  # this checkout's bf16 kernel A, as ptxas saw it
+            for line in build.build_log.get("pair_mlp_bwd_wg_bf16", {}).get("log", "").splitlines():
+                if "bf16_bwd_tile_kernel" in line or "spill" in line or "registers" in line:
+                    log(f"  pair_mlp_bwd_wg_bf16: {line.strip()[:160]}")
         libs = {"new": build.library("edge_embedder"), "new_wg": build.library("edge_embedder_wg"),
                 "new_bwd": build.library("pair_mlp_bwd_wg"),
                 "new_emb_bwd": build.library("edge_embedder_bwd_wg"),
                 "new_wgrad_pair": build.library("pair_mlp_bwd_wg"),
                 "new_wgrad_emb": build.library("edge_embedder_bwd_wg"),
-                "new_wgrad_bf16_pair": build.library("pair_mlp_bwd"),
+                "new_wgrad_bf16_pair": build.library("pair_mlp_bwd_wg_bf16"),
+                "new_bf16_bwd": build.library("pair_mlp_bwd_wg_bf16"),
                 "new_wgrad_bf16_emb": build.library("edge_embedder_bwd"),
                 "new_fwd": build.library("pair_mlp_wg_bf16")}
         fails = 0
@@ -1104,7 +1375,8 @@ def main() -> int:
             for line in out.splitlines():
                 if "registers" in line or "spill" in line or "C7512" in line:
                     log(f"  {name}: {line.strip()[:160]}")
-        new_libs = {n: build.library(n) for n in ("pair_mlp_wg_bf16", "pair_mlp_bwd", "pair_mlp_wg",
+        new_libs = {n: build.library(n) for n in ("pair_mlp_wg_bf16", "pair_mlp_bwd_wg_bf16",
+                                                  "pair_mlp_wg",
                                                   "pair_mlp_bwd_wg", "edge_embedder",
                                                   "edge_embedder_wg", "edge_embedder_bwd",
                                                   "edge_embedder_bwd_wg", "ipa_attention")}
@@ -1115,7 +1387,8 @@ def main() -> int:
             build._libs[kind] = lib
             for mod in (t_emb, t_pair, t_wgrad, t_ipa, *pmods.values()):
                 for entry in ("_kernel", "_wg_kernel", "_split_kernel", "_bwd_kernel",
-                              "_bwd_wg_kernel", "_bf16_kernel", "_wg_bf16_kernel"):
+                              "_bwd_wg_kernel", "_bf16_kernel", "_wg_bf16_kernel",
+                              "_bwd_wg_bf16_kernel"):
                     if hasattr(mod, entry):
                         getattr(mod, entry).cache_clear()
 
@@ -1172,8 +1445,17 @@ def main() -> int:
         use("pair_mlp_wg_bf16", libs["new_fwd"])
         if args.only in (None, "bf16_fwd"):
             fails += fwd_checks(cs, "pair_mlp_wg_bf16", gen)
+        bf16_bwd_names = [n for n, (kind, _) in kinds.items()
+                          if kind == "pair_mlp_bwd_wg_bf16" and n in libs]
+        for name in [n for n in bf16_bwd_names if kinds[n][1]]:
+            use("pair_mlp_bwd_wg_bf16", libs[name])
+            fails += bf16_bwd_checks(cs, name, gen)
+        use("pair_mlp_bwd_wg_bf16", libs["new_bf16_bwd"])
+        if args.only in (None, "bf16_bwd"):
+            fails += bf16_bwd_checks(cs, "pair_mlp_bwd_wg_bf16", gen)
         kinds = {n: v for n, v in kinds.items()
-                 if v[0] not in ("pair_mlp_bwd_wg", "edge_embedder_bwd_wg", "pair_mlp_wg_bf16")
+                 if v[0] not in ("pair_mlp_bwd_wg", "edge_embedder_bwd_wg", "pair_mlp_wg_bf16",
+                                 "pair_mlp_bwd_wg_bf16")
                  and not v[0].startswith("wgrad_")}
         emb_only = {None: None, "mma": "edge_embedder", "wgmma": "edge_embedder_wg"}.get(args.only, "")
         checked = [n for n, (kind, ok) in kinds.items() if ok and n in libs
@@ -1205,33 +1487,41 @@ def main() -> int:
                             f"parent's bits {same}")
                         fails += not same
             use("edge_embedder", libs["new"])
-        if "parent_pair_mlp" in libs and "parent_pair_mlp_bwd" in libs:
-            # bf16: this checkout's forward (the wgmma kernel) against the
-            # parent's (pair_mlp.cu, mma.sync), and the backward.
-            use("pair_mlp", libs["parent_pair_mlp"])
-            for dtype in (torch.bfloat16,):
+        if "parent_pair_mlp_wg_bf16" in libs and "parent_pair_mlp_bwd" in libs:
+            # bf16: this checkout's forward against the parent's (the same
+            # kernel), and the backward (kernel A redesigned; the parent's is
+            # pair_mlp_bwd.cu's): which gradients keep the parent's bits, and
+            # this checkout's held against the plain version.
+            for B, N, chunks in ((2, 200, None), (2, 200, 40), (2, 256, None)):
                 for residual in (True, False):
-                    a = cs.pair_mlp_inputs(2, 200, dtype, gen, residual=residual)
-                    outs = [t_pair.pair_mlp(*a), pmods["pair_mlp"].pair_mlp(*a)]
+                    a = cs.pair_mlp_inputs(B, N, torch.bfloat16, gen, residual=residual)
+                    outs = []
+                    for lib, wrapper in ((new_libs["pair_mlp_wg_bf16"], t_pair),
+                                         (libs["parent_pair_mlp_wg_bf16"], pmods["pair_mlp"])):
+                        use("pair_mlp_wg_bf16", lib)
+                        outs.append(wrapper.pair_mlp(*a))
+                    use("pair_mlp_wg_bf16", new_libs["pair_mlp_wg_bf16"])
                     same = torch.equal(*outs)
-                    line = f"pair_mlp {str(dtype)[6:]} residual={residual}: the parent's bits {same}"
-                    g = torch.randn(2, 200, 200, 128, generator=gen, device="cuda").to(dtype)
+                    kw = ({} if chunks is None else {"workspace_cap": 4 * t_pair.split_workspace_floats(
+                        chunks * N, torch.bfloat16)})
+                    label = (f"pair_mlp bf16 B={B} N={N} residual={residual}"
+                             + ("" if chunks is None else f" in chunks of {chunks} rows"))
+                    g = torch.randn(B, N, N, 128, generator=gen, device="cuda").to(torch.bfloat16)
                     grads = []
-                    for lib, wrapper in ((new_libs["pair_mlp_bwd"], t_pair),
-                                         (libs["parent_pair_mlp_bwd"], pmods["pair_mlp"])):
-                        use("pair_mlp_bwd", lib)
-                        grads.append(wrapper.pair_mlp_bwd(g, *a))
-                    bwd_same = all(x is None or torch.equal(x, y) for i, (x, y)
-                                   in enumerate(zip(*grads)) if i not in PAIR_KERNEL_B_GRADS)
-                    line += (f"; backward's gradients but kernel B's (kernel A's recompute "
-                             f"inside) {bwd_same}")
-                    log(line)
-                    # Kernel B's gradients (its bits moved) against the plain version.
-                    use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
-                    same = (same and bwd_same and pair_bwd_check(
-                        cs, f"pair_mlp_bwd bf16 B=2 N=200 residual={residual}", a, g))
-                    fails += not same
-            use("pair_mlp_bwd", new_libs["pair_mlp_bwd"])
+                    for kind, lib, wrapper in (
+                            ("pair_mlp_bwd_wg_bf16", new_libs["pair_mlp_bwd_wg_bf16"], t_pair),
+                            ("pair_mlp_bwd", libs["parent_pair_mlp_bwd"], pmods["pair_mlp"])):
+                        use(kind, lib)
+                        grads.append(wrapper.pair_mlp_bwd(g, *a, **kw))
+                    use("pair_mlp_bwd_wg_bf16", new_libs["pair_mlp_bwd_wg_bf16"])
+                    kept = [PAIR_GRAD_NAMES[i] for i, (x, y) in enumerate(zip(*grads))
+                            if x is not None and torch.equal(x, y)]
+                    moved = [PAIR_GRAD_NAMES[i] for i, (x, y) in enumerate(zip(*grads))
+                             if x is not None and not torch.equal(x, y)]
+                    log(f"{label}: the forward's bits the parent's {same}; the backward's gradients "
+                        f"with the parent's kernel A's bits: {', '.join(kept) or 'none'}; moved: "
+                        f"{', '.join(moved) or 'none'}")
+                    fails += not (same and pair_bwd_check(cs, f"pair_mlp_bwd {label}", a, g, **kw))
         if "parent_pair_mlp_bwd_wg" in libs:
             # float32: the same kernels as the parent's, held against the
             # plain version and against the parent's bits.
@@ -1358,6 +1648,15 @@ def main() -> int:
         if args.only in (None, "wgrad"):
             times["bf16 kernel B placements"] = time_wgrad_bf16_placements(
                 cs, libs, new_libs, use, gen, pmods)
+        if args.only in (None, "bf16_bwd"):
+            if "bf16_bwd_timeline" in libs:
+                times["bf16 kernel A phases"] = bf16_bwd_phases(cs, libs["bf16_bwd_timeline"], use,
+                                                                gen)
+            times["bf16 pair-MLP backward"] = time_bf16_bwd(
+                cs, libs, ["new_bf16_bwd"] + [n for n in bf16_bwd_names
+                                              if n != "bf16_bwd_timeline"], use, gen)
+            times["bf16 pair-MLP backward placements"] = time_bf16_bwd_placements(
+                cs, libs, use, gen, pmods)
         if args.only in (None, "bf16_fwd"):
             times["bf16 pair-MLP forward"] = time_fwd(cs, libs, ["new_fwd"] + fwd_names, use, gen,
                                                       pmods)

@@ -207,7 +207,7 @@ __device__ __forceinline__ void layer_norm_store(const float* __restrict__ O, in
 
 // ---- pieces of the backward kernels ----------------------------------------
 //
-// The split backwards (pair_mlp_bwd.cu, edge_embedder_bwd.cu) write partial
+// The split backwards (pair_mlp_split.cuh, edge_embedder_split.cuh) write partial
 // sums of each gradient to scratch; reduce_partials adds them in a fixed
 // order. No float atomics, so two launches give the same bits.
 

@@ -32,7 +32,7 @@
 //
 // Both element types: two kernels and fixed-order sums, per chunk of grid
 // rows (the wrapper plans the chunks so that the workspace stays under its
-// cap), as pair_mlp_bwd.cu. This file holds bf16's kernel A and entry;
+// cap), as pair_mlp_bwd_wg_bf16.cu. This file holds bf16's kernel A and entry;
 // float32's kernel A runs on wgmma and TMA (edge_embedder_bwd_wg.cu), and
 // the rest of the split backward (the workspace, the row and column sums,
 // kernel B, the ordered sums) is edge_embedder_split.cuh, shared by both.

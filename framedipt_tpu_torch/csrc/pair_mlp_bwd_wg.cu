@@ -5,8 +5,8 @@
 //
 // Replaces the Pallas TPU kernel framedipt_tpu/model/pallas/pair_mlp.py:349
 // (_pair_mlp_bwd_kernel, reached through fused_pair_mlp_bwd) in float32, as
-// pair_mlp_bwd.cu does in bf16; pair_mlp_bwd.cu's header gives the outputs,
-// the workspace and the whole call's bound. Kernel A, per 64-pair tile of
+// pair_mlp_bwd_wg_bf16.cu does in bf16; that file's header gives the
+// outputs and the workspace. Kernel A, per 64-pair tile of
 // the chunk's flat pairs:
 //
 //   recompute   y0, y1, the pre-norm output (pair_mlp_wg.cuh's forward_tile,

@@ -1,12 +1,12 @@
 // The pair MLP's split backward around its kernel A, for Hopper (sm_90a),
-// shared by the float32 backward (pair_mlp_bwd_wg.cu, kernel A on wgmma)
-// and the bf16 one (pair_mlp_bwd.cu, kernel A on mma.sync): the chunk's
+// shared by the float32 backward (pair_mlp_bwd_wg.cu) and the bf16 one
+// (pair_mlp_bwd_wg_bf16.cu), both with kernel A on wgmma: the chunk's
 // workspace layout that kernel A fills, the row and column sums, kernel B's
 // jobs (on wgmma and TMA; float32: wgrad_wg.cuh, bf16: wgrad_bf16.cuh) and
 // the ordered sums into the outputs (finish_split).
-// Include it after the tile header (pair_mlp_wg.cuh or pair_mlp_tc.cuh),
-// which gives C_IN, HID and C_OUT. pair_mlp_bwd.cu's header describes the
-// whole backward.
+// Include it after the tile header (pair_mlp_wg.cuh, or pair_mlp_wg_bf16.cuh
+// with its widths brought into fdk), which gives C_IN, HID and C_OUT.
+// pair_mlp_bwd_wg_bf16.cu's header describes the whole backward.
 #pragma once
 
 #include "wgrad_bf16.cuh"

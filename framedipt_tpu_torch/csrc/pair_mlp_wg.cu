@@ -36,7 +36,7 @@
 //   tensor maps over them and over the pair input each launch. The producer
 //   brings each tile's pair rows (X) and then its weight slices, 32 (in) x
 //   128 (out) hi + lo (128-byte swizzle, 32 KB), through a ring of two
-//   stages guarded by full and empty mbarriers, in pair_mlp_tc.cuh's order:
+//   stages guarded by full and empty mbarriers, in the products' order:
 //   W0 by output chunk, then for each 128-column chunk of y1 W1's and Wf's
 //   slices, then Wfe. The ring runs across tiles. Bringing lo by TMA doubles
 //   the weights' L2 stream (4.3 GB a launch at B=2 N=256); splitting each

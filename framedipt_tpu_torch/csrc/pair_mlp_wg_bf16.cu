@@ -15,13 +15,11 @@
 //
 // with common.cuh's epilogues (every product rounded to bf16, every add
 // rounded to bf16, b0 and bf not folded) and LayerNorm (float32 statistics,
-// eps 1e-6). The bf16 backward's kernel A (pair_mlp_bwd.cu) recomputes the
-// forward through pair_mlp_tc.cuh's mma.sync tile, which sums each
-// product's whole K in one float32 accumulator by 16-deep steps as this
-// kernel does: its recompute has this kernel's bits, so the relu decisions
-// of forward and backward agree (chip_smoke.py holds the two equal). This
-// tile's code (pair_mlp_wg_bf16.cuh, forward_tile) has the hooks a kernel A
-// recomputing through it would take.
+// eps 1e-6). The bf16 backward's kernel A (pair_mlp_bwd_wg_bf16.cu)
+// recomputes the forward through this tile's code (pair_mlp_wg_bf16.cuh,
+// forward_tile, with its own hooks), so its recompute has this kernel's bits
+// and the relu decisions of forward and backward agree (chip_smoke.py holds
+// the two equal).
 //
 // Bound on an H100 SXM at B=2 N=256: 2 * (128*384 + 384*384 + 384*128 +
 // 128*128) = 524,288 FLOP a pair, 68.7 GFLOP a launch, at 989 TFLOP/s bf16:
@@ -44,7 +42,7 @@
 // - Weights by TMA: the producer brings each tile's pair rows (two boxes of
 //   64 columns x 128 pairs) and then its weight slices, 64 (k) x 128 (n)
 //   (two 8 KB boxes), through a ring of three stages guarded by full and
-//   empty mbarriers, in pair_mlp_tc.cuh's order: W0 by output chunk, then for
+//   empty mbarriers, in the products' order: W0 by output chunk, then for
 //   each 128-column chunk of y1 W1's and Wf's slices, then Wfe. The ring runs
 //   across tiles. 512 KB of L2 reads a tile, 0.54 GB a launch at B=2 N=256
 //   (64-pair tiles would read 1.07 GB).

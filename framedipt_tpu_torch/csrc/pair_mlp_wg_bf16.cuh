@@ -4,7 +4,11 @@
 // their pre-norm output (forward_tile), with the hooks a backward's
 // recompute needs to keep what the forward drops (those of
 // pair_mlp_wg.cuh's forward_tile). pair_mlp_wg_bf16.cu's header describes
-// the design.
+// the design. The bf16 backward's kernel A (pair_mlp_bwd_wg_bf16.cu) runs
+// forward_tile for its recompute and then its input-gradient chain through
+// the same ring: the chain's slices (chain_coords) are the stored weights
+// read K-major, each a 128 (n) x 64 (k) block of W [in, out] (Ring::product
+// with KMAJOR_B).
 //
 // Layout of every activation tile (X, Y0, the Y1 chunk): bf16, column blocks
 // of 64 (one 128-byte row a pair), each block kTile rows, as TMA writes a
@@ -87,6 +91,35 @@ __device__ __forceinline__ const CUtensorMap* slice_coords(const Maps& m, int s,
   return &m.wfe;
 }
 
+// Slice s of a tile's input-gradient chain, the forward's products on the
+// transposed weights: dy1 = dxd @ Wf^T by output chunk, then for each
+// 128-column chunk of dy0 W1^T's slices and W0^T's, then Wfe^T's. W^T's k
+// runs along a stored row of W ([in, out]), so each slice is the 128 stored
+// rows row .. row + 127 (n) by the 64 stored columns col .. col + 63 (k),
+// staged K-major as two boxes of 64 rows (the second at row + 64).
+__device__ __forceinline__ const CUtensorMap* chain_coords(const Maps& m, int s, int& col,
+                                                           int& row) {
+  if (s < kW0Slices) {
+    row = (s / kKSlices) * NC;
+    col = (s % kKSlices) * kSliceK;
+    return &m.wf;
+  }
+  if (s < kResSlice) {
+    const int hc = (s - kW0Slices) / kChunkSlices, v = (s - kW0Slices) % kChunkSlices;
+    if (v < HID / kSliceK) {
+      row = hc * NC;
+      col = v * kSliceK;
+      return &m.w1;
+    }
+    row = 0;
+    col = hc * NC + (v - HID / kSliceK) * kSliceK;
+    return &m.w0;
+  }
+  row = 0;
+  col = (s - kResSlice) * kSliceK;
+  return &m.wfe;
+}
+
 // d (+)= a @ b: m64n128k16, bf16 inputs, float32 accumulators; a a K-major
 // descriptor (rows of 128 bytes, transpose flag 0), b an MN-major one
 // (transpose flag 1); d as wg::wgmma_m64n128k8_tf32's. accumulate = 0
@@ -102,6 +135,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same with b K-major too (transpose flag 0): b a descriptor of 128 (n)
+// rows of 128 bytes (64 k each), the k16 step 32 bytes into them.
+__device__ __forceinline__ void wgmma_m64n128k16_kb(float (&d)[64], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
@@ -144,7 +203,9 @@ struct Ring {
   // slice's products are in flight while the next slice's are issued, and
   // its stage goes back to the producer once they are done; during() (the
   // epilogue's loads from device memory) runs while the last slice's do.
-  template <int K, typename During>
+  // The forward's slices are MN-major (the weight's 64 k rows x 128 n as two
+  // boxes of 64 columns); KMAJOR_B: the chain's, 128 n rows x 64 k.
+  template <int K, bool KMAJOR_B = false, typename During>
   __device__ __forceinline__ void product(const bf16* A, float (&acc)[64], bool fresh,
                                           During during) {
     constexpr int S = K / kSliceK;
@@ -160,10 +221,15 @@ struct Ring {
       for (int i = 0; i < 64; ++i) wg::fence_operand(acc[i]);
       wg::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kSliceK / 16; ++kk)
-        wgmma_m64n128k16(acc, wg::desc_sw128(a + 16 * kk),
-                         wg::desc_mn_sw128(b + kk * 16 * 64, kBoxBytes),
-                         (s > 0 || kk > 0 || !fresh) ? 1 : 0);
+      for (int kk = 0; kk < kSliceK / 16; ++kk) {
+        const int accumulate = (s > 0 || kk > 0 || !fresh) ? 1 : 0;
+        if constexpr (KMAJOR_B)
+          wgmma_m64n128k16_kb(acc, wg::desc_sw128(a + 16 * kk), wg::desc_sw128(b + 16 * kk),
+                              accumulate);
+        else
+          wgmma_m64n128k16(acc, wg::desc_sw128(a + 16 * kk),
+                           wg::desc_mn_sw128(b + kk * 16 * 64, kBoxBytes), accumulate);
+      }
       wg::wgmma_commit();
       if (s > 0) {
         wg::wgmma_wait<1>();
@@ -177,9 +243,9 @@ struct Ring {
     release(n + S - 1);
     n += S;
   }
-  template <int K>
+  template <int K, bool KMAJOR_B = false>
   __device__ __forceinline__ void product(const bf16* A, float (&acc)[64], bool fresh) {
-    product<K>(A, acc, fresh, [] {});
+    product<K, KMAJOR_B>(A, acc, fresh, [] {});
   }
 };
 
@@ -256,8 +322,9 @@ __device__ __forceinline__ void layer_norm_rows(const bf16* __restrict__ O, int 
 // The producer: for each of the block's tiles, its pair rows (X, once both
 // warpgroups have released the last tile's), then the tile's weight slices
 // through the ring: W0 by output chunk, then for each 128-column chunk of y1
-// W1's and Wf's slices, then Wfe's (RESIDUAL).
-template <bool RESIDUAL>
+// W1's and Wf's slices, then Wfe's (RESIDUAL); with CHAIN (the backward's
+// kernel A) then the chain's slices (chain_coords) in their order.
+template <bool RESIDUAL, bool CHAIN = false>
 __device__ __forceinline__ void produce(Smem& sm, const Maps& maps, long long tiles) {
   constexpr int kSlices = RESIDUAL ? kResSlice + kKSlices : kResSlice;
   wg::prefetch_tensor_map(&maps.w0);
@@ -280,6 +347,15 @@ __device__ __forceinline__ void produce(Smem& sm, const Maps& maps, long long ti
       wg::mbar_arrive_expect_tx(&sm.full[st], 2 * kBoxBytes);
       wg::tma_load_2d(sm.w[st][0], map, &sm.full[st], col, row);
       wg::tma_load_2d(sm.w[st][1], map, &sm.full[st], col + 64, row);
+    }
+    for (int s = 0; CHAIN && s < kSlices; ++s, ++n) {
+      const int st = n % kStages;
+      wg::mbar_wait(&sm.empty[st], ((n / kStages) & 1) ^ 1);
+      int col, row;
+      const CUtensorMap* map = chain_coords(maps, s, col, row);
+      wg::mbar_arrive_expect_tx(&sm.full[st], 2 * kBoxBytes);
+      wg::tma_load_2d(sm.w[st][0], map, &sm.full[st], col, row);
+      wg::tma_load_2d(sm.w[st][1], map, &sm.full[st], col, row + 64);
     }
   }
 }

@@ -1,8 +1,7 @@
 // Tensor-core products of a 64-row tile for Hopper (sm_90a), fed by a
 // stream of weight slices, shared by the edge-stack kernels that run on the
-// tensor cores: the pair MLP's forward and its backward's kernel A
-// (pair_mlp_tc.cuh), and the edge embedder's forward and its backward's
-// kernel A (edge_embedder_tc.cuh); with the backward kernels'
+// tensor cores on mma.sync: the bf16 edge embedder's forward and its
+// backward's kernel A (edge_embedder_tc.cuh); with the backward kernels'
 // row stores and relu decisions (store_rows, store_relu_bits, relu_grad).
 //
 // - Products: mma.sync on fragments loaded from shared-memory tiles

@@ -2,7 +2,7 @@
 // (sm_90a): the weight gradients G = A^T Bm summed over the pairs of a
 // chunk, as one split-K GEMM of bf16 operands with float32 sums. Launched by
 // the pair MLP's bf16 backward (pair_mlp_split.cuh's finish_split, from
-// pair_mlp_bwd.cu) and the edge embedder's (edge_embedder_split.cuh, from
+// pair_mlp_bwd_wg_bf16.cu) and the edge embedder's (edge_embedder_split.cuh, from
 // edge_embedder_bwd.cu); their float32 backwards run wgrad_wg.cuh's kernel,
 // whose jobs, tensor-map table and epilogue this one shares. It replaces the
 // weight-gradient products inside the Pallas TPU kernels

@@ -9,7 +9,7 @@
   block but the last (``csrc/pair_mlp_wg.cu`` in float32,
   ``csrc/pair_mlp_wg_bf16.cu`` in bf16: :func:`pair_mlp.forward_route`); its
   backward :func:`pair_mlp.pair_mlp_bwd` (``csrc/pair_mlp_bwd_wg.cu`` in
-  float32, ``csrc/pair_mlp_bwd.cu`` in bf16).
+  float32, ``csrc/pair_mlp_bwd_wg_bf16.cu`` in bf16).
 - :func:`ipa_attention.ipa_attention` — fused IPA attention
   (``csrc/ipa_attention.cu``), once per trunk block with
   ``model.ipa.use_pallas_ipa``.

@@ -26,12 +26,12 @@ SOURCES = {
     "edge_embedder_bwd_wg": "edge_embedder_bwd_wg.cu",
     "edge_embedder_wg": "edge_embedder_wg.cu",
     "ipa_attention": "ipa_attention.cu",
-    "pair_mlp_bwd": "pair_mlp_bwd.cu",
     "pair_mlp_bwd_wg": "pair_mlp_bwd_wg.cu",
+    "pair_mlp_bwd_wg_bf16": "pair_mlp_bwd_wg_bf16.cu",
     "pair_mlp_wg": "pair_mlp_wg.cu",
     "pair_mlp_wg_bf16": "pair_mlp_wg_bf16.cu",
 }
-HEADERS = ("common.cuh", "mma.cuh", "tc_product.cuh", "pair_mlp_tc.cuh", "edge_embedder_tc.cuh",
+HEADERS = ("common.cuh", "mma.cuh", "tc_product.cuh", "edge_embedder_tc.cuh",
            "wgrad_wg.cuh", "wgrad_bf16.cuh", "wgmma_tma.cuh", "pair_mlp_wg.cuh", "pair_mlp_split.cuh",
            "edge_embedder_wg.cuh", "edge_embedder_split.cuh", "pair_mlp_wg_bf16.cuh")
 NVCC_FLAGS = (

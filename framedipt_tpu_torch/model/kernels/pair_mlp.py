@@ -16,16 +16,14 @@ for the tests, and one of two kernels for CUDA tensors, as
 :func:`forward_route` says: every float32 forward, differentiated or not,
 launches ``csrc/pair_mlp_wg.cu`` (wgmma and TMA, 3xTF32), and every bf16
 forward ``csrc/pair_mlp_wg_bf16.cu`` (wgmma and TMA, bf16). Each dtype's
-backward recomputes the forward's bits (float32 through the same tile code;
-bf16 through ``csrc/pair_mlp_tc.cuh``'s ``mma.sync`` tile, which gives the
-bf16 wgmma kernel's bits: both sum each product's whole K in one float32
-accumulator by 16-deep tensor-core steps), so the backward's relu decisions
-are the forward's.
+backward recomputes the forward through the forward kernel's own tile code,
+so its bits and the backward's relu decisions are the forward's.
 
 The backward: :func:`pair_mlp_bwd` takes the backward kernels for CUDA
-tensors (float32: ``csrc/pair_mlp_bwd_wg.cu``, kernel A on wgmma and TMA;
-bf16: ``csrc/pair_mlp_bwd.cu``, kernel A on ``mma.sync``; both share kernel B
-and the ordered sums) and :func:`pair_mlp_bwd_plain` for CPU tensors. Both
+tensors (kernel A on wgmma and TMA, float32: ``csrc/pair_mlp_bwd_wg.cu``,
+bf16: ``csrc/pair_mlp_bwd_wg_bf16.cu``; both share the row and column sums,
+kernel B's code and the ordered sums) and :func:`pair_mlp_bwd_plain` for CPU
+tensors. Both
 recompute the forward from the inputs and return every input gradient;
 :class:`PairMLPFunction` binds forward and backward for autograd and saves
 only the inputs, never the [B, N, N, hidden] activations. In both dtypes the
@@ -191,7 +189,8 @@ W_PART_FLOATS = sum(int(np.prod(shape)) for _, shape in _W_PARTS)
 ROW_PART = HIDDEN + C_OUT + 1  # d_i_term | d_fi | d_row_mask per row
 
 # The backward (csrc/pair_mlp_split.cuh; kernel A in csrc/pair_mlp_bwd_wg.cu,
-# float32, and csrc/pair_mlp_bwd.cu, bf16): kernel A's tile of flat pairs;
+# float32, and csrc/pair_mlp_bwd_wg_bf16.cu, bf16): the split tile of flat
+# pairs (bf16's kernel A runs two a 128-pair tile, one a warpgroup);
 # per pair in the workspace y0, y1, dy1, dy0 (HIDDEN each) in the dtype, in
 # bf16 also dxd = bf16(dx) (C_OUT), then float32 dx (C_OUT) and dem (1);
 # kernel B's K slices, each a partial set of W_PART_FLOATS; one vector
@@ -236,8 +235,10 @@ def _wg_bf16_kernel():
 def forward_route(dtype: torch.dtype) -> str:
     """Which kernel a pair-MLP forward on CUDA tensors launches, with or
     without gradients: "wgmma" (``csrc/pair_mlp_wg.cu``) in float32,
-    "wgmma_bf16" (``csrc/pair_mlp_wg_bf16.cu``) in bf16. The edge embedder
-    has a rule of its own (:func:`.edge_embedder.forward_route`)."""
+    "wgmma_bf16" (``csrc/pair_mlp_wg_bf16.cu``) in bf16; the backward takes
+    the same rule (``csrc/pair_mlp_bwd_wg.cu``, ``csrc/pair_mlp_bwd_wg_bf16.cu``),
+    its kernel A recomputing through that forward's tile code. The edge
+    embedder has a rule of its own (:func:`.edge_embedder.forward_route`)."""
     return "wgmma" if dtype == torch.float32 else "wgmma_bf16"
 
 
@@ -295,12 +296,12 @@ def wgmma_tf32_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _split_kernel():
-    """The C entry point of csrc/pair_mlp_bwd.cu (one chunk, bf16), built
-    and bound at first use."""
-    fn = library("pair_mlp_bwd").fdk_pair_mlp_bwd_split
+def _bwd_wg_bf16_kernel():
+    """The C entry point of csrc/pair_mlp_bwd_wg_bf16.cu (one chunk, bf16),
+    built and bound at first use."""
+    fn = library("pair_mlp_bwd_wg_bf16").fdk_pair_mlp_bwd_wg_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 23 + [ctypes.c_longlong] + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_longlong] + [
         ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     return fn
 
@@ -479,9 +480,10 @@ def pair_mlp_bwd(
     :func:`pair_mlp_bwd_plain`'s order and dtypes.
 
     CPU tensors take :func:`pair_mlp_bwd_plain`; CUDA tensors launch the
-    backward kernels (or raise): kernel A recomputes the forward, in float32
-    ``csrc/pair_mlp_bwd_wg.cu`` (wgmma and TMA, the float32 forward's tile),
-    in bf16 ``csrc/pair_mlp_bwd.cu`` (``mma.sync``). The grid runs in the chunks of
+    backward kernels (or raise): kernel A recomputes the forward on wgmma
+    and TMA through the forward kernel's tile, in float32
+    ``csrc/pair_mlp_bwd_wg.cu``, in bf16 ``csrc/pair_mlp_bwd_wg_bf16.cu``.
+    The grid runs in the chunks of
     :func:`plan_bwd_chunks` (each workspace at most ``workspace_cap``
     bytes); the grid-reduced gradients are summed in float32 from partials
     in a fixed order (no atomics), the chunks' sums added in chunk order, so
@@ -491,7 +493,8 @@ def pair_mlp_bwd(
     ([B, Nr, Nc, hidden] in pair's dtype: the activations whose relu
     decisions the gradients take). Adds one to ``pair_mlp_bwd.launches`` per
     call, and to ``pair_mlp_bwd.launches_wgmma`` or
-    ``pair_mlp_bwd.launches_mma`` by route."""
+    ``pair_mlp_bwd.launches_wgmma_bf16`` by route (:func:`forward_route`'s
+    rule)."""
     if pair.device.type == "cpu":
         return pair_mlp_bwd_plain(
             g, pair, i_term, j_term, row_mask, col_mask,
@@ -507,16 +510,12 @@ def pair_mlp_bwd(
     _check("g", g, (B, Nr, Nc, C_OUT), dtype, dev)
     _check_aligned("pair_mlp_bwd", w0=w0, w1=w1, wf=wf, wfe=wfe, pair=pair, i_term=i_term,
                    j_term=j_term, b0=b0)
-    route = "wgmma" if dtype == F32 else "mma"
+    route = forward_route(dtype)
     if route == "wgmma":
         # Kernel A's first step writes the weights' TF32 parts here: the
         # forward's, then the chain's (chain_weight_split: the stored
-        # weights, untransposed).
-        weights = [torch.empty(2 * WG_SPLIT_FLOATS, dtype=F32, device=dev)]
-    else:
-        # bf16's kernel A reads W^T row-major.
-        weights = [w.t().contiguous() for w in (w0, w1, wf)]
-        weights.append(wfe.t().contiguous() if residual else None)
+        # weights, untransposed). bf16's kernel A reads the stored weights.
+        split = torch.empty(2 * WG_SPLIT_FLOATS, dtype=F32, device=dev)
     d_pair = torch.empty_like(pair)
     inputs = [_ptr(g), _ptr(pair), _ptr(i_term), _ptr(j_term), _ptr(fi), _ptr(fj),
               _ptr(row_mask), _ptr(col_mask),
@@ -541,11 +540,11 @@ def pair_mlp_bwd(
                 if route == "wgmma":
                     err = _bwd_wg_kernel()(
                         int(residual), *inputs, _ptr(d_pair), _ptr(ws), n_ws,
-                        _ptr(weights[0]), *sums, m0, m1, fwd_out, stream)
+                        _ptr(split), *sums, m0, m1, fwd_out, stream)
                 else:
-                    err = _split_kernel()(
-                        _DTYPE_CODE[dtype], int(residual), *inputs, *map(_ptr, weights),
-                        _ptr(d_pair), _ptr(ws), n_ws, *sums, m0, m1, fwd_out, stream)
+                    err = _bwd_wg_bf16_kernel()(
+                        int(residual), *inputs, _ptr(d_pair), _ptr(ws), n_ws, *sums, m0, m1,
+                        fwd_out, stream)
                 if err != 0:
                     raise RuntimeError(
                         f"pair_mlp_bwd kernel launch failed ({route}): cudaError_t {err}")
@@ -556,7 +555,7 @@ def pair_mlp_bwd(
         del ws
         pair_mlp_bwd.launches += 1
         pair_mlp_bwd.launches_wgmma += route == "wgmma"
-        pair_mlp_bwd.launches_mma += route == "mma"
+        pair_mlp_bwd.launches_wgmma_bf16 += route == "wgmma_bf16"
 
     parts, off = {}, 0
     for name, shape in _W_PARTS:
@@ -581,7 +580,7 @@ def pair_mlp_bwd(
     )
 
 
-pair_mlp_bwd.launches = pair_mlp_bwd.launches_wgmma = pair_mlp_bwd.launches_mma = 0
+pair_mlp_bwd.launches = pair_mlp_bwd.launches_wgmma = pair_mlp_bwd.launches_wgmma_bf16 = 0
 
 
 class PairMLPFunction(torch.autograd.Function):

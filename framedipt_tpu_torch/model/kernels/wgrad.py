@@ -103,9 +103,9 @@ wgrad_f32.launches = 0
 
 @functools.cache
 def _bf16_kernel():
-    """The C entry ``fdk_wgrad_bf16`` of csrc/pair_mlp_bwd.cu, bound at
-    first use."""
-    return _bind("pair_mlp_bwd", "fdk_wgrad_bf16")
+    """The C entry ``fdk_wgrad_bf16`` of csrc/pair_mlp_bwd_wg_bf16.cu, bound
+    at first use."""
+    return _bind("pair_mlp_bwd_wg_bf16", "fdk_wgrad_bf16")
 
 
 def wgrad_bf16(a: torch.Tensor, b: torch.Tensor, slices: int = 8) -> torch.Tensor:

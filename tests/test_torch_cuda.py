@@ -206,8 +206,8 @@ def test_cuda_pair_mlp_wgmma_bf16_matches_plain_version(B, N, residual):
     """On the card: the bf16 forward (csrc/pair_mlp_wg_bf16.cu, wgmma and
     TMA) at the pair-MLP shapes of chip_smoke.py's phase 3 against the plain
     version within 5e-2, two launches bit-identical, each counted on its
-    route; the bf16 backward's recompute (csrc/pair_mlp_bwd.cu's kernel A)
-    gives its bits."""
+    route; the bf16 backward's recompute (csrc/pair_mlp_bwd_wg_bf16.cu's
+    kernel A) gives its bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(B * 1000 + N)
@@ -436,12 +436,13 @@ def test_cuda_pair_mlp_bwd_wgmma_kernel_a(B, N, residual, chunk_rows):
     if chunk_rows:
         kw["workspace_cap"] = 4 * t_pair.split_workspace_floats(chunk_rows * N)
         assert len(t_pair.plan_bwd_chunks(B, N, N, kw["workspace_cap"])) == -(-B * N // chunk_rows)
-    total, wgmma, mma = (t_pair.pair_mlp_bwd.launches, t_pair.pair_mlp_bwd.launches_wgmma,
-                         t_pair.pair_mlp_bwd.launches_mma)
+    total, wgmma, wgmma_bf16 = (t_pair.pair_mlp_bwd.launches,
+                                t_pair.pair_mlp_bwd.launches_wgmma,
+                                t_pair.pair_mlp_bwd.launches_wgmma_bf16)
     got = t_pair.pair_mlp_bwd(g, *args, **kw)
     again = t_pair.pair_mlp_bwd(g, *args, **kw)
     assert (t_pair.pair_mlp_bwd.launches, t_pair.pair_mlp_bwd.launches_wgmma,
-            t_pair.pair_mlp_bwd.launches_mma) == (total + 2, wgmma + 2, mma)
+            t_pair.pair_mlp_bwd.launches_wgmma_bf16) == (total + 2, wgmma + 2, wgmma_bf16)
     masks = kernel_relu_masks(g, args, 1e-4, **kw)
     want = t_pair.pair_mlp_bwd_plain(g, *args, relu_masks=masks)
     assert_grads_close([None if a is None else a.cpu() for a in got],
@@ -470,6 +471,49 @@ def test_cuda_pair_mlp_bwd_wgmma_kernel_a(B, N, residual, chunk_rows):
     for part, want_split in ((split[:t_pair.WG_SPLIT_FLOATS], t_pair.wgmma_weight_split(*cpu)),
                              (split[t_pair.WG_SPLIT_FLOATS:], t_pair.chain_weight_split(*cpu))):
         assert torch.equal(part.cpu()[:n].view(torch.int32), want_split[:n].view(torch.int32))
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,residual,chunk_rows", [
+    (1, 1, True, None), (1, 17, True, None), (1, 17, False, None), (2, 200, True, 60),
+    (2, 200, False, 60), (2, 256, True, None)])
+def test_cuda_pair_mlp_bwd_wgmma_bf16_kernel_a(B, N, residual, chunk_rows):
+    """On the card: the bf16 backward, kernel A on wgmma and TMA
+    (csrc/pair_mlp_bwd_wg_bf16.cu), at one pair, one partial tile, B=2 N=200
+    in several chunks and B=2 N=256: each call launches that kernel and no
+    other route (counted under ``launches_wgmma_bf16``), two launches give
+    the same bits, the recompute's output equals ``pair_mlp``'s (the bf16
+    wgmma forward, csrc/pair_mlp_wg_bf16.cu) bit for bit, and every gradient
+    is within 5e-2 of the plain version through the recompute's relu
+    decisions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(300 + N)
+    args = pair_to_torch(pair_args(rng, B, N, 128, 384, 128, residual,
+                                   zero_rows=min(3, max(N - 1, 0))), torch.bfloat16)
+    args = [None if a is None else a.cuda() for a in args]
+    g = torch.as_tensor(rng.normal(size=(B, N, N, 128)).astype(np.float32)).to(
+        torch.bfloat16).cuda()
+    kw = {}
+    if chunk_rows:
+        kw["workspace_cap"] = 4 * t_pair.split_workspace_floats(chunk_rows * N, torch.bfloat16)
+        assert len(t_pair.plan_bwd_chunks(B, N, N, kw["workspace_cap"], torch.bfloat16)) == (
+            -(-B * N // chunk_rows))
+    counts = lambda: (t_pair.pair_mlp_bwd.launches, t_pair.pair_mlp_bwd.launches_wgmma,  # noqa: E731
+                      t_pair.pair_mlp_bwd.launches_wgmma_bf16)
+    before = counts()
+    rec = {}
+    got = t_pair.pair_mlp_bwd(g, *args, recompute=rec, **kw)
+    again = t_pair.pair_mlp_bwd(g, *args, **kw)
+    assert counts() == (before[0] + 2, before[1], before[2] + 2)
+    forward = t_pair.pair_mlp(*args)
+    assert torch.equal(rec["out"], forward)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    want = t_pair.pair_mlp_bwd_plain(g, *args, relu_masks=(rec["y0"] > 0, rec["y1"] > 0))
+    assert_grads_close([None if a is None else a.cpu() for a in got],
+                       [None if b is None else b.cpu() for b in want], 5e-2)
 
 
 @pytest.mark.gpu

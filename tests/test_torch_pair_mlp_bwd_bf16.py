@@ -1,6 +1,7 @@
-"""The bf16 pair-MLP backward's decomposition (``csrc/pair_mlp_bwd.cu``,
-``fdk_pair_mlp_bwd_split`` with dtype bf16), emulated in torch on the CPU,
-and its chunk planner.
+"""The bf16 pair-MLP backward's decomposition (``csrc/pair_mlp_bwd_wg_bf16.cu``,
+``fdk_pair_mlp_bwd_wg_bf16``; kernel A on wgmma and TMA, emulated tile by
+tile in ``tests/test_torch_pair_mlp_bwd_wg_bf16.py``), emulated in torch on
+the CPU, and its chunk planner.
 
 The emulation takes the kernels' steps in their order and rounds where they
 round (the JAX kernel's rounding points, pair_mlp.py:483-516): per chunk of

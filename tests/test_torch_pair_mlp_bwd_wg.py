@@ -151,16 +151,17 @@ def test_chain_weight_split_laid_back_gives_each_stored_weight():
 
 def test_float32_backward_launches_the_wgmma_kernel_a_or_raises():
     """Read from the wrapper: after the CPU branch ``pair_mlp_bwd`` takes
-    its route from the dtype once, "wgmma" for float32 (the forward's route
-    too); the "wgmma" route calls csrc/pair_mlp_bwd_wg.cu's entry
-    (``_bwd_wg_kernel``) and nothing else, the other route
-    csrc/pair_mlp_bwd.cu's (``_split_kernel``); no ``try``. And the C
-    sources: pair_mlp_bwd.cu's entry no longer instantiates a float32
-    kernel A, and the bf16 forward's entry takes bf16 only."""
+    its route from the dtype once, by the forward's rule
+    (``forward_route``: "wgmma" for float32); the "wgmma" route calls
+    csrc/pair_mlp_bwd_wg.cu's entry (``_bwd_wg_kernel``) and nothing else,
+    the other route csrc/pair_mlp_bwd_wg_bf16.cu's
+    (``_bwd_wg_bf16_kernel``); no ``try``. And the C sources: the bf16
+    backward's entry and the bf16 forward's take bf16 only (no dtype
+    argument)."""
     fn = ast.parse(inspect.getsource(t_pair.pair_mlp_bwd)).body[0]
     routes = [n for n in ast.walk(fn) if isinstance(n, ast.Assign)
               and [ast.unparse(t) for t in n.targets] == ["route"]]
-    assert [ast.unparse(n.value) for n in routes] == ["'wgmma' if dtype == F32 else 'mma'"]
+    assert [ast.unparse(n.value) for n in routes] == ["forward_route(dtype)"]
     assert t_pair.forward_route(torch.float32) == "wgmma"
     branches = [n for n in ast.walk(fn) if isinstance(n, ast.If)
                 and ast.unparse(n.test) == "route == 'wgmma'"]
@@ -172,12 +173,13 @@ def test_float32_backward_launches_the_wgmma_kernel_a_or_raises():
 
     launch = [b for b in branches if "_bwd_wg_kernel()" in called([b.body])]
     assert len(launch) == 1
-    assert "_split_kernel()" not in called([launch[0].body])
-    assert "_split_kernel()" in called([launch[0].orelse])
+    assert "_bwd_wg_bf16_kernel()" not in called([launch[0].body])
+    assert "_bwd_wg_bf16_kernel()" in called([launch[0].orelse])
     assert "_bwd_wg_kernel()" not in called([launch[0].orelse])
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
-    bwd = (build.CSRC / "pair_mlp_bwd.cu").read_text()
-    assert "launch_split<float" not in bwd and "launch_split<__nv_bfloat16" in bwd
+    bwd = (build.CSRC / "pair_mlp_bwd_wg_bf16.cu").read_text()
+    assert 'extern "C" int fdk_pair_mlp_bwd_wg_bf16(int residual, const void* g' in bwd
+    assert "int dtype" not in bwd
     fwd = (build.CSRC / "pair_mlp_wg_bf16.cu").read_text()
     assert 'extern "C" int fdk_pair_mlp_wg_bf16(int residual, const void* pair' in fwd
     assert "int dtype" not in fwd
@@ -186,12 +188,16 @@ def test_float32_backward_launches_the_wgmma_kernel_a_or_raises():
 def test_build_names_the_wgmma_backward_source():
     """The build compiles csrc/pair_mlp_bwd_wg.cu into its own library, every
     header it includes (the forward's tile, the split backward's rest) is
-    hashed with it, and it does not include the mma.sync tile code."""
+    hashed with it (the bf16 backward's file likewise), and neither
+    includes mma.sync tile code."""
     assert build.SOURCES["pair_mlp_bwd_wg"] == "pair_mlp_bwd_wg.cu"
-    for name in ("pair_mlp_bwd_wg.cu", "pair_mlp_wg.cu", "pair_mlp_bwd.cu"):
+    for name in ("pair_mlp_bwd_wg.cu", "pair_mlp_wg.cu", "pair_mlp_bwd_wg_bf16.cu"):
         includes = [line.split('"')[1] for line in (build.CSRC / name).read_text().splitlines()
                     if line.startswith('#include "')]
         assert includes and all(f in build.HEADERS for f in includes), name
     wg = (build.CSRC / "pair_mlp_bwd_wg.cu").read_text()
     assert '#include "pair_mlp_wg.cuh"' in wg and '#include "pair_mlp_split.cuh"' in wg
     assert "pair_mlp_tc.cuh" not in wg and "tc_product.cuh" not in wg
+    bf = (build.CSRC / "pair_mlp_bwd_wg_bf16.cu").read_text()
+    assert '#include "pair_mlp_wg_bf16.cuh"' in bf and '#include "pair_mlp_split.cuh"' in bf
+    assert "tc_product.cuh" not in bf and "mma.sync" not in bf

@@ -299,7 +299,7 @@ def test_the_mma_sync_kernel_b_is_gone():
     names = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\(", src))
     assert names == {"wgrad_bf16_kernel"}
     assert "int grid_of(long long total)" in (build.CSRC / "common.cuh").read_text()
-    assert 'extern "C" int fdk_wgrad_bf16(' in (build.CSRC / "pair_mlp_bwd.cu").read_text()
+    assert 'extern "C" int fdk_wgrad_bf16(' in (build.CSRC / "pair_mlp_bwd_wg_bf16.cu").read_text()
 
 
 def test_wgrad_bf16_takes_the_plain_version_only_on_the_cpu():
